@@ -1,0 +1,1 @@
+from .base_model import Base3DModel, BaseLidarModel

@@ -1,0 +1,104 @@
+"""Shared layer building blocks, torch port of
+paddle3d_tpu/models/layers/layer_libs.py (ConvBNReLU, DeconvBNReLU,
+LinearBN1DReLU).
+
+NCHW layout. Two conventions of the JAX package are kept on purpose:
+  * flax `padding="SAME"` pads (total // 2, total - total // 2), which on a
+    stride-2 3×3 conv over an even size is (0, 1), not torch's (1, 1);
+  * BatchNorm eps 1e-3 and flax momentum 0.99 (torch momentum 0.01).
+Weights are initialised uniform ±1/sqrt(fan_in) from an explicit
+torch.Generator (default seed 0), never from the global RNG.
+"""
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "same_pads",
+           "uniform_", "default_generator"]
+
+
+def default_generator(generator: torch.Generator = None) -> torch.Generator:
+    return generator if generator is not None else \
+        torch.Generator().manual_seed(0)
+
+
+def uniform_(tensor: torch.Tensor, fan_in: int,
+             generator: torch.Generator) -> torch.Tensor:
+    """In-place uniform(±1/sqrt(fan_in)) init (the paddle default the JAX
+    package mirrors)."""
+    bound = 1.0 / math.sqrt(max(fan_in, 1))
+    with torch.no_grad():
+        return tensor.uniform_(-bound, bound, generator=generator)
+
+
+def same_pads(size: int, kernel: int, stride: int):
+    """flax/XLA SAME padding (lo, hi) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _bn2d(channels, eps, momentum):
+    return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+
+
+class ConvBNReLU(nn.Module):
+    """Conv2D (no bias, SAME) -> BatchNorm(eps 1e-3) -> ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, *, generator: torch.Generator = None,
+                 eps: float = 1e-3, momentum: float = 0.01):
+        super().__init__()
+        self.conv = nn.utils.skip_init(
+            nn.Conv2d, in_channels, out_channels, kernel_size, stride,
+            padding=0, bias=False)
+        uniform_(self.conv.weight, in_channels * kernel_size ** 2,
+                 default_generator(generator))
+        self.bn = _bn2d(out_channels, eps, momentum)
+
+    def forward(self, x):
+        k, s = self.conv.kernel_size[0], self.conv.stride[0]
+        ph = same_pads(x.shape[2], k, s)
+        pw = same_pads(x.shape[3], k, s)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            # symmetric: the conv pads itself, no padded copy
+            y = F.conv2d(x, self.conv.weight, None, s, (ph[0], pw[0]))
+        else:
+            y = self.conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+        return torch.relu(self.bn(y))
+
+
+class DeconvBNReLU(nn.Module):
+    """ConvTranspose2D (no bias, VALID) -> BatchNorm -> ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, *, generator: torch.Generator = None,
+                 eps: float = 1e-3, momentum: float = 0.01):
+        super().__init__()
+        self.deconv = nn.utils.skip_init(
+            nn.ConvTranspose2d, in_channels, out_channels, kernel_size,
+            stride, padding=0, bias=False)
+        uniform_(self.deconv.weight, in_channels * kernel_size ** 2,
+                 default_generator(generator))
+        self.bn = _bn2d(out_channels, eps, momentum)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.deconv(x)))
+
+
+class LinearBN1DReLU(nn.Module):
+    """Linear (no bias) -> BatchNorm over the last axis -> ReLU. The fused
+    pillar path folds the BN into the weights (ops/pillar_ops.py) and runs
+    the layer inside its kernel, so the module holds parameters only."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 generator: torch.Generator = None, eps: float = 1e-3,
+                 momentum: float = 0.01):
+        super().__init__()
+        self.linear = nn.utils.skip_init(nn.Linear, in_features,
+                                         out_features, bias=False)
+        uniform_(self.linear.weight, in_features,
+                 default_generator(generator))
+        self.bn = nn.BatchNorm1d(out_features, eps=eps, momentum=momentum)

@@ -1,0 +1,122 @@
+"""Builds the port's hand-written CUDA kernels and loads them with ctypes.
+
+All sources under paddle3d_tpu_torch/csrc/ compile with nvcc, for Hopper
+(`sm_90a`), into ONE shared library with a plain C interface under
+build/torch_kernels/ at the repository root (git-ignored). The library's
+name carries a hash of the sources and flags, so an edited source builds
+anew on first use and a stale library is never loaded. No PyTorch header is
+included, so a build takes seconds, not the minutes of
+torch.utils.cpp_extension.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no CUDA toolkit.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel launches per wrapper; each wrapper adds one where it launches
+LAUNCHES = {"fused_pfn_rows": 0, "sorted_segment_sum": 0}
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every exported function (pointers and the stream as void*, or
+# ctypes would pass them as 32-bit ints)
+_SIGNATURES = {
+    "p3d_sorted_segment_sum": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
+    "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                           _i, _i, _i, _f, _f, _f, _f, _i, _i, _vp),
+}
+
+_lib = None
+#: nvcc's output of the build this process ran (ptxas registers / smem)
+build_log = ""
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def _lib_path(sources) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / "libp3d_kernels_{}.so".format(h.hexdigest()[:16])
+
+
+def _build(sources, target: Path):
+    global build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}".format(
+                " ".join(cmd), build_log))
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is None:
+        sources = sorted(CSRC.glob("*.cu"))
+        path = _lib_path(sources)
+        if not path.exists():
+            _build(sources, path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.p3d_error_string.argtypes = (ctypes.c_int,)
+        lib.p3d_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str):
+    """Raise if a launch reported a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError("CUDA kernel {} failed: {} ({})".format(
+            name, library().p3d_error_string(err).decode(), err))
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

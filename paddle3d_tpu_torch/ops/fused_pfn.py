@@ -1,0 +1,165 @@
+"""Fused pillar feature net rows: cell-sorted points → each pillar's PFN
+feature on its emission row.
+
+Port of paddle3d_tpu/ops/pallas/fused_pfn.py:fused_pfn_rows (TPU kernel
+`_kernel` with `_decorate`). On a CUDA tensor the wrapper launches the
+hand-written kernel in csrc/fused_pfn.cu (one PFN layer; its header says
+what bounds it and how it is built); on a CPU tensor it takes the plain
+PyTorch version beside it, which covers one and two layers.
+"""
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["fused_pfn_rows", "fused_pfn_rows_plain", "pillar_ordinals"]
+
+_SENT = 2**31 - 1
+_NEG = -1e9
+_MAX_C_IN = 8  # csrc/fused_pfn.cu kMaxCin
+
+
+def _decorate_plain(keys, pts, P, maxV, nx, vx, vy, x_off, y_off,
+                    with_distance):
+    """Segment masks, rank/cap and PFN input rows over sorted rows.
+
+    keys [B, N] int32, pts [B, N, C_in]. Returns (x [B, N, C_dec], keep,
+    emit, start) with start the row index of each row's segment head."""
+    b, n = keys.shape
+    idx = torch.arange(n, device=keys.device).expand(b, n)
+    valid = keys < _SENT
+    prev = F.pad(keys[:, :-1], (1, 0), value=-1)
+    nxt = F.pad(keys[:, 1:], (0, 1), value=_SENT)
+    new_seg = keys != prev
+    # arrival rank within the segment (the sort is stable)
+    start = torch.cummax(torch.where(new_seg, idx, 0), dim=1).values
+    rank = idx - start
+    tail = keys != nxt
+    end = torch.flip(torch.cummin(
+        torch.flip(torch.where(tail, idx, n - 1), (1,)), dim=1).values, (1,))
+    vox = pillar_ordinals(keys)
+    keep = valid & (rank < P) & (vox < maxV)
+    emit = keep & (tail | (rank == P - 1))
+
+    # mean over the pillar's kept rows, summed in row order from the head
+    # (the CUDA kernel's order: the two agree bit for bit)
+    cnt = torch.clamp(end - start + 1, max=P)
+    xyz = pts[..., :3]
+    acc = torch.zeros_like(xyz)
+    for d in range(P):
+        j = torch.clamp(start + d, max=n - 1)
+        v = torch.gather(xyz, 1, j[..., None].expand(-1, -1, 3))
+        acc = acc + torch.where((d < cnt)[..., None], v, 0.)
+    mean = acc / cnt.to(pts.dtype)[..., None]
+
+    yc = torch.div(keys, nx, rounding_mode="floor")
+    xc = keys - yc * nx
+    cx = xc.to(pts.dtype) * vx + x_off
+    cy = yc.to(pts.dtype) * vy + y_off
+    feats = [pts, xyz - mean, (pts[..., 0] - cx)[..., None],
+             (pts[..., 1] - cy)[..., None]]
+    if with_distance:
+        sq = pts[..., 0] * pts[..., 0] + pts[..., 1] * pts[..., 1] + \
+            pts[..., 2] * pts[..., 2]
+        feats.append(torch.sqrt(sq)[..., None])
+    x = torch.where(keep[..., None], torch.cat(feats, dim=-1), 0.)
+    return x, keep, emit, start
+
+
+def _segment_max(vals, start, keep):
+    """Per-pillar max over kept rows, broadcast back to every row."""
+    b, n, c = vals.shape
+    seg = (start + torch.arange(b, device=vals.device)[:, None] * n)
+    seg = seg.reshape(-1, 1).expand(-1, c)
+    masked = torch.where(keep[..., None], vals, _NEG).reshape(b * n, c)
+    segmax = torch.full((b * n, c), _NEG, dtype=vals.dtype,
+                        device=vals.device)
+    segmax.scatter_reduce_(0, seg, masked, reduce="amax")
+    return torch.gather(segmax, 0, seg).reshape(b, n, c)
+
+
+def pillar_ordinals(keys: torch.Tensor) -> torch.Tensor:
+    """[B, N] sorted keys -> each row's pillar ordinal in key order
+    (cumsum of valid segment heads, minus one): the max_voxels cap."""
+    prev = F.pad(keys[:, :-1], (1, 0), value=-1)
+    head = (keys != prev) & (keys < _SENT)
+    return torch.cumsum(head, dim=1, dtype=torch.int32) - 1
+
+
+def fused_pfn_rows_plain(keys, pts_t, w1t, b1, w2t=None, b2=None, *,
+                         n_layers, P, maxV, nx, vx, vy, x_off, y_off,
+                         with_distance=False, occupancy=False):
+    """Plain PyTorch version of the fused PFN kernel (1 or 2 layers)."""
+    pts = pts_t.transpose(1, 2).to(torch.float32)
+    x, keep, emit, start = _decorate_plain(
+        keys, pts, P, maxV, nx, vx, vy, x_off, y_off, with_distance)
+    # relu(b + Σ_k x_k w_k), summed in k order like the kernel
+    y = b1[:, 0].to(torch.float32).expand(*x.shape[:2], -1)
+    for k in range(x.shape[-1]):
+        y = y + x[..., k:k + 1] * w1t[:, k]
+    y = torch.relu(y)
+    if n_layers == 2:
+        x2 = torch.cat([y, _segment_max(y, start, keep)], dim=-1)
+        y = torch.relu(x2 @ w2t.t() + b2[:, 0])
+    rows = torch.where(emit[..., None], _segment_max(y, start, keep), 0.)
+    if occupancy:
+        rows = torch.cat([rows, emit[..., None].to(rows.dtype)], dim=-1)
+    return rows.transpose(1, 2).contiguous()
+
+
+def fused_pfn_rows(keys, pts_t, w1t, b1, w2t=None, b2=None, *, n_layers, P,
+                   maxV, nx, vx, vy, x_off, y_off, with_distance=False,
+                   occupancy=False):
+    """Sorted pillar rows → emitted canvas rows.
+
+    Args:
+        keys: [B, N] int32 cell keys, sorted ascending (sentinel 2^31-1 for
+            out-of-range rows).
+        pts_t: [B, C_in, N] the matching sorted point columns, f32.
+        w1t: [u1, C_dec] BN-folded first-layer weight (C_dec = C_in + 5
+            (+1 with_distance)); b1: [u1, 1].
+        w2t, b2: second layer ([u2, 2*u1], [u2, 1]) or None.
+    Returns:
+        rows [B, u_out (+1 if occupancy), N]: each pillar's feature on its
+        emission row, zero elsewhere; the last channel is the emission flag.
+    """
+    if not keys.is_cuda:
+        return fused_pfn_rows_plain(
+            keys, pts_t, w1t, b1, w2t, b2, n_layers=n_layers, P=P, maxV=maxV,
+            nx=nx, vx=vx, vy=vy, x_off=x_off, y_off=y_off,
+            with_distance=with_distance, occupancy=occupancy)
+    if n_layers != 1:
+        raise NotImplementedError(
+            "the CUDA fused PFN kernel covers one PFN layer; two layers "
+            "arrive with the CenterPoint-pillars slice (ROADMAP.md, queue 1, "
+            "item 6)")
+    b, c_in, n = pts_t.shape
+    u1, c_dec = w1t.shape
+    if keys.dtype != torch.int32 or any(
+            t.dtype != torch.float32 for t in (pts_t, w1t, b1)):
+        raise TypeError("fused_pfn_rows kernel takes int32 keys and f32 "
+                        "points and weights")
+    if keys.shape != (b, n) or b1.shape != (u1, 1):
+        raise ValueError("shape mismatch: keys {}, pts_t {}, w1t {}, b1 "
+                         "{}".format(tuple(keys.shape), tuple(pts_t.shape),
+                                     tuple(w1t.shape), tuple(b1.shape)))
+    if not 3 <= c_in <= _MAX_C_IN or c_dec != c_in + 5 + int(with_distance):
+        raise ValueError("unsupported channels: C_in {}, C_dec {}".format(
+            c_in, c_dec))
+    tensors = (keys, pts_t, w1t, b1)
+    if any(t.device != keys.device for t in tensors):
+        raise ValueError("fused_pfn_rows inputs lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_pfn_rows kernel needs contiguous inputs")
+    vox = pillar_ordinals(keys)
+    out = torch.empty((b, u1 + int(occupancy), n), dtype=torch.float32,
+                      device=keys.device)
+    lib = _build.library()
+    err = lib.p3d_fused_pfn_rows(
+        keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(), w1t.data_ptr(),
+        b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec, u1, P, maxV, nx,
+        vx, vy, x_off, y_off, int(with_distance), int(occupancy),
+        _build.stream_ptr(keys.device))
+    _build.check(err, "fused_pfn_rows")
+    _build.LAUNCHES["fused_pfn_rows"] += 1
+    return out

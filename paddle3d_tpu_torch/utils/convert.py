@@ -1,0 +1,62 @@
+"""Carry the JAX package's weights into a port model.
+
+The caller flattens the nnx state (nnx.Param and nnx.BatchStat) to dotted
+paths and numpy arrays; this module imports no JAX, so it also runs where
+only torch is installed. The port mirrors the JAX module tree, so a path
+names the same submodule on both sides.
+"""
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["load_jax_params"]
+
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+
+
+def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
+    """-> (torch attribute name, array in torch layout)."""
+    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+        return _BN_NAMES[leaf], arr
+    if leaf == "bias":
+        return "bias", arr
+    if leaf != "kernel":
+        raise KeyError("no torch counterpart for leaf {!r} of {}".format(
+            leaf, type(module).__name__))
+    if isinstance(module, nn.Linear):
+        return "weight", arr.T                       # [in, out] -> [out, in]
+    if isinstance(module, nn.ConvTranspose2d):
+        # flax ConvTranspose (transpose_kernel=False) correlates the dilated
+        # input, so out[i*s + m] = x[i] * k[s-1-m]; torch scatters
+        # x[i] * w[m]: flip both spatial axes. HWIO -> (in, out, H, W).
+        return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, nn.Conv2d):
+        return "weight", arr.transpose(3, 2, 0, 1)   # HWIO -> OIHW
+    raise KeyError("no kernel conversion for {}".format(
+        type(module).__name__))
+
+
+def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Fill `model` from {dotted nnx path: array}, e.g.
+    "backbone.blocks.0.0.conv.kernel". Raises on an unknown path, a shape
+    mismatch, or a torch parameter or running stat left unfilled."""
+    filled = set()
+    for path, value in flat.items():
+        prefix, _, leaf = path.rpartition(".")
+        module = model.get_submodule(prefix)
+        name, arr = _convert(module, leaf, np.asarray(value))
+        target = getattr(module, name)
+        if tuple(target.shape) != arr.shape:
+            raise ValueError("{}: torch {} vs converted {}".format(
+                path, tuple(target.shape), arr.shape))
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(arr.copy()))  # own strides
+        filled.add("{}.{}".format(prefix, name))
+    expected = {k for k in model.state_dict()
+                if not k.endswith("num_batches_tracked")}
+    missing = sorted(expected - filled)
+    if missing:
+        raise KeyError("torch state left unfilled: {}".format(missing))

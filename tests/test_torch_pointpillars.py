@@ -1,0 +1,195 @@
+"""Port parity of the whole inference slice on
+configs/pointpillars/pointpillars_synthetic_tiny.yml: the JAX model and the
+port built from the same YAML, the JAX weights (randomised eval BN) carried
+across, the same numpy points through both test_forward paths.
+
+Tolerances: head outputs 1e-4 (a conv stack of f32 sums in another order);
+post_process on identical preds 1e-5 (the same elementwise math); end to
+end the same kept set and labels, scores 1e-4 and boxes 1e-3 (box decode
+exponentiates the 1e-4 head difference, over box sizes of a few metres).
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from paddle3d_tpu.apis.config import Config as JaxConfig
+from paddle3d_tpu.ops import box_ops as jax_box_ops
+from paddle3d_tpu_torch.apis import Config
+from paddle3d_tpu_torch.ops import box_ops
+from paddle3d_tpu_torch.utils.convert import load_jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = os.path.join(REPO, "configs", "pointpillars",
+                    "pointpillars_synthetic_tiny.yml")
+
+
+def flat_state(module):
+    """nnx parameters and running stats as {dotted path: numpy array}."""
+    return {".".join(map(str, k)): np.asarray(getattr(v, "value", v))
+            for kind in (nnx.Param, nnx.BatchStat)
+            for k, v in nnx.state(module, kind).flat_state()}
+
+
+def make_points(seed, b=2, n=1024):
+    """Tiny-config scans: ground returns plus car-sized clusters (so the
+    head's scores spread and NMS has work), a few NaN-padded rows."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([0, -16, -2, 0], [32, 16, 2, 1], (b, n, 4))
+    k = n // 2
+    centers = rng.uniform([2, -14], [30, 14], (b, 10, 2))
+    pick = rng.integers(0, 10, (b, k))
+    pts[:, :k, :2] = np.take_along_axis(centers, pick[..., None], 1) + \
+        rng.normal(0, [1.0, 0.5], (b, k, 2))
+    pts[:, -8:] = np.nan
+    return pts.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jax_model = JaxConfig(path=TINY).model
+    rng = np.random.default_rng(0)
+    for _, bn in jax_model.iter_modules():
+        if isinstance(bn, nnx.BatchNorm):
+            c = bn.mean.value.shape
+            bn.mean.value = jnp.asarray(rng.normal(0, .2, c), jnp.float32)
+            bn.var.value = jnp.asarray(rng.uniform(.5, 2., c), jnp.float32)
+    # spread the class logits, so that the score gaps between candidates
+    # stay well above the ~1e-7 the two frameworks differ by
+    head = jax_model.head.cls_head
+    head.kernel.value = head.kernel.value * 20.
+    jax_model.eval()
+    model = Config(path=TINY).model
+    load_jax_params(model, flat_state(jax_model))
+    return jax_model, model.eval()
+
+
+@pytest.fixture(scope="module")
+def jax_run(models):
+    """JAX test_forward, split to also return the head outputs and mask."""
+    jax_model, _ = models
+    graphdef, state = nnx.split(jax_model)
+
+    @jax.jit
+    def infer(state, points):
+        m = nnx.merge(graphdef, state)
+        feats, mask = m._extract_feats(points, training=False)
+        preds = m.head(feats)
+        return preds, mask, m.head.post_process(preds, m._anchors, mask)
+
+    pts = make_points(0)
+    preds, mask, out = jax.device_get(infer(state, jnp.asarray(pts)))
+    return pts, preds, mask, out
+
+
+def test_head_outputs_match(models, jax_run):
+    _, model = models
+    pts, preds, mask, _ = jax_run
+    with torch.no_grad():
+        feats, tmask = model._extract_feats(torch.from_numpy(pts))
+        tpreds = model.head(feats)
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(mask))
+    assert mask.sum() > 0
+    for key in ("cls_preds", "box_preds", "dir_preds"):
+        np.testing.assert_allclose(tpreds[key].numpy(),
+                                   np.asarray(preds[key]), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_post_process_on_identical_preds(models, jax_run):
+    _, model = models
+    _, preds, mask, out = jax_run
+    got = model.head.post_process(
+        {k: torch.from_numpy(np.array(v)) for k, v in preds.items()},
+        model.anchors, torch.from_numpy(np.array(mask)))
+    np.testing.assert_array_equal(got["label_preds"].numpy(),
+                                  out["label_preds"])
+    np.testing.assert_allclose(got["scores"].numpy(), out["scores"],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["box3d_lidar"].numpy(),
+                               out["box3d_lidar"], rtol=1e-5, atol=1e-5)
+    assert (out["scores"] >= 0).sum() > 0
+
+
+def test_end_to_end_matches_jax(models, jax_run):
+    _, model = models
+    pts, _, _, out = jax_run
+    got = model.test_forward({"data": torch.from_numpy(pts)})
+    assert got["box3d_lidar"].shape == (2, 50, 7)
+    np.testing.assert_array_equal(got["label_preds"].numpy(),
+                                  out["label_preds"])
+    np.testing.assert_allclose(got["scores"].numpy(), out["scores"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got["box3d_lidar"].numpy(),
+                               out["box3d_lidar"], rtol=1e-3, atol=1e-3)
+
+
+def test_entry_points(models):
+    _, model = models
+    pts = torch.from_numpy(make_points(1))
+    out = model.export_forward({"data": pts})
+    scores = out["scores"].numpy()
+    assert np.all((scores >= 0) | (scores == -1))
+    with pytest.raises(NotImplementedError, match="PointPillars-train"):
+        model.train_forward({"data": pts})
+
+
+def test_port_imports_no_jax():
+    """The port imports torch and never jax, flax or paddle3d_tpu: import
+    it and build the tiny model in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "from paddle3d_tpu_torch.apis import Config\n"
+        "m = Config(path=sys.argv[1]).model\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'paddle3d_tpu'))\n"
+        "assert type(m).__name__ == 'PointPillars'\n"
+        "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code, TINY], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_config_base_merge_and_dropped_keys(tmp_path, caplog):
+    """`_base_` merges a child YAML over its base; a key the component does
+    not take is dropped with a warning; the training-only `loss` is left
+    unbuilt."""
+    child = tmp_path / "child.yml"
+    child.write_text(
+        "_base_: {}\n"
+        "model:\n"
+        "  head:\n"
+        "    nms_post_max_size: 20\n"
+        "    lr_mult_list: [1.0]\n".format(TINY))
+    with caplog.at_level("WARNING"):
+        model = Config(path=str(child)).model
+    assert model.head.nms_post_max_size == 20
+    assert model.head.nms_pre_max_size == 512        # from the base
+    assert "lr_mult_list" in caplog.text
+    assert not hasattr(model, "loss")
+
+
+def test_box_ops_match_jax():
+    rng = np.random.default_rng(4)
+    enc = rng.normal(0, .3, (64, 7)).astype(np.float32)
+    anchors = np.concatenate([rng.uniform(-40, 40, (64, 3)),
+                              rng.uniform(1, 4, (64, 3)),
+                              rng.uniform(-3, 3, (64, 1))], -1).astype(
+                                  np.float32)
+    np.testing.assert_allclose(
+        box_ops.second_box_decode(torch.from_numpy(enc),
+                                  torch.from_numpy(anchors)).numpy(),
+        np.asarray(jax_box_ops.second_box_decode(enc, anchors)),
+        rtol=1e-6, atol=1e-5)
+    ang = rng.uniform(-10, 10, 64).astype(np.float32)
+    np.testing.assert_allclose(
+        box_ops.limit_period(torch.from_numpy(ang), 0.5, 2 * np.pi).numpy(),
+        np.asarray(jax_box_ops.limit_period(ang, 0.5, 2 * np.pi)),
+        rtol=1e-6, atol=1e-5)
