@@ -3,26 +3,36 @@
 
     python3 chip_smoke.py
 
-drives the port's main path, PointPillars-KITTI inference
+drives the port's main paths, PointPillars-KITTI inference and training
 (configs/pointpillars/pointpillars_xyres16_kitti_car.yml, full width, seeded
-random weights, eval BatchNorm) on 8 scans of 20,000 clustered points, in
-phases; any failing phase exits non-zero and prints no result:
+random weights) on 8 scans of 20,000 clustered points, in phases; any
+failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, with the stated tolerance; kernel and plain times;
-  3. the model's test_forward through the kernels (launch counters must
-     move), then again with the plain versions swapped in: the outputs must
-     agree; the tiny config's canvas on the card against the CPU path;
+  2. each kernel against its plain PyTorch version on the card, at its
+     path's shapes (K1/K2 inference, K3/K4/K5 train), with the stated
+     tolerance; kernel and plain times;
+  3. the model's test_forward (eval BatchNorm) through the kernels (launch
+     counters must move), then again with the plain versions swapped in:
+     the outputs must agree; the tiny config's canvas on the card against
+     the CPU path;
   4. 20 timed iterations of each path (scans/s) and a profile of the
-     kernel path, with cuDNN autotuning on as a server would run.
+     kernel path, with cuDNN autotuning on as a server would run;
+  5. training (train BatchNorm, the config's Adam, clip and StepDecay):
+     from one saved state, one train step through the kernels (all five
+     counters must move) and one on the plain versions (none may): losses,
+     grads and running stats must agree; the tiny config's train step on
+     the card against the CPU path; 10 steps on the fixed batch (finite
+     losses, the last below the first); train scans/s of both paths; peak
+     memory and a profile of one step.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
 cuDNN for the comparisons.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -35,18 +45,29 @@ KITTI = os.path.join(REPO, "configs", "pointpillars",
                      "pointpillars_xyres16_kitti_car.yml")
 TINY = os.path.join(REPO, "configs", "pointpillars",
                     "pointpillars_synthetic_tiny.yml")
-BATCH, POINTS, SEED, ITERS = 8, 20000, 0, 20
+BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
 
 # kernel -> (source, replaced TPU kernel, tolerance against the plain
-# version). Both are the plain versions' arithmetic: K1 in the same order
-# (bit-equal by design), K2 sums one non-zero row per canvas cell.
+# version). K1 runs the plain version's arithmetic in the same order
+# (bit-equal by design), K2 sums one non-zero row per canvas cell and K5 is
+# a gather (both exact); K3/K4 sum ~1e5 exact f64 products in another
+# order, so their tolerance is relative: max |kernel - plain| <= tol *
+# max |plain|, per output.
 KERNELS = {
     "fused_pfn_rows": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
                        "paddle3d_tpu/ops/pallas/fused_pfn.py:133", 1e-5),
     "sorted_segment_sum": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                            "paddle3d_tpu/ops/pallas/sorted_scatter.py:54",
                            1e-5),
+    "pfn_stats": ("paddle3d_tpu_torch/csrc/fused_pfn_train.cu",
+                  "paddle3d_tpu/ops/pallas/fused_pfn_train.py:54", 1e-9),
+    "pfn_bwd": ("paddle3d_tpu_torch/csrc/fused_pfn_train.cu",
+                "paddle3d_tpu/ops/pallas/fused_pfn_train.py:102", 1e-9),
+    "sorted_table_gather": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
+                            "paddle3d_tpu/ops/pallas/sorted_scatter.py:1315",
+                            0.0),
 }
+INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 
 
 class PhaseError(RuntimeError):
@@ -77,18 +98,21 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def plain_split(keys, rows, num_cells):
-    from paddle3d_tpu_torch.ops.sorted_scatter import sorted_segment_sum_plain
-    out = sorted_segment_sum_plain(keys, rows, num_cells)
-    return out[..., :-1], out[..., -1:]
-
-
+@contextlib.contextmanager
 def plain_path():
-    """The model with both kernels swapped for their plain versions."""
-    from paddle3d_tpu_torch.ops import fused_pfn, pillar_ops
-    return mock.patch.multiple(
-        pillar_ops, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain,
-        sorted_segment_sum_split=plain_split)
+    """The model with all five kernels swapped for their plain versions
+    (forward and backward)."""
+    from paddle3d_tpu_torch.ops import fused_pfn, fused_pfn_train, \
+        sorted_scatter
+    with mock.patch.multiple(
+            fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
+            mock.patch.multiple(
+                fused_pfn_train, pfn_stats=fused_pfn_train.pfn_stats_plain,
+                pfn_bwd=fused_pfn_train.pfn_bwd_plain), \
+            mock.patch.multiple(
+                sorted_scatter, scatter_rows=sorted_scatter.scatter_rows_plain,
+                sorted_table_gather=sorted_scatter.sorted_table_gather_plain):
+        yield
 
 
 def make_points(device):
@@ -137,7 +161,8 @@ def phase_kernels(model, points):
     ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
     rows = rows_t.transpose(1, 2).contiguous()
     table, occ = sorted_scatter.sorted_segment_sum_split(keys, rows, cells)
-    ref_table, ref_occ = plain_split(keys, rows, cells)
+    ref_table, ref_occ = sorted_scatter.scatter_rows_plain(keys, rows, cells,
+                                                           True)
     torch.cuda.synchronize()
     check(tuple(rows.shape) == (BATCH, POINTS, 65), "K1 output shape")
     errs = {
@@ -154,13 +179,15 @@ def phase_kernels(model, points):
         "sorted_segment_sum": (
             cuda_ms(lambda: sorted_scatter.sorted_segment_sum_split(
                 keys, rows, cells), 50),
-            cuda_ms(lambda: plain_split(keys, rows, cells), 10)),
+            cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+                keys, rows, cells, True), 10)),
     }
     log("phase 2: kernels vs plain at B={} N={} C_in=4 C_dec=9 u1=64 P=32 "
         "maxV=40000 cells={} C=65 (split), pillars emitted per scan {}"
         .format(BATCH, POINTS, cells,
                 rows_t[:, -1].sum(dim=1).int().tolist()))
-    for name, (_, _, tol) in KERNELS.items():
+    for name in INFER_KERNELS:
+        tol = KERNELS[name][2]
         ms, plain_ms = times[name]
         log("  {}: max_abs_err {:.3e} (tolerance {:.0e}), {:.4f} ms vs "
             "plain {:.4f} ms".format(name, errs[name], tol, ms, plain_ms))
@@ -198,11 +225,14 @@ def phase_model(model, points):
     kept = check_outputs(out)
     log("phase 3: test_forward through the kernels: launches {}, kept "
         "boxes per scan {}".format(launches, kept))
-    check(all(launches[name] > 0 for name in KERNELS),
+    check(all(launches[name] > 0 for name in INFER_KERNELS),
           "the main path missed a kernel: {}".format(launches))
+    _build.reset_launches()
     with plain_path():
         ref = model.test_forward({"data": points})
     torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          "the plain path launched a kernel: {}".format(_build.LAUNCHES))
     check(torch.equal(out["label_preds"], ref["label_preds"]),
           "labels differ from the plain path")
     s_err = (out["scores"] - ref["scores"]).abs().max().item()
@@ -279,12 +309,12 @@ def phase_timing(model, points):
     model.test_forward({"data": points})
     log("  peak device memory of one forward: {:.1f} MiB".format(
         torch.cuda.max_memory_allocated() / 2**20))
-    profile(model, points)
+    profile(lambda: model.test_forward({"data": points}), 3)
     return rate
 
 
-def profile(model, points):
-    """Device time by kernel over 3 iterations of the kernel path."""
+def profile(fn, iters):
+    """Device time by kernel over `iters` calls of fn (the kernel path)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -292,16 +322,16 @@ def profile(model, points):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            model.test_forward({"data": points})
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     # device-side events only: a CPU op's own device time repeats the time
     # of the kernels it launched
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / iters
     if not events:
         log("  profile: no device time in the trace (not measured)")
         return
@@ -311,7 +341,286 @@ def profile(model, points):
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:12]:
         log("    {:9.3f} ms  x{:<5d} {}".format(
-            e.self_device_time_total / 1e3 / 3, e.count // 3, e.key[:90]))
+            e.self_device_time_total / 1e3 / iters, e.count // iters,
+            e.key[:90]))
+
+
+def held(name, got, ref, tol):
+    """K3/K4: each output within tol of its largest plain magnitude.
+    -> the largest absolute error over the outputs."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        err = (g - r).abs().max().item()
+        worst = max(worst, err)
+        check(err <= tol * r.abs().max().item(),
+              "{} disagrees with its plain version: {:.3e} against a "
+              "largest magnitude of {:.3e}".format(
+                  name, err, r.abs().max().item()))
+    return worst
+
+
+def phase_train_kernels(model, points):
+    """K3, K4 and K5 against their plain versions at the KITTI train shapes
+    (maxV 16000), on the statistics and cotangents the train step gives
+    them."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn_train, pillar_ops, \
+        sorted_scatter
+    vox, pfn, mid = model.voxelizer, model.pillar_encoder, \
+        model.middle_encoder
+    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
+                                                 vox.point_cloud_range)
+    mlp = pfn.pfn_layers[0].mlp
+    w1t = mlp.linear.weight.detach()
+    kw = dict(P=pfn.max_num_points_in_voxel,
+              maxV=vox.max_num_voxels_for(True), nx=mid.nx, vx=pfn.vx,
+              vy=pfn.vy, x_off=pfn.x_offset, y_off=pfn.y_offset,
+              with_distance=pfn.with_distance)
+    check(tuple(w1t.shape) == (64, 9) and kw["P"] == 32 and
+          kw["maxV"] == 16000, "not the KITTI train PFN shapes")
+    cells = mid.ny * mid.nx
+    gen = torch.Generator(device=points.device).manual_seed(SEED)
+
+    stats = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+    ref_stats = fused_pfn_train.pfn_stats_plain(keys, pts_t, w1t, **kw)
+    # the batch statistics and BN fold of the train forward
+    m = float(keys.numel())
+    mu = (ref_stats[0] / m).float()
+    invsig = torch.rsqrt((ref_stats[1] / m - (ref_stats[0] / m) ** 2).float()
+                         + mlp.bn.eps)
+    a = mlp.bn.weight.detach() * invsig
+    c = mlp.bn.bias.detach() - mu * a
+    # the rows cotangent as autograd hands it to K4: a [B, C, N] view of
+    # the [B, N, C] rows K5 gives
+    g_t = torch.randn((BATCH, POINTS, 65), generator=gen,
+                      device=points.device).transpose(1, 2)
+    bwd_args = (keys, pts_t, g_t, w1t, a, c, mu, invsig)
+    bwd = fused_pfn_train.pfn_bwd(*bwd_args, **kw)
+    ref_bwd = fused_pfn_train.pfn_bwd_plain(*bwd_args, **kw)
+    # the canvas cotangent as the NCHW backbone hands it to K5
+    g_canvas = torch.randn((BATCH, 64, cells), generator=gen,
+                           device=points.device).transpose(1, 2)
+    gather_args = (keys, g_canvas, None, cells, 65)
+    rows = sorted_scatter.sorted_table_gather(*gather_args)
+    ref_rows = sorted_scatter.sorted_table_gather_plain(*gather_args)
+    torch.cuda.synchronize()
+    check(stats[2].item() == ref_stats[2].item(), "K3 kept-row count")
+    check(tuple(rows.shape) == (BATCH, POINTS, 65), "K5 output shape")
+    errs = {
+        "pfn_stats": held("pfn_stats", stats, ref_stats,
+                          KERNELS["pfn_stats"][2]),
+        "pfn_bwd": held("pfn_bwd", bwd, ref_bwd, KERNELS["pfn_bwd"][2]),
+        "sorted_table_gather": (rows - ref_rows).abs().max().item(),
+    }
+    times = {
+        "pfn_stats": (
+            cuda_ms(lambda: fused_pfn_train.pfn_stats(keys, pts_t, w1t,
+                                                      **kw), 50),
+            cuda_ms(lambda: fused_pfn_train.pfn_stats_plain(
+                keys, pts_t, w1t, **kw), 10)),
+        "pfn_bwd": (
+            cuda_ms(lambda: fused_pfn_train.pfn_bwd(*bwd_args, **kw), 50),
+            cuda_ms(lambda: fused_pfn_train.pfn_bwd_plain(*bwd_args, **kw),
+                    10)),
+        "sorted_table_gather": (
+            cuda_ms(lambda: sorted_scatter.sorted_table_gather(*gather_args),
+                    50),
+            cuda_ms(lambda: sorted_scatter.sorted_table_gather_plain(
+                *gather_args), 10)),
+    }
+    log("  train kernels at B={} N={} C_dec=9 u1=64 P=32 maxV=16000 "
+        "cells={} C=65: kept rows {:.0f}".format(BATCH, POINTS, cells,
+                                                 stats[2].item()))
+    for name in ("pfn_stats", "pfn_bwd", "sorted_table_gather"):
+        tol = KERNELS[name][2]
+        ms, plain_ms = times[name]
+        log("  {}: max_abs_err {:.3e} (tolerance {}), {:.4f} ms vs plain "
+            "{:.4f} ms".format(
+                name, errs[name], "{:.0e} of each output's largest value"
+                .format(tol) if name != "sorted_table_gather" else "0",
+                ms, plain_ms))
+    check(errs["sorted_table_gather"] == 0.0,
+          "sorted_table_gather disagrees with its plain version")
+    return errs, times
+
+
+def make_train_batch(device, points=None):
+    """The KITTI train batch: the scans and bench.make_gt's boxes (24 a
+    scan, one class, a quarter padding)."""
+    import numpy as np
+    import torch
+
+    import bench
+    boxes, labels = bench.make_gt(np.random.default_rng(SEED), BATCH,
+                                  "pointpillars")
+    return {"data": points, "gt_boxes": torch.from_numpy(boxes).to(device),
+            "gt_labels": torch.from_numpy(labels).to(device)}
+
+
+def record_step(step, model, optimizer, batch):
+    """One train step -> (losses, grads after the optimizer's clip, running
+    stats, launches of the step)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    _build.reset_launches()
+    losses = step(model, optimizer, batch)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k}
+    return ({k: v.item() for k, v in losses.items()}, grads, stats,
+            launches)
+
+
+def compare_steps(got, ref, loss_tol, grad_tol, stat_tol):
+    """-> (worst loss, grad, stat relative errors); fails past the
+    tolerances (grads and stats relative to each tensor's largest
+    value)."""
+    (l1, g1, s1, _), (l2, g2, s2, _) = got, ref
+    check(set(l1) == set(l2) == {"loss", "loss_cls", "loss_reg",
+                                 "loss_dir"}, "loss keys")
+    check(all(map(lambda v: v == v and abs(v) < float("inf"), l1.values())),
+          "non-finite losses: {}".format(l1))
+    errs = [max(abs(l1[k] - l2[k]) / max(abs(l2[k]), 1e-30) for k in l2)]
+    for a, b in ((g1, g2), (s1, s2)):
+        check(set(a) == set(b), "tensor names differ")
+        errs.append(max((a[k] - b[k]).abs().max().item() /
+                        max(b[k].abs().max().item(), 1e-30) for k in b))
+    for err, tol, what in zip(errs, (loss_tol, grad_tol, stat_tol),
+                              ("losses", "grads", "running stats")):
+        check(err <= tol, "{} differ: {:.3e} > {:.0e}".format(what, err,
+                                                               tol))
+    return errs
+
+
+def phase_tiny_train():
+    """A small input against the CPU path: the tiny config's train step,
+    kernels on the card vs plain versions on the CPU."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    rng = np.random.default_rng(SEED)
+    pts = rng.uniform([0, -16, -2, 0], [32, 16, 2, 1], (2, 1024, 4))
+    boxes = np.zeros((2, 4, 7), np.float32)
+    boxes[..., :2] = rng.uniform([2, -14], [30, 14], (2, 4, 2))
+    boxes[..., 2:6] = [-1., 1.6, 3.9, 1.56]
+    boxes[..., 6] = rng.uniform(-3, 3, (2, 4))
+    pts[:, :512, :2] = boxes[:, :4, :2].repeat(128, axis=1) + rng.normal(
+        0, 1., (2, 512, 2))
+    labels = np.array([[0, 0, 0, -1], [0, 0, -1, -1]])
+    out = []
+    for device in ("cpu", "cuda"):
+        cfg = Config(path=TINY, device=device)
+        model = cfg.model.train()
+        step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+        batch = {"data": torch.from_numpy(pts.astype(np.float32)),
+                 "gt_boxes": torch.from_numpy(boxes),
+                 "gt_labels": torch.from_numpy(labels)}
+        res = record_step(step, model, cfg.optimizer,
+                          {k: v.to(device) for k, v in batch.items()})
+        out.append(tuple({k: v.cpu() for k, v in r.items()}
+                         if i in (1, 2) else r for i, r in enumerate(res)))
+    errs = compare_steps(out[1], out[0], 1e-4, 1e-3, 1e-4)
+    check(out[1][3]["pfn_bwd"] > 0, "the tiny card step missed K4")
+    log("  tiny config train step, card kernels vs CPU plain: losses "
+        "{:.3e} (tolerance 1e-4), grads {:.3e} (1e-3), running stats "
+        "{:.3e} (1e-4), relative".format(*errs))
+
+
+def timed_train_scans_per_s(step, model, optimizer, batch, iters):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(model, optimizer, batch)
+    torch.cuda.synchronize()
+    return BATCH * iters / (time.perf_counter() - t0)
+
+
+def phase_train(points):
+    """Training on the KITTI config: the kernel step against the plain step
+    from one saved state, 10 steps, timing, memory and a profile."""
+    import copy
+
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=KITTI, device=points.device)
+    model = cfg.model.train()
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    step = make_train_step(lr_scheduler=scheduler)
+    batch = make_train_batch(points.device, points)
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(optimizer.state_dict()),
+             copy.deepcopy(scheduler.state_dict()))
+
+    def restore():
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(saved[1])
+        scheduler.load_state_dict(saved[2])
+
+    kernel = record_step(step, model, optimizer, batch)
+    restore()
+    with plain_path():
+        plain = record_step(step, model, optimizer, batch)
+    restore()
+    launches = kernel[3]
+    log("phase 5: KITTI train step (Adam, clip 10, StepDecay 2e-4), "
+        "losses {}; launches {}; plain step launches {}".format(
+            {k: round(v, 5) for k, v in kernel[0].items()}, launches,
+            plain[3]))
+    check(all(launches[name] > 0 for name in KERNELS),
+          "the train path missed a kernel: {}".format(launches))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6)
+    log("  vs the plain step (deterministic cuDNN, TF32 off): losses "
+        "{:.3e} (tolerance 1e-6), grads {:.3e} (1e-4), running stats "
+        "{:.3e} (1e-6), each relative to the tensor's largest value"
+        .format(*errs))
+    phase_tiny_train()
+
+    # training runs as a trainer would: cuDNN free to pick its algorithms
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    losses = [step(model, optimizer, batch)["loss"].item()
+              for _ in range(TRAIN_STEPS)]
+    log("  {} steps on the fixed batch, loss per step: {}".format(
+        TRAIN_STEPS, [round(v, 4) for v in losses]))
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          "non-finite train loss")
+    check(losses[-1] < losses[0], "the loss did not fall")
+
+    for _ in range(2):                       # warm-up, both paths
+        step(model, optimizer, batch)
+        with plain_path():
+            step(model, optimizer, batch)
+    rates = {"kernels": [], "plain": []}
+    half = ITERS // 2
+    for order in (("kernels", "plain"), ("plain", "kernels")):
+        for path in order:
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                rates[path].append(timed_train_scans_per_s(
+                    step, model, optimizer, batch, half))
+    rate = {k: BATCH * ITERS / sum(BATCH * half / r for r in v)
+            for k, v in rates.items()}
+    log("  {} train steps of batch {} per path (kernel/plain/plain/kernel "
+        "halves, cudnn.benchmark on): kernel path {:.2f} scans/s, plain "
+        "path {:.2f} scans/s; halves {}".format(
+            ITERS, BATCH, rate["kernels"], rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, optimizer, batch), 3)
+    return launches
 
 
 def main():
@@ -347,9 +656,16 @@ def main():
         model = Config(path=KITTI, device=device).model.eval()
         points = make_points(device)
         errs, times = phase_kernels(model, points)
+        train_errs, train_times = phase_train_kernels(model, points)
+        errs.update(train_errs)
+        times.update(train_times)
         launches = phase_model(model, points)
         phase_tiny_canvas()
         phase_timing(model, points)
+        del model
+        # K1/K2 counted on the inference path, K3-K5 on the train path
+        launches = {**phase_train(points),
+                    **{k: launches[k] for k in INFER_KERNELS}}
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

@@ -5,8 +5,9 @@ recursive `_load_object`, config.py:55-155). It cannot reuse the JAX
 module: importing anything under paddle3d_tpu runs that package's
 __init__, which imports jax.
 
-Only the `model:` section is built. Datasets, optimizers and the training
-loss arrive with the slices that need them (ROADMAP.md, queue 1).
+The `model:` section (its training `loss:` included), `optimizer:` and
+`lr_scheduler:` are built. Datasets arrive with the runtime slice
+(ROADMAP.md, queue 1, item 5).
 """
 import codecs
 import copy
@@ -15,15 +16,12 @@ import logging
 import os
 from typing import Any, Dict
 
+import torch
 import yaml
 
 from . import manager
 
 logger = logging.getLogger(__name__)
-
-# model-section keys that only training reads; the port serves only, so they
-# are left unbuilt (their components are not ported yet)
-_TRAIN_ONLY_MODEL_KEYS = ("loss",)
 
 
 class Config:
@@ -118,7 +116,36 @@ class Config:
             model_cfg = self.dic.get("model")
             if model_cfg is None:
                 raise RuntimeError("No model specified in the configuration")
-            model_cfg = {k: v for k, v in model_cfg.items()
-                         if k not in _TRAIN_ONLY_MODEL_KEYS}
             self._model = self._load_object(model_cfg).to(self.device)
         return self._model
+
+    def _schedule(self):
+        if "lr_scheduler" not in self.dic:
+            raise RuntimeError(
+                "No lr_scheduler specified in the configuration")
+        return self._load_object(copy.deepcopy(self.dic["lr_scheduler"]))
+
+    @property
+    def optimizer(self) -> torch.optim.Optimizer:
+        """The torch optimizer over `self.model`'s parameters, its gradient
+        clip included; the schedule's base rate is its learning rate, as
+        the JAX package injects the schedule (step it with
+        `lr_scheduler`)."""
+        if not hasattr(self, "_optimizer"):
+            if "optimizer" not in self.dic:
+                raise RuntimeError(
+                    "No optimizer specified in the configuration")
+            cfg = copy.deepcopy(self.dic["optimizer"])
+            if "lr_scheduler" in self.dic and "learning_rate" not in cfg:
+                cfg["learning_rate"] = self._schedule()
+            self._optimizer = self._load_object(cfg)(self.model.parameters())
+        return self._optimizer
+
+    @property
+    def lr_scheduler(self) -> torch.optim.lr_scheduler.LambdaLR:
+        """The config's schedule over `self.optimizer`; step it once after
+        each optimizer step (lr at update k = the schedule at k)."""
+        if not hasattr(self, "_lr_scheduler"):
+            self._lr_scheduler = torch.optim.lr_scheduler.LambdaLR(
+                self.optimizer, self._schedule().factor)
+        return self._lr_scheduler

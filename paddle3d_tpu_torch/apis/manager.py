@@ -56,8 +56,11 @@ NECKS = ComponentManager("necks")
 VOXEL_ENCODERS = ComponentManager("voxel_encoders")
 VOXELIZERS = ComponentManager("voxelizers")
 HEADS = ComponentManager("heads")
+LOSSES = ComponentManager("losses")
+OPTIMIZERS = ComponentManager("optimizers")
+LR_SCHEDULERS = ComponentManager("lr_schedulers")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
-    HEADS
+    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS
 ]

@@ -1,0 +1,61 @@
+"""Train step, torch port of paddle3d_tpu/apis/pipeline.py (parse_losses,
+make_train_step).
+
+PyTorch runs eagerly, so the step is a plain function: zero the grads,
+train_forward, backward, the optional extra global-norm clip, the
+optimizer step (its config clip runs first, as a pre-hook) and the
+scheduler step. f32 only for now.
+"""
+from typing import Callable, Optional
+
+import torch
+
+__all__ = ["parse_losses", "make_train_step"]
+
+
+def parse_losses(losses) -> torch.Tensor:
+    """dict | tensor -> the total scalar (key 'loss' if present)."""
+    if isinstance(losses, dict):
+        if "loss" in losses:
+            return losses["loss"]
+        return sum(losses.values())
+    return losses
+
+
+def make_train_step(grad_clip_norm: Optional[float] = None,
+                    ema_decay: Optional[float] = None,
+                    amp_level: Optional[str] = None,
+                    lr_scheduler=None) -> Callable:
+    """Build the train step `step(model, optimizer, batch) -> loss dict`
+    (detached); the model and optimizer update in place, and
+    `lr_scheduler`, if given, steps once after the optimizer.
+
+    grad_clip_norm clips the global grad norm on top of the optimizer's own
+    clip, as the JAX step does: g * min(1, clip / (norm + 1e-6))."""
+    if amp_level in ("O1", "O2"):
+        raise NotImplementedError(
+            "bf16 AMP is not ported: the port trains in f32 (ROADMAP.md, "
+            "queue 1, item 4: bf16 / AMP O2 is still open)")
+    if ema_decay is not None:
+        raise NotImplementedError(
+            "EMA arrives with the runtime slice (ROADMAP.md, queue 1, "
+            "item 5)")
+
+    def train_step(model, optimizer, batch) -> dict:
+        optimizer.zero_grad(set_to_none=True)
+        losses = model.train_forward(batch)
+        parse_losses(losses).backward()
+        if grad_clip_norm is not None:
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
+            with torch.no_grad():
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                scale = torch.clamp(grad_clip_norm / (norm + 1e-6), max=1.0)
+                for g in grads:
+                    g.mul_(scale)
+        optimizer.step()
+        if lr_scheduler is not None:
+            lr_scheduler.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return train_step

@@ -28,27 +28,26 @@
 // writes are coalesced. The TPU's lane rolls and doubling scans have no
 // counterpart.
 //
-// Rounding: sums, products and the centre use explicit round-to-nearest
-// intrinsics, in the same order as the plain PyTorch version
-// (paddle3d_tpu_torch/ops/fused_pfn.py), so nvcc contracts nothing into an
-// FMA and the two agree bit for bit.
+// Rounding: the rank rules and the decoration come from csrc/pfn_common.cuh,
+// shared with the train kernels (K3/K4); sums, products and the centre use
+// explicit round-to-nearest intrinsics, in the same order as the plain
+// PyTorch version (paddle3d_tpu_torch/ops/fused_pfn.py), so nvcc contracts
+// nothing into an FMA and the two agree bit for bit.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstddef>
 
+#include "pfn_common.cuh"
+
 namespace {
+
+using p3d::Geometry;
+using p3d::kMaxCdec;
+using p3d::kMaxCin;
 
 constexpr int kRows = 128;
 constexpr int kThreads = 256;
-constexpr int kSent = 0x7fffffff;
-constexpr int kMaxCin = 8;
-constexpr int kMaxCdec = kMaxCin + 6;
-
-struct Geometry {
-  int nx;
-  float vx, vy, x_off, y_off;
-};
 
 __host__ __device__ constexpr int key_window(int p) { return kRows + p + 1; }
 __host__ __device__ constexpr int pts_window(int p) { return kRows + p - 1; }
@@ -76,7 +75,7 @@ __global__ void __launch_bounds__(kThreads)
   float* s_w = smem;                    // [u1][c_dec]
   float* s_b = s_w + u1 * c_dec;        // [u1]
   float* s_pts = s_b + u1;              // [c_in][pw]
-  float* s_mean = s_pts + c_in * pw;    // [3][kRows]
+  float* s_mean = s_pts + c_in * pw;    // [kRows][3]
   float* s_cx = s_mean + 3 * kRows;     // [kRows]
   float* s_cy = s_cx + kRows;           // [kRows]
   float* s_out = s_cy + kRows;          // [u1][kRows + 1], padded vs banks
@@ -92,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = threadIdx.x; t < u1; t += blockDim.x) s_b[t] = b1[t];
   for (int t = threadIdx.x; t < kw; t += blockDim.x) {
     const int i = r0 - p + t;
-    s_key[t] = i < 0 ? -1 : (i < n ? kb[i] : kSent);
+    s_key[t] = i < 0 ? -1 : (i < n ? kb[i] : p3d::kSent);
   }
   for (int t = threadIdx.x; t < c_in * pw; t += blockDim.x) {
     const int ch = t / pw;
@@ -107,30 +106,15 @@ __global__ void __launch_bounds__(kThreads)
     const int t = r + p;  // row i in s_key
     int emit_rank = -1;
     if (i < n) {
-      const int k = s_key[t];
-      int rank = 0;
-      while (rank < p && s_key[t - rank - 1] == k) ++rank;
-      const bool keep = k != kSent && rank < p &&
-                        vox[static_cast<size_t>(b) * n + i] < max_voxels;
-      if (keep && (s_key[t + 1] != k || rank == p - 1)) {
-        emit_rank = rank;  // kept rows are i - rank .. i, in row order
-        const int j0 = r + p - 1 - rank;  // row i - rank in s_pts
-        float sx = 0.f, sy = 0.f, sz = 0.f;
-        for (int j = j0; j <= j0 + rank; ++j) {
-          sx = __fadd_rn(sx, s_pts[j]);
-          sy = __fadd_rn(sy, s_pts[pw + j]);
-          sz = __fadd_rn(sz, s_pts[2 * pw + j]);
-        }
-        const float cnt = static_cast<float>(rank + 1);
-        s_mean[r] = __fdiv_rn(sx, cnt);
-        s_mean[kRows + r] = __fdiv_rn(sy, cnt);
-        s_mean[2 * kRows + r] = __fdiv_rn(sz, cnt);
-        const int yc = k / geo.nx;
-        const int xc = k - yc * geo.nx;
-        s_cx[r] = __fadd_rn(__fmul_rn(static_cast<float>(xc), geo.vx),
-                            geo.x_off);
-        s_cy[r] = __fadd_rn(__fmul_rn(static_cast<float>(yc), geo.vy),
-                            geo.y_off);
+      emit_rank = p3d::emit_rank(s_key, t, p,
+                                 vox[static_cast<size_t>(b) * n + i],
+                                 max_voxels);
+      if (emit_rank >= 0) {
+        // kept rows are i - rank .. i, in row order; row i - rank is
+        // s_pts column r + p - 1 - rank
+        p3d::pillar_mean(s_pts, pw, r + p - 1 - emit_rank, emit_rank,
+                         s_mean + 3 * r);
+        p3d::cell_centre(s_key[t], geo, s_cx + r, s_cy + r);
       }
     }
     s_rank[r] = emit_rank;
@@ -144,29 +128,13 @@ __global__ void __launch_bounds__(kThreads)
     const int rank = s_rank[r];
     float m = 0.f;
     if (rank >= 0) {
-      const float mx = s_mean[r], my = s_mean[kRows + r];
-      const float mz = s_mean[2 * kRows + r];
-      const float cx = s_cx[r], cy = s_cy[r];
       const float* w = s_w + c * c_dec;
       m = -INFINITY;
       const int j0 = r + p - 1 - rank;
       for (int j = j0; j <= j0 + rank; ++j) {
         float x[kMaxCdec];
-#pragma unroll
-        for (int q = 0; q < kMaxCin; ++q) {
-          if (q < c_in) x[q] = s_pts[q * pw + j];
-        }
-        const float px = s_pts[j], py = s_pts[pw + j], pz = s_pts[2 * pw + j];
-        x[c_in] = __fsub_rn(px, mx);
-        x[c_in + 1] = __fsub_rn(py, my);
-        x[c_in + 2] = __fsub_rn(pz, mz);
-        x[c_in + 3] = __fsub_rn(px, cx);
-        x[c_in + 4] = __fsub_rn(py, cy);
-        if (with_distance) {
-          x[c_in + 5] = __fsqrt_rn(
-              __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
-                        __fmul_rn(pz, pz)));
-        }
+        p3d::decorate(s_pts, pw, j, c_in, s_mean + 3 * r, s_cx[r], s_cy[r],
+                      with_distance, x);
         float v = s_b[c];
 #pragma unroll
         for (int q = 0; q < kMaxCdec; ++q) {

@@ -1,2 +1,2 @@
-from . import backbones, detection, middle_encoders, necks, voxel_encoders, \
-    voxelizers
+from . import backbones, detection, losses, middle_encoders, necks, \
+    optimizers, voxel_encoders, voxelizers

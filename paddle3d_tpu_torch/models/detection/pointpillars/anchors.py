@@ -1,8 +1,8 @@
 """SSD-style anchor generation for PointPillars, torch port of
 paddle3d_tpu/models/detection/pointpillars/anchors.py.
 
-The anchor grid and its lattice factorisation are built once in numpy at
-model-build time; the live-anchor mask from the dense occupancy map is a
+The anchor grid, its per-anchor match thresholds and its lattice
+factorisation are built once in numpy at model-build time; the live-anchor mask from the dense occupancy map is a
 batched torch function.
 """
 import math
@@ -74,10 +74,16 @@ class AnchorGenerator:
         fm_nx = int(self.grid_size[0]) // output_stride_factor
         # per-location anchor order: (class, size, rot) — must match the
         # head's channel layout [K * code] at each spatial position
-        anchors = np.concatenate([g.generate(fm_ny, fm_nx) for g in gens],
-                                 axis=2)  # [ny, nx, K, 7]
+        per_class = [g.generate(fm_ny, fm_nx) for g in gens]
+        anchors = np.concatenate(per_class, axis=2)  # [ny, nx, K, 7]
         self.num_anchors_per_loc = anchors.shape[2]
         self.anchors = anchors.reshape(-1, 7)
+        # per-anchor target-assignment thresholds [A], in the same order
+        self.matched_thresholds, self.unmatched_thresholds = (
+            np.concatenate([np.full(a.shape[:3], getattr(g, attr), np.float32)
+                            for g, a in zip(gens, per_class)],
+                           axis=2).reshape(-1)
+            for attr in ("match_threshold", "unmatch_threshold"))
 
         # Regular-lattice factorisation of the integral-image corner
         # lookups: anchor centres sit on a stride-s cell grid, so each

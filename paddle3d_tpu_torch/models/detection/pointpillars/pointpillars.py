@@ -1,20 +1,25 @@
 """PointPillars, torch port of
-paddle3d_tpu/models/detection/pointpillars/pointpillars.py (inference).
+paddle3d_tpu/models/detection/pointpillars/pointpillars.py.
 
 points [B, N, C] → fused pillar canvas with an occupancy side channel
-(ops/pillar_ops.py: the fused PFN and sorted-scatter kernels) →
-SecondBackbone → SecondFPN → SSDHead → decode + rotated NMS, all on the
-device and at fixed shapes. The canvas keeps the JAX package's NHWC
-layout and goes to NCHW only around the conv stack.
+(ops/pillar_ops.py: the fused PFN and sorted-scatter kernels, with their
+backward kernels in train) → SecondBackbone → SecondFPN → SSDHead, then
+decode + rotated NMS (test) or on-device target assignment + loss (train),
+all on the device and at fixed shapes. The canvas keeps the JAX package's
+NHWC layout and goes to NCHW only around the conv stack.
 """
+import math
+
 import torch
 
 from ....apis import manager
+from ....ops.box_ops import limit_period
 from ....ops.pillar_ops import fused_pillar_canvas
 from ...base.base_model import BaseLidarModel
 from ...middle_encoders.pillar_scatter import PointPillarsScatter
 from ...voxel_encoders.pillar_encoder import PillarFeatureNet
 from .anchors import AnchorGenerator
+from .target_assigner import assign_targets
 
 __all__ = ["PointPillars"]
 
@@ -28,6 +33,7 @@ class PointPillars(BaseLidarModel):
                  backbone,
                  neck,
                  head,
+                 loss,
                  anchor_configs,
                  anchor_area_threshold: float = 1,
                  pretrained: str = None,
@@ -44,6 +50,7 @@ class PointPillars(BaseLidarModel):
         self.backbone = backbone
         self.neck = neck
         self.head = head
+        self.loss = loss
         self.pretrained = pretrained
 
         self.anchor_generator = AnchorGenerator(
@@ -53,10 +60,13 @@ class PointPillars(BaseLidarModel):
             voxel_size=self.voxelizer.voxel_size,
             anchor_configs=anchor_configs,
             anchor_area_threshold=anchor_area_threshold)
-        # static, not a parameter; moves with the module
-        self.register_buffer(
-            "anchors", torch.from_numpy(self.anchor_generator.anchors),
-            persistent=False)
+        # static, not parameters; they move with the module
+        gen = self.anchor_generator
+        for name, arr in (("anchors", gen.anchors),
+                          ("matched_thr", gen.matched_thresholds),
+                          ("unmatched_thr", gen.unmatched_thresholds)):
+            self.register_buffer(name, torch.from_numpy(arr),
+                                 persistent=False)
 
     def _extract_feats(self, points):
         """-> (neck feats [B, C, H, W], live-anchor mask [B, A])."""
@@ -71,9 +81,25 @@ class PointPillars(BaseLidarModel):
         return feats, self.anchor_generator.anchors_mask_dense(occupancy)
 
     def train_forward(self, batch) -> dict:
-        raise NotImplementedError(
-            "PointPillars training arrives with the PointPillars-train item "
-            "(ROADMAP.md, queue 1, item 4)")
+        """batch {"data": points [B, N, C], "gt_boxes" [B, G, 7],
+        "gt_labels" [B, G] (-1 padded)} -> loss dict ("loss" the total).
+        Train-mode BN: the PFN and conv BNs use batch statistics and update
+        their running stats."""
+        feats, anchors_mask = self._extract_feats(batch["data"])
+        preds = self.head(feats)
+        gt_boxes = batch["gt_boxes"]
+        # wrap yaw to [-pi, pi) as the reference does before assignment
+        gt_boxes = torch.cat([gt_boxes[..., :-1], limit_period(
+            gt_boxes[..., -1:], 0.5, 2 * math.pi)], dim=-1)
+        labels, reg_targets = assign_targets(
+            self.anchors, gt_boxes, batch["gt_labels"], self.matched_thr,
+            self.unmatched_thr, anchors_mask)
+        if self.head.use_direction_classifier:
+            return self.loss(preds["box_preds"], preds["cls_preds"],
+                             reg_targets, labels, preds["dir_preds"],
+                             self.anchors)
+        return self.loss(preds["box_preds"], preds["cls_preds"], reg_targets,
+                         labels)
 
     @torch.no_grad()
     def test_forward(self, batch) -> dict:

@@ -5,7 +5,10 @@ LinearBN1DReLU).
 NCHW layout. Two conventions of the JAX package are kept on purpose:
   * flax `padding="SAME"` pads (total // 2, total - total // 2), which on a
     stride-2 3×3 conv over an even size is (0, 1), not torch's (1, 1);
-  * BatchNorm eps 1e-3 and flax momentum 0.99 (torch momentum 0.01).
+  * BatchNorm eps 1e-3 and flax momentum 0.99 (torch momentum 0.01), with
+    flax's running-stat update in train mode (BatchNorm1d/BatchNorm2d
+    below): torch's own updates running_var with the unbiased batch
+    variance, flax with the biased one.
 Weights are initialised uniform ±1/sqrt(fan_in) from an explicit
 torch.Generator (default seed 0), never from the global RNG.
 """
@@ -15,8 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "same_pads",
-           "uniform_", "default_generator"]
+__all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "BatchNorm1d",
+           "BatchNorm2d", "same_pads", "uniform_", "default_generator"]
 
 
 def default_generator(generator: torch.Generator = None) -> torch.Generator:
@@ -40,8 +43,38 @@ def same_pads(size: int, kernel: int, stride: int):
     return total // 2, total - total // 2
 
 
-def _bn2d(channels, eps, momentum):
-    return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """torch BatchNorm with flax nnx.BatchNorm's train-mode running stats.
+
+    Same parameters and buffers as nn.BatchNorm* (weight, bias,
+    running_mean, running_var, num_batches_tracked), so state_dicts and
+    utils/convert.py see no difference. Train mode normalises with the
+    biased batch variance, as torch does, and updates
+        mean <- (1 - m) mean + m mu,   var <- (1 - m) var + m sigma^2_biased
+    with m = `momentum` (0.01, flax's 0.99), as flax does."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, unbiased=False)
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean +
+                                    self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var +
+                                   self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
 
 
 class ConvBNReLU(nn.Module):
@@ -56,7 +89,7 @@ class ConvBNReLU(nn.Module):
             padding=0, bias=False)
         uniform_(self.conv.weight, in_channels * kernel_size ** 2,
                  default_generator(generator))
-        self.bn = _bn2d(out_channels, eps, momentum)
+        self.bn = BatchNorm2d(out_channels, eps=eps, momentum=momentum)
 
     def forward(self, x):
         k, s = self.conv.kernel_size[0], self.conv.stride[0]
@@ -82,7 +115,7 @@ class DeconvBNReLU(nn.Module):
             stride, padding=0, bias=False)
         uniform_(self.deconv.weight, in_channels * kernel_size ** 2,
                  default_generator(generator))
-        self.bn = _bn2d(out_channels, eps, momentum)
+        self.bn = BatchNorm2d(out_channels, eps=eps, momentum=momentum)
 
     def forward(self, x):
         return torch.relu(self.bn(self.deconv(x)))
@@ -90,8 +123,9 @@ class DeconvBNReLU(nn.Module):
 
 class LinearBN1DReLU(nn.Module):
     """Linear (no bias) -> BatchNorm over the last axis -> ReLU. The fused
-    pillar path folds the BN into the weights (ops/pillar_ops.py) and runs
-    the layer inside its kernel, so the module holds parameters only."""
+    pillar path runs the layer inside its kernels (ops/pillar_ops.py: the BN
+    folded from running stats in eval, from batch stats in train), so the
+    module holds parameters only."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator = None, eps: float = 1e-3,
@@ -101,4 +135,4 @@ class LinearBN1DReLU(nn.Module):
                                          out_features, bias=False)
         uniform_(self.linear.weight, in_features,
                  default_generator(generator))
-        self.bn = nn.BatchNorm1d(out_features, eps=eps, momentum=momentum)
+        self.bn = BatchNorm1d(out_features, eps=eps, momentum=momentum)

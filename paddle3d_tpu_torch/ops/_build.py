@@ -1,12 +1,12 @@
 """Builds the port's hand-written CUDA kernels and loads them with ctypes.
 
 All sources under paddle3d_tpu_torch/csrc/ compile with nvcc, for Hopper
-(`sm_90a`), into ONE shared library with a plain C interface under
-build/torch_kernels/ at the repository root (git-ignored). The library's
-name carries a hash of the sources and flags, so an edited source builds
-anew on first use and a stale library is never loaded. No PyTorch header is
-included, so a build takes seconds, not the minutes of
-torch.utils.cpp_extension.
+(`sm_90a`), one nvcc process per source, all started together, and link
+into ONE shared library with a plain C interface under build/torch_kernels/
+at the repository root (git-ignored). The library's name carries a hash of
+the sources, headers and flags, so an edited source builds anew on first
+use and a stale library is never loaded. No PyTorch header is included, so
+a build takes seconds, not the minutes of torch.utils.cpp_extension.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no CUDA toolkit.
@@ -27,18 +27,27 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
-LAUNCHES = {"fused_pfn_rows": 0, "sorted_segment_sum": 0}
+LAUNCHES = {"fused_pfn_rows": 0, "sorted_segment_sum": 0, "pfn_stats": 0,
+            "pfn_bwd": 0, "sorted_table_gather": 0}
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 # argtypes of every exported function (pointers and the stream as void*, or
 # ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
     "p3d_sorted_segment_sum": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                            _i, _i, _i, _f, _f, _f, _f, _i, _i, _vp),
+    "p3d_pfn_stats": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
+                      _i, _f, _f, _f, _f, _i, _vp),
+    "p3d_pfn_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
+                    _ll, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f,
+                    _i, _vp),
+    "p3d_sorted_table_gather": (_vp, _vp, _ll, _ll, _ll, _vp, _ll, _ll, _vp,
+                                _i, _i, _i, _i, _i, _vp),
 }
 
 _lib = None
@@ -64,32 +73,45 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(sources) -> Path:
+def _lib_path(files) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / "libp3d_kernels_{}.so".format(h.hexdigest()[:16])
 
 
+def _run(cmds):
+    """Run the commands together; -> their joined output. Raises on the
+    first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed ({}):\n{}".format(" ".join(cmd),
+                                                               log))
+    return "".join(logs)
+
+
 def _build(sources, target: Path):
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    # compile into a private directory and link to a private name, then
+    # rename: concurrent builders never load a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    tmp = work / target.name
+    nvcc = _nvcc()
+    objs = [work / (src.stem + ".o") for src in sources]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed ({}):\n{}".format(
-                " ".join(cmd), build_log))
+        build_log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(sources, objs)])
+        build_log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)]])
         os.replace(tmp, target)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:
@@ -97,7 +119,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         sources = sorted(CSRC.glob("*.cu"))
-        path = _lib_path(sources)
+        path = _lib_path(sources + sorted(CSRC.glob("*.cuh")))
         if not path.exists():
             _build(sources, path)
         lib = ctypes.CDLL(str(path))

@@ -1,18 +1,34 @@
 """On-device box utilities.
 
-Port of the part of paddle3d_tpu/ops/box_ops.py the inference slice uses
-(limit_period, second_box_decode).
+Port of the part of paddle3d_tpu/ops/box_ops.py the PointPillars slices use
+(limit_period, second_box_encode, second_box_decode).
 """
 import math
 
 import torch
 
-__all__ = ["limit_period", "second_box_decode"]
+__all__ = ["limit_period", "second_box_encode", "second_box_decode"]
 
 
 def limit_period(val, offset: float = 0.5, period: float = math.pi):
     """Wrap angle into [-offset*period, (1-offset)*period)."""
     return val - torch.floor(val / period + offset) * period
+
+
+def second_box_encode(boxes: torch.Tensor,
+                      anchors: torch.Tensor) -> torch.Tensor:
+    """SECOND residual encoding: [..., 7+] boxes and [..., 7] anchors
+    (x, y, z, w, l, h, r) -> [..., 7] residuals."""
+    xa, ya, za, wa, la, ha, ra = torch.split(anchors, 1, dim=-1)
+    xg, yg, zg, wg, lg, hg, rg = torch.split(boxes[..., :7], 1, dim=-1)
+    diag = torch.sqrt(la**2 + wa**2)
+    xt = (xg - xa) / diag
+    yt = (yg - ya) / diag
+    zt = (zg - za) / ha
+    wt = torch.log(torch.clamp(wg, min=1e-6) / wa)
+    lt = torch.log(torch.clamp(lg, min=1e-6) / la)
+    ht = torch.log(torch.clamp(hg, min=1e-6) / ha)
+    return torch.cat([xt, yt, zt, wt, lt, ht, rg - ra], dim=-1)
 
 
 def second_box_decode(encodings: torch.Tensor,

@@ -24,7 +24,9 @@ def _decorate_plain(keys, pts, P, maxV, nx, vx, vy, x_off, y_off,
     """Segment masks, rank/cap and PFN input rows over sorted rows.
 
     keys [B, N] int32, pts [B, N, C_in]. Returns (x [B, N, C_dec], keep,
-    emit, start) with start the row index of each row's segment head."""
+    emit, start, cnt): start is the row index of each row's segment head
+    and cnt the number of the pillar's kept-rank rows (≤ P), so a kept
+    row's emission row is start + cnt - 1. x is zero on rows not kept."""
     b, n = keys.shape
     idx = torch.arange(n, device=keys.device).expand(b, n)
     valid = keys < _SENT
@@ -63,7 +65,7 @@ def _decorate_plain(keys, pts, P, maxV, nx, vx, vy, x_off, y_off,
             pts[..., 2] * pts[..., 2]
         feats.append(torch.sqrt(sq)[..., None])
     x = torch.where(keep[..., None], torch.cat(feats, dim=-1), 0.)
-    return x, keep, emit, start
+    return x, keep, emit, start, cnt
 
 
 def _segment_max(vals, start, keep):
@@ -91,7 +93,7 @@ def fused_pfn_rows_plain(keys, pts_t, w1t, b1, w2t=None, b2=None, *,
                          with_distance=False, occupancy=False):
     """Plain PyTorch version of the fused PFN kernel (1 or 2 layers)."""
     pts = pts_t.transpose(1, 2).to(torch.float32)
-    x, keep, emit, start = _decorate_plain(
+    x, keep, emit, start, _ = _decorate_plain(
         keys, pts, P, maxV, nx, vx, vy, x_off, y_off, with_distance)
     # relu(b + Σ_k x_k w_k), summed in k order like the kernel
     y = b1[:, 0].to(torch.float32).expand(*x.shape[:2], -1)

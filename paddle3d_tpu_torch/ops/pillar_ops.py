@@ -1,18 +1,20 @@
-"""Fused pillar pipeline, eval: raw points → BEV canvas (+ occupancy).
+"""Fused pillar pipeline: raw points → BEV canvas (+ occupancy).
 
-Port of the eval path of paddle3d_tpu/ops/pillar_ops.py
-(sort_points_by_cell, pfn_folded_weights, fused_pillar_canvas through
-_fused_pillar_canvas_pallas): a stable sort groups points by pillar cell,
-the fused PFN kernel (ops/fused_pfn.py) puts each pillar's feature on one
-row, and the sorted segment sum (ops/sorted_scatter.py) places the rows on
-the canvas. The [V, P, C] voxel buffer never exists.
+Port of paddle3d_tpu/ops/pillar_ops.py (sort_points_by_cell,
+pfn_folded_weights, fused_pillar_canvas through _fused_pillar_canvas_pallas
+in eval and _fused_pillar_canvas_pallas_train in train): a stable sort
+groups points by pillar cell, the fused PFN kernel (ops/fused_pfn.py; in
+train with batch-statistics BN, ops/fused_pfn_train.py) puts each pillar's
+feature on one row, and the sorted segment sum (ops/sorted_scatter.py)
+places the rows on the canvas. The [V, P, C] voxel buffer never exists.
 """
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .fused_pfn import fused_pfn_rows
+from . import fused_pfn
+from .fused_pfn_train import fused_pfn_train_rows
 from .sorted_scatter import sorted_segment_sum, sorted_segment_sum_split
 from .voxelize import points_to_voxel_coords
 
@@ -69,33 +71,78 @@ def pfn_folded_weights(pfn):
     return w1t, b1, None, None
 
 
-@torch.no_grad()
-def fused_pillar_canvas(voxelizer, pfn, middle_encoder,
-                        points: torch.Tensor, with_occupancy: bool = False):
-    """Eval points → canvas [B, ny, nx, C] (+ occupancy [B, ny, nx]).
-
-    The canvas keeps the JAX package's NHWC layout; the occupancy map is
-    the emission flag carried as one extra scatter channel. Inference only,
-    so no autograd graph is recorded."""
-    if pfn.training or len(pfn.pfn_layers) > 2:
-        raise NotImplementedError(
-            "the port's pillar canvas is eval-only with 1-2 PFN layers; "
-            "training arrives with PointPillars train (ROADMAP.md, queue 1, "
-            "item 4)")
-    keys, pts_t = sort_points_by_cell(points, voxelizer.voxel_size,
-                                      voxelizer.point_cloud_range)
-    w1t, b1, w2t, b2 = pfn_folded_weights(pfn)
+def _place(keys, rows_t, middle_encoder, with_occupancy):
+    """Channel-major rows [B, C(+1), N] → canvas [B, ny, nx, C]
+    (+ occupancy [B, ny, nx])."""
     ny, nx = middle_encoder.ny, middle_encoder.nx
-    b = points.shape[0]
-    rows_t = fused_pfn_rows(
-        keys, pts_t, w1t, b1, w2t, b2,
-        n_layers=len(pfn.pfn_layers),
-        P=pfn.max_num_points_in_voxel,
-        maxV=voxelizer.max_num_voxels_for(False),
-        nx=nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset, y_off=pfn.y_offset,
-        with_distance=pfn.with_distance, occupancy=with_occupancy)
+    b = keys.shape[0]
     rows = rows_t.transpose(1, 2).contiguous()        # [B, N, C(+1)]
     if with_occupancy:
         table, occ = sorted_segment_sum_split(keys, rows, ny * nx)
         return table.reshape(b, ny, nx, -1), occ.reshape(b, ny, nx)
     return sorted_segment_sum(keys, rows, ny * nx).reshape(b, ny, nx, -1)
+
+
+def fused_pillar_canvas(voxelizer, pfn, middle_encoder,
+                        points: torch.Tensor, with_occupancy: bool = False):
+    """Points → canvas [B, ny, nx, C] (+ occupancy [B, ny, nx]).
+
+    The canvas keeps the JAX package's NHWC layout; the occupancy map is
+    the emission flag carried as one extra scatter channel. A PFN in eval
+    mode folds its BN from running stats and records no autograd graph; in
+    train mode (one PFN layer) the BN uses batch statistics, updates the
+    running stats as flax does, and the canvas is differentiable in the
+    PFN's weight and BN affine."""
+    if len(pfn.pfn_layers) > 2:
+        raise NotImplementedError(
+            "the port's pillar canvas takes 1-2 PFN layers")
+    if pfn.training:
+        return _canvas_train(voxelizer, pfn, middle_encoder, points,
+                             with_occupancy)
+    return _canvas_eval(voxelizer, pfn, middle_encoder, points,
+                        with_occupancy)
+
+
+@torch.no_grad()
+def _canvas_eval(voxelizer, pfn, middle_encoder, points, with_occupancy):
+    keys, pts_t = sort_points_by_cell(points, voxelizer.voxel_size,
+                                      voxelizer.point_cloud_range)
+    w1t, b1, w2t, b2 = pfn_folded_weights(pfn)
+    rows_t = fused_pfn.fused_pfn_rows(
+        keys, pts_t, w1t, b1, w2t, b2,
+        n_layers=len(pfn.pfn_layers),
+        P=pfn.max_num_points_in_voxel,
+        maxV=voxelizer.max_num_voxels_for(False),
+        nx=middle_encoder.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
+        y_off=pfn.y_offset, with_distance=pfn.with_distance,
+        occupancy=with_occupancy)
+    return _place(keys, rows_t, middle_encoder, with_occupancy)
+
+
+def _canvas_train(voxelizer, pfn, middle_encoder, points, with_occupancy):
+    """Port of _fused_pillar_canvas_pallas_train: K3 → batch-stat-folded
+    K1 → K2, with K4 and K5 as the backward."""
+    if len(pfn.pfn_layers) != 1:
+        raise NotImplementedError(
+            "the train-mode fused PFN takes one PFN layer; two arrive with "
+            "the CenterPoint-pillars slice (ROADMAP.md, queue 1, item 6)")
+    with torch.no_grad():
+        keys, pts_t = sort_points_by_cell(points, voxelizer.voxel_size,
+                                          voxelizer.point_cloud_range)
+    mlp = pfn.pfn_layers[0].mlp
+    bn = mlp.bn
+    rows_t, mu, var = fused_pfn_train_rows(
+        keys, pts_t, mlp.linear.weight, bn.weight, bn.bias,
+        P=pfn.max_num_points_in_voxel,
+        maxV=voxelizer.max_num_voxels_for(True),
+        nx=middle_encoder.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
+        y_off=pfn.y_offset, with_distance=pfn.with_distance,
+        occupancy=with_occupancy, eps=bn.eps)
+    with torch.no_grad():
+        # flax running-stat update: mean <- 0.99 mean + 0.01 mu (momentum
+        # 0.01 in torch's convention), var with the biased batch variance
+        keep = 1.0 - bn.momentum
+        bn.running_mean.copy_(keep * bn.running_mean + bn.momentum * mu)
+        bn.running_var.copy_(keep * bn.running_var + bn.momentum * var)
+        bn.num_batches_tracked.add_(1)
+    return _place(keys, rows_t, middle_encoder, with_occupancy)

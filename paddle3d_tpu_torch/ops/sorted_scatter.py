@@ -1,17 +1,21 @@
-"""Sorted-key segment sum: the sparse → dense placement of the pillar canvas.
+"""Sorted-key segment sum: the sparse → dense placement of the pillar canvas,
+and its VJP.
 
-Port of paddle3d_tpu/ops/pallas/sorted_scatter.py (sorted_segment_sum and
-sorted_segment_sum_split, whose TPU kernel is `_kernel`). On a CUDA tensor
-the wrappers launch the hand-written kernel in csrc/sorted_scatter.cu
-(whose header says what bounds it and how it is built); on a CPU tensor
-they take the plain PyTorch version beside it.
+Port of paddle3d_tpu/ops/pallas/sorted_scatter.py: sorted_segment_sum and
+sorted_segment_sum_split (TPU kernel `_kernel`, K2) with their custom VJP,
+the sorted table gather (TPU kernel `_kernel_tg`, K5). On a CUDA tensor
+`scatter_rows` and `sorted_table_gather` launch the hand-written kernels
+in csrc/sorted_scatter.cu (whose header says what bounds them and how they
+are built); on a CPU tensor they take the plain PyTorch versions beside
+them. The two public functions are one torch.autograd.Function over both.
 """
 import torch
 
 from . import _build
 
 __all__ = ["sorted_segment_sum", "sorted_segment_sum_split",
-           "sorted_segment_sum_plain"]
+           "sorted_segment_sum_plain", "scatter_rows", "scatter_rows_plain",
+           "sorted_table_gather", "sorted_table_gather_plain"]
 
 
 def sorted_segment_sum_plain(keys: torch.Tensor, rows: torch.Tensor,
@@ -27,6 +31,11 @@ def sorted_segment_sum_plain(keys: torch.Tensor, rows: torch.Tensor,
                       device=rows.device)
     acc.index_add_(0, tgt.reshape(-1), rows.reshape(b * n, c))
     return acc.view(b, num_cells + 1, c)[:, :num_cells]
+
+
+def scatter_rows_plain(keys, rows, num_cells: int, split: bool):
+    out = sorted_segment_sum_plain(keys, rows, num_cells)
+    return (out[..., :-1], out[..., -1:]) if split else out
 
 
 def _launch(keys, rows, num_cells, split):
@@ -58,23 +67,102 @@ def _launch(keys, rows, num_cells, split):
     return (out, extra) if split else out
 
 
+def scatter_rows(keys, rows, num_cells: int, split: bool):
+    """The forward without autograd: K2 on a CUDA tensor, its plain version
+    on a CPU one. -> table [B, cells, C], or (table [B, cells, C-1],
+    last channel [B, cells, 1]) when split."""
+    if not keys.is_cuda:
+        return scatter_rows_plain(keys, rows, num_cells, split)
+    return _launch(keys, rows, num_cells, split)
+
+
+def sorted_table_gather_plain(keys, g, g_extra, num_cells: int, c: int):
+    """Plain version of K5: a torch.gather of the table rows the keys name,
+    zero where a key lies outside [0, num_cells)."""
+    inside = (keys >= 0) & (keys < num_cells)
+    safe = torch.where(inside, keys, 0).long()
+    parts = [torch.gather(g, 1, safe[..., None].expand(-1, -1, g.shape[-1]))]
+    if c > g.shape[-1]:
+        parts.append(torch.zeros_like(parts[0][..., :1]) if g_extra is None
+                     else torch.gather(g_extra, 1, safe[..., None]))
+    rows = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    return torch.where(inside[..., None], rows, 0.)
+
+
+def sorted_table_gather(keys, g, g_extra, num_cells: int, c: int):
+    """grad_rows [B, N, c] = [g | g_extra][b, keys[b, i]] (the scatter's
+    VJP), zero where a key lies outside [0, num_cells).
+
+    g [B, cells, c_main] with c_main = c or c - 1; g_extra [B, cells, 1]
+    carries channel c - 1 in the split form, None for a zero cotangent.
+    Both may be strided views."""
+    if not keys.is_cuda:
+        return sorted_table_gather_plain(keys, g, g_extra, num_cells, c)
+    b, n = keys.shape
+    c_main = g.shape[-1]
+    if keys.dtype != torch.int32 or g.dtype != torch.float32 or (
+            g_extra is not None and g_extra.dtype != torch.float32):
+        raise TypeError("sorted_table_gather kernel takes int32 keys and "
+                        "an f32 cotangent")
+    if g.shape[:2] != (b, num_cells) or c_main not in (c, c - 1) or (
+            g_extra is not None and g_extra.shape != (b, num_cells, 1)):
+        raise ValueError("cotangent shapes {} / {} do not fit keys {} and "
+                         "{} cells".format(
+                             tuple(g.shape), None if g_extra is None else
+                             tuple(g_extra.shape), tuple(keys.shape),
+                             num_cells))
+    if not keys.is_contiguous() or any(
+            t is not None and t.device != keys.device for t in (g, g_extra)):
+        raise ValueError("sorted_table_gather needs contiguous keys and "
+                         "tensors on one device")
+    out = torch.empty((b, n, c), dtype=torch.float32, device=keys.device)
+    es = g_extra.stride()[:2] if g_extra is not None else (0, 0)
+    err = _build.library().p3d_sorted_table_gather(
+        keys.data_ptr(), g.data_ptr(), *g.stride(),
+        g_extra.data_ptr() if g_extra is not None else None, *es,
+        out.data_ptr(), b, n, c, c_main, num_cells,
+        _build.stream_ptr(keys.device))
+    _build.check(err, "sorted_table_gather")
+    _build.LAUNCHES["sorted_table_gather"] += 1
+    return out
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    """rows -> table, with the table gather as its VJP; the keys get no
+    gradient. In the split form the last channel's cotangent may be None
+    (the occupancy feeds only a mask): it then gives zero rows."""
+
+    @staticmethod
+    def forward(ctx, keys, rows, num_cells, split):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(keys)
+        ctx.num_cells, ctx.c = num_cells, rows.shape[-1]
+        return scatter_rows(keys, rows, num_cells, split)
+
+    @staticmethod
+    def backward(ctx, g, g_extra=None):
+        keys, = ctx.saved_tensors
+        if g is None:
+            if g_extra is None:
+                return None, None, None, None
+            b, cells = g_extra.shape[:2]
+            g = g_extra.new_zeros((b, cells, ctx.c - 1))
+        return (None, sorted_table_gather(keys, g, g_extra, ctx.num_cells,
+                                          ctx.c), None, None)
+
+
 def sorted_segment_sum(keys: torch.Tensor, rows: torch.Tensor,
                        num_cells: int) -> torch.Tensor:
     """out[b, c] = Σ_{i: keys[b,i]==c} rows[b,i]   for c in [0, num_cells).
 
     keys: [B, N] int32, sorted ascending per batch row; keys outside
     [0, num_cells) are dropped. rows: [B, N, C]. Returns [B, num_cells, C].
-    """
-    if not keys.is_cuda:
-        return sorted_segment_sum_plain(keys, rows, num_cells)
-    return _launch(keys, rows, num_cells, split=False)
+    Differentiable in rows."""
+    return _SortedSegmentSum.apply(keys, rows, num_cells, False)
 
 
 def sorted_segment_sum_split(keys: torch.Tensor, rows: torch.Tensor,
                              num_cells: int):
     """Like sorted_segment_sum, but the LAST channel comes back as its own
     [B, num_cells, 1] tensor (the canvas's occupancy side channel)."""
-    if not keys.is_cuda:
-        out = sorted_segment_sum_plain(keys, rows, num_cells)
-        return out[..., :-1], out[..., -1:]
-    return _launch(keys, rows, num_cells, split=True)
+    return _SortedSegmentSum.apply(keys, rows, num_cells, True)

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "to_torch_names"]
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var"}
@@ -39,11 +39,13 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
         type(module).__name__))
 
 
-def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
-    """Fill `model` from {dotted nnx path: array}, e.g.
-    "backbone.blocks.0.0.conv.kernel". Raises on an unknown path, a shape
-    mismatch, or a torch parameter or running stat left unfilled."""
-    filled = set()
+def to_torch_names(model: nn.Module,
+                   flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """{dotted nnx path: array} -> {torch state name: tensor in torch
+    layout}, without loading it: e.g. the JAX package's gradients, to hold
+    against the port's `.grad`s. Raises on an unknown path or a shape that
+    does not fit `model`."""
+    out = {}
     for path, value in flat.items():
         prefix, _, leaf = path.rpartition(".")
         module = model.get_submodule(prefix)
@@ -52,9 +54,21 @@ def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
         if tuple(target.shape) != arr.shape:
             raise ValueError("{}: torch {} vs converted {}".format(
                 path, tuple(target.shape), arr.shape))
-        with torch.no_grad():
-            target.copy_(torch.from_numpy(arr.copy()))  # own strides
-        filled.add("{}.{}".format(prefix, name))
+        out["{}.{}".format(prefix, name)] = torch.from_numpy(
+            arr.copy())  # own strides
+    return out
+
+
+def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Fill `model` from {dotted nnx path: array}, e.g.
+    "backbone.blocks.0.0.conv.kernel". Raises on an unknown path, a shape
+    mismatch, or a torch parameter or running stat left unfilled."""
+    converted = to_torch_names(model, flat)
+    with torch.no_grad():
+        for name, value in converted.items():
+            prefix, _, leaf = name.rpartition(".")
+            getattr(model.get_submodule(prefix), leaf).copy_(value)
+    filled = set(converted)
     expected = {k for k in model.state_dict()
                 if not k.endswith("num_batches_tracked")}
     missing = sorted(expected - filled)

@@ -6,14 +6,18 @@ installed; tests/conftest.py imports jax, so run it there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from paddle3d_tpu_torch.ops import _build, fused_pfn, sorted_scatter
+from paddle3d_tpu_torch.ops import (_build, fused_pfn, fused_pfn_train,
+                                    sorted_scatter)
 from paddle3d_tpu_torch.ops.pillar_ops import sort_points_by_cell
 
 SENT = 2**31 - 1
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -54,14 +58,15 @@ def test_sorted_segment_sum_matches_plain(cuda, split):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("P,maxV,c_in,with_distance", [
+PFN_CASES = [
     (32, 40000, 4, False),     # the KITTI settings
     (8, 300, 4, False),        # many pillars over P, the cap firing
     (8, 300, 5, True),
-])
-def test_fused_pfn_rows_matches_plain(cuda, P, maxV, c_in, with_distance):
+]
+
+
+def _pfn_inputs(cuda, P, maxV, c_in, with_distance, b=2, n=20000):
     rng = np.random.default_rng(P + maxV)
-    b, n = 2, 20000
     lo = np.array([0., -39.68, -3., 0., 0.])[:c_in]
     hi = np.array([69.12, 39.68, 1., 1., .5])[:c_in]
     pts = rng.uniform(lo, hi, (b, n, c_in)).astype(np.float32)
@@ -78,9 +83,23 @@ def test_fused_pfn_rows_matches_plain(cuda, P, maxV, c_in, with_distance):
         np.float32)).to(cuda)
     b1 = torch.from_numpy(rng.normal(0, .1, (64, 1)).astype(
         np.float32)).to(cuda)
-    kw = dict(n_layers=1, P=P, maxV=maxV, nx=432, vx=0.16, vy=0.16,
-              x_off=0.08, y_off=-39.6, with_distance=with_distance,
-              occupancy=True)
+    kw = dict(P=P, maxV=maxV, nx=432, vx=0.16, vy=0.16, x_off=0.08,
+              y_off=-39.6, with_distance=with_distance)
+    return rng, keys, pts_t, w1t, b1, kw
+
+
+def _close(got, ref, tol):
+    """Sums of many terms in another order: the largest error within tol
+    of the output's largest magnitude."""
+    err = (got - ref).abs().max().item()
+    assert err <= tol * max(ref.abs().max().item(), 1e-30), (err, tol)
+
+
+@pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES)
+def test_fused_pfn_rows_matches_plain(cuda, P, maxV, c_in, with_distance):
+    _, keys, pts_t, w1t, b1, kw = _pfn_inputs(cuda, P, maxV, c_in,
+                                              with_distance)
+    kw.update(n_layers=1, occupancy=True)
     before = _build.LAUNCHES["fused_pfn_rows"]
     got = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
     torch.cuda.synchronize()
@@ -102,3 +121,100 @@ def test_fused_pfn_two_layers_raise_on_card(cuda):
                                                           device=cuda),
             torch.zeros((8, 1), device=cuda), n_layers=2, P=4, maxV=10,
             nx=4, vx=1., vy=1., x_off=.5, y_off=.5)
+
+
+@pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES)
+def test_pfn_stats_matches_plain(cuda, P, maxV, c_in, with_distance):
+    _, keys, pts_t, w1t, _, kw = _pfn_inputs(cuda, P, maxV, c_in,
+                                             with_distance)
+    before = _build.LAUNCHES["pfn_stats"]
+    got = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfn_stats"] == before + 1
+    ref = fused_pfn_train.pfn_stats_plain(keys, pts_t, w1t, **kw)
+    assert got[2].item() == ref[2].item() > 0       # kept rows, exact
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-9)          # exact f64 products, f64 sums
+
+
+@pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES)
+def test_pfn_bwd_matches_plain(cuda, P, maxV, c_in, with_distance):
+    rng, keys, pts_t, w1t, _, kw = _pfn_inputs(cuda, P, maxV, c_in,
+                                               with_distance)
+    u1, n = w1t.shape[0], keys.shape[1]
+    s1, s2, _, _, _ = fused_pfn_train.pfn_stats_plain(keys, pts_t, w1t, **kw)
+    mu = (s1 / keys.numel()).float()
+    invsig = torch.rsqrt((s2 / keys.numel() - (s1 / keys.numel()) ** 2)
+                         .float() + 1e-3)
+    a = invsig * torch.from_numpy(rng.uniform(.5, 1.5, u1).astype(
+        np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(0, .5, u1).astype(np.float32)).to(cuda)
+    # the cotangent as autograd hands it over: a [B, C, N] view of
+    # [B, N, C] rows, the occupancy channel included
+    g_t = torch.from_numpy(rng.normal(0, 1, (2, n, u1 + 1)).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    args = (keys, pts_t, g_t, w1t, a, c, mu, invsig)
+    before = _build.LAUNCHES["pfn_bwd"]
+    got = fused_pfn_train.pfn_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pfn_bwd"] == before + 1
+    ref = fused_pfn_train.pfn_bwd_plain(*args, **kw)
+    assert (ref[0] != 0).any()
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-9)          # exact f64 products, f64 sums
+
+
+@pytest.mark.parametrize("split,extra", [(False, False), (True, True),
+                                         (True, False)])
+def test_sorted_table_gather_matches_plain(cuda, split, extra):
+    keys, _ = _scatter_inputs(2, c=1)
+    keys = keys.to(cuda)
+    b, cells, c = keys.shape[0], 214272, 65
+    rng = np.random.default_rng(5)
+    # channel-major, as the canvas cotangent arrives from the NCHW backbone
+    g = torch.from_numpy(rng.normal(0, 1, (b, c, cells)).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    g_main = g[..., :-1] if split else g
+    g_extra = g[..., -1:] if extra else None
+    before = _build.LAUNCHES["sorted_table_gather"]
+    got = sorted_scatter.sorted_table_gather(keys, g_main, g_extra, cells, c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_table_gather"] == before + 1
+    ref = sorted_scatter.sorted_table_gather_plain(keys, g_main, g_extra,
+                                                   cells, c)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)   # a gather
+    assert not got[keys == SENT].any()
+    if split and not extra:
+        assert not got[..., -1].any()
+
+
+def test_train_canvas_on_card_matches_cpu(cuda):
+    """The tiny config's train-mode canvas, K1-K5 on the card against the
+    plain versions on the CPU: canvas, occupancy, running stats and the
+    PFN grads."""
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
+    path = os.path.join(REPO, "configs", "pointpillars",
+                        "pointpillars_synthetic_tiny.yml")
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform([0, -16, -2, 0], [32, 16, 2, 1],
+                                       (2, 1024, 4)).astype(np.float32))
+    pts[:, :400, :2] = pts[:, :1, :2] + torch.from_numpy(rng.normal(
+        0, .2, (2, 400, 2)).astype(np.float32))     # pillars over P
+    results = []
+    for device in ("cpu", cuda):
+        model = Config(path=path).model.train().to(device)
+        mods = (model.voxelizer, model.pillar_encoder, model.middle_encoder)
+        canvas, occ = fused_pillar_canvas(*mods, pts.to(device),
+                                          with_occupancy=True)
+        w = torch.from_numpy(rng.normal(0, 1, canvas.shape).astype(
+            np.float32)) if device == "cpu" else w.to(device)
+        (canvas * w).sum().backward()
+        mlp = model.pillar_encoder.pfn_layers[0].mlp
+        results.append([t.detach().cpu() for t in (
+            canvas, occ, mlp.bn.running_mean, mlp.bn.running_var,
+            mlp.linear.weight.grad, mlp.bn.weight.grad, mlp.bn.bias.grad)])
+    cpu, card = results
+    torch.testing.assert_close(card[1], cpu[1], rtol=0, atol=0)
+    for got, ref in zip(card[:1] + card[2:], cpu[:1] + cpu[2:]):
+        _close(got, ref, 1e-5)

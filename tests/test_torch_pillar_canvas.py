@@ -107,6 +107,11 @@ def test_canvas_without_occupancy_and_train_mode():
     with_occ, _ = fused_pillar_canvas(vox, pfn, mid, pts,
                                       with_occupancy=True)
     torch.testing.assert_close(canvas, with_occ, rtol=0, atol=0)
+    assert not canvas.requires_grad
+    # train mode: batch-stat BN, a differentiable canvas, running stats
+    # updated (tests/test_torch_fused_pfn_train.py holds it against JAX)
     pfn.train()
-    with pytest.raises(NotImplementedError, match="PointPillars train"):
-        fused_pillar_canvas(vox, pfn, mid, pts)
+    before = pfn.pfn_layers[0].mlp.bn.running_mean.clone()
+    canvas = fused_pillar_canvas(vox, pfn, mid, pts)
+    assert canvas.shape == (2, 20, 32, 16) and canvas.requires_grad
+    assert not torch.equal(pfn.pfn_layers[0].mlp.bn.running_mean, before)

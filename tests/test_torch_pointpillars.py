@@ -22,6 +22,7 @@ from flax import nnx
 from paddle3d_tpu.apis.config import Config as JaxConfig
 from paddle3d_tpu.ops import box_ops as jax_box_ops
 from paddle3d_tpu_torch.apis import Config
+from paddle3d_tpu_torch.models.detection.pointpillars import PointPillarsLoss
 from paddle3d_tpu_torch.ops import box_ops
 from paddle3d_tpu_torch.utils.convert import load_jax_params
 
@@ -136,8 +137,14 @@ def test_entry_points(models):
     out = model.export_forward({"data": pts})
     scores = out["scores"].numpy()
     assert np.all((scores >= 0) | (scores == -1))
-    with pytest.raises(NotImplementedError, match="PointPillars-train"):
-        model.train_forward({"data": pts})
+    boxes = np.zeros((2, 3, 7), np.float32)
+    boxes[..., :3] = [10., 0., -1.]
+    boxes[..., 3:6] = [1.6, 3.9, 1.56]
+    losses = model.train_forward({
+        "data": pts, "gt_boxes": torch.from_numpy(boxes),
+        "gt_labels": torch.tensor([[0, 0, -1], [0, -1, -1]])})
+    assert set(losses) == {"loss", "loss_cls", "loss_reg", "loss_dir"}
+    assert all(np.isfinite(v.item()) for v in losses.values())
 
 
 def test_port_imports_no_jax():
@@ -159,8 +166,7 @@ def test_port_imports_no_jax():
 
 def test_config_base_merge_and_dropped_keys(tmp_path, caplog):
     """`_base_` merges a child YAML over its base; a key the component does
-    not take is dropped with a warning; the training-only `loss` is left
-    unbuilt."""
+    not take is dropped with a warning; the training `loss` is built."""
     child = tmp_path / "child.yml"
     child.write_text(
         "_base_: {}\n"
@@ -173,7 +179,7 @@ def test_config_base_merge_and_dropped_keys(tmp_path, caplog):
     assert model.head.nms_post_max_size == 20
     assert model.head.nms_pre_max_size == 512        # from the base
     assert "lr_mult_list" in caplog.text
-    assert not hasattr(model, "loss")
+    assert isinstance(model.loss, PointPillarsLoss)
 
 
 def test_box_ops_match_jax():
