@@ -5,14 +5,18 @@
 
 drives the port's main paths, PointPillars-KITTI inference and training
 (configs/pointpillars/pointpillars_xyres16_kitti_car.yml, full width, seeded
-random weights) on 8 scans of 20,000 clustered points, in phases; any
-failing phase exits non-zero and prints no result:
+random weights) on 8 scans of 20,000 clustered points, and
+CenterPoint-pillars nuScenes serving
+(configs/centerpoint/centerpoint_pillars_02voxel_nuscenes_10sweep.yml, full
+width, seeded random weights) on 8 scans of 250,000, in phases; any failing
+phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
   2. each kernel against its plain PyTorch version on the card, at its
-     path's shapes (K1/K2 inference, K3/K4/K5 train), with the stated
-     tolerance; kernel and plain times;
+     path's shapes (K1/K2 inference, K3/K4/K5 train, the two-layer K1 and
+     K6 CenterPoint inference), with the stated tolerance; kernel, plain
+     and library-call times and each kernel's bound;
   3. the model's test_forward (eval BatchNorm) through the kernels (launch
      counters must move), then again with the plain versions swapped in:
      the outputs must agree; the tiny config's canvas on the card against
@@ -25,7 +29,13 @@ failing phase exits non-zero and prints no result:
      grads and running stats must agree; the tiny config's train step on
      the card against the CPU path; 10 steps on the fixed batch (finite
      losses, the last below the first); train scans/s of both paths; peak
-     memory and a profile of one step.
+     memory and a profile of one step;
+  6. CenterPoint-nuScenes serving: test_forward through the kernels (the
+     two-layer K1 and K6 counters must move, K2's must not; pillars before
+     and after the max_voxels cap, the longest segment and the boxes NMS
+     keeps are logged), then on the plain versions (the outputs must
+     agree); 20 timed iterations of each path (scans/s), peak memory, a
+     profile and the time of each stage of the forward.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -45,7 +55,15 @@ KITTI = os.path.join(REPO, "configs", "pointpillars",
                      "pointpillars_xyres16_kitti_car.yml")
 TINY = os.path.join(REPO, "configs", "pointpillars",
                     "pointpillars_synthetic_tiny.yml")
+NUSCENES = os.path.join(REPO, "configs", "centerpoint",
+                        "centerpoint_pillars_02voxel_nuscenes_10sweep.yml")
 BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
+CP_POINTS = 250000
+SENT = 2**31 - 1
+
+# H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM bytes/s, and
+# f32 / f64 FLOP/s outside the tensor cores
+HBM_BYTES_S, F32_FLOP_S, F64_FLOP_S = 3.35e12, 67e12, 34e12
 
 # kernel -> (source, replaced TPU kernel, tolerance against the plain
 # version). K1 runs the plain version's arithmetic in the same order
@@ -66,8 +84,18 @@ KERNELS = {
     "sorted_table_gather": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                             "paddle3d_tpu/ops/pallas/sorted_scatter.py:1315",
                             0.0),
+    # the two-layer branch of K1 (bit-equal by design, as K1) and K6 (one
+    # non-zero row per cell on its path: exact)
+    "fused_pfn_rows_2l": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
+                          "paddle3d_tpu/ops/pallas/fused_pfn.py:156", 1e-5),
+    "sorted_segment_sum_cm": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
+                              "paddle3d_tpu/ops/pallas/sorted_scatter.py:568",
+                              0.0),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
+TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
+                                 "sorted_table_gather")
+CP_KERNELS = ("fused_pfn_rows_2l", "sorted_segment_sum_cm")
 
 
 class PhaseError(RuntimeError):
@@ -98,12 +126,36 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, f32_ops=0, f64_ops=0):
+    """The least time (ms) the card could take for work that moves nbytes
+    and does the given operations: -> (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = (f32_ops / F32_FLOP_S + f64_ops / F64_FLOP_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def segments(keys, P, maxV):
+    """Pillar statistics of sorted keys [B, N]: -> dict of per-scan pillar
+    counts before and after the max_voxels cap, kept rows (at most P per
+    pillar within the cap) and the longest segment (rows of one cell)."""
+    import torch
+    out = {"pillars": [], "capped": [], "kept": 0, "longest": 0}
+    for row in keys:
+        _, cnt = torch.unique_consecutive(row[row != SENT],
+                                          return_counts=True)
+        out["pillars"].append(int(cnt.numel()))
+        out["capped"].append(min(int(cnt.numel()), maxV))
+        out["kept"] += int(cnt[:maxV].clamp(max=P).sum())
+        out["longest"] = max(out["longest"], int(cnt.max()))
+    return out
+
+
 @contextlib.contextmanager
 def plain_path():
-    """The model with all five kernels swapped for their plain versions
+    """The model with all seven kernels swapped for their plain versions
     (forward and backward)."""
     from paddle3d_tpu_torch.ops import fused_pfn, fused_pfn_train, \
-        sorted_scatter
+        pillar_ops, sorted_scatter
     with mock.patch.multiple(
             fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
             mock.patch.multiple(
@@ -111,7 +163,10 @@ def plain_path():
                 pfn_bwd=fused_pfn_train.pfn_bwd_plain), \
             mock.patch.multiple(
                 sorted_scatter, scatter_rows=sorted_scatter.scatter_rows_plain,
-                sorted_table_gather=sorted_scatter.sorted_table_gather_plain):
+                sorted_table_gather=sorted_scatter.sorted_table_gather_plain), \
+            mock.patch.multiple(
+                pillar_ops, sorted_segment_sum_cm=(
+                    sorted_scatter.sorted_segment_sum_cm_plain)):
         yield
 
 
@@ -186,14 +241,42 @@ def phase_kernels(model, points):
         "maxV=40000 cells={} C=65 (split), pillars emitted per scan {}"
         .format(BATCH, POINTS, cells,
                 rows_t[:, -1].sum(dim=1).int().tolist()))
-    for name in INFER_KERNELS:
+    # yardsticks: one PyTorch call for the same function where there is
+    # one (index_add_ for K2, none for K1), and each kernel's bound
+    seg = segments(keys, kw["P"], kw["maxV"])
+    inside = (keys >= 0) & (keys < cells)
+    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
+        BATCH, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
+    acc = torch.zeros((BATCH * (cells + 1), rows.shape[-1]),
+                      device=keys.device)
+    rows2d = rows.reshape(-1, rows.shape[-1])
+    extra = {
+        "fused_pfn_rows": (None,) + bound(
+            4 * (keys.numel() + pts_t.numel() + rows_t.numel()),
+            f32_ops=seg["kept"] * 2 * w1t.numel()),
+        "sorted_segment_sum": (
+            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 10),) + bound(
+                4 * (keys.numel() + rows.numel() + table.numel() +
+                     occ.numel())),
+    }
+    report(INFER_KERNELS, errs, times, extra)
+    return errs, times, extra
+
+
+def report(names, errs, times, extra):
+    """Log each kernel's error against its tolerance and its times; fail
+    past the tolerance."""
+    for name in names:
         tol = KERNELS[name][2]
         ms, plain_ms = times[name]
+        lib_ms, bound_ms, bound_by = extra[name]
         log("  {}: max_abs_err {:.3e} (tolerance {:.0e}), {:.4f} ms vs "
-            "plain {:.4f} ms".format(name, errs[name], tol, ms, plain_ms))
+            "plain {:.4f} ms, library call {}, bound {:.4f} ms ({})".format(
+                name, errs[name], tol, ms, plain_ms,
+                "none" if lib_ms is None else "{:.4f} ms".format(lib_ms),
+                bound_ms, bound_by))
         check(errs[name] <= tol, "{} disagrees with its plain version"
               .format(name))
-    return errs, times
 
 
 def check_outputs(out):
@@ -252,7 +335,7 @@ def phase_tiny_canvas():
 
     from paddle3d_tpu_torch.apis import Config
     from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
-    model = Config(path=TINY).model.eval()
+    model = Config(path=TINY, device="cpu").model.eval()
     rng = np.random.default_rng(SEED)
     pts = torch.from_numpy(rng.uniform([0, -16, -2, 0], [32, 16, 2, 1],
                                        (2, 1024, 4)).astype(np.float32))
@@ -278,7 +361,7 @@ def timed_scans_per_s(model, points, iters):
     return BATCH * iters / (time.perf_counter() - t0)
 
 
-def phase_timing(model, points):
+def phase_timing(model, points, phase="phase 4"):
     import torch
     # timing runs as a server would: cuDNN free to pick (and autotune) its
     # fastest algorithms for the fixed shapes; TF32 stays off
@@ -300,10 +383,10 @@ def phase_timing(model, points):
                 rates[path].append(timed_scans_per_s(model, points, half))
     rate = {k: BATCH * ITERS / sum(BATCH * half / r for r in v)
             for k, v in rates.items()}
-    log("phase 4: {} iterations of batch {} (kernel/plain/plain/kernel "
+    log("{}: {} iterations of batch {} (kernel/plain/plain/kernel "
         "halves, cudnn.benchmark on): kernel path {:.2f} scans/s, plain "
         "path {:.2f} scans/s; halves {}".format(
-            ITERS, BATCH, rate["kernels"], rate["plain"],
+            phase, ITERS, BATCH, rate["kernels"], rate["plain"],
             {k: [round(x, 2) for x in v] for k, v in rates.items()}))
     torch.cuda.reset_peak_memory_stats()
     model.test_forward({"data": points})
@@ -336,8 +419,9 @@ def profile(fn, iters):
         log("  profile: no device time in the trace (not measured)")
         return
     log("  profile per iteration: wall {:.3f} ms, device busy {:.3f} ms "
-        "(idle share {:.3f}); top device ops:".format(
-            wall_ms, dev_ms, 1 - dev_ms / wall_ms))
+        "in {} kernel launches (idle share {:.3f}); top device ops:".format(
+            wall_ms, dev_ms, sum(e.count for e in events) // iters,
+            1 - dev_ms / wall_ms))
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:12]:
         log("    {:9.3f} ms  x{:<5d} {}".format(
@@ -432,17 +516,46 @@ def phase_train_kernels(model, points):
     log("  train kernels at B={} N={} C_dec=9 u1=64 P=32 maxV=16000 "
         "cells={} C=65: kept rows {:.0f}".format(BATCH, POINTS, cells,
                                                  stats[2].item()))
-    for name in ("pfn_stats", "pfn_bwd", "sorted_table_gather"):
+    seg = segments(keys, kw["P"], kw["maxV"])
+    check(seg["kept"] == int(stats[2].item()), "kept-row count")
+    u1, c_dec = w1t.shape
+    kept, emitted = seg["kept"], sum(seg["capped"])
+    inside = (keys >= 0) & (keys < cells)
+    c_main = g_canvas.shape[-1]
+    safe = torch.where(inside, keys, 0).long()[..., None].expand(
+        -1, -1, c_main)
+    # K3/K4: f32 products (z = W1 x, and t = a z + c in K4) and f64 sums;
+    # K4 needs the cotangent at emission rows only; K5 reads the table rows
+    # its keys name
+    extra = {
+        "pfn_stats": (None,) + bound(
+            4 * (keys.numel() + pts_t.numel()),
+            f32_ops=kept * 2 * u1 * c_dec,
+            f64_ops=kept * (3 * u1 + 2 * c_dec * u1 + c_dec)),
+        "pfn_bwd": (None,) + bound(
+            4 * (keys.numel() + pts_t.numel() + emitted * u1),
+            f32_ops=kept * 2 * u1 * (c_dec + 1),
+            f64_ops=kept * (3 * u1 + 2 * c_dec * u1)),
+        "sorted_table_gather": (
+            cuda_ms(lambda: torch.gather(g_canvas, 1, safe), 10),) + bound(
+                4 * (keys.numel() + int(inside.sum()) * c_main +
+                     rows.numel())),
+    }
+    names = ("pfn_stats", "pfn_bwd", "sorted_table_gather")
+    for name in names:
         tol = KERNELS[name][2]
         ms, plain_ms = times[name]
+        lib_ms, bound_ms, bound_by = extra[name]
         log("  {}: max_abs_err {:.3e} (tolerance {}), {:.4f} ms vs plain "
-            "{:.4f} ms".format(
+            "{:.4f} ms, library call {}, bound {:.4f} ms ({})".format(
                 name, errs[name], "{:.0e} of each output's largest value"
                 .format(tol) if name != "sorted_table_gather" else "0",
-                ms, plain_ms))
+                ms, plain_ms,
+                "none" if lib_ms is None else "{:.4f} ms".format(lib_ms),
+                bound_ms, bound_by))
     check(errs["sorted_table_gather"] == 0.0,
           "sorted_table_gather disagrees with its plain version")
-    return errs, times
+    return errs, times, extra
 
 
 def make_train_batch(device, points=None):
@@ -575,7 +688,7 @@ def phase_train(points):
         "losses {}; launches {}; plain step launches {}".format(
             {k: round(v, 5) for k, v in kernel[0].items()}, launches,
             plain[3]))
-    check(all(launches[name] > 0 for name in KERNELS),
+    check(all(launches[name] > 0 for name in TRAIN_KERNELS),
           "the train path missed a kernel: {}".format(launches))
     check(not any(plain[3].values()), "the plain step launched a kernel")
     errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6)
@@ -623,6 +736,225 @@ def phase_train(points):
     return launches
 
 
+def make_cp_points(device):
+    """8 nuScenes-like scans of 250,000 clustered (x, y, z, intensity, dt)
+    points (bench.make_scans, seed 0)."""
+    import numpy as np
+    import torch
+
+    import bench
+    _, n, (lo, hi), _ = bench.MODELS["centerpoint"]
+    pts = bench.make_scans(np.random.default_rng(SEED), BATCH, n, lo, hi,
+                           "clustered")
+    check(pts.shape == (BATCH, CP_POINTS, 5), "unexpected scan shape")
+    return torch.from_numpy(pts).to(device)
+
+
+def build_centerpoint(device):
+    """The nuScenes config at full width, seeded random weights, eval. The
+    conv kernels are scaled by sqrt(6): with uniform(±1/sqrt(fan_in))
+    weights the activations shrink ~3x a layer through the 19-conv stack,
+    which would leave a flat heatmap; the gain keeps their variance under
+    relu, so the head sees the scene and the NMS has work."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    model = Config(path=NUSCENES, device=device).model.eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.mul_(6 ** 0.5)
+    return model
+
+
+def phase_cp_kernels(model, points):
+    """The two-layer K1 and K6 against their plain versions at the
+    CenterPoint-nuScenes shapes: K6 on the path's own rows (one non-zero
+    row per cell: exact) and on random rows (sums in another order)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn, pillar_ops, sorted_scatter
+    vox, pfn, mid = model.voxelizer, model.voxel_encoder, \
+        model.middle_encoder
+    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
+                                                 vox.point_cloud_range)
+    w1t, b1, w2t, b2 = pillar_ops.pfn_folded_weights(pfn)
+    kw = dict(n_layers=2, P=pfn.max_num_points_in_voxel,
+              maxV=vox.max_num_voxels_for(False), nx=mid.nx, vx=pfn.vx,
+              vy=pfn.vy, x_off=pfn.x_offset, y_off=pfn.y_offset,
+              with_distance=pfn.with_distance, occupancy=False)
+    cells = mid.ny * mid.nx
+    check(tuple(w1t.shape) == (32, 10) and tuple(w2t.shape) == (64, 64) and
+          kw["P"] == 20 and kw["maxV"] == 60000 and cells == 512 * 512,
+          "not the CenterPoint-nuScenes PFN shapes")
+    check(pillar_ops.is_dense_scan(CP_POINTS, cells),
+          "the nuScenes scan is not dense")
+
+    rows_t = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, w2t, b2, **kw)
+    ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, w2t, b2,
+                                           **kw)
+    table = sorted_scatter.sorted_segment_sum_cm(keys, rows_t, cells)
+    ref_table = sorted_scatter.sorted_segment_sum_cm_plain(keys, rows_t,
+                                                           cells)
+    gen = torch.Generator(device=points.device).manual_seed(SEED)
+    rnd = torch.randn(rows_t.shape, generator=gen, device=points.device)
+    rnd_table = sorted_scatter.sorted_segment_sum_cm(keys, rnd, cells)
+    rnd_ref = sorted_scatter.sorted_segment_sum_cm_plain(keys, rnd, cells)
+    torch.cuda.synchronize()
+    check(tuple(table.shape) == (BATCH, cells, 64), "K6 output shape")
+    errs = {"fused_pfn_rows_2l": (rows_t - ref_t).abs().max().item(),
+            "sorted_segment_sum_cm": (table - ref_table).abs().max().item()}
+    rnd_err = (rnd_table - rnd_ref).abs().max().item()
+    rnd_scale = rnd_ref.abs().max().item()
+    seg = segments(keys, kw["P"], kw["maxV"])
+    log("phase 2 (CenterPoint): kernels vs plain at B={} N={} C_in=5 "
+        "C_dec=10 u1=32 u2=64 P=20 maxV=60000 cells={} C=64 (dense); "
+        "pillars per scan {} before the cap, {} after; kept rows {}; "
+        "longest segment {} rows".format(
+            BATCH, CP_POINTS, cells, seg["pillars"], seg["capped"],
+            seg["kept"], seg["longest"]))
+    log("  sorted_segment_sum_cm on random rows: max_abs_err {:.3e} against "
+        "a largest value of {:.3e} (tolerance 1e-5 of it: sums in another "
+        "order)".format(rnd_err, rnd_scale))
+    check(rnd_err <= 1e-5 * rnd_scale,
+          "sorted_segment_sum_cm disagrees with its plain version on random "
+          "rows")
+
+    u1, c_dec = w1t.shape
+    u2 = w2t.shape[0]
+    inside = (keys >= 0) & (keys < cells)
+    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
+        BATCH, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
+    acc = torch.zeros((BATCH * (cells + 1), u2), device=keys.device)
+    rows2d = rows_t.transpose(1, 2).reshape(-1, u2)    # a transposed copy
+    times = {
+        "fused_pfn_rows_2l": (
+            cuda_ms(lambda: fused_pfn.fused_pfn_rows(
+                keys, pts_t, w1t, b1, w2t, b2, **kw), 20),
+            cuda_ms(lambda: fused_pfn.fused_pfn_rows_plain(
+                keys, pts_t, w1t, b1, w2t, b2, **kw), 3)),
+        "sorted_segment_sum_cm": (
+            cuda_ms(lambda: sorted_scatter.sorted_segment_sum_cm(
+                keys, rows_t, cells), 20),
+            cuda_ms(lambda: sorted_scatter.sorted_segment_sum_cm_plain(
+                keys, rows_t, cells), 5)),
+    }
+    # K1: per kept row the W1 products and the y1 half of W2, per pillar
+    # the m1 half; K6 moves keys, rows and the dense table once each;
+    # library call: index_add_ on the rows transposed beforehand
+    extra = {
+        "fused_pfn_rows_2l": (None,) + bound(
+            4 * (keys.numel() + pts_t.numel() + rows_t.numel()),
+            f32_ops=2 * (seg["kept"] * (u1 * c_dec + u2 * u1) +
+                         sum(seg["capped"]) * u2 * u1)),
+        "sorted_segment_sum_cm": (
+            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 5),) + bound(
+                4 * (keys.numel() + rows_t.numel() + table.numel())),
+    }
+    report(CP_KERNELS, errs, times, extra)
+    return errs, times, extra, seg
+
+
+def check_cp_outputs(out, post):
+    import torch
+    boxes, scores, labels = (out["box3d_lidar"], out["scores"],
+                             out["label_preds"])
+    k = 6 * post
+    check(tuple(boxes.shape) == (BATCH, k, 9), "box3d_lidar shape")
+    check(tuple(scores.shape) == (BATCH, k) and
+          tuple(labels.shape) == (BATCH, k), "scores/labels shape")
+    check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
+          "non-finite outputs")
+    kept = scores >= 0
+    check(bool((scores[kept] >= 0.1).all() & (scores[~kept] == -1).all()),
+          "scores outside the threshold / padding convention")
+    check(bool(((labels[kept] >= 0) & (labels[kept] < 10)).all() &
+               (labels[~kept] == -1).all()),
+          "labels outside the ten classes / padding convention")
+    return kept.sum(dim=1).tolist()
+
+
+def phase_centerpoint(device):
+    """CenterPoint-nuScenes serving through the kernels and on the plain
+    versions, timing, memory and a profile."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = build_centerpoint(device)
+    points = make_cp_points(device)
+    errs, times, extra, _ = phase_cp_kernels(model, points)
+    post = model.test_cfg["nms"]["nms_post_max_size"]
+
+    _build.reset_launches()
+    out = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    kept = check_cp_outputs(out, post)
+    log("phase 6: CenterPoint-nuScenes test_forward through the kernels: "
+        "launches {}; boxes NMS kept per scan (of {} = 6 tasks x {}) {}"
+        .format(launches, 6 * post, post, kept))
+    check(all(launches[name] > 0 for name in CP_KERNELS),
+          "the CenterPoint path missed a kernel: {}".format(launches))
+    check(launches["sorted_segment_sum"] == 0,
+          "the dense nuScenes scan took the row-major scatter")
+    _build.reset_launches()
+    with plain_path():
+        ref = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          "the plain path launched a kernel: {}".format(_build.LAUNCHES))
+    check(torch.equal(out["label_preds"], ref["label_preds"]),
+          "labels differ from the plain path")
+    s_err = (out["scores"] - ref["scores"]).abs().max().item()
+    b_err = (out["box3d_lidar"] - ref["box3d_lidar"]).abs().max().item()
+    log("  vs the plain path on the card: labels equal, scores max_abs_err "
+        "{:.3e} (tolerance 1e-5), boxes {:.3e} (tolerance 1e-4)".format(
+            s_err, b_err))
+    check(s_err <= 1e-5 and b_err <= 1e-4, "outputs differ from plain path")
+    phase_timing(model, points, "phase 6")
+    cp_stages(model, points, 3)
+    return errs, times, extra, launches
+
+
+def cp_stages(model, points, iters):
+    """Host-clock ms of each stage of the CenterPoint test_forward, each
+    ended by a synchronize, averaged over `iters` calls after a warm-up."""
+    import torch
+
+    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def run():
+        out = []
+        t0 = time.perf_counter()
+        canvas = fused_pillar_canvas(model.voxelizer, model.voxel_encoder,
+                                     model.middle_encoder, points)
+        out.append(sync_ms(t0))
+        t0 = time.perf_counter()
+        feats = model.neck(model.backbone(
+            canvas.permute(0, 3, 1, 2).contiguous()))
+        out.append(sync_ms(t0))
+        t0 = time.perf_counter()
+        preds = model.bbox_head(feats)
+        out.append(sync_ms(t0))
+        t0 = time.perf_counter()
+        model.bbox_head.predict(preds, model.test_cfg)
+        out.append(sync_ms(t0))
+        return out
+
+    with torch.no_grad():
+        run()
+        ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
+    log("  stages per batch (host clock, synchronised): canvas {:.3f} ms, "
+        "backbone + neck {:.3f} ms, head convs {:.3f} ms, decode + NMS "
+        "{:.3f} ms".format(*ms))
+
+
 def main():
     try:
         import torch
@@ -655,23 +987,31 @@ def main():
         device = torch.device("cuda")
         model = Config(path=KITTI, device=device).model.eval()
         points = make_points(device)
-        errs, times = phase_kernels(model, points)
-        train_errs, train_times = phase_train_kernels(model, points)
-        errs.update(train_errs)
-        times.update(train_times)
+        errs, times, extra = phase_kernels(model, points)
+        for into, part in zip((errs, times, extra),
+                              phase_train_kernels(model, points)):
+            into.update(part)
         launches = phase_model(model, points)
         phase_tiny_canvas()
         phase_timing(model, points)
         del model
-        # K1/K2 counted on the inference path, K3-K5 on the train path
+        # K1/K2 counted on the KITTI inference path, K3-K5 on the train
+        # path, the two-layer K1 and K6 on the CenterPoint path
         launches = {**phase_train(points),
                     **{k: launches[k] for k in INFER_KERNELS}}
+        cp_errs, cp_times, cp_extra, cp_launches = phase_centerpoint(device)
+        for into, part in zip((errs, times, extra, launches),
+                              (cp_errs, cp_times, cp_extra,
+                               {k: cp_launches[k] for k in CP_KERNELS})):
+            into.update(part)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": extra[name][1], "bound_by": extra[name][2],
+         "library_ms": extra[name][0]}
         for name, (src, tpu, _) in KERNELS.items()]}
     log(card)
     log(json.dumps(record))

@@ -25,9 +25,11 @@ logger = logging.getLogger(__name__)
 
 
 class Config:
-    """Parse a YAML configuration and build its model with torch modules."""
+    """Parse a YAML configuration and build its model with torch modules,
+    on the card unless the caller passes device="cpu" (there is no fallback
+    to the CPU: without CUDA, building the model raises)."""
 
-    def __init__(self, path: str, device="cpu"):
+    def __init__(self, path: str, device="cuda"):
         if not os.path.exists(path):
             raise FileNotFoundError("Config file {} not found".format(path))
         if not (path.endswith("yml") or path.endswith("yaml")):

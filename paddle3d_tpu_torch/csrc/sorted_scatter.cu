@@ -1,4 +1,5 @@
-// Sorted-key segment sum (K2) and its VJP, the sorted table gather (K5).
+// Sorted-key segment sum (K2), its VJP, the sorted table gather (K5), and
+// its channel-major twin (K6).
 //
 // K2: out[b, cell] = sum of rows[b, i] over the rows with keys[b, i] ==
 // cell. Replaces the TPU kernel paddle3d_tpu/ops/pallas/sorted_scatter.py
@@ -37,6 +38,37 @@
 // [B, N, C] rows are written channel fastest. In the split form the last
 // channel comes from g_extra [B, cells] (strided alike), or is zero when
 // the occupancy had no cotangent (g_extra null).
+//
+// K6: the channel-major twin of K2, out[b, cell, ch] = sum of
+// rows_cm[b, ch, i] over i < N with keys[b, i] == cell. Replaces the TPU
+// kernels sorted_scatter.py:_kernel_cm (entry _sorted_segment_sum_cm) and
+// :_kernel_cmg (entry _sorted_segment_sum_cmg, its grouped variant), both
+// reached through sorted_segment_sum_cm on dense scans: the fused PFN's
+// native [B, C, N] rows go to the canvas with no transpose copy. rows_cm
+// may be a strided view wider than needed ([B, C', N'], C' >= c, N' >= N):
+// only the first c channels and N columns are read.
+//
+// What bounds it on the H100: bytes. At CenterPoint-nuScenes (8 scans x
+// 250,000 rows x 64 channels onto 512 x 512 cells) ~512 MB of rows are read
+// and ~537 MB of table written, the table dense (most cells near the
+// sensor are occupied), so every cell is written once by the kernel, empty
+// ones as zero, and no memset runs before it.
+//
+// Design: a block owns a tile of consecutive cells (64 at c = 64) and all
+// channels. Because the keys are sorted, the tile's rows are one contiguous
+// range and each cell's rows a contiguous segment of it; tile + 1 threads
+// find the segment bounds by binary search at once. The range is staged
+// through shared memory in chunks of 64 rows x c channels (reads coalesced
+// along the rows of a channel; the stride padded to 65 against bank
+// conflicts), and each thread keeps up to 16 (cell, channel) sums in
+// registers, channel fastest, adding its cell's rows of each chunk in row
+// order: deterministic, one writer per output, no atomics, and the
+// [B, cells, c] writes coalesced straight from the registers. A long
+// segment costs one chunk loop per 64 rows, with the cell's c threads busy.
+// With `extra` set (split form), the last channel goes to its own
+// [B, cells] buffer. The TPU kernels' one-hot MXU products, view windows,
+// cell-block groups and serial chunk DMAs are TPU workarounds and have no
+// counterpart here.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -140,6 +172,84 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kCmRows = 64;        // rows staged per chunk
+constexpr int kCmRowsPad = kCmRows + 1;
+constexpr int kCmPairs = 16;       // (cell, channel) sums a thread holds
+constexpr int kCmMaxTile = 64;     // cells per block
+constexpr int kCmMaxC = 256;
+
+__host__ __device__ constexpr int cm_tile(int c) {
+  return kThreads * kCmPairs / c < kCmMaxTile ? kThreads * kCmPairs / c
+                                              : kCmMaxTile;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sorted_segment_sum_cm_kernel(const int* __restrict__ keys,
+                                 const float* __restrict__ rows,
+                                 long long rsb, long long rsc, long long rsi,
+                                 float* __restrict__ out,
+                                 float* __restrict__ extra, int n, int c,
+                                 int num_cells) {
+  extern __shared__ float s_rows[];  // [c][kCmRowsPad]
+  __shared__ int s_start[kCmMaxTile + 1];
+  const int tile = cm_tile(c);
+  const int b = blockIdx.y;
+  const int cell0 = blockIdx.x * tile;
+  const int ncell = min(tile, num_cells - cell0);
+  const int* kb = keys + static_cast<size_t>(b) * n;
+  // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
+  for (int t = threadIdx.x; t <= ncell; t += blockDim.x) {
+    s_start[t] = lower_bound(kb, 0, n, cell0 + t);
+  }
+  __syncthreads();
+  const int npairs = ncell * c;
+  const int s = s_start[0];
+  const int e = s_start[ncell];
+  const float* rb = rows + b * rsb;
+  float acc[kCmPairs];
+#pragma unroll
+  for (int k = 0; k < kCmPairs; ++k) acc[k] = 0.f;
+
+  for (int r0 = s; r0 < e; r0 += kCmRows) {
+    const int len = min(kCmRows, e - r0);
+    __syncthreads();  // the previous chunk's readers are done
+    for (int t = threadIdx.x; t < c * kCmRows; t += blockDim.x) {
+      const int ch = t / kCmRows;
+      const int r = t - ch * kCmRows;
+      if (r < len) s_rows[ch * kCmRowsPad + r] = rb[ch * rsc + (r0 + r) * rsi];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kCmPairs; ++k) {
+      const int f = threadIdx.x + k * kThreads;
+      if (f < npairs) {
+        const int cell = f / c;
+        const int ch = f - cell * c;
+        const int lo = max(s_start[cell], r0) - r0;
+        const int hi = min(s_start[cell + 1], r0 + len) - r0;
+        const float* sr = s_rows + ch * kCmRowsPad;
+        for (int j = lo; j < hi; ++j) acc[k] += sr[j];  // row order
+      }
+    }
+  }
+
+  const int c_main = extra != nullptr ? c - 1 : c;
+#pragma unroll
+  for (int k = 0; k < kCmPairs; ++k) {
+    const int f = threadIdx.x + k * kThreads;
+    if (f < npairs) {
+      const int cell = f / c;
+      const int ch = f - cell * c;
+      const size_t g = static_cast<size_t>(b) * num_cells + cell0 + cell;
+      if (ch < c_main) {
+        out[g * c_main + ch] = acc[k];
+      } else {
+        extra[g] = acc[k];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
@@ -196,5 +306,33 @@ extern "C" int p3d_sorted_table_gather(const int* keys, const float* g,
                                static_cast<cudaStream_t>(stream)>>>(
       keys, g, gsb, gsk, gsc, g_extra, esb, esk, out, n, c, c_main,
       num_cells);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys [b, n] int32 sorted ascending per batch row; rows: element
+// (b, ch, i) at rows[b*rsb + ch*rsc + i*rsi], ch < c, i < n; out
+// [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
+// when extra is not null), every cell written. Returns cudaGetLastError().
+extern "C" int p3d_sorted_segment_sum_cm(const int* keys, const float* rows,
+                                         long long rsb, long long rsc,
+                                         long long rsi, float* out,
+                                         float* extra, int b, int n, int c,
+                                         int num_cells, void* stream) {
+  if (c < 1 || c > kCmMaxC || (extra != nullptr && c < 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = static_cast<size_t>(c) * kCmRowsPad * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sorted_segment_sum_cm_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tile = cm_tile(c);
+  const dim3 grid((num_cells + tile - 1) / tile, b);
+  sorted_segment_sum_cm_kernel<<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, rsb, rsc, rsi, out, extra, n, c, num_cells);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
+from .centerpoint import CenterHead, CenterPoint
 from .pointpillars import PointPillars, SSDHead

@@ -1,6 +1,6 @@
 """Shared layer building blocks, torch port of
-paddle3d_tpu/models/layers/layer_libs.py (ConvBNReLU, DeconvBNReLU,
-LinearBN1DReLU).
+paddle3d_tpu/models/layers/layer_libs.py (uniform_init, uniform_bias_init,
+ConvBNReLU, DeconvBNReLU, LinearBN1DReLU).
 
 NCHW layout. Two conventions of the JAX package are kept on purpose:
   * flax `padding="SAME"` pads (total // 2, total - total // 2), which on a
@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "BatchNorm1d",
-           "BatchNorm2d", "same_pads", "uniform_", "default_generator"]
+           "BatchNorm2d", "same_pads", "uniform_", "uniform_init",
+           "uniform_bias_init", "default_generator"]
 
 
 def default_generator(generator: torch.Generator = None) -> torch.Generator:
@@ -34,6 +35,20 @@ def uniform_(tensor: torch.Tensor, fan_in: int,
     bound = 1.0 / math.sqrt(max(fan_in, 1))
     with torch.no_grad():
         return tensor.uniform_(-bound, bound, generator=generator)
+
+
+def uniform_init(weight: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """uniform(±1/sqrt(fan_in)) for a torch weight ([out, in, *kernel]:
+    fan_in = in · prod(kernel)), the JAX package's uniform_init."""
+    return uniform_(weight, weight[0].numel(), generator)
+
+
+def uniform_bias_init(bias: torch.Tensor, fan_in: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """uniform(±1/sqrt(fan_in)) with an explicit fan (a bias is 1-D), the
+    JAX package's uniform_bias_init."""
+    return uniform_(bias, fan_in, generator)
 
 
 def same_pads(size: int, kernel: int, stride: int):

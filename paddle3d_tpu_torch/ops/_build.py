@@ -30,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
-LAUNCHES = {"fused_pfn_rows": 0, "sorted_segment_sum": 0, "pfn_stats": 0,
-            "pfn_bwd": 0, "sorted_table_gather": 0}
+LAUNCHES = {"fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
+            "sorted_segment_sum": 0, "pfn_stats": 0, "pfn_bwd": 0,
+            "sorted_table_gather": 0, "sorted_segment_sum_cm": 0}
 
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "p3d_sorted_segment_sum": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                            _i, _i, _i, _f, _f, _f, _f, _i, _i, _vp),
+    "p3d_fused_pfn2_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                            _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i,
+                            _i, _vp),
     "p3d_pfn_stats": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
                       _i, _f, _f, _f, _f, _i, _vp),
     "p3d_pfn_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
@@ -48,6 +52,8 @@ _SIGNATURES = {
                     _i, _vp),
     "p3d_sorted_table_gather": (_vp, _vp, _ll, _ll, _ll, _vp, _ll, _ll, _vp,
                                 _i, _i, _i, _i, _i, _vp),
+    "p3d_sorted_segment_sum_cm": (_vp, _vp, _ll, _ll, _ll, _vp, _vp, _i, _i,
+                                  _i, _i, _vp),
 }
 
 _lib = None

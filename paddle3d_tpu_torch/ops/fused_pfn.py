@@ -3,9 +3,9 @@ feature on its emission row.
 
 Port of paddle3d_tpu/ops/pallas/fused_pfn.py:fused_pfn_rows (TPU kernel
 `_kernel` with `_decorate`). On a CUDA tensor the wrapper launches the
-hand-written kernel in csrc/fused_pfn.cu (one PFN layer; its header says
-what bounds it and how it is built); on a CPU tensor it takes the plain
-PyTorch version beside it, which covers one and two layers.
+hand-written kernel in csrc/fused_pfn.cu for one or two PFN layers (its
+header says what bounds them and how they are built); on a CPU tensor it
+takes the plain PyTorch version beside it.
 """
 import torch
 import torch.nn.functional as F
@@ -101,8 +101,17 @@ def fused_pfn_rows_plain(keys, pts_t, w1t, b1, w2t=None, b2=None, *,
         y = y + x[..., k:k + 1] * w1t[:, k]
     y = torch.relu(y)
     if n_layers == 2:
-        x2 = torch.cat([y, _segment_max(y, start, keep)], dim=-1)
-        y = torch.relu(x2 @ w2t.t() + b2[:, 0])
+        # relu(b2 + W2 [y, m1]) with m1 the pillar max of y: from the bias
+        # up, the m1 half first (one sum per pillar in the kernel), then the
+        # y half, each in k order
+        u1 = y.shape[-1]
+        m1 = _segment_max(y, start, keep)
+        t = b2[:, 0].to(torch.float32).expand(*y.shape[:2], -1)
+        for k in range(u1):
+            t = t + m1[..., k:k + 1] * w2t[:, u1 + k]
+        for k in range(u1):
+            t = t + y[..., k:k + 1] * w2t[:, k]
+        y = torch.relu(t)
     rows = torch.where(emit[..., None], _segment_max(y, start, keep), 0.)
     if occupancy:
         rows = torch.cat([rows, emit[..., None].to(rows.dtype)], dim=-1)
@@ -130,38 +139,49 @@ def fused_pfn_rows(keys, pts_t, w1t, b1, w2t=None, b2=None, *, n_layers, P,
             keys, pts_t, w1t, b1, w2t, b2, n_layers=n_layers, P=P, maxV=maxV,
             nx=nx, vx=vx, vy=vy, x_off=x_off, y_off=y_off,
             with_distance=with_distance, occupancy=occupancy)
-    if n_layers != 1:
-        raise NotImplementedError(
-            "the CUDA fused PFN kernel covers one PFN layer; two layers "
-            "arrive with the CenterPoint-pillars slice (ROADMAP.md, queue 1, "
-            "item 6)")
+    if n_layers not in (1, 2):
+        raise ValueError("fused_pfn_rows takes 1 or 2 PFN layers, got {}"
+                         .format(n_layers))
     b, c_in, n = pts_t.shape
     u1, c_dec = w1t.shape
+    tensors = (keys, pts_t, w1t, b1) + ((w2t, b2) if n_layers == 2 else ())
     if keys.dtype != torch.int32 or any(
-            t.dtype != torch.float32 for t in (pts_t, w1t, b1)):
+            t.dtype != torch.float32 for t in tensors[1:]):
         raise TypeError("fused_pfn_rows kernel takes int32 keys and f32 "
                         "points and weights")
-    if keys.shape != (b, n) or b1.shape != (u1, 1):
-        raise ValueError("shape mismatch: keys {}, pts_t {}, w1t {}, b1 "
-                         "{}".format(tuple(keys.shape), tuple(pts_t.shape),
-                                     tuple(w1t.shape), tuple(b1.shape)))
+    u_out = w2t.shape[0] if n_layers == 2 else u1
+    if keys.shape != (b, n) or b1.shape != (u1, 1) or (
+            n_layers == 2 and (w2t.shape != (u_out, 2 * u1) or
+                               b2.shape != (u_out, 1))):
+        raise ValueError("shape mismatch: keys {}, pts_t {}, w1t {}, b1 {}, "
+                         "w2t {}, b2 {}".format(*(
+                             None if t is None else tuple(t.shape) for t in
+                             (keys, pts_t, w1t, b1, w2t, b2))))
     if not 3 <= c_in <= _MAX_C_IN or c_dec != c_in + 5 + int(with_distance):
         raise ValueError("unsupported channels: C_in {}, C_dec {}".format(
             c_in, c_dec))
-    tensors = (keys, pts_t, w1t, b1)
     if any(t.device != keys.device for t in tensors):
         raise ValueError("fused_pfn_rows inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_pfn_rows kernel needs contiguous inputs")
     vox = pillar_ordinals(keys)
-    out = torch.empty((b, u1 + int(occupancy), n), dtype=torch.float32,
+    out = torch.empty((b, u_out + int(occupancy), n), dtype=torch.float32,
                       device=keys.device)
     lib = _build.library()
-    err = lib.p3d_fused_pfn_rows(
-        keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(), w1t.data_ptr(),
-        b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec, u1, P, maxV, nx,
-        vx, vy, x_off, y_off, int(with_distance), int(occupancy),
-        _build.stream_ptr(keys.device))
-    _build.check(err, "fused_pfn_rows")
-    _build.LAUNCHES["fused_pfn_rows"] += 1
+    geo = (nx, vx, vy, x_off, y_off, int(with_distance), int(occupancy),
+           _build.stream_ptr(keys.device))
+    if n_layers == 1:
+        err = lib.p3d_fused_pfn_rows(
+            keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+            w1t.data_ptr(), b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec,
+            u1, P, maxV, *geo)
+        name = "fused_pfn_rows"
+    else:
+        err = lib.p3d_fused_pfn2_rows(
+            keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+            w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), b, n, c_in, c_dec, u1, u_out, P, maxV, *geo)
+        name = "fused_pfn_rows_2l"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return out

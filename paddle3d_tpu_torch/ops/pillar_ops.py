@@ -6,7 +6,10 @@ in eval and _fused_pillar_canvas_pallas_train in train): a stable sort
 groups points by pillar cell, the fused PFN kernel (ops/fused_pfn.py; in
 train with batch-statistics BN, ops/fused_pfn_train.py) puts each pillar's
 feature on one row, and the sorted segment sum (ops/sorted_scatter.py)
-places the rows on the canvas. The [V, P, C] voxel buffer never exists.
+places the rows on the canvas: in eval a dense scan (nuScenes 10-sweep)
+hands the PFN's channel-major rows straight to the channel-major sum (K6),
+a sparse one (KITTI) transposes them for the row-major sum (K2), by the
+JAX package's density rule. The [V, P, C] voxel buffer never exists.
 """
 from typing import Sequence
 
@@ -15,11 +18,12 @@ import torch
 
 from . import fused_pfn
 from .fused_pfn_train import fused_pfn_train_rows
-from .sorted_scatter import sorted_segment_sum, sorted_segment_sum_split
+from .sorted_scatter import (CAP, pick_cells_per_block, sorted_segment_sum,
+                             sorted_segment_sum_cm, sorted_segment_sum_split)
 from .voxelize import points_to_voxel_coords
 
 __all__ = ["sort_points_by_cell", "pfn_folded_weights",
-           "fused_pillar_canvas"]
+           "fused_pillar_canvas", "is_dense_scan"]
 
 _SENTINEL = 2**31 - 1
 
@@ -71,11 +75,26 @@ def pfn_folded_weights(pfn):
     return w1t, b1, None, None
 
 
-def _place(keys, rows_t, middle_encoder, with_occupancy):
+def is_dense_scan(n: int, num_cells: int) -> bool:
+    """The JAX package's density rule (_fused_pillar_canvas_pallas): a scan
+    of n rows is dense when its rows average more than two TPU DMA windows
+    per cell block."""
+    nblocks = -(-num_cells // pick_cells_per_block(num_cells))
+    return -(-n // max(nblocks, 1)) > 2 * CAP
+
+
+def _place(keys, rows_t, middle_encoder, with_occupancy, dense=False):
     """Channel-major rows [B, C(+1), N] → canvas [B, ny, nx, C]
-    (+ occupancy [B, ny, nx])."""
+    (+ occupancy [B, ny, nx]): straight through the channel-major sum when
+    `dense`, else transposed for the row-major sum."""
     ny, nx = middle_encoder.ny, middle_encoder.nx
     b = keys.shape[0]
+    if dense:
+        out = sorted_segment_sum_cm(keys, rows_t, ny * nx,
+                                    split_last=with_occupancy)
+        if with_occupancy:
+            return out[0].reshape(b, ny, nx, -1), out[1].reshape(b, ny, nx)
+        return out.reshape(b, ny, nx, -1)
     rows = rows_t.transpose(1, 2).contiguous()        # [B, N, C(+1)]
     if with_occupancy:
         table, occ = sorted_segment_sum_split(keys, rows, ny * nx)
@@ -116,7 +135,8 @@ def _canvas_eval(voxelizer, pfn, middle_encoder, points, with_occupancy):
         nx=middle_encoder.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
         y_off=pfn.y_offset, with_distance=pfn.with_distance,
         occupancy=with_occupancy)
-    return _place(keys, rows_t, middle_encoder, with_occupancy)
+    dense = is_dense_scan(keys.shape[1], middle_encoder.ny * middle_encoder.nx)
+    return _place(keys, rows_t, middle_encoder, with_occupancy, dense)
 
 
 def _canvas_train(voxelizer, pfn, middle_encoder, points, with_occupancy):
@@ -125,7 +145,7 @@ def _canvas_train(voxelizer, pfn, middle_encoder, points, with_occupancy):
     if len(pfn.pfn_layers) != 1:
         raise NotImplementedError(
             "the train-mode fused PFN takes one PFN layer; two arrive with "
-            "the CenterPoint-pillars slice (ROADMAP.md, queue 1, item 6)")
+            "CenterPoint-pillars training (ROADMAP.md, queue 1, item 6b)")
     with torch.no_grad():
         keys, pts_t = sort_points_by_cell(points, voxelizer.voxel_size,
                                           voxelizer.point_cloud_range)

@@ -3,11 +3,14 @@ and its VJP.
 
 Port of paddle3d_tpu/ops/pallas/sorted_scatter.py: sorted_segment_sum and
 sorted_segment_sum_split (TPU kernel `_kernel`, K2) with their custom VJP,
-the sorted table gather (TPU kernel `_kernel_tg`, K5). On a CUDA tensor
-`scatter_rows` and `sorted_table_gather` launch the hand-written kernels
-in csrc/sorted_scatter.cu (whose header says what bounds them and how they
-are built); on a CPU tensor they take the plain PyTorch versions beside
-them. The two public functions are one torch.autograd.Function over both.
+the sorted table gather (TPU kernel `_kernel_tg`, K5), and
+sorted_segment_sum_cm, the channel-major eval twin of the segment sum (TPU
+kernels `_kernel_cm` and `_kernel_cmg`, K6). On a CUDA tensor
+`scatter_rows`, `sorted_table_gather` and `sorted_segment_sum_cm` launch
+the hand-written kernels in csrc/sorted_scatter.cu (whose header says what
+bounds them and how they are built); on a CPU tensor they take the plain
+PyTorch versions beside them. sorted_segment_sum and
+sorted_segment_sum_split are one torch.autograd.Function over K2 and K5.
 """
 import torch
 
@@ -15,7 +18,26 @@ from . import _build
 
 __all__ = ["sorted_segment_sum", "sorted_segment_sum_split",
            "sorted_segment_sum_plain", "scatter_rows", "scatter_rows_plain",
-           "sorted_table_gather", "sorted_table_gather_plain"]
+           "sorted_table_gather", "sorted_table_gather_plain",
+           "sorted_segment_sum_cm", "sorted_segment_sum_cm_plain",
+           "pick_cells_per_block", "CAP"]
+
+#: rows of the TPU kernels' DMA window (paddle3d_tpu/ops/pallas/
+#: sorted_scatter.py:_CAP); a scan averaging more than two windows of rows
+#: per cell block is dense (ops/pillar_ops.py)
+CAP = 128
+
+_BLOCK_CANDIDATES = (1024, 896, 864, 768, 640, 512, 448, 384, 256, 128)
+
+
+def pick_cells_per_block(num_cells: int) -> int:
+    """The TPU kernels' cells per block: the first candidate that divides
+    num_cells, else 512 (a copy of the JAX package's rule, which decides
+    whether a scan is dense)."""
+    for c in _BLOCK_CANDIDATES:
+        if num_cells % c == 0:
+            return c
+    return 512
 
 
 def sorted_segment_sum_plain(keys: torch.Tensor, rows: torch.Tensor,
@@ -166,3 +188,56 @@ def sorted_segment_sum_split(keys: torch.Tensor, rows: torch.Tensor,
     """Like sorted_segment_sum, but the LAST channel comes back as its own
     [B, num_cells, 1] tensor (the canvas's occupancy side channel)."""
     return _SortedSegmentSum.apply(keys, rows, num_cells, True)
+
+
+def sorted_segment_sum_cm_plain(keys, rows_cm, num_cells: int, c=None,
+                                split_last: bool = False):
+    """Plain version of K6: the first c channels and N columns of rows_cm,
+    transposed, through sorted_segment_sum_plain."""
+    c = rows_cm.shape[1] if c is None else c
+    rows = rows_cm[:, :c, :keys.shape[1]].transpose(1, 2)
+    return scatter_rows_plain(keys, rows, num_cells, split_last)
+
+
+def sorted_segment_sum_cm(keys: torch.Tensor, rows_cm: torch.Tensor,
+                          num_cells: int, c: int = None,
+                          split_last: bool = False):
+    """out[b, cell] = Σ_{i < N: keys[b,i]==cell} rows_cm[b, :c, i]: the
+    channel-major twin of sorted_segment_sum, for eval (no VJP, as in the
+    JAX package).
+
+    keys: [B, N] int32, sorted ascending per batch row; keys outside
+    [0, num_cells) are dropped. rows_cm: [B, C', N'] f32 with C' >= c and
+    N' >= N, possibly a strided view: only the first c channels (all when c
+    is None) and N columns are read. Returns [B, num_cells, c], or
+    ([B, num_cells, c - 1], [B, num_cells, 1]) when split_last."""
+    c = rows_cm.shape[1] if c is None else c
+    if not keys.is_cuda:
+        return sorted_segment_sum_cm_plain(keys, rows_cm, num_cells, c,
+                                           split_last)
+    b, n = keys.shape
+    if keys.dtype != torch.int32 or rows_cm.dtype != torch.float32:
+        raise TypeError("sorted_segment_sum_cm kernel takes int32 keys and "
+                        "f32 rows, got {} and {}".format(keys.dtype,
+                                                         rows_cm.dtype))
+    if rows_cm.dim() != 3 or rows_cm.shape[0] != b or not (
+            1 <= c <= rows_cm.shape[1]) or rows_cm.shape[2] < n or (
+                split_last and c < 2):
+        raise ValueError("keys [B, N] and rows [B, C' >= c, N' >= N] "
+                         "expected, got {} and {} with c={}{}".format(
+                             tuple(keys.shape), tuple(rows_cm.shape), c,
+                             " (split needs c >= 2)" if split_last else ""))
+    if rows_cm.device != keys.device or not keys.is_contiguous():
+        raise ValueError("sorted_segment_sum_cm needs contiguous keys and "
+                         "rows on the same device")
+    out = torch.empty((b, num_cells, c - 1 if split_last else c),
+                      dtype=torch.float32, device=keys.device)
+    extra = (torch.empty((b, num_cells, 1), dtype=torch.float32,
+                         device=keys.device) if split_last else None)
+    err = _build.library().p3d_sorted_segment_sum_cm(
+        keys.data_ptr(), rows_cm.data_ptr(), *rows_cm.stride(),
+        out.data_ptr(), extra.data_ptr() if split_last else None, b, n, c,
+        num_cells, _build.stream_ptr(keys.device))
+    _build.check(err, "sorted_segment_sum_cm")
+    _build.LAUNCHES["sorted_segment_sum_cm"] += 1
+    return (out, extra) if split_last else out

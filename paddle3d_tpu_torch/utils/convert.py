@@ -61,8 +61,10 @@ def to_torch_names(model: nn.Module,
 
 def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
     """Fill `model` from {dotted nnx path: array}, e.g.
-    "backbone.blocks.0.0.conv.kernel". Raises on an unknown path, a shape
-    mismatch, or a torch parameter or running stat left unfilled."""
+    "backbone.blocks.0.0.conv.kernel" or, through an nn.ModuleDict,
+    "bbox_head.task_heads.0.towers.hm.0.bn.scale". Raises on an unknown
+    path, a shape mismatch, or a torch parameter or running stat left
+    unfilled."""
     converted = to_torch_names(model, flat)
     with torch.no_grad():
         for name, value in converted.items():

@@ -111,16 +111,83 @@ def test_fused_pfn_rows_matches_plain(cuda, P, maxV, c_in, with_distance):
     assert (emitted > 0).all() and (emitted <= maxV).all()
 
 
+@pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES + [
+    (20, 60000, 5, False)])      # the CenterPoint-nuScenes settings
+def test_fused_pfn_two_layers_match_plain(cuda, P, maxV, c_in,
+                                          with_distance):
+    rng, keys, pts_t, w1t, b1, kw = _pfn_inputs(cuda, P, maxV, c_in,
+                                                with_distance)
+    u1 = 32
+    w1t, b1 = w1t[:u1].contiguous(), b1[:u1].contiguous()
+    w2t = torch.from_numpy(rng.normal(0, .2, (64, 2 * u1)).astype(
+        np.float32)).to(cuda)
+    b2 = torch.from_numpy(rng.normal(0, .1, (64, 1)).astype(
+        np.float32)).to(cuda)
+    for occupancy in (False, True):
+        kw.update(n_layers=2, occupancy=occupancy)
+        before = _build.LAUNCHES["fused_pfn_rows_2l"]
+        got = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, w2t, b2, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_pfn_rows_2l"] == before + 1
+        ref = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, w2t, b2,
+                                             **kw)
+        # the same arithmetic in the same order: bit-equal
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        assert got.shape == (2, 64 + occupancy, keys.shape[1])
+        assert (got[:, :64].amax(dim=(1, 2)) > 0).all()
+
+
 def test_fused_pfn_two_layers_raise_on_card(cuda):
+    """The two-layer kernel refuses a second layer that does not fit."""
     keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
     pts_t = torch.zeros((1, 4, 4), device=cuda)
-    with pytest.raises(NotImplementedError, match="CenterPoint"):
+    with pytest.raises(ValueError, match="shape mismatch"):
         fused_pfn.fused_pfn_rows(
             keys, pts_t, torch.zeros((8, 9), device=cuda),
-            torch.zeros((8, 1), device=cuda), torch.zeros((8, 16),
+            torch.zeros((8, 1), device=cuda), torch.zeros((8, 15),
                                                           device=cuda),
             torch.zeros((8, 1), device=cuda), n_layers=2, P=4, maxV=10,
             nx=4, vx=1., vy=1., x_off=.5, y_off=.5)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_sorted_segment_sum_cm_matches_plain(cuda, split):
+    """K6 on random rows read through strides (a channel-major view wider
+    than the c channels and N columns it sums), with long duplicate runs,
+    sentinel tails and an empty scan, at a dense nuScenes-like grid."""
+    num_cells, c = 512 * 512, 65 if split else 64
+    keys, _ = _scatter_inputs(3, n=40000, c=1, num_cells=num_cells)
+    keys = keys.to(cuda)
+    rng = np.random.default_rng(4)
+    wide = torch.from_numpy(rng.normal(0, 1, (4, c + 3, 41000)).astype(
+        np.float32)).to(cuda)
+    before = _build.LAUNCHES["sorted_segment_sum_cm"]
+    got = sorted_scatter.sorted_segment_sum_cm(keys, wide, num_cells, c=c,
+                                               split_last=split)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum_cm"] == before + 1
+    ref = sorted_scatter.sorted_segment_sum_cm_plain(keys, wide, num_cells,
+                                                     c, split)
+    if split:
+        assert got[0].shape == (4, num_cells, 64)
+        got, ref = torch.cat(got, dim=-1), torch.cat(ref, dim=-1)
+    # sums of up to 300 rows in another order (plain: atomics)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert not got[1].any()
+
+
+def test_sorted_segment_sum_cm_on_pfn_rows_is_exact(cuda):
+    """On the fused PFN's own rows each cell has one non-zero row: the
+    channel-major sum equals the transposed row-major sum bit for bit."""
+    _, keys, pts_t, w1t, b1, kw = _pfn_inputs(cuda, 32, 40000, 4, False)
+    rows_t = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, n_layers=1,
+                                      occupancy=True, **kw)
+    got = sorted_scatter.sorted_segment_sum_cm(keys, rows_t, 214272,
+                                               split_last=True)
+    ref = sorted_scatter.sorted_segment_sum_split(
+        keys, rows_t.transpose(1, 2).contiguous(), 214272)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES)
@@ -203,7 +270,7 @@ def test_train_canvas_on_card_matches_cpu(cuda):
         0, .2, (2, 400, 2)).astype(np.float32))     # pillars over P
     results = []
     for device in ("cpu", cuda):
-        model = Config(path=path).model.train().to(device)
+        model = Config(path=path, device=device).model.train()
         mods = (model.voxelizer, model.pillar_encoder, model.middle_encoder)
         canvas, occ = fused_pillar_canvas(*mods, pts.to(device),
                                           with_occupancy=True)

@@ -132,7 +132,7 @@ def test_kitti_config_full_width_shapes():
     that nothing is left unfilled)."""
     path = os.path.join(REPO, "configs", "pointpillars",
                         "pointpillars_xyres16_kitti_car.yml")
-    model = Config(path=path).model
+    model = Config(path=path, device="cpu").model
     load_jax_params(model, flat_state(JaxConfig(path=path).model))
     assert model.middle_encoder.ny == 496 and model.middle_encoder.nx == 432
     assert model.anchors.shape == (248 * 216 * 2, 7)

@@ -66,7 +66,7 @@ def models():
     head = jax_model.head.cls_head
     head.kernel.value = head.kernel.value * 20.
     jax_model.eval()
-    model = Config(path=TINY).model
+    model = Config(path=TINY, device="cpu").model
     load_jax_params(model, flat_state(jax_model))
     return jax_model, model.eval()
 
@@ -153,7 +153,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "from paddle3d_tpu_torch.apis import Config\n"
-        "m = Config(path=sys.argv[1]).model\n"
+        "m = Config(path=sys.argv[1], device='cpu').model\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'flax', 'paddle3d_tpu'))\n"
         "assert type(m).__name__ == 'PointPillars'\n"
@@ -175,7 +175,7 @@ def test_config_base_merge_and_dropped_keys(tmp_path, caplog):
         "    nms_post_max_size: 20\n"
         "    lr_mult_list: [1.0]\n".format(TINY))
     with caplog.at_level("WARNING"):
-        model = Config(path=str(child)).model
+        model = Config(path=str(child), device="cpu").model
     assert model.head.nms_post_max_size == 20
     assert model.head.nms_pre_max_size == 512        # from the base
     assert "lr_mult_list" in caplog.text

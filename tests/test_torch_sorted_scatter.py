@@ -1,14 +1,20 @@
-"""Port parity: the plain sorted segment sum (paddle3d_tpu_torch) against
-the JAX package's Pallas kernel in interpret mode, plain and split forms.
+"""Port parity: the plain sorted segment sums (paddle3d_tpu_torch) against
+the JAX package's Pallas kernels in interpret mode: the row-major K2, plain
+and split forms, and the channel-major K6 in both its TPU variants.
 
-Tolerance 1e-6: both sides sum the same f32 rows per cell, only the order
-differs (rows per cell ≤ a handful here)."""
+Tolerances: K2 1e-6 (both sides sum the same f32 rows per cell, only the
+order differs; rows per cell ≤ a handful here); K6 1e-5 relative and 1e-4
+absolute, as the JAX package's own test states (the TPU kernels sum by
+one-hot matrix products, up to ~20 rows per cell here)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from paddle3d_tpu.ops.pallas.sorted_scatter import _sorted_segment_sum_pallas
-from paddle3d_tpu_torch.ops import sorted_scatter
+from paddle3d_tpu.ops.pallas.sorted_scatter import (
+    _sorted_segment_sum_cmg, _sorted_segment_sum_pallas,
+    pick_cells_per_block, sorted_segment_sum_cm)
+from paddle3d_tpu_torch.ops import pillar_ops, sorted_scatter
 
 SENT = 2**31 - 1
 NUM_CELLS = 1280   # two blocks of 640 cells on the JAX side
@@ -69,3 +75,96 @@ def test_cpu_wrapper_takes_plain_version(monkeypatch):
     sorted_scatter.sorted_segment_sum(torch.from_numpy(keys),
                                       torch.from_numpy(rows), NUM_CELLS)
     assert sorted_scatter._build.LAUNCHES["sorted_segment_sum"] == before
+
+
+def make_cm_inputs(seed, b, n, c, cells, wide=3, extra_cols=300):
+    """Sorted keys with duplicates and sentinel tails (the last batch row
+    all sentinel) and channel-major rows [B, c + wide, n + extra_cols]:
+    channels past c and columns past n hold garbage the sum must not
+    read."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, cells, (b, n)), axis=1)
+    keys[:, -n // 8:] = SENT
+    keys[0, 10:40] = keys[0, 10]                 # a long duplicate run
+    keys[-1] = SENT
+    keys = np.sort(keys, axis=1).astype(np.int32)
+    rows_cm = rng.normal(0, 1, (b, c + wide, n + extra_cols)).astype(
+        np.float32)
+    rows_cm[:, c:] = 1e6
+    rows_cm[:, :, n:] = 1e6
+    return keys, rows_cm
+
+
+def _jax_rows(keys, rows_cm, c):
+    """The same rows as the JAX kernels take them: exactly c channels, zero
+    past n (their producer's padding contract)."""
+    n = keys.shape[1]
+    return jnp.asarray(np.pad(rows_cm[:, :c, :n], ((0, 0), (0, 0), (0, 256))))
+
+
+def _check_cm(got, ref, split):
+    if split:
+        assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                       atol=1e-4)
+        got = got[0]
+    else:
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-4)
+    assert not got[-1].numpy().any()             # the all-sentinel scan
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_cm_plain_matches_kernel_cm_interpret(split):
+    """The TPU's `_kernel_cm` (sparse scan: 4,320 cells in blocks of 864)."""
+    b, n, c, cells = 2, 600, 17, 4320
+    keys, rows_cm = make_cm_inputs(4, b, n, c, cells)
+    assert not pillar_ops.is_dense_scan(n, cells)
+    ref = sorted_segment_sum_cm(jnp.asarray(keys), _jax_rows(keys, rows_cm, c),
+                                cells, split_last=split, interpret=True)
+    got = sorted_scatter.sorted_segment_sum_cm(
+        torch.from_numpy(keys), torch.from_numpy(rows_cm), cells, c=c,
+        split_last=split)
+    _check_cm(got, ref, split)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_cm_plain_matches_kernel_cmg_interpret(split):
+    """The TPU's grouped `_kernel_cmg` at a small dense shape (4,096 cells,
+    a multiple of 512 x 8; 2,048 rows a scan, dense by the JAX rule)."""
+    b, n, c, cells = 2, 2048, 16, 4096
+    keys, rows_cm = make_cm_inputs(5, b, n, c, cells)
+    assert pillar_ops.is_dense_scan(n, cells)
+    ref = _sorted_segment_sum_cmg(jnp.asarray(keys),
+                                  _jax_rows(keys, rows_cm, c), c, cells,
+                                  interpret=True, cpb=512, sb=8, wrows=2048,
+                                  nviews=4, swidth=768, split_last=split)
+    got = sorted_scatter.sorted_segment_sum_cm(
+        torch.from_numpy(keys), torch.from_numpy(rows_cm), cells, c=c,
+        split_last=split)
+    _check_cm(got, ref, split)
+
+
+def test_cm_plain_equals_row_major_sum():
+    """All channels (c=None) of exact-width rows: the row-major plain sum on
+    the transposed rows, bit for bit."""
+    keys, rows_cm = make_cm_inputs(6, 3, 500, 8, 1280, wide=0,
+                                   extra_cols=0)
+    kt, rt = torch.from_numpy(keys), torch.from_numpy(rows_cm)
+    got = sorted_scatter.sorted_segment_sum_cm(kt, rt, 1280)
+    ref = sorted_scatter.sorted_segment_sum_plain(
+        kt, rt.transpose(1, 2).contiguous(), 1280)
+    assert torch.equal(got, ref)
+
+
+def test_density_rule_matches_jax():
+    """The port's copy of the TPU block rule and its density threshold."""
+    for cells in (214272, 262144, 4096, 4320, 1000):
+        assert sorted_scatter.pick_cells_per_block(cells) == \
+            pick_cells_per_block(cells)
+    assert pillar_ops.is_dense_scan(250000, 512 * 512)      # nuScenes
+    assert not pillar_ops.is_dense_scan(20000, 214272)      # KITTI
+    assert pillar_ops.is_dense_scan(1100, 64 * 64)
+    assert not pillar_ops.is_dense_scan(1024, 64 * 64)

@@ -119,7 +119,7 @@ def make_gt(rng, b=2, g=6):
 
 def test_anchor_thresholds_and_assignment_match_jax():
     jax_model = JaxConfig(path=TINY).model
-    model = Config(path=TINY).model
+    model = Config(path=TINY, device="cpu").model
     jgen, gen = jax_model.anchor_generator, model.anchor_generator
     for name in ("anchors", "matched_thresholds", "unmatched_thresholds"):
         np.testing.assert_array_equal(getattr(gen, name),
@@ -174,7 +174,7 @@ def test_losses_match_jax():
             np.asarray(ref(*map(jnp.asarray, args))), rtol=1e-6, atol=1e-6)
 
     jax_model = JaxConfig(path=TINY).model
-    loss = Config(path=TINY).model.loss
+    loss = Config(path=TINY, device="cpu").model.loss
     assert isinstance(loss, PointPillarsLoss)
     labels = rng.choice([-1, 0, 1], (b, a), p=[.1, .7, .2])
     anchors = rng.normal(0, 1, (a, 7)).astype(np.float32)
@@ -195,7 +195,7 @@ def test_optimizer_chain_matches_optax(tmp_path):
     cfg_path.write_text("_base_: {}\nlr_scheduler:\n  step_size: 2\n"
                         .format(TINY))
     tx = JaxConfig(path=str(cfg_path)).optimizer
-    cfg = Config(path=str(cfg_path))
+    cfg = Config(path=str(cfg_path), device="cpu")
     model = cfg.model
     optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
     params = {k: p.detach().numpy().copy()
@@ -262,7 +262,7 @@ def train_step_pair():
         jax_model, nnx.Optimizer(jax_model, jcfg.optimizer, wrt=nnx.Param),
         jbatch)
 
-    cfg = Config(path=TINY)
+    cfg = Config(path=TINY, device="cpu")
     model = cfg.model
     load_jax_params(model, state0)
     step = make_train_step(lr_scheduler=cfg.lr_scheduler)
