@@ -5,10 +5,13 @@
 
 drives the port's main paths, PointPillars-KITTI inference and training
 (configs/pointpillars/pointpillars_xyres16_kitti_car.yml, full width, seeded
-random weights) on 8 scans of 20,000 clustered points, and
-CenterPoint-pillars nuScenes serving
+random weights) on 8 scans of 20,000 clustered points, CenterPoint-pillars
+nuScenes serving
 (configs/centerpoint/centerpoint_pillars_02voxel_nuscenes_10sweep.yml, full
-width, seeded random weights) on 8 scans of 250,000, in phases; any failing
+width, seeded random weights) on 8 scans of 250,000, and CenterPoint-voxels
+nuScenes serving
+(configs/centerpoint/centerpoint_voxels_0075voxel_nuscenes_10sweep.yml, full
+width, seeded random weights) on 4 scans of 250,000, in phases; any failing
 phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
@@ -35,7 +38,14 @@ phase exits non-zero and prints no result:
      and after the max_voxels cap, the longest segment and the boxes NMS
      keeps are logged), then on the plain versions (the outputs must
      agree); 20 timed iterations of each path (scans/s), peak memory, a
-     profile and the time of each stage of the forward.
+     profile and the time of each stage of the forward;
+  7. CenterPoint-voxels nuScenes serving: the sparse conv kernel (K8) at
+     each of the nine conv shapes of the path and the dense row-major sum
+     (K7) at the dense BEV's, on the inputs a forward hands them, against
+     their plain versions; test_forward through the kernels (21 K8
+     launches and one K7, no K2) and on the plain versions (canvas, head
+     outputs and decoded boxes must agree); timing, memory, a profile and
+     the time of each stage.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -57,8 +67,11 @@ TINY = os.path.join(REPO, "configs", "pointpillars",
                     "pointpillars_synthetic_tiny.yml")
 NUSCENES = os.path.join(REPO, "configs", "centerpoint",
                         "centerpoint_pillars_02voxel_nuscenes_10sweep.yml")
+VOXELS = os.path.join(REPO, "configs", "centerpoint",
+                      "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
 BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
 CP_POINTS = 250000
+VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
 SENT = 2**31 - 1
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM bytes/s, and
@@ -91,11 +104,20 @@ KERNELS = {
     "sorted_segment_sum_cm": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                               "paddle3d_tpu/ops/pallas/sorted_scatter.py:568",
                               0.0),
+    # K7 (one non-zero row per BEV cell on its path: exact) and K8, whose
+    # plain version repeats its products and sums in its order (bit-equal by
+    # design; held to 1e-5 of each conv's largest output)
+    "sorted_segment_sum_dense": (
+        "paddle3d_tpu_torch/csrc/sorted_scatter.cu",
+        "paddle3d_tpu/ops/pallas/sorted_scatter.py:396", 0.0),
+    "sparse_conv3d": ("paddle3d_tpu_torch/csrc/sparse_conv.cu",
+                      "paddle3d_tpu/ops/pallas/sparse_conv.py:60", 1e-5),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
                                  "sorted_table_gather")
 CP_KERNELS = ("fused_pfn_rows_2l", "sorted_segment_sum_cm")
+VX_KERNELS = ("sparse_conv3d", "sorted_segment_sum_dense")
 
 
 class PhaseError(RuntimeError):
@@ -134,6 +156,14 @@ def bound(nbytes, f32_ops=0, f64_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scatter_bytes(keys, cells, c, out_numel):
+    """Bytes a sorted segment sum must move: the keys, the c channels of
+    every row whose key lies in [0, cells) (the kernels never read the
+    others) and the table written, once each."""
+    inside = int(((keys >= 0) & (keys < cells)).sum())
+    return 4 * (keys.numel() + inside * c + out_numel)
+
+
 def segments(keys, P, maxV):
     """Pillar statistics of sorted keys [B, N]: -> dict of per-scan pillar
     counts before and after the max_voxels cap, kept rows (at most P per
@@ -152,12 +182,14 @@ def segments(keys, P, maxV):
 
 @contextlib.contextmanager
 def plain_path():
-    """The model with all seven kernels swapped for their plain versions
+    """The model with all nine kernels swapped for their plain versions
     (forward and backward)."""
     from paddle3d_tpu_torch.ops import fused_pfn, fused_pfn_train, \
-        pillar_ops, sorted_scatter
+        pillar_ops, sorted_scatter, sparse_conv
     with mock.patch.multiple(
-            fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
+            sparse_conv, sparse_conv3d=sparse_conv.sparse_conv3d_plain), \
+            mock.patch.multiple(
+                fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
             mock.patch.multiple(
                 fused_pfn_train, pfn_stats=fused_pfn_train.pfn_stats_plain,
                 pfn_bwd=fused_pfn_train.pfn_bwd_plain), \
@@ -256,8 +288,8 @@ def phase_kernels(model, points):
             f32_ops=seg["kept"] * 2 * w1t.numel()),
         "sorted_segment_sum": (
             cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 10),) + bound(
-                4 * (keys.numel() + rows.numel() + table.numel() +
-                     occ.numel())),
+                scatter_bytes(keys, cells, rows.shape[-1],
+                              table.numel() + occ.numel())),
     }
     report(INFER_KERNELS, errs, times, extra)
     return errs, times, extra
@@ -358,16 +390,16 @@ def timed_scans_per_s(model, points, iters):
     for _ in range(iters):
         model.test_forward({"data": points})
     torch.cuda.synchronize()
-    return BATCH * iters / (time.perf_counter() - t0)
+    return points.shape[0] * iters / (time.perf_counter() - t0)
 
 
-def phase_timing(model, points, phase="phase 4"):
+def phase_timing(model, points, phase="phase 4", warmups=3):
     import torch
     # timing runs as a server would: cuDNN free to pick (and autotune) its
     # fastest algorithms for the fixed shapes; TF32 stays off
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
-    for _ in range(3):                      # warm-up, both paths
+    for _ in range(warmups):                # warm-up, both paths
         model.test_forward({"data": points})
         with plain_path():
             model.test_forward({"data": points})
@@ -381,12 +413,11 @@ def phase_timing(model, points, phase="phase 4"):
                                                          half))
             else:
                 rates[path].append(timed_scans_per_s(model, points, half))
-    rate = {k: BATCH * ITERS / sum(BATCH * half / r for r in v)
-            for k, v in rates.items()}
+    rate = {k: ITERS / sum(half / r for r in v) for k, v in rates.items()}
     log("{}: {} iterations of batch {} (kernel/plain/plain/kernel "
         "halves, cudnn.benchmark on): kernel path {:.2f} scans/s, plain "
         "path {:.2f} scans/s; halves {}".format(
-            phase, ITERS, BATCH, rate["kernels"], rate["plain"],
+            phase, ITERS, points.shape[0], rate["kernels"], rate["plain"],
             {k: [round(x, 2) for x in v] for k, v in rates.items()}))
     torch.cuda.reset_peak_memory_stats()
     model.test_forward({"data": points})
@@ -736,30 +767,33 @@ def phase_train(points):
     return launches
 
 
-def make_cp_points(device):
-    """8 nuScenes-like scans of 250,000 clustered (x, y, z, intensity, dt)
-    points (bench.make_scans, seed 0)."""
+def make_cp_points(device, name="centerpoint", batch=BATCH):
+    """`batch` nuScenes-like scans of 250,000 clustered (x, y, z, intensity,
+    dt) points over bench.MODELS[name]'s range (bench.make_scans, seed
+    0)."""
     import numpy as np
     import torch
 
     import bench
-    _, n, (lo, hi), _ = bench.MODELS["centerpoint"]
-    pts = bench.make_scans(np.random.default_rng(SEED), BATCH, n, lo, hi,
+    _, n, (lo, hi), _ = bench.MODELS[name]
+    pts = bench.make_scans(np.random.default_rng(SEED), batch, n, lo, hi,
                            "clustered")
-    check(pts.shape == (BATCH, CP_POINTS, 5), "unexpected scan shape")
+    check(pts.shape == (batch, CP_POINTS, 5), "unexpected scan shape")
     return torch.from_numpy(pts).to(device)
 
 
-def build_centerpoint(device):
-    """The nuScenes config at full width, seeded random weights, eval. The
-    conv kernels are scaled by sqrt(6): with uniform(±1/sqrt(fan_in))
-    weights the activations shrink ~3x a layer through the 19-conv stack,
-    which would leave a flat heatmap; the gain keeps their variance under
-    relu, so the head sees the scene and the NMS has work."""
+def build_centerpoint(device, path=NUSCENES):
+    """A nuScenes CenterPoint config at full width, seeded random weights,
+    eval. The dense conv kernels are scaled by sqrt(6): with
+    uniform(±1/sqrt(fan_in)) weights the activations shrink ~3x a layer
+    through the 19-conv stack, which would leave a flat heatmap; the gain
+    keeps their variance under relu, so the head sees the scene and the NMS
+    has work. Sparse convs keep their scale (their residual blocks carry
+    the signal)."""
     import torch
 
     from paddle3d_tpu_torch.apis import Config
-    model = Config(path=NUSCENES, device=device).model.eval()
+    model = Config(path=path, device=device).model.eval()
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
@@ -840,7 +874,7 @@ def phase_cp_kernels(model, points):
                 keys, rows_t, cells), 5)),
     }
     # K1: per kept row the W1 products and the y1 half of W2, per pillar
-    # the m1 half; K6 moves keys, rows and the dense table once each;
+    # the m1 half; K6 moves keys, in-grid rows and the dense table once;
     # library call: index_add_ on the rows transposed beforehand
     extra = {
         "fused_pfn_rows_2l": (None,) + bound(
@@ -849,20 +883,20 @@ def phase_cp_kernels(model, points):
                          sum(seg["capped"]) * u2 * u1)),
         "sorted_segment_sum_cm": (
             cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 5),) + bound(
-                4 * (keys.numel() + rows_t.numel() + table.numel())),
+                scatter_bytes(keys, cells, u2, table.numel())),
     }
     report(CP_KERNELS, errs, times, extra)
     return errs, times, extra, seg
 
 
-def check_cp_outputs(out, post):
+def check_cp_outputs(out, post, batch=BATCH):
     import torch
     boxes, scores, labels = (out["box3d_lidar"], out["scores"],
                              out["label_preds"])
     k = 6 * post
-    check(tuple(boxes.shape) == (BATCH, k, 9), "box3d_lidar shape")
-    check(tuple(scores.shape) == (BATCH, k) and
-          tuple(labels.shape) == (BATCH, k), "scores/labels shape")
+    check(tuple(boxes.shape) == (batch, k, 9), "box3d_lidar shape")
+    check(tuple(scores.shape) == (batch, k) and
+          tuple(labels.shape) == (batch, k), "scores/labels shape")
     check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
           "non-finite outputs")
     kept = scores >= 0
@@ -880,6 +914,7 @@ def phase_centerpoint(device):
     import torch
 
     from paddle3d_tpu_torch.ops import _build
+    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     model = build_centerpoint(device)
@@ -914,45 +949,317 @@ def phase_centerpoint(device):
             s_err, b_err))
     check(s_err <= 1e-5 and b_err <= 1e-4, "outputs differ from plain path")
     phase_timing(model, points, "phase 6")
-    cp_stages(model, points, 3)
+    cp_stages(model, points, [("canvas", lambda p: fused_pillar_canvas(
+        model.voxelizer, model.voxel_encoder, model.middle_encoder, p))], 3)
     return errs, times, extra, launches
 
 
-def cp_stages(model, points, iters):
+def cp_stages(model, points, first, iters):
     """Host-clock ms of each stage of the CenterPoint test_forward, each
-    ended by a synchronize, averaged over `iters` calls after a warm-up."""
+    ended by a synchronize, averaged over `iters` calls after a warm-up.
+    first: [(name, fn)], the stages from the points to the BEV canvas, each
+    fn taking the output of the stage before it."""
     import torch
-
-    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
-
-    def sync_ms(t0):
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+    stages = first + [
+        ("backbone + neck", lambda canvas: model.neck(model.backbone(
+            canvas.permute(0, 3, 1, 2).contiguous()))),
+        ("head convs", model.bbox_head),
+        ("decode + NMS", lambda preds: model.bbox_head.predict(
+            preds, model.test_cfg))]
 
     def run():
-        out = []
-        t0 = time.perf_counter()
-        canvas = fused_pillar_canvas(model.voxelizer, model.voxel_encoder,
-                                     model.middle_encoder, points)
-        out.append(sync_ms(t0))
-        t0 = time.perf_counter()
-        feats = model.neck(model.backbone(
-            canvas.permute(0, 3, 1, 2).contiguous()))
-        out.append(sync_ms(t0))
-        t0 = time.perf_counter()
-        preds = model.bbox_head(feats)
-        out.append(sync_ms(t0))
-        t0 = time.perf_counter()
-        model.bbox_head.predict(preds, model.test_cfg)
-        out.append(sync_ms(t0))
+        x, out = points, []
+        for _, fn in stages:
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
         return out
 
     with torch.no_grad():
         run()
         ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
-    log("  stages per batch (host clock, synchronised): canvas {:.3f} ms, "
-        "backbone + neck {:.3f} ms, head convs {:.3f} ms, decode + NMS "
-        "{:.3f} ms".format(*ms))
+    log("  stages per batch (host clock, synchronised): " + ", ".join(
+        "{} {:.3f} ms".format(name, t) for (name, _), t in zip(stages, ms)))
+
+
+def capture_vx_inputs(model, points):
+    """One kernel-path forward, recording what it hands K8 (21 calls) and
+    the dense BEV's sorted segment sum."""
+    from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
+    convs, bevs = [], []
+    conv_fn, sum_fn = sparse_conv.sparse_conv3d, \
+        sorted_scatter.sorted_segment_sum
+
+    def conv_rec(*a, **k):
+        convs.append((a, k))
+        return conv_fn(*a, **k)
+
+    def sum_rec(*a):
+        bevs.append(a)
+        return sum_fn(*a)
+
+    with mock.patch.object(sparse_conv, "sparse_conv3d", conv_rec), \
+            mock.patch.object(sorted_scatter, "sorted_segment_sum", sum_rec):
+        model.test_forward({"data": points})
+    check(len(convs) == 21 and len(bevs) == 1,
+          "expected 21 sparse convs and one dense BEV, got {} and {}"
+          .format(len(convs), len(bevs)))
+    return convs, bevs
+
+
+def conv_work(a):
+    """The work one sparse conv's data needs: -> (bytes moved once, hits
+    per tap (queries with a neighbour there), (64-row tile, tap) pairs the
+    kernel computes, valid query rows)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops.sparse_conv import neighbour_map
+    qbase, in_keys, feats, w, d, h, w_, ks = a[:8]
+    nbr = neighbour_map(qbase, in_keys, d, h, w_, ks) >= 0
+    b, vq, k3 = nbr.shape
+    pad = (-vq) % 64                      # the kernel's tile of 64 rows
+    tiles = torch.cat([nbr, nbr.new_zeros((b, pad, k3))], 1).reshape(
+        b, -1, 64, k3).any(dim=2)
+    cout = w.shape[-1]
+    nbytes = 4 * (qbase.numel() + in_keys.numel() + feats.numel() +
+                  w.numel() + cout + b * vq * cout)
+    valid = int(((qbase >= 0) & (qbase < d * h * w_)).sum())
+    return nbytes, nbr.sum(dim=(0, 1)).tolist(), int(tiles.sum()), valid
+
+
+def row_major_direct(name, keys, rows, cells):
+    """The row-major segment sum through the C entry of kernel `name` (K2,
+    "sorted_segment_sum", or K7, "sorted_segment_sum_dense") whatever the
+    density rule would pick; a comparison launch, so LAUNCHES is not
+    touched."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    b, n, c = rows.shape
+    out = torch.empty((b, cells, c), device=rows.device)
+    _build.check(getattr(_build.library(), "p3d_" + name)(
+        keys.data_ptr(), rows.data_ptr(), out.data_ptr(), None, b, n, c,
+        cells, _build.stream_ptr(keys.device)), name)
+    return out
+
+
+def phase_vx_kernels(convs, bevs):
+    """K8 against its plain version at each distinct conv shape of the
+    path, and K7 against its plain version and index_add_ at the dense
+    BEV's, on the inputs the forward handed them."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
+    groups = {}
+    for a, k in convs:
+        qbase, in_keys, feats, w, d, h, w_, ks = a[:8]
+        key = (tuple(qbase.shape), tuple(feats.shape), tuple(w.shape),
+               (d, h, w_), qbase is in_keys)
+        groups.setdefault(key, []).append((a, k))
+    check(len(groups) == 9, "expected nine distinct conv shapes, got {}"
+          .format(len(groups)))
+    tol = KERNELS["sparse_conv3d"][2]
+    err = ms = plain_ms = tot_bytes = tot_ops = 0.0
+    log("phase 7: CenterPoint-voxels kernels vs plain at B={} (per conv "
+        "shape: Vq x Cin -> Cout, launches a forward, kernel / plain ms, "
+        "bound, valid rows, neighbour hits a valid row, share of the "
+        "(64-row tile, tap) pairs the kernel computes, hits per tap)"
+        .format(VX_BATCH))
+    for key, calls in groups.items():
+        a, k = calls[0]
+        qbase, in_keys, feats, w = a[:4]
+        cin, cout = feats.shape[-1], w.shape[-1]
+        got = sparse_conv.sparse_conv3d(*a, **k)
+        ref = sparse_conv.sparse_conv3d_plain(*a, **k)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        check(e <= tol * top, "sparse_conv3d disagrees with its plain "
+              "version at {}: {:.3e} against a largest value of {:.3e}"
+              .format(key[:3], e, top))
+        check(top > 0, "a sparse conv's output is all zero")
+        err = max(err, e)
+        t = cuda_ms(lambda: sparse_conv.sparse_conv3d(*a, **k), 10)
+        tp = cuda_ms(lambda: sparse_conv.sparse_conv3d_plain(*a, **k), 1)
+        ms += t * len(calls)
+        plain_ms += tp * len(calls)
+        for ca, _ in calls:
+            nbytes, taps, _, _ = conv_work(ca)
+            tot_bytes += nbytes
+            tot_ops += 2 * cin * cout * sum(taps)
+        # the per-shape line describes calls[0], the call that was timed
+        nbytes, taps, tiles, valid = conv_work(a)
+        hits = sum(taps)
+        b, vq = qbase.shape
+        ks = a[7]
+        one = bound(nbytes, f32_ops=2 * cin * cout * hits)
+        log("  {} x {} -> {} (K={}, {}): x{}, {:.4f} / {:.4f} ms, bound "
+            "{:.4f} ms ({}), valid rows {}, hits a row {:.2f} of {}, "
+            "tile-taps computed {:.3f}, max_abs_err {:.3e} of {:.3e}; hits "
+            "per tap {}".format(
+                vq, cin, cout, ks, "subm" if key[4] else "strided",
+                len(calls), t, tp, one[0], one[1], valid,
+                hits / max(valid, 1), ks ** 3,
+                tiles / max(b * -(-vq // 64) * ks ** 3, 1), e, top, taps))
+    conv_bound = bound(tot_bytes, f32_ops=tot_ops)
+    log("  sparse_conv3d, 21 launches a forward: {:.4f} ms against plain "
+        "{:.4f} ms, bound {:.4f} ms ({}), max_abs_err {:.3e} (tolerance "
+        "{:.0e} of each conv's largest output)".format(
+            ms, plain_ms, conv_bound[0], conv_bound[1], err, tol))
+
+    keys, rows, cells = bevs[0]
+    b, n, c = rows.shape
+    check(sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum_dense",
+          "the dense BEV is not a dense scan")
+    table = sorted_scatter.scatter_rows(keys, rows, cells, False)
+    ref = sorted_scatter.scatter_rows_plain(keys, rows, cells, False)
+    main_, extra_ = sorted_scatter.scatter_rows(keys, rows, cells, True)
+    gen = torch.Generator(device=keys.device).manual_seed(SEED)
+    # random keys, ~2.5 rows a cell: sums in another order than index_add_
+    rkeys = torch.sort(torch.randint(0, cells // 8, keys.shape, generator=gen,
+                                     device=keys.device) * 8, dim=1)[0].int()
+    rrows = torch.randn(rows.shape, generator=gen, device=keys.device)
+    rnd = sorted_scatter.scatter_rows(rkeys, rrows, cells, False)
+    rnd_ref = sorted_scatter.scatter_rows_plain(rkeys, rrows, cells, False)
+    torch.cuda.synchronize()
+    k7_err = max((table - ref).abs().max().item(),
+                 (torch.cat([main_, extra_], -1) - ref).abs().max().item())
+    rnd_err = (rnd - rnd_ref).abs().max().item()
+    check(rnd_err <= 1e-5 * rnd_ref.abs().max().item(),
+          "sorted_segment_sum_dense disagrees with its plain version on "
+          "random rows")
+    # the density rule's choice, measured: K2 and K7 on the path's rows and
+    # on the random keys, each against the plain version
+    for label, (k_, r_, ref_) in (("path rows", (keys, rows, ref)),
+                                  ("random keys", (rkeys, rrows, rnd_ref))):
+        for name in ("sorted_segment_sum", "sorted_segment_sum_dense"):
+            e = (row_major_direct(name, k_, r_, cells) - ref_).abs().max()
+            log("  {} on the {}: {:.4f} ms, max_abs_err {:.3e}".format(
+                name, label, cuda_ms(lambda: row_major_direct(
+                    name, k_, r_, cells), 50), e.item()))
+            check(e.item() <= 1e-5 * ref_.abs().max().item(),
+                  "{} disagrees with its plain version on the {}".format(
+                      name, label))
+    inside = (keys >= 0) & (keys < cells)
+    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
+        b, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
+    acc = torch.zeros((b * (cells + 1), c), device=keys.device)
+    rows2d = rows.reshape(-1, c)
+    times = {
+        "sparse_conv3d": (ms, plain_ms),
+        "sorted_segment_sum_dense": (
+            cuda_ms(lambda: sorted_scatter.scatter_rows(keys, rows, cells,
+                                                        False), 50),
+            cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+                keys, rows, cells, False), 10)),
+    }
+    extra = {
+        "sparse_conv3d": (None,) + conv_bound,
+        "sorted_segment_sum_dense": (
+            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 10),) + bound(
+                scatter_bytes(keys, cells, c, table.numel())),
+    }
+    errs = {"sparse_conv3d": err, "sorted_segment_sum_dense": k7_err}
+    log("  dense BEV at B={} N={} cells={} C={}: valid rows {}; on random "
+        "keys max_abs_err {:.3e} against a largest value of {:.3e} "
+        "(tolerance 1e-5 of it)".format(
+            b, n, cells, c, int(inside.sum()), rnd_err,
+            rnd_ref.abs().max().item()))
+    report(("sorted_segment_sum_dense",), errs, times, extra)
+    return errs, times, extra
+
+
+def voxels_per_scan(model, points):
+    """Occupied voxels of each scan, uncapped."""
+    import torch
+
+    from paddle3d_tpu_torch.ops.voxelize import points_to_voxel_coords
+    vox = model.voxelizer
+    _, h, w = model.middle_encoder.grid
+    coords, valid = points_to_voxel_coords(points, vox.voxel_size,
+                                           vox.point_cloud_range)
+    key = (coords[..., 2].long() * h + coords[..., 1]) * w + coords[..., 0]
+    return [int(torch.unique(k[v]).numel()) for k, v in zip(key, valid)]
+
+
+def vx_staged(model, points):
+    """The voxel test_forward in its stages: -> (BEV canvas, head outputs,
+    decoded outputs)."""
+    import torch
+    with torch.no_grad():
+        canvas = model._canvas(points)
+        preds = model.bbox_head(model.neck(model.backbone(
+            canvas.permute(0, 3, 1, 2).contiguous())))
+        return canvas, preds, model.bbox_head.predict(preds, model.test_cfg)
+
+
+def phase_voxels(device):
+    """CenterPoint-voxels nuScenes serving through K8 and K7 and on the
+    plain versions, timing, memory, a profile and per-stage times."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    from paddle3d_tpu_torch.ops.voxelize import voxel_mean_batch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = build_centerpoint(device, VOXELS)
+    points = make_cp_points(device, "centerpoint_voxels", VX_BATCH)
+    post = model.test_cfg["nms"]["nms_post_max_size"]
+    log("phase 7: voxels per scan before the cap of {}: {}".format(
+        model.voxelizer.max_num_voxels_for(False),
+        voxels_per_scan(model, points)))
+    convs, bevs = capture_vx_inputs(model, points)
+    errs, times, extra = phase_vx_kernels(convs, bevs)
+    del convs, bevs
+
+    _build.reset_launches()
+    out = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    kept = check_cp_outputs(out, post, VX_BATCH)
+    log("  test_forward through the kernels: launches {}; boxes NMS kept "
+        "per scan (of {}) {}".format(launches, 6 * post, kept))
+    check(launches["sparse_conv3d"] == 21 and
+          launches["sorted_segment_sum_dense"] == 1,
+          "the voxel path missed a kernel: {}".format(launches))
+    check(launches["sorted_segment_sum"] == 0,
+          "the dense BEV took the sparse row-major scatter")
+    got = vx_staged(model, points)
+    with plain_path():
+        _build.reset_launches()
+        ref = vx_staged(model, points)
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          "the plain path launched a kernel: {}".format(_build.LAUNCHES))
+    c_err = (got[0] - ref[0]).abs().max().item()
+    h_err = max((g[k] - r[k]).abs().max().item()
+                for g, r in zip(got[1], ref[1]) for k in r)
+    check(torch.equal(got[2]["label_preds"], out["label_preds"]),
+          "test_forward and its stages differ")
+    check(torch.equal(got[2]["label_preds"], ref[2]["label_preds"]),
+          "labels differ from the plain path")
+    s_err = (got[2]["scores"] - ref[2]["scores"]).abs().max().item()
+    b_err = (got[2]["box3d_lidar"] - ref[2]["box3d_lidar"]).abs().max(
+    ).item()
+    log("  vs the plain path on the card: BEV canvas max_abs_err {:.3e} "
+        "(tolerance 1e-5 of its largest value {:.3e}), head outputs {:.3e} "
+        "(tolerance 1e-4), labels equal, scores {:.3e} (1e-5), boxes {:.3e} "
+        "(1e-4)".format(c_err, ref[0].abs().max().item(), h_err, s_err,
+                        b_err))
+    check(c_err <= 1e-5 * ref[0].abs().max().item() and h_err <= 1e-4 and
+          s_err <= 1e-5 and b_err <= 1e-4, "outputs differ from plain path")
+    del got, ref
+    phase_timing(model, points, "phase 7", warmups=1)
+    vox = model.voxelizer
+    cp_stages(model, points, [
+        ("voxel_mean", lambda p: voxel_mean_batch(
+            p, vox.voxel_size, vox.point_cloud_range,
+            vox.max_num_points_in_voxel, vox.max_num_voxels_for(False),
+            model.voxel_encoder.in_channels)),
+        ("sparse middle", lambda v: model.middle_encoder(v[0], v[1], v[3]))],
+        3)
+    return errs, times, extra, launches
 
 
 def main():
@@ -1003,6 +1310,12 @@ def main():
         for into, part in zip((errs, times, extra, launches),
                               (cp_errs, cp_times, cp_extra,
                                {k: cp_launches[k] for k in CP_KERNELS})):
+            into.update(part)
+        # K7 and K8 counted on the CenterPoint-voxels path
+        vx_errs, vx_times, vx_extra, vx_launches = phase_voxels(device)
+        for into, part in zip((errs, times, extra, launches),
+                              (vx_errs, vx_times, vx_extra,
+                               {k: vx_launches[k] for k in VX_KERNELS})):
             into.update(part)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))

@@ -1,5 +1,5 @@
-// Sorted-key segment sum (K2), its VJP, the sorted table gather (K5), and
-// its channel-major twin (K6).
+// Sorted-key segment sum for sparse (K2) and dense (K7) scans, its VJP, the
+// sorted table gather (K5), and its channel-major twin (K6).
 //
 // K2: out[b, cell] = sum of rows[b, i] over the rows with keys[b, i] ==
 // cell. Replaces the TPU kernel paddle3d_tpu/ops/pallas/sorted_scatter.py
@@ -69,6 +69,32 @@
 // [B, cells] buffer. The TPU kernels' one-hot MXU products, view windows,
 // cell-block groups and serial chunk DMAs are TPU workarounds and have no
 // counterpart here.
+//
+// K7: the same function as K2 for dense scans, out[b, cell] = sum of
+// rows[b, i] over the rows with keys[b, i] == cell, rows row-major.
+// Replaces the TPU kernel sorted_scatter.py:_kernel_bs (entry
+// _sorted_segment_sum_bs), which the JAX package picks when a scan averages
+// more than 2 x 128 rows per cell block (ops/sorted_scatter.is_dense_scan):
+// the dense BEV of the sparse-voxel middle encoders (4 scans x 20,000 rows
+// x 128 channels onto 2 x 180 x 180 cells at CenterPoint-voxels nuScenes)
+// and, later, dense pooling.
+//
+// What bounds it on the H100: bytes. There the rows read are ~41 MB and
+// the table written ~133 MB, so every cell is written once by the kernel,
+// empty ones as zero, and no memset runs before it.
+//
+// Design: a block owns a tile of consecutive cells (2,048 / c of them) and
+// all channels. tile + 1 threads find the cells' segment bounds by binary
+// search at once (keys sorted); then threads run over (cell, channel) with
+// the channel fastest, so a warp reads 32 channels of one row and writes 32
+// channels of one cell, coalesced, and each thread sums its cell's rows in
+// row order in a register: deterministic, one writer per output, no
+// atomics. Unlike K2 (one thread per segment), a cell's channels spread
+// over threads, so a long segment costs a row loop per thread, not per
+// segment. Keys outside [0, num_cells) are dropped; the split form writes
+// channel c - 1 to its own [B, cells] buffer. The TPU kernel's one-hot MXU
+// products over two abutting row views and its serial chunk DMAs are TPU
+// workarounds and have no counterpart here.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -250,9 +276,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kDenseWork = 2048;   // (cell, channel) pairs per block
+constexpr int kDenseMaxTile = 256;
+
+__host__ __device__ constexpr int dense_tile(int c) {
+  return kDenseWork / c < 1               ? 1
+         : kDenseWork / c > kDenseMaxTile ? kDenseMaxTile
+                                          : kDenseWork / c;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sorted_segment_sum_dense_kernel(const int* __restrict__ keys,
+                                    const float* __restrict__ rows,
+                                    float* __restrict__ out,
+                                    float* __restrict__ extra, int n, int c,
+                                    int num_cells) {
+  __shared__ int s_start[kDenseMaxTile + 1];
+  const int tile = dense_tile(c);
+  const int b = blockIdx.y;
+  const int cell0 = blockIdx.x * tile;
+  const int ncell = min(tile, num_cells - cell0);
+  const int* kb = keys + static_cast<size_t>(b) * n;
+  // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
+  for (int t = threadIdx.x; t <= ncell; t += blockDim.x) {
+    s_start[t] = lower_bound(kb, 0, n, cell0 + t);
+  }
+  __syncthreads();
+  const float* rb = rows + static_cast<size_t>(b) * n * c;
+  const int c_main = extra != nullptr ? c - 1 : c;
+  for (int f = threadIdx.x; f < ncell * c; f += kThreads) {
+    const int cell = f / c;
+    const int ch = f - cell * c;
+    const int end = s_start[cell + 1];
+    float acc = 0.f;
+    for (int j = s_start[cell]; j < end; ++j) {
+      acc += rb[static_cast<size_t>(j) * c + ch];  // row order
+    }
+    const size_t g = static_cast<size_t>(b) * num_cells + cell0 + cell;
+    if (ch < c_main) {
+      out[g * c_main + ch] = acc;
+    } else {
+      extra[g] = acc;
+    }
+  }
+}
+
 }  // namespace
 
-// keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
+// K7. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c]
+// f32; out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra
+// [b, num_cells] when extra is not null), every cell written. Returns
+// cudaGetLastError().
+extern "C" int p3d_sorted_segment_sum_dense(const int* keys,
+                                            const float* rows, float* out,
+                                            float* extra, int b, int n,
+                                            int c, int num_cells,
+                                            void* stream) {
+  if (c < 1 || (extra != nullptr && c < 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
+  const int tile = dense_tile(c);
+  const dim3 grid((num_cells + tile - 1) / tile, b);
+  sorted_segment_sum_dense_kernel<<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, out, extra, n, c, num_cells);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
 // out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
 // when extra is not null). Returns the first CUDA error of the zero-fill or
 // the launch.

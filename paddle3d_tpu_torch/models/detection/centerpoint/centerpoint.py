@@ -1,24 +1,34 @@
 """CenterPoint, torch port of
 paddle3d_tpu/models/detection/centerpoint/centerpoint.py (serving).
 
-points [B, N, C] → fused pillar canvas (ops/pillar_ops.py: the two-layer
-fused PFN kernel, then on a dense scan such as nuScenes 10-sweep the
-channel-major sorted scatter, on a sparse one the row-major) →
-SecondBackbone → SecondFPN → CenterHead → decode + rotated NMS, all on the
-device and at fixed shapes. The canvas keeps the JAX package's NHWC layout
-and goes to NCHW only around the conv stack.
+points [B, N, C] → BEV canvas → SecondBackbone → SecondFPN → CenterHead →
+decode + rotated NMS, all on the device and at fixed shapes. Two canvas
+paths, as in the JAX package:
+  * pillar configs (PillarFeatureNet over PointPillarsScatter): the fused
+    pillar canvas (ops/pillar_ops.py: the fused PFN kernel, then on a dense
+    scan such as nuScenes 10-sweep the channel-major sorted scatter, on a
+    sparse one the row-major);
+  * voxel configs (VoxelMean over SparseResNet3D or SparseNet3D): the fused
+    voxelize + mean (ops/voxelize.voxel_mean_batch), then the sparse middle
+    encoder (sparse conv kernel per conv, the sorted segment sum for the
+    dense BEV).
+The canvas keeps the JAX package's NHWC layout and goes to NCHW only
+around the conv stack.
 
 Training (the on-device gaussian target generator, the CenterNet losses,
 OneCycleAdam) and `postprocess_to_samples` (Sample / BBoxes3D records) are
-not ported yet: ROADMAP.md, queue 1, items 6b and 5.
+not ported yet: ROADMAP.md, queue 1, items 6b, 7b and 5.
 """
 import torch
 
 from ....apis import manager
 from ....ops.pillar_ops import fused_pillar_canvas
+from ....ops.voxelize import voxel_mean_batch
 from ...base.base_model import BaseLidarModel
 from ...middle_encoders.pillar_scatter import PointPillarsScatter
+from ...middle_encoders.sparse_resnet import SparseNet3D, SparseResNet3D
 from ...voxel_encoders.pillar_encoder import PillarFeatureNet
+from ...voxel_encoders.voxel_encoder import VoxelMean
 
 __all__ = ["CenterPoint"]
 
@@ -45,11 +55,14 @@ class CenterPoint(BaseLidarModel):
         self.bbox_head = bbox_head
         self.test_cfg = dict(test_cfg or {})
         self.pretrained = pretrained
-        if not self._can_fuse():
+        if not (self._can_fuse() or self._is_voxel_mean()):
             raise NotImplementedError(
-                "the port runs the fused pillar path only: a "
-                "PillarFeatureNet over a PointPillarsScatter (the voxel "
-                "configs arrive with ROADMAP.md, queue 1, item 7)")
+                "the port runs a PillarFeatureNet over a "
+                "PointPillarsScatter, or a VoxelMean over a SparseResNet3D "
+                "or SparseNet3D; got {} over {} (HardVFE arrives with "
+                "ROADMAP.md, queue 1, item 8)".format(
+                    type(voxel_encoder).__name__,
+                    type(middle_encoder).__name__))
         # kept for the target generator of the training slice
         self.target_assign_cfg = dict(target_assign_cfg or {})
         self.down_ratio = self._resolve_down_ratio(self.target_assign_cfg)
@@ -96,10 +109,28 @@ class CenterPoint(BaseLidarModel):
         return (isinstance(self.voxel_encoder, PillarFeatureNet)
                 and isinstance(self.middle_encoder, PointPillarsScatter))
 
+    def _is_voxel_mean(self) -> bool:
+        """Voxel configs: VoxelMean → a sparse middle encoder."""
+        return (isinstance(self.voxel_encoder, VoxelMean)
+                and isinstance(self.middle_encoder,
+                               (SparseResNet3D, SparseNet3D)))
+
+    def _canvas(self, points):
+        """points [B, N, C] -> BEV canvas [B, H, W, C'] (NHWC)."""
+        if self._can_fuse():
+            return fused_pillar_canvas(self.voxelizer, self.voxel_encoder,
+                                       self.middle_encoder, points)
+        feats, coords, _, vmask = voxel_mean_batch(
+            points, self.voxelizer.voxel_size,
+            self.voxelizer.point_cloud_range,
+            self.voxelizer.max_num_points_in_voxel,
+            self.voxelizer.max_num_voxels_for(False),
+            self.voxel_encoder.in_channels)
+        return self.middle_encoder(feats, coords, vmask)
+
     def _extract_feats(self, points):
         """points [B, N, C] -> neck features [B, C, H, W]."""
-        canvas = fused_pillar_canvas(self.voxelizer, self.voxel_encoder,
-                                     self.middle_encoder, points)
+        canvas = self._canvas(points)
         return self.neck(self.backbone(
             canvas.permute(0, 3, 1, 2).contiguous()))
 
@@ -107,7 +138,7 @@ class CenterPoint(BaseLidarModel):
         raise NotImplementedError(
             "CenterPoint training (target generator, CenterNet losses, "
             "OneCycleAdam, the two-layer PFN train path) arrives with "
-            "ROADMAP.md, queue 1, item 6b")
+            "ROADMAP.md, queue 1, item 6b (pillars) and 7b (voxels)")
 
     @torch.no_grad()
     def test_forward(self, batch) -> dict:

@@ -1,1 +1,2 @@
 from .pillar_encoder import PillarFeatureNet
+from .voxel_encoder import VoxelMean

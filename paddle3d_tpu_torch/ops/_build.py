@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel launches per wrapper; each wrapper adds one where it launches
 LAUNCHES = {"fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
             "sorted_segment_sum": 0, "pfn_stats": 0, "pfn_bwd": 0,
-            "sorted_table_gather": 0, "sorted_segment_sum_cm": 0}
+            "sorted_table_gather": 0, "sorted_segment_sum_cm": 0,
+            "sorted_segment_sum_dense": 0, "sparse_conv3d": 0}
 
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -54,6 +55,10 @@ _SIGNATURES = {
                                 _i, _i, _i, _i, _i, _vp),
     "p3d_sorted_segment_sum_cm": (_vp, _vp, _ll, _ll, _ll, _vp, _vp, _i, _i,
                                   _i, _i, _vp),
+    "p3d_sorted_segment_sum_dense": (_vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                                     _vp),
+    "p3d_sparse_conv3d": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                          _i, _i, _i, _i, _i, _vp),
 }
 
 _lib = None

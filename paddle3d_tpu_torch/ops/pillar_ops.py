@@ -18,7 +18,7 @@ import torch
 
 from . import fused_pfn
 from .fused_pfn_train import fused_pfn_train_rows
-from .sorted_scatter import (CAP, pick_cells_per_block, sorted_segment_sum,
+from .sorted_scatter import (is_dense_scan, sorted_segment_sum,
                              sorted_segment_sum_cm, sorted_segment_sum_split)
 from .voxelize import points_to_voxel_coords
 
@@ -73,14 +73,6 @@ def pfn_folded_weights(pfn):
         w2t, b2 = fold(pfn.pfn_layers[1])
         return w1t, b1, w2t, b2
     return w1t, b1, None, None
-
-
-def is_dense_scan(n: int, num_cells: int) -> bool:
-    """The JAX package's density rule (_fused_pillar_canvas_pallas): a scan
-    of n rows is dense when its rows average more than two TPU DMA windows
-    per cell block."""
-    nblocks = -(-num_cells // pick_cells_per_block(num_cells))
-    return -(-n // max(nblocks, 1)) > 2 * CAP
 
 
 def _place(keys, rows_t, middle_encoder, with_occupancy, dense=False):

@@ -2,15 +2,17 @@
 and its VJP.
 
 Port of paddle3d_tpu/ops/pallas/sorted_scatter.py: sorted_segment_sum and
-sorted_segment_sum_split (TPU kernel `_kernel`, K2) with their custom VJP,
-the sorted table gather (TPU kernel `_kernel_tg`, K5), and
-sorted_segment_sum_cm, the channel-major eval twin of the segment sum (TPU
-kernels `_kernel_cm` and `_kernel_cmg`, K6). On a CUDA tensor
-`scatter_rows`, `sorted_table_gather` and `sorted_segment_sum_cm` launch
-the hand-written kernels in csrc/sorted_scatter.cu (whose header says what
-bounds them and how they are built); on a CPU tensor they take the plain
-PyTorch versions beside them. sorted_segment_sum and
-sorted_segment_sum_split are one torch.autograd.Function over K2 and K5.
+sorted_segment_sum_split (TPU kernels `_kernel`, K2, for sparse scans and
+`_kernel_bs`, K7, for dense ones, chosen by the JAX package's density rule
+`is_dense_scan`) with their custom VJP, the sorted table gather (TPU kernel
+`_kernel_tg`, K5), and sorted_segment_sum_cm, the channel-major eval twin
+of the segment sum (TPU kernels `_kernel_cm` and `_kernel_cmg`, K6). On a
+CUDA tensor `scatter_rows`, `sorted_table_gather` and
+`sorted_segment_sum_cm` launch the hand-written kernels in
+csrc/sorted_scatter.cu (whose header says what bounds them and how they are
+built); on a CPU tensor they take the plain PyTorch versions beside them.
+sorted_segment_sum and sorted_segment_sum_split are one
+torch.autograd.Function over K2 or K7 and K5.
 """
 import torch
 
@@ -20,11 +22,11 @@ __all__ = ["sorted_segment_sum", "sorted_segment_sum_split",
            "sorted_segment_sum_plain", "scatter_rows", "scatter_rows_plain",
            "sorted_table_gather", "sorted_table_gather_plain",
            "sorted_segment_sum_cm", "sorted_segment_sum_cm_plain",
-           "pick_cells_per_block", "CAP"]
+           "pick_cells_per_block", "is_dense_scan", "kernel_for", "CAP"]
 
 #: rows of the TPU kernels' DMA window (paddle3d_tpu/ops/pallas/
 #: sorted_scatter.py:_CAP); a scan averaging more than two windows of rows
-#: per cell block is dense (ops/pillar_ops.py)
+#: per cell block is dense (is_dense_scan)
 CAP = 128
 
 _BLOCK_CANDIDATES = (1024, 896, 864, 768, 640, 512, 448, 384, 256, 128)
@@ -38,6 +40,22 @@ def pick_cells_per_block(num_cells: int) -> int:
         if num_cells % c == 0:
             return c
     return 512
+
+
+def is_dense_scan(n: int, num_cells: int) -> bool:
+    """The JAX package's density rule (_sorted_segment_sum_impl,
+    _fused_pillar_canvas_pallas): a scan of n rows is dense when its rows
+    average more than two TPU DMA windows per cell block."""
+    nblocks = -(-num_cells // pick_cells_per_block(num_cells))
+    return -(-n // max(nblocks, 1)) > 2 * CAP
+
+
+def kernel_for(n: int, num_cells: int) -> str:
+    """The row-major kernel a CUDA scan of n rows onto num_cells cells
+    launches (its LAUNCHES name): K7 for a dense scan, K2 for a sparse
+    one, as the JAX package's _sorted_segment_sum_impl picks them."""
+    return ("sorted_segment_sum_dense" if is_dense_scan(n, num_cells)
+            else "sorted_segment_sum")
 
 
 def sorted_segment_sum_plain(keys: torch.Tensor, rows: torch.Tensor,
@@ -79,20 +97,21 @@ def _launch(keys, rows, num_cells, split):
                       dtype=rows.dtype, device=rows.device)
     extra = (torch.empty((b, num_cells, 1), dtype=rows.dtype,
                          device=rows.device) if split else None)
-    lib = _build.library()
-    err = lib.p3d_sorted_segment_sum(
+    name = kernel_for(n, num_cells)
+    err = getattr(_build.library(), "p3d_" + name)(
         keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
         extra.data_ptr() if split else None, b, n, c, num_cells,
         _build.stream_ptr(keys.device))
-    _build.check(err, "sorted_segment_sum")
-    _build.LAUNCHES["sorted_segment_sum"] += 1
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return (out, extra) if split else out
 
 
 def scatter_rows(keys, rows, num_cells: int, split: bool):
-    """The forward without autograd: K2 on a CUDA tensor, its plain version
-    on a CPU one. -> table [B, cells, C], or (table [B, cells, C-1],
-    last channel [B, cells, 1]) when split."""
+    """The forward without autograd: on a CUDA tensor K7 for a dense scan
+    (is_dense_scan) and K2 for a sparse one, on a CPU tensor their plain
+    version. -> table [B, cells, C], or (table [B, cells, C-1], last
+    channel [B, cells, 1]) when split."""
     if not keys.is_cuda:
         return scatter_rows_plain(keys, rows, num_cells, split)
     return _launch(keys, rows, num_cells, split)

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers.sparse_layers import MaskedBatchNorm, SparseConv3D
+
 __all__ = ["load_jax_params", "to_torch_names"]
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
@@ -19,8 +21,11 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
     """-> (torch attribute name, array in torch layout)."""
-    if isinstance(module, nn.modules.batchnorm._BatchNorm):
+    if isinstance(module, (nn.modules.batchnorm._BatchNorm,
+                           MaskedBatchNorm)):
         return _BN_NAMES[leaf], arr
+    if isinstance(module, SparseConv3D) and leaf == "weight":
+        return "weight", arr                # [K^3 * Cin, Cout] as it is
     if leaf == "bias":
         return "bias", arr
     if leaf != "kernel":

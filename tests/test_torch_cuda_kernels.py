@@ -43,6 +43,25 @@ def _scatter_inputs(seed, b=4, n=5000, c=65, num_cells=214272):
     return torch.from_numpy(keys), torch.from_numpy(rows)
 
 
+def _row_order_sum(keys, rows, num_cells):
+    """The plain segment sum with each cell's rows added one at a time in
+    row order (keys sorted), as the kernels add them: they must agree bit
+    for bit. index_add_ adds through atomics, in an order that changes from
+    run to run, so its sums of long runs differ in the last bits."""
+    b, n, c = rows.shape
+    keys = keys.long()
+    inside = (keys >= 0) & (keys < num_cells)
+    rank = torch.arange(n, device=keys.device) - torch.searchsorted(keys,
+                                                                     keys)
+    out = torch.zeros((b, num_cells, c), dtype=rows.dtype,
+                      device=rows.device)
+    batch = torch.arange(b, device=keys.device)[:, None].expand(b, n)
+    for j in range(int(rank[inside].max()) + 1 if inside.any() else 0):
+        m = inside & (rank == j)        # at most one row a cell
+        out[batch[m], keys[m]] += rows[m]
+    return out
+
+
 @pytest.mark.parametrize("split", [False, True])
 def test_sorted_segment_sum_matches_plain(cuda, split):
     keys, rows = (t.to(cuda) for t in _scatter_inputs(0))
@@ -53,9 +72,9 @@ def test_sorted_segment_sum_matches_plain(cuda, split):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sorted_segment_sum"] == before + 1
     got = torch.cat(got, dim=-1) if split else got
-    ref = sorted_scatter.sorted_segment_sum_plain(keys, rows, 214272)
-    # sums of up to 300 rows in another order (plain: atomics)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    ref = _row_order_sum(keys, rows, 214272)
+    # sums of up to 300 rows, in row order as the kernel adds them
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 PFN_CASES = [
@@ -166,13 +185,13 @@ def test_sorted_segment_sum_cm_matches_plain(cuda, split):
                                                split_last=split)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sorted_segment_sum_cm"] == before + 1
-    ref = sorted_scatter.sorted_segment_sum_cm_plain(keys, wide, num_cells,
-                                                     c, split)
+    ref = _row_order_sum(keys, wide[:, :c, :keys.shape[1]].transpose(1, 2),
+                         num_cells)
     if split:
         assert got[0].shape == (4, num_cells, 64)
-        got, ref = torch.cat(got, dim=-1), torch.cat(ref, dim=-1)
-    # sums of up to 300 rows in another order (plain: atomics)
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        got = torch.cat(got, dim=-1)
+    # sums of up to 300 rows, in row order as the kernel adds them
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert not got[1].any()
 
 
@@ -285,3 +304,159 @@ def test_train_canvas_on_card_matches_cpu(cuda):
     torch.testing.assert_close(card[1], cpu[1], rtol=0, atol=0)
     for got, ref in zip(card[:1] + card[2:], cpu[:1] + cpu[2:]):
         _close(got, ref, 1e-5)
+
+
+def _voxel_set(seed, grid, b=2, v=4000, cin=16, dense_planes=0):
+    """Sorted unique voxel coords per scan with a masked tail and the
+    layers' distinct padding keys D*H*W + 7 + row; dense_planes fills the
+    lowest z layers completely (long spans of in_keys)."""
+    from paddle3d_tpu_torch.models.layers.sparse_layers import SparseConv3D
+    rng = np.random.default_rng(seed)
+    d, h, w = grid
+    coords = np.zeros((b, v, 3), np.int32)
+    mask = np.zeros((b, v), bool)
+    for i in range(b):
+        lin = rng.integers(0, d * h * w, v)
+        lin[:dense_planes * h * w] = np.arange(dense_planes * h * w)
+        uk = np.unique(lin)[:v - 50 * (i + 1)]
+        coords[i, :len(uk)] = np.stack([uk // (h * w), uk // w % h, uk % w],
+                                       -1)
+        mask[i, :len(uk)] = True
+    feats = rng.normal(size=(b, v, cin)).astype(np.float32)
+    feats[~mask] = 0.0
+    coords, mask = torch.from_numpy(coords), torch.from_numpy(mask)
+    return coords, mask, SparseConv3D._lin_keys(coords, mask, grid), \
+        torch.from_numpy(feats)
+
+
+SPARSE_CASES = {   # name: (grid, kernel_size, stride, cin, cout, planes)
+    "subm_stem": ((41, 64, 64), 3, 1, 5, 16, 0),
+    "subm_128": ((5, 24, 24), 3, 1, 128, 128, 0),
+    "strided": ((41, 64, 64), 3, 2, 16, 32, 0),
+    "z_stride": ((5, 24, 24), 3, (2, 1, 1), 128, 128, 0),
+    "k1": ((9, 32, 32), 1, 1, 32, 48, 0),
+    "long_spans": ((6, 40, 40), 3, 1, 8, 64, 2),
+}
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_conv3d_matches_plain(cuda, case, fused):
+    """K8 against its plain version, which repeats the kernel's products
+    and sums in its order: bit-equal. Submanifold and strided, K = 1 and
+    3, every output width of the path, and spans of in_keys longer than
+    the kernel stages in shared memory (dense planes under a sparse
+    query set)."""
+    from paddle3d_tpu_torch.models.layers.sparse_layers import SparseConv3D
+    from paddle3d_tpu_torch.ops import sparse_conv
+    from paddle3d_tpu_torch.ops.sparse import downsample_coords
+    grid, ks, stride, cin, cout, planes = SPARSE_CASES[case]
+    coords, mask, keys, feats = _voxel_set(1, grid, cin=cin,
+                                           dense_planes=planes)
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy((rng.normal(size=(ks ** 3 * cin, cout)) * .1)
+                         .astype(np.float32))
+    kw = {}
+    if fused:
+        kw = dict(scale=torch.from_numpy(rng.uniform(.5, 1.5, cout).astype(
+            np.float32)).to(cuda), shift=torch.from_numpy(rng.normal(
+                0, .5, cout).astype(np.float32)).to(cuda), relu=True)
+    if stride == 1 and planes == 0:
+        qbase = keys
+    elif stride == 1:               # a sparse query set over dense planes
+        qbase = keys[:, ::37].contiguous()
+    else:
+        oc, om = downsample_coords(coords, mask, grid, stride, 1500)
+        sv = torch.tensor(stride if isinstance(stride, tuple) else
+                          (stride,) * 3, dtype=torch.int32)
+        qbase = SparseConv3D._lin_keys(oc * sv, om, grid)
+    args = (qbase.to(cuda), keys.to(cuda), feats.to(cuda), w.to(cuda),
+            *grid, ks)
+    before = _build.LAUNCHES["sparse_conv3d"]
+    got = sparse_conv.sparse_conv3d(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_conv3d"] == before + 1
+    ref = sparse_conv.sparse_conv3d_plain(*args, **kw)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert got.abs().max() > 0
+    d, h, w_ = grid
+    pad = (qbase < 0) | (qbase >= d * h * w_)
+    assert not got[pad.to(cuda)].any()          # padding rows exactly zero
+
+
+def test_sparse_conv3d_refuses_what_it_cannot_take(cuda):
+    from paddle3d_tpu_torch.ops import sparse_conv
+    keys = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    feats = torch.zeros((1, 8, 4), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sparse_conv.sparse_conv3d(keys, keys, feats, torch.zeros(
+            (108, 24), device=cuda), 2, 2, 2, 3)
+    with pytest.raises(TypeError, match="f32"):
+        sparse_conv.sparse_conv3d(keys, keys, feats.double(), torch.zeros(
+            (108, 16), device=cuda, dtype=torch.float64), 2, 2, 2, 3)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_sorted_segment_sum_dense_matches_plain(cuda, split):
+    """K7 on a dense scan (the density rule sends it there, not to K2):
+    every eighth cell used, ~2.5 rows each, a long duplicate run, keys past
+    the table, sentinel tails and an empty scan, at the voxel BEV's 64,800
+    cells."""
+    cells, c = 2 * 180 * 180, 129 if split else 128
+    keys, rows = _scatter_inputs(6, b=4, n=20000, c=c,
+                                 num_cells=cells // 8 + 50)
+    keys = torch.where(keys == SENT, keys, keys * 8)
+    keys, rows = keys.to(cuda), rows.to(cuda)
+    assert sorted_scatter.kernel_for(20000, cells) == \
+        "sorted_segment_sum_dense"
+    before = dict(_build.LAUNCHES)
+    fn = (sorted_scatter.sorted_segment_sum_split if split
+          else sorted_scatter.sorted_segment_sum)
+    got = fn(keys, rows, cells)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum_dense"] == \
+        before["sorted_segment_sum_dense"] + 1
+    assert _build.LAUNCHES["sorted_segment_sum"] == \
+        before["sorted_segment_sum"]
+    ref = _row_order_sum(keys, rows, cells)
+    got = torch.cat(got, dim=-1) if split else got
+    # sums of up to 300 rows, in row order as the kernel adds them
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert not got[1].any()
+
+
+def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):
+    """A tiny CenterPoint-voxels config (the nuScenes voxel config over
+    16 m x 16 m at 0.125 m, 41 z layers): the BEV canvas through K8 and K7
+    on the card against the plain versions on the CPU."""
+    import yaml
+
+    from paddle3d_tpu_torch.apis import Config
+    rng_ = [0., -8., -2., 16., 8., 2.]
+    vs = [0.125, 0.125, 0.1]
+    path = tmp_path / "voxels_tiny.yml"
+    path.write_text(yaml.safe_dump({
+        "_base_": os.path.join(REPO, "configs", "centerpoint",
+                               "centerpoint_voxels_0075voxel_nuscenes_"
+                               "10sweep.yml"),
+        "model": {"voxelizer": {"point_cloud_range": rng_, "voxel_size": vs,
+                                "max_num_voxels": [1200, 1500]},
+                  "middle_encoder": {"point_cloud_range": rng_,
+                                     "voxel_size": vs},
+                  "test_cfg": {"point_cloud_range": rng_, "voxel_size": vs}}}))
+    rng = np.random.default_rng(0)
+    pts = rng.uniform([0, -8, -2, 0, 0], [16, 8, 0, 1, .45], (2, 6000, 5))
+    pts[:, :3000, :3] = rng.uniform([1, -7, -1.5], [15, 7, 1.9], (8, 3))[
+        rng.integers(0, 8, 3000)] + rng.normal(0, [.8, .4, .3], (2, 3000, 3))
+    pts = torch.from_numpy(pts.astype(np.float32))
+    model = Config(path=str(path), device="cpu").model.eval()
+    with torch.no_grad():
+        ref = model._canvas(pts)
+    model.cuda()
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        got = model._canvas(pts.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 21
+    _close(got.cpu(), ref, 1e-5)
+    assert ref.abs().max() > 0
