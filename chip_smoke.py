@@ -11,8 +11,11 @@ nuScenes serving
 width, seeded random weights) on 8 scans of 250,000, and CenterPoint-voxels
 nuScenes serving
 (configs/centerpoint/centerpoint_voxels_0075voxel_nuscenes_10sweep.yml, full
-width, seeded random weights) on 4 scans of 250,000, in phases; any failing
-phase exits non-zero and prints no result:
+width, seeded random weights) on 4 scans of 250,000, PV-RCNN and Voxel-RCNN
+KITTI serving (configs/pv_rcnn/pv_rcnn_005voxel_kitti.yml,
+configs/voxel_rcnn/voxel_rcnn_005voxel_kitti_car.yml) on 4 scans of 20,000
+and IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of
+16,384, in phases; any failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -45,7 +48,20 @@ phase exits non-zero and prints no result:
      their plain versions; test_forward through the kernels (21 K8
      launches and one K7, no K2) and on the plain versions (canvas, head
      outputs and decoded boxes must agree); timing, memory, a profile and
-     the time of each stage.
+     the time of each stage;
+  8. PV-RCNN then Voxel-RCNN KITTI serving: the ball query (K9) at each of
+     its call shapes and farthest-point sampling (K10) on the inputs a
+     forward hands them, against their plain versions (indices and counts
+     equal); test_forward through the kernels (PV-RCNN: 7 K9 launches, one
+     K10, 8 K8 and one row-major segment sum, K2 or K7 as the density rule
+     picks; Voxel-RCNN: 2 K9, no K10) and on the plain versions (BEV,
+     keypoints, proposals and outputs must agree); no valid stage voxel
+     outside its grid; timing, memory, a profile and the time of each
+     stage;
+  9. IA-SSD KITTI serving: K10 at its three call shapes and K9 at its ten,
+     against plain; test_forward through the kernels (10 K9 launches, 3
+     K10) and on the plain versions; timing, memory, a profile and the time
+     of each stage.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -69,7 +85,13 @@ NUSCENES = os.path.join(REPO, "configs", "centerpoint",
                         "centerpoint_pillars_02voxel_nuscenes_10sweep.yml")
 VOXELS = os.path.join(REPO, "configs", "centerpoint",
                       "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
+PV_RCNN = os.path.join(REPO, "configs", "pv_rcnn",
+                       "pv_rcnn_005voxel_kitti.yml")
+VOXEL_RCNN = os.path.join(REPO, "configs", "voxel_rcnn",
+                          "voxel_rcnn_005voxel_kitti_car.yml")
+IASSD = os.path.join(REPO, "configs", "iassd", "iassd_kitti.yml")
 BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
+TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
 VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
 SENT = 2**31 - 1
@@ -112,12 +134,19 @@ KERNELS = {
         "paddle3d_tpu/ops/pallas/sorted_scatter.py:396", 0.0),
     "sparse_conv3d": ("paddle3d_tpu_torch/csrc/sparse_conv.cu",
                       "paddle3d_tpu/ops/pallas/sparse_conv.py:60", 1e-5),
+    # K9 and K10 give indices (and counts): equal to their plain versions,
+    # whose distance arithmetic they repeat in its order
+    "ball_query": ("paddle3d_tpu_torch/csrc/ball_query.cu",
+                   "paddle3d_tpu/ops/pallas/ball_query.py:50", 0.0),
+    "farthest_point_sample": ("paddle3d_tpu_torch/csrc/fps.cu",
+                              "paddle3d_tpu/ops/pallas/fps.py:38", 0.0),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
                                  "sorted_table_gather")
 CP_KERNELS = ("fused_pfn_rows_2l", "sorted_segment_sum_cm")
 VX_KERNELS = ("sparse_conv3d", "sorted_segment_sum_dense")
+PT_KERNELS = ("ball_query", "farthest_point_sample")
 
 
 class PhaseError(RuntimeError):
@@ -182,12 +211,17 @@ def segments(keys, P, maxV):
 
 @contextlib.contextmanager
 def plain_path():
-    """The model with all nine kernels swapped for their plain versions
+    """The model with all eleven kernels swapped for their plain versions
     (forward and backward)."""
-    from paddle3d_tpu_torch.ops import fused_pfn, fused_pfn_train, \
-        pillar_ops, sorted_scatter, sparse_conv
+    from paddle3d_tpu_torch.ops import ball_query, fps, fused_pfn, \
+        fused_pfn_train, pillar_ops, sorted_scatter, sparse_conv
     with mock.patch.multiple(
-            sparse_conv, sparse_conv3d=sparse_conv.sparse_conv3d_plain), \
+            ball_query, ball_query_batched=ball_query.ball_query_plain), \
+            mock.patch.multiple(
+                fps, farthest_point_sample_batched=(
+                    fps.farthest_point_sample_plain)), \
+            mock.patch.multiple(
+                sparse_conv, sparse_conv3d=sparse_conv.sparse_conv3d_plain), \
             mock.patch.multiple(
                 fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
             mock.patch.multiple(
@@ -954,18 +988,11 @@ def phase_centerpoint(device):
     return errs, times, extra, launches
 
 
-def cp_stages(model, points, first, iters):
-    """Host-clock ms of each stage of the CenterPoint test_forward, each
-    ended by a synchronize, averaged over `iters` calls after a warm-up.
-    first: [(name, fn)], the stages from the points to the BEV canvas, each
-    fn taking the output of the stage before it."""
+def stage_times(stages, points, iters):
+    """Host-clock ms of each stage [(name, fn)], each fn taking the output
+    of the stage before it and ended by a synchronize, averaged over
+    `iters` runs after a warm-up."""
     import torch
-    stages = first + [
-        ("backbone + neck", lambda canvas: model.neck(model.backbone(
-            canvas.permute(0, 3, 1, 2).contiguous()))),
-        ("head convs", model.bbox_head),
-        ("decode + NMS", lambda preds: model.bbox_head.predict(
-            preds, model.test_cfg))]
 
     def run():
         x, out = points, []
@@ -983,9 +1010,20 @@ def cp_stages(model, points, first, iters):
         "{} {:.3f} ms".format(name, t) for (name, _), t in zip(stages, ms)))
 
 
-def capture_vx_inputs(model, points):
-    """One kernel-path forward, recording what it hands K8 (21 calls) and
-    the dense BEV's sorted segment sum."""
+def cp_stages(model, points, first, iters):
+    """The stage times of the CenterPoint test_forward. first: [(name,
+    fn)], the stages from the points to the BEV canvas."""
+    stage_times(first + [
+        ("backbone + neck", lambda canvas: model.neck(model.backbone(
+            canvas.permute(0, 3, 1, 2).contiguous()))),
+        ("head convs", model.bbox_head),
+        ("decode + NMS", lambda preds: model.bbox_head.predict(
+            preds, model.test_cfg))], points, iters)
+
+
+def capture_vx_inputs(model, points, n_convs=21):
+    """One kernel-path forward, recording what it hands K8 (n_convs calls)
+    and the dense BEV's sorted segment sum."""
     from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
     convs, bevs = [], []
     conv_fn, sum_fn = sparse_conv.sparse_conv3d, \
@@ -1002,9 +1040,9 @@ def capture_vx_inputs(model, points):
     with mock.patch.object(sparse_conv, "sparse_conv3d", conv_rec), \
             mock.patch.object(sorted_scatter, "sorted_segment_sum", sum_rec):
         model.test_forward({"data": points})
-    check(len(convs) == 21 and len(bevs) == 1,
-          "expected 21 sparse convs and one dense BEV, got {} and {}"
-          .format(len(convs), len(bevs)))
+    check(len(convs) == n_convs and len(bevs) == 1,
+          "expected {} sparse convs and one dense BEV, got {} and {}"
+          .format(n_convs, len(convs), len(bevs)))
     return convs, bevs
 
 
@@ -1262,6 +1300,467 @@ def phase_voxels(device):
     return errs, times, extra, launches
 
 
+def build_scaled(device, path):
+    """A config's model at full width, seeded random weights, eval, with
+    every dense conv and linear weight scaled by sqrt(6): uniform
+    (±1/sqrt(fan_in)) weights shrink the activations ~3x a layer under
+    relu, which through the 12-conv RPN stack or IA-SSD's ~20 shared-MLP
+    layers would leave flat scores and degenerate boxes; the gain keeps
+    their variance, so proposals, votes and the NMS see the scene. Sparse
+    convs keep their scale."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    model = Config(path=path, device=device).model.eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                              torch.nn.Linear)):
+                m.weight.mul_(6 ** 0.5)
+    return model
+
+
+def make_kitti_points(device, name):
+    """TS_BATCH KITTI-like scans of clustered (x, y, z, intensity) points
+    over bench.MODELS[name]'s range (bench.make_scans, seed 0)."""
+    import numpy as np
+    import torch
+
+    import bench
+    _, n, (lo, hi), _ = bench.MODELS[name]
+    pts = bench.make_scans(np.random.default_rng(SEED), TS_BATCH, n, lo, hi,
+                           "clustered")
+    check(pts.shape == (TS_BATCH, n, 4), "unexpected scan shape")
+    return torch.from_numpy(pts).to(device)
+
+
+def capture_point_inputs(model, points):
+    """One kernel-path forward, recording what it hands the ball query and
+    farthest-point sampling: -> (K9 calls, K10 calls), argument tuples."""
+    from paddle3d_tpu_torch.ops import ball_query, fps
+    balls, samples = [], []
+    ball_fn, fps_fn = ball_query.ball_query_batched, \
+        fps.farthest_point_sample_batched
+
+    def ball_rec(*a):
+        balls.append(a)
+        return ball_fn(*a)
+
+    def fps_rec(*a):
+        samples.append(a)
+        return fps_fn(*a)
+
+    with mock.patch.object(ball_query, "ball_query_batched", ball_rec), \
+            mock.patch.object(fps, "farthest_point_sample_batched", fps_rec):
+        model.test_forward({"data": points})
+    return balls, samples
+
+
+def ball_work(radius, nsample, xyz, new_xyz, mask):
+    """What one ball query's data needs: -> (in-ball tests of a walk in
+    index order that stops at the nsample-th hit, hits a query uncapped,
+    share of the queries that fill nsample)."""
+    import torch
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    r2 = torch.tensor(radius * radius, dtype=torch.float32,
+                      device=xyz.device)
+    chunk = max(1, (1 << 25) // max(b * n, 1))
+    tests = hits = full = 0
+    for lo in range(0, m, chunk):
+        d = new_xyz[:, lo:lo + chunk, None, :] - xyz[:, None, :, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + \
+            d[..., 2] * d[..., 2]
+        cum = torch.cumsum((d2 <= r2) & mask[:, None, :], dim=2)
+        before = (cum < nsample).sum(dim=2)
+        tests += int(torch.clamp(before + 1, max=n).sum())
+        hits += int(cum[..., -1].sum())
+        full += int((cum[..., -1] >= nsample).sum())
+    return tests, hits / max(b * m, 1), full / max(b * m, 1)
+
+
+def phase_point_kernels(balls, samples, label):
+    """K9 and K10 against their plain versions on the inputs a forward
+    handed them (indices and counts equal), their times and bounds.
+    -> (errs, times, extra), each kernel summed over its calls."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import ball_query, fps
+    errs = {"ball_query": 0.0, "farthest_point_sample": 0.0}
+    ms = {k: [0.0, 0.0] for k in errs}
+    nbytes = {k: 0 for k in errs}
+    ops = {k: 0 for k in errs}
+    log("{}: the ball query at its {} call shapes, on the forward's inputs "
+        "(per call: B x N supports, M queries, radius, nsample; kernel / "
+        "plain ms, bound, tests the walk needs, hits a query, share of "
+        "queries that fill nsample)".format(label, len(balls)))
+    for i, a in enumerate(balls):
+        radius, nsample, xyz, new_xyz, mask = a
+        idx, cnt = ball_query.ball_query_batched(*a)
+        ref_idx, ref_cnt = ball_query.ball_query_plain(*a)
+        torch.cuda.synchronize()
+        wrong = int((idx != ref_idx).sum()) + int((cnt != ref_cnt).sum())
+        errs["ball_query"] = max(errs["ball_query"], float(wrong))
+        check(wrong == 0, "ball_query disagrees with its plain version at "
+              "call {}: {} elements".format(i, wrong))
+        b, n, _ = xyz.shape
+        m = new_xyz.shape[1]
+        t = cuda_ms(lambda: ball_query.ball_query_batched(*a), 20)
+        tp = cuda_ms(lambda: ball_query.ball_query_plain(*a), 2)
+        tests, hits, full = ball_work(*a)
+        # supports, queries and mask read once, indices and counts written;
+        # 8 f32 operations an in-ball test (3 differences, 3 products, 2
+        # sums)
+        call_bytes = 4 * (xyz.numel() + new_xyz.numel() + idx.numel() +
+                          cnt.numel()) + mask.numel()
+        one = bound(call_bytes, f32_ops=8 * tests)
+        ms["ball_query"][0] += t
+        ms["ball_query"][1] += tp
+        nbytes["ball_query"] += call_bytes
+        ops["ball_query"] += 8 * tests
+        log("  {} x {} supports ({} valid), {} queries, r {}, nsample {}: "
+            "{:.4f} / {:.4f} ms, bound {:.5f} ms ({}), tests {} of {}, hits "
+            "a query {:.2f}, full {:.3f}".format(
+                b, n, int(mask.sum()), m, radius, nsample, t, tp, one[0],
+                one[1], tests, b * m * n, hits, full))
+    for i, a in enumerate(samples):
+        xyz, mask, npoint = a
+        idx = fps.farthest_point_sample_batched(*a)
+        ref = fps.farthest_point_sample_plain(*a)
+        torch.cuda.synchronize()
+        wrong = int((idx != ref).sum())
+        errs["farthest_point_sample"] = max(errs["farthest_point_sample"],
+                                            float(wrong))
+        check(wrong == 0, "farthest_point_sample disagrees with its plain "
+              "version at call {}: {} elements".format(i, wrong))
+        b, n, _ = xyz.shape
+        t = cuda_ms(lambda: fps.farthest_point_sample_batched(*a), 5)
+        tp = cuda_ms(lambda: fps.farthest_point_sample_plain(*a), 1)
+        # the scan and its mask read once, the picks written; a step is 10
+        # f32 operations a point (3 differences, 3 products, 2 sums, a
+        # minimum and a comparison)
+        call_bytes = 4 * (xyz.numel() + idx.numel()) + mask.numel()
+        call_ops = 10 * b * n * (npoint - 1)
+        one = bound(call_bytes, f32_ops=call_ops)
+        ms["farthest_point_sample"][0] += t
+        ms["farthest_point_sample"][1] += tp
+        nbytes["farthest_point_sample"] += call_bytes
+        ops["farthest_point_sample"] += call_ops
+        log("  farthest-point sampling {} x {} ({} valid) -> {}: {:.4f} / "
+            "{:.4f} ms, {:.3f} us a step over {} dependent steps, bound "
+            "{:.5f} ms ({})".format(
+                b, n, mask.sum(dim=1).tolist(), npoint, t, tp,
+                t * 1e3 / max(npoint - 1, 1), npoint - 1, one[0], one[1]))
+    times = {k: tuple(v) for k, v in ms.items()}
+    # no single PyTorch call computes either function: no library time
+    extra = {k: (None,) + bound(nbytes[k], f32_ops=ops[k]) for k in errs}
+    for name in PT_KERNELS:
+        if times[name][0] > 0:
+            log("  {}, a forward's calls together: {:.4f} ms against plain "
+                "{:.4f} ms, bound {:.5f} ms ({}), elements that differ {:.0f}"
+                .format(name, times[name][0], times[name][1],
+                        extra[name][1], extra[name][2], errs[name]))
+    return errs, times, extra
+
+
+def check_box_outputs(out, k, classes):
+    import torch
+    boxes, scores, labels = (out["box3d_lidar"], out["scores"],
+                             out["label_preds"])
+    check(tuple(boxes.shape) == (TS_BATCH, k, 7), "box3d_lidar shape")
+    check(tuple(scores.shape) == (TS_BATCH, k) and
+          tuple(labels.shape) == (TS_BATCH, k), "scores/labels shape")
+    check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
+          "non-finite outputs")
+    kept = labels >= 0
+    check(bool((labels[kept] < classes).all() & (labels[~kept] == -1).all()
+               & (scores[~kept] == -1).all() & (scores[kept] >= 0).all()),
+          "labels or scores outside the classes / padding convention")
+    return kept.sum(dim=1).tolist()
+
+
+def compare_outputs(out, ref):
+    """Labels equal, scores within 1e-5, boxes within 1e-4 of the plain
+    path's."""
+    import torch
+    check(torch.equal(out["label_preds"], ref["label_preds"]),
+          "labels differ from the plain path")
+    s_err = (out["scores"] - ref["scores"]).abs().max().item()
+    b_err = (out["box3d_lidar"] - ref["box3d_lidar"]).abs().max().item()
+    check(s_err <= 1e-5 and b_err <= 1e-4, "outputs differ from plain path: "
+          "scores {:.3e}, boxes {:.3e}".format(s_err, b_err))
+    return s_err, b_err
+
+
+def ts_staged(model, points):
+    """The two-stage test_forward in its stages: -> (BEV, sparse stages,
+    proposals, support set, outputs)."""
+    import torch
+    with torch.no_grad():
+        preds, bev, stages = model._stage1(points)
+        rois = model.rpn_head.proposals(preds)
+        supports = model._support_set(points, bev, stages)
+        cls_pred, reg_pred = model.roi_head(rois[0], supports)
+        return bev, stages, rois, supports, model._refine(*rois, cls_pred,
+                                                          reg_pred)
+
+
+def ts_stages(model, points):
+    from paddle3d_tpu_torch.ops.voxelize import voxel_mean_batch
+    vox = model.voxelizer
+
+    def rpn(v):
+        bev, stages = v
+        preds = model.rpn_head(model.neck(model.backbone(
+            bev.permute(0, 3, 1, 2).contiguous())))
+        return bev, stages, preds
+
+    stage_times([
+        ("voxel_mean", lambda p: voxel_mean_batch(
+            p, vox.voxel_size, vox.point_cloud_range,
+            vox.max_num_points_in_voxel, vox.max_num_voxels_for(False),
+            model.voxel_encoder.in_channels)),
+        ("sparse middle", lambda v: model.middle_encoder(
+            v[0], v[1], v[3], return_stages=True)),
+        ("backbone + neck + RPN convs", rpn),
+        ("proposals (decode + NMS)", lambda v: v[:2] + (
+            model.rpn_head.proposals(v[2]),)),
+        ("support set", lambda v: (v[2], model._support_set(points, v[0],
+                                                            v[1]))),
+        ("RoI head", lambda v: model.roi_head(v[0][0], v[1])),
+    ], points, 3)
+
+
+def phase_kitti_voxel_kernels(model, points):
+    """K8 at the eight conv shapes of the KITTI voxel grid and the dense
+    BEV's segment sum (K2 or K7, as the density rule picks), on the inputs
+    a forward hands them, against their plain versions; logged beside the
+    nuScenes shapes of phase 7, which stay the ones in the record."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
+    convs, bevs = capture_vx_inputs(model, points, 8)
+    tol = KERNELS["sparse_conv3d"][2]
+    ms = plain_ms = tot_bytes = tot_ops = 0.0
+    for a, k in convs:
+        qbase, in_keys, feats, w = a[:4]
+        cin, cout = feats.shape[-1], w.shape[-1]
+        got = sparse_conv.sparse_conv3d(*a, **k)
+        ref = sparse_conv.sparse_conv3d_plain(*a, **k)
+        torch.cuda.synchronize()
+        e, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        check(e <= tol * top, "sparse_conv3d disagrees with its plain "
+              "version on the KITTI grid: {:.3e} of {:.3e}".format(e, top))
+        t = cuda_ms(lambda: sparse_conv.sparse_conv3d(*a, **k), 10)
+        tp = cuda_ms(lambda: sparse_conv.sparse_conv3d_plain(*a, **k), 1)
+        nbytes, taps, _, valid = conv_work(a)
+        one = bound(nbytes, f32_ops=2 * cin * cout * sum(taps))
+        ms, plain_ms = ms + t, plain_ms + tp
+        tot_bytes += nbytes
+        tot_ops += 2 * cin * cout * sum(taps)
+        log("  sparse conv {} x {} -> {} ({}): {:.4f} / {:.4f} ms, bound "
+            "{:.4f} ms ({}), valid rows {}, hits a row {:.2f}, max_abs_err "
+            "{:.3e} of {:.3e}".format(
+                qbase.shape[1], cin, cout,
+                "subm" if qbase is in_keys else "strided", t, tp, one[0],
+                one[1], valid, sum(taps) / max(valid, 1), e, top))
+    both = bound(tot_bytes, f32_ops=tot_ops)
+    log("  sparse_conv3d on the KITTI grid, 8 launches a forward: {:.4f} ms "
+        "against plain {:.4f} ms, bound {:.4f} ms ({})".format(
+            ms, plain_ms, both[0], both[1]))
+    keys, rows, cells = bevs[0]
+    b, n, c = rows.shape
+    name = sorted_scatter.kernel_for(n, cells)
+    table = sorted_scatter.scatter_rows(keys, rows, cells, False)
+    ref = sorted_scatter.scatter_rows_plain(keys, rows, cells, False)
+    torch.cuda.synchronize()
+    e = (table - ref).abs().max().item()
+    check(e <= 1e-5 * ref.abs().max().item(),
+          "{} disagrees with its plain version on the KITTI BEV".format(name))
+    one = bound(scatter_bytes(keys, cells, c, table.numel()))
+    log("  dense BEV at B={} N={} cells={} C={} through {}: {:.4f} ms vs "
+        "plain {:.4f} ms, bound {:.4f} ms ({}), max_abs_err {:.3e}".format(
+            b, n, cells, c, name,
+            cuda_ms(lambda: sorted_scatter.scatter_rows(keys, rows, cells,
+                                                        False), 50),
+            cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+                keys, rows, cells, False), 10), one[0], one[1], e))
+
+
+def _bev_rows(model, points):
+    """Rows a scan hands the dense BEV's segment sum: the last stage's
+    capacity (an eighth of the voxel rows, which a scan of N points caps
+    at N, unless the config sets the stage capacities)."""
+    caps = model.middle_encoder.stage_capacities
+    if caps is not None:
+        return caps[3]
+    rows = min(model.voxelizer.max_num_voxels_for(False), points.shape[1])
+    return max(rows // 8, 1)
+
+
+def phase_two_stage(device, path, name, want):
+    """One two-stage KITTI model through the kernels and on the plain
+    versions. want: the launches a forward must count."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = build_scaled(device, path)
+    points = make_kitti_points(device, "pv_rcnn")
+    log("phase 8: {} KITTI serving at B={} N={}, voxels per scan before "
+        "the cap of {}: {}".format(
+            name, TS_BATCH, points.shape[1],
+            model.voxelizer.max_num_voxels_for(False),
+            voxels_per_scan(model, points)))
+    balls, samples = capture_point_inputs(model, points)
+    check(len(balls) == want["ball_query"] and
+          len(samples) == want["farthest_point_sample"],
+          "expected {} ball queries and {} samplings, got {} and {}".format(
+              want["ball_query"], want["farthest_point_sample"], len(balls),
+              len(samples)))
+    errs, times, extra = phase_point_kernels(balls, samples, "phase 8")
+    del balls, samples
+    if want["farthest_point_sample"]:     # once: both models share stage 1
+        phase_kitti_voxel_kernels(model, points)
+
+    _build.reset_launches()
+    out = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    kept = check_box_outputs(out, model.rpn_head.num_proposals,
+                             model.rpn_head.num_classes)
+    d, h, w = model.middle_encoder.grid
+    rule = sorted_scatter.kernel_for(
+        _bev_rows(model, points), (d // 8) * (h // 8) * (w // 8))
+    log("  test_forward through the kernels: launches {}; proposals refined "
+        "per scan (of {}) {}; the density rule sends the dense BEV to {}"
+        .format(launches, model.rpn_head.num_proposals, kept, rule))
+    other = ({"sorted_segment_sum", "sorted_segment_sum_dense"} -
+             {rule}).pop()
+    check(all(launches[k] == v for k, v in want.items()) and
+          launches[rule] == 1 and launches[other] == 0,
+          "the {} path's launches are not {} and one {}: {}".format(
+              name, want, rule, launches))
+    check(all(k == model.rpn_head.num_proposals for k in kept),
+          "the RPN left proposal slots empty: {}".format(kept))
+    got = ts_staged(model, points)
+    with plain_path():
+        _build.reset_launches()
+        ref = ts_staged(model, points)
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          "the plain path launched a kernel: {}".format(_build.LAUNCHES))
+    check(torch.equal(got[4]["label_preds"], out["label_preds"]),
+          "test_forward and its stages differ")
+    c_err = (got[0] - ref[0]).abs().max().item()
+    rows = []
+    for st, _ in got[1]:
+        outside = st.mask & (st.coords[..., 0] >= st.grid[0])
+        check(not bool(outside.any()), "a valid stage voxel lies outside "
+              "its grid {}".format(st.grid))
+        rows.append(st.mask.sum(dim=1).tolist())
+    check(torch.equal(got[2][2], ref[2][2]) and
+          torch.equal(got[2][0], ref[2][0]),
+          "proposals differ from the plain path")
+    if isinstance(got[3], tuple):                  # PV-RCNN's keypoints
+        check(torch.equal(got[3][0], ref[3][0]) and
+              torch.equal(got[3][2], ref[3][2]),
+              "keypoints differ from the plain path")
+        f_err = (got[3][1] - ref[3][1]).abs().max().item()
+        check(f_err <= 1e-4 * ref[3][1].abs().max().item(),
+              "keypoint features differ from the plain path")
+    s_err, b_err = compare_outputs(got[4], ref[4])
+    log("  vs the plain path on the card: BEV max_abs_err {:.3e} (tolerance "
+        "1e-5 of its largest value {:.3e}), proposals{} equal, labels equal, "
+        "scores {:.3e} (1e-5), boxes {:.3e} (1e-4); valid rows per stage "
+        "and scan {} (none outside its grid)".format(
+            c_err, ref[0].abs().max().item(),
+            " and keypoints" if isinstance(got[3], tuple) else "", s_err,
+            b_err, rows))
+    check(c_err <= 1e-5 * ref[0].abs().max().item(),
+          "the BEV differs from the plain path")
+    del got, ref
+    phase_timing(model, points, "phase 8 ({})".format(name), warmups=1)
+    ts_stages(model, points)
+    return errs, times, extra, launches
+
+
+def iassd_stages(model, points):
+    import torch
+
+    def prepare(p):
+        mask = torch.isfinite(p).all(dim=-1)
+        return (torch.where(mask[..., None], p[..., :3], 0.),
+                torch.where(mask[..., None], p[..., 3:], 0.), mask, None)
+
+    def layer(mod):
+        def run(v):
+            xyz, feats, mask, conf = mod(*v)
+            return xyz, feats, mask, conf if conf is not None else v[3]
+        return run
+
+    def vote(v):
+        votes, vfeats, _ = model.vote(*v[:3])
+        return votes, model._aggregate(votes, v[0], vfeats, v[2]), v[2]
+
+    stages = [("mask", prepare)] + [
+        ("SA layer {}".format(i + 1), layer(mod))
+        for i, mod in enumerate(model.sa_modules)] + [
+        ("vote + aggregation", vote),
+        ("heads", lambda v: (model.cls_head(v[1]), model.reg_head(v[1])))]
+    stage_times(stages, points, 3)
+
+
+def phase_iassd(device):
+    """IA-SSD KITTI serving through K9 and K10 and on the plain versions,
+    timing, memory, a profile and per-stage times."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = build_scaled(device, IASSD)
+    points = make_kitti_points(device, "iassd")
+    balls, samples = capture_point_inputs(model, points)
+    check(len(balls) == 10 and len(samples) == 3,
+          "expected 10 ball queries and 3 samplings, got {} and {}".format(
+              len(balls), len(samples)))
+    check(tuple(samples[0][0].shape) == (TS_BATCH, 16384, 3) and
+          samples[0][2] == 4096 and
+          tuple(balls[0][3].shape) == (TS_BATCH, 4096, 3),
+          "not the IA-SSD first-layer shapes")
+    errs, times, extra = phase_point_kernels(balls, samples, "phase 9")
+    del balls, samples
+
+    _build.reset_launches()
+    out = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    kept = check_box_outputs(out, model.nms_cfg["post_max_size"],
+                             model.num_classes)
+    log("  IA-SSD test_forward through the kernels: launches {}; boxes NMS "
+        "kept per scan (of {}) {}".format(
+            launches, model.nms_cfg["post_max_size"], kept))
+    check(launches["ball_query"] == 10 and
+          launches["farthest_point_sample"] == 3,
+          "the IA-SSD path's launches are not 10 and 3: {}".format(launches))
+    check(all(k > 0 for k in kept), "a scan kept no box")
+    _build.reset_launches()
+    with plain_path():
+        ref = model.test_forward({"data": points})
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          "the plain path launched a kernel: {}".format(_build.LAUNCHES))
+    s_err, b_err = compare_outputs(out, ref)
+    log("  vs the plain path on the card: labels equal, scores max_abs_err "
+        "{:.3e} (tolerance 1e-5), boxes {:.3e} (tolerance 1e-4)".format(
+            s_err, b_err))
+    phase_timing(model, points, "phase 9 (IA-SSD)", warmups=1)
+    iassd_stages(model, points)
+    return errs, times, extra, launches
+
+
 def main():
     try:
         import torch
@@ -1317,6 +1816,21 @@ def main():
                               (vx_errs, vx_times, vx_extra,
                                {k: vx_launches[k] for k in VX_KERNELS})):
             into.update(part)
+        # K9 and K10 counted on the PV-RCNN path (their times: the seven
+        # and the one call of its forward); Voxel-RCNN and IA-SSD run them
+        # at other shapes
+        pv_errs, pv_times, pv_extra, pv_launches = phase_two_stage(
+            device, PV_RCNN, "PV-RCNN",
+            {"ball_query": 7, "farthest_point_sample": 1,
+             "sparse_conv3d": 8})
+        for into, part in zip((errs, times, extra, launches),
+                              (pv_errs, pv_times, pv_extra,
+                               {k: pv_launches[k] for k in PT_KERNELS})):
+            into.update(part)
+        phase_two_stage(device, VOXEL_RCNN, "Voxel-RCNN",
+                        {"ball_query": 2, "farthest_point_sample": 0,
+                         "sparse_conv3d": 8})
+        phase_iassd(device)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

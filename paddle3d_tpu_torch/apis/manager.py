@@ -59,8 +59,9 @@ HEADS = ComponentManager("heads")
 LOSSES = ComponentManager("losses")
 OPTIMIZERS = ComponentManager("optimizers")
 LR_SCHEDULERS = ComponentManager("lr_schedulers")
+POINT_ENCODERS = ComponentManager("point_encoders")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
-    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS
+    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS
 ]

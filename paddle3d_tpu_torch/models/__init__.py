@@ -1,2 +1,3 @@
-from . import backbones, detection, losses, middle_encoders, necks, \
-    optimizers, voxel_encoders, voxelizers
+from . import backbones, common, detection, heads, losses, \
+    middle_encoders, necks, optimizers, point_encoders, voxel_encoders, \
+    voxelizers

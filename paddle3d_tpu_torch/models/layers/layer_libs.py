@@ -137,10 +137,11 @@ class DeconvBNReLU(nn.Module):
 
 
 class LinearBN1DReLU(nn.Module):
-    """Linear (no bias) -> BatchNorm over the last axis -> ReLU. The fused
-    pillar path runs the layer inside its kernels (ops/pillar_ops.py: the BN
-    folded from running stats in eval, from batch stats in train), so the
-    module holds parameters only."""
+    """Linear (no bias) -> BatchNorm over the last axis -> ReLU, on
+    [..., in_features] with any leading dimensions. The fused pillar path
+    does not call it: it runs the layer inside its kernels
+    (ops/pillar_ops.py: the BN folded from running stats in eval, from
+    batch stats in train) and reads the parameters only."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator = None, eps: float = 1e-3,
@@ -151,3 +152,9 @@ class LinearBN1DReLU(nn.Module):
         uniform_(self.linear.weight, in_features,
                  default_generator(generator))
         self.bn = BatchNorm1d(out_features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        y = self.linear(x)
+        # BatchNorm1d normalises axis 1: fold the leading dims into rows
+        return torch.relu(self.bn(y.reshape(-1, y.shape[-1])).reshape(
+            y.shape))

@@ -3,15 +3,19 @@
 Port of the part of paddle3d_tpu/ops/iou3d_nms.py that `suppress` runs:
 the Green's-theorem all-pairs intersection area, the fixpoint greedy
 survivors, the kept-buffer blocked variant and the compaction of kept
-indices. Every function takes leading batch dimensions, written out
+indices; and of `nms_bev` on top of it (score top-k, then suppress). Every function takes leading batch dimensions, written out
 instead of vmapped. Plain PyTorch: the JAX package runs this as plain XLA,
 not as a TPU kernel.
 """
 from typing import Tuple
 
+import math
+
 import torch
 
-__all__ = ["suppress"]
+from .pointnet2 import topk_stable
+
+__all__ = ["suppress", "nms_bev"]
 
 
 def _green_edge_sum(acx, acy, aux, auy, aa, ab,
@@ -224,3 +228,30 @@ def suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
         keep_idx = _compact_keep(keep_mask, post_max_size)
     return (keep_mask.reshape(lead + (k,)),
             keep_idx.reshape(lead + (post_max_size,)))
+
+
+def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+            pre_max_size: int = 1024, post_max_size: int = 256,
+            score_threshold: float = -math.inf):
+    """Rotated-BEV NMS over the pre_max_size best-scored boxes.
+
+    boxes [..., N, 5|7] rotated boxes, scores [..., N] (invalid or padding
+    rows carry -inf; non-finite scores and scores not above score_threshold
+    count as such). -> (keep_idx [..., post_max_size] int32 indices into
+    the inputs, -1 padded, in score order; count [...] kept boxes). Score
+    ties keep index order."""
+    scores = torch.where(torch.isfinite(scores), scores, -math.inf)
+    scores = torch.where(scores > score_threshold, scores, -math.inf)
+    k = min(pre_max_size, boxes.shape[-2])
+    top_scores, top_idx = topk_stable(scores, k)
+    top_boxes = torch.gather(
+        boxes, -2, top_idx[..., None].expand(top_idx.shape +
+                                             (boxes.shape[-1],)))
+    valid = torch.isfinite(top_scores)
+    _, keep_local = suppress(top_boxes, valid, iou_threshold, post_max_size)
+    kept = keep_local >= 0
+    keep_idx = torch.where(
+        kept, torch.gather(top_idx, -1, torch.where(kept, keep_local,
+                                                    0).long()),
+        -1).to(torch.int32)
+    return keep_idx, kept.sum(dim=-1).to(torch.int32)

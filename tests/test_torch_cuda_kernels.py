@@ -460,3 +460,254 @@ def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):
     assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 21
     _close(got.cpu(), ref, 1e-5)
     assert ref.abs().max() > 0
+
+
+def _clustered(seed, b, n, valid, spread=1.0, box=20.):
+    """[b, n, 3] points around 8 centres a scan; the first valid[i] valid."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((b, n, 3), np.float32)
+    for i in range(b):
+        centers = rng.uniform(-box, box, (8, 3))
+        pts[i] = centers[rng.integers(0, 8, n)] + rng.normal(0, spread,
+                                                             (n, 3))
+    mask = np.arange(n)[None, :] < np.asarray(valid)[:, None]
+    return torch.from_numpy(pts), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("n,m,nsample,radius", [
+    (700, 200, 16, 1.2),          # ragged tiles, partial warps
+    (2048, 27648, 16, 0.8),       # the PV-RCNN RoI grid's shape
+    (20000, 2048, 16, 0.8),       # the keypoints on the raw scan
+    (1000, 513, 8, 2.5),          # far more hits than nsample
+    (4096, 1024, 32, 0.8),        # an IA-SSD layer
+    (31, 5, 48, 3.0),             # nsample above a warp, one short tile
+], ids=["ragged", "roi_grid", "raw_scan", "crowded", "iassd", "wide"])
+def test_ball_query_matches_plain(cuda, n, m, nsample, radius):
+    """K9 against its plain version, indices and counts equal: masked
+    supports, queries on support points (d2 = 0), far queries (empty
+    balls), full balls, one scan with no valid support."""
+    from paddle3d_tpu_torch.ops import ball_query
+    xyz, mask = _clustered(n, 3, n, [n, max(n // 3, 1), 0])
+    rng = np.random.default_rng(m)
+    pick = torch.from_numpy(rng.integers(0, n, (3, m)))
+    q = torch.gather(xyz, 1, pick[..., None].expand(-1, -1, 3)) + \
+        torch.from_numpy(rng.normal(0, 0.4, (3, m, 3)).astype(np.float32))
+    q[:, :4] = xyz[:, :4]
+    q[:, 4:5] = 500.
+    before = dict(_build.LAUNCHES)
+    idx, cnt = ball_query.ball_query_batched(radius, nsample, xyz.to(cuda),
+                                             q.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ball_query"] == before["ball_query"] + 1
+    ref_idx, ref_cnt = ball_query.ball_query_plain(radius, nsample, xyz, q,
+                                                   mask)
+    assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
+    torch.testing.assert_close(cnt.cpu(), ref_cnt, rtol=0, atol=0)
+    torch.testing.assert_close(idx.cpu(), ref_idx, rtol=0, atol=0)
+    # the plain version on the card gives the same (its arithmetic there)
+    card_idx, card_cnt = ball_query.ball_query_plain(
+        radius, nsample, xyz.to(cuda), q.to(cuda), mask.to(cuda))
+    torch.testing.assert_close(idx, card_idx, rtol=0, atol=0)
+    torch.testing.assert_close(cnt, card_cnt, rtol=0, atol=0)
+    assert not cnt[2].any() and not idx[2].any()
+    assert (ref_cnt == 0).any() and (ref_cnt[0] > 0).any()
+
+
+def test_ball_query_surface(cuda):
+    """d2 <= r2 inclusive, r2 the double product rounded once to f32, sums
+    without fused multiply-adds: lattice points at distance exactly r."""
+    from paddle3d_tpu_torch.ops import ball_query
+    g = torch.arange(-6, 7, dtype=torch.float32) * 0.25
+    xyz = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        1, -1, 3)
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool)
+    q = torch.zeros((1, 3, 3))
+    q[0, 1] = 0.125
+    q[0, 2, 0] = 0.3
+    for radius in (0.75, 0.8, 1.25, 1.0606601717798212):
+        idx, cnt = ball_query.ball_query_batched(
+            radius, 64, xyz.to(cuda), q.to(cuda), mask.to(cuda))
+        ref_idx, ref_cnt = ball_query.ball_query_plain(radius, 64, xyz, q,
+                                                       mask)
+        torch.testing.assert_close(idx.cpu(), ref_idx, rtol=0, atol=0)
+        torch.testing.assert_close(cnt.cpu(), ref_cnt, rtol=0, atol=0)
+
+
+def test_ball_query_refuses_what_it_cannot_take(cuda):
+    from paddle3d_tpu_torch.ops import ball_query
+    xyz = torch.zeros((1, 8, 3), device=cuda)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="f32"):
+        ball_query.ball_query_batched(1., 4, xyz.double(), xyz, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        ball_query.ball_query_batched(
+            1., 4, torch.zeros((1, 8, 4), device=cuda)[..., :3], xyz, mask)
+    with pytest.raises(ValueError, match="expected"):
+        ball_query.ball_query_batched(1., 4, xyz, xyz, mask[:, :4])
+
+
+@pytest.mark.parametrize("n,npoint,valid", [
+    (1200, 128, (1200, 777, 1)),
+    (20000, 2048, (20000, 15000, 300)),     # PV-RCNN's keypoints
+    (16384, 4096, (16384, 16000, 2000)),    # IA-SSD's first layer
+    (1024, 512, (1024, 100, 0)),            # fewer valid than npoint, none
+    (40000, 64, (40000, 39000, 5)),         # past the register path
+    (37, 50, (37, 20, 0)),                  # one warp's worth of points
+], ids=["masked", "pv_rcnn", "iassd", "short", "scratch", "tiny"])
+def test_fps_matches_plain(cuda, n, npoint, valid):
+    """K10 against its plain version, index for index: masked scans, scans
+    with fewer valid points than npoint (picks repeat the first valid
+    point), a scan with no valid point (index 0 throughout)."""
+    from paddle3d_tpu_torch.ops import fps
+    xyz, mask = _clustered(n + npoint, 3, n, valid, spread=2.0, box=30.)
+    mask = mask.roll(3, dims=1) if valid[0] == n else mask
+    mask[0] = True
+    before = dict(_build.LAUNCHES)
+    idx = fps.farthest_point_sample_batched(xyz.to(cuda), mask.to(cuda),
+                                            npoint)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["farthest_point_sample"] == \
+        before["farthest_point_sample"] + 1
+    ref = fps.farthest_point_sample_plain(xyz, mask, npoint)
+    assert idx.dtype == torch.int32 and idx.shape == (3, npoint)
+    torch.testing.assert_close(idx.cpu(), ref, rtol=0, atol=0)
+    if valid[2] == 0:
+        assert not idx[2].any()
+
+
+def test_fps_ties_keep_the_lowest_index(cuda):
+    """A lattice repeated three times: every pick ties with its copies (and
+    with its mirror images) at equal distance, and the lowest index wins,
+    in the kernel, in the plain version on the CPU and in the plain version
+    on the card."""
+    from paddle3d_tpu_torch.ops import fps
+    g = torch.arange(-4, 5, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(g, g, g, indexing="ij"),
+                          -1).reshape(-1, 3)
+    xyz = torch.cat([lattice, lattice, lattice])[None].contiguous()
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool)
+    mask[0, :7] = False
+    idx = fps.farthest_point_sample_batched(xyz.to(cuda), mask.to(cuda), 400)
+    ref = fps.farthest_point_sample_plain(xyz, mask, 400)
+    card = fps.farthest_point_sample_plain(xyz.to(cuda), mask.to(cuda), 400)
+    torch.testing.assert_close(idx.cpu(), ref, rtol=0, atol=0)
+    torch.testing.assert_close(idx, card, rtol=0, atol=0)
+    assert idx[0, 0] == 7 and int(idx.max()) < 2 * lattice.shape[0]
+
+
+def test_fps_refuses_what_it_cannot_take(cuda):
+    from paddle3d_tpu_torch.ops import fps
+    xyz = torch.zeros((1, 8, 3), device=cuda)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="f32"):
+        fps.farthest_point_sample_batched(xyz.double(), mask, 4)
+    with pytest.raises(TypeError, match="bool"):
+        fps.farthest_point_sample_batched(xyz, mask.float(), 4)
+    with pytest.raises(ValueError, match="expected"):
+        fps.farthest_point_sample_batched(xyz, mask[:, :4], 4)
+
+
+def _tiny_two_stage(tmp_path, name):
+    """A tiny PV-RCNN or Voxel-RCNN config (the KITTI config over 16 m x
+    16 m at 0.25 m, 41 z layers, 64 keypoints, a 2^3 RoI grid)."""
+    import yaml
+    rng_, vs = [0., -8., -2., 16., 8., 2.], [0.25, 0.25, 0.1]
+    anchor = dict(sizes=[1.6, 3.9, 1.56], anchor_strides=[2.0, 2.0, 0.0],
+                  anchor_offsets=[1.0, -7.0, -1.78], rotations=[0.0, 1.57],
+                  matched_threshold=0.6, unmatched_threshold=0.45)
+    pv = name == "pv_rcnn"
+    model = {
+        "voxelizer": {"point_cloud_range": rng_, "voxel_size": vs,
+                      "max_num_voxels": [600, 900]},
+        "middle_encoder": {"point_cloud_range": rng_, "voxel_size": vs},
+        "backbone": {"layer_nums": [1, 1]},
+        "rpn_head": {"point_cloud_range": rng_, "voxel_size": vs,
+                     "num_proposals": 16, "nms_pre": 64,
+                     "anchor_configs": [anchor] * (3 if pv else 1)},
+        "roi_head": {"grid_size": 2, "head_fc": [32, 32]}}
+    if pv:
+        model["point_encoder"] = {"num_keypoints": 64,
+                                  "point_cloud_range": rng_,
+                                  "voxel_size": vs}
+    base = (("pv_rcnn", "pv_rcnn_005voxel_kitti.yml") if pv else
+            ("voxel_rcnn", "voxel_rcnn_005voxel_kitti_car.yml"))
+    path = tmp_path / (name + "_tiny.yml")
+    path.write_text(yaml.safe_dump({
+        "_base_": os.path.join(REPO, "configs", *base), "model": model}))
+    return str(path)
+
+
+def _scaled(path, device):
+    """The config's model, eval, dense weights scaled so the signal
+    survives the stack."""
+    from paddle3d_tpu_torch.apis import Config
+    model = Config(path=path, device=device).model.eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                              torch.nn.Linear)):
+                m.weight.mul_(6 ** 0.5)
+    return model
+
+
+@pytest.mark.parametrize("name,k9,k10", [("pv_rcnn", 7, 1),
+                                         ("voxel_rcnn", 2, 0)])
+def test_two_stage_on_card_matches_cpu(cuda, tmp_path, name, k9, k10):
+    """Tiny PV-RCNN and Voxel-RCNN: test_forward through the kernels on the
+    card against the plain versions on the CPU; keypoints and proposal
+    labels equal, scores 1e-4, boxes 1e-3 (cuDNN and the CPU convolutions
+    sum in other orders)."""
+    rng = np.random.default_rng(0)
+    pts = rng.uniform([0, -8, -2, 0], [16, 8, -1.5, 1], (2, 3000, 4))
+    pts[:, :1500, :3] = rng.uniform([1, -7, -1.5], [15, 7, 0], (8, 3))[
+        rng.integers(0, 8, 1500)] + rng.normal(0, [.8, .4, .3],
+                                               (2, 1500, 3))
+    pts[:, -16:] = np.nan
+    pts[-1, 600:] = np.nan
+    pts = torch.from_numpy(pts.astype(np.float32))
+    model = _scaled(_tiny_two_stage(tmp_path, name), "cpu")
+    ref = model.test_forward({"data": pts})
+    model.cuda()
+    before = dict(_build.LAUNCHES)
+    got = model.test_forward({"data": pts.to(cuda)})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ball_query"] == before["ball_query"] + k9
+    assert _build.LAUNCHES["farthest_point_sample"] == \
+        before["farthest_point_sample"] + k10
+    assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 8
+    torch.testing.assert_close(got["label_preds"].cpu(), ref["label_preds"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got["scores"].cpu(), ref["scores"],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["box3d_lidar"].cpu(), ref["box3d_lidar"],
+                               rtol=1e-3, atol=1e-3)
+    assert (ref["label_preds"] >= 0).sum() >= 8
+
+
+def test_iassd_on_card_matches_cpu(cuda):
+    """The tiny IA-SSD config: test_forward through the kernels on the card
+    against the plain versions on the CPU."""
+    rng = np.random.default_rng(1)
+    pts = rng.uniform([0, -16, -2, 0], [32, 16, -1.2, 1], (2, 1024, 4))
+    pts[:, :512, :3] = rng.uniform([4, -12, -1.2], [28, 12, 0], (6, 3))[
+        rng.integers(0, 6, 512)] + rng.normal(0, [.9, .5, .4], (2, 512, 3))
+    pts[:, -24:] = np.nan
+    pts[-1, 200:] = np.nan
+    pts = torch.from_numpy(pts.astype(np.float32))
+    model = _scaled(os.path.join(REPO, "configs", "iassd",
+                                 "iassd_synthetic_tiny.yml"), "cpu")
+    ref = model.test_forward({"data": pts})
+    model.cuda()
+    before = dict(_build.LAUNCHES)
+    got = model.test_forward({"data": pts.to(cuda)})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ball_query"] == before["ball_query"] + 8
+    assert _build.LAUNCHES["farthest_point_sample"] == \
+        before["farthest_point_sample"] + 2
+    torch.testing.assert_close(got["label_preds"].cpu(), ref["label_preds"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got["scores"].cpu(), ref["scores"],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["box3d_lidar"].cpu(), ref["box3d_lidar"],
+                               rtol=1e-3, atol=1e-3)
+    assert (ref["label_preds"] >= 0).any()
