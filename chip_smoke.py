@@ -14,8 +14,9 @@ nuScenes serving
 width, seeded random weights) on 4 scans of 250,000, PV-RCNN and Voxel-RCNN
 KITTI serving (configs/pv_rcnn/pv_rcnn_005voxel_kitti.yml,
 configs/voxel_rcnn/voxel_rcnn_005voxel_kitti_car.yml) on 4 scans of 20,000
-and IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of
-16,384, in phases; any failing phase exits non-zero and prints no result:
+IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of 16,384,
+and CenterPoint-pillars nuScenes training on 8 scans of 250,000, in phases;
+any failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -61,7 +62,17 @@ and IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of
   9. IA-SSD KITTI serving: K10 at its three call shapes and K9 at its ten,
      against plain; test_forward through the kernels (10 K9 launches, 3
      K10) and on the plain versions; timing, memory, a profile and the time
-     of each stage.
+     of each stage;
+ 10. CenterPoint-pillars nuScenes training (the config's OneCycleAdam,
+     clip 35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): the
+     segmented window max (K12) forward and backward at both PFN layers'
+     shapes, on the inputs a train step hands them, against their plain
+     versions (values, offsets, gradients equal); one train step through
+     the kernels (2 K12 forward, 2 K12 backward, one K7, one K5 launch;
+     no K1, K2, K3, K4 or K6) against one on the plain versions from the
+     same state; the tiny two-layer train step on the card against the
+     CPU; 10 steps with finite losses that fall; train scans/s of both
+     paths, peak memory, a profile and the time of each stage.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -140,6 +151,12 @@ KERNELS = {
                    "paddle3d_tpu/ops/pallas/ball_query.py:50", 0.0),
     "farthest_point_sample": ("paddle3d_tpu_torch/csrc/fps.cu",
                               "paddle3d_tpu/ops/pallas/fps.py:38", 0.0),
+    # K12: maxes and offsets compared, and the backward adds in the plain
+    # version's order: bit-equal
+    "seg_window_max": ("paddle3d_tpu_torch/csrc/seg_window.cu",
+                       "paddle3d_tpu/ops/pallas/seg_window.py:57", 0.0),
+    "seg_window_max_bwd": ("paddle3d_tpu_torch/csrc/seg_window.cu",
+                           "paddle3d_tpu/ops/pallas/seg_window.py:113", 0.0),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
@@ -147,6 +164,14 @@ TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
 CP_KERNELS = ("fused_pfn_rows_2l", "sorted_segment_sum_cm")
 VX_KERNELS = ("sparse_conv3d", "sorted_segment_sum_dense")
 PT_KERNELS = ("ball_query", "farthest_point_sample")
+SW_KERNELS = ("seg_window_max", "seg_window_max_bwd")
+# a CenterPoint-pillars train step: K12 both ways, K7 (the dense scan) and
+# its VJP K5, and none of the eval or one-layer kernels
+CPT_LAUNCHES = {"seg_window_max": 2, "seg_window_max_bwd": 2,
+                "sorted_segment_sum_dense": 1, "sorted_table_gather": 1,
+                "fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
+                "sorted_segment_sum": 0, "pfn_stats": 0, "pfn_bwd": 0,
+                "sorted_segment_sum_cm": 0}
 
 
 class PhaseError(RuntimeError):
@@ -211,11 +236,14 @@ def segments(keys, P, maxV):
 
 @contextlib.contextmanager
 def plain_path():
-    """The model with all eleven kernels swapped for their plain versions
+    """The model with all thirteen kernels swapped for their plain versions
     (forward and backward)."""
     from paddle3d_tpu_torch.ops import ball_query, fps, fused_pfn, \
-        fused_pfn_train, pillar_ops, sorted_scatter, sparse_conv
+        fused_pfn_train, pillar_ops, seg_window, sorted_scatter, sparse_conv
     with mock.patch.multiple(
+            seg_window, seg_window_max_fwd=seg_window.seg_window_max_plain,
+            seg_window_max_bwd=seg_window.seg_window_max_bwd_plain), \
+            mock.patch.multiple(
             ball_query, ball_query_batched=ball_query.ball_query_plain), \
             mock.patch.multiple(
                 fps, farthest_point_sample_batched=(
@@ -406,9 +434,11 @@ def phase_tiny_canvas():
     pts = torch.from_numpy(rng.uniform([0, -16, -2, 0], [32, 16, 2, 1],
                                        (2, 1024, 4)).astype(np.float32))
     mods = (model.voxelizer, model.pillar_encoder, model.middle_encoder)
-    ref_canvas, ref_occ = fused_pillar_canvas(*mods, pts, with_occupancy=True)
+    ref_canvas, ref_occ = fused_pillar_canvas(*mods, pts, False,
+                                              with_occupancy=True)
     model.cuda()
-    canvas, occ = fused_pillar_canvas(*mods, pts.cuda(), with_occupancy=True)
+    canvas, occ = fused_pillar_canvas(*mods, pts.cuda(), False,
+                                      with_occupancy=True)
     err = (canvas.cpu() - ref_canvas).abs().max().item()
     log("  tiny config canvas, card kernels vs CPU plain: max_abs_err {:.3e} "
         "(tolerance 1e-5), occupancy equal: {}".format(
@@ -475,10 +505,13 @@ def profile(fn, iters):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     # device-side events only: a CPU op's own device time repeats the time
-    # of the kernels it launched
+    # of the kernels it launched, and so does a user annotation's range on
+    # the device (the optimizer's step)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / iters
     if not events:
         log("  profile: no device time in the trace (not measured)")
@@ -653,13 +686,13 @@ def record_step(step, model, optimizer, batch):
             launches)
 
 
-def compare_steps(got, ref, loss_tol, grad_tol, stat_tol):
+def compare_steps(got, ref, loss_tol, grad_tol, stat_tol,
+                  keys=("loss", "loss_cls", "loss_reg", "loss_dir")):
     """-> (worst loss, grad, stat relative errors); fails past the
     tolerances (grads and stats relative to each tensor's largest
     value)."""
     (l1, g1, s1, _), (l2, g2, s2, _) = got, ref
-    check(set(l1) == set(l2) == {"loss", "loss_cls", "loss_reg",
-                                 "loss_dir"}, "loss keys")
+    check(set(l1) == set(l2) == set(keys), "loss keys")
     check(all(map(lambda v: v == v and abs(v) < float("inf"), l1.values())),
           "non-finite losses: {}".format(l1))
     errs = [max(abs(l1[k] - l2[k]) / max(abs(l2[k]), 1e-30) for k in l2)]
@@ -984,7 +1017,8 @@ def phase_centerpoint(device):
     check(s_err <= 1e-5 and b_err <= 1e-4, "outputs differ from plain path")
     phase_timing(model, points, "phase 6")
     cp_stages(model, points, [("canvas", lambda p: fused_pillar_canvas(
-        model.voxelizer, model.voxel_encoder, model.middle_encoder, p))], 3)
+        model.voxelizer, model.voxel_encoder, model.middle_encoder, p,
+        False))], 3)
     return errs, times, extra, launches
 
 
@@ -1226,7 +1260,7 @@ def vx_staged(model, points):
     decoded outputs)."""
     import torch
     with torch.no_grad():
-        canvas = model._canvas(points)
+        canvas = model._canvas(points, False)
         preds = model.bbox_head(model.neck(model.backbone(
             canvas.permute(0, 3, 1, 2).contiguous())))
         return canvas, preds, model.bbox_head.predict(preds, model.test_cfg)
@@ -1761,6 +1795,334 @@ def phase_iassd(device):
     return errs, times, extra, launches
 
 
+CP_TRAIN_ITERS = 10     # train steps timed per path (halves of 5)
+
+
+def cp_train_setup(device):
+    """The nuScenes pillar config in train mode (seeded random weights),
+    its OneCycleAdam, schedule and step, and the train batch: 8 scans of
+    250,000 points and bench.make_gt's boxes (64 a scan, 9 columns, ten
+    classes, a quarter padding)."""
+    import numpy as np
+    import torch
+
+    import bench
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    cfg = Config(path=NUSCENES, device=device)
+    model = cfg.model.train()
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    check(isinstance(optimizer, torch.optim.AdamW) and
+          optimizer.param_groups[0]["betas"] == (0.95, 0.99),
+          "not the config's OneCycleAdam")
+    boxes, labels = bench.make_gt(np.random.default_rng(SEED), BATCH,
+                                  "centerpoint")
+    batch = {"data": make_cp_points(device, batch=BATCH),
+             "gt_boxes": torch.from_numpy(boxes).to(device),
+             "gt_labels": torch.from_numpy(labels).to(device)}
+    return model, optimizer, scheduler, make_train_step(
+        lr_scheduler=scheduler), batch
+
+
+def capture_sw_inputs(step, model, optimizer, batch):
+    """One kernel-path train step, recording what it hands K12 forward
+    (vals, keys, max_len) and backward (offsets, cotangent, max_len)."""
+    from paddle3d_tpu_torch.ops import seg_window
+    fwds, bwds = [], []
+    fwd_fn, bwd_fn = seg_window.seg_window_max_fwd, \
+        seg_window.seg_window_max_bwd
+
+    def fwd_rec(*a):
+        fwds.append(a)
+        return fwd_fn(*a)
+
+    def bwd_rec(*a):
+        bwds.append(a)
+        return bwd_fn(*a)
+
+    with mock.patch.object(seg_window, "seg_window_max_fwd", fwd_rec), \
+            mock.patch.object(seg_window, "seg_window_max_bwd", bwd_rec):
+        step(model, optimizer, batch)
+    check(len(fwds) == 2 and len(bwds) == 2,
+          "expected two K12 forwards and backwards a step, got {} and {}"
+          .format(len(fwds), len(bwds)))
+    return fwds, bwds
+
+
+def phase_sw_kernels(fwds, bwds):
+    """K12 forward and backward against their plain versions on the inputs
+    of a train step (layer 0 [8, 250k, 32], layer 1 [8, 250k, 64]); times
+    and bounds are the sums of the step's two calls."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import seg_window
+    errs = {"seg_window_max": 0.0, "seg_window_max_bwd": 0.0}
+    times = {name: [0.0, 0.0] for name in SW_KERNELS}
+    nbytes = {name: 0 for name in SW_KERNELS}
+    ops = {name: 0 for name in SW_KERNELS}
+    note_ms = 0.0
+    for (vals, keys, p), (off_in, g, _) in zip(fwds, bwds[::-1]):
+        out, off = seg_window.seg_window_max_fwd(vals, keys, p)
+        ref, ref_off = seg_window.seg_window_max_plain(vals, keys, p)
+        gin = seg_window.seg_window_max_bwd(off_in, g, p)
+        ref_gin = seg_window.seg_window_max_bwd_plain(off_in, g.contiguous(),
+                                                      p)
+        torch.cuda.synchronize()
+        check(tuple(off_in.shape) == tuple(vals.shape),
+              "a backward met another layer's shape")
+        check(torch.equal(off, ref_off), "K12 offsets differ from plain")
+        errs["seg_window_max"] = max(errs["seg_window_max"],
+                                     (out - ref).abs().max().item())
+        errs["seg_window_max_bwd"] = max(errs["seg_window_max_bwd"],
+                                         (gin - ref_gin).abs().max().item())
+        b, n, c = vals.shape
+        win = seg_window.window_of(p)
+        steps = win.bit_length()
+        shape_t = [
+            cuda_ms(lambda: seg_window.seg_window_max_fwd(vals, keys, p), 20),
+            cuda_ms(lambda: seg_window.seg_window_max_plain(vals, keys, p),
+                    3),
+            cuda_ms(lambda: seg_window.seg_window_max_bwd(off_in, g, p), 20),
+            cuda_ms(lambda: seg_window.seg_window_max_bwd_plain(off_in, g, p),
+                    2)]
+        for i, name in enumerate(SW_KERNELS):
+            times[name][0] += shape_t[2 * i]
+            times[name][1] += shape_t[2 * i + 1]
+        # each element read and written once (f32 values, int8 offsets,
+        # int32 keys a row); the data needs two compares a doubling step
+        # forward and one add backward (each cotangent lands on one row)
+        nbytes["seg_window_max"] += 4 * b * n + 9 * b * n * c
+        nbytes["seg_window_max_bwd"] += 9 * b * n * c
+        ops["seg_window_max"] += 2 * steps * b * n * c
+        ops["seg_window_max_bwd"] += b * n * c
+        # no single PyTorch call computes this function (window and
+        # arg-max): scatter_reduce_ amax over segment ids plus a gather,
+        # timed as a note
+        seg = torch.cumsum(torch.nn.functional.pad(
+            keys[:, 1:] != keys[:, :-1], (1, 0)), dim=1) + (
+                torch.arange(b, device=keys.device)[:, None] * n)
+        idx = seg.reshape(-1, 1).expand(-1, c)
+        flat = vals.reshape(-1, c)
+        acc = torch.full_like(flat, -float("inf"))
+
+        def scatter_gather():
+            acc.fill_(-float("inf"))
+            acc.scatter_reduce_(0, idx, flat, reduce="amax")
+            return torch.gather(acc, 0, idx)
+        note_ms += cuda_ms(scatter_gather, 10)
+        log("  K12 at B={} N={} C={} P={} (window {} rows a side): forward "
+            "{:.4f} ms (plain {:.4f}), backward {:.4f} ms (plain {:.4f}); "
+            "rows whose max came from another row {:.3f}".format(
+                b, n, c, p, win, shape_t[0], shape_t[1], shape_t[2],
+                shape_t[3], (off != 0).float().mean().item()))
+    extra = {name: (None,) + bound(nbytes[name], f32_ops=ops[name])
+             for name in SW_KERNELS}
+    log("  scatter_reduce_(amax) + gather over segment ids (not the same "
+        "function: no window, no arg-max), both layers: {:.4f} ms".format(
+            note_ms))
+    report(SW_KERNELS, errs, {k: tuple(v) for k, v in times.items()}, extra)
+    return errs, {k: tuple(v) for k, v in times.items()}, extra
+
+
+def cp_train_stages(model, optimizer, batch, iters):
+    """Host-clock ms of a train step's stages, each ended by a synchronize
+    (averaged over iters steps after a warm-up): the canvas forward, the
+    dense stack forward (backbone, neck, head), targets + loss, the dense
+    stack backward, the canvas backward, the optimizer (clip and step)."""
+    import math
+
+    import torch
+
+    from paddle3d_tpu_torch.ops.box_ops import limit_period
+    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
+    names = ("canvas forward", "dense stack forward", "targets + loss",
+             "dense stack backward", "canvas backward", "optimizer")
+
+    def run():
+        ms, t0 = [], time.perf_counter()
+
+        def lap():
+            nonlocal t0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ms.append((t - t0) * 1e3)
+            t0 = t
+        optimizer.zero_grad(set_to_none=True)
+        canvas = fused_pillar_canvas(model.voxelizer, model.voxel_encoder,
+                                     model.middle_encoder, batch["data"],
+                                     True)
+        lap()
+        leaf = canvas.detach().requires_grad_()
+        preds = model.bbox_head(model.neck(model.backbone(
+            leaf.permute(0, 3, 1, 2).contiguous())))
+        lap()
+        gt = batch["gt_boxes"]
+        gt = torch.cat([gt[..., :6], limit_period(gt[..., 6:7], 0.5,
+                                                  2 * math.pi), gt[..., 7:]],
+                       dim=-1)
+        loss = model.bbox_head.loss(
+            preds, model.target_generator(gt, batch["gt_labels"]))["loss"]
+        lap()
+        loss.backward()
+        lap()
+        canvas.backward(leaf.grad)
+        lap()
+        optimizer.step()
+        lap()
+        return ms
+
+    run()
+    ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
+    log("  train step stages (host clock, synchronised): " + ", ".join(
+        "{} {:.3f} ms".format(n, t) for n, t in zip(names, ms)))
+
+
+def phase_cp_train(device):
+    """CenterPoint-pillars nuScenes training through the kernels and on the
+    plain versions, from one saved state."""
+    import copy
+    import tempfile
+
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, optimizer, scheduler, step, batch = cp_train_setup(device)
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(optimizer.state_dict()),
+             copy.deepcopy(scheduler.state_dict()))
+
+    def restore():
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(saved[1])
+        scheduler.load_state_dict(saved[2])
+
+    pfn = model.voxel_encoder
+    check([layer.units for layer in pfn.pfn_layers] == [32, 64] and
+          model.voxelizer.max_num_voxels_for(True) == 30000,
+          "not the nuScenes train PFN")
+    fwds, bwds = capture_sw_inputs(step, model, optimizer, batch)
+    restore()
+    log("phase 10: CenterPoint-nuScenes training at B={} N={}, K12 on the "
+        "train step's inputs".format(BATCH, CP_POINTS))
+    errs, times, extra = phase_sw_kernels(fwds, bwds)
+    del fwds, bwds
+
+    keys = ["loss"] + ["{}_{}".format(k, i) for k in ("hm_loss", "loc_loss")
+                       for i in range(6)]
+    kernel = record_step(step, model, optimizer, batch)
+    restore()
+    with plain_path():
+        plain = record_step(step, model, optimizer, batch)
+    restore()
+    launches = kernel[3]
+    log("  train step (OneCycleAdam, clip 35, OneCycleWarmupDecayLr), loss "
+        "{:.5f}; launches {}; plain step launches {}".format(
+            kernel[0]["loss"], launches, plain[3]))
+    check(all(launches[k] == v for k, v in CPT_LAUNCHES.items()),
+          "the CenterPoint train step launched {} where {} was due".format(
+              launches, CPT_LAUNCHES))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6, keys)
+    log("  vs the plain step (deterministic cuDNN, TF32 off): losses "
+        "{:.3e} (tolerance 1e-6), grads {:.3e} (1e-4), running stats "
+        "{:.3e} (1e-6), each relative to the tensor's largest value"
+        .format(*step_errs))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cp_tiny_train(tmp)
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    losses = [step(model, optimizer, batch)["loss"].item()
+              for _ in range(TRAIN_STEPS)]
+    log("  {} steps on the fixed batch, loss per step: {}".format(
+        TRAIN_STEPS, [round(v, 4) for v in losses]))
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          "non-finite train loss")
+    check(losses[-1] < losses[0], "the loss did not fall")
+
+    for _ in range(2):                       # warm-up, both paths
+        step(model, optimizer, batch)
+        with plain_path():
+            step(model, optimizer, batch)
+    rates = {"kernels": [], "plain": []}
+    half = CP_TRAIN_ITERS // 2
+    for order in (("kernels", "plain"), ("plain", "kernels")):
+        for path in order:
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                rates[path].append(timed_train_scans_per_s(
+                    step, model, optimizer, batch, half))
+    rate = {k: BATCH * CP_TRAIN_ITERS / sum(BATCH * half / r for r in v)
+            for k, v in rates.items()}
+    log("  {} train steps of batch {} per path (kernel/plain/plain/kernel "
+        "halves, cudnn.benchmark on): kernel path {:.2f} scans/s, plain "
+        "path {:.2f} scans/s; halves {}".format(
+            CP_TRAIN_ITERS, BATCH, rate["kernels"], rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, optimizer, batch), 3)
+    cp_train_stages(model, optimizer, batch, 3)
+    return errs, times, extra, launches
+
+
+def phase_cp_tiny_train(tmp):
+    """The tiny two-layer CenterPoint config (PFN [16, 16], 5 channels, two
+    tasks, a velocity head) written to tmp: its train step, kernels on the
+    card against the plain versions on the CPU."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    with open(os.path.join(REPO, "configs", "centerpoint",
+                           "centerpoint_synthetic_tiny.yml")) as f:
+        dic = yaml.safe_load(f)
+    m = dic["model"]
+    m["voxel_encoder"].update(in_channels=5, feat_channels=[16, 16])
+    m["middle_encoder"]["in_channels"] = 16
+    m["backbone"]["in_channels"] = 16
+    m["bbox_head"]["tasks"] = [dict(num_class=1, class_names=["car"]),
+                               dict(num_class=2, class_names=["truck", "bus"])]
+    m["bbox_head"]["common_heads"]["vel"] = [2, 2]
+    m["bbox_head"]["code_weights"] = [1.0] * 8 + [0.2, 0.2]
+    path = os.path.join(tmp, "centerpoint_tiny_2l.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dic, f)
+    rng = np.random.default_rng(SEED)
+    boxes = np.zeros((2, 6, 9), np.float32)
+    boxes[..., :2] = rng.uniform([2, -14], [30, 14], (2, 6, 2))
+    boxes[..., 2:6] = [-1., 1.8, 4.5, 1.6]
+    boxes[..., 6] = rng.uniform(-3, 3, (2, 6))
+    boxes[..., 7:9] = rng.normal(0, 2., (2, 6, 2))
+    labels = np.array([[0, 1, 2, 0, -1, -1], [2, 2, 1, -1, -1, -1]])
+    pts = rng.uniform([0, -16, -2, 0, 0], [32, 16, 2, 1, .45], (2, 1024, 5))
+    pts[:, :512, :2] = boxes[:, :4, :2].repeat(128, axis=1) + rng.normal(
+        0, 1., (2, 512, 2))
+    pts[:, -8:, 0] = 100.
+    out = []
+    for device in ("cpu", "cuda"):
+        cfg = Config(path=path, device=device)
+        model = cfg.model.train()
+        step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+        batch = {"data": torch.from_numpy(pts.astype(np.float32)),
+                 "gt_boxes": torch.from_numpy(boxes),
+                 "gt_labels": torch.from_numpy(labels)}
+        res = record_step(step, model, cfg.optimizer,
+                          {k: v.to(device) for k, v in batch.items()})
+        out.append(tuple({k: v.cpu() for k, v in r.items()}
+                         if i in (1, 2) else r for i, r in enumerate(res)))
+    keys = ["loss"] + ["{}_{}".format(k, i) for k in ("hm_loss", "loc_loss")
+                       for i in range(2)]
+    errs = compare_steps(out[1], out[0], 1e-4, 1e-3, 1e-4, keys)
+    check(out[1][3]["seg_window_max_bwd"] == 2,
+          "the tiny card step missed K12's backward")
+    log("  tiny two-layer train step, card kernels vs CPU plain: losses "
+        "{:.3e} (tolerance 1e-4), grads {:.3e} (1e-3), running stats "
+        "{:.3e} (1e-4), relative".format(*errs))
+
+
 def main():
     try:
         import torch
@@ -1831,6 +2193,12 @@ def main():
                         {"ball_query": 2, "farthest_point_sample": 0,
                          "sparse_conv3d": 8})
         phase_iassd(device)
+        # K12 counted on the CenterPoint-pillars train path
+        sw_errs, sw_times, sw_extra, sw_launches = phase_cp_train(device)
+        for into, part in zip((errs, times, extra, launches),
+                              (sw_errs, sw_times, sw_extra,
+                               {k: sw_launches[k] for k in SW_KERNELS})):
+            into.update(part)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

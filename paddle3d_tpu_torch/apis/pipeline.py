@@ -27,7 +27,8 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
                     amp_level: Optional[str] = None,
                     lr_scheduler=None) -> Callable:
     """Build the train step `step(model, optimizer, batch) -> loss dict`
-    (detached); the model and optimizer update in place, and
+    (detached; a train_forward that returns a bare tensor gives
+    {"loss": it}); the model and optimizer update in place, and
     `lr_scheduler`, if given, steps once after the optimizer.
 
     grad_clip_norm clips the global grad norm on top of the optimizer's own
@@ -44,6 +45,8 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
     def train_step(model, optimizer, batch) -> dict:
         optimizer.zero_grad(set_to_none=True)
         losses = model.train_forward(batch)
+        if not isinstance(losses, dict):
+            losses = {"loss": losses}
         parse_losses(losses).backward()
         if grad_clip_norm is not None:
             grads = [p.grad for p in model.parameters()

@@ -32,3 +32,14 @@ class Base3DModel(nn.Module, abc.ABC):
 class BaseLidarModel(Base3DModel):
     """LiDAR family marker."""
     modality = "lidar"
+
+
+def raise_if_training(model: nn.Module):
+    """test_forward serves with running-stat BN and the test voxel cap; a
+    model in train mode would fold train-mode BN modules wrongly and move
+    their running stats, so it is refused."""
+    if model.training:
+        raise RuntimeError(
+            "{}.test_forward needs the model in eval mode: call .eval() "
+            "first (train mode uses batch-statistics BatchNorm)".format(
+                type(model).__name__))

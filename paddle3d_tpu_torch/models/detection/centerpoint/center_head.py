@@ -1,7 +1,6 @@
 """CenterPoint head, torch port of
 paddle3d_tpu/models/detection/centerpoint/center_head.py (ConvBNReLU1,
-SeparateHead, CenterHead with its `predict`; the loss arrives with the
-training slice).
+SeparateHead, CenterHead with its `loss` and `predict`).
 
 NCHW inside; the per-task outputs leave the head in the JAX package's NHWC
 layout, so `predict` and the parity tests see the same arrays. In eval, when
@@ -26,6 +25,7 @@ from ....apis import manager
 from ....ops.iou3d_nms import suppress
 from ...layers.layer_libs import (BatchNorm2d, default_generator,
                                   uniform_bias_init, uniform_init)
+from ...losses.centernet_loss import FastFocalLoss, RegLoss
 
 __all__ = ["ConvBNReLU1", "SeparateHead", "CenterHead"]
 
@@ -121,6 +121,9 @@ class CenterHead(nn.Module):
         self.with_velocity = "vel" in common_heads
         self.box_n_dim = 9 if self.with_velocity else 7
 
+        self.crit = FastFocalLoss()
+        self.crit_reg = RegLoss()
+
         self.shared_conv = ConvBNReLU1(in_channels, share_conv_channel, 3,
                                        generator=generator)
         task_heads = []
@@ -188,6 +191,31 @@ class CenterHead(nn.Module):
             preds[ti][name] = z[:, gi * po:gi * po + outs[gi]]
         return preds
 
+    # -------------------------------------------------------------- training
+    def loss(self, preds: List[dict], targets: List[tuple]) -> dict:
+        """preds: per task {name: [B, H, W, C]} (NHWC); targets: per task
+        (heatmap, target_bbox, center_idx, mask, label) from
+        CenterPointTargetGenerator. -> {"loss", "hm_loss_i", "loc_loss_i"}."""
+        total, out = 0., {}
+        weights = torch.tensor(self.code_weights,
+                               device=preds[0]["hm"].device)
+        for i, (task_preds, (hm_t, box_t, idx_t, mask_t, label_t)) in \
+                enumerate(zip(preds, targets)):
+            hm = torch.clamp(torch.sigmoid(task_preds["hm"]), 1e-4, 1 - 1e-4)
+            hm_loss = self.crit(hm, hm_t, idx_t, mask_t, label_t)
+            parts = [task_preds["reg"], task_preds["height"],
+                     task_preds["dim"]]
+            if self.with_velocity:
+                parts.append(task_preds["vel"])
+            parts.append(task_preds["rot"])
+            box_loss = self.crit_reg(torch.cat(parts, dim=-1), mask_t, idx_t,
+                                     box_t)
+            loc_loss = torch.sum(box_loss * weights)
+            total = total + hm_loss + self.weight * loc_loss
+            out["hm_loss_{}".format(i)] = hm_loss
+            out["loc_loss_{}".format(i)] = loc_loss
+        return {"loss": total, **out}
+
     # ------------------------------------------------------------- inference
     def predict(self, preds: List[dict], test_cfg: dict) -> dict:
         """Decode + rotated NMS over all tasks and scans at once.
@@ -204,8 +232,7 @@ class CenterHead(nn.Module):
         post_limit = test_cfg.get("post_center_limit_range")
         if nms_cfg.get("type") == "circle":
             raise NotImplementedError(
-                "circle NMS arrives with CenterPoint-pillars training "
-                "(ROADMAP.md, queue 1, item 6b)")
+                "circle NMS is not ported (ROADMAP.md, queue 1, item 16)")
 
         cmax = max(self.num_classes)
         b, h, w, _ = preds[0]["hm"].shape

@@ -1,34 +1,39 @@
 """CenterPoint, torch port of
-paddle3d_tpu/models/detection/centerpoint/centerpoint.py (serving).
+paddle3d_tpu/models/detection/centerpoint/centerpoint.py.
 
 points [B, N, C] → BEV canvas → SecondBackbone → SecondFPN → CenterHead →
-decode + rotated NMS, all on the device and at fixed shapes. Two canvas
+decode + rotated NMS (test) or the on-device gaussian targets and the
+CenterNet losses (train), all on the device and at fixed shapes. Two canvas
 paths, as in the JAX package:
   * pillar configs (PillarFeatureNet over PointPillarsScatter): the fused
-    pillar canvas (ops/pillar_ops.py: the fused PFN kernel, then on a dense
-    scan such as nuScenes 10-sweep the channel-major sorted scatter, on a
-    sparse one the row-major);
+    pillar canvas (ops/pillar_ops.py: in eval the fused PFN kernel, then on
+    a dense scan such as nuScenes 10-sweep the channel-major sorted scatter,
+    on a sparse one the row-major; in train the two-layer PFN row by row
+    with the segmented window max kernel, then the row-major scatter);
   * voxel configs (VoxelMean over SparseResNet3D or SparseNet3D): the fused
     voxelize + mean (ops/voxelize.voxel_mean_batch), then the sparse middle
     encoder (sparse conv kernel per conv, the sorted segment sum for the
-    dense BEV).
+    dense BEV); serving only.
 The canvas keeps the JAX package's NHWC layout and goes to NCHW only
 around the conv stack.
 
-Training (the on-device gaussian target generator, the CenterNet losses,
-OneCycleAdam) and `postprocess_to_samples` (Sample / BBoxes3D records) are
-not ported yet: ROADMAP.md, queue 1, items 6b, 7b and 5.
+Not ported yet: training of the voxel configs (ROADMAP.md, queue 1, item
+7b) and `postprocess_to_samples` (Sample / BBoxes3D records, item 5).
 """
+import math
+
 import torch
 
 from ....apis import manager
+from ....ops.box_ops import limit_period
 from ....ops.pillar_ops import fused_pillar_canvas
 from ....ops.voxelize import voxel_mean_batch
-from ...base.base_model import BaseLidarModel
+from ...base.base_model import BaseLidarModel, raise_if_training
 from ...middle_encoders.pillar_scatter import PointPillarsScatter
 from ...middle_encoders.sparse_resnet import SparseNet3D, SparseResNet3D
 from ...voxel_encoders.pillar_encoder import PillarFeatureNet
 from ...voxel_encoders.voxel_encoder import VoxelMean
+from .centerpoint_target import CenterPointTargetGenerator
 
 __all__ = ["CenterPoint"]
 
@@ -63,9 +68,17 @@ class CenterPoint(BaseLidarModel):
                 "ROADMAP.md, queue 1, item 8)".format(
                     type(voxel_encoder).__name__,
                     type(middle_encoder).__name__))
-        # kept for the target generator of the training slice
-        self.target_assign_cfg = dict(target_assign_cfg or {})
-        self.down_ratio = self._resolve_down_ratio(self.target_assign_cfg)
+        ta = dict(target_assign_cfg or {})
+        self.down_ratio = self._resolve_down_ratio(ta)
+        self.target_generator = CenterPointTargetGenerator(
+            tasks=self.bbox_head.tasks_cfg,
+            down_ratio=self.down_ratio,
+            point_cloud_range=self.voxelizer.point_cloud_range,
+            voxel_size=self.voxelizer.voxel_size,
+            gaussian_overlap=ta.get("gaussian_overlap", 0.1),
+            max_objs=ta.get("max_objs", 500),
+            min_radius=ta.get("min_radius", 2),
+            with_velocity=self.bbox_head.with_velocity)
 
     def _derived_down_ratio(self):
         """Feature-map stride vs. the voxel grid, derived from the network:
@@ -115,35 +128,51 @@ class CenterPoint(BaseLidarModel):
                 and isinstance(self.middle_encoder,
                                (SparseResNet3D, SparseNet3D)))
 
-    def _canvas(self, points):
-        """points [B, N, C] -> BEV canvas [B, H, W, C'] (NHWC)."""
+    def _canvas(self, points, training: bool):
+        """points [B, N, C] -> BEV canvas [B, H, W, C'] (NHWC); `training`
+        picks the voxel cap and the canvas branch, as in the JAX
+        package."""
         if self._can_fuse():
             return fused_pillar_canvas(self.voxelizer, self.voxel_encoder,
-                                       self.middle_encoder, points)
+                                       self.middle_encoder, points, training)
         feats, coords, _, vmask = voxel_mean_batch(
             points, self.voxelizer.voxel_size,
             self.voxelizer.point_cloud_range,
             self.voxelizer.max_num_points_in_voxel,
-            self.voxelizer.max_num_voxels_for(False),
+            self.voxelizer.max_num_voxels_for(training),
             self.voxel_encoder.in_channels)
         return self.middle_encoder(feats, coords, vmask)
 
-    def _extract_feats(self, points):
+    def _extract_feats(self, points, training: bool):
         """points [B, N, C] -> neck features [B, C, H, W]."""
-        canvas = self._canvas(points)
+        canvas = self._canvas(points, training)
         return self.neck(self.backbone(
             canvas.permute(0, 3, 1, 2).contiguous()))
 
     def train_forward(self, batch) -> dict:
-        raise NotImplementedError(
-            "CenterPoint training (target generator, CenterNet losses, "
-            "OneCycleAdam, the two-layer PFN train path) arrives with "
-            "ROADMAP.md, queue 1, item 6b (pillars) and 7b (voxels)")
+        """batch {"data": points [B, N, C], "gt_boxes" [B, G, 7|9] (bottom
+        z; velocity in columns 7:9), "gt_labels" [B, G] (-1 padded)} ->
+        {"loss" (the total), "hm_loss_i", "loc_loss_i" per task}.
+        Train-mode BN: batch statistics, running stats updated."""
+        if self._is_voxel_mean():
+            raise NotImplementedError(
+                "training a voxel CenterPoint (train-mode sparse conv and "
+                "MaskedBatchNorm) arrives with ROADMAP.md, queue 1, item 7b")
+        preds = self.bbox_head(self._extract_feats(batch["data"], True))
+        gt_boxes = batch["gt_boxes"]
+        gt_boxes = torch.cat([
+            gt_boxes[..., :6],
+            limit_period(gt_boxes[..., 6:7], 0.5, 2 * math.pi),
+            gt_boxes[..., 7:]], dim=-1)
+        targets = self.target_generator(gt_boxes, batch["gt_labels"])
+        return self.bbox_head.loss(preds, targets)
 
     @torch.no_grad()
     def test_forward(self, batch) -> dict:
         """batch {"data": points [B, N, C] f32, NaN or out-of-range padded}
         -> box3d_lidar [B, K, 7|9] (bottom-z), scores [B, K], label_preds
-        [B, K] (-1 padded), K = num_tasks · nms_post_max_size."""
-        preds = self.bbox_head(self._extract_feats(batch["data"]))
+        [B, K] (-1 padded), K = num_tasks · nms_post_max_size. The model must
+        be in eval mode (`.eval()`)."""
+        raise_if_training(self)
+        preds = self.bbox_head(self._extract_feats(batch["data"], False))
         return self.bbox_head.predict(preds, self.test_cfg)

@@ -15,7 +15,7 @@ import torch
 from ....apis import manager
 from ....ops.box_ops import limit_period
 from ....ops.pillar_ops import fused_pillar_canvas
-from ...base.base_model import BaseLidarModel
+from ...base.base_model import BaseLidarModel, raise_if_training
 from ...middle_encoders.pillar_scatter import PointPillarsScatter
 from ...voxel_encoders.pillar_encoder import PillarFeatureNet
 from .anchors import AnchorGenerator
@@ -68,11 +68,11 @@ class PointPillars(BaseLidarModel):
             self.register_buffer(name, torch.from_numpy(arr),
                                  persistent=False)
 
-    def _extract_feats(self, points):
+    def _extract_feats(self, points, training: bool):
         """-> (neck feats [B, C, H, W], live-anchor mask [B, A])."""
         canvas, occupancy = fused_pillar_canvas(
             self.voxelizer, self.pillar_encoder, self.middle_encoder, points,
-            with_occupancy=True)
+            training, with_occupancy=True)
         # one NCHW copy of the canvas: a channels-last view costs cuDNN a
         # layout conversion around every f32 conv (the copy measured +8 %
         # scans/s on an H100 80GB HBM3 at a 700 W limit, see PERF.md)
@@ -85,7 +85,7 @@ class PointPillars(BaseLidarModel):
         "gt_labels" [B, G] (-1 padded)} -> loss dict ("loss" the total).
         Train-mode BN: the PFN and conv BNs use batch statistics and update
         their running stats."""
-        feats, anchors_mask = self._extract_feats(batch["data"])
+        feats, anchors_mask = self._extract_feats(batch["data"], True)
         preds = self.head(feats)
         gt_boxes = batch["gt_boxes"]
         # wrap yaw to [-pi, pi) as the reference does before assignment
@@ -104,7 +104,9 @@ class PointPillars(BaseLidarModel):
     @torch.no_grad()
     def test_forward(self, batch) -> dict:
         """batch {"data": points [B, N, C] f32, NaN or out-of-range padded}
-        -> box3d_lidar [B, K, 7], scores [B, K], label_preds [B, K]."""
-        feats, anchors_mask = self._extract_feats(batch["data"])
+        -> box3d_lidar [B, K, 7], scores [B, K], label_preds [B, K].
+        The model must be in eval mode (`.eval()`)."""
+        raise_if_training(self)
+        feats, anchors_mask = self._extract_feats(batch["data"], False)
         preds = self.head(feats)
         return self.head.post_process(preds, self.anchors, anchors_mask)

@@ -61,6 +61,8 @@ class _TwoStageBase(BaseLidarModel):
 
     def _stage1(self, points):
         """-> (rpn predictions, BEV [B, H, W, C] NHWC, sparse stages)."""
+        # the test cap: serving only until train_forward arrives with
+        # ROADMAP.md, queue 1, item 8b, which passes its training flag here
         feats, coords, _, vmask = voxel_mean_batch(
             points, self.voxelizer.voxel_size,
             self.voxelizer.point_cloud_range,

@@ -139,9 +139,10 @@ class DeconvBNReLU(nn.Module):
 class LinearBN1DReLU(nn.Module):
     """Linear (no bias) -> BatchNorm over the last axis -> ReLU, on
     [..., in_features] with any leading dimensions. The fused pillar path
-    does not call it: it runs the layer inside its kernels
-    (ops/pillar_ops.py: the BN folded from running stats in eval, from
-    batch stats in train) and reads the parameters only."""
+    calls it only to train a PFN of two or more layers; otherwise it runs
+    the layer inside its kernels (ops/pillar_ops.py: the BN folded from
+    running stats in eval, from batch stats in one-layer train) and reads
+    the parameters only."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator = None, eps: float = 1e-3,

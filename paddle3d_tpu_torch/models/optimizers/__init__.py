@@ -1,1 +1,3 @@
-from .optimizers import Adam, ClipGradByGlobalNorm, StepDecay
+from .optimizers import (Adam, ClipGradByGlobalNorm, OneCycleAdam,
+                         OneCycleDecayWarmupMomentum, OneCycleWarmupDecayLr,
+                         StepDecay)

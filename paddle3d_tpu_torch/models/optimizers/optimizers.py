@@ -1,6 +1,7 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
-StepDecay).
+OneCycleAdam with OneCycleDecayWarmupMomentum, StepDecay,
+OneCycleWarmupDecayLr).
 
 The JAX package builds optax transformations; torch builds an optimizer
 over parameters, which a YAML config does not have. So `Adam` returns a
@@ -9,13 +10,18 @@ schedule is a plain object (lr = learning_rate * factor(step)) that
 Config.lr_scheduler turns into a torch LambdaLR over that optimizer. Clip,
 Adam and schedule leave the parameters where optax's chain
 (clip_by_global_norm -> adam(w) with the schedule read at the update count)
-leaves them.
+leaves them. OneCycleAdam's cycled beta1 is read at the update count too:
+a step pre-hook sets it in the param groups before each update.
 """
+import math
+
 import torch
 
 from ...apis import manager
 
-__all__ = ["ClipGradByGlobalNorm", "Adam", "StepDecay"]
+__all__ = ["ClipGradByGlobalNorm", "Adam", "OneCycleAdam",
+           "OneCycleDecayWarmupMomentum", "StepDecay",
+           "OneCycleWarmupDecayLr"]
 
 
 @manager.OPTIMIZERS.add_component
@@ -37,6 +43,30 @@ class ClipGradByGlobalNorm:
             g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
 
 
+def _clip(grad_clip_norm, grad_clip):
+    """The JAX package's _clip_tx: grad_clip_norm (a float) wins; else
+    grad_clip, a dict {"clip_norm": N} or a built ClipGradByGlobalNorm."""
+    if grad_clip_norm is not None:
+        return ClipGradByGlobalNorm(grad_clip_norm)
+    if isinstance(grad_clip, dict):
+        return ClipGradByGlobalNorm(grad_clip["clip_norm"])
+    return grad_clip
+
+
+def _clipped(opt, clip):
+    """Run the clip as a step pre-hook: first in the chain, as in optax."""
+    if clip is not None:
+        opt.register_step_pre_hook(lambda o, args, kwargs: clip(
+            p.grad for group in o.param_groups for p in group["params"]
+            if p.grad is not None))
+    return opt
+
+
+def _base_rate(learning_rate) -> float:
+    """A float, or a schedule's base rate (the rate it starts at)."""
+    return float(getattr(learning_rate, "learning_rate", learning_rate))
+
+
 @manager.LR_SCHEDULERS.add_component
 class StepDecay:
     """lr = learning_rate * gamma ** (step // step_size) (paddle
@@ -53,17 +83,93 @@ class StepDecay:
         return self.gamma ** (step // self.step_size)
 
 
+@manager.LR_SCHEDULERS.add_component
+class OneCycleWarmupDecayLr:
+    """optax.cosine_onecycle_schedule as the JAX package configures it: a
+    cosine from base_learning_rate up to base · lr_ratio_peak over the first
+    step_ratio_peak of total_step, then a cosine down to
+    base · lr_ratio_trough at total_step, flat after."""
+
+    def __init__(self, base_learning_rate: float, lr_ratio_peak: float = 10,
+                 lr_ratio_trough: float = 0.0001,
+                 step_ratio_peak: float = 0.4, total_step: int = 100000):
+        if total_step <= 0:
+            raise ValueError("OneCycleWarmupDecayLr needs total_step > 0")
+        div, final_div = lr_ratio_peak, 1.0 / lr_ratio_trough
+        # optax's piecewise_interpolate_schedule: boundaries and the
+        # cumulative product of the scales from peak / div
+        init = base_learning_rate * lr_ratio_peak / div
+        self.bounds = (0, int(step_ratio_peak * total_step), int(total_step))
+        self.values = (init, init * div, init * div / (div * final_div))
+        self.learning_rate = init
+
+    def __call__(self, step: int) -> float:
+        for i in range(2):
+            lo, hi = self.bounds[i], self.bounds[i + 1]
+            if lo <= step < hi:
+                start, end = self.values[i], self.values[i + 1]
+                pct = (step - lo) / (hi - lo)
+                return end + (start - end) / 2.0 * (math.cos(math.pi * pct)
+                                                    + 1)
+        return self.values[-1]
+
+    def factor(self, step: int) -> float:
+        """lr(step) / learning_rate."""
+        return self(step) / self.learning_rate
+
+
+@manager.OPTIMIZERS.add_component
+class OneCycleDecayWarmupMomentum:
+    """Cycled beta1 for OneCycleAdam: from momentum_peak down to
+    momentum_trough over the first step_ratio_peak of the cycle (the LR's
+    warm-up), then back up to the peak."""
+
+    def __init__(self, momentum_peak: float = 0.95,
+                 momentum_trough: float = 0.85,
+                 step_ratio_peak: float = 0.4):
+        self.momentum_peak = float(momentum_peak)
+        self.momentum_trough = float(momentum_trough)
+        self.step_ratio_peak = float(step_ratio_peak)
+
+    def schedule(self, total_step):
+        """-> beta1(step); the constant peak when total_step is None."""
+        peak, trough = self.momentum_peak, self.momentum_trough
+        ratio = self.step_ratio_peak
+
+        def b1(step):
+            if total_step is None:
+                return peak
+            split = ratio * total_step
+            if step < split:
+                return peak - (peak - trough) * min(max(step / split, 0.), 1.)
+            return trough + (peak - trough) * min(max(
+                (step - split) / max(total_step - split, 1), 0.), 1.)
+        return b1
+
+
+def _update_count(opt) -> int:
+    """Updates the optimizer has made (its state, so a restored state
+    restores the count)."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                return int(st["step"])
+    return 0
+
+
 @manager.OPTIMIZERS.add_component
 def Adam(learning_rate=1e-3, beta1: float = 0.9, beta2: float = 0.999,
          epsilon: float = 1e-8, weight_decay: float = 0.0,
-         grad_clip: ClipGradByGlobalNorm = None):
+         grad_clip_norm: float = None, grad_clip=None):
     """-> build(params) -> torch optimizer. A nonzero weight_decay is
     decoupled decay over every parameter (paddle's Adam with weight decay,
     optax.adamw without a mask), so torch's AdamW, not Adam's L2 term.
     `learning_rate` is a float or a schedule, whose base rate it starts
-    at. The clip runs as a step pre-hook, first in the chain as in
-    optax."""
-    lr = float(getattr(learning_rate, "learning_rate", learning_rate))
+    at. The clip: grad_clip_norm, else grad_clip (a dict or a built
+    ClipGradByGlobalNorm), as the JAX package's _clip_tx takes them."""
+    lr = _base_rate(learning_rate)
+    clip = _clip(grad_clip_norm, grad_clip)
 
     def build(params):
         kw = dict(lr=lr, betas=(beta1, beta2), eps=epsilon)
@@ -71,10 +177,48 @@ def Adam(learning_rate=1e-3, beta1: float = 0.9, beta2: float = 0.999,
             opt = torch.optim.AdamW(params, weight_decay=weight_decay, **kw)
         else:
             opt = torch.optim.Adam(params, **kw)
-        if grad_clip is not None:
-            opt.register_step_pre_hook(lambda o, args, kwargs: grad_clip(
-                p.grad for group in o.param_groups for p in group["params"]
-                if p.grad is not None))
+        return _clipped(opt, clip)
+
+    return build
+
+
+@manager.OPTIMIZERS.add_component
+def OneCycleAdam(learning_rate, total_step: int = None,
+                 beta1_peak: float = 0.95, beta1_trough: float = 0.85,
+                 beta2: float = 0.99, weight_decay: float = 0.01,
+                 grad_clip_norm: float = 10.0, beta1=None, grad_clip=None):
+    """One-cycle Adam: decoupled decay over every parameter (AdamW) with
+    beta1 read at the update count from `beta1` (a
+    OneCycleDecayWarmupMomentum or a float) or, by default, a triangle from
+    beta1_peak down to beta1_trough at mid-cycle and back (the constant
+    beta1_peak without total_step). An explicit grad_clip wins over
+    grad_clip_norm."""
+    lr = _base_rate(learning_rate)
+    if isinstance(beta1, OneCycleDecayWarmupMomentum):
+        b1_sched = beta1.schedule(total_step)
+    elif isinstance(beta1, (int, float)):
+        def b1_sched(step, b1=float(beta1)):
+            return b1
+    else:
+        def b1_sched(step):
+            if total_step is None:
+                return beta1_peak
+            frac = min(max(step / total_step, 0.), 1.)
+            return beta1_peak - (beta1_peak - beta1_trough) * (
+                1.0 - abs(2 * frac - 1.0))
+    clip = _clip(None if grad_clip is not None else grad_clip_norm,
+                 grad_clip)
+
+    def build(params):
+        opt = torch.optim.AdamW(params, lr=lr, betas=(b1_sched(0), beta2),
+                                eps=1e-8, weight_decay=weight_decay)
+        _clipped(opt, clip)
+
+        def set_beta1(o, args, kwargs):
+            b1 = b1_sched(_update_count(o))
+            for group in o.param_groups:
+                group["betas"] = (b1, group["betas"][1])
+        opt.register_step_pre_hook(set_beta1)
         return opt
 
     return build

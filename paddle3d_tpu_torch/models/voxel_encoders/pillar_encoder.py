@@ -1,9 +1,10 @@
 """PillarFeatureNet parameter and geometry holder, torch port of
 paddle3d_tpu/models/voxel_encoders/pillar_encoder.py.
 
-The fused pillar path (ops/pillar_ops.py) folds these layers' weights and
-reads the pillar-centre geometry (vx, vy, x_offset, y_offset); the
-[V, P, C] buffer forward is not ported.
+The fused pillar path (ops/pillar_ops.py) folds these layers' weights, runs
+their MLPs row by row to train a PFN of two or more layers, and reads the
+pillar-centre geometry (vx, vy, x_offset, y_offset); the [V, P, C] buffer
+forward is not ported.
 """
 from typing import Sequence
 

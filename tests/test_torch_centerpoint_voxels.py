@@ -227,7 +227,7 @@ def test_end_to_end_matches_jax(models, jax_run, monkeypatch):
     monkeypatch.setattr(sorted_scatter, "sorted_segment_sum",
                         lambda *a: calls.append(a[2]) or fn(*a))
     with torch.no_grad():
-        got_feats = model._extract_feats(torch.from_numpy(pts))
+        got_feats = model._extract_feats(torch.from_numpy(pts), False)
     assert calls == [2 * 16 * 16]
     _close(got_feats.permute(0, 2, 3, 1).numpy(), feats, 1e-4)
     with torch.no_grad():

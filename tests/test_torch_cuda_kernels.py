@@ -291,7 +291,7 @@ def test_train_canvas_on_card_matches_cpu(cuda):
     for device in ("cpu", cuda):
         model = Config(path=path, device=device).model.train()
         mods = (model.voxelizer, model.pillar_encoder, model.middle_encoder)
-        canvas, occ = fused_pillar_canvas(*mods, pts.to(device),
+        canvas, occ = fused_pillar_canvas(*mods, pts.to(device), True,
                                           with_occupancy=True)
         w = torch.from_numpy(rng.normal(0, 1, canvas.shape).astype(
             np.float32)) if device == "cpu" else w.to(device)
@@ -451,11 +451,11 @@ def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):
     pts = torch.from_numpy(pts.astype(np.float32))
     model = Config(path=str(path), device="cpu").model.eval()
     with torch.no_grad():
-        ref = model._canvas(pts)
+        ref = model._canvas(pts, False)
     model.cuda()
     before = dict(_build.LAUNCHES)
     with torch.no_grad():
-        got = model._canvas(pts.to(cuda))
+        got = model._canvas(pts.to(cuda), False)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 21
     _close(got.cpu(), ref, 1e-5)
@@ -711,3 +711,117 @@ def test_iassd_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got["box3d_lidar"].cpu(), ref["box3d_lidar"],
                                rtol=1e-3, atol=1e-3)
     assert (ref["label_preds"] >= 0).any()
+
+
+def _seg_window_inputs(case, c, seed=0):
+    """Sorted keys and values for K12: an exact-tie lattice (post-relu
+    integers), segments longer than the window, an all-sentinel tail, the
+    -1e9 mask, N not a multiple of the 256-row tile."""
+    rng = np.random.default_rng(seed)
+    b, n = 2, 3001
+    max_seg = 120 if case == "long" else 30
+    keys = np.cumsum(rng.random((b, n)) < 1.0 / max_seg * 2, axis=1)
+    if case == "sentinel":
+        keys[:, -700:] = SENT
+        keys[1, :] = SENT
+    if case == "ties":
+        vals = np.maximum(rng.integers(-3, 4, (b, n, c)), 0)
+    else:
+        vals = rng.normal(0, 1, (b, n, c))
+    if case in ("masked", "sentinel"):
+        vals = np.where(rng.random((b, n, 1)) < 0.3, -1e9, vals)
+    g = rng.normal(0, 1, (b, n, c))
+    return (torch.from_numpy(vals.astype(np.float32)),
+            torch.from_numpy(keys.astype(np.int32)),
+            torch.from_numpy(g.astype(np.float32)))
+
+
+@pytest.mark.parametrize("c", [32, 64, 20])
+@pytest.mark.parametrize("case", ["ties", "long", "sentinel", "masked"])
+def test_seg_window_max_matches_plain(cuda, case, c):
+    """K12 forward and backward bit for bit against the plain versions:
+    values, int8 offsets and input gradients."""
+    from paddle3d_tpu_torch.ops import seg_window
+    vals, keys, g = (t.to(cuda) for t in _seg_window_inputs(case, c))
+    for p in (20, 16):
+        before = dict(_build.LAUNCHES)
+        out, off = seg_window.seg_window_max_fwd(vals, keys, p)
+        gin = seg_window.seg_window_max_bwd(off, g, p)
+        ref, ref_off = seg_window.seg_window_max_plain(vals, keys, p)
+        ref_gin = seg_window.seg_window_max_bwd_plain(ref_off, g, p)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["seg_window_max"] == \
+            before["seg_window_max"] + 1
+        assert _build.LAUNCHES["seg_window_max_bwd"] == \
+            before["seg_window_max_bwd"] + 1
+        assert torch.equal(out, ref)
+        assert torch.equal(off, ref_off)
+        assert torch.equal(gin, ref_gin)
+    if case == "ties":
+        assert (off != 0).float().mean() > 0.3
+
+
+def test_seg_window_max_autograd_on_card(cuda):
+    """seg_window_max under autograd launches both kernels and equals the
+    plain path's gradient; bad inputs raise."""
+    from paddle3d_tpu_torch.ops import seg_window
+    vals, keys, g = (t.to(cuda) for t in _seg_window_inputs("masked", 64))
+    x = vals.clone().requires_grad_()
+    (seg_window.seg_window_max(x, keys, 20) * g).sum().backward()
+    _, off = seg_window.seg_window_max_plain(vals, keys, 20)
+    ref = seg_window.seg_window_max_bwd_plain(off, g, 20)
+    assert torch.equal(x.grad, ref)
+    with pytest.raises(TypeError):
+        seg_window.seg_window_max_fwd(vals.double(), keys, 20)
+    with pytest.raises(ValueError):
+        seg_window.seg_window_max_fwd(vals, keys, 200)
+    with pytest.raises(ValueError):
+        seg_window.seg_window_max_fwd(vals[:, ::2], keys[:, ::2], 20)
+
+
+def test_two_layer_train_canvas_on_card_matches_cpu(cuda, tmp_path):
+    """The two-layer train canvas (K12 forward and backward, the row-major
+    sum and K5) on the card against the plain versions on the CPU: canvas,
+    running stats and the PFN grads within 1e-5 of their largest values."""
+    import yaml
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops.pillar_ops import fused_pillar_canvas
+    with open(os.path.join(REPO, "configs", "centerpoint",
+                           "centerpoint_synthetic_tiny.yml")) as f:
+        dic = yaml.safe_load(f)
+    dic["model"]["voxel_encoder"].update(in_channels=5,
+                                         feat_channels=[16, 16])
+    dic["model"]["middle_encoder"]["in_channels"] = 16
+    dic["model"]["backbone"]["in_channels"] = 16
+    path = tmp_path / "cp2.yml"
+    path.write_text(yaml.safe_dump(dic))
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform([0, -16, -2, 0, 0],
+                                       [32, 16, 2, 1, .45],
+                                       (2, 1024, 5)).astype(np.float32))
+    pts[:, :400, :2] = pts[:, :1, :2] + torch.from_numpy(rng.normal(
+        0, .2, (2, 400, 2)).astype(np.float32))     # pillars over P
+    w = torch.from_numpy(rng.normal(0, 1, (2, 64, 64, 16)).astype(
+        np.float32))
+    results = []
+    for device in ("cpu", cuda):
+        model = Config(path=str(path), device=device).model.train()
+        pfn = model.voxel_encoder
+        before = dict(_build.LAUNCHES)
+        canvas = fused_pillar_canvas(model.voxelizer, pfn,
+                                     model.middle_encoder, pts.to(device),
+                                     True)
+        (canvas * w.to(device)).sum().backward()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["seg_window_max"] == \
+                before["seg_window_max"] + 2
+            assert _build.LAUNCHES["seg_window_max_bwd"] == \
+                before["seg_window_max_bwd"] + 2
+        results.append([canvas.detach().cpu()] + [
+            t.detach().cpu() for k, t in sorted(pfn.state_dict().items())
+            if "running" in k] + [p.grad.cpu() for _, p in
+                                  sorted(pfn.named_parameters())])
+    for got, ref in zip(results[1], results[0]):
+        _close(got, ref, 1e-5)

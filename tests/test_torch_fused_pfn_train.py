@@ -227,7 +227,7 @@ def test_train_canvas_matches_jax(max_voxels):
                      flat_state(grads, (nnx.Param,))))
 
     t_pfn = port[1]
-    canvas, occ = fused_pillar_canvas(*port, torch.from_numpy(pts),
+    canvas, occ = fused_pillar_canvas(*port, torch.from_numpy(pts), True,
                                       with_occupancy=True)
     assert canvas.requires_grad
     (canvas * torch.from_numpy(w)).sum().backward()

@@ -85,7 +85,7 @@ def test_canvas_matches_jax(feat_channels, max_voxels):
     jax_mods, torch_mods = build_pair(feat_channels, 8, max_voxels)
     pts = make_points(len(feat_channels) + max_voxels)
     canvas, occ = fused_pillar_canvas(*torch_mods, torch.from_numpy(pts),
-                                      with_occupancy=True)
+                                      False, with_occupancy=True)
     assert canvas.shape == (2, 20, 32, 16) and occ.shape == (2, 20, 32)
     refs = [
         _fused_pillar_canvas_pallas(*jax_mods, jnp.asarray(pts),
@@ -103,8 +103,8 @@ def test_canvas_matches_jax(feat_channels, max_voxels):
 def test_canvas_without_occupancy_and_train_mode():
     _, (vox, pfn, mid) = build_pair((16,), 8, 512)
     pts = torch.from_numpy(make_points(0))
-    canvas = fused_pillar_canvas(vox, pfn, mid, pts)
-    with_occ, _ = fused_pillar_canvas(vox, pfn, mid, pts,
+    canvas = fused_pillar_canvas(vox, pfn, mid, pts, False)
+    with_occ, _ = fused_pillar_canvas(vox, pfn, mid, pts, False,
                                       with_occupancy=True)
     torch.testing.assert_close(canvas, with_occ, rtol=0, atol=0)
     assert not canvas.requires_grad
@@ -112,6 +112,6 @@ def test_canvas_without_occupancy_and_train_mode():
     # updated (tests/test_torch_fused_pfn_train.py holds it against JAX)
     pfn.train()
     before = pfn.pfn_layers[0].mlp.bn.running_mean.clone()
-    canvas = fused_pillar_canvas(vox, pfn, mid, pts)
+    canvas = fused_pillar_canvas(vox, pfn, mid, pts, True)
     assert canvas.shape == (2, 20, 32, 16) and canvas.requires_grad
     assert not torch.equal(pfn.pfn_layers[0].mlp.bn.running_mean, before)

@@ -93,7 +93,7 @@ def test_head_outputs_match(models, jax_run):
     _, model = models
     pts, preds, mask, _ = jax_run
     with torch.no_grad():
-        feats, tmask = model._extract_feats(torch.from_numpy(pts))
+        feats, tmask = model._extract_feats(torch.from_numpy(pts), False)
         tpreds = model.head(feats)
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(mask))
     assert mask.sum() > 0
