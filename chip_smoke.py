@@ -15,8 +15,9 @@ width, seeded random weights) on 4 scans of 250,000, PV-RCNN and Voxel-RCNN
 KITTI serving (configs/pv_rcnn/pv_rcnn_005voxel_kitti.yml,
 configs/voxel_rcnn/voxel_rcnn_005voxel_kitti_car.yml) on 4 scans of 20,000
 IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of 16,384,
-and CenterPoint-pillars nuScenes training on 8 scans of 250,000, in phases;
-any failing phase exits non-zero and prints no result:
+CenterPoint-pillars nuScenes training on 8 scans of 250,000, and Voxel-RCNN
+then PV-RCNN KITTI training on 2 scans of 20,000 (the configs' batch), in
+phases; any failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -72,7 +73,22 @@ any failing phase exits non-zero and prints no result:
      no K1, K2, K3, K4 or K6) against one on the plain versions from the
      same state; the tiny two-layer train step on the card against the
      CPU; 10 steps with finite losses that fall; train scans/s of both
-     paths, peak memory, a profile and the time of each stage.
+     paths, peak memory, a profile and the time of each stage;
+ 11. two-stage KITTI training (the configs' AdamWOnecycle, clip 10 and
+     OneCycle; the RPN head from the upstream init; bench.make_gt's boxes,
+     half of them the model's own first proposals, jittered; 20 warm-up
+     steps on them before what follows): the rotated-box intersection
+     kernel (K11) bit for bit against its plain version on the train step's
+     own corners, at 8 x 1,000 x 1,000 clustered boxes and on a tie
+     lattice; one Voxel-RCNN train step through the kernels (one K11, two
+     K9, the dense BEV's segment sum and its VJP; no K8: training takes the
+     gather route) against one on the plain versions from the same state
+     and sampler seed (targets equal, losses, grads, running stats); 10
+     steps with finite losses that fall and fg / hard-bg / easy-bg pools
+     that are non-empty at every step; train scans/s of both paths, peak
+     memory, a profile and the time of each stage; then PV-RCNN: 3 steps
+     with finite losses (K10 and K11 each step), its train scans/s, memory,
+     profile and stages.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -81,6 +97,7 @@ cuDNN for the comparisons.
 """
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -157,6 +174,10 @@ KERNELS = {
                        "paddle3d_tpu/ops/pallas/seg_window.py:57", 0.0),
     "seg_window_max_bwd": ("paddle3d_tpu_torch/csrc/seg_window.cu",
                            "paddle3d_tpu/ops/pallas/seg_window.py:113", 0.0),
+    # K11 rounds every operation in its plain version's order: bit-equal
+    "pairwise_intersection_area": ("paddle3d_tpu_torch/csrc/iou_clip.cu",
+                                   "paddle3d_tpu/ops/pallas/iou_clip.py:36",
+                                   0.0),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
@@ -236,11 +257,15 @@ def segments(keys, P, maxV):
 
 @contextlib.contextmanager
 def plain_path():
-    """The model with all thirteen kernels swapped for their plain versions
+    """The model with all fourteen kernels swapped for their plain versions
     (forward and backward)."""
     from paddle3d_tpu_torch.ops import ball_query, fps, fused_pfn, \
-        fused_pfn_train, pillar_ops, seg_window, sorted_scatter, sparse_conv
+        fused_pfn_train, iou_clip, pillar_ops, seg_window, sorted_scatter, \
+        sparse_conv
     with mock.patch.multiple(
+            iou_clip, pairwise_intersection_area=(
+                iou_clip.pairwise_intersection_area_plain)), \
+            mock.patch.multiple(
             seg_window, seg_window_max_fwd=seg_window.seg_window_max_plain,
             seg_window_max_bwd=seg_window.seg_window_max_bwd_plain), \
             mock.patch.multiple(
@@ -1531,7 +1556,7 @@ def ts_staged(model, points):
     proposals, support set, outputs)."""
     import torch
     with torch.no_grad():
-        preds, bev, stages = model._stage1(points)
+        preds, bev, stages = model._stage1(points, False)
         rois = model.rpn_head.proposals(preds)
         supports = model._support_set(points, bev, stages)
         cls_pred, reg_pred = model.roi_head(rois[0], supports)
@@ -1928,8 +1953,6 @@ def cp_train_stages(model, optimizer, batch, iters):
     (averaged over iters steps after a warm-up): the canvas forward, the
     dense stack forward (backbone, neck, head), targets + loss, the dense
     stack backward, the canvas backward, the optimizer (clip and step)."""
-    import math
-
     import torch
 
     from paddle3d_tpu_torch.ops.box_ops import limit_period
@@ -2123,6 +2146,442 @@ def phase_cp_tiny_train(tmp):
         "{:.3e} (1e-4), relative".format(*errs))
 
 
+TS_TRAIN_BATCH = 2      # the KITTI two-stage configs' batch_size
+TS_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+PV_TRAIN_STEPS = 3
+# The RPN head starts from the upstream AnchorHeadSingle's init (box weights
+# N(0, RPN_BOX_STD), the class bias at the prior RPN_PRIOR) instead of the
+# uniform one the JAX package and the port give it: the first proposals are
+# then anchor-sized boxes, as a trained RPN's are, and the focal loss starts
+# where the upstream training starts it.
+RPN_BOX_STD, RPN_PRIOR = 0.001, 0.01
+POOL_MIN = 4            # RoIs a pool holds per scan at the compared step
+GT_JITTER = 0.03        # of a box's size, a gt box's offset off its proposal
+# AdamW's first steps move every weight by lr, which throws the proposals
+# off the gt boxes for a few steps until the RPN has learnt them: the
+# compared step and the ten checked steps come after these warm-up steps
+TS_WARM_STEPS = 20
+# f32 arithmetic (add, sub, mul, div, sqrt, abs) that K11's function needs,
+# counted from its plain version (paddle3d_tpu/ops/iou3d_nms.py:46-108):
+# a box's circle (centre 8, circumradius 24), once a box of either set; the
+# four clip edges of a box of the second set (6 each), once a box; the
+# guard (centre distance 6, ra + rb 1) a pair; and for a pair the guard
+# lets through 22 a slot over 4 + 8 + 16 + 32 slots (the side 5, the
+# crossing 9, the projection 8; the next slot's side is its neighbour's),
+# 4 a shoelace term over 64 slots and 0.5 |sum|
+IOU_BOX_OPS, IOU_EDGE_OPS, IOU_GUARD_OPS = 32, 24, 7
+IOU_CLIP_OPS = 22 * (4 + 8 + 16 + 32) + 4 * 64 + 2
+# a Voxel-RCNN train step: K11 once (boxes_iou3d of the proposal targets),
+# K9 twice (the RoI grid over two sparse levels), the dense BEV's segment
+# sum and its VJP; the sparse convs train on the gather route (no K8), and
+# no K10 or pillar kernel
+TST_LAUNCHES = {"pairwise_intersection_area": 1, "ball_query": 2,
+                "sorted_table_gather": 1, "sparse_conv3d": 0,
+                "farthest_point_sample": 0, "fused_pfn_rows": 0,
+                "fused_pfn_rows_2l": 0, "pfn_stats": 0, "pfn_bwd": 0,
+                "sorted_segment_sum_cm": 0, "seg_window_max": 0,
+                "seg_window_max_bwd": 0}
+
+
+def tie_lattice(device):
+    """Boxes with exactly shared edges and corners: unit and 2 x 1 m boxes
+    centred on a 1 m lattice (half of them on half-metres), identical
+    duplicates, yaw a multiple of pi/2 (whose f32 cosines are not 0) ->
+    (boxes_a, boxes_b) [2, 64, 7]."""
+    import numpy as np
+    import torch
+    g = np.stack(np.meshgrid(np.arange(8.), np.arange(8.), indexing="ij"),
+                 -1).reshape(-1, 2)
+    a = np.zeros((2, 64, 7), np.float32)
+    a[:, :, :2] = g
+    a[1, :, :2] += 0.5 * (np.arange(64) % 2)[:, None]
+    a[:, :, 2] = -1.
+    a[:, :, 3:6] = np.where((np.arange(64) % 3 == 0)[:, None],
+                            [2., 1., 1.5], [1., 1., 1.5])
+    a[:, :, 6] = (np.arange(64) % 4) * np.pi / 2
+    b = a.copy()
+    b[:, 1::2] = a[:, ::2]                      # duplicates of neighbours
+    b[:, ::4, 6] += np.pi
+    return (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+
+
+def clustered_boxes(device, b=8, n=1000, seed=SEED):
+    """b scans of n car-sized boxes over 80 m x 80 m and their jittered
+    copies (the all-pairs shape of the JAX docstring, 8 x 1000 x 1000)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    a = np.zeros((b, n, 7), np.float32)
+    a[..., :2] = rng.uniform([0, -40], [80, 40], (b, n, 2))
+    a[..., 2] = rng.uniform(-2, 0, (b, n))
+    a[..., 3:6] = rng.uniform([1.4, 3.2, 1.3], [2.0, 4.6, 1.8], (b, n, 3))
+    a[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    c = a.copy()
+    c[..., :2] += rng.normal(0, 1.0, (b, n, 2))
+    c[..., 6] += rng.normal(0, 0.3, (b, n))
+    return torch.from_numpy(a).to(device), torch.from_numpy(c).to(device)
+
+
+def iou_work(ca, cb):
+    """Bytes and operations K11's data needs: corners read once, areas
+    written once; the circles and clip edges once a box, the guard for
+    every pair and the clip for the pairs it lets through (the plain
+    version's guard). -> (bytes, ops, pairs, pairs clipped)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import iou_clip
+    cax, cay, ra = iou_clip._circle(ca)
+    cbx, cby, rb = iou_clip._circle(cb)
+    dx = cax[..., :, None] - cbx[..., None, :]
+    dy = cay[..., :, None] - cby[..., None, :]
+    clipped = int((torch.sqrt(dx * dx + dy * dy) <=
+                   ra[..., :, None] + rb[..., None, :]).sum())
+    pairs = dx.numel()
+    nbytes = 4 * (ca.numel() + cb.numel() + pairs)
+    ops = IOU_BOX_OPS * (ra.numel() + rb.numel()) + IOU_EDGE_OPS * \
+        rb.numel() + IOU_GUARD_OPS * pairs + IOU_CLIP_OPS * clipped
+    return nbytes, ops, pairs, clipped
+
+
+def phase_iou_kernel(step_inputs, device):
+    """K11 against its plain version, bit for bit, on the train step's own
+    corners, at 8 x 1,000 x 1,000 clustered boxes and on the tie lattice;
+    times and bounds. -> (errs, times, extra), the step's shape in the
+    record."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import iou_clip
+    from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
+    name = "pairwise_intersection_area"
+    cases = [("train step", step_inputs)]
+    for label, (a, b) in (("8 x 1000 x 1000 clustered",
+                           clustered_boxes(device)),
+                          ("tie lattice", tie_lattice(device))):
+        cases.append((label, (boxes_to_corners_bev(a), boxes_to_corners_bev(
+            b))))
+    worst, rows = 0.0, {}
+    for label, (ca, cb) in cases:
+        got = iou_clip.pairwise_intersection_area(ca, cb)
+        ref = iou_clip.pairwise_intersection_area_plain(ca, cb)
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum())
+        err = (got - ref).abs().max().item()
+        worst = max(worst, err)
+        check(differ == 0 and got.shape == ref.shape,
+              "{} differs from its plain version on the {} ({} areas, "
+              "max_abs_err {:.3e})".format(name, label, differ, err))
+        t = cuda_ms(lambda: iou_clip.pairwise_intersection_area(ca, cb), 20)
+        tp = cuda_ms(lambda: iou_clip.pairwise_intersection_area_plain(
+            ca, cb), 3)
+        nbytes, ops, pairs, clipped = iou_work(ca, cb)
+        one = bound(nbytes, f32_ops=ops)
+        rows[label] = (t, tp, one)
+        log("  K11 on the {} {} x {}: {:.4f} ms vs plain {:.4f} ms, bound "
+            "{:.5f} ms ({}), {} pairs of which {} pass the guard, areas "
+            "that differ 0 (bit-equal), overlapping pairs {}".format(
+                label, tuple(ca.shape[:-2]), tuple(cb.shape[-3:-2]), t, tp,
+                one[0], one[1], pairs, clipped, int((ref > 0).sum())))
+    t, tp, one = rows["train step"]
+    return ({name: worst}, {name: (t, tp)},
+            {name: (None,) + one})
+
+
+def ts_train_setup(device, path):
+    """A two-stage KITTI config in train mode at full width (seeded random
+    weights, the RPN head's as upstream initialises it), its AdamWOnecycle
+    and OneCycle, the step, and the batch: two scans of 20,000 clustered
+    points and bench.make_gt's boxes (24 a scan, a quarter padding), half of
+    each scan's boxes replaced by the model's own first proposals, jittered
+    by GT_JITTER of their size (every fourth also pushed half its length
+    along its heading), so that fg, hard-bg and easy-bg RoIs all exist; then
+    TS_WARM_STEPS steps on that batch. -> (model, optimizer, scheduler,
+    step, batch, the first proposals' median size [3])."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import bench
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    cfg = Config(path=path, device=device)
+    model = cfg.model.train()
+    head = model.rpn_head
+    with torch.no_grad():
+        head.box_head.weight.copy_(RPN_BOX_STD * torch.randn(
+            head.box_head.weight.shape,
+            generator=torch.Generator().manual_seed(SEED)))
+        head.cls_head.bias.fill_(-math.log((1 - RPN_PRIOR) / RPN_PRIOR))
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    check(isinstance(optimizer, torch.optim.AdamW) and
+          optimizer.param_groups[0]["betas"] == (0.95, 0.99) and
+          model.voxelizer.max_num_voxels_for(True) == 16000,
+          "not the config's AdamWOnecycle or train voxel cap")
+    rng = np.random.default_rng(SEED)
+    _, n, (lo, hi), _ = bench.MODELS["voxel_rcnn"]
+    pts = bench.make_scans(rng, TS_TRAIN_BATCH, n, lo, hi, "clustered")
+    points = torch.from_numpy(pts).to(device)
+    boxes, labels = bench.make_gt(rng, TS_TRAIN_BATCH, "voxel_rcnn")
+    with torch.no_grad():
+        probe = copy.deepcopy(model)
+        rois, _, roi_labels = probe.rpn_head.proposals(
+            probe._stage1(points, True)[0])
+        del probe
+    rois, roi_labels = rois.cpu().numpy(), roi_labels.cpu().numpy()
+    size = np.median(rois[roi_labels >= 0][:, 3:6], axis=0)
+    half = boxes.shape[1] // 2
+    for i in range(TS_TRAIN_BATCH):
+        k = np.flatnonzero(roi_labels[i] >= 0)[:half]
+        jit = rois[i, k].copy()
+        jit[:, :3] += rng.normal(0, GT_JITTER, (len(k), 3)) * jit[:, 3:6]
+        jit[:, 6] += rng.normal(0, 0.02, len(k))
+        push = np.arange(len(k)) % 4 == 3
+        jit[push, 0] += 0.5 * jit[push, 3] * np.cos(jit[push, 6])
+        jit[push, 1] += 0.5 * jit[push, 3] * np.sin(jit[push, 6])
+        boxes[i, :len(k)] = jit
+        labels[i, :len(k)] = roi_labels[i, k]
+    batch = {"data": points, "gt_boxes": torch.from_numpy(boxes).to(device),
+             "gt_labels": torch.from_numpy(labels).to(device)}
+    step = make_train_step(lr_scheduler=scheduler)
+    for _ in range(TS_WARM_STEPS):
+        step(model, optimizer, batch)
+    return model, optimizer, scheduler, step, batch, size
+
+
+@contextlib.contextmanager
+def record_targets():
+    """Record what the two-stage train_forward hands proposal_targets and
+    what it returns: -> list of (args, targets), one a step."""
+    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
+    calls = []
+    fn = pv_rcnn.proposal_targets
+
+    def rec(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+    with mock.patch.object(pv_rcnn, "proposal_targets", rec):
+        yield calls
+
+
+def ts_train_stages(step, model, optimizer, batch, iters):
+    """Host-clock ms of a two-stage train step's stages, averaged over iters
+    steps after a warm-up: make_train_step itself, with the calls that end
+    a stage wrapped to synchronize and read the clock (the sparse encoder,
+    the RPN head, its loss, its proposals, the proposal targets, the
+    refinement loss, the optimizer's step before its clip, the step's
+    return)."""
+    import torch
+
+    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
+    from paddle3d_tpu_torch.models.heads.roi_head import RoIGridHead
+    names = ("canvas and sparse forward", "dense stack", "RPN loss",
+             "proposals", "targets", "support set, RoI head and loss",
+             "backward", "clip, optimizer and scheduler")
+    ms, t0 = [], [0.0]
+
+    def lap():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ms.append((t - t0[0]) * 1e3)
+        t0[0] = t
+
+    def then_lap(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            lap()
+            return out
+        return wrapped
+
+    def lap_then(fn):
+        def wrapped(*a, **k):
+            lap()
+            return fn(*a, **k)
+        return wrapped
+
+    head = model.rpn_head
+    with contextlib.ExitStack() as stack:
+        for target, name, wrap in (
+                (model.middle_encoder, "forward", then_lap),
+                (head, "forward", then_lap), (head, "loss", then_lap),
+                (head, "proposals", then_lap),
+                (pv_rcnn, "proposal_targets", then_lap),
+                (RoIGridHead, "refine_loss", then_lap),
+                (optimizer, "step", lap_then)):
+            stack.enter_context(mock.patch.object(
+                target, name, wrap(getattr(target, name))))
+        runs = []
+        for _ in range(iters + 1):
+            ms.clear()
+            torch.cuda.synchronize()
+            t0[0] = time.perf_counter()
+            step(model, optimizer, batch)
+            lap()
+            check(len(ms) == len(names), "{} stage marks in a train step, "
+                  "{} expected".format(len(ms), len(names)))
+            runs.append(list(ms))
+    ms = [sum(v) / iters for v in zip(*runs[1:])]
+    log("  train step stages (host clock, synchronised): " + ", ".join(
+        "{} {:.3f} ms".format(n, t) for n, t in zip(names, ms)))
+
+
+def timed_ts_train(step, model, optimizer, batch, label, plain=True):
+    """Train scans/s (kernel/plain/plain/kernel halves after a warm-up of
+    each path; kernels only when plain is False), peak memory, a profile
+    and the stage times of one step."""
+    import torch
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    paths = ("kernels", "plain") if plain else ("kernels",)
+    for path in paths:                              # warm-up
+        with plain_path() if path == "plain" else contextlib.nullcontext():
+            step(model, optimizer, batch)
+    rates = {p: [] for p in paths}
+    half = TS_TRAIN_ITERS // 2
+    for order in (paths, paths[::-1]):
+        for path in order:
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(half):
+                    step(model, optimizer, batch)
+                torch.cuda.synchronize()
+                rates[path].append(TS_TRAIN_BATCH * half /
+                                   (time.perf_counter() - t0))
+    rate = {k: TS_TRAIN_ITERS / sum(half / r for r in v)
+            for k, v in rates.items()}
+    log("  {}: {} train steps of batch {} per path ({}halves, "
+        "cudnn.benchmark on): {}; halves {}".format(
+            label, TS_TRAIN_ITERS, TS_TRAIN_BATCH,
+            "kernel/plain/plain/kernel " if plain else "",
+            ", ".join("{} path {:.2f} scans/s".format(k, v)
+                      for k, v in rate.items()),
+            {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, optimizer, batch), 3)
+    ts_train_stages(step, model, optimizer, batch, 3)
+
+
+def phase_ts_train(device):
+    """Two-stage KITTI training: Voxel-RCNN at full width through the
+    kernels against the plain versions, K11 bit for bit, 10 steps, timing;
+    then PV-RCNN's steps and timing."""
+    import copy
+
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, iou_clip
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, optimizer, scheduler, step, batch, size = ts_train_setup(
+        device, VOXEL_RCNN)
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(optimizer.state_dict()),
+             copy.deepcopy(scheduler.state_dict()))
+
+    def restore():
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(saved[1])
+        scheduler.load_state_dict(saved[2])
+        model.sampler_generator.manual_seed(SEED)
+
+    def pools(targets):
+        return [tuple(r) for r in targets["pool_sizes"].tolist()]
+
+    log("phase 11: Voxel-RCNN KITTI training at B={} N={} (AdamWOnecycle, "
+        "clip 10, OneCycle), {} gt boxes a scan ({} valid); the RPN head "
+        "from the upstream init (box weights N(0, {}), class prior {}), "
+        "first proposals' median size {} m".format(
+            TS_TRAIN_BATCH, batch["data"].shape[1],
+            batch["gt_boxes"].shape[1],
+            (batch["gt_labels"] >= 0).sum(dim=1).tolist(), RPN_BOX_STD,
+            RPN_PRIOR, [round(float(v), 3) for v in size]))
+    restore()
+    ious = []
+    fn = iou_clip.pairwise_intersection_area
+
+    def iou_rec(*a):
+        ious.append(a)
+        return fn(*a)
+    with record_targets() as kcalls, \
+            mock.patch.object(iou_clip, "pairwise_intersection_area",
+                              iou_rec):
+        kernel = record_step(step, model, optimizer, batch)
+    check(len(ious) == 1, "expected one K11 call a step, got {}".format(
+        len(ious)))
+    errs, times, extra = phase_iou_kernel(ious[0], device)
+    del ious
+    restore()
+    with record_targets() as pcalls, plain_path():
+        plain = record_step(step, model, optimizer, batch)
+    restore()
+    launches = kernel[3]
+    first = pools(kcalls[0][1])
+    log("  train step: losses {}; launches {}; plain step launches {}; "
+        "pools (fg, hard bg, easy bg) per scan {}".format(
+            {k: round(v, 5) for k, v in kernel[0].items()}, launches,
+            plain[3], first))
+    check(all(launches[k] == v for k, v in TST_LAUNCHES.items()) and
+          launches["sorted_segment_sum"] + launches[
+              "sorted_segment_sum_dense"] == 1,
+          "the Voxel-RCNN train step launched {} where {} and one dense "
+          "BEV segment sum were due".format(launches, TST_LAUNCHES))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    check(all(min(p) >= POOL_MIN for p in first),
+          "a sampling pool of the compared step held fewer than {} RoIs: "
+          "{}".format(POOL_MIN, first))
+    kt, pt = kcalls[0][1], pcalls[0][1]
+    check(set(kt) == set(pt) and all(torch.equal(kt[k], pt[k]) for k in kt),
+          "the proposal targets differ between the kernel and plain steps")
+    keys = ["loss", "loss_rpn_cls", "loss_rpn_reg", "loss_rcnn_cls",
+            "loss_rcnn_reg"]
+    step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6, keys)
+    log("  vs the plain step (deterministic cuDNN, TF32 off, the sampler "
+        "reseeded): proposal targets equal; losses {:.3e} (tolerance 1e-6), "
+        "grads {:.3e} (1e-4), running stats {:.3e} (1e-6), each relative to "
+        "the tensor's largest value".format(*step_errs))
+    del kcalls, pcalls
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    losses = []
+    with record_targets() as calls:
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(model, optimizer, batch)["loss"].item())
+    per_step = [pools(out) for _, out in calls]
+    del calls
+    log("  {} steps on the fixed batch, loss per step: {}; pools (fg, hard "
+        "bg, easy bg) per step and scan: {}".format(
+            TRAIN_STEPS, [round(v, 4) for v in losses], per_step))
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          "non-finite train loss")
+    check(losses[-1] < losses[0], "the loss did not fall")
+    check(all(min(p) > 0 for scans in per_step for p in scans),
+          "a sampling pool was empty at a step")
+    timed_ts_train(step, model, optimizer, batch, "Voxel-RCNN")
+    del model, optimizer, scheduler, step, batch
+
+    model, optimizer, _, step, batch, _ = ts_train_setup(device, PV_RCNN)
+    _build.reset_launches()
+    pv_losses = [step(model, optimizer, batch) for _ in range(PV_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log("  PV-RCNN at B={}: {} steps, losses {}; launches {}".format(
+        TS_TRAIN_BATCH, PV_TRAIN_STEPS,
+        [{k: round(v.item(), 4) for k, v in ls.items()} for ls in pv_losses],
+        dict(_build.LAUNCHES)))
+    check(all(v.item() == v.item() and abs(v.item()) < float("inf")
+              for ls in pv_losses for v in ls.values()),
+          "non-finite PV-RCNN train loss")
+    check(_build.LAUNCHES["farthest_point_sample"] == PV_TRAIN_STEPS and
+          _build.LAUNCHES["pairwise_intersection_area"] == PV_TRAIN_STEPS,
+          "PV-RCNN's steps missed K10 or K11")
+    timed_ts_train(step, model, optimizer, batch, "PV-RCNN", plain=False)
+    return errs, times, extra, launches
+
+
 def main():
     try:
         import torch
@@ -2198,6 +2657,13 @@ def main():
         for into, part in zip((errs, times, extra, launches),
                               (sw_errs, sw_times, sw_extra,
                                {k: sw_launches[k] for k in SW_KERNELS})):
+            into.update(part)
+        # K11 counted on the Voxel-RCNN train path
+        ts_errs, ts_times, ts_extra, ts_launches = phase_ts_train(device)
+        for into, part in zip((errs, times, extra, launches),
+                              (ts_errs, ts_times, ts_extra,
+                               {"pairwise_intersection_area": ts_launches[
+                                   "pairwise_intersection_area"]})):
             into.update(part)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))

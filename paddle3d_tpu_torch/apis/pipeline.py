@@ -2,9 +2,10 @@
 make_train_step).
 
 PyTorch runs eagerly, so the step is a plain function: zero the grads,
-train_forward, backward, the optional extra global-norm clip, the
-optimizer step (its config clip runs first, as a pre-hook) and the
-scheduler step. f32 only for now.
+train_forward, backward (a parameter the loss does not reach gets a zero
+gradient), the optional extra global-norm clip, the optimizer step (its
+config clip runs first, as a pre-hook) and the scheduler step. f32 only for
+now.
 """
 from typing import Callable, Optional
 
@@ -35,8 +36,8 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
     clip, as the JAX step does: g * min(1, clip / (norm + 1e-6))."""
     if amp_level in ("O1", "O2"):
         raise NotImplementedError(
-            "bf16 AMP is not ported: the port trains in f32 (ROADMAP.md, "
-            "queue 1, item 4: bf16 / AMP O2 is still open)")
+            "bf16 AMP is not ported: the port trains in f32 (bf16 and AMP "
+            "O1 / O2 arrive with ROADMAP.md, queue 1, item 15)")
     if ema_decay is not None:
         raise NotImplementedError(
             "EMA arrives with the runtime slice (ROADMAP.md, queue 1, "
@@ -48,6 +49,12 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
         if not isinstance(losses, dict):
             losses = {"loss": losses}
         parse_losses(losses).backward()
+        # every parameter gets a gradient, zero where the loss does not
+        # reach it (the two-stage RPN's direction head), as nnx.grad gives
+        # one: decoupled weight decay then moves it as optax.adamw does
+        for p in model.parameters():
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         if grad_clip_norm is not None:
             grads = [p.grad for p in model.parameters()
                      if p.grad is not None]

@@ -65,7 +65,7 @@ class CenterPoint(BaseLidarModel):
                 "the port runs a PillarFeatureNet over a "
                 "PointPillarsScatter, or a VoxelMean over a SparseResNet3D "
                 "or SparseNet3D; got {} over {} (HardVFE arrives with "
-                "ROADMAP.md, queue 1, item 8)".format(
+                "ROADMAP.md, queue 1, item 8b)".format(
                     type(voxel_encoder).__name__,
                     type(middle_encoder).__name__))
         ta = dict(target_assign_cfg or {})
@@ -156,8 +156,9 @@ class CenterPoint(BaseLidarModel):
         Train-mode BN: batch statistics, running stats updated."""
         if self._is_voxel_mean():
             raise NotImplementedError(
-                "training a voxel CenterPoint (train-mode sparse conv and "
-                "MaskedBatchNorm) arrives with ROADMAP.md, queue 1, item 7b")
+                "training a voxel CenterPoint (its voxel canvas under a train "
+                "step; the sparse layers themselves train) arrives with "
+                "ROADMAP.md, queue 1, item 7b")
         preds = self.bbox_head(self._extract_feats(batch["data"], True))
         gt_boxes = batch["gt_boxes"]
         gt_boxes = torch.cat([

@@ -1,5 +1,5 @@
 """PV-RCNN and Voxel-RCNN two-stage detectors, torch port of
-paddle3d_tpu/models/detection/pv_rcnn/pv_rcnn.py (serving).
+paddle3d_tpu/models/detection/pv_rcnn/pv_rcnn.py.
 
 Stage 1: voxel means -> sparse 3-D encoder -> dense BEV -> SECOND backbone
 and FPN -> Anchor3DHead proposals. Stage 2: RoI-grid pooling over a support
@@ -8,23 +8,24 @@ Voxel-RCNN: the voxel centres of the last sparse stages), then cls/reg
 refinement. The BEV keeps the JAX package's NHWC layout and goes to NCHW
 only around the conv stack.
 
-Training (the RPN loss, rotated-IoU proposal targets, the refinement loss)
-and the point head's keypoint weighting are not ported yet: ROADMAP.md,
-queue 1, item 8b.
+Training: the RPN loss; proposals as constants; rotated-IoU proposal
+targets (heads/proposal_target_layer.py) drawn with the model's own
+generator; the RoI head on the sampled RoIs over a support set whose
+gradients flow back into the sparse stages; the refinement loss. The point
+head's keypoint weighting is not ported yet: ROADMAP.md, queue 1, item 8b.
 """
 import torch
 
 from ....apis import manager
 from ....ops.voxelize import voxel_mean_batch
-from ...base.base_model import BaseLidarModel
+from ...base.base_model import BaseLidarModel, raise_if_training
+from ...heads.proposal_target_layer import (ProposalTargetConfig,
+                                            proposal_targets)
+from ...heads.roi_head import RoIGridHead
 from ...middle_encoders.sparse_resnet import stage_voxel_centers
 from ...voxel_encoders.voxel_encoder import VoxelMean
 
 __all__ = ["PVRCNN", "VoxelRCNN"]
-
-_TRAIN_MSG = ("two-stage training (the RPN loss, proposal targets, the RoI "
-              "refinement loss, HardVFE) arrives with ROADMAP.md, queue 1, "
-              "item 8b")
 
 
 class _TwoStageBase(BaseLidarModel):
@@ -55,19 +56,25 @@ class _TwoStageBase(BaseLidarModel):
                 .format(type(voxel_encoder).__name__))
         self.post_process_cfg = post_process_cfg
         self.pretrained = pretrained
-        # kept for the proposal-target sampler of the training slice
-        self.target_config = dict(target_config or {})
-        self.sampler_seed = sampler_seed
+        # the proposal-target sampler: its config and the generator of its
+        # uniform draws (on the CPU, moved to the batch's device)
+        self.target_cfg = ProposalTargetConfig(**(target_config or {}))
+        self.sampler_generator = torch.Generator().manual_seed(sampler_seed)
 
-    def _stage1(self, points):
-        """-> (rpn predictions, BEV [B, H, W, C] NHWC, sparse stages)."""
-        # the test cap: serving only until train_forward arrives with
-        # ROADMAP.md, queue 1, item 8b, which passes its training flag here
+    def sampler_draws(self, b: int, p: int, device) -> torch.Tensor:
+        """[B, 3, P] uniforms in [0, 1) for the fg, hard-bg and easy-bg
+        priorities of proposal_targets, from the model's generator."""
+        return torch.rand((b, 3, p), generator=self.sampler_generator).to(
+            device)
+
+    def _stage1(self, points, training: bool):
+        """-> (rpn predictions, BEV [B, H, W, C] NHWC, sparse stages), with
+        the entry point's voxel cap (train or test)."""
         feats, coords, _, vmask = voxel_mean_batch(
             points, self.voxelizer.voxel_size,
             self.voxelizer.point_cloud_range,
             self.voxelizer.max_num_points_in_voxel,
-            self.voxelizer.max_num_voxels_for(False),
+            self.voxelizer.max_num_voxels_for(training),
             self.voxel_encoder.in_channels)
         bev, stages = self.middle_encoder(feats, coords, vmask,
                                           return_stages=True)
@@ -90,7 +97,28 @@ class _TwoStageBase(BaseLidarModel):
         raise NotImplementedError
 
     def train_forward(self, batch) -> dict:
-        raise NotImplementedError(_TRAIN_MSG)
+        """batch {"data": points [B, N, 4] (NaN padded), "gt_boxes" [B, G,
+        7] (bottom-z), "gt_labels" [B, G] (classes from 0, -1 padded)} ->
+        {"loss_rpn_cls", "loss_rpn_reg", "loss_rcnn_cls", "loss_rcnn_reg",
+        "loss" (their sum)}. Train-mode BN: batch statistics, running stats
+        updated."""
+        points = batch["data"]
+        gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
+        preds, bev, stages = self._stage1(points, True)
+        losses = self.rpn_head.loss(preds, gt_boxes, gt_labels)
+        with torch.no_grad():
+            rois, roi_scores, roi_labels = self.rpn_head.proposals(
+                {k: v.detach() for k, v in preds.items()})
+        targets = proposal_targets(
+            self.sampler_draws(rois.shape[0], rois.shape[1], rois.device),
+            rois, roi_labels >= 0, roi_labels, roi_scores, gt_boxes,
+            gt_labels, self.target_cfg)
+        supports = self._support_set(points, bev, stages)
+        cls_pred, reg_pred = self.roi_head(targets["rois"], supports)
+        losses["loss_rcnn_cls"], losses["loss_rcnn_reg"] = \
+            RoIGridHead.refine_loss(cls_pred, reg_pred, targets)
+        losses["loss"] = sum(losses.values())
+        return losses
 
     @staticmethod
     def _refine(rois, roi_scores, roi_labels, cls_pred, reg_pred) -> dict:
@@ -116,9 +144,11 @@ class _TwoStageBase(BaseLidarModel):
     def test_forward(self, batch) -> dict:
         """batch {"data": points [B, N, 4] f32, NaN padded} -> box3d_lidar
         [B, P, 7] (bottom-z), scores [B, P], label_preds [B, P] (-1
-        padded), P = the RPN's num_proposals."""
+        padded), P = the RPN's num_proposals. The model must be in eval
+        mode (`.eval()`)."""
+        raise_if_training(self)
         points = batch["data"]
-        preds, bev, stages = self._stage1(points)
+        preds, bev, stages = self._stage1(points, False)
         rois, roi_scores, roi_labels = self.rpn_head.proposals(preds)
         supports = self._support_set(points, bev, stages)
         cls_pred, reg_pred = self.roi_head(rois, supports)

@@ -1,10 +1,11 @@
 """Dense anchor-based RPN head of the two-stage detectors, torch port of
-paddle3d_tpu/models/heads/anchor3d_head.py (serving: __init__ on the
-`anchor_configs` surface, the forward, `proposals`).
+paddle3d_tpu/models/heads/anchor3d_head.py (__init__ on the
+`anchor_configs` surface, the forward, `loss`, `proposals`).
 
-Reuses the PointPillars anchor lattice and emits fixed-capacity proposals
-for the RoI stage. The mmdet-style `anchor_generator` surface (BEVFusion's)
-and `loss` raise: ROADMAP.md, queue 1, items 9 and 8b.
+Reuses the PointPillars anchor lattice and its target assignment (per-anchor
+matched / unmatched thresholds of each class) and emits fixed-capacity
+proposals for the RoI stage. The mmdet-style `anchor_generator` surface
+(BEVFusion's) raises: ROADMAP.md, queue 1, item 9.
 """
 from typing import List, Sequence
 
@@ -16,7 +17,9 @@ from ...ops.box_ops import second_box_decode
 from ...ops.iou3d_nms import nms_bev
 from ...ops.pointnet2 import first_argmax, gather_operation
 from ..detection.pointpillars.anchors import AnchorGenerator
+from ..detection.pointpillars.target_assigner import assign_targets
 from ..layers.layer_libs import default_generator, uniform_
+from ..losses.weighted_loss import sigmoid_focal_loss, smooth_l1_loss
 
 __all__ = ["Anchor3DHead"]
 
@@ -68,6 +71,10 @@ class Anchor3DHead(nn.Module):
         self.register_buffer(
             "_anchors", torch.from_numpy(self.anchor_generator.anchors),
             persistent=False)
+        for name in ("matched", "unmatched"):
+            self.register_buffer("_" + name, torch.from_numpy(getattr(
+                self.anchor_generator, name + "_thresholds")),
+                persistent=False)
         k = self.anchor_generator.num_anchors_per_loc
 
         def conv1x1(cout):
@@ -96,9 +103,28 @@ class Anchor3DHead(nn.Module):
         }
 
     def loss(self, preds, gt_boxes, gt_labels) -> dict:
-        raise NotImplementedError(
-            "two-stage training (the RPN loss, proposal targets, the RoI "
-            "refinement loss) arrives with ROADMAP.md, queue 1, item 8b")
+        """gt_boxes [B, G, 7] (bottom-z), gt_labels [B, G] (classes from 0,
+        -1 padded) -> {"loss_rpn_cls", "loss_rpn_reg"}: the sigmoid focal
+        loss over cared anchors and the smooth-L1 residual loss (x 2) over
+        fg anchors, both normalised by each scan's fg count and averaged
+        over the batch."""
+        labels, reg_targets = assign_targets(
+            self._anchors.to(gt_boxes.dtype), gt_boxes, gt_labels,
+            self._matched, self._unmatched)
+        fg = (labels > 0).to(torch.float32)
+        num_fg = torch.clamp(fg.sum(dim=1, keepdim=True), min=1.)
+        cared = labels >= 0
+        onehot = torch.nn.functional.one_hot(
+            torch.where(cared, labels, 0).long(),
+            self.num_classes + 1)[..., 1:].to(torch.float32)
+        cls_w = cared.to(torch.float32) / num_fg
+        b = preds["cls_preds"].shape[0]
+        cls_loss = torch.sum(sigmoid_focal_loss(preds["cls_preds"], onehot) *
+                             cls_w[..., None]) / b
+        reg_w = fg / num_fg
+        reg_loss = torch.sum(smooth_l1_loss(preds["box_preds"], reg_targets) *
+                             reg_w[..., None]) / b
+        return {"loss_rpn_cls": cls_loss, "loss_rpn_reg": 2.0 * reg_loss}
 
     def proposals(self, preds):
         """-> (rois [B, P, 7], roi_scores [B, P], roi_labels [B, P] int32,

@@ -1,13 +1,11 @@
 """RoI-grid refinement head of the two-stage detectors, torch port of
-paddle3d_tpu/models/heads/roi_head.py (serving: `_grid_points`, `pool`,
-the forward).
+paddle3d_tpu/models/heads/roi_head.py (`_grid_points`, `pool`, the
+forward, `refine_loss`).
 
 Each proposal is covered by a G^3 grid of points; features are aggregated
 around the grid points with ball queries over a support point set (PV-RCNN:
 keypoints from VoxelSetAbstraction; Voxel-RCNN: sparse voxel centres) and
 fed to the cls/reg refinement MLPs. Fixed capacities everywhere.
-`refine_loss` arrives with the training slice (ROADMAP.md, queue 1, item
-8b).
 """
 from typing import Sequence
 
@@ -17,8 +15,9 @@ from torch import nn
 from ...apis import manager
 from ..common.pointnet2_modules import PointMLP, group_max, linear
 from ..layers.layer_libs import default_generator
+from ..losses.weighted_loss import smooth_l1_loss
 
-__all__ = ["RoIGridHead"]
+__all__ = ["RoIGridHead", "optax_sigmoid_ce"]
 
 
 @manager.HEADS.add_component
@@ -93,3 +92,48 @@ class RoIGridHead(nn.Module):
     def forward(self, rois, supports):
         shared = self.pool(rois, supports)
         return self.cls_out(shared)[..., 0], self.reg_out(shared)
+
+    @staticmethod
+    def refine_loss(cls_pred, reg_pred, targets: dict):
+        """The refinement loss on proposal_targets' outputs -> (cls, reg):
+        binary CE against rcnn_cls_labels (soft or hard; entries < 0
+        ignored), averaged over the cared slots; smooth L1 of the residual
+        to the matched gt in the coding `_refine` decodes (centre offset
+        over half the RoI's BEV diagonal, log size ratio, yaw difference),
+        summed over the code and averaged over reg_valid_mask."""
+        rois = targets["rois"]
+        cls_labels = targets["rcnn_cls_labels"]
+        reg_mask = targets["reg_valid_mask"]
+        gt = targets["gt_of_rois"]
+
+        cls_valid = cls_labels >= 0
+        ce = optax_sigmoid_ce(cls_pred,
+                              torch.clamp(cls_labels, min=0.).to(
+                                  cls_pred.dtype))
+        cls_loss = torch.where(cls_valid, ce, 0.).sum() / torch.clamp(
+            cls_valid.sum(), min=1)
+
+        diag = 0.5 * torch.sqrt(rois[..., 3] ** 2 + rois[..., 4] ** 2)
+
+        def centre(boxes):
+            return torch.cat([boxes[..., :2], (boxes[..., 2] +
+                                               boxes[..., 5] / 2)[..., None]],
+                             dim=-1)
+        residual = torch.cat([
+            (centre(gt) - centre(rois)) /
+            torch.clamp(diag, min=1e-3)[..., None],
+            torch.log(torch.clamp(gt[..., 3:6], min=1e-3) /
+                      torch.clamp(rois[..., 3:6], min=1e-3)),
+            gt[..., 6:7] - rois[..., 6:7],
+        ], dim=-1)
+        l1 = smooth_l1_loss(reg_pred, residual).sum(dim=-1)
+        reg_loss = torch.where(reg_mask, l1, 0.).sum() / torch.clamp(
+            reg_mask.sum(), min=1)
+        return cls_loss, reg_loss
+
+
+def optax_sigmoid_ce(logits, labels):
+    """optax.sigmoid_binary_cross_entropy as the JAX package writes it:
+    max(x, 0) - x * y + log1p(exp(-|x|))."""
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(
+        torch.exp(-torch.abs(logits)))

@@ -4,12 +4,14 @@ SparseConv3D, SparseBasicBlock).
 
 SparseTensor is the fixed-capacity sparse tensor of the JAX package:
 (features [B, V, C], coords [B, V, 3] (z, y, x), mask [B, V], grid
-(D, H, W)). Serving only: in eval the convs take the fused form the JAX
-package's kernel path takes (BatchNorm scale folded into the weights, bias
-and shift added on valid rows, relu) through ops/sparse_conv.sparse_conv3d,
-which launches the sparse conv kernel on a CUDA tensor and takes its plain
-version on a CPU one. Training mode raises: the gather path's VJP and a
-backward of the kernel arrive with ROADMAP.md, queue 1, item 7b.
+(D, H, W)). In eval the convs take the fused form the JAX package's kernel
+path takes (BatchNorm scale folded into the weights, bias and shift added on
+valid rows, relu) through ops/sparse_conv.sparse_conv3d, which launches the
+sparse conv kernel on a CUDA tensor and takes its plain version on a CPU
+one. In train mode they take the gather route under autograd, as the JAX
+package trains them (ops/sparse: the K^3 neighbour rows gathered, one
+[V, K^3 * Cin] @ [K^3 * Cin, Cout] product), unfused: conv (+ bias, rows
+masked), then MaskedBatchNorm on batch statistics, then relu.
 """
 from typing import NamedTuple, Tuple
 
@@ -17,16 +19,12 @@ import torch
 from torch import nn
 
 from ...ops import sparse_conv as _sparse_conv
-from ...ops.sparse import downsample_coords
+from ...ops.sparse import (downsample_coords, sparse_gather_neighbors,
+                           subm_conv3d_gather)
 from .layer_libs import default_generator, uniform_
 
 __all__ = ["SparseTensor", "SparseConv3D", "MaskedBatchNorm",
            "SparseBasicBlock"]
-
-_TRAIN_MSG = ("sparse-voxel training (the gather path's VJP and a backward "
-              "of the sparse conv kernel) arrives with ROADMAP.md, queue 1, "
-              "item 7b; call .eval() to serve")
-
 
 class SparseTensor(NamedTuple):
     features: torch.Tensor       # [B, V, C]
@@ -39,13 +37,19 @@ class SparseTensor(NamedTuple):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows of [B, V, C], eval form: running
-    statistics, invalid rows zero. torch names (weight, bias, running_mean,
-    running_var) for the JAX package's (scale, bias, mean, var)."""
+    """BatchNorm over the valid rows of [B, V, C]; invalid rows are zero.
+    torch names (weight, bias, running_mean, running_var) for the JAX
+    package's (scale, bias, mean, var). Train mode normalises with the
+    biased batch statistics of the valid rows (two passes: the mean, then
+    the mean square of the centred rows) and updates the running stats
+    flax-style, stat <- momentum * stat + (1 - momentum) * batch stat, with
+    momentum 0.99; eval uses the running stats."""
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    def __init__(self, channels: int, eps: float = 1e-3,
+                 momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -58,11 +62,25 @@ class MaskedBatchNorm(nn.Module):
         return s, self.bias - self.running_mean * s
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_MSG)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if not self.training:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var +
+                                                      self.eps)
+            y = y * self.weight + self.bias
+            return torch.where(mask[..., None], y, 0.)
+        m = mask.to(x.dtype)[..., None]
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (x * m).sum(dim=(0, 1)) / count
+        diff = (x - mean) * m
+        var = (diff * diff).sum(dim=(0, 1)) / count
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.copy_(keep * self.running_mean +
+                                    (1 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var +
+                                   (1 - keep) * var)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
-        return torch.where(mask[..., None], y, 0.)
+        return y * m
 
 
 class SparseConv3D(nn.Module):
@@ -98,12 +116,39 @@ class SparseConv3D(nn.Module):
                            device=coords.device)
         return torch.where(mask, k, d * h * w + 7 + row).to(torch.int32)
 
+    def _gather_forward(self, st: SparseTensor) -> SparseTensor:
+        """Train mode: the gather route under autograd, conv + bias on the
+        output's valid rows (the JAX package's non-kernel path)."""
+        if all(s == 1 for s in self.stride):
+            out = subm_conv3d_gather(st.features, st.coords, st.mask,
+                                     self.weight, st.grid)
+            oc, om, grid = st.coords, st.mask, st.grid
+        else:
+            d, h, w = st.grid
+            sz, sy, sx = self.stride
+            grid = (max(d // sz, 1), h // sy, w // sx)
+            cap = self.out_capacity or st.features.shape[1]
+            oc, om = downsample_coords(st.coords, st.mask, st.grid,
+                                       self.stride, cap)
+            g = sparse_gather_neighbors(st.features, st.coords, st.mask, oc,
+                                        om, self.kernel_size, st.grid,
+                                        stride=self.stride)
+            out = g.flatten(-2) @ self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return SparseTensor(out * om[..., None].to(out.dtype), oc, om, grid)
+
     def forward(self, st: SparseTensor, scale=None, shift=None,
                 relu: bool = False) -> SparseTensor:
-        """y = conv(x) * scale + shift (+ relu) on valid rows, the fused
-        eval-BN epilogue; the bias is folded into the shift."""
+        """Eval: y = conv(x) * scale + shift (+ relu) on valid rows, the
+        fused eval-BN epilogue; the bias is folded into the shift. Train:
+        conv(x) + bias on valid rows (callers apply BN and relu after it;
+        no epilogue may be given)."""
         if self.training:
-            raise NotImplementedError(_TRAIN_MSG)
+            if scale is not None or shift is not None or relu:
+                raise ValueError("the train-mode sparse conv takes no fused "
+                                 "epilogue")
+            return self._gather_forward(st)
         if self.bias is not None:
             b = self.bias if scale is None else self.bias * scale
             shift = b if shift is None else shift + b
@@ -129,7 +174,8 @@ class SparseConv3D(nn.Module):
 
 class SparseBasicBlock(nn.Module):
     """Two submanifold convs (with bias) + residual; eval fuses each BN
-    (and the first relu) into its conv's epilogue."""
+    (and the first relu) into its conv's epilogue, train runs conv, BN and
+    relu one after the other."""
 
     def __init__(self, channels: int, generator: torch.Generator = None):
         super().__init__()
@@ -141,6 +187,13 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, st: SparseTensor) -> SparseTensor:
         identity = st.features
+        if self.training:
+            out = self.conv1(st)
+            out = out.replace_features(
+                torch.relu(self.bn1(out.features, out.mask)))
+            out = self.conv2(out)
+            return out.replace_features(torch.relu(
+                self.bn2(out.features, out.mask) + identity))
         s1, b1 = self.bn1.fold_affine()
         out = self.conv1(st, scale=s1, shift=b1, relu=True)
         s2, b2 = self.bn2.fold_affine()

@@ -1,12 +1,15 @@
 """Sparse 3-D middle encoders, torch port of
 paddle3d_tpu/models/middle_encoders/sparse_resnet.py (SparseResNet3D,
-SparseNet3D, stage_voxel_centers), serving.
+SparseNet3D, stage_voxel_centers).
 
-Fixed-capacity sparse tensors with per-stage capacities; every conv runs
-the sparse conv kernel (ops/sparse_conv.py) with its BatchNorm and relu
-fused, and the final stage goes to a dense [B, H, W, D * C] BEV map (NHWC,
-z folded into channels D-major) through the sorted segment sum
-(ops/sorted_scatter.py: K7 for the dense scans of full-width configs).
+Fixed-capacity sparse tensors with per-stage capacities (from the voxel
+rows of the entry point's cap: train or test); in eval every conv runs the
+sparse conv kernel (ops/sparse_conv.py) with its BatchNorm and relu fused,
+in train mode the gather route under autograd with batch-statistics BN
+(layers/sparse_layers.py); the final stage goes to a dense [B, H, W, D * C]
+BEV map (NHWC, z folded into channels D-major) through the differentiable
+sorted segment sum (ops/sorted_scatter.py: K2 or K7 forward by the density
+rule, the table gather K5 backward).
 """
 from typing import Sequence
 
@@ -41,6 +44,10 @@ class _ConvBNReLU(nn.Module):
         self.bn = MaskedBatchNorm(cout)
 
     def forward(self, st: SparseTensor) -> SparseTensor:
+        if self.training:
+            out = self.conv(st)
+            return out.replace_features(
+                torch.relu(self.bn(out.features, out.mask)))
         s, b = self.bn.fold_affine()
         return self.conv(st, scale=s, shift=b, relu=True)
 

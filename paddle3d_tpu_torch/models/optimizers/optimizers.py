@@ -1,7 +1,7 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
-OneCycleAdam with OneCycleDecayWarmupMomentum, StepDecay,
-OneCycleWarmupDecayLr).
+OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle, StepDecay,
+OneCycleWarmupDecayLr, OneCycle).
 
 The JAX package builds optax transformations; torch builds an optimizer
 over parameters, which a YAML config does not have. So `Adam` returns a
@@ -19,9 +19,9 @@ import torch
 
 from ...apis import manager
 
-__all__ = ["ClipGradByGlobalNorm", "Adam", "OneCycleAdam",
+__all__ = ["ClipGradByGlobalNorm", "Adam", "OneCycleAdam", "AdamWOnecycle",
            "OneCycleDecayWarmupMomentum", "StepDecay",
-           "OneCycleWarmupDecayLr"]
+           "OneCycleWarmupDecayLr", "OneCycle"]
 
 
 @manager.OPTIMIZERS.add_component
@@ -83,24 +83,22 @@ class StepDecay:
         return self.gamma ** (step // self.step_size)
 
 
-@manager.LR_SCHEDULERS.add_component
-class OneCycleWarmupDecayLr:
-    """optax.cosine_onecycle_schedule as the JAX package configures it: a
-    cosine from base_learning_rate up to base · lr_ratio_peak over the first
-    step_ratio_peak of total_step, then a cosine down to
-    base · lr_ratio_trough at total_step, flat after."""
+class _CosineOneCycle:
+    """optax.cosine_onecycle_schedule(total_step, peak, pct_start,
+    div_factor, final_div_factor): a cosine from peak / div_factor up to
+    peak over the first pct_start of total_step, then a cosine down to
+    peak / (div_factor * final_div_factor) at total_step, flat after (optax's
+    piecewise_interpolate_schedule over the cumulative scales)."""
 
-    def __init__(self, base_learning_rate: float, lr_ratio_peak: float = 10,
-                 lr_ratio_trough: float = 0.0001,
-                 step_ratio_peak: float = 0.4, total_step: int = 100000):
+    def __init__(self, total_step: int, peak: float, pct_start: float,
+                 div_factor: float, final_div_factor: float):
         if total_step <= 0:
-            raise ValueError("OneCycleWarmupDecayLr needs total_step > 0")
-        div, final_div = lr_ratio_peak, 1.0 / lr_ratio_trough
-        # optax's piecewise_interpolate_schedule: boundaries and the
-        # cumulative product of the scales from peak / div
-        init = base_learning_rate * lr_ratio_peak / div
-        self.bounds = (0, int(step_ratio_peak * total_step), int(total_step))
-        self.values = (init, init * div, init * div / (div * final_div))
+            raise ValueError("{} needs total_step > 0".format(
+                type(self).__name__))
+        init = peak / div_factor
+        self.bounds = (0, int(pct_start * total_step), int(total_step))
+        self.values = (init, init * div_factor,
+                       init * div_factor / (div_factor * final_div_factor))
         self.learning_rate = init
 
     def __call__(self, step: int) -> float:
@@ -116,6 +114,38 @@ class OneCycleWarmupDecayLr:
     def factor(self, step: int) -> float:
         """lr(step) / learning_rate."""
         return self(step) / self.learning_rate
+
+
+@manager.LR_SCHEDULERS.add_component
+class OneCycleWarmupDecayLr(_CosineOneCycle):
+    """The one-cycle cosine as the JAX package configures it from paddle's
+    names: from base_learning_rate up to base · lr_ratio_peak over the first
+    step_ratio_peak of total_step, then down to base · lr_ratio_trough."""
+
+    def __init__(self, base_learning_rate: float, lr_ratio_peak: float = 10,
+                 lr_ratio_trough: float = 0.0001,
+                 step_ratio_peak: float = 0.4, total_step: int = 100000):
+        super().__init__(total_step, base_learning_rate * lr_ratio_peak,
+                         step_ratio_peak, lr_ratio_peak,
+                         1.0 / lr_ratio_trough)
+
+
+@manager.LR_SCHEDULERS.add_component
+class OneCycle(_CosineOneCycle):
+    """The one-cycle cosine on optax's names: peak `lr_max` (or
+    `learning_rate`, the reference YAML's other name for it), warm-up over
+    pct_start of total_step from peak / div_factor, down to peak /
+    (div_factor · final_div_factor). `moms` (the cycled betas) belongs to
+    the optimizer and is accepted for the YAML's sake."""
+
+    def __init__(self, learning_rate: float = None, total_step: int = None,
+                 pct_start: float = 0.4, div_factor: float = 10.0,
+                 final_div_factor: float = 1e4, lr_max: float = None,
+                 moms=None):
+        del moms
+        peak = float(lr_max if lr_max is not None else learning_rate)
+        super().__init__(total_step, peak, pct_start, div_factor,
+                         final_div_factor)
 
 
 @manager.OPTIMIZERS.add_component
@@ -222,3 +252,14 @@ def OneCycleAdam(learning_rate, total_step: int = None,
         return opt
 
     return build
+
+
+@manager.OPTIMIZERS.add_component
+def AdamWOnecycle(learning_rate, total_step: int = None,
+                  weight_decay: float = 0.01, grad_clip_norm: float = 10.0,
+                  **kwargs):
+    """OneCycleAdam under the reference configs' name (the PV-RCNN and
+    Voxel-RCNN KITTI configs pair it with the OneCycle schedule)."""
+    return OneCycleAdam(learning_rate, total_step=total_step,
+                        weight_decay=weight_decay,
+                        grad_clip_norm=grad_clip_norm, **kwargs)

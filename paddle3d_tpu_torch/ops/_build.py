@@ -35,7 +35,8 @@ LAUNCHES = {"fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
             "sorted_table_gather": 0, "sorted_segment_sum_cm": 0,
             "sorted_segment_sum_dense": 0, "sparse_conv3d": 0,
             "ball_query": 0, "farthest_point_sample": 0,
-            "seg_window_max": 0, "seg_window_max_bwd": 0}
+            "seg_window_max": 0, "seg_window_max_bwd": 0,
+            "pairwise_intersection_area": 0}
 
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "p3d_farthest_point_sample": (_vp, _vp, _vp, _vp, _i, _i, _i, _vp),
     "p3d_seg_window_max": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_seg_window_max_bwd": (_vp, _vp, _vp, _i, _i, _i, _i, _vp),
+    "p3d_pairwise_intersection_area": (_vp, _vp, _vp, _i, _i, _i, _vp),
 }
 
 _lib = None

@@ -1,18 +1,41 @@
 """On-device box utilities.
 
-Port of the part of paddle3d_tpu/ops/box_ops.py the PointPillars slices use
-(limit_period, second_box_encode, second_box_decode).
+Port of the part of paddle3d_tpu/ops/box_ops.py the ported models use
+(limit_period, boxes_to_corners_bev, second_box_encode, second_box_decode).
 """
 import math
 
 import torch
 
-__all__ = ["limit_period", "second_box_encode", "second_box_decode"]
+__all__ = ["limit_period", "boxes_to_corners_bev", "second_box_encode",
+           "second_box_decode"]
 
 
 def limit_period(val, offset: float = 0.5, period: float = math.pi):
     """Wrap angle into [-offset*period, (1-offset)*period)."""
     return val - torch.floor(val / period + offset) * period
+
+
+def boxes_to_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
+    """[..., 5+] (cx, cy, dx, dy, ..., yaw) -> [..., 4, 2] CCW BEV corners,
+    in the JAX package's corner order (-+ signs of the unit square
+    (-.5, -.5), (.5, -.5), (.5, .5), (-.5, .5), then the rotation). 7-dof
+    boxes (x, y, z, dx, dy, dz, yaw) use columns 3:5 as the footprint."""
+    if boxes.shape[-1] >= 7:
+        dx, dy = boxes[..., 3], boxes[..., 4]
+    else:
+        dx, dy = boxes[..., 2], boxes[..., 3]
+    cx, cy, yaw = boxes[..., 0, None], boxes[..., 1, None], boxes[..., -1]
+    ux = torch.tensor([-0.5, 0.5, 0.5, -0.5], dtype=boxes.dtype,
+                      device=boxes.device)
+    uy = torch.tensor([-0.5, -0.5, 0.5, 0.5], dtype=boxes.dtype,
+                      device=boxes.device)
+    x = ux * dx[..., None]
+    y = uy * dy[..., None]
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    rx = c * x - s * y + cx
+    ry = s * x + c * y + cy
+    return torch.stack([rx, ry], dim=-1)
 
 
 def second_box_encode(boxes: torch.Tensor,

@@ -1,11 +1,16 @@
-"""Greedy rotated-BEV NMS as fixed-shape tensor programs.
+"""Rotated BEV / 3-D IoU and greedy rotated-BEV NMS as fixed-shape tensor
+programs.
 
-Port of the part of paddle3d_tpu/ops/iou3d_nms.py that `suppress` runs:
-the Green's-theorem all-pairs intersection area, the fixpoint greedy
-survivors, the kept-buffer blocked variant and the compaction of kept
-indices; and of `nms_bev` on top of it (score top-k, then suppress). Every function takes leading batch dimensions, written out
-instead of vmapped. Plain PyTorch: the JAX package runs this as plain XLA,
-not as a TPU kernel.
+Port of paddle3d_tpu/ops/iou3d_nms.py: `boxes_overlap_bev`, `boxes_iou_bev`
+and `boxes_iou3d` on the slot-list clip (ops/iou_clip.py: the K11 kernel on a
+CUDA tensor, its plain version on a CPU one; the JAX package gates its TPU
+kernel behind an environment variable and N, M >= 64 only for TPU tiling,
+which the port does not copy); and what `suppress` runs: the Green's-theorem
+all-pairs intersection area, the fixpoint greedy survivors, the kept-buffer
+blocked variant and the compaction of kept indices; and `nms_bev` on top of
+it (score top-k, then suppress). Every function takes leading batch
+dimensions, written out instead of vmapped. The NMS part is plain PyTorch:
+the JAX package runs it as plain XLA, not as a TPU kernel.
 """
 from typing import Tuple
 
@@ -13,9 +18,51 @@ import math
 
 import torch
 
+from . import iou_clip
+from .box_ops import boxes_to_corners_bev
 from .pointnet2 import topk_stable
 
-__all__ = ["suppress", "nms_bev"]
+__all__ = ["boxes_overlap_bev", "boxes_iou_bev", "boxes_iou3d", "suppress",
+           "nms_bev"]
+
+
+def boxes_overlap_bev(boxes_a: torch.Tensor,
+                      boxes_b: torch.Tensor) -> torch.Tensor:
+    """[..., N, 5|7] x [..., M, 5|7] rotated boxes (equal leading dims) ->
+    [..., N, M] BEV intersection areas, by the slot-list clip of their CCW
+    corners."""
+    ca = boxes_to_corners_bev(boxes_a).to(torch.float32)
+    cb = boxes_to_corners_bev(boxes_b).to(torch.float32)
+    return iou_clip.pairwise_intersection_area(ca, cb)
+
+
+def boxes_iou_bev(boxes_a: torch.Tensor,
+                  boxes_b: torch.Tensor) -> torch.Tensor:
+    """[..., N, 5|7] x [..., M, 5|7] -> [..., N, M] rotated BEV IoU."""
+    inter = boxes_overlap_bev(boxes_a, boxes_b)
+    cols = (3, 4) if boxes_a.shape[-1] >= 7 else (2, 3)
+    area_a = boxes_a[..., cols[0]] * boxes_a[..., cols[1]]
+    area_b = boxes_b[..., cols[0]] * boxes_b[..., cols[1]]
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-6)
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """[..., N, 7] x [..., M, 7] (x, y, z centre, dx, dy, dz, yaw) ->
+    [..., N, M] 3-D IoU; the vertical extent is z -+ dz / 2."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_zmin = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    a_zmax = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    b_zmin = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    b_zmax = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    overlap_z = torch.clamp(
+        torch.minimum(a_zmax[..., :, None], b_zmax[..., None, :]) -
+        torch.maximum(a_zmin[..., :, None], b_zmin[..., None, :]), min=0.)
+    inter = inter_bev * overlap_z
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    union = vol_a[..., :, None] + vol_b[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-6)
 
 
 def _green_edge_sum(acx, acy, aux, auy, aa, ab,

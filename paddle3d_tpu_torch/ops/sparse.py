@@ -1,15 +1,17 @@
 """Sparse 3-D convolution building blocks: a sorted-key coordinate table,
 neighbour lookup, gather, and the strided output active set.
 
-Port of paddle3d_tpu/ops/sparse.py (the whole file), per sample as there:
-active voxels live in fixed-capacity arrays (coords [V, 3] (z, y, x),
+Port of paddle3d_tpu/ops/sparse.py (the whole file), per sample as there
+or with leading batch dims written out: active voxels live in
+fixed-capacity arrays (coords [V, 3] (z, y, x),
 features [V, C], mask [V]), a sorted linear-key table answers neighbour
 lookups with a binary search (torch.searchsorted), a submanifold conv is a
 gather of the K^3 neighbours and one product with the flattened kernel
 [K^3 * Cin, Cout], and a strided conv first derives its output active set
 by a sort-unique with a fixed capacity. Plain PyTorch; the plain version
 of the port's sparse conv kernel (ops/sparse_conv.py) looks its neighbours
-up with lookup_coords.
+up with lookup_coords, and training runs the gather route under autograd,
+as the JAX package trains it.
 """
 from typing import Sequence, Tuple
 
@@ -74,38 +76,53 @@ def sparse_gather_neighbors(features: torch.Tensor, coords: torch.Tensor,
                             out_mask: torch.Tensor, kernel_size: int,
                             grid: Tuple[int, int, int],
                             stride=1) -> torch.Tensor:
-    """Gather [Vout, K^3, C] neighbour features for each output site.
+    """Gather [..., Vout, K^3, C] neighbour features for each output site
+    (leading dims alike on every input: one table per sample).
 
     Output site o with coord c reads input coords c * stride + offset
     (stride may be per-axis (sz, sy, sx)). Missing neighbours contribute
-    zeros."""
-    v_out = out_coords.shape[0]
+    zeros. Differentiable in `features` (a row gather)."""
+    lead, (v, c) = features.shape[:-2], features.shape[-2:]
+    v_out = out_coords.shape[-2]
     offsets = torch.as_tensor(kernel_offsets(kernel_size), dtype=torch.int32,
                               device=coords.device)
     kk = offsets.shape[0]
     sorted_keys, sorted_idx = build_coord_table(coords, mask, grid)
     stride_v = torch.tensor(_stride3(stride), dtype=torch.int32,
                             device=coords.device)
-    query = (out_coords * stride_v)[:, None, :] + offsets[None, :, :]
-    nbr = lookup_coords(sorted_keys, sorted_idx, query.reshape(-1, 3),
-                        out_mask.repeat_interleave(kk), grid)
-    nbr = nbr.reshape(v_out, kk)
-    gathered = features[nbr.clamp(min=0).long()]           # [Vout, K, C]
+    query = (out_coords * stride_v)[..., :, None, :] + offsets
+    qvalid = out_mask[..., :, None].expand(out_mask.shape + (kk,))
+    nbr = lookup_coords(sorted_keys, sorted_idx,
+                        query.reshape(lead + (v_out * kk, 3)),
+                        qvalid.reshape(lead + (v_out * kk,)), grid)
+    nbr = nbr.reshape(lead + (v_out, kk))
+    # one row gather over the flattened batch (row nbr of sample s is
+    # s * V + nbr): index_select, whose backward adds the K^3 neighbours'
+    # cotangents with index_add_; autograd's backward of advanced indexing
+    # sorts the indices first, and took 0.35 s a train step at the KITTI
+    # voxel widths on an H100
+    samples = features.reshape(-1, v, c).shape[0]
+    base = (torch.arange(samples, device=coords.device) * v).reshape(
+        lead + (1, 1))
+    rows = (nbr.clamp(min=0).long() + base).reshape(-1)
+    gathered = torch.index_select(features.reshape(-1, c), 0, rows).reshape(
+        lead + (v_out, kk, c))
     return torch.where((nbr >= 0)[..., None], gathered, 0.)
 
 
 def subm_conv3d_gather(features: torch.Tensor, coords: torch.Tensor,
                        mask: torch.Tensor, weights: torch.Tensor,
                        grid: Tuple[int, int, int]) -> torch.Tensor:
-    """Submanifold conv: output on the SAME active set.
+    """Submanifold conv: output on the SAME active set, [..., V, Cout]
+    (leading dims as sparse_gather_neighbors).
 
     weights: [K^3 * Cin, Cout] (flattened kernel)."""
-    k3 = weights.shape[0] // features.shape[1]
+    k3 = weights.shape[0] // features.shape[-1]
     kernel_size = round(k3 ** (1 / 3))
     gathered = sparse_gather_neighbors(features, coords, mask, coords, mask,
                                        kernel_size, grid, stride=1)
-    out = gathered.reshape(gathered.shape[0], -1) @ weights
-    return torch.where(mask[:, None], out, 0.).to(features.dtype)
+    out = gathered.flatten(-2) @ weights
+    return torch.where(mask[..., None], out, 0.).to(features.dtype)
 
 
 def downsample_coords(coords: torch.Tensor, mask: torch.Tensor,

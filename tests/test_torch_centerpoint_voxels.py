@@ -354,18 +354,29 @@ def test_second_fpn_stride_one_matches_jax():
 
 
 def test_training_raises(models):
-    """Sparse-voxel training is not ported: SparseConv3D and
-    MaskedBatchNorm raise in train mode (no silent plain path on the
-    card), and so does train_forward."""
+    """Training a voxel CenterPoint is not ported: its train_forward
+    raises, naming its ROADMAP item. Its layers do train (the two-stage
+    models train them, tests/test_torch_two_stage_train.py): in train mode
+    the sparse conv takes the gather route and refuses a fused epilogue,
+    MaskedBatchNorm takes batch statistics over the valid rows."""
     _, model = models
-    conv = SparseConv3D(4, 16, generator=torch.Generator().manual_seed(0))
-    bn = MaskedBatchNorm(16)
     with pytest.raises(NotImplementedError, match="item 7b"):
-        conv(None)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        bn(torch.zeros(1, 2, 16), torch.ones(1, 2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="7b"):
         model.train_forward({"data": torch.zeros(1, 8, 5)})
+    conv = SparseConv3D(4, 16, generator=torch.Generator().manual_seed(0))
+    st = SparseTensor(torch.randn(1, 3, 4), torch.tensor([[[0, 0, 0],
+                                                           [0, 0, 1],
+                                                           [1, 2, 2]]],
+                                                         dtype=torch.int32),
+                      torch.tensor([[True, True, False]]), (4, 4, 4))
+    with pytest.raises(ValueError, match="epilogue"):
+        conv.train()(st, relu=True)
+    out = conv(st)
+    assert out.features.shape == (1, 3, 16) and out.features.requires_grad
+    assert not out.features[0, 2].any()
+    bn = MaskedBatchNorm(16).train()
+    y = bn(out.features, st.mask)
+    torch.testing.assert_close(y[0, :2].mean(dim=0), bn.bias.expand(16))
+    assert not y[0, 2].any()
 
 
 def test_cpu_forward_takes_no_kernel(models, monkeypatch):

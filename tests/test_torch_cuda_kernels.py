@@ -825,3 +825,152 @@ def test_two_layer_train_canvas_on_card_matches_cpu(cuda, tmp_path):
                                   sorted(pfn.named_parameters())])
     for got, ref in zip(results[1], results[0]):
         _close(got, ref, 1e-5)
+
+
+def _iou_cases(device):
+    """(name, corners a, corners b): clustered car-sized boxes and jittered
+    copies [4, 100] x [4, 120]; a tie lattice (unit and 2 x 1 m boxes on a
+    1 m lattice, duplicates, yaw a multiple of pi/2); degenerate boxes
+    (zero size, 1 mm) among ordinary ones; far-apart pairs; one unbatched
+    pair of sets."""
+    from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
+    rng = np.random.default_rng(11)
+    a = np.zeros((4, 100, 7), np.float32)
+    a[..., :2] = rng.uniform(-20, 20, (4, 100, 2))
+    a[..., 3:6] = rng.uniform([1.4, 3.2, 1.3], [2.0, 4.6, 1.8], (4, 100, 3))
+    a[..., 6] = rng.uniform(-np.pi, np.pi, (4, 100))
+    b = np.concatenate([a, a[:, :20]], axis=1)
+    b[..., :2] += rng.normal(0, 0.8, b[..., :2].shape)
+    b[..., 6] += rng.normal(0, 0.2, b[..., 6].shape)
+    g = np.stack(np.meshgrid(np.arange(6.), np.arange(6.), indexing="ij"),
+                 -1).reshape(-1, 2)
+    lat = np.zeros((2, 36, 7), np.float32)
+    lat[..., :2] = g
+    lat[1, :, :2] += 0.5
+    lat[..., 3:6] = np.where((np.arange(36) % 3 == 0)[:, None], [2, 1, 1],
+                             [1, 1, 1])
+    lat[..., 6] = (np.arange(36) % 4) * np.pi / 2
+    lat_b = lat.copy()
+    lat_b[:, 1::2] = lat[:, ::2]
+    deg = a[:1, :24].copy()
+    deg[0, :4, 3:5] = [[0, 0], [1e-3, 1e-3], [0, 2], [1e-3, 4]]
+    deg[0, 4:8] = deg[0, 8:12]                         # coincident pairs
+    far = a[:1, :24].copy()
+    far[..., 0] += 1000.
+    cases = [("clustered", a, b), ("lattice", lat, lat_b),
+             ("degenerate", deg, deg), ("far", a[:1, :24], far),
+             ("unbatched", a[0], b[0])]
+    return [(name, boxes_to_corners_bev(torch.from_numpy(x).to(device)),
+             boxes_to_corners_bev(torch.from_numpy(y).to(device)))
+            for name, x, y in cases]
+
+
+def test_pairwise_intersection_area_matches_plain(cuda):
+    """K11 bit for bit against its plain version: one launch a call, the
+    batch on the grid."""
+    from paddle3d_tpu_torch.ops import iou_clip
+    for name, ca, cb in _iou_cases(cuda):
+        before = _build.LAUNCHES["pairwise_intersection_area"]
+        got = iou_clip.pairwise_intersection_area(ca, cb)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["pairwise_intersection_area"] == before + 1
+        ref = iou_clip.pairwise_intersection_area_plain(ca, cb)
+        assert got.shape == ref.shape, name
+        assert torch.equal(got, ref), (name, (got - ref).abs().max().item())
+        if name in ("clustered", "lattice"):
+            assert (ref > 0).sum() > 50, name
+        if name == "far":
+            assert not got.any()
+
+
+def test_pairwise_intersection_area_refuses_what_it_cannot_take(cuda):
+    from paddle3d_tpu_torch.ops import iou_clip
+    ca = torch.zeros((2, 8, 4, 2), device=cuda)
+    with pytest.raises(TypeError, match="f32"):
+        iou_clip.pairwise_intersection_area(ca.double(), ca.double())
+    with pytest.raises(ValueError, match="expected"):
+        iou_clip.pairwise_intersection_area(ca, ca[:1])
+    with pytest.raises(ValueError, match="expected"):
+        iou_clip.pairwise_intersection_area(ca[..., :1], ca[..., :1])
+
+
+def test_two_stage_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """A tiny Voxel-RCNN train step (AdamWOnecycle) through the kernels on
+    the card (one K11 and two K9 launches, the dense BEV's segment sum and
+    its VJP) against the plain versions on the CPU, from one state, the
+    sampler's draws alike, gt boxes from the first proposals: the sampled
+    targets equal; losses 1e-4, grads 1e-3 and running stats 1e-4 of each
+    tensor's largest value (cuDNN and the CPU convolutions sum in other
+    orders, autograd's gathers add with atomics on the card)."""
+    import copy
+
+    import yaml
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
+    path = _tiny_two_stage(tmp_path, "voxel_rcnn")
+    dic = yaml.safe_load(open(path))
+    dic["model"]["target_config"] = {"roi_per_image": 8}
+    with open(path, "w") as f:
+        yaml.safe_dump(dic, f)
+    rng = np.random.default_rng(2)
+    pts = rng.uniform([0, -8, -2, 0], [16, 8, -1.5, 1], (2, 3000, 4))
+    pts[:, :1500, :3] = rng.uniform([1, -7, -1.5], [15, 7, 0], (8, 3))[
+        rng.integers(0, 8, 1500)] + rng.normal(0, [.8, .4, .3],
+                                               (2, 1500, 3))
+    pts[:, -16:] = np.nan
+    pts = torch.from_numpy(pts.astype(np.float32))
+    cpu_cfg = Config(path=path, device="cpu")
+    model = cpu_cfg.model.train()
+    with torch.no_grad():
+        probe = copy.deepcopy(model)
+        rois, _, labels = probe.rpn_head.proposals(probe._stage1(pts,
+                                                                 True)[0])
+    boxes = rois[:, :6].clone()
+    boxes[..., :3] += 0.05
+    gt_labels = torch.where(labels[:, :6] >= 0, labels[:, :6], -1).long()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    out = []
+    for device in ("cpu", "cuda"):
+        cfg = cpu_cfg if device == "cpu" else Config(path=path,
+                                                     device=device)
+        m = cfg.model.train()
+        m.load_state_dict(state)
+        targets = []
+        fn = pv_rcnn.proposal_targets
+
+        def rec(*a):
+            targets.append(fn(*a))
+            return targets[-1]
+        before = dict(_build.LAUNCHES)
+        pv_rcnn.proposal_targets = rec
+        try:
+            losses = make_train_step(lr_scheduler=cfg.lr_scheduler)(
+                m, cfg.optimizer, {"data": pts.to(device),
+                                   "gt_boxes": boxes.to(device),
+                                   "gt_labels": gt_labels.to(device)})
+        finally:
+            pv_rcnn.proposal_targets = fn
+        torch.cuda.synchronize()
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        out.append((losses, targets[0], m, launched))
+    (l_cpu, t_cpu, m_cpu, n_cpu), (l_gpu, t_gpu, m_gpu, n_gpu) = out
+    assert not any(n_cpu.values())
+    assert n_gpu["pairwise_intersection_area"] == 1
+    assert n_gpu["ball_query"] == 2 and n_gpu["sorted_table_gather"] == 1
+    assert n_gpu["sparse_conv3d"] == 0
+    for k in ("valid", "roi_labels", "reg_valid_mask"):
+        assert torch.equal(t_gpu[k].cpu(), t_cpu[k]), k
+    for k in l_cpu:
+        assert np.isfinite(l_gpu[k].item())
+        np.testing.assert_allclose(l_gpu[k].item(), l_cpu[k].item(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    for (name, p), q in zip(m_gpu.named_parameters(), m_cpu.parameters()):
+        ref = q.grad
+        err = (p.grad.cpu() - ref).abs().max().item()
+        assert err <= 1e-3 * max(ref.abs().max().item(), 1e-30), name
+    for (name, s), r in zip(m_gpu.state_dict().items(),
+                            m_cpu.state_dict().values()):
+        if "running" in name:
+            err = (s.cpu() - r).abs().max().item()
+            assert err <= 1e-4 * max(r.abs().max().item(), 1e-30), name

@@ -12,6 +12,7 @@ sparse convs).
 Tolerances: indices (keypoints, proposals' anchors, labels) equal; features
 1e-4 of each tensor's largest value; end to end scores 1e-5, boxes 1e-3.
 """
+import copy
 import os
 
 import jax
@@ -34,7 +35,7 @@ from paddle3d_tpu.models.point_encoders.voxel_set_abstraction import \
     VoxelSetAbstraction as JaxVSA
 from paddle3d_tpu.models.point_encoders.voxel_set_abstraction import \
     bev_bilinear as jax_bev_bilinear
-from paddle3d_tpu_torch.apis import Config
+from paddle3d_tpu_torch.apis import Config, make_train_step
 from paddle3d_tpu_torch.models.detection import PVRCNN, VoxelRCNN
 from paddle3d_tpu_torch.models.heads import Anchor3DHead, RoIGridHead
 from paddle3d_tpu_torch.models.point_encoders import (VoxelSetAbstraction,
@@ -177,7 +178,8 @@ def test_stage1_and_proposals_match_jax(models, jax_run):
     name, _, model = models
     pts, preds, bev, stages, rois, _, _ = jax_run
     with torch.no_grad():
-        got_preds, got_bev, got_stages = model._stage1(torch.from_numpy(pts))
+        got_preds, got_bev, got_stages = model._stage1(torch.from_numpy(pts),
+                                                        False)
         got_rois = model.rpn_head.proposals(got_preds)
     assert got_bev.shape == (2, 8, 8, 320)
     _close(got_bev.numpy(), bev, 1e-5)
@@ -224,7 +226,7 @@ def test_support_set_matches_jax(models, jax_run):
     name, _, model = models
     pts, _, _, _, _, supports, _ = jax_run
     with torch.no_grad():
-        _, bev, stages = model._stage1(torch.from_numpy(pts))
+        _, bev, stages = model._stage1(torch.from_numpy(pts), False)
         got = model._support_set(torch.from_numpy(pts), bev, stages)
     if name == "pv_rcnn":
         kp, kf, km = got
@@ -259,20 +261,34 @@ def test_end_to_end_matches_jax(models, jax_run):
 
 
 def test_training_raises_and_cpu_takes_no_kernel(models, monkeypatch):
-    """train_forward and the RPN loss name the training item; a CPU tensor
-    never reaches the kernel library or its counters."""
-    _, _, model = models
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        model.train_forward({"data": torch.zeros(1, 8, 4)})
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        model.rpn_head.loss(None, None, None)
+    """Training runs on the CPU (a copy of the model, train mode, the
+    config's AdamWOnecycle step with finite losses; the parity of the step
+    against the JAX package is tests/test_torch_two_stage_train.py) and
+    test_forward refuses a model in train mode; a CPU tensor never reaches
+    the kernel library or its counters, in training or serving."""
+    name, _, model = models
 
     def no_build():
         raise AssertionError("kernel library requested for a CPU tensor")
 
     monkeypatch.setattr(_build, "library", no_build)
     before = dict(_build.LAUNCHES)
-    model.test_forward({"data": torch.from_numpy(make_points(3, n=800))})
+    trained = copy.deepcopy(model).train()
+    opt = torch.optim.AdamW(trained.parameters(), lr=1e-3)
+    pts = make_points(3, n=800)
+    boxes = np.zeros((2, 3, 7), np.float32)
+    boxes[..., :3] = [[4., 0., -1.6], [9., 3., -1.6], [12., -4., -1.6]]
+    boxes[..., 3:6] = [1.6, 3.9, 1.56]
+    labels = np.array([[0, 0, -1], [0, -1, -1]])
+    losses = make_train_step()(trained, opt, {
+        "data": torch.from_numpy(pts), "gt_boxes": torch.from_numpy(boxes),
+        "gt_labels": torch.from_numpy(labels)})
+    assert set(losses) == {"loss", "loss_rpn_cls", "loss_rpn_reg",
+                           "loss_rcnn_cls", "loss_rcnn_reg"}
+    assert all(np.isfinite(v.item()) for v in losses.values()), name
+    with pytest.raises(RuntimeError, match="eval mode"):
+        trained.test_forward({"data": torch.from_numpy(pts)})
+    model.test_forward({"data": torch.from_numpy(pts)})
     assert _build.LAUNCHES == before
 
 
