@@ -15,9 +15,12 @@ width, seeded random weights) on 4 scans of 250,000, PV-RCNN and Voxel-RCNN
 KITTI serving (configs/pv_rcnn/pv_rcnn_005voxel_kitti.yml,
 configs/voxel_rcnn/voxel_rcnn_005voxel_kitti_car.yml) on 4 scans of 20,000
 IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of 16,384,
-CenterPoint-pillars nuScenes training on 8 scans of 250,000, and Voxel-RCNN
-then PV-RCNN KITTI training on 2 scans of 20,000 (the configs' batch), in
-phases; any failing phase exits non-zero and prints no result:
+CenterPoint-pillars nuScenes training on 8 scans of 250,000, Voxel-RCNN
+then PV-RCNN KITTI training on 2 scans of 20,000 (the configs' batch), the
+row-window segment sum and the row gather as ops, CenterPoint-voxels
+nuScenes training on 4 scans of 250,000 and IA-SSD KITTI training on 8 scans
+of 16,384 (the configs' batches), in phases; any failing phase exits
+non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -88,7 +91,29 @@ phases; any failing phase exits non-zero and prints no result:
      that are non-empty at every step; train scans/s of both paths, peak
      memory, a profile and the time of each stage; then PV-RCNN: 3 steps
      with finite losses (K10 and K11 each step), its train scans/s, memory,
-     profile and stages.
+     profile and stages;
+ 12. the row-window channel-major segment sum (K13) and the row gather
+     (K14), which no model path reaches, as ops: each called once at two
+     shapes through its entry point (the launches the record counts), K13
+     at tools/bench_scatter_rw.py's 8 x 250,000 x 64 onto 512 x 512 cells
+     and at 2 x 5,000 x 64 onto 4,096, bit-equal to the row-order sum (its
+     plain version) and to K6, within 1e-5 of index_add_; K14 at
+     8 x 1,000 x 7 from 107,136 and 4 x 120,000 x 64 from 160,000, equal to
+     its plain version and to torch.gather; kernel, plain and library times
+     and bounds;
+ 13. CenterPoint-voxels nuScenes training (the config's OneCycleAdam, clip
+     35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): one train step
+     through the kernels (the dense BEV's K2 or K7, as the density rule
+     picks, and its VJP K5; nothing else: the sparse convs train on the
+     gather route) against one on the plain versions from the same state
+     (targets equal, losses, grads, running stats); 10 steps with finite
+     losses that fall; train scans/s of both paths, peak memory, a profile
+     and the time of each stage;
+ 14. IA-SSD KITTI training (the config's AdamWOnecycle, clip 10 and
+     OneCycle; bench.make_gt's boxes): one train step through the kernels
+     (10 K9, 3 K10) against one on the plain versions from the same state;
+     10 steps with finite losses that fall; train scans/s of both paths,
+     peak memory, a profile and the time of each stage.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -123,6 +148,9 @@ TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
 VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
 SENT = 2**31 - 1
+# iterations a profile traces: the tracer costs ~9 s an iteration of the
+# ~16,000-launch NMS-bound forwards on the card's host, so one
+PROFILE_ITERS = 1
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM bytes/s, and
 # f32 / f64 FLOP/s outside the tensor cores
@@ -178,6 +206,13 @@ KERNELS = {
     "pairwise_intersection_area": ("paddle3d_tpu_torch/csrc/iou_clip.cu",
                                    "paddle3d_tpu/ops/pallas/iou_clip.py:36",
                                    0.0),
+    # K13 adds each cell's rows in row order, as its plain version does:
+    # bit-equal; K14 copies rows: equal
+    "sorted_segment_sum_rw": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
+                              "paddle3d_tpu/ops/pallas/sorted_scatter.py:860",
+                              0.0),
+    "gather_rows": ("paddle3d_tpu_torch/csrc/gather.cu",
+                    "paddle3d_tpu/ops/pallas/gather.py:25", 0.0),
 }
 INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
@@ -257,8 +292,9 @@ def segments(keys, P, maxV):
 
 @contextlib.contextmanager
 def plain_path():
-    """The model with all fourteen kernels swapped for their plain versions
-    (forward and backward)."""
+    """The model with every kernel of its paths swapped for its plain
+    version (forward and backward): all but K13 and K14, which no model
+    path reaches."""
     from paddle3d_tpu_torch.ops import ball_query, fps, fused_pfn, \
         fused_pfn_train, iou_clip, pillar_ops, seg_window, sorted_scatter, \
         sparse_conv
@@ -512,11 +548,11 @@ def phase_timing(model, points, phase="phase 4", warmups=3):
     model.test_forward({"data": points})
     log("  peak device memory of one forward: {:.1f} MiB".format(
         torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: model.test_forward({"data": points}), 3)
+    profile(lambda: model.test_forward({"data": points}))
     return rate
 
 
-def profile(fn, iters):
+def profile(fn, iters=PROFILE_ITERS):
     """Device time by kernel over `iters` calls of fn (the kernel path)."""
     import torch
     from torch.autograd import DeviceType
@@ -711,20 +747,53 @@ def record_step(step, model, optimizer, batch):
             launches)
 
 
+def saved_state(model, optimizer, scheduler):
+    """-> restore(), which puts the three back as they are now."""
+    import copy
+    saved = ({k: v.clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(optimizer.state_dict()),
+             copy.deepcopy(scheduler.state_dict()))
+
+    def restore():
+        model.load_state_dict(saved[0])
+        optimizer.load_state_dict(saved[1])
+        scheduler.load_state_dict(saved[2])
+    return restore
+
+
+def falling_losses(step, model, optimizer, batch):
+    losses = [step(model, optimizer, batch)["loss"].item()
+              for _ in range(TRAIN_STEPS)]
+    log("  {} steps on the fixed batch, loss per step: {}".format(
+        TRAIN_STEPS, [round(v, 4) for v in losses]))
+    check(all(v == v and abs(v) < float("inf") for v in losses),
+          "non-finite train loss")
+    check(losses[-1] < losses[0], "the loss did not fall")
+
+
 def compare_steps(got, ref, loss_tol, grad_tol, stat_tol,
-                  keys=("loss", "loss_cls", "loss_reg", "loss_dir")):
+                  keys=("loss", "loss_cls", "loss_reg", "loss_dir"),
+                  dead=()):
     """-> (worst loss, grad, stat relative errors); fails past the
-    tolerances (grads and stats relative to each tensor's largest
-    value)."""
+    tolerances (grads and stats relative to each tensor's largest value).
+    dead: parameters with no gradient but rounding noise (a conv's bias
+    that feeds a batch-statistics BN, which takes its mean away): their
+    grads must stay within 1e-6 of the largest grad on both steps."""
     (l1, g1, s1, _), (l2, g2, s2, _) = got, ref
     check(set(l1) == set(l2) == set(keys), "loss keys")
     check(all(map(lambda v: v == v and abs(v) < float("inf"), l1.values())),
           "non-finite losses: {}".format(l1))
     errs = [max(abs(l1[k] - l2[k]) / max(abs(l2[k]), 1e-30) for k in l2)]
+    largest = max(v.abs().max().item() for v in g2.values())
+    check(all(max(g1[k].abs().max().item(), g2[k].abs().max().item()) <=
+              1e-6 * largest for k in dead),
+          "a parameter with no gradient got one: {}".format(
+              {k: g2[k].abs().max().item() for k in dead}))
     for a, b in ((g1, g2), (s1, s2)):
         check(set(a) == set(b), "tensor names differ")
         errs.append(max((a[k] - b[k]).abs().max().item() /
-                        max(b[k].abs().max().item(), 1e-30) for k in b))
+                        max(b[k].abs().max().item(), 1e-30) for k in b
+                        if k not in dead))
     for err, tol, what in zip(errs, (loss_tol, grad_tol, stat_tol),
                               ("losses", "grads", "running stats")):
         check(err <= tol, "{} differ: {:.3e} > {:.0e}".format(what, err,
@@ -780,8 +849,6 @@ def timed_train_scans_per_s(step, model, optimizer, batch, iters):
 def phase_train(points):
     """Training on the KITTI config: the kernel step against the plain step
     from one saved state, 10 steps, timing, memory and a profile."""
-    import copy
-
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
@@ -792,14 +859,7 @@ def phase_train(points):
     optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
     step = make_train_step(lr_scheduler=scheduler)
     batch = make_train_batch(points.device, points)
-    saved = ({k: v.clone() for k, v in model.state_dict().items()},
-             copy.deepcopy(optimizer.state_dict()),
-             copy.deepcopy(scheduler.state_dict()))
-
-    def restore():
-        model.load_state_dict(saved[0])
-        optimizer.load_state_dict(saved[1])
-        scheduler.load_state_dict(saved[2])
+    restore = saved_state(model, optimizer, scheduler)
 
     kernel = record_step(step, model, optimizer, batch)
     restore()
@@ -824,13 +884,7 @@ def phase_train(points):
     # training runs as a trainer would: cuDNN free to pick its algorithms
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
-    losses = [step(model, optimizer, batch)["loss"].item()
-              for _ in range(TRAIN_STEPS)]
-    log("  {} steps on the fixed batch, loss per step: {}".format(
-        TRAIN_STEPS, [round(v, 4) for v in losses]))
-    check(all(v == v and abs(v) < float("inf") for v in losses),
-          "non-finite train loss")
-    check(losses[-1] < losses[0], "the loss did not fall")
+    falling_losses(step, model, optimizer, batch)
 
     for _ in range(2):                       # warm-up, both paths
         step(model, optimizer, batch)
@@ -855,7 +909,7 @@ def phase_train(points):
     step(model, optimizer, batch)
     log("  peak device memory of one train step: {:.1f} MiB".format(
         torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: step(model, optimizer, batch), 3)
+    profile(lambda: step(model, optimizer, batch))
     return launches
 
 
@@ -2002,21 +2056,13 @@ def cp_train_stages(model, optimizer, batch, iters):
 def phase_cp_train(device):
     """CenterPoint-pillars nuScenes training through the kernels and on the
     plain versions, from one saved state."""
-    import copy
     import tempfile
 
     import torch
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     model, optimizer, scheduler, step, batch = cp_train_setup(device)
-    saved = ({k: v.clone() for k, v in model.state_dict().items()},
-             copy.deepcopy(optimizer.state_dict()),
-             copy.deepcopy(scheduler.state_dict()))
-
-    def restore():
-        model.load_state_dict(saved[0])
-        optimizer.load_state_dict(saved[1])
-        scheduler.load_state_dict(saved[2])
+    restore = saved_state(model, optimizer, scheduler)
 
     pfn = model.voxel_encoder
     check([layer.units for layer in pfn.pfn_layers] == [32, 64] and
@@ -2054,13 +2100,7 @@ def phase_cp_train(device):
 
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
-    losses = [step(model, optimizer, batch)["loss"].item()
-              for _ in range(TRAIN_STEPS)]
-    log("  {} steps on the fixed batch, loss per step: {}".format(
-        TRAIN_STEPS, [round(v, 4) for v in losses]))
-    check(all(v == v and abs(v) < float("inf") for v in losses),
-          "non-finite train loss")
-    check(losses[-1] < losses[0], "the loss did not fall")
+    falling_losses(step, model, optimizer, batch)
 
     for _ in range(2):                       # warm-up, both paths
         step(model, optimizer, batch)
@@ -2085,7 +2125,7 @@ def phase_cp_train(device):
     step(model, optimizer, batch)
     log("  peak device memory of one train step: {:.1f} MiB".format(
         torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: step(model, optimizer, batch), 3)
+    profile(lambda: step(model, optimizer, batch))
     cp_train_stages(model, optimizer, batch, 3)
     return errs, times, extra, launches
 
@@ -2348,35 +2388,27 @@ def ts_train_setup(device, path):
 
 
 @contextlib.contextmanager
-def record_targets():
-    """Record what the two-stage train_forward hands proposal_targets and
-    what it returns: -> list of (args, targets), one a step."""
-    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
+def recorded(obj, name):
+    """Record what obj.name hands back during the block: -> list of
+    (args, output), one a call."""
     calls = []
-    fn = pv_rcnn.proposal_targets
+    fn = getattr(obj, name)
 
     def rec(*args):
         out = fn(*args)
         calls.append((args, out))
         return out
-    with mock.patch.object(pv_rcnn, "proposal_targets", rec):
+    with mock.patch.object(obj, name, rec):
         yield calls
 
 
-def ts_train_stages(step, model, optimizer, batch, iters):
-    """Host-clock ms of a two-stage train step's stages, averaged over iters
-    steps after a warm-up: make_train_step itself, with the calls that end
-    a stage wrapped to synchronize and read the clock (the sparse encoder,
-    the RPN head, its loss, its proposals, the proposal targets, the
-    refinement loss, the optimizer's step before its clip, the step's
-    return)."""
+def train_stages(step, model, optimizer, batch, iters, names, marks):
+    """Host-clock ms of a train step's stages, averaged over iters steps
+    after a warm-up: make_train_step itself, with the calls that end a
+    stage wrapped to synchronize and read the clock. marks: (object,
+    attribute, "after" or "before") for each stage's end but the last (the
+    step's return)."""
     import torch
-
-    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
-    from paddle3d_tpu_torch.models.heads.roi_head import RoIGridHead
-    names = ("canvas and sparse forward", "dense stack", "RPN loss",
-             "proposals", "targets", "support set, RoI head and loss",
-             "backward", "clip, optimizer and scheduler")
     ms, t0 = [], [0.0]
 
     def lap():
@@ -2385,30 +2417,20 @@ def ts_train_stages(step, model, optimizer, batch, iters):
         ms.append((t - t0[0]) * 1e3)
         t0[0] = t
 
-    def then_lap(fn):
+    def wrap(fn, when):
         def wrapped(*a, **k):
+            if when == "before":
+                lap()
             out = fn(*a, **k)
-            lap()
+            if when == "after":
+                lap()
             return out
         return wrapped
 
-    def lap_then(fn):
-        def wrapped(*a, **k):
-            lap()
-            return fn(*a, **k)
-        return wrapped
-
-    head = model.rpn_head
     with contextlib.ExitStack() as stack:
-        for target, name, wrap in (
-                (model.middle_encoder, "forward", then_lap),
-                (head, "forward", then_lap), (head, "loss", then_lap),
-                (head, "proposals", then_lap),
-                (pv_rcnn, "proposal_targets", then_lap),
-                (RoIGridHead, "refine_loss", then_lap),
-                (optimizer, "step", lap_then)):
+        for target, name, when in marks:
             stack.enter_context(mock.patch.object(
-                target, name, wrap(getattr(target, name))))
+                target, name, wrap(getattr(target, name), when)))
         runs = []
         for _ in range(iters + 1):
             ms.clear()
@@ -2424,19 +2446,40 @@ def ts_train_stages(step, model, optimizer, batch, iters):
         "{} {:.3f} ms".format(n, t) for n, t in zip(names, ms)))
 
 
-def timed_ts_train(step, model, optimizer, batch, label, plain=True):
-    """Train scans/s (kernel/plain/plain/kernel halves after a warm-up of
-    each path; kernels only when plain is False), peak memory, a profile
-    and the stage times of one step."""
+def ts_train_stages(step, model, optimizer, batch, iters):
+    """The two-stage train step's stages: the sparse encoder, the RPN head,
+    its loss, its proposals, the proposal targets, the refinement loss, the
+    optimizer's step before its clip, the step's return."""
+    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
+    from paddle3d_tpu_torch.models.heads.roi_head import RoIGridHead
+    head = model.rpn_head
+    train_stages(step, model, optimizer, batch, iters, (
+        "canvas and sparse forward", "dense stack", "RPN loss", "proposals",
+        "targets", "support set, RoI head and loss", "backward",
+        "clip, optimizer and scheduler"), (
+        (model.middle_encoder, "forward", "after"),
+        (head, "forward", "after"), (head, "loss", "after"),
+        (head, "proposals", "after"),
+        (pv_rcnn, "proposal_targets", "after"),
+        (RoIGridHead, "refine_loss", "after"), (optimizer, "step", "before")))
+
+
+def timed_train(step, model, optimizer, batch, label, iters, stages,
+                plain=True):
+    """Train scans/s over iters steps a path (kernel/plain/plain/kernel
+    halves after a warm-up of each path; kernels only when plain is False),
+    peak memory, a profile and stages(step, model, optimizer, batch,
+    iters) of three steps."""
     import torch
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
+    b = batch["data"].shape[0]
     paths = ("kernels", "plain") if plain else ("kernels",)
     for path in paths:                              # warm-up
         with plain_path() if path == "plain" else contextlib.nullcontext():
             step(model, optimizer, batch)
     rates = {p: [] for p in paths}
-    half = TS_TRAIN_ITERS // 2
+    half = iters // 2
     for order in (paths, paths[::-1]):
         for path in order:
             ctx = plain_path() if path == "plain" else contextlib.nullcontext()
@@ -2446,13 +2489,11 @@ def timed_ts_train(step, model, optimizer, batch, label, plain=True):
                 for _ in range(half):
                     step(model, optimizer, batch)
                 torch.cuda.synchronize()
-                rates[path].append(TS_TRAIN_BATCH * half /
-                                   (time.perf_counter() - t0))
-    rate = {k: TS_TRAIN_ITERS / sum(half / r for r in v)
-            for k, v in rates.items()}
+                rates[path].append(b * half / (time.perf_counter() - t0))
+    rate = {k: 2 * half / sum(half / r for r in v) for k, v in rates.items()}
     log("  {}: {} train steps of batch {} per path ({}halves, "
         "cudnn.benchmark on): {}; halves {}".format(
-            label, TS_TRAIN_ITERS, TS_TRAIN_BATCH,
+            label, 2 * half, b,
             "kernel/plain/plain/kernel " if plain else "",
             ", ".join("{} path {:.2f} scans/s".format(k, v)
                       for k, v in rate.items()),
@@ -2461,31 +2502,26 @@ def timed_ts_train(step, model, optimizer, batch, label, plain=True):
     step(model, optimizer, batch)
     log("  peak device memory of one train step: {:.1f} MiB".format(
         torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: step(model, optimizer, batch), 3)
-    ts_train_stages(step, model, optimizer, batch, 3)
+    profile(lambda: step(model, optimizer, batch))
+    stages(step, model, optimizer, batch, 3)
 
 
 def phase_ts_train(device):
     """Two-stage KITTI training: Voxel-RCNN at full width through the
     kernels against the plain versions, K11 bit for bit, 10 steps, timing;
     then PV-RCNN's steps and timing."""
-    import copy
-
     import torch
 
+    from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
     from paddle3d_tpu_torch.ops import _build, iou_clip
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     model, optimizer, scheduler, step, batch, size = ts_train_setup(
         device, VOXEL_RCNN)
-    saved = ({k: v.clone() for k, v in model.state_dict().items()},
-             copy.deepcopy(optimizer.state_dict()),
-             copy.deepcopy(scheduler.state_dict()))
+    restore_state = saved_state(model, optimizer, scheduler)
 
     def restore():
-        model.load_state_dict(saved[0])
-        optimizer.load_state_dict(saved[1])
-        scheduler.load_state_dict(saved[2])
+        restore_state()
         model.sampler_generator.manual_seed(SEED)
 
     def pools(targets):
@@ -2506,7 +2542,7 @@ def phase_ts_train(device):
     def iou_rec(*a):
         ious.append(a)
         return fn(*a)
-    with record_targets() as kcalls, \
+    with recorded(pv_rcnn, "proposal_targets") as kcalls, \
             mock.patch.object(iou_clip, "pairwise_intersection_area",
                               iou_rec):
         kernel = record_step(step, model, optimizer, batch)
@@ -2515,7 +2551,7 @@ def phase_ts_train(device):
     errs, times, extra = phase_iou_kernel(ious[0], device)
     del ious
     restore()
-    with record_targets() as pcalls, plain_path():
+    with recorded(pv_rcnn, "proposal_targets") as pcalls, plain_path():
         plain = record_step(step, model, optimizer, batch)
     restore()
     launches = kernel[3]
@@ -2548,7 +2584,7 @@ def phase_ts_train(device):
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
     losses = []
-    with record_targets() as calls:
+    with recorded(pv_rcnn, "proposal_targets") as calls:
         for _ in range(TRAIN_STEPS):
             losses.append(step(model, optimizer, batch)["loss"].item())
     per_step = [pools(out) for _, out in calls]
@@ -2561,7 +2597,8 @@ def phase_ts_train(device):
     check(losses[-1] < losses[0], "the loss did not fall")
     check(all(min(p) > 0 for scans in per_step for p in scans),
           "a sampling pool was empty at a step")
-    timed_ts_train(step, model, optimizer, batch, "Voxel-RCNN")
+    timed_train(step, model, optimizer, batch, "Voxel-RCNN", TS_TRAIN_ITERS,
+                ts_train_stages)
     del model, optimizer, scheduler, step, batch
 
     model, optimizer, _, step, batch, _ = ts_train_setup(device, PV_RCNN)
@@ -2578,8 +2615,333 @@ def phase_ts_train(device):
     check(_build.LAUNCHES["farthest_point_sample"] == PV_TRAIN_STEPS and
           _build.LAUNCHES["pairwise_intersection_area"] == PV_TRAIN_STEPS,
           "PV-RCNN's steps missed K10 or K11")
-    timed_ts_train(step, model, optimizer, batch, "PV-RCNN", plain=False)
+    timed_train(step, model, optimizer, batch, "PV-RCNN", TS_TRAIN_ITERS,
+                ts_train_stages, plain=False)
     return errs, times, extra, launches
+
+
+# K13 at tools/bench_scatter_rw.py's shape (the JAX package's micro-bench:
+# 8 x 250,000 channel-major rows of 64 channels onto 512 x 512 cells, 60 %
+# of the rows in a quarter of the cells) and at the dense case of its test
+# (tests/ops/test_sorted_scatter.py:263); K14 at the shape of
+# paddle3d_tpu/ops/pallas/gather.py:3-4 (8 x 1,000 rows of 7 from 107,136
+# anchors) and at a voxel-row gather's (4 x 120,000 rows of 64 from
+# 160,000). No model path reaches either: the record counts phase 12's calls
+RW_CASES = ((8, 250000, 64, 512 * 512), (2, 5000, 64, 4096))
+GATHER_CASES = ((8, 107136, 7, 1000), (4, 160000, 64, 120000))
+OP_KERNELS = ("sorted_segment_sum_rw", "gather_rows")
+
+
+def rw_inputs(device, b, n, c, cells):
+    """Sorted keys and channel-major f32 rows [B, C, N]: for the bench case
+    tools/bench_scatter_rw.py's (seed 0: 60 % of the keys in
+    [cells / 4, cells / 2), the rest over the table), else the JAX test's
+    (_mk, seed 5: keys over cells + 40, a tail past the table)."""
+    import numpy as np
+    import torch
+    if (b, n, c, cells) == RW_CASES[0]:
+        rng = np.random.default_rng(SEED)
+        dense = int(n * 0.6)
+        keys = np.sort(np.concatenate([
+            rng.integers(cells // 4, cells // 2, size=(b, dense)),
+            rng.integers(0, cells, size=(b, n - dense))], axis=1),
+            axis=1).astype(np.int32)
+        rows_cm = rng.standard_normal((b, c, n)).astype(np.float32)
+    else:
+        rng = np.random.default_rng(5)
+        keys = np.sort(rng.integers(0, cells + 40, size=(b, n)).astype(
+            np.int32), axis=1)
+        rows_cm = np.ascontiguousarray(rng.normal(size=(b, n, c)).astype(
+            np.float32).transpose(0, 2, 1))
+    return (torch.from_numpy(keys).to(device),
+            torch.from_numpy(rows_cm).to(device))
+
+
+def gather_inputs(device, b, a, c, k):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    src = rng.standard_normal((b, a, c)).astype(np.float32)
+    idx = rng.integers(0, a, (b, k)).astype(np.int32)
+    return (torch.from_numpy(src).to(device),
+            torch.from_numpy(idx).to(device))
+
+
+def phase_ops(device):
+    """K13 and K14 as ops: each called once a case through its entry point
+    (the launches the record counts), then held against its plain version
+    and the library call on the same inputs, timed and bounded (the first
+    case of each goes into the record)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, gather, sorted_scatter
+    rw = [rw_inputs(device, *case) for case in RW_CASES]
+    gt = [gather_inputs(device, *case) for case in GATHER_CASES]
+    _build.reset_launches()
+    outs_rw = [sorted_scatter.sorted_segment_sum_rw(keys, rows, c, cells)
+               for (keys, rows), (_, _, c, cells) in zip(rw, RW_CASES)]
+    outs_g = [gather.gather_rows(src, idx) for src, idx in gt]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log("phase 12: K13 and K14 as ops, launches {}".format(
+        {k: v for k, v in launches.items() if v}))
+    check(launches["sorted_segment_sum_rw"] == len(RW_CASES) and
+          launches["gather_rows"] == len(GATHER_CASES) and
+          sum(launches.values()) == len(RW_CASES) + len(GATHER_CASES),
+          "the op calls launched {}".format(launches))
+    errs, times, extra = {}, {}, {}
+    for i, ((keys, rows_cm), (b, n, c, cells), out) in enumerate(zip(
+            rw, RW_CASES, outs_rw)):
+        ref = sorted_scatter.sorted_segment_sum_rw_plain(keys, rows_cm, c,
+                                                         cells)
+        k6 = sorted_scatter.sorted_segment_sum_cm(keys, rows_cm, cells, c=c)
+        rows = rows_cm.transpose(1, 2).reshape(-1, c).contiguous()
+        inside = (keys >= 0) & (keys < cells)
+        tgt = (torch.where(inside, keys, cells).long() + torch.arange(
+            b, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
+        acc = torch.zeros((b * (cells + 1), c), device=keys.device)
+        acc.index_add_(0, tgt, rows)
+        lib = acc.view(b, cells + 1, c)[:, :cells]
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        lib_err = (out - lib).abs().max().item()
+        rank = torch.arange(n, device=keys.device) - torch.searchsorted(
+            keys, keys)
+        longest = int(rank[inside].max()) + 1
+        check(torch.equal(out, ref), "K13 differs from the row-order sum "
+              "(its plain version): max_abs_err {:.3e}".format(err))
+        check(torch.equal(out, k6), "K13 differs from K6 on its inputs")
+        check(lib_err <= 1e-5 * ref.abs().max().item(),
+              "K13 strays from index_add_: {:.3e}".format(lib_err))
+        t = (cuda_ms(lambda: sorted_scatter.sorted_segment_sum_rw(
+                 keys, rows_cm, c, cells), 20),
+             cuda_ms(lambda: sorted_scatter.sorted_segment_sum_rw_plain(
+                 keys, rows_cm, c, cells), 3),
+             cuda_ms(lambda: acc.index_add_(0, tgt, rows), 20),
+             cuda_ms(lambda: sorted_scatter.sorted_segment_sum_cm(
+                 keys, rows_cm, cells, c=c), 20))
+        bnd = bound(scatter_bytes(keys, cells, c, out.numel()))
+        log("  K13 at B={} N={} C={} cells={} (longest segment {} rows): "
+            "bit-equal to the row-order sum and to K6, index_add_ "
+            "max_abs_err {:.3e}; {:.4f} ms (plain {:.4f}, index_add_ on the "
+            "transposed rows {:.4f}, K6 {:.4f}), bound {:.4f} ms ({})".format(
+                b, n, c, cells, longest, lib_err, *t, *bnd))
+        errs["sorted_segment_sum_rw"] = max(
+            errs.get("sorted_segment_sum_rw", 0.0), err)
+        if i == 0:
+            times["sorted_segment_sum_rw"] = t[:2]
+            extra["sorted_segment_sum_rw"] = (t[2],) + bnd
+        del ref, k6, rows, acc, lib
+    del rw, outs_rw
+    for i, ((src, idx), (b, a, c, k), out) in enumerate(zip(
+            gt, GATHER_CASES, outs_g)):
+        ref = gather.gather_rows_plain(src, idx)
+        index = idx.long()[..., None].expand(-1, -1, c)
+        lib = torch.gather(src, 1, index)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), "K14 differs from its plain version")
+        check(torch.equal(out, lib), "K14 differs from torch.gather")
+        t = (cuda_ms(lambda: gather.gather_rows(src, idx), 50),
+             cuda_ms(lambda: gather.gather_rows_plain(src, idx), 20),
+             cuda_ms(lambda: torch.gather(src, 1, index), 50))
+        # each index read once, each gathered row read once and written once
+        bnd = bound(4 * b * k + 8 * b * k * c)
+        log("  K14 at B={} A={} C={} K={}: equal to its plain version and "
+            "to torch.gather; {:.4f} ms (plain {:.4f}, torch.gather "
+            "{:.4f}), bound {:.4f} ms ({})".format(b, a, c, k, *t, *bnd))
+        errs["gather_rows"] = max(errs.get("gather_rows", 0.0),
+                                  (out - ref).abs().max().item())
+        if i == 0:
+            times["gather_rows"] = t[:2]
+            extra["gather_rows"] = (t[2],) + bnd
+    report(OP_KERNELS, errs, times, extra)
+    return errs, times, extra, launches
+
+
+VX_TRAIN_ITERS = 10     # train steps timed per path (halves of 5)
+def vx_train_setup(device):
+    """The nuScenes voxel config in train mode (seeded random weights), its
+    OneCycleAdam (clip 35) and OneCycleWarmupDecayLr inherited from the
+    pillar config, the step, and the batch: 4 scans of 250,000 clustered
+    points and bench.make_gt's boxes (64 a scan, 9 columns, ten classes, a
+    quarter padding)."""
+    import numpy as np
+    import torch
+
+    import bench
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    cfg = Config(path=VOXELS, device=device)
+    model = cfg.model.train()
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    check(isinstance(optimizer, torch.optim.AdamW) and
+          optimizer.param_groups[0]["betas"] == (0.95, 0.99) and
+          model.voxelizer.max_num_voxels_for(True) == 120000,
+          "not the voxel config's OneCycleAdam or train voxel cap")
+    boxes, labels = bench.make_gt(np.random.default_rng(SEED), VX_BATCH,
+                                  "centerpoint")
+    batch = {"data": make_cp_points(device, "centerpoint_voxels", VX_BATCH),
+             "gt_boxes": torch.from_numpy(boxes).to(device),
+             "gt_labels": torch.from_numpy(labels).to(device)}
+    return model, optimizer, scheduler, make_train_step(
+        lr_scheduler=scheduler), batch
+
+
+def vx_train_stages(step, model, optimizer, batch, iters):
+    train_stages(step, model, optimizer, batch, iters, (
+        "voxel mean, sparse forward and dense BEV",
+        "dense stack (backbone, neck, head)", "targets and loss", "backward",
+        "clip, optimizer and scheduler"), (
+        (model.middle_encoder, "forward", "after"),
+        (model.bbox_head, "forward", "after"),
+        (model.bbox_head, "loss", "after"), (optimizer, "step", "before")))
+
+
+def phase_vx_train(device):
+    """CenterPoint-voxels nuScenes training through the kernels and on the
+    plain versions, from one saved state; 10 steps; timing."""
+    import torch
+
+    from paddle3d_tpu_torch.models.layers import SparseConv3D
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, optimizer, scheduler, step, batch = vx_train_setup(device)
+    restore = saved_state(model, optimizer, scheduler)
+    with recorded(sorted_scatter, "sorted_segment_sum") as bevs, \
+            recorded(model, "target_generator") as ktargets:
+        kernel = record_step(step, model, optimizer, batch)
+    restore()
+    with recorded(model, "target_generator") as ptargets, plain_path():
+        plain = record_step(step, model, optimizer, batch)
+    restore()
+    (keys, rows, cells), _ = bevs[0]
+    bev = sorted_scatter.kernel_for(keys.shape[1], cells)
+    launches = kernel[3]
+    log("phase 13: CenterPoint-voxels nuScenes training at B={} N={} "
+        "(OneCycleAdam, clip 35, OneCycleWarmupDecayLr), train voxel cap "
+        "{}: the dense BEV sums {} rows a scan onto {} cells ({}); losses "
+        "{}; launches {}; plain step launches {}".format(
+            VX_BATCH, CP_POINTS, model.voxelizer.max_num_voxels_for(True),
+            keys.shape[1], cells, bev,
+            {k: round(v, 5) for k, v in kernel[0].items()},
+            {k: v for k, v in launches.items() if v},
+            {k: v for k, v in plain[3].items() if v}))
+    check(len(bevs) == 1 and rows.requires_grad,
+          "expected one dense-BEV segment sum with a gradient a step")
+    check(launches[bev] == 1 and launches["sorted_table_gather"] == 1 and
+          sum(launches.values()) == 2,
+          "the voxel train step launched {} where one {} and one "
+          "sorted_table_gather were due".format(launches, bev))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    kt, pt = ktargets[0][1], ptargets[0][1]
+    check(len(kt) == len(pt) == 6 and all(
+        torch.equal(a, b) for x, y in zip(kt, pt) for a, b in zip(x, y)),
+        "the targets differ between the kernel and plain steps")
+    del bevs, ktargets, ptargets, keys, rows
+    keys = ["loss"] + ["{}_{}".format(k, i) for k in ("hm_loss", "loc_loss")
+                       for i in range(6)]
+    # the residual blocks' sparse convs carry a bias, and each feeds a
+    # batch-statistics MaskedBatchNorm
+    dead = ["{}.bias".format(n) for n, m in model.named_modules()
+            if isinstance(m, SparseConv3D) and m.bias is not None]
+    step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6, keys, dead)
+    log("  vs the plain step (deterministic cuDNN, TF32 off): targets "
+        "equal; losses {:.3e} (tolerance 1e-6), grads {:.3e} (1e-4), "
+        "running stats {:.3e} (1e-6), each relative to the tensor's largest "
+        "value; the {} sparse conv biases that feed a batch-statistics BN "
+        "have no gradient on either step (within 1e-6 of the largest)"
+        .format(*step_errs, len(dead)))
+    del kernel, plain
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch)
+    cap = model.voxelizer.max_num_voxels_for(True)
+    log("  gathered stage-1 rows a subm conv keeps for its backward: "
+        "{:.1f} MiB ({} scans x {} rows x 27 taps x 16 channels, f32)"
+        .format(VX_BATCH * cap * 27 * 16 * 4 / 2**20, VX_BATCH, cap))
+    timed_train(step, model, optimizer, batch, "CenterPoint-voxels",
+                VX_TRAIN_ITERS, vx_train_stages)
+    return launches
+
+
+IA_TRAIN_BATCH = 8      # configs/iassd/iassd_kitti.yml's batch_size
+IA_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+
+
+def ia_train_setup(device):
+    """The IA-SSD KITTI config in train mode (seeded random weights), its
+    AdamWOnecycle (clip 10) and OneCycle, the step, and the batch: 8 scans
+    of 16,384 clustered points and bench.make_gt's boxes (24 a scan, a
+    quarter padding)."""
+    import numpy as np
+    import torch
+
+    import bench
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    cfg = Config(path=IASSD, device=device)
+    model = cfg.model.train()
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    check(isinstance(optimizer, torch.optim.AdamW) and
+          optimizer.param_groups[0]["weight_decay"] == 0.01,
+          "not the IA-SSD config's AdamWOnecycle")
+    rng = np.random.default_rng(SEED)
+    _, n, (lo, hi), _ = bench.MODELS["iassd"]
+    pts = bench.make_scans(rng, IA_TRAIN_BATCH, n, lo, hi, "clustered")
+    check(pts.shape == (IA_TRAIN_BATCH, 16384, 4), "unexpected scan shape")
+    boxes, labels = bench.make_gt(rng, IA_TRAIN_BATCH, "iassd")
+    batch = {"data": torch.from_numpy(pts).to(device),
+             "gt_boxes": torch.from_numpy(boxes).to(device),
+             "gt_labels": torch.from_numpy(labels).to(device)}
+    return model, optimizer, scheduler, make_train_step(
+        lr_scheduler=scheduler), batch
+
+
+def ia_train_stages(step, model, optimizer, batch, iters):
+    train_stages(step, model, optimizer, batch, iters, (
+        "SA layers", "vote and aggregation", "heads",
+        "assignment and losses", "backward",
+        "clip, optimizer and scheduler"), (
+        (model.sa_modules[-1], "forward", "after"),
+        (model, "_aggregate", "after"), (model.reg_head, "forward", "after"),
+        (model, "train_forward", "after"), (optimizer, "step", "before")))
+
+
+def phase_ia_train(device):
+    """IA-SSD KITTI training through K9 and K10 and on the plain versions,
+    from one saved state; 10 steps; timing."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, optimizer, scheduler, step, batch = ia_train_setup(device)
+    restore = saved_state(model, optimizer, scheduler)
+    kernel = record_step(step, model, optimizer, batch)
+    restore()
+    with plain_path():
+        plain = record_step(step, model, optimizer, batch)
+    restore()
+    launches = kernel[3]
+    log("phase 14: IA-SSD KITTI training at B={} N=16384 (AdamWOnecycle, "
+        "clip 10, OneCycle): losses {}; launches {}; plain step launches "
+        "{}".format(IA_TRAIN_BATCH,
+                    {k: round(v, 5) for k, v in kernel[0].items()},
+                    {k: v for k, v in launches.items() if v},
+                    {k: v for k, v in plain[3].items() if v}))
+    check(launches["ball_query"] == 10 and
+          launches["farthest_point_sample"] == 3 and
+          sum(launches.values()) == 13,
+          "the IA-SSD train step launched {} where 10 K9 and 3 K10 were "
+          "due".format(launches))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6,
+                              ("loss", "loss_cls", "loss_box", "loss_sa"))
+    log("  vs the plain step: losses {:.3e} (tolerance 1e-6), grads {:.3e} "
+        "(1e-4), running stats {:.3e} (1e-6), each relative to the "
+        "tensor's largest value".format(*step_errs))
+    del kernel, plain
+    falling_losses(step, model, optimizer, batch)
+    timed_train(step, model, optimizer, batch, "IA-SSD", IA_TRAIN_ITERS,
+                ia_train_stages)
+    return launches
 
 
 def main():
@@ -2665,6 +3027,14 @@ def main():
                                {"pairwise_intersection_area": ts_launches[
                                    "pairwise_intersection_area"]})):
             into.update(part)
+        # K13 and K14 counted on phase 12's op calls
+        op_errs, op_times, op_extra, op_launches = phase_ops(device)
+        for into, part in zip((errs, times, extra, launches),
+                              (op_errs, op_times, op_extra,
+                               {k: op_launches[k] for k in OP_KERNELS})):
+            into.update(part)
+        phase_vx_train(device)
+        phase_ia_train(device)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

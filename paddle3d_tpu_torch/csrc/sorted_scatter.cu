@@ -1,5 +1,6 @@
 // Sorted-key segment sum for sparse (K2) and dense (K7) scans, its VJP, the
-// sorted table gather (K5), and its channel-major twin (K6).
+// sorted table gather (K5), its channel-major twin (K6), and the row-window
+// channel-major sum (K13).
 //
 // K2: out[b, cell] = sum of rows[b, i] over the rows with keys[b, i] ==
 // cell. Replaces the TPU kernel paddle3d_tpu/ops/pallas/sorted_scatter.py
@@ -95,6 +96,39 @@
 // channel c - 1 to its own [B, cells] buffer. The TPU kernel's one-hot MXU
 // products over two abutting row views and its serial chunk DMAs are TPU
 // workarounds and have no counterpart here.
+//
+// K13: the function of K6 restricted to c | 128, out[b, cell, ch] = sum of
+// rows_cm[b, ch, i] over i < N with keys[b, i] == cell. Replaces the TPU
+// kernel sorted_scatter.py:_kernel_rw (entry _sorted_segment_sum_rw), whose
+// grid walks fixed windows of sorted rows rather than cell blocks, so that
+// its load does not depend on how the rows spread over the cells. No path
+// of the JAX package reaches it (its tests and tools/bench_scatter_rw.py
+// do); the port carries it as an op, ops/sorted_scatter.sorted_segment_sum_rw.
+//
+// What bounds it on the H100: bytes. At tools/bench_scatter_rw.py's shape
+// (8 scans x 250,000 channel-major rows of 64 channels onto 512 x 512 cells,
+// 60 % of the rows in a quarter of the cells) ~512 MB of rows are read and
+// ~537 MB of table written; every cell is written once by the kernel, empty
+// ones as zero, and no memset runs before it.
+//
+// Design: as on the TPU, the unit of work is a window of sorted rows: a
+// block owns 8,192 / c rows (at most 1,024) and all channels. It finds the
+// segment heads in its window (rows whose key differs from the row
+// before), compacted in order with a ballot, and owns the contiguous cells
+// from just past the key before its first head to its last head's key
+// (to the table's end if that segment is the last): the blocks' cell
+// ranges tile the table, so each cell is written by one block, a head's
+// cell as its sum and a cell between heads as zero. The window's rows are
+// staged through shared memory (reads coalesced along the rows of a
+// channel, the stride padded against bank conflicts); threads run over
+// (cell, channel) with the channel fastest (coalesced writes), find the
+// cell's head by binary search in shared memory and add the segment's rows
+// in row order, reading on from device memory where a segment runs past the
+// window's end (the block of a segment's head walks it to its end):
+// deterministic, bit-equal to the row-order sum, no atomics. The TPU
+// kernel's one-hot MXU products over the flat 128-lane chunk layout, its
+// chunk carry and its write-slot DMAs are TPU workarounds and have no
+// counterpart here.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -321,7 +355,151 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kRwTile = 8192;      // floats of the staged row window
+constexpr int kRwMaxRows = 1024;
+
+__host__ __device__ constexpr int rw_rows(int c) {
+  return kRwTile / c < kRwMaxRows ? kRwTile / c : kRwMaxRows;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sorted_segment_sum_rw_kernel(const int* __restrict__ keys,
+                                 const float* __restrict__ rows,
+                                 long long rsb, long long rsc, long long rsi,
+                                 float* __restrict__ out, int n, int c,
+                                 int num_cells) {
+  extern __shared__ float s_win[];           // [c][w + 1]
+  // rows of the window's segment heads, then the last segment's end
+  __shared__ int s_head[kRwMaxRows + 1];
+  __shared__ int s_hkey[kRwMaxRows];         // their keys, ascending
+  __shared__ int s_warp[kThreads / 32];
+  __shared__ int s_nh, s_lo, s_hi;
+  const int w = rw_rows(c);
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * w;
+  const int rend = min(r0 + w, n);
+  const int* kb = keys + static_cast<size_t>(b) * n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_nh = 0;
+  __syncthreads();
+  // compact the heads in row order, kThreads rows a pass
+  for (int p0 = r0; p0 < rend; p0 += kThreads) {
+    const int r = p0 + threadIdx.x;
+    bool head = false;
+    int k = 0;
+    if (r < rend) {
+      k = kb[r];
+      head = k >= 0 && k < num_cells && (r == 0 || kb[r - 1] != k);
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, head);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int base = s_nh;
+    for (int i = 0; i < warp; ++i) base += s_warp[i];
+    if (head) {
+      const int pos = base + __popc(mask & ((1u << lane) - 1u));
+      s_head[pos] = r;
+      s_hkey[pos] = k;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int total = 0;
+      for (int i = 0; i < kThreads / 32; ++i) total += s_warp[i];
+      s_nh += total;
+    }
+    __syncthreads();
+  }
+  const int nh = s_nh;
+  if (threadIdx.x == 0) {
+    int lo = 0, hi = 0;
+    if (nh > 0) {
+      const int h0 = s_head[0];
+      lo = h0 > 0 ? max(kb[h0 - 1], -1) + 1 : 0;
+      // the last segment's end: gallop, then bisect (it may run past the
+      // window, through any number of windows)
+      const int kl = s_hkey[nh - 1];
+      int a = s_head[nh - 1] + 1, z = a, step = 1;  // kb[a - 1] == kl
+      while (z < n && kb[z] == kl) {
+        a = z + 1;
+        z = min(n, z + step);
+        step *= 2;
+      }
+      const int end = lower_bound(kb, a, z, kl + 1);
+      s_head[nh] = end;
+      hi = (end == n || kb[end] >= num_cells) ? num_cells : kl + 1;
+    } else if (blockIdx.x == 0) {
+      // no head in the first window: the row holds no valid key at all
+      // exactly when none lies in [0, num_cells); then this block zeroes
+      // the whole table
+      const int s = lower_bound(kb, 0, n, 0);
+      if (s == n || kb[s] >= num_cells) hi = num_cells;
+    }
+    s_lo = lo;
+    s_hi = hi;
+  }
+  __syncthreads();
+  const int cell_lo = s_lo;
+  const long long total = static_cast<long long>(s_hi - cell_lo) * c;
+  if (total == 0) return;
+  const float* rb = rows + b * rsb;
+  if (nh > 0) {
+    // stage the rows from the first head to the window's (or the last
+    // segment's) end; rows before the first head belong to an earlier
+    // block's segment
+    const int s0 = s_head[0] - r0;
+    const int s1 = min(rend, s_head[nh]) - r0;
+    for (int t = threadIdx.x; t < c * w; t += kThreads) {
+      const int ch = t / w;
+      const int r = t - ch * w;
+      if (r >= s0 && r < s1) {
+        s_win[ch * (w + 1) + r] = rb[ch * rsc + (r0 + r) * rsi];
+      }
+    }
+    __syncthreads();
+  }
+  float* ob = out + (static_cast<size_t>(b) * num_cells + cell_lo) * c;
+  for (long long f = threadIdx.x; f < total; f += kThreads) {
+    const int cell = cell_lo + static_cast<int>(f / c);
+    const int ch = static_cast<int>(f % c);
+    const int h = lower_bound(s_hkey, 0, nh, cell);
+    float acc = 0.f;
+    if (h < nh && s_hkey[h] == cell) {
+      const int j0 = s_head[h];
+      const int j1 = s_head[h + 1];
+      const int jw = min(j1, r0 + w);
+      const float* sr = s_win + ch * (w + 1);
+      for (int j = j0; j < jw; ++j) acc += sr[j - r0];  // row order
+      const float* gr = rb + ch * rsc;
+#pragma unroll 8
+      for (int j = jw; j < j1; ++j) acc += gr[j * rsi];
+    }
+    ob[f] = acc;
+  }
+}
+
 }  // namespace
+
+// K13. keys [b, n] int32 sorted ascending per batch row; rows: element
+// (b, ch, i) at rows[b*rsb + ch*rsc + i*rsi], ch < c, i < n, 128 % c == 0;
+// out [b, num_cells, c], every cell written. Returns cudaGetLastError().
+extern "C" int p3d_sorted_segment_sum_rw(const int* keys, const float* rows,
+                                         long long rsb, long long rsc,
+                                         long long rsi, float* out, int b,
+                                         int n, int c, int num_cells,
+                                         void* stream) {
+  if (c < 1 || 128 % c != 0 || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
+  const int w = rw_rows(c);
+  const size_t smem = static_cast<size_t>(c) * (w + 1) * sizeof(float);
+  const dim3 grid(n > 0 ? (n + w - 1) / w : 1, b);
+  sorted_segment_sum_rw_kernel<<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, rsb, rsc, rsi, out, n, c, num_cells);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K7. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c]
 // f32; out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra

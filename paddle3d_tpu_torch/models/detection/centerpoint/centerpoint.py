@@ -12,13 +12,15 @@ paths, as in the JAX package:
     with the segmented window max kernel, then the row-major scatter);
   * voxel configs (VoxelMean over SparseResNet3D or SparseNet3D): the fused
     voxelize + mean (ops/voxelize.voxel_mean_batch), then the sparse middle
-    encoder (sparse conv kernel per conv, the sorted segment sum for the
-    dense BEV); serving only.
+    encoder (in eval the sparse conv kernel per conv, in train the gather
+    route under autograd with batch-statistics BN), then the dense BEV
+    through the sorted segment sum (K7 or K2 by the density rule, with the
+    table gather K5 as its VJP).
 The canvas keeps the JAX package's NHWC layout and goes to NCHW only
 around the conv stack.
 
-Not ported yet: training of the voxel configs (ROADMAP.md, queue 1, item
-7b) and `postprocess_to_samples` (Sample / BBoxes3D records, item 5).
+Not ported yet: `postprocess_to_samples` (Sample / BBoxes3D records,
+ROADMAP.md, queue 1, item 5).
 """
 import math
 
@@ -130,8 +132,10 @@ class CenterPoint(BaseLidarModel):
 
     def _canvas(self, points, training: bool):
         """points [B, N, C] -> BEV canvas [B, H, W, C'] (NHWC); `training`
-        picks the voxel cap and the canvas branch, as in the JAX
-        package."""
+        picks the voxel cap and the canvas branch, as in the JAX package.
+        The sparse middle encoder's layers take their route and BN mode
+        from their module mode, so a voxel canvas refuses a flag that
+        disagrees with it."""
         if self._can_fuse():
             return fused_pillar_canvas(self.voxelizer, self.voxel_encoder,
                                        self.middle_encoder, points, training)
@@ -141,6 +145,11 @@ class CenterPoint(BaseLidarModel):
             self.voxelizer.max_num_points_in_voxel,
             self.voxelizer.max_num_voxels_for(training),
             self.voxel_encoder.in_channels)
+        if training != self.middle_encoder.training:
+            mode = "train" if training else "eval"
+            raise RuntimeError(
+                "this entry point runs the voxel canvas in {0} mode: call "
+                ".{0}() on the model first".format(mode))
         return self.middle_encoder(feats, coords, vmask)
 
     def _extract_feats(self, points, training: bool):
@@ -153,12 +162,8 @@ class CenterPoint(BaseLidarModel):
         """batch {"data": points [B, N, C], "gt_boxes" [B, G, 7|9] (bottom
         z; velocity in columns 7:9), "gt_labels" [B, G] (-1 padded)} ->
         {"loss" (the total), "hm_loss_i", "loc_loss_i" per task}.
-        Train-mode BN: batch statistics, running stats updated."""
-        if self._is_voxel_mean():
-            raise NotImplementedError(
-                "training a voxel CenterPoint (its voxel canvas under a train "
-                "step; the sparse layers themselves train) arrives with "
-                "ROADMAP.md, queue 1, item 7b")
+        Train-mode BN: batch statistics, running stats updated; a voxel
+        config needs the model in train mode (`.train()`)."""
         preds = self.bbox_head(self._extract_feats(batch["data"], True))
         gt_boxes = batch["gt_boxes"]
         gt_boxes = torch.cat([

@@ -1,5 +1,5 @@
 """IA-SSD point-based single-stage detector, torch port of
-paddle3d_tpu/models/detection/iassd/iassd.py (serving).
+paddle3d_tpu/models/detection/iassd/iassd.py.
 
 Instance-aware downsampling: early SA layers sample by farthest point,
 later ones keep the top-k most confident foreground points (ctr_aware); a
@@ -9,20 +9,27 @@ centre offset, size and angle per candidate; rotated NMS at the end. All
 stages are the masked fixed-capacity batch layout of
 models/common/pointnet2_modules.
 
-Training (point-in-box assignment, focal and smooth-L1 losses, the SA
-confidence supervision) is not ported yet: ROADMAP.md, queue 1, item 8b.
+Training: each candidate (the votes, and the sampled points of every
+confidence layer) is assigned to the nearest valid gt box in BEV, foreground
+when inside that box's circumscribed circle; sigmoid focal loss on the
+classes, smooth-L1 on (centre offset, size, sin / cos of the yaw) of the
+foreground votes, and the SA layers' confidences supervised the same way.
+The farthest-point and ball-query indices are constants; gradients flow
+through the grouping gathers, as in the JAX package.
 """
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ....apis import manager
 from ....ops.iou3d_nms import nms_bev
 from ....ops.pointnet2 import first_argmax, gather_operation
-from ...base.base_model import BaseLidarModel
+from ...base.base_model import BaseLidarModel, raise_if_training
 from ...common.pointnet2_modules import (PointMLP, SAModuleMSG, Sequential,
                                          VoteLayer, group_max, linear)
 from ...layers.layer_libs import default_generator
+from ...losses.weighted_loss import sigmoid_focal_loss, smooth_l1_loss
 
 __all__ = ["IASSD"]
 
@@ -167,18 +174,77 @@ class IASSD(BaseLidarModel):
             nf = mod.aggregation(nf)
         return nf
 
+    @staticmethod
+    @torch.no_grad()
+    def _assign(centers, gt_center, gt_labels):
+        """Point-in-gt-BEV assignment: each centre [B, M, 3] to the nearest
+        valid gt box (ties to the lowest index, as jnp.argmin), foreground
+        when inside its circumscribed footprint circle. -> (gt index
+        [B, M], foreground [B, M])."""
+        diff = centers[:, :, None, :2] - gt_center[:, None, :, :2]
+        d = torch.linalg.vector_norm(diff, dim=-1)
+        d = torch.where((gt_labels >= 0)[:, None, :], d, 1e9)
+        gi = first_argmax(-d, dim=-1)
+        gd = torch.gather(d, 2, gi[..., None])[..., 0]
+        gt = gather_operation(gt_center, gi)
+        radius = 0.5 * torch.sqrt(gt[..., 3] ** 2 + gt[..., 4] ** 2)
+        return gi, gd < radius
+
+    def _cls_targets(self, gi, fg, gt_labels):
+        """-> one-hot class targets [B, M, num_classes], zero rows on the
+        background."""
+        tgt = torch.where(fg, torch.gather(gt_labels, 1, gi),
+                          self.num_classes)
+        return F.one_hot(tgt.long(), self.num_classes + 1)[
+            ..., :self.num_classes]
+
     def train_forward(self, batch) -> dict:
-        raise NotImplementedError(
-            "IA-SSD training (point-in-box assignment, focal and smooth-L1 "
-            "losses, SA confidence supervision) arrives with ROADMAP.md, "
-            "queue 1, item 8b")
+        """batch {"data": points [B, N, 4] (NaN padded), "gt_boxes" [B, G,
+        7] (bottom-z), "gt_labels" [B, G] (classes from 0, -1 padded)} ->
+        {"loss" (the sum), "loss_cls", "loss_box", "loss_sa"}; the
+        foreground count of each loss is taken over the whole batch.
+        Train-mode BN: batch statistics, running stats updated."""
+        gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
+        centers, feats, mask, sa_confs, _ = self._backbone(batch["data"])
+        cls_logits = self.cls_head(feats)                  # [B, M, C]
+        reg = self.reg_head(feats)                         # [B, M, 8]
+        gt_center = torch.cat([
+            gt_boxes[..., :2],
+            (gt_boxes[..., 2] + gt_boxes[..., 5] / 2)[..., None],
+            gt_boxes[..., 3:]], dim=-1)
+
+        gi, fg = self._assign(centers, gt_center, gt_labels)
+        fg = fg & mask
+        num_fg = fg.sum().clamp(min=1)
+        cls_loss = (sigmoid_focal_loss(
+            cls_logits, self._cls_targets(gi, fg, gt_labels)) *
+            mask[..., None]).sum() / num_fg
+        tgt_box = gather_operation(gt_center, gi)          # [B, M, 7+]
+        tgt = torch.cat([tgt_box[..., :3] - centers, tgt_box[..., 3:6],
+                         torch.sin(tgt_box[..., 6:7]),
+                         torch.cos(tgt_box[..., 6:7])], dim=-1)
+        reg_loss = torch.where(fg[..., None], smooth_l1_loss(reg, tgt),
+                               0.).sum() / num_fg
+
+        # SA confidence (the instance-aware sampling's supervision)
+        sa_loss = cls_logits.new_zeros(())
+        for conf, cxyz, cmask in sa_confs:
+            cgi, cfg = self._assign(cxyz, gt_center, gt_labels)
+            cfg = cfg & cmask
+            sa_loss = sa_loss + (sigmoid_focal_loss(
+                conf, self._cls_targets(cgi, cfg, gt_labels)) *
+                cmask[..., None]).sum() / cfg.sum().clamp(min=1)
+        return {"loss": cls_loss + reg_loss + sa_loss, "loss_cls": cls_loss,
+                "loss_box": reg_loss, "loss_sa": sa_loss}
 
     # ------------------------------------------------------------------ test
     @torch.no_grad()
     def test_forward(self, batch) -> dict:
         """batch {"data": points [B, N, 4] f32, NaN padded} -> box3d_lidar
         [B, K, 7] (bottom-z), scores [B, K], label_preds [B, K] (-1
-        padded), K = nms_cfg post_max_size."""
+        padded), K = nms_cfg post_max_size. The model must be in eval mode
+        (`.eval()`)."""
+        raise_if_training(self)
         centers, feats, mask, _, _ = self._backbone(batch["data"])
         cls_logits = self.cls_head(feats)
         reg = self.reg_head(feats)

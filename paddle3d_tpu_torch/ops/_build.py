@@ -36,7 +36,8 @@ LAUNCHES = {"fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
             "sorted_segment_sum_dense": 0, "sparse_conv3d": 0,
             "ball_query": 0, "farthest_point_sample": 0,
             "seg_window_max": 0, "seg_window_max_bwd": 0,
-            "pairwise_intersection_area": 0}
+            "pairwise_intersection_area": 0, "sorted_segment_sum_rw": 0,
+            "gather_rows": 0}
 
 _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -67,6 +68,9 @@ _SIGNATURES = {
     "p3d_seg_window_max": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_seg_window_max_bwd": (_vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_pairwise_intersection_area": (_vp, _vp, _vp, _i, _i, _i, _vp),
+    "p3d_sorted_segment_sum_rw": (_vp, _vp, _ll, _ll, _ll, _vp, _i, _i, _i,
+                                  _i, _vp),
+    "p3d_gather_rows": (_vp, _ll, _ll, _ll, _vp, _vp, _i, _i, _i, _i, _vp),
 }
 
 _lib = None

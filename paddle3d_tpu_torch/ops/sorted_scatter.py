@@ -6,12 +6,14 @@ sorted_segment_sum_split (TPU kernels `_kernel`, K2, for sparse scans and
 `_kernel_bs`, K7, for dense ones, chosen by the JAX package's density rule
 `is_dense_scan`) with their custom VJP, the sorted table gather (TPU kernel
 `_kernel_tg`, K5), and sorted_segment_sum_cm, the channel-major eval twin
-of the segment sum (TPU kernels `_kernel_cm` and `_kernel_cmg`, K6). On a
-CUDA tensor `scatter_rows`, `sorted_table_gather` and
-`sorted_segment_sum_cm` launch the hand-written kernels in
-csrc/sorted_scatter.cu (whose header says what bounds them and how they are
-built); on a CPU tensor they take the plain PyTorch versions beside them.
-sorted_segment_sum and sorted_segment_sum_split are one
+of the segment sum (TPU kernels `_kernel_cm` and `_kernel_cmg`, K6), and
+sorted_segment_sum_rw, the row-window form of that eval twin for c | 128
+(TPU kernel `_kernel_rw`, K13, which no path of the JAX package reaches: an
+op here). On a CUDA tensor `scatter_rows`, `sorted_table_gather`,
+`sorted_segment_sum_cm` and `sorted_segment_sum_rw` launch the hand-written
+kernels in csrc/sorted_scatter.cu (whose header says what bounds them and
+how they are built); on a CPU tensor they take the plain PyTorch versions
+beside them. sorted_segment_sum and sorted_segment_sum_split are one
 torch.autograd.Function over K2 or K7 and K5.
 """
 import torch
@@ -22,6 +24,7 @@ __all__ = ["sorted_segment_sum", "sorted_segment_sum_split",
            "sorted_segment_sum_plain", "scatter_rows", "scatter_rows_plain",
            "sorted_table_gather", "sorted_table_gather_plain",
            "sorted_segment_sum_cm", "sorted_segment_sum_cm_plain",
+           "sorted_segment_sum_rw", "sorted_segment_sum_rw_plain",
            "pick_cells_per_block", "is_dense_scan", "kernel_for", "CAP"]
 
 #: rows of the TPU kernels' DMA window (paddle3d_tpu/ops/pallas/
@@ -260,3 +263,71 @@ def sorted_segment_sum_cm(keys: torch.Tensor, rows_cm: torch.Tensor,
     _build.check(err, "sorted_segment_sum_cm")
     _build.LAUNCHES["sorted_segment_sum_cm"] += 1
     return (out, extra) if split_last else out
+
+
+def _check_rw(c: int):
+    if c < 1 or 128 % c != 0:
+        raise ValueError(
+            "the row-window segment sum takes c dividing 128 (the JAX "
+            "kernel's flat-lane canvas), got c={}; sorted_segment_sum_cm "
+            "takes any c".format(c))
+
+
+def sorted_segment_sum_rw_plain(keys, rows_cm, c: int,
+                                num_cells: int) -> torch.Tensor:
+    """Plain version of K13: each cell's rows added one at a time in row
+    order (rank j of every segment in pass j, one row a cell a pass), as
+    the kernel adds them, so the two agree bit for bit on the card; on the
+    CPU it equals sorted_segment_sum_plain, whose index_add_ runs in row
+    order there."""
+    _check_rw(c)
+    b, n = keys.shape
+    rows = rows_cm[:, :c, :n].transpose(1, 2)
+    k = keys.long()
+    inside = (k >= 0) & (k < num_cells)
+    rank = torch.arange(n, device=k.device) - torch.searchsorted(k, k)
+    out = torch.zeros((b, num_cells, c), dtype=rows.dtype,
+                      device=rows.device)
+    batch = torch.arange(b, device=k.device)[:, None].expand(b, n)
+    for j in range(int(rank[inside].max()) + 1 if bool(inside.any()) else 0):
+        m = inside & (rank == j)
+        out[batch[m], k[m]] += rows[m]
+    return out
+
+
+def sorted_segment_sum_rw(keys: torch.Tensor, rows_cm: torch.Tensor, c: int,
+                          num_cells: int) -> torch.Tensor:
+    """out[b, cell] = Σ_{i < N: keys[b,i]==cell} rows_cm[b, :c, i], the
+    function of sorted_segment_sum_cm for c dividing 128, taken over fixed
+    windows of sorted rows (the port of the JAX package's
+    _sorted_segment_sum_rw, argument order kept); no VJP, as there.
+
+    keys: [B, N] int32, sorted ascending per batch row; keys outside
+    [0, num_cells) are dropped. rows_cm: [B, C', N'] f32 with C' >= c and
+    N' >= N (a longer, already padded producer buffer is taken as it is),
+    possibly a strided view. Returns [B, num_cells, c]; a batch row with no
+    valid key gives zeros. Raises ValueError when 128 % c != 0."""
+    _check_rw(c)
+    if not keys.is_cuda:
+        return sorted_segment_sum_rw_plain(keys, rows_cm, c, num_cells)
+    b, n = keys.shape
+    if keys.dtype != torch.int32 or rows_cm.dtype != torch.float32:
+        raise TypeError("sorted_segment_sum_rw kernel takes int32 keys and "
+                        "f32 rows, got {} and {}".format(keys.dtype,
+                                                         rows_cm.dtype))
+    if rows_cm.dim() != 3 or rows_cm.shape[0] != b or \
+            rows_cm.shape[1] < c or rows_cm.shape[2] < n:
+        raise ValueError("keys [B, N] and rows [B, C' >= c, N' >= N] "
+                         "expected, got {} and {} with c={}".format(
+                             tuple(keys.shape), tuple(rows_cm.shape), c))
+    if rows_cm.device != keys.device or not keys.is_contiguous():
+        raise ValueError("sorted_segment_sum_rw needs contiguous keys and "
+                         "rows on the same device")
+    out = torch.empty((b, num_cells, c), dtype=torch.float32,
+                      device=keys.device)
+    err = _build.library().p3d_sorted_segment_sum_rw(
+        keys.data_ptr(), rows_cm.data_ptr(), *rows_cm.stride(),
+        out.data_ptr(), b, n, c, num_cells, _build.stream_ptr(keys.device))
+    _build.check(err, "sorted_segment_sum_rw")
+    _build.LAUNCHES["sorted_segment_sum_rw"] += 1
+    return out

@@ -217,11 +217,14 @@ def test_config_defaults_to_the_card():
 
 
 def test_train_forward_raises():
-    """Pillar training is ported (tests/test_torch_centerpoint_train.py);
-    a voxel config's train_forward still raises, naming its ROADMAP
-    item."""
-    model = Config(path=VOXELS, device="cpu").model
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    """Pillar and voxel training are ported
+    (tests/test_torch_centerpoint_train.py,
+    tests/test_torch_centerpoint_voxels_train.py); a voxel config's
+    train_forward raises on a model in eval mode, whose sparse layers would
+    take the serving route and running-stat BN (checked before any layer
+    runs: nothing of the full-width net is computed)."""
+    model = Config(path=VOXELS, device="cpu").model.eval()
+    with pytest.raises(RuntimeError, match="train mode"):
         model.train_forward({"data": torch.zeros(1, 8, 5)})
 
 

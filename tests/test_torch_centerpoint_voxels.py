@@ -353,15 +353,32 @@ def test_second_fpn_stride_one_matches_jax():
                                rtol=1e-4, atol=1e-4)
 
 
-def test_training_raises(models):
-    """Training a voxel CenterPoint is not ported: its train_forward
-    raises, naming its ROADMAP item. Its layers do train (the two-stage
-    models train them, tests/test_torch_two_stage_train.py): in train mode
-    the sparse conv takes the gather route and refuses a fused epilogue,
-    MaskedBatchNorm takes batch statistics over the valid rows."""
-    _, model = models
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        model.train_forward({"data": torch.zeros(1, 8, 5)})
+def test_training_raises(config_path, monkeypatch):
+    """A voxel CenterPoint trains (its parity with the JAX step:
+    tests/test_torch_centerpoint_voxels_train.py): on CPU tensors its train
+    step reaches no kernel library and moves no launch counter, and its
+    canvas raises when the entry point's flag and the modules' mode
+    disagree (the sparse layers take their route and BN from the mode).
+    The layers in train mode: the sparse conv takes the gather route and
+    refuses a fused epilogue, MaskedBatchNorm takes batch statistics over
+    the valid rows."""
+    def no_build():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    model = Config(path=config_path, device="cpu").model
+    pts = torch.from_numpy(make_points(6))
+    with pytest.raises(RuntimeError, match="train mode"):
+        model.eval().train_forward({"data": pts})
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(_build.LAUNCHES)
+    boxes = torch.tensor([[[6., 2., -1.6, 1.9, 4.4, 1.6, .3, 1., 0.]]] * 2)
+    losses = model.train().train_forward({
+        "data": pts, "gt_boxes": boxes,
+        "gt_labels": torch.tensor([[0], [2]])})
+    losses["loss"].backward()
+    assert _build.LAUNCHES == before and torch.isfinite(losses["loss"])
+    assert model.middle_encoder.conv_input.conv.weight.grad.abs().max() > 0
+
     conv = SparseConv3D(4, 16, generator=torch.Generator().manual_seed(0))
     st = SparseTensor(torch.randn(1, 3, 4), torch.tensor([[[0, 0, 0],
                                                            [0, 0, 1],

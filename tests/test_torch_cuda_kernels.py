@@ -425,6 +425,69 @@ def test_sorted_segment_sum_dense_matches_plain(cuda, split):
     assert not got[1].any()
 
 
+RW_CASES = [(2, 5000, 64, 4096), (2, 1200, 16, 65536), (1, 4096, 8, 1024),
+            (2, 700, 32, 2048), (3, 9000, 128, 5000)]
+
+
+@pytest.mark.parametrize("b,n,c,cells", RW_CASES)
+def test_sorted_segment_sum_rw_matches_row_order(cuda, b, n, c, cells):
+    """K13 bit for bit against the row-order sum and its plain version, at
+    the CPU test's shapes plus one with a 3,000-row segment (it crosses many
+    row windows); keys past the table, negative keys, an empty batch row
+    (b > 1) and a channel-major view wider and longer than read."""
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, cells + 40, (b, n)), axis=1)
+    keys[0, :5] = -2
+    if n >= 9000:
+        keys[0, 2000:5000] = keys[0, 2000]       # the 3,000-row segment
+    if b > 1:
+        keys[-1] = SENT
+    keys = torch.from_numpy(np.sort(keys, axis=1).astype(np.int32)).to(cuda)
+    wide = torch.from_numpy(rng.normal(0, 1, (b, c + 3, n + 300)).astype(
+        np.float32)).to(cuda)
+    wide[:, c:] = 1e6
+    wide[:, :, n:] = 1e6
+    before = _build.LAUNCHES["sorted_segment_sum_rw"]
+    got = sorted_scatter.sorted_segment_sum_rw(keys, wide, c, cells)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum_rw"] == before + 1
+    ref = _row_order_sum(keys, wide[:, :c, :n].transpose(1, 2), cells)
+    assert got.shape == (b, cells, c)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert torch.equal(got, sorted_scatter.sorted_segment_sum_rw_plain(
+        keys, wide, c, cells))
+    if b > 1:
+        assert not got[-1].any()
+    with pytest.raises(ValueError, match="dividing 128"):
+        sorted_scatter.sorted_segment_sum_rw(keys, wide, 65, cells)
+
+
+@pytest.mark.parametrize("c,strided", [(7, False), (64, False), (64, True),
+                                       (1, False)])
+def test_gather_rows_matches_plain(cuda, c, strided):
+    """K14 equal to its plain version: the vector path (c = 64), one float a
+    lane (c = 7, c = 1, a strided view), out-of-range indices (wrapped once
+    or NaN)."""
+    from paddle3d_tpu_torch.ops import gather
+    rng = np.random.default_rng(c)
+    a = 107136 if c == 7 else 5000
+    src = torch.from_numpy(rng.normal(size=(3, a, c + 4)).astype(
+        np.float32)).to(cuda)
+    src = src[..., 2:2 + c] if strided else src[..., :c].contiguous()
+    idx = rng.integers(0, a, (3, 1000)).astype(np.int32)
+    idx[0, :6] = [-1, -a, a, -a - 1, 2**31 - 1, 0]
+    idx = torch.from_numpy(idx).to(cuda)
+    before = _build.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gather_rows"] == before + 1
+    ref = gather.gather_rows_plain(src, idx)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[0, 2:5]).all() and not torch.isnan(got[0, 5:]).any()
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_rows(src, idx.long())
+
+
 def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):
     """A tiny CenterPoint-voxels config (the nuScenes voxel config over
     16 m x 16 m at 0.125 m, 41 z layers): the BEV canvas through K8 and K7

@@ -1,0 +1,80 @@
+"""Port parity of the row gather (K14): the port's gather_rows on the CPU
+(its plain version) against the JAX gather_rows on the CPU
+(jnp.take_along_axis) and against the Pallas kernel itself, run as
+_pallas_gather under force_tpu_interpret_mode. A gather copies rows, so
+every comparison is exact.
+
+Out-of-range indices: the port follows the JAX CPU form, an index in
+[-A, 0) wrapping once to idx + A and any other index outside [0, A) giving
+a row of NaN (the Pallas kernel has no defined answer for them)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from paddle3d_tpu.ops.pallas.gather import _pallas_gather
+from paddle3d_tpu.ops.pallas.gather import gather_rows as jax_gather_rows
+from paddle3d_tpu_torch.ops import _build, gather
+
+
+def make_inputs(seed, b, a, c, k):
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(b, a, c)).astype(np.float32)
+    idx = rng.integers(0, a, (b, k)).astype(np.int32)
+    idx[0, :3] = [0, a - 1, 0]                   # the ends and a repeat
+    return src, idx
+
+
+@pytest.mark.parametrize("b,a,c,k", [(2, 50, 7, 13), (3, 300, 64, 257),
+                                     (1, 9, 1, 40)])
+def test_plain_matches_jax_cpu_form(b, a, c, k):
+    src, idx = make_inputs(0, b, a, c, k)
+    ref = np.asarray(jax_gather_rows(jnp.asarray(src), jnp.asarray(idx)))
+    got = gather.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    assert got.shape == (b, k, c)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("b,a,c,k", [(2, 50, 7, 13), (2, 129, 16, 24)])
+def test_plain_matches_pallas_kernel_interpret(b, a, c, k):
+    """The TPU kernel's DMA ring in interpret mode (columns padded to 128
+    lanes, indices to a multiple of 8, and sliced back)."""
+    src, idx = make_inputs(1, b, a, c, k)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(_pallas_gather(jnp.asarray(src), jnp.asarray(idx)))
+    got = gather.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_out_of_range_indices_follow_the_cpu_form():
+    """-1 is the last row, -A the first; A, -A - 1 and far values are NaN
+    rows: the chosen contract, equal to jnp.take_along_axis's."""
+    src = np.arange(2 * 5 * 3, dtype=np.float32).reshape(2, 5, 3)
+    idx = np.array([[-1, 5, -5, -6, 4, 0], [7, -2, 2, 1, 3, -100]],
+                   np.int32)
+    ref = np.asarray(jax_gather_rows(jnp.asarray(src), jnp.asarray(idx)))
+    got = gather.gather_rows(torch.from_numpy(src),
+                             torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[0, 0], src[0, 4])
+    np.testing.assert_array_equal(got[0, 2], src[0, 0])
+    assert np.isnan(got[0, [1, 3]]).all() and np.isnan(got[1, [0, 5]]).all()
+    wrapped = (idx >= -5) & (idx < 5)
+    assert not np.isnan(got[wrapped]).any()
+
+
+def test_strided_source_and_cpu_takes_no_kernel(monkeypatch):
+    """A strided view of the rows gives the gather of its values, and a CPU
+    tensor never reaches the kernel library or its counter."""
+    def no_build():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    src, idx = make_inputs(2, 2, 40, 12, 30)
+    view = torch.from_numpy(src).transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    got = gather.gather_rows(view[..., 2:9], torch.from_numpy(idx))
+    np.testing.assert_array_equal(
+        got.numpy(), np.take_along_axis(src[..., 2:9], idx[..., None], 1))
+    assert _build.LAUNCHES["gather_rows"] == 0

@@ -207,16 +207,31 @@ def test_dict_surface_matches_jax():
 
 
 def test_training_raises_and_cpu_takes_no_kernel(models, monkeypatch):
-    _, model = models
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        model.train_forward({"data": torch.zeros(1, 8, 4)})
-
+    """test_forward refuses a model in train mode (batch-statistics BN
+    would serve and move its running stats); a CPU train step (its parity:
+    tests/test_torch_iassd_train.py) and a CPU forward never reach the
+    kernel library or its counters, and the aggregation around the votes
+    keeps its given centres."""
     def no_build():
         raise AssertionError("kernel library requested for a CPU tensor")
 
+    _, model = models
     monkeypatch.setattr(_build, "library", no_build)
     before = dict(_build.LAUNCHES)
-    model.test_forward({"data": torch.from_numpy(make_points(2))})
+    train = Config(path=TINY, device="cpu").model.train()
+    assert train.ctr_agg.sample_type == "identity"
+    pts = torch.from_numpy(make_points(2))
+    with pytest.raises(RuntimeError, match="eval mode"):
+        train.test_forward({"data": pts})
+    boxes = torch.tensor([[[10., 4., -1.6, 1.8, 4., 1.5, .3],
+                           [20., -5., -1.6, 1.8, 4., 1.5, 1.]]] * 2)
+    losses = train.train_forward({"data": pts, "gt_boxes": boxes,
+                                  "gt_labels": torch.tensor([[0, -1]] * 2)})
+    losses["loss"].backward()
+    assert set(losses) == {"loss", "loss_cls", "loss_box", "loss_sa"}
+    assert torch.isfinite(losses["loss"])
+    assert train.vote.ctr_reg.weight.grad.abs().max() > 0
+    model.test_forward({"data": pts})
     assert _build.LAUNCHES == before
 
 

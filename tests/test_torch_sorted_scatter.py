@@ -1,11 +1,13 @@
 """Port parity: the plain sorted segment sums (paddle3d_tpu_torch) against
 the JAX package's Pallas kernels in interpret mode: the row-major K2, plain
-and split forms, and the channel-major K6 in both its TPU variants.
+and split forms, the channel-major K6 in both its TPU variants, and the
+row-window K13 at the shapes of the JAX package's own K13 tests.
 
 Tolerances: K2 1e-6 (both sides sum the same f32 rows per cell, only the
-order differs; rows per cell ≤ a handful here); K6 1e-5 relative and 1e-4
-absolute, as the JAX package's own test states (the TPU kernels sum by
-one-hot matrix products, up to ~20 rows per cell here)."""
+order differs; rows per cell ≤ a handful here); K6 and K13 1e-5 relative and
+1e-4 absolute, as the JAX package's own tests state (the TPU kernels sum by
+one-hot matrix products, K13 a window's rows first and then the carried
+chunk, up to ~20 rows per cell here)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ import torch
 
 from paddle3d_tpu.ops.pallas.sorted_scatter import (
     _sorted_segment_sum_cmg, _sorted_segment_sum_pallas,
-    pick_cells_per_block, sorted_segment_sum_cm)
+    _sorted_segment_sum_rw, pick_cells_per_block, sorted_segment_sum_cm)
 from paddle3d_tpu_torch.ops import pillar_ops, sorted_scatter
 
 SENT = 2**31 - 1
@@ -168,3 +170,95 @@ def test_density_rule_matches_jax():
     assert not pillar_ops.is_dense_scan(20000, 214272)      # KITTI
     assert pillar_ops.is_dense_scan(1100, 64 * 64)
     assert not pillar_ops.is_dense_scan(1024, 64 * 64)
+
+
+def make_rw_inputs(seed, b, n, c, cells):
+    """The JAX K13 tests' inputs (tests/ops/test_sorted_scatter.py:_mk):
+    sorted keys over cells + 40 (a tail past the table), normal rows,
+    channel-major."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, cells + 40, size=(b, n)).astype(np.int32),
+                   axis=1)
+    rows = rng.normal(size=(b, n, c)).astype(np.float32)
+    return keys, np.ascontiguousarray(rows.transpose(0, 2, 1))
+
+
+def _check_rw(keys, rows_cm, c, cells, wrows):
+    ref = _sorted_segment_sum_rw(jnp.asarray(keys), jnp.asarray(rows_cm), c,
+                                 cells, interpret=True, wrows=wrows)
+    got = sorted_scatter.sorted_segment_sum_rw(
+        torch.from_numpy(keys), torch.from_numpy(rows_cm), c, cells)
+    assert got.shape == ref.shape == (keys.shape[0], cells, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("b,n,c,cells,wrows", [
+    (2, 5000, 64, 4096, 512),      # dense: many rows a chunk, chunk carries
+    (2, 1200, 16, 65536, 256),     # sparse spans: the chunk-skip path
+    (1, 4096, 8, 1024, 1024),      # an exact window multiple, heavy dupes
+    (2, 700, 32, 2048, 256),       # four lane groups a flat row
+])
+def test_rw_plain_matches_kernel_rw_interpret(b, n, c, cells, wrows):
+    """The TPU's `_kernel_rw` at the four shapes of the JAX package's test."""
+    _check_rw(*make_rw_inputs(5, b, n, c, cells), c, cells, wrows)
+
+
+def test_rw_prepadded_producer_buffer():
+    """A longer, window-aligned producer buffer is taken as it is: its
+    trailing columns (zero on the JAX side, garbage here) are not read."""
+    keys, rows_cm = make_rw_inputs(6, 2, 900, 16, 4096)
+    pad = 2 * 256 + (256 - 900 % 256)
+    padded = np.pad(rows_cm, ((0, 0), (0, 0), (0, pad)))
+    ref = _sorted_segment_sum_rw(jnp.asarray(keys), jnp.asarray(padded), 16,
+                                 4096, interpret=True, wrows=256)
+    padded[:, :, 900:] = 1e6
+    got = sorted_scatter.sorted_segment_sum_rw(
+        torch.from_numpy(keys), torch.from_numpy(padded), 16, 4096)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_rw_empty_batch_row():
+    """A batch row with no valid key gives an all-zero table."""
+    keys, rows_cm = make_rw_inputs(7, 2, 600, 8, 1024)
+    keys[1] = SENT
+    got = _check_rw(keys, rows_cm, 8, 1024, 256)
+    assert not got[1].numpy().any() and got[0].numpy().any()
+
+
+def test_rw_rejects_non_divisor_c():
+    """c must divide 128, on both sides; the cell-major sum takes c = 65."""
+    keys, rows_cm = make_rw_inputs(8, 1, 2000, 65, 512)
+    with pytest.raises(ValueError):
+        _sorted_segment_sum_rw(jnp.asarray(keys), jnp.asarray(rows_cm), 65,
+                               512)
+    kt, rt = torch.from_numpy(keys), torch.from_numpy(rows_cm)
+    with pytest.raises(ValueError, match="dividing 128"):
+        sorted_scatter.sorted_segment_sum_rw(kt, rt, 65, 512)
+    with pytest.raises(ValueError, match="dividing 128"):
+        sorted_scatter.sorted_segment_sum_rw_plain(kt, rt, 65, 512)
+    assert sorted_scatter.sorted_segment_sum_cm(kt, rt, 512).shape == \
+        (1, 512, 65)
+
+
+def test_rw_plain_equals_row_major_sum(monkeypatch):
+    """The row-order plain version equals the CPU row-major plain sum bit for
+    bit (negative keys, a long run and a channel-major view wider than c
+    included), and a CPU tensor never reaches the kernel library."""
+    def no_build():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(sorted_scatter._build, "library", no_build)
+    keys, rows_cm = make_rw_inputs(9, 3, 3000, 32, 700)
+    keys[0, :20] = -3
+    keys[1, 100:600] = keys[1, 100]
+    keys = np.sort(keys, axis=1)
+    wide = np.concatenate([rows_cm, np.full_like(rows_cm[:, :3], 1e6)], 1)
+    kt, rt = torch.from_numpy(keys), torch.from_numpy(wide)
+    got = sorted_scatter.sorted_segment_sum_rw(kt, rt, 32, 700)
+    ref = sorted_scatter.sorted_segment_sum_plain(
+        kt, torch.from_numpy(rows_cm).transpose(1, 2).contiguous(), 700)
+    assert torch.equal(got, ref)
+    assert sorted_scatter._build.LAUNCHES["sorted_segment_sum_rw"] == 0
