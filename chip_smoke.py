@@ -27,7 +27,9 @@ non-zero and prints no result:
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes (K1/K2 inference, K3/K4/K5 train, the two-layer K1 and
      K6 CenterPoint inference), with the stated tolerance; kernel, plain
-     and library-call times and each kernel's bound;
+     and library-call times and each kernel's bound (a scatter's library
+     call, index_add_, goes from the kernel's own inputs to a fresh table:
+     index_add_call);
   3. the model's test_forward (eval BatchNorm) through the kernels (launch
      counters must move), then again with the plain versions swapped in:
      the outputs must agree; the tiny config's canvas on the card against
@@ -48,18 +50,23 @@ non-zero and prints no result:
      agree); 20 timed iterations of each path (scans/s), peak memory, a
      profile and the time of each stage of the forward;
   7. CenterPoint-voxels nuScenes serving: the sparse conv kernel (K8) at
-     each of the nine conv shapes of the path and the dense row-major sum
-     (K7) at the dense BEV's, on the inputs a forward hands them, against
-     their plain versions; test_forward through the kernels (21 K8
-     launches and one K7, no K2) and on the plain versions (canvas, head
-     outputs and decoded boxes must agree); timing, memory, a profile and
-     the time of each stage;
+     each of the nine conv shapes of the path, given the neighbour map the
+     path hands it and building its own, bit-equal to its plain version;
+     its map kernel at each of the forward's eight map builds, equal to
+     neighbour_map; the dense row-major sum (K7) at the dense BEV's, on
+     the inputs a forward hands them, against its plain version;
+     test_forward through the kernels (21 K8 conv and 8 map launches, one
+     K7, no K2) and on the plain versions (canvas, head outputs and
+     decoded boxes must agree); timing, memory, a profile and the time of
+     each stage;
   8. PV-RCNN then Voxel-RCNN KITTI serving: the ball query (K9) at each of
      its call shapes and farthest-point sampling (K10) on the inputs a
      forward hands them, against their plain versions (indices and counts
-     equal); test_forward through the kernels (PV-RCNN: 7 K9 launches, one
-     K10, 8 K8 and one row-major segment sum, K2 or K7 as the density rule
-     picks; Voxel-RCNN: 2 K9, no K10) and on the plain versions (BEV,
+     equal); K8 at the forward's 8 convs and 7 map builds (bit-equal,
+     index-equal); test_forward through the kernels (PV-RCNN: 7 K9
+     launches, one K10, 8 K8 conv and 7 map launches and one row-major
+     segment sum, K2 or K7 as the density rule picks; Voxel-RCNN: 2 K9, no
+     K10) and on the plain versions (BEV,
      keypoints, proposals and outputs must agree); no valid stage voxel
      outside its grid; timing, memory, a profile and the time of each
      stage;
@@ -100,7 +107,9 @@ non-zero and prints no result:
      plain version) and to K6, within 1e-5 of index_add_; K14 at
      8 x 1,000 x 7 from 107,136 and 4 x 120,000 x 64 from 160,000, equal to
      its plain version and to torch.gather; kernel, plain and library times
-     and bounds;
+     (each library call from the kernel's own inputs: K13's index_add_
+     makes the targets, the zeroed table and the transposed rows inside
+     its timing, torch.gather its int64 index) and bounds;
  13. CenterPoint-voxels nuScenes training (the config's OneCycleAdam, clip
      35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): one train step
      through the kernels (the dense BEV's K2 or K7, as the density rule
@@ -183,13 +192,15 @@ KERNELS = {
                               "paddle3d_tpu/ops/pallas/sorted_scatter.py:568",
                               0.0),
     # K7 (one non-zero row per BEV cell on its path: exact) and K8, whose
-    # plain version repeats its products and sums in its order (bit-equal by
-    # design; held to 1e-5 of each conv's largest output)
+    # plain version repeats its products and sums in its order: bit-equal,
+    # tolerance 0; K8's neighbour map is indices, equal to its plain version
     "sorted_segment_sum_dense": (
         "paddle3d_tpu_torch/csrc/sorted_scatter.cu",
         "paddle3d_tpu/ops/pallas/sorted_scatter.py:396", 0.0),
     "sparse_conv3d": ("paddle3d_tpu_torch/csrc/sparse_conv.cu",
-                      "paddle3d_tpu/ops/pallas/sparse_conv.py:60", 1e-5),
+                      "paddle3d_tpu/ops/pallas/sparse_conv.py:60", 0.0),
+    "sparse_conv3d_map": ("paddle3d_tpu_torch/csrc/sparse_conv.cu",
+                          "paddle3d_tpu/ops/pallas/sparse_conv.py:60", 0.0),
     # K9 and K10 give indices (and counts): equal to their plain versions,
     # whose distance arithmetic they repeat in its order
     "ball_query": ("paddle3d_tpu_torch/csrc/ball_query.cu",
@@ -218,7 +229,8 @@ INFER_KERNELS = ("fused_pfn_rows", "sorted_segment_sum")
 TRAIN_KERNELS = INFER_KERNELS + ("pfn_stats", "pfn_bwd",
                                  "sorted_table_gather")
 CP_KERNELS = ("fused_pfn_rows_2l", "sorted_segment_sum_cm")
-VX_KERNELS = ("sparse_conv3d", "sorted_segment_sum_dense")
+VX_KERNELS = ("sparse_conv3d", "sparse_conv3d_map",
+              "sorted_segment_sum_dense")
 PT_KERNELS = ("ball_query", "farthest_point_sample")
 SW_KERNELS = ("seg_window_max", "seg_window_max_bwd")
 # a CenterPoint-pillars train step: K12 both ways, K7 (the dense scan) and
@@ -274,6 +286,27 @@ def scatter_bytes(keys, cells, c, out_numel):
     return 4 * (keys.numel() + inside * c + out_numel)
 
 
+def index_add_call(keys, rows, cells, channel_major=False):
+    """The library yardstick of a sorted segment sum (K2, K6, K7, K13): one
+    index_add_ that goes from the kernel's own inputs to a fresh table, as
+    the kernel does. Inside the call that is timed: the flattened int64
+    targets (keys outside [0, cells) to a dump row a scan), the zeroed
+    table [B * (cells + 1), C] and, for channel-major rows [B, C, N], their
+    transposed copy. -> fn() giving that table."""
+    import torch
+
+    def call():
+        b = keys.shape[0]
+        r = rows.transpose(1, 2) if channel_major else rows
+        c = r.shape[-1]
+        inside = (keys >= 0) & (keys < cells)
+        tgt = (torch.where(inside, keys, cells).long() + torch.arange(
+            b, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
+        return torch.zeros((b * (cells + 1), c), device=keys.device
+                           ).index_add_(0, tgt, r.reshape(-1, c))
+    return call
+
+
 def segments(keys, P, maxV):
     """Pillar statistics of sorted keys [B, N]: -> dict of per-scan pillar
     counts before and after the max_voxels cap, kept rows (at most P per
@@ -310,7 +343,8 @@ def plain_path():
                 fps, farthest_point_sample_batched=(
                     fps.farthest_point_sample_plain)), \
             mock.patch.multiple(
-                sparse_conv, sparse_conv3d=sparse_conv.sparse_conv3d_plain), \
+                sparse_conv, sparse_conv3d=sparse_conv.sparse_conv3d_plain,
+                sparse_conv3d_map=sparse_conv.neighbour_map), \
             mock.patch.multiple(
                 fused_pfn, fused_pfn_rows=fused_pfn.fused_pfn_rows_plain), \
             mock.patch.multiple(
@@ -399,18 +433,12 @@ def phase_kernels(model, points):
     # yardsticks: one PyTorch call for the same function where there is
     # one (index_add_ for K2, none for K1), and each kernel's bound
     seg = segments(keys, kw["P"], kw["maxV"])
-    inside = (keys >= 0) & (keys < cells)
-    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
-        BATCH, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
-    acc = torch.zeros((BATCH * (cells + 1), rows.shape[-1]),
-                      device=keys.device)
-    rows2d = rows.reshape(-1, rows.shape[-1])
     extra = {
         "fused_pfn_rows": (None,) + bound(
             4 * (keys.numel() + pts_t.numel() + rows_t.numel()),
             f32_ops=seg["kept"] * 2 * w1t.numel()),
         "sorted_segment_sum": (
-            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 10),) + bound(
+            cuda_ms(index_add_call(keys, rows, cells), 10),) + bound(
                 scatter_bytes(keys, cells, rows.shape[-1],
                               table.numel() + occ.numel())),
     }
@@ -428,7 +456,9 @@ def report(names, errs, times, extra):
         log("  {}: max_abs_err {:.3e} (tolerance {:.0e}), {:.4f} ms vs "
             "plain {:.4f} ms, library call {}, bound {:.4f} ms ({})".format(
                 name, errs[name], tol, ms, plain_ms,
-                "none" if lib_ms is None else "{:.4f} ms".format(lib_ms),
+                "none" if lib_ms is None else
+                "{:.4f} ms (kernel / library {:.3f})".format(lib_ms,
+                                                            ms / lib_ms),
                 bound_ms, bound_by))
         check(errs[name] <= tol, "{} disagrees with its plain version"
               .format(name))
@@ -1002,11 +1032,6 @@ def phase_cp_kernels(model, points):
 
     u1, c_dec = w1t.shape
     u2 = w2t.shape[0]
-    inside = (keys >= 0) & (keys < cells)
-    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
-        BATCH, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
-    acc = torch.zeros((BATCH * (cells + 1), u2), device=keys.device)
-    rows2d = rows_t.transpose(1, 2).reshape(-1, u2)    # a transposed copy
     times = {
         "fused_pfn_rows_2l": (
             cuda_ms(lambda: fused_pfn.fused_pfn_rows(
@@ -1021,14 +1046,14 @@ def phase_cp_kernels(model, points):
     }
     # K1: per kept row the W1 products and the y1 half of W2, per pillar
     # the m1 half; K6 moves keys, in-grid rows and the dense table once;
-    # library call: index_add_ on the rows transposed beforehand
+    # library call: index_add_ from the channel-major rows to a fresh table
     extra = {
         "fused_pfn_rows_2l": (None,) + bound(
             4 * (keys.numel() + pts_t.numel() + rows_t.numel()),
             f32_ops=2 * (seg["kept"] * (u1 * c_dec + u2 * u1) +
                          sum(seg["capped"]) * u2 * u1)),
         "sorted_segment_sum_cm": (
-            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 5),) + bound(
+            cuda_ms(index_add_call(keys, rows_t, cells, True), 5),) + bound(
                 scatter_bytes(keys, cells, u2, table.numel())),
     }
     report(CP_KERNELS, errs, times, extra)
@@ -1134,49 +1159,113 @@ def cp_stages(model, points, first, iters):
             preds, model.test_cfg))], points, iters)
 
 
-def capture_vx_inputs(model, points, n_convs=21):
-    """One kernel-path forward, recording what it hands K8 (n_convs calls)
-    and the dense BEV's sorted segment sum."""
+def capture_vx_inputs(model, points, n_convs=21, n_maps=8):
+    """One kernel-path forward, recording what it hands K8 (n_convs conv
+    calls, each with the neighbour map it was given, and n_maps map
+    builds: one a submanifold key set and one a strided conv) and the
+    dense BEV's sorted segment sum."""
     from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
-    convs, bevs = [], []
-    conv_fn, sum_fn = sparse_conv.sparse_conv3d, \
-        sorted_scatter.sorted_segment_sum
+    convs, maps, bevs = [], [], []
+    conv_fn, map_fn, sum_fn = sparse_conv.sparse_conv3d, \
+        sparse_conv.sparse_conv3d_map, sorted_scatter.sorted_segment_sum
 
     def conv_rec(*a, **k):
         convs.append((a, k))
         return conv_fn(*a, **k)
+
+    def map_rec(*a):
+        maps.append(a)
+        return map_fn(*a)
 
     def sum_rec(*a):
         bevs.append(a)
         return sum_fn(*a)
 
     with mock.patch.object(sparse_conv, "sparse_conv3d", conv_rec), \
+            mock.patch.object(sparse_conv, "sparse_conv3d_map", map_rec), \
             mock.patch.object(sorted_scatter, "sorted_segment_sum", sum_rec):
         model.test_forward({"data": points})
-    check(len(convs) == n_convs and len(bevs) == 1,
-          "expected {} sparse convs and one dense BEV, got {} and {}"
-          .format(n_convs, len(convs), len(bevs)))
-    return convs, bevs
+    check(len(convs) == n_convs and len(maps) == n_maps and len(bevs) == 1,
+          "expected {} sparse convs, {} neighbour maps and one dense BEV, "
+          "got {}, {} and {}".format(n_convs, n_maps, len(convs), len(maps),
+                                     len(bevs)))
+    check(all(k.get("nbr") is not None for _, k in convs),
+          "a sparse conv of the path was handed no neighbour map")
+    return convs, maps, bevs
 
 
-def conv_work(a):
-    """The work one sparse conv's data needs: -> (bytes moved once, hits
-    per tap (queries with a neighbour there), (64-row tile, tap) pairs the
-    kernel computes, valid query rows)."""
+def conv_work(a, nbr):
+    """The work one sparse conv's data needs, from its neighbour map nbr:
+    -> (bytes moved once: keys, map, features, weights, shift and output;
+    hits per tap (queries with a neighbour there); products computed /
+    products needed (ops/sparse_conv.kernel_pairs: what the kernel's thread
+    mapping multiplies); valid query rows)."""
+    from paddle3d_tpu_torch.ops.sparse_conv import kernel_pairs
+    qbase, _, feats, w, d, h, w_ = a[:7]
+    b, vq = qbase.shape
+    cout = w.shape[-1]
+    taps = (nbr >= 0).sum(dim=(0, 1)).tolist()
+    nbytes = 4 * (qbase.numel() + nbr.numel() + feats.numel() + w.numel() +
+                  cout + b * vq * cout)
+    valid = int(((qbase >= 0) & (qbase < d * h * w_)).sum())
+    return nbytes, taps, kernel_pairs(nbr, cout) / max(sum(taps), 1), valid
+
+
+def map_case(m):
+    """The neighbour-map kernel on one captured map build m = (qbase,
+    in_keys, D, H, W, kernel_size), against its plain version
+    (neighbour_map, index-equal): -> (kernel ms, plain ms, bytes moved
+    once: both key sets read, the map written)."""
     import torch
 
-    from paddle3d_tpu_torch.ops.sparse_conv import neighbour_map
+    from paddle3d_tpu_torch.ops import sparse_conv
+    got = sparse_conv.sparse_conv3d_map(*m)
+    ref = sparse_conv.neighbour_map(*m)
+    torch.cuda.synchronize()
+    check(got.dtype == ref.dtype == torch.int32 and torch.equal(got, ref),
+          "the neighbour-map kernel differs from neighbour_map at {}".format(
+              tuple(got.shape)))
+    return (cuda_ms(lambda: sparse_conv.sparse_conv3d_map(*m), 10),
+            cuda_ms(lambda: sparse_conv.neighbour_map(*m), 3),
+            4 * (m[0].numel() + m[1].numel() + got.numel()))
+
+
+def conv_case(a, k):
+    """K8 on one captured conv call (a, k), k holding the map the path
+    handed it: the map equals neighbour_map, and the conv through the
+    kernel, with that map and with one it builds itself, equals the plain
+    version (which builds its own map) bit for bit. -> dict of the conv's
+    kernel and plain ms (both given the map), max_abs_err, its largest
+    output, and conv_work's numbers."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sparse_conv
     qbase, in_keys, feats, w, d, h, w_, ks = a[:8]
-    nbr = neighbour_map(qbase, in_keys, d, h, w_, ks) >= 0
-    b, vq, k3 = nbr.shape
-    pad = (-vq) % 64                      # the kernel's tile of 64 rows
-    tiles = torch.cat([nbr, nbr.new_zeros((b, pad, k3))], 1).reshape(
-        b, -1, 64, k3).any(dim=2)
-    cout = w.shape[-1]
-    nbytes = 4 * (qbase.numel() + in_keys.numel() + feats.numel() +
-                  w.numel() + cout + b * vq * cout)
-    valid = int(((qbase >= 0) & (qbase < d * h * w_)).sum())
-    return nbytes, nbr.sum(dim=(0, 1)).tolist(), int(tiles.sum()), valid
+    own = {key: v for key, v in k.items() if key != "nbr"}
+    nbr = k["nbr"]
+    check(torch.equal(nbr, sparse_conv.neighbour_map(qbase, in_keys, d, h,
+                                                     w_, ks)),
+          "the map the path handed a sparse conv differs from neighbour_map")
+    got = sparse_conv.sparse_conv3d(*a, **k)
+    alone = sparse_conv.sparse_conv3d(*a, **own)
+    ref = sparse_conv.sparse_conv3d_plain(*a, **own)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    top = ref.abs().max().item()
+    check(torch.equal(got, alone), "sparse_conv3d differs with and without "
+          "a prebuilt map")
+    check(err <= KERNELS["sparse_conv3d"][2] and torch.equal(got, ref),
+          "sparse_conv3d is not bit-equal to its plain version at {} -> {}: "
+          "max_abs_err {:.3e} of {:.3e}".format(
+              tuple(feats.shape), w.shape[-1], err, top))
+    check(top > 0, "a sparse conv's output is all zero")
+    nbytes, taps, ratio, valid = conv_work(a, nbr)
+    return {"ms": cuda_ms(lambda: sparse_conv.sparse_conv3d(*a, **k), 10),
+            "plain_ms": cuda_ms(
+                lambda: sparse_conv.sparse_conv3d_plain(*a, **k), 1),
+            "err": err, "top": top, "bytes": nbytes, "taps": taps,
+            "computed": ratio, "valid": valid,
+            "ops": 2 * feats.shape[-1] * w.shape[-1] * sum(taps)}
 
 
 def row_major_direct(name, keys, rows, cells):
@@ -1189,19 +1278,20 @@ def row_major_direct(name, keys, rows, cells):
     from paddle3d_tpu_torch.ops import _build
     b, n, c = rows.shape
     out = torch.empty((b, cells, c), device=rows.device)
-    _build.check(getattr(_build.library(), "p3d_" + name)(
+    _build.check(_build.function("p3d_" + name)(
         keys.data_ptr(), rows.data_ptr(), out.data_ptr(), None, b, n, c,
         cells, _build.stream_ptr(keys.device)), name)
     return out
 
 
-def phase_vx_kernels(convs, bevs):
-    """K8 against its plain version at each distinct conv shape of the
-    path, and K7 against its plain version and index_add_ at the dense
-    BEV's, on the inputs the forward handed them."""
+def phase_vx_kernels(convs, maps, bevs):
+    """K8 (the map kernel on each of the forward's map builds, the conv
+    kernel at each distinct conv shape of the path) and K7 against their
+    plain versions and index_add_ at the dense BEV's, on the inputs the
+    forward handed them."""
     import torch
 
-    from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
+    from paddle3d_tpu_torch.ops import sorted_scatter
     groups = {}
     for a, k in convs:
         qbase, in_keys, feats, w, d, h, w_, ks = a[:8]
@@ -1210,54 +1300,55 @@ def phase_vx_kernels(convs, bevs):
         groups.setdefault(key, []).append((a, k))
     check(len(groups) == 9, "expected nine distinct conv shapes, got {}"
           .format(len(groups)))
-    tol = KERNELS["sparse_conv3d"][2]
-    err = ms = plain_ms = tot_bytes = tot_ops = 0.0
     log("phase 7: CenterPoint-voxels kernels vs plain at B={} (per conv "
-        "shape: Vq x Cin -> Cout, launches a forward, kernel / plain ms, "
-        "bound, valid rows, neighbour hits a valid row, share of the "
-        "(64-row tile, tap) pairs the kernel computes, hits per tap)"
-        .format(VX_BATCH))
+        "shape: Vq x Cin -> Cout, launches a forward, conv kernel / plain "
+        "ms given the map, bound, valid rows, neighbour hits a valid row, "
+        "products computed / needed, max_abs_err; hits per tap)".format(
+            VX_BATCH))
+    err = ms = plain_ms = tot_bytes = tot_ops = 0.0
     for key, calls in groups.items():
-        a, k = calls[0]
-        qbase, in_keys, feats, w = a[:4]
-        cin, cout = feats.shape[-1], w.shape[-1]
-        got = sparse_conv.sparse_conv3d(*a, **k)
-        ref = sparse_conv.sparse_conv3d_plain(*a, **k)
-        torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        top = ref.abs().max().item()
-        check(e <= tol * top, "sparse_conv3d disagrees with its plain "
-              "version at {}: {:.3e} against a largest value of {:.3e}"
-              .format(key[:3], e, top))
-        check(top > 0, "a sparse conv's output is all zero")
-        err = max(err, e)
-        t = cuda_ms(lambda: sparse_conv.sparse_conv3d(*a, **k), 10)
-        tp = cuda_ms(lambda: sparse_conv.sparse_conv3d_plain(*a, **k), 1)
-        ms += t * len(calls)
-        plain_ms += tp * len(calls)
-        for ca, _ in calls:
-            nbytes, taps, _, _ = conv_work(ca)
-            tot_bytes += nbytes
-            tot_ops += 2 * cin * cout * sum(taps)
-        # the per-shape line describes calls[0], the call that was timed
-        nbytes, taps, tiles, valid = conv_work(a)
-        hits = sum(taps)
-        b, vq = qbase.shape
-        ks = a[7]
-        one = bound(nbytes, f32_ops=2 * cin * cout * hits)
+        # the per-shape line describes calls[0], the call that was timed;
+        # every call of the shape is held to its plain version
+        cases = [conv_case(a, k) for a, k in calls]
+        one = cases[0]
+        err = max([err] + [c["err"] for c in cases])
+        ms += one["ms"] * len(calls)
+        plain_ms += one["plain_ms"] * len(calls)
+        tot_bytes += sum(c["bytes"] for c in cases)
+        tot_ops += sum(c["ops"] for c in cases)
+        a = calls[0][0]
+        b, vq = a[0].shape
+        cin, cout, ks = a[2].shape[-1], a[3].shape[-1], a[7]
+        bnd = bound(one["bytes"], f32_ops=one["ops"])
         log("  {} x {} -> {} (K={}, {}): x{}, {:.4f} / {:.4f} ms, bound "
             "{:.4f} ms ({}), valid rows {}, hits a row {:.2f} of {}, "
-            "tile-taps computed {:.3f}, max_abs_err {:.3e} of {:.3e}; hits "
-            "per tap {}".format(
+            "products computed / needed {:.3f}, max_abs_err {:.3e} of "
+            "{:.3e}; hits per tap {}".format(
                 vq, cin, cout, ks, "subm" if key[4] else "strided",
-                len(calls), t, tp, one[0], one[1], valid,
-                hits / max(valid, 1), ks ** 3,
-                tiles / max(b * -(-vq // 64) * ks ** 3, 1), e, top, taps))
+                len(calls), one["ms"], one["plain_ms"], bnd[0], bnd[1],
+                one["valid"], sum(one["taps"]) / max(one["valid"], 1),
+                ks ** 3, one["computed"], one["err"], one["top"],
+                one["taps"]))
+        del cases
+    map_ms = map_plain_ms = map_bytes = 0.0
+    for m in maps:
+        t, tp, nbytes = map_case(m)
+        map_ms, map_plain_ms, map_bytes = (map_ms + t, map_plain_ms + tp,
+                                           map_bytes + nbytes)
+        log("  neighbour map {} over {} keys (K={}, {}): {:.4f} ms vs plain "
+            "{:.4f} ms, bound {:.4f} ms (bytes)".format(
+                tuple(m[0].shape), m[1].shape[1], m[5],
+                "subm" if m[0] is m[1] else "strided", t, tp,
+                bound(nbytes)[0]))
     conv_bound = bound(tot_bytes, f32_ops=tot_ops)
-    log("  sparse_conv3d, 21 launches a forward: {:.4f} ms against plain "
-        "{:.4f} ms, bound {:.4f} ms ({}), max_abs_err {:.3e} (tolerance "
-        "{:.0e} of each conv's largest output)".format(
-            ms, plain_ms, conv_bound[0], conv_bound[1], err, tol))
+    map_bound = bound(map_bytes)
+    log("  sparse_conv3d, {} conv launches and {} map launches a forward: "
+        "{:.4f} ms (conv {:.4f}, map {:.4f}) against plain {:.4f} ms (conv "
+        "{:.4f}, map {:.4f}); conv bound {:.4f} ms ({}), map bound {:.4f} "
+        "ms ({}); max_abs_err {:.3e} (tolerance 0: bit-equal)".format(
+            len(convs), len(maps), ms + map_ms, ms, map_ms,
+            plain_ms + map_plain_ms, plain_ms, map_plain_ms, conv_bound[0],
+            conv_bound[1], map_bound[0], map_bound[1], err))
 
     keys, rows, cells = bevs[0]
     b, n, c = rows.shape
@@ -1293,12 +1384,9 @@ def phase_vx_kernels(convs, bevs):
                   "{} disagrees with its plain version on the {}".format(
                       name, label))
     inside = (keys >= 0) & (keys < cells)
-    tgt = (torch.where(inside, keys, cells).long() + torch.arange(
-        b, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
-    acc = torch.zeros((b * (cells + 1), c), device=keys.device)
-    rows2d = rows.reshape(-1, c)
     times = {
         "sparse_conv3d": (ms, plain_ms),
+        "sparse_conv3d_map": (map_ms, map_plain_ms),
         "sorted_segment_sum_dense": (
             cuda_ms(lambda: sorted_scatter.scatter_rows(keys, rows, cells,
                                                         False), 50),
@@ -1307,17 +1395,19 @@ def phase_vx_kernels(convs, bevs):
     }
     extra = {
         "sparse_conv3d": (None,) + conv_bound,
+        "sparse_conv3d_map": (None,) + map_bound,
         "sorted_segment_sum_dense": (
-            cuda_ms(lambda: acc.index_add_(0, tgt, rows2d), 10),) + bound(
+            cuda_ms(index_add_call(keys, rows, cells), 10),) + bound(
                 scatter_bytes(keys, cells, c, table.numel())),
     }
-    errs = {"sparse_conv3d": err, "sorted_segment_sum_dense": k7_err}
+    errs = {"sparse_conv3d": err, "sparse_conv3d_map": 0.0,
+            "sorted_segment_sum_dense": k7_err}
     log("  dense BEV at B={} N={} cells={} C={}: valid rows {}; on random "
         "keys max_abs_err {:.3e} against a largest value of {:.3e} "
         "(tolerance 1e-5 of it)".format(
             b, n, cells, c, int(inside.sum()), rnd_err,
             rnd_ref.abs().max().item()))
-    report(("sorted_segment_sum_dense",), errs, times, extra)
+    report(VX_KERNELS, errs, times, extra)
     return errs, times, extra
 
 
@@ -1360,9 +1450,9 @@ def phase_voxels(device):
     log("phase 7: voxels per scan before the cap of {}: {}".format(
         model.voxelizer.max_num_voxels_for(False),
         voxels_per_scan(model, points)))
-    convs, bevs = capture_vx_inputs(model, points)
-    errs, times, extra = phase_vx_kernels(convs, bevs)
-    del convs, bevs
+    convs, maps, bevs = capture_vx_inputs(model, points)
+    errs, times, extra = phase_vx_kernels(convs, maps, bevs)
+    del convs, maps, bevs
 
     _build.reset_launches()
     out = model.test_forward({"data": points})
@@ -1371,7 +1461,10 @@ def phase_voxels(device):
     kept = check_cp_outputs(out, post, VX_BATCH)
     log("  test_forward through the kernels: launches {}; boxes NMS kept "
         "per scan (of {}) {}".format(launches, 6 * post, kept))
+    # 21 convs over 8 maps: one a subm key set (stage 1's conv_input and
+    # blocks, each later stage's blocks) and one a strided conv
     check(launches["sparse_conv3d"] == 21 and
+          launches["sparse_conv3d_map"] == 8 and
           launches["sorted_segment_sum_dense"] == 1,
           "the voxel path missed a kernel: {}".format(launches))
     check(launches["sorted_segment_sum"] == 0,
@@ -1645,42 +1738,42 @@ def ts_stages(model, points):
 
 
 def phase_kitti_voxel_kernels(model, points):
-    """K8 at the eight conv shapes of the KITTI voxel grid and the dense
-    BEV's segment sum (K2 or K7, as the density rule picks), on the inputs
-    a forward hands them, against their plain versions; logged beside the
+    """K8 at the eight conv calls of the KITTI voxel grid (map kernel at its
+    seven builds) and the dense BEV's segment sum (K2 or K7, as the density
+    rule picks), on the inputs a forward hands them, against their plain
+    versions (the conv bit-equal, the map index-equal); logged beside the
     nuScenes shapes of phase 7, which stay the ones in the record."""
     import torch
 
-    from paddle3d_tpu_torch.ops import sorted_scatter, sparse_conv
-    convs, bevs = capture_vx_inputs(model, points, 8)
-    tol = KERNELS["sparse_conv3d"][2]
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    convs, maps, bevs = capture_vx_inputs(model, points, 8, 7)
     ms = plain_ms = tot_bytes = tot_ops = 0.0
     for a, k in convs:
-        qbase, in_keys, feats, w = a[:4]
-        cin, cout = feats.shape[-1], w.shape[-1]
-        got = sparse_conv.sparse_conv3d(*a, **k)
-        ref = sparse_conv.sparse_conv3d_plain(*a, **k)
-        torch.cuda.synchronize()
-        e, top = (got - ref).abs().max().item(), ref.abs().max().item()
-        check(e <= tol * top, "sparse_conv3d disagrees with its plain "
-              "version on the KITTI grid: {:.3e} of {:.3e}".format(e, top))
-        t = cuda_ms(lambda: sparse_conv.sparse_conv3d(*a, **k), 10)
-        tp = cuda_ms(lambda: sparse_conv.sparse_conv3d_plain(*a, **k), 1)
-        nbytes, taps, _, valid = conv_work(a)
-        one = bound(nbytes, f32_ops=2 * cin * cout * sum(taps))
-        ms, plain_ms = ms + t, plain_ms + tp
-        tot_bytes += nbytes
-        tot_ops += 2 * cin * cout * sum(taps)
+        one = conv_case(a, k)
+        ms, plain_ms = ms + one["ms"], plain_ms + one["plain_ms"]
+        tot_bytes += one["bytes"]
+        tot_ops += one["ops"]
+        bnd = bound(one["bytes"], f32_ops=one["ops"])
         log("  sparse conv {} x {} -> {} ({}): {:.4f} / {:.4f} ms, bound "
-            "{:.4f} ms ({}), valid rows {}, hits a row {:.2f}, max_abs_err "
-            "{:.3e} of {:.3e}".format(
-                qbase.shape[1], cin, cout,
-                "subm" if qbase is in_keys else "strided", t, tp, one[0],
-                one[1], valid, sum(taps) / max(valid, 1), e, top))
+            "{:.4f} ms ({}), valid rows {}, hits a row {:.2f}, products "
+            "computed / needed {:.3f}, max_abs_err {:.3e} of {:.3e}".format(
+                a[0].shape[1], a[2].shape[-1], a[3].shape[-1],
+                "subm" if a[0] is a[1] else "strided", one["ms"],
+                one["plain_ms"], bnd[0], bnd[1], one["valid"],
+                sum(one["taps"]) / max(one["valid"], 1), one["computed"],
+                one["err"], one["top"]))
+    map_ms = map_plain_ms = map_bytes = 0.0
+    for m in maps:
+        t, tp, nbytes = map_case(m)
+        map_ms, map_plain_ms, map_bytes = (map_ms + t, map_plain_ms + tp,
+                                           map_bytes + nbytes)
     both = bound(tot_bytes, f32_ops=tot_ops)
-    log("  sparse_conv3d on the KITTI grid, 8 launches a forward: {:.4f} ms "
-        "against plain {:.4f} ms, bound {:.4f} ms ({})".format(
-            ms, plain_ms, both[0], both[1]))
+    log("  sparse_conv3d on the KITTI grid, 8 conv and 7 map launches a "
+        "forward: {:.4f} ms (conv {:.4f}, map {:.4f}) against plain {:.4f} "
+        "ms (conv {:.4f}, map {:.4f}), conv bound {:.4f} ms ({}), map bound "
+        "{:.4f} ms (bytes); bit-equal".format(
+            ms + map_ms, ms, map_ms, plain_ms + map_plain_ms, plain_ms,
+            map_plain_ms, both[0], both[1], bound(map_bytes)[0]))
     keys, rows, cells = bevs[0]
     b, n, c = rows.shape
     name = sorted_scatter.kernel_for(n, cells)
@@ -2217,7 +2310,8 @@ IOU_CLIP_OPS = 22 * (4 + 8 + 16 + 32) + 4 * 64 + 2
 # no K10 or pillar kernel
 TST_LAUNCHES = {"pairwise_intersection_area": 1, "ball_query": 2,
                 "sorted_table_gather": 1, "sparse_conv3d": 0,
-                "farthest_point_sample": 0, "fused_pfn_rows": 0,
+                "sparse_conv3d_map": 0, "farthest_point_sample": 0,
+                "fused_pfn_rows": 0,
                 "fused_pfn_rows_2l": 0, "pfn_stats": 0, "pfn_bwd": 0,
                 "sorted_segment_sum_cm": 0, "seg_window_max": 0,
                 "seg_window_max_bwd": 0}
@@ -2667,6 +2761,63 @@ def gather_inputs(device, b, a, c, k):
             torch.from_numpy(idx).to(device))
 
 
+def host_us(fn, n=2000):
+    """Host-clock microseconds a call of fn, over n calls after a warm-up,
+    the queue drained before and after (the device keeps up with a call
+    this small, so this is the host's cost of issuing it)."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def k14_host_parts(src, idx):
+    """K14's launch path at a launch-bound shape, part by part (host us a
+    call), beside the library call's and the stream routes' costs."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, gather
+    b, a, c = src.shape
+    k = idx.shape[1]
+    out = gather.gather_rows(src, idx)
+    fn = _build.function("p3d_gather_rows")
+    args = (src.data_ptr(), *src.stride(), idx.data_ptr(), out.data_ptr(), b,
+            a, k, c, _build.stream_ptr(src.device))
+    index = idx.long()[..., None].expand(-1, -1, c)
+    dev, i = src.device, src.device.index
+    parts = (
+        ("gather_rows", lambda: gather.gather_rows(src, idx)),
+        ("its checks", lambda: (
+            src.dtype is not torch.float32 or idx.dtype is not torch.int32 or
+            src.dim() != 3 or idx.dim() != 2 or
+            idx.shape[0] != src.shape[0] or not idx.is_contiguous() or
+            idx.device != src.device)),
+        ("new_empty", lambda: src.new_empty((b, k, c))),
+        ("_build.function", lambda: _build.function("p3d_gather_rows")),
+        ("stream_ptr", lambda: _build.stream_ptr(dev)),
+        ("pointers and strides", lambda: (
+            src.data_ptr(), src.stride(), idx.data_ptr(), out.data_ptr())),
+        ("ctypes call and launch", lambda: fn(*args)),
+        ("torch.gather, int64 index made inside", lambda: torch.gather(
+            src, 1, idx.long()[..., None].expand(-1, -1, c))),
+        ("torch.gather, index given", lambda: torch.gather(src, 1, index)),
+        ("current_stream(device).cuda_stream (the torch.device route)",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("current_stream(index).cuda_stream",
+         lambda: torch.cuda.current_stream(i).cuda_stream),
+        ("torch._C._cuda_getCurrentRawStream (private)",
+         lambda: torch._C._cuda_getCurrentRawStream(i)),
+    )
+    log("  K14 launch path at B={} A={} C={} K={}, host us a call: {}".format(
+        b, a, c, k, ", ".join("{} {:.3f}".format(name, host_us(f))
+                              for name, f in parts)))
+
+
 def phase_ops(device):
     """K13 and K14 as ops: each called once a case through its entry point
     (the launches the record counts), then held against its plain version
@@ -2695,13 +2846,9 @@ def phase_ops(device):
         ref = sorted_scatter.sorted_segment_sum_rw_plain(keys, rows_cm, c,
                                                          cells)
         k6 = sorted_scatter.sorted_segment_sum_cm(keys, rows_cm, cells, c=c)
-        rows = rows_cm.transpose(1, 2).reshape(-1, c).contiguous()
+        lib_call = index_add_call(keys, rows_cm, cells, True)
         inside = (keys >= 0) & (keys < cells)
-        tgt = (torch.where(inside, keys, cells).long() + torch.arange(
-            b, device=keys.device)[:, None] * (cells + 1)).reshape(-1)
-        acc = torch.zeros((b * (cells + 1), c), device=keys.device)
-        acc.index_add_(0, tgt, rows)
-        lib = acc.view(b, cells + 1, c)[:, :cells]
+        lib = lib_call().view(b, cells + 1, c)[:, :cells]
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         lib_err = (out - lib).abs().max().item()
@@ -2717,43 +2864,49 @@ def phase_ops(device):
                  keys, rows_cm, c, cells), 20),
              cuda_ms(lambda: sorted_scatter.sorted_segment_sum_rw_plain(
                  keys, rows_cm, c, cells), 3),
-             cuda_ms(lambda: acc.index_add_(0, tgt, rows), 20),
+             cuda_ms(lib_call, 20),
              cuda_ms(lambda: sorted_scatter.sorted_segment_sum_cm(
                  keys, rows_cm, cells, c=c), 20))
         bnd = bound(scatter_bytes(keys, cells, c, out.numel()))
         log("  K13 at B={} N={} C={} cells={} (longest segment {} rows): "
             "bit-equal to the row-order sum and to K6, index_add_ "
-            "max_abs_err {:.3e}; {:.4f} ms (plain {:.4f}, index_add_ on the "
-            "transposed rows {:.4f}, K6 {:.4f}), bound {:.4f} ms ({})".format(
+            "max_abs_err {:.3e}; {:.4f} ms (plain {:.4f}, index_add_ from "
+            "the channel-major rows to a fresh table {:.4f}, K6 {:.4f}), "
+            "bound {:.4f} ms ({})".format(
                 b, n, c, cells, longest, lib_err, *t, *bnd))
         errs["sorted_segment_sum_rw"] = max(
             errs.get("sorted_segment_sum_rw", 0.0), err)
         if i == 0:
             times["sorted_segment_sum_rw"] = t[:2]
             extra["sorted_segment_sum_rw"] = (t[2],) + bnd
-        del ref, k6, rows, acc, lib
+        del ref, k6, lib
     del rw, outs_rw
     for i, ((src, idx), (b, a, c, k), out) in enumerate(zip(
             gt, GATHER_CASES, outs_g)):
         ref = gather.gather_rows_plain(src, idx)
-        index = idx.long()[..., None].expand(-1, -1, c)
-        lib = torch.gather(src, 1, index)
+
+        def lib_call():     # the int64 expanded index made inside, timed
+            return torch.gather(src, 1, idx.long()[..., None].expand(
+                -1, -1, c))
+        lib = lib_call()
         torch.cuda.synchronize()
         check(torch.equal(out, ref), "K14 differs from its plain version")
         check(torch.equal(out, lib), "K14 differs from torch.gather")
         t = (cuda_ms(lambda: gather.gather_rows(src, idx), 50),
              cuda_ms(lambda: gather.gather_rows_plain(src, idx), 20),
-             cuda_ms(lambda: torch.gather(src, 1, index), 50))
+             cuda_ms(lib_call, 50))
         # each index read once, each gathered row read once and written once
         bnd = bound(4 * b * k + 8 * b * k * c)
         log("  K14 at B={} A={} C={} K={}: equal to its plain version and "
-            "to torch.gather; {:.4f} ms (plain {:.4f}, torch.gather "
-            "{:.4f}), bound {:.4f} ms ({})".format(b, a, c, k, *t, *bnd))
+            "to torch.gather; {:.4f} ms (plain {:.4f}, torch.gather with its "
+            "int64 index made inside {:.4f}; factor {:.3f}), bound {:.4f} ms "
+            "({})".format(b, a, c, k, *t, t[0] / t[2], *bnd))
         errs["gather_rows"] = max(errs.get("gather_rows", 0.0),
                                   (out - ref).abs().max().item())
         if i == 0:
             times["gather_rows"] = t[:2]
             extra["gather_rows"] = (t[2],) + bnd
+            k14_host_parts(src, idx)
     report(OP_KERNELS, errs, times, extra)
     return errs, times, extra, launches
 
@@ -3005,14 +3158,14 @@ def main():
         pv_errs, pv_times, pv_extra, pv_launches = phase_two_stage(
             device, PV_RCNN, "PV-RCNN",
             {"ball_query": 7, "farthest_point_sample": 1,
-             "sparse_conv3d": 8})
+             "sparse_conv3d": 8, "sparse_conv3d_map": 7})
         for into, part in zip((errs, times, extra, launches),
                               (pv_errs, pv_times, pv_extra,
                                {k: pv_launches[k] for k in PT_KERNELS})):
             into.update(part)
         phase_two_stage(device, VOXEL_RCNN, "Voxel-RCNN",
                         {"ball_query": 2, "farthest_point_sample": 0,
-                         "sparse_conv3d": 8})
+                         "sparse_conv3d": 8, "sparse_conv3d_map": 7})
         phase_iassd(device)
         # K12 counted on the CenterPoint-pillars train path
         sw_errs, sw_times, sw_extra, sw_launches = phase_cp_train(device)

@@ -4,16 +4,22 @@ SparseConv3D, SparseBasicBlock).
 
 SparseTensor is the fixed-capacity sparse tensor of the JAX package:
 (features [B, V, C], coords [B, V, 3] (z, y, x), mask [B, V], grid
-(D, H, W)). In eval the convs take the fused form the JAX package's kernel
-path takes (BatchNorm scale folded into the weights, bias and shift added on
-valid rows, relu) through ops/sparse_conv.sparse_conv3d, which launches the
-sparse conv kernel on a CUDA tensor and takes its plain version on a CPU
-one. In train mode they take the gather route under autograd, as the JAX
-package trains them (ops/sparse: the K^3 neighbour rows gathered, one
-[V, K^3 * Cin] @ [K^3 * Cin, Cout] product), unfused: conv (+ bias, rows
-masked), then MaskedBatchNorm on batch statistics, then relu.
+(D, H, W)), plus, in eval, the neighbour map of its key set (`nbr`) once a
+submanifold conv has built it. In eval the convs take the fused form the
+JAX package's kernel path takes (BatchNorm scale folded into the weights,
+bias and shift added on valid rows, relu) through
+ops/sparse_conv.sparse_conv3d over a neighbour map from
+ops/sparse_conv.sparse_conv3d_map, which launch the sparse conv kernels on
+a CUDA tensor and take their plain versions on a CPU one: a submanifold
+conv reuses the map its input carries (`replace_features` keeps it, so
+every subm conv of a stage shares one), a strided conv builds its own and
+hands on none, its output key set being new. In train mode they take the
+gather route under autograd, as the JAX package trains them (ops/sparse:
+the K^3 neighbour rows gathered, one [V, K^3 * Cin] @ [K^3 * Cin, Cout]
+product), unfused: conv (+ bias, rows masked), then MaskedBatchNorm on
+batch statistics, then relu.
 """
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,9 +37,12 @@ class SparseTensor(NamedTuple):
     coords: torch.Tensor         # [B, V, 3] int32 (z, y, x)
     mask: torch.Tensor           # [B, V] bool
     grid: Tuple[int, int, int]   # (D, H, W)
+    # eval: the submanifold neighbour map [B, V, K^3] of this key set
+    nbr: Optional[torch.Tensor] = None
 
     def replace_features(self, feats):
-        return SparseTensor(feats, self.coords, self.mask, self.grid)
+        """The same key set (and its map) with new features."""
+        return self._replace(features=feats)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -153,12 +162,16 @@ class SparseConv3D(nn.Module):
             b = self.bias if scale is None else self.bias * scale
             shift = b if shift is None else shift + b
         d, h, w = st.grid
+        ks = self.kernel_size
         keys = self._lin_keys(st.coords, st.mask, st.grid)
         if all(s == 1 for s in self.stride):
+            nbr = st.nbr
+            if nbr is None or nbr.shape[-1] != ks ** 3:
+                nbr = _sparse_conv.sparse_conv3d_map(keys, keys, d, h, w, ks)
             out = _sparse_conv.sparse_conv3d(
-                keys, keys, st.features, self.weight, d, h, w,
-                self.kernel_size, scale=scale, shift=shift, relu=relu)
-            return st.replace_features(out)
+                keys, keys, st.features, self.weight, d, h, w, ks,
+                scale=scale, shift=shift, relu=relu, nbr=nbr)
+            return st._replace(features=out, nbr=nbr)
         sz, sy, sx = self.stride
         new_grid = (max(d // sz, 1), h // sy, w // sx)
         cap = self.out_capacity or st.features.shape[1]
@@ -167,8 +180,9 @@ class SparseConv3D(nn.Module):
         stride_v = torch.tensor(self.stride, dtype=oc.dtype, device=oc.device)
         qb = self._lin_keys(oc * stride_v, om, st.grid)
         feats = _sparse_conv.sparse_conv3d(
-            qb, keys, st.features, self.weight, d, h, w, self.kernel_size,
-            scale=scale, shift=shift, relu=relu)
+            qb, keys, st.features, self.weight, d, h, w, ks, scale=scale,
+            shift=shift, relu=relu,
+            nbr=_sparse_conv.sparse_conv3d_map(qb, keys, d, h, w, ks))
         return SparseTensor(feats, oc, om, new_grid)
 
 

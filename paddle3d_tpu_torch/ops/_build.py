@@ -21,7 +21,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "library", "check", "stream_ptr"]
+__all__ = ["LAUNCHES", "reset_launches", "library", "function", "check",
+           "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -34,6 +35,7 @@ LAUNCHES = {"fused_pfn_rows": 0, "fused_pfn_rows_2l": 0,
             "sorted_segment_sum": 0, "pfn_stats": 0, "pfn_bwd": 0,
             "sorted_table_gather": 0, "sorted_segment_sum_cm": 0,
             "sorted_segment_sum_dense": 0, "sparse_conv3d": 0,
+            "sparse_conv3d_map": 0,
             "ball_query": 0, "farthest_point_sample": 0,
             "seg_window_max": 0, "seg_window_max_bwd": 0,
             "pairwise_intersection_area": 0, "sorted_segment_sum_rw": 0,
@@ -61,8 +63,9 @@ _SIGNATURES = {
                                   _i, _i, _vp),
     "p3d_sorted_segment_sum_dense": (_vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                      _vp),
+    "p3d_sparse_conv_map": (_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
     "p3d_sparse_conv3d": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                          _i, _i, _i, _i, _i, _vp),
+                          _i, _i, _i, _vp),
     "p3d_ball_query": (_vp, _vp, _vp, _vp, _vp, _f, _i, _i, _i, _i, _vp),
     "p3d_farthest_point_sample": (_vp, _vp, _vp, _vp, _i, _i, _i, _vp),
     "p3d_seg_window_max": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
@@ -74,6 +77,8 @@ _SIGNATURES = {
 }
 
 _lib = None
+#: the exported functions, bound once when the library loads
+_functions = {}
 #: nvcc's output of the build this process ran (ptxas registers / smem)
 build_log = ""
 
@@ -150,10 +155,21 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _functions[name] = fn
         lib.p3d_error_string.argtypes = (ctypes.c_int,)
         lib.p3d_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def function(name: str):
+    """The exported function `name` of the library (built and bound on
+    first use): one dict lookup a call after that."""
+    fn = _functions.get(name)
+    if fn is None:
+        library()
+        fn = _functions[name]
+    return fn
 
 
 def check(err: int, name: str):
@@ -164,4 +180,8 @@ def check(err: int, name: str):
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on `device`. Every public
+    route builds a torch.cuda.Stream; given the device index as an int,
+    current_stream skips the parsing of a torch.device, the larger part of
+    its host cost (chip_smoke.py phase 12 times both)."""
+    return torch.cuda.current_stream(device.index).cuda_stream

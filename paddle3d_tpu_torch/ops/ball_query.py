@@ -39,7 +39,7 @@ def _launch(radius, nsample, xyz, new_xyz, xyz_mask):
     m = new_xyz.shape[1]
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
-    err = _build.library().p3d_ball_query(
+    err = _build.function("p3d_ball_query")(
         xyz.data_ptr(), new_xyz.data_ptr(), xyz_mask.data_ptr(),
         idx.data_ptr(), cnt.data_ptr(), radius * radius, b, n, m, nsample,
         _build.stream_ptr(xyz.device))

@@ -40,7 +40,7 @@ def _launch(xyz, mask, npoint):
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     scratch = (torch.empty((b, n), dtype=torch.float32, device=xyz.device)
                if n > _REGISTER_POINTS else None)
-    err = _build.library().p3d_farthest_point_sample(
+    err = _build.function("p3d_farthest_point_sample")(
         xyz.data_ptr(), mask.data_ptr(), idx.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, b, n, npoint,
         _build.stream_ptr(xyz.device))

@@ -167,17 +167,16 @@ def fused_pfn_rows(keys, pts_t, w1t, b1, w2t=None, b2=None, *, n_layers, P,
     vox = pillar_ordinals(keys)
     out = torch.empty((b, u_out + int(occupancy), n), dtype=torch.float32,
                       device=keys.device)
-    lib = _build.library()
     geo = (nx, vx, vy, x_off, y_off, int(with_distance), int(occupancy),
            _build.stream_ptr(keys.device))
     if n_layers == 1:
-        err = lib.p3d_fused_pfn_rows(
+        err = _build.function("p3d_fused_pfn_rows")(
             keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
             w1t.data_ptr(), b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec,
             u1, P, maxV, *geo)
         name = "fused_pfn_rows"
     else:
-        err = lib.p3d_fused_pfn2_rows(
+        err = _build.function("p3d_fused_pfn2_rows")(
             keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
             w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             out.data_ptr(), b, n, c_in, c_dec, u1, u_out, P, maxV, *geo)

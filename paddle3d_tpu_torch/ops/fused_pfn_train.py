@@ -87,7 +87,7 @@ def pfn_stats(keys, pts_t, w1t, *, P, maxV, nx, vx, vy, x_off, y_off,
     nblk = -(-n // 64)                      # csrc/fused_pfn_train.cu kRows
     out = torch.empty((b, nblk, 4 + c_dec, u1), dtype=torch.float64,
                       device=keys.device)
-    err = _build.library().p3d_pfn_stats(
+    err = _build.function("p3d_pfn_stats")(
         keys.data_ptr(), pts_t.data_ptr(), pillar_ordinals(keys).data_ptr(),
         w1t.data_ptr(), out.data_ptr(), b, n, c_in, c_dec, u1, P, maxV, nx,
         vx, vy, x_off, y_off, int(with_distance),
@@ -149,7 +149,7 @@ def pfn_bwd(keys, pts_t, g_t, w1t, a, c, mu, invsig, *, P, maxV, nx, vx, vy,
     nblk = -(-n // 64)                      # csrc/fused_pfn_train.cu kRows
     out = torch.empty((b, nblk, 2 + c_dec, u1), dtype=torch.float64,
                       device=keys.device)
-    err = _build.library().p3d_pfn_bwd(
+    err = _build.function("p3d_pfn_bwd")(
         keys.data_ptr(), pts_t.data_ptr(), pillar_ordinals(keys).data_ptr(),
         w1t.data_ptr(), a.data_ptr(), c.data_ptr(), mu.data_ptr(),
         invsig.data_ptr(), g_t.data_ptr(), *g_t.stride(), out.data_ptr(), b,

@@ -31,27 +31,39 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(inside[..., None], rows, float("nan"))
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """src [B, A, C] f32 (possibly a strided view) x idx [B, K] int32 ->
-    [B, K, C]: out[b, i] = src[b, idx[b, i]], out-of-range indices as the
-    module docstring says."""
-    if not src.is_cuda:
-        return gather_rows_plain(src, idx)
+def _refuse(src, idx):
+    """Raise the error that names what the kernel cannot take."""
     if src.dtype != torch.float32 or idx.dtype != torch.int32:
         raise TypeError("gather_rows kernel takes f32 rows and int32 "
                         "indices, got {} and {}".format(src.dtype, idx.dtype))
     if src.dim() != 3 or idx.dim() != 2 or idx.shape[0] != src.shape[0]:
         raise ValueError("src [B, A, C] and idx [B, K] expected, got {} and "
                          "{}".format(tuple(src.shape), tuple(idx.shape)))
-    if idx.device != src.device or not idx.is_contiguous():
-        raise ValueError("gather_rows needs contiguous indices on the "
-                         "rows' device")
+    raise ValueError("gather_rows needs contiguous indices on the rows' "
+                     "device")
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src [B, A, C] f32 (possibly a strided view) x idx [B, K] int32 ->
+    [B, K, C]: out[b, i] = src[b, idx[b, i]], out-of-range indices as the
+    module docstring says."""
+    if not src.is_cuda:
+        return gather_rows_plain(src, idx)
+    # the launch is a few microseconds of host work at small shapes: the
+    # argument checks are one expression (the error is named only on the
+    # way out), the function is bound once (_build.function)
+    if (src.dtype is not torch.float32 or idx.dtype is not torch.int32 or
+            src.dim() != 3 or idx.dim() != 2 or
+            idx.shape[0] != src.shape[0] or not idx.is_contiguous() or
+            idx.device != src.device):
+        _refuse(src, idx)
     b, a, c = src.shape
     k = idx.shape[1]
-    out = torch.empty((b, k, c), dtype=torch.float32, device=src.device)
-    err = _build.library().p3d_gather_rows(
+    out = src.new_empty((b, k, c))
+    err = _build.function("p3d_gather_rows")(
         src.data_ptr(), *src.stride(), idx.data_ptr(), out.data_ptr(), b, a,
         k, c, _build.stream_ptr(src.device))
-    _build.check(err, "gather_rows")
+    if err:
+        _build.check(err, "gather_rows")
     _build.LAUNCHES["gather_rows"] += 1
     return out

@@ -106,7 +106,7 @@ def _launch(ca, cb):
     cb3 = cb.reshape(-1, m, 4, 2).contiguous()
     b = ca3.shape[0]
     out = torch.empty((b, n, m), dtype=torch.float32, device=ca.device)
-    err = _build.library().p3d_pairwise_intersection_area(
+    err = _build.function("p3d_pairwise_intersection_area")(
         ca3.data_ptr(), cb3.data_ptr(), out.data_ptr(), b, n, m,
         _build.stream_ptr(ca.device))
     _build.check(err, "pairwise_intersection_area")

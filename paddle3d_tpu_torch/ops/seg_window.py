@@ -121,7 +121,7 @@ def seg_window_max_fwd(vals: torch.Tensor, keys: torch.Tensor, max_len: int):
                          "int8 offsets (max_len <= 128)".format(win))
     out = torch.empty_like(vals)
     off = torch.empty(vals.shape, dtype=torch.int8, device=vals.device)
-    err = _build.library().p3d_seg_window_max(
+    err = _build.function("p3d_seg_window_max")(
         vals.data_ptr(), keys.data_ptr(), out.data_ptr(), off.data_ptr(), b,
         n, c, _steps_for(max_len), _build.stream_ptr(vals.device))
     _build.check(err, "seg_window_max")
@@ -143,7 +143,7 @@ def seg_window_max_bwd(off: torch.Tensor, g: torch.Tensor,
     if win > _MAX_WIN:
         raise ValueError("seg_window_max_bwd: max_len <= 128")
     out = torch.empty_like(g)
-    err = _build.library().p3d_seg_window_max_bwd(
+    err = _build.function("p3d_seg_window_max_bwd")(
         off.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, c, win,
         _build.stream_ptr(g.device))
     _build.check(err, "seg_window_max_bwd")

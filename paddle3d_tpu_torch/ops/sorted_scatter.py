@@ -101,7 +101,7 @@ def _launch(keys, rows, num_cells, split):
     extra = (torch.empty((b, num_cells, 1), dtype=rows.dtype,
                          device=rows.device) if split else None)
     name = kernel_for(n, num_cells)
-    err = getattr(_build.library(), "p3d_" + name)(
+    err = _build.function("p3d_" + name)(
         keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
         extra.data_ptr() if split else None, b, n, c, num_cells,
         _build.stream_ptr(keys.device))
@@ -161,7 +161,7 @@ def sorted_table_gather(keys, g, g_extra, num_cells: int, c: int):
                          "tensors on one device")
     out = torch.empty((b, n, c), dtype=torch.float32, device=keys.device)
     es = g_extra.stride()[:2] if g_extra is not None else (0, 0)
-    err = _build.library().p3d_sorted_table_gather(
+    err = _build.function("p3d_sorted_table_gather")(
         keys.data_ptr(), g.data_ptr(), *g.stride(),
         g_extra.data_ptr() if g_extra is not None else None, *es,
         out.data_ptr(), b, n, c, c_main, num_cells,
@@ -256,7 +256,7 @@ def sorted_segment_sum_cm(keys: torch.Tensor, rows_cm: torch.Tensor,
                       dtype=torch.float32, device=keys.device)
     extra = (torch.empty((b, num_cells, 1), dtype=torch.float32,
                          device=keys.device) if split_last else None)
-    err = _build.library().p3d_sorted_segment_sum_cm(
+    err = _build.function("p3d_sorted_segment_sum_cm")(
         keys.data_ptr(), rows_cm.data_ptr(), *rows_cm.stride(),
         out.data_ptr(), extra.data_ptr() if split_last else None, b, n, c,
         num_cells, _build.stream_ptr(keys.device))
@@ -325,7 +325,7 @@ def sorted_segment_sum_rw(keys: torch.Tensor, rows_cm: torch.Tensor, c: int,
                          "rows on the same device")
     out = torch.empty((b, num_cells, c), dtype=torch.float32,
                       device=keys.device)
-    err = _build.library().p3d_sorted_segment_sum_rw(
+    err = _build.function("p3d_sorted_segment_sum_rw")(
         keys.data_ptr(), rows_cm.data_ptr(), *rows_cm.stride(),
         out.data_ptr(), b, n, c, num_cells, _build.stream_ptr(keys.device))
     _build.check(err, "sorted_segment_sum_rw")

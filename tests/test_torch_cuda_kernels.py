@@ -385,15 +385,166 @@ def test_sparse_conv3d_matches_plain(cuda, case, fused):
 
 
 def test_sparse_conv3d_refuses_what_it_cannot_take(cuda):
+    """The conv and map kernels raise on CUDA inputs they cannot take
+    (type, output width, contiguity, a map of another type or shape) and
+    never take the plain version on the card: no launch is counted."""
     from paddle3d_tpu_torch.ops import sparse_conv
     keys = torch.arange(8, dtype=torch.int32, device=cuda)[None]
     feats = torch.zeros((1, 8, 4), device=cuda)
+    w = torch.zeros((108, 16), device=cuda)
+    nbr = sparse_conv.sparse_conv3d_map(keys, keys, 2, 2, 2, 3)
+    before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="multiple of 16"):
         sparse_conv.sparse_conv3d(keys, keys, feats, torch.zeros(
             (108, 24), device=cuda), 2, 2, 2, 3)
     with pytest.raises(TypeError, match="f32"):
         sparse_conv.sparse_conv3d(keys, keys, feats.double(), torch.zeros(
             (108, 16), device=cuda, dtype=torch.float64), 2, 2, 2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_conv.sparse_conv3d(keys, keys, torch.zeros(
+            (1, 4, 8), device=cuda).transpose(1, 2), w, 2, 2, 2, 3)
+    with pytest.raises(TypeError, match="int32 map"):
+        sparse_conv.sparse_conv3d(keys, keys, feats, w, 2, 2, 2, 3,
+                                  nbr=nbr.long())
+    with pytest.raises(ValueError, match="nbr"):
+        sparse_conv.sparse_conv3d(keys, keys, feats, w, 2, 2, 2, 3,
+                                  nbr=nbr[..., :1].contiguous())
+    with pytest.raises(TypeError, match="int32 keys"):
+        sparse_conv.sparse_conv3d_map(keys.long(), keys.long(), 2, 2, 2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        sparse_conv.sparse_conv3d_map(keys[:, ::2], keys, 2, 2, 2, 3)
+    with pytest.raises(ValueError, match="kernel_size"):
+        sparse_conv.sparse_conv3d_map(keys, keys, 2, 2, 2, 5)
+    assert _build.LAUNCHES == before
+
+
+def _map_case(name):
+    """(qbase, in_keys, grid, kernel_size) of a MAP_CASES entry, on the
+    CPU."""
+    from paddle3d_tpu_torch.models.layers.sparse_layers import SparseConv3D
+    from paddle3d_tpu_torch.ops.sparse import downsample_coords
+    grid, ks, stride, planes = MAP_CASES[name]
+    if name == "grid_edges":
+        # every voxel of a small grid: a neighbour that wrapped across an x
+        # or y edge would land on a present key
+        d, h, w = grid
+        lin = np.arange(d * h * w)
+        coords = torch.from_numpy(np.stack(
+            [lin // (h * w), lin // w % h, lin % w], -1).astype(np.int32))
+        coords = coords[None].repeat(2, 1, 1)
+        mask = torch.ones((2, d * h * w), dtype=torch.bool)
+        mask[1, 50:] = False
+        keys = SparseConv3D._lin_keys(coords, mask, grid)
+    else:
+        coords, mask, keys, _ = _voxel_set(3, grid, dense_planes=planes)
+        if name == "all_padding":
+            mask[1, 40:] = False           # tiles of padding rows only
+            keys = SparseConv3D._lin_keys(coords, mask, grid)
+    if stride == 1:
+        qbase = keys if planes == 0 else keys[:, ::37].contiguous()
+    else:
+        oc, om = downsample_coords(coords, mask, grid, stride, 1500)
+        sv = torch.tensor(stride if isinstance(stride, tuple) else
+                          (stride,) * 3, dtype=torch.int32)
+        qbase = SparseConv3D._lin_keys(oc * sv, om, grid)
+    return qbase, keys, grid, ks
+
+
+MAP_CASES = {   # name: (grid, kernel_size, stride, dense planes)
+    "subm": ((41, 64, 64), 3, 1, 0),
+    "subm_k1": ((9, 32, 32), 1, 1, 0),
+    "strided": ((41, 64, 64), 3, 2, 0),
+    "z_stride": ((5, 24, 24), 3, (2, 1, 1), 0),
+    "strided_k1": ((9, 32, 32), 1, 2, 0),
+    "long_spans": ((6, 40, 40), 3, 1, 2),
+    "all_padding": ((41, 64, 64), 3, 1, 0),
+    "grid_edges": ((4, 6, 5), 3, 1, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MAP_CASES))
+def test_sparse_conv_map_matches_neighbour_map(cuda, case):
+    """The map kernel equals neighbour_map element for element: K = 1 and
+    3, submanifold and strided, tiles of padding only, z-group spans of
+    more than 1,024 keys (dense planes under a sparse query set), and every
+    x and y edge of a full grid (no wrap across rows)."""
+    from paddle3d_tpu_torch.ops import sparse_conv
+    qbase, keys, grid, ks = _map_case(case)
+    if case == "long_spans":
+        assert keys.shape[1] > 1024 and 2 * 40 * 40 > 1024
+    ref = sparse_conv.neighbour_map(qbase, keys, *grid, ks)
+    before = _build.LAUNCHES["sparse_conv3d_map"]
+    got = sparse_conv.sparse_conv3d_map(qbase.to(cuda), keys.to(cuda), *grid,
+                                        ks)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_conv3d_map"] == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == tuple(ref.shape)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+    assert (ref >= 0).any()
+    if case == "all_padding":
+        assert (ref[1, 40:] == -1).all()
+    if case == "grid_edges":
+        assert (ref[0] >= 0).sum(dim=1).max() == 27
+
+
+def _hit_patterns(grid=(20, 40, 40), b=2, v=1200):
+    """Sorted voxel sets whose tiles hit one tap (isolated voxels: only the
+    centre), all 27 (the inside of dense 6 x 6 x 6 blocks) and none (a
+    scan of padding rows after a few voxels)."""
+    from paddle3d_tpu_torch.models.layers.sparse_layers import SparseConv3D
+    d, h, w = grid
+    iso = np.stack(np.meshgrid(np.arange(0, 6, 3), np.arange(0, 40, 3),
+                               np.arange(0, 40, 3), indexing="ij"),
+                   -1).reshape(-1, 3)
+    blk = np.stack(np.meshgrid(np.arange(10, 16), np.arange(10, 16),
+                               np.arange(10, 16), indexing="ij"),
+                   -1).reshape(-1, 3) + [0, 5, 20]
+    coords = np.zeros((b, v, 3), np.int32)
+    mask = np.zeros((b, v), bool)
+    scan0 = np.concatenate([iso, blk])
+    lin = scan0[:, 0] * h * w + scan0[:, 1] * w + scan0[:, 2]
+    scan0 = scan0[np.argsort(lin)]
+    coords[0, :len(scan0)] = scan0
+    mask[0, :len(scan0)] = True
+    coords[1, :5] = iso[:5]
+    mask[1, :5] = True
+    coords, mask = torch.from_numpy(coords), torch.from_numpy(mask)
+    return SparseConv3D._lin_keys(coords, mask, grid), grid
+
+
+@pytest.mark.parametrize("prebuilt", [False, True], ids=["own", "prebuilt"])
+@pytest.mark.parametrize("cin,cout", [(4, 16), (16, 32), (128, 48),
+                                      (4, 64), (16, 80), (128, 96),
+                                      (4, 112), (128, 128)])
+def test_sparse_conv3d_hits_only_matches_plain(cuda, cin, cout, prebuilt):
+    """K8 over a map, bit-equal to its plain version for every output width
+    and Cin 4 (float4 rows), 16 and 128 (four channel chunks), on tiles
+    whose rows hit one tap, all 27, or none, with the map built by the conv
+    itself or handed to it (no second map launch then)."""
+    from paddle3d_tpu_torch.ops import sparse_conv
+    keys, grid = _hit_patterns()
+    rng = np.random.default_rng(cin + cout)
+    feats = rng.normal(size=keys.shape + (cin,)).astype(np.float32)
+    feats[keys.numpy() >= np.prod(grid)] = 0.0
+    w = (rng.normal(size=(27 * cin, cout)) * .1).astype(np.float32)
+    shift = rng.normal(0, .5, cout).astype(np.float32)
+    args = (keys.to(cuda), keys.to(cuda), torch.from_numpy(feats).to(cuda),
+            torch.from_numpy(w).to(cuda), *grid, 3)
+    kw = dict(shift=torch.from_numpy(shift).to(cuda), relu=True)
+    nbr = sparse_conv.sparse_conv3d_map(*args[:2], *grid, 3)
+    hits = (nbr >= 0).sum(dim=-1)
+    assert hits.max() == 27 and (hits[0] == 1).any() and (hits[1] == 0).any()
+    before = dict(_build.LAUNCHES)
+    got = sparse_conv.sparse_conv3d(*args, **kw,
+                                    nbr=nbr if prebuilt else None)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 1
+    assert _build.LAUNCHES["sparse_conv3d_map"] == \
+        before["sparse_conv3d_map"] + (0 if prebuilt else 1)
+    ref = sparse_conv.sparse_conv3d_plain(*args, **kw)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert got.abs().max() > 0
+    assert not got[1, 5:].any()                 # padding rows exactly zero
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -521,6 +672,10 @@ def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):
         got = model._canvas(pts.to(cuda), False)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 21
+    # one map a key set: stage 1's five subm convs, each later stage's four,
+    # and the four strided convs
+    assert _build.LAUNCHES["sparse_conv3d_map"] == \
+        before["sparse_conv3d_map"] + 8
     _close(got.cpu(), ref, 1e-5)
     assert ref.abs().max() > 0
 
@@ -738,6 +893,8 @@ def test_two_stage_on_card_matches_cpu(cuda, tmp_path, name, k9, k10):
     assert _build.LAUNCHES["farthest_point_sample"] == \
         before["farthest_point_sample"] + k10
     assert _build.LAUNCHES["sparse_conv3d"] == before["sparse_conv3d"] + 8
+    assert _build.LAUNCHES["sparse_conv3d_map"] == \
+        before["sparse_conv3d_map"] + 7
     torch.testing.assert_close(got["label_preds"].cpu(), ref["label_preds"],
                                rtol=0, atol=0)
     torch.testing.assert_close(got["scores"].cpu(), ref["scores"],

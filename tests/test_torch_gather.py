@@ -78,3 +78,53 @@ def test_strided_source_and_cpu_takes_no_kernel(monkeypatch):
     np.testing.assert_array_equal(
         got.numpy(), np.take_along_axis(src[..., 2:9], idx[..., None], 1))
     assert _build.LAUNCHES["gather_rows"] == 0
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that the wrapper takes for a CUDA one: the launch path's
+    checks and call, without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_launch_path_refuses_and_binds_once(monkeypatch):
+    """gather_rows' one-expression checks still refuse int64 indices and
+    indices on another device before any launch; a call that passes them
+    reaches the function `_build` bound once, with the strides and sizes
+    the kernel takes; `_build.function` answers from its cache without
+    asking for the library again."""
+    calls = []
+
+    def no_build():
+        raise AssertionError("kernel library requested")
+
+    def fake_kernel(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setitem(_build._functions, "p3d_gather_rows", fake_kernel)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 7)
+    monkeypatch.setitem(_build.LAUNCHES, "gather_rows", 0)
+    src, idx = make_inputs(3, 2, 40, 12, 30)
+    src = torch.from_numpy(src).as_subclass(_CudaLooking)
+    idx = torch.from_numpy(idx)
+    with pytest.raises(TypeError, match="int32"):
+        gather.gather_rows(src, idx.long())
+    with pytest.raises(ValueError, match="device"):
+        gather.gather_rows(src, idx.to("meta"))
+    with pytest.raises(ValueError, match=r"\[B, A, C\]"):
+        gather.gather_rows(src[0], idx)
+    assert not calls and _build.LAUNCHES["gather_rows"] == 0
+    view = src[:, ::2, 3:10]
+    out = gather.gather_rows(view, idx)
+    assert tuple(out.shape) == (2, 30, 7) and out.is_contiguous()
+    (args,) = calls
+    assert args[1:4] == view.stride() and args[6:] == (2, 20, 30, 7, 7)
+    assert args[0] == view.data_ptr() and args[5] == out.data_ptr()
+    assert _build.LAUNCHES["gather_rows"] == 1
+    assert _build.function("p3d_gather_rows") is fake_kernel
+    with pytest.raises(AssertionError, match="library requested"):
+        _build.function("p3d_sparse_conv3d_not_cached")

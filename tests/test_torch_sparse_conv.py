@@ -6,6 +6,11 @@ its segmented scans, and the dense row-major segment sum (K7's plain
 version) against the Pallas kernel in interpret mode, with the density rule
 that picks K7 on the card.
 
+A prebuilt neighbour map (the map kernel's plain version) changes nothing:
+the plain conv with one equals the plain conv without one bit for bit, and
+the middle encoders, which build one map a key set and hand it on, equal
+the route where every conv builds its own.
+
 Tolerances: the sparse conv 1e-5 of the output's largest value (f32 sums of
 <= 27 * Cin products in another order: tap by tap here, one dot there);
 the Pallas kernel 2e-2, its own test's bf16 tolerance; downsample_coords
@@ -35,7 +40,9 @@ from paddle3d_tpu_torch.models.layers.sparse_layers import (MaskedBatchNorm,
                                                             SparseConv3D)
 from paddle3d_tpu_torch.models.voxel_encoders import VoxelMean
 from paddle3d_tpu_torch.ops import segmented, sorted_scatter, sparse
+from paddle3d_tpu_torch.ops import sparse_conv as sparse_conv_mod
 from paddle3d_tpu_torch.ops.sparse_conv import (neighbour_map, sparse_conv3d,
+                                                sparse_conv3d_map,
                                                 sparse_conv3d_plain)
 from paddle3d_tpu_torch.ops.voxelize import voxel_mean_batch
 
@@ -128,6 +135,124 @@ def test_plain_matches_gather_reference(case, fused):
     assert err <= 1e-5 * np.abs(ref).max(), err
     # padding rows stay exactly zero (the sentinel invariant downstream)
     assert not got.numpy()[~np.asarray(om)].any()
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_with_prebuilt_map_equals_without(case, fused):
+    """sparse_conv3d_plain (and sparse_conv3d on the CPU) given the
+    neighbour map of its keys equals it building its own, bit for bit; the
+    map entry takes neighbour_map on the CPU, int32 [B, Vq, K^3]; a map of
+    the wrong shape is refused."""
+    ksize, stride, cap = CASES[case]
+    keys, coords, mask, feats = make_set(6)
+    rng = np.random.default_rng(7)
+    cin, cout = feats.shape[-1], 32
+    w = torch.from_numpy((rng.normal(size=(ksize ** 3 * cin, cout)) * .2)
+                         .astype(np.float32))
+    scale, shift, relu = epilogue(rng, cout, fused)
+    t = (lambda a: None if a is None else torch.from_numpy(a))
+    d, h, w_ = GRID
+    qbase = keys
+    if stride != 1:
+        oc, om = sparse.downsample_coords(torch.from_numpy(coords),
+                                          torch.from_numpy(mask), GRID,
+                                          stride, cap)
+        sv = torch.tensor(stride if isinstance(stride, tuple) else
+                          (stride,) * 3, dtype=torch.int32)
+        qbase = SparseConv3D._lin_keys(oc * sv, om, GRID)
+    nbr = sparse_conv3d_map(qbase, keys, d, h, w_, ksize)
+    assert nbr.dtype == torch.int32
+    assert tuple(nbr.shape) == (2, qbase.shape[1], ksize ** 3)
+    assert torch.equal(nbr, neighbour_map(qbase, keys, d, h, w_, ksize))
+    args = (qbase, keys, torch.from_numpy(feats), w, d, h, w_, ksize)
+    kw = dict(scale=t(scale), shift=t(shift), relu=relu)
+    ref = sparse_conv3d_plain(*args, **kw)
+    assert ref.abs().max() > 0
+    torch.testing.assert_close(sparse_conv3d_plain(*args, **kw, nbr=nbr),
+                               ref, rtol=0, atol=0)
+    torch.testing.assert_close(sparse_conv3d(*args, **kw, nbr=nbr), ref,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="nbr"):
+        sparse_conv3d_plain(*args, **kw, nbr=nbr[:, 1:])
+
+
+def _encoder_inputs(seed, b=2, v=400, cin=5, grid=(17, 20, 20)):
+    """Sorted unique voxel coords per scan with a masked tail, and their
+    features (zero on padding rows)."""
+    rng = np.random.default_rng(seed)
+    d, h, w = grid
+    coords = np.zeros((b, v, 3), np.int32)
+    mask = np.zeros((b, v), bool)
+    for i in range(b):
+        lin = np.unique(rng.integers(0, d * h * w, 2 * v))[:v - 30 * (i + 1)]
+        coords[i, :len(lin)] = np.stack(
+            [lin // (h * w), lin // w % h, lin % w], -1)
+        mask[i, :len(lin)] = True
+    feats = rng.normal(size=(b, v, cin)).astype(np.float32)
+    feats[~mask] = 0.0
+    return (torch.from_numpy(feats), torch.from_numpy(coords),
+            torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("kind,maps", [("SparseResNet3D", 8),
+                                       ("SparseNet3D", 7)])
+def test_stage_map_reuse_matches_per_conv_maps(kind, maps, monkeypatch):
+    """The middle encoders in eval build one neighbour map a key set (the
+    submanifold convs of a stage share one; each strided conv builds its
+    own): 8 builds a SparseResNet3D forward over its 21 convs, 7 a
+    SparseNet3D forward over its 8. The BEV and every stage's features
+    equal, bit for bit, the route where each conv builds its own map."""
+    from paddle3d_tpu_torch.models.middle_encoders import sparse_resnet
+    cin = 5 if kind == "SparseResNet3D" else 4
+    enc = getattr(sparse_resnet, kind)(
+        in_channels=cin, voxel_size=(0.4, 0.4, 0.25),
+        point_cloud_range=(0, 0, -2, 8, 8, 2),
+        generator=torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, MaskedBatchNorm):
+                n = m.weight.shape[0]
+                m.weight.uniform_(.5, 1.5, generator=gen)
+                m.bias.normal_(0, .2, generator=gen)
+                m.running_mean.normal_(0, .2, generator=gen)
+                m.running_var.uniform_(.5, 1.5, generator=gen)
+                assert m.running_var.shape == (n,)
+    assert enc.grid == (17, 20, 20)
+    feats, coords, mask = _encoder_inputs(2, cin=cin)
+    built, convs = [], []
+    map_fn, conv_fn = sparse_conv_mod.sparse_conv3d_map, \
+        sparse_conv_mod.sparse_conv3d
+
+    def map_rec(*a):
+        built.append(a)
+        return map_fn(*a)
+
+    def conv_rec(*a, **k):
+        convs.append(k["nbr"])
+        return conv_fn(*a, **k)
+
+    monkeypatch.setattr(sparse_conv_mod, "sparse_conv3d_map", map_rec)
+    monkeypatch.setattr(sparse_conv_mod, "sparse_conv3d", conv_rec)
+    with torch.no_grad():
+        bev, stages = enc(feats, coords, mask, return_stages=True)
+    assert len(built) == maps
+    assert len(convs) == (21 if kind == "SparseResNet3D" else 8)
+    assert len({id(n) for n in convs}) == maps
+
+    def own_map(*a, nbr=None, **k):       # every conv builds its own map
+        return conv_fn(*a, **k)
+
+    monkeypatch.setattr(sparse_conv_mod, "sparse_conv3d", own_map)
+    with torch.no_grad():
+        ref_bev, ref_stages = enc(feats, coords, mask, return_stages=True)
+    assert bev.abs().max() > 0
+    torch.testing.assert_close(bev, ref_bev, rtol=0, atol=0)
+    for (st, s), (ref, r) in zip(stages, ref_stages):
+        assert s == r
+        torch.testing.assert_close(st.features, ref.features, rtol=0,
+                                   atol=0)
 
 
 @pytest.mark.parametrize("stride", [1, 2, (2, 1, 1)])
