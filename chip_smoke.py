@@ -29,7 +29,11 @@ non-zero and prints no result:
      K6 CenterPoint inference), with the stated tolerance; kernel, plain
      and library-call times and each kernel's bound (a scatter's library
      call, index_add_, goes from the kernel's own inputs to a fresh table:
-     index_add_call);
+     index_add_call); K2 bit for bit against the row-order sum
+     (row_order_sum, tolerance 0) here and at every later K2 call of a
+     path, each logged with its index_add_call factor, its bound and the
+     share of its 128-cell tiles that hold a row (here also each tile
+     size's time);
   3. the model's test_forward (eval BatchNorm) through the kernels (launch
      counters must move), then again with the plain versions swapped in:
      the outputs must agree; the tiny config's canvas on the card against
@@ -38,8 +42,9 @@ non-zero and prints no result:
      kernel path, with cuDNN autotuning on as a server would run;
   5. training (train BatchNorm, the config's Adam, clip and StepDecay):
      from one saved state, one train step through the kernels (all five
-     counters must move) and one on the plain versions (none may): losses,
-     grads and running stats must agree; the tiny config's train step on
+     counters must move; K2 held at the step's call) and one on the plain
+     versions (none may): losses, grads and running stats must agree; the
+     tiny config's train step on
      the card against the CPU path; 10 steps on the fixed batch (finite
      losses, the last below the first); train scans/s of both paths; peak
      memory and a profile of one step;
@@ -62,8 +67,10 @@ non-zero and prints no result:
   8. PV-RCNN then Voxel-RCNN KITTI serving: the ball query (K9) at each of
      its call shapes and farthest-point sampling (K10) on the inputs a
      forward hands them, against their plain versions (indices and counts
-     equal); K8 at the forward's 8 convs and 7 map builds (bit-equal,
-     index-equal); test_forward through the kernels (PV-RCNN: 7 K9
+     equal; K10 also at every cluster size that holds the scan, logged with
+     its plan, us a step and chain floor: the same picks over one point a
+     thread of the chosen cluster); K8 at the forward's 8 convs and 7 map
+     builds (bit-equal, index-equal); test_forward through the kernels (PV-RCNN: 7 K9
      launches, one K10, 8 K8 conv and 7 map launches and one row-major
      segment sum, K2 or K7 as the density rule picks; Voxel-RCNN: 2 K9, no
      K10) and on the plain versions (BEV,
@@ -91,14 +98,15 @@ non-zero and prints no result:
      kernel (K11) bit for bit against its plain version on the train step's
      own corners, at 8 x 1,000 x 1,000 clustered boxes and on a tie
      lattice; one Voxel-RCNN train step through the kernels (one K11, two
-     K9, the dense BEV's segment sum and its VJP; no K8: training takes the
-     gather route) against one on the plain versions from the same state
+     K9, the dense BEV's segment sum, K2 held at its call, and its VJP; no
+     K8: training takes the gather route) against one on the plain
+     versions from the same state
      and sampler seed (targets equal, losses, grads, running stats); 10
      steps with finite losses that fall and fg / hard-bg / easy-bg pools
      that are non-empty at every step; train scans/s of both paths, peak
      memory, a profile and the time of each stage; then PV-RCNN: 3 steps
-     with finite losses (K10 and K11 each step), its train scans/s, memory,
-     profile and stages;
+     with finite losses (K10 and K11 each step; the first step's K10 call
+     held as in phase 8), its train scans/s, memory, profile and stages;
  12. the row-window channel-major segment sum (K13) and the row gather
      (K14), which no model path reaches, as ops: each called once at two
      shapes through its entry point (the launches the record counts), K13
@@ -113,14 +121,16 @@ non-zero and prints no result:
  13. CenterPoint-voxels nuScenes training (the config's OneCycleAdam, clip
      35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): one train step
      through the kernels (the dense BEV's K2 or K7, as the density rule
-     picks, and its VJP K5; nothing else: the sparse convs train on the
-     gather route) against one on the plain versions from the same state
+     picks, held at its call, and its VJP K5; nothing else: the sparse
+     convs train on the gather route) against one on the plain versions
+     from the same state
      (targets equal, losses, grads, running stats); 10 steps with finite
      losses that fall; train scans/s of both paths, peak memory, a profile
      and the time of each stage;
  14. IA-SSD KITTI training (the config's AdamWOnecycle, clip 10 and
      OneCycle; bench.make_gt's boxes): one train step through the kernels
-     (10 K9, 3 K10) against one on the plain versions from the same state;
+     (10 K9, 3 K10, the three K10 calls held as in phase 9) against one on
+     the plain versions from the same state;
      10 steps with finite losses that fall; train scans/s of both paths,
      peak memory, a profile and the time of each stage.
 
@@ -167,16 +177,18 @@ HBM_BYTES_S, F32_FLOP_S, F64_FLOP_S = 3.35e12, 67e12, 34e12
 
 # kernel -> (source, replaced TPU kernel, tolerance against the plain
 # version). K1 runs the plain version's arithmetic in the same order
-# (bit-equal by design), K2 sums one non-zero row per canvas cell and K5 is
-# a gather (both exact); K3/K4 sum ~1e5 exact f64 products in another
+# (bit-equal by design), K5 is a gather (exact); K3/K4 sum ~1e5 exact f64
+# products in another
 # order, so their tolerance is relative: max |kernel - plain| <= tol *
 # max |plain|, per output.
 KERNELS = {
     "fused_pfn_rows": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
                        "paddle3d_tpu/ops/pallas/fused_pfn.py:133", 1e-5),
+    # K2 adds each cell's rows in row order from +0: bit-equal to
+    # row_order_sum at every call, tolerance 0
     "sorted_segment_sum": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                            "paddle3d_tpu/ops/pallas/sorted_scatter.py:54",
-                           1e-5),
+                           0.0),
     "pfn_stats": ("paddle3d_tpu_torch/csrc/fused_pfn_train.cu",
                   "paddle3d_tpu/ops/pallas/fused_pfn_train.py:54", 1e-9),
     "pfn_bwd": ("paddle3d_tpu_torch/csrc/fused_pfn_train.cu",
@@ -307,6 +319,25 @@ def index_add_call(keys, rows, cells, channel_major=False):
     return call
 
 
+def row_order_sum(keys, rows, cells):
+    """The segment sum of sorted keys [B, N] and rows [B, N, C] with each
+    cell's rows added one at a time in row order from +0, as K2, K6, K7 and
+    K13 add them: those kernels must agree with it bit for bit (index_add_
+    adds through atomics, in an order that changes from run to run)."""
+    import torch
+    b, n, c = rows.shape
+    keys = keys.long()
+    inside = (keys >= 0) & (keys < cells)
+    rank = torch.arange(n, device=keys.device) - torch.searchsorted(keys,
+                                                                     keys)
+    out = torch.zeros((b, cells, c), dtype=rows.dtype, device=rows.device)
+    batch = torch.arange(b, device=keys.device)[:, None].expand(b, n)
+    for j in range(int(rank[inside].max()) + 1 if inside.any() else 0):
+        m = inside & (rank == j)        # at most one row a cell
+        out[batch[m], keys[m]] += rows[m]
+    return out
+
+
 def segments(keys, P, maxV):
     """Pillar statistics of sorted keys [B, N]: -> dict of per-scan pillar
     counts before and after the max_voxels cap, kept rows (at most P per
@@ -405,14 +436,12 @@ def phase_kernels(model, points):
     ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
     rows = rows_t.transpose(1, 2).contiguous()
     table, occ = sorted_scatter.sorted_segment_sum_split(keys, rows, cells)
-    ref_table, ref_occ = sorted_scatter.scatter_rows_plain(keys, rows, cells,
-                                                           True)
     torch.cuda.synchronize()
     check(tuple(rows.shape) == (BATCH, POINTS, 65), "K1 output shape")
     errs = {
         "fused_pfn_rows": (rows_t - ref_t).abs().max().item(),
-        "sorted_segment_sum": max((table - ref_table).abs().max().item(),
-                                  (occ - ref_occ).abs().max().item()),
+        "sorted_segment_sum": k2_call("KITTI serving", keys, rows, cells,
+                                      True, tiles=True)[0],
     }
     times = {
         "fused_pfn_rows": (
@@ -882,6 +911,7 @@ def phase_train(points):
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import sorted_scatter
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     cfg = Config(path=KITTI, device=points.device)
@@ -891,8 +921,13 @@ def phase_train(points):
     batch = make_train_batch(points.device, points)
     restore = saved_state(model, optimizer, scheduler)
 
-    kernel = record_step(step, model, optimizer, batch)
+    with recorded(sorted_scatter, "scatter_rows") as k2s:
+        kernel = record_step(step, model, optimizer, batch)
     restore()
+    check(len(k2s) == 1, "expected one K2 call a train step, got {}".format(
+        len(k2s)))
+    k2_call("KITTI training", *k2s[0][0])
+    del k2s
     with plain_path():
         plain = record_step(step, model, optimizer, batch)
     restore()
@@ -1284,6 +1319,69 @@ def row_major_direct(name, keys, rows, cells):
     return out
 
 
+def k2_direct(keys, rows, cells, split, tile=0):
+    """K2 through its C entry (tile 0: its own tile size); a comparison
+    launch, so LAUNCHES is not touched. -> (table, last channel or None)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    b, n, c = rows.shape
+    out = torch.empty((b, cells, c - 1 if split else c), device=rows.device)
+    extra = torch.empty((b, cells, 1), device=rows.device) if split else None
+    _build.check(_build.function("p3d_sorted_segment_sum_tiled")(
+        keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        extra.data_ptr() if split else None, b, n, c, cells, tile,
+        _build.stream_ptr(keys.device)), "sorted_segment_sum")
+    return out, extra
+
+
+K2_TILES = (128, 256, 512)
+
+
+def k2_call(label, keys, rows, cells, split, tiles=False):
+    """K2 at one call of a path, on the inputs the path handed it: bit-equal
+    to the row-order sum (tolerance 0), its time, index_add_call's, their
+    factor and the bound, logged with the share of 128-cell tiles that hold
+    a row (and, with tiles, each tile size's time). -> (max_abs_err, ms,
+    library ms, bound ms, bound_by)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    keys, rows = keys.detach().contiguous(), rows.detach().contiguous()
+    b, n, c = rows.shape
+    check(sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum",
+          "{}: the density rule does not send this scan to K2".format(label))
+    out, extra = k2_direct(keys, rows, cells, split)
+    got = torch.cat([out, extra], dim=-1) if split else out
+    ref = row_order_sum(keys, rows, cells)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    check(err == 0.0, "{}: K2 differs from the row-order sum by {:.3e}"
+          .format(label, err))
+    del out, extra, got, ref
+    ms = cuda_ms(lambda: k2_direct(keys, rows, cells, split), 50)
+    lib = cuda_ms(index_add_call(keys, rows, cells), 10)
+    bnd = bound(scatter_bytes(keys, cells, c, b * cells * c))
+    inside = (keys >= 0) & (keys < cells)
+    tiles_total = -(-cells // 128)
+    occupied = [int(torch.unique(r[m] // 128).numel())
+                for r, m in zip(keys.long(), inside)]
+    by_tile = {}
+    if tiles:
+        for t in K2_TILES:
+            by_tile[t] = round(cuda_ms(lambda: k2_direct(
+                keys, rows, cells, split, t), 50), 4)
+    log("  K2 at {}: B={} N={} C={}{} cells={}, in-grid rows {}, 128-cell "
+        "tiles holding a row {:.3f}: {:.4f} ms, index_add_call {:.4f} ms "
+        "(kernel / library {:.3f}), bound {:.4f} ms ({}), bit-equal to the "
+        "row-order sum{}".format(
+            label, b, n, c, " (split)" if split else "", cells,
+            int(inside.sum()), sum(occupied) / (b * tiles_total), ms, lib,
+            ms / lib, bnd[0], bnd[1],
+            "; ms by tile size {}".format(by_tile) if tiles else ""))
+    return err, ms, lib, bnd[0], bnd[1]
+
+
 def phase_vx_kernels(convs, maps, bevs):
     """K8 (the map kernel on each of the forward's map builds, the conv
     kernel at each distinct conv shape of the path) and K7 against their
@@ -1585,6 +1683,39 @@ def ball_work(radius, nsample, xyz, new_xyz, mask):
     return tests, hits / max(b * m, 1), full / max(b * m, 1)
 
 
+def fps_plans(a, ref):
+    """K10 at one call beyond its own choice: its plan, the time at every
+    cluster size that holds the scan (each index-equal to ref) and the
+    chain floor, the time of the same npoint picks over one point a thread
+    of the chosen cluster (comparison launches, not counted). -> (plan,
+    {cluster: ms}, floor ms or None on the scratch path)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fps
+    xyz, mask, npoint = a
+    b, n, _ = xyz.shape
+    plan = fps.plan(b, n)
+    by_c = {}
+    for c in (1, 2, 4, 8, 16):
+        p = fps.plan(b, n, c)
+        if p["points_a_thread"] == 0 or p["resident"] == 0:
+            continue
+        wrong = int((fps._call(xyz, mask, npoint, c) != ref).sum())
+        check(wrong == 0, "farthest_point_sample at cluster size {} differs "
+              "from its plain version: {} elements".format(c, wrong))
+        by_c[c] = round(cuda_ms(lambda: fps._call(xyz, mask, npoint, c), 3),
+                        4)
+    floor = None
+    if plan["cluster"] > 0:
+        gen = torch.Generator(device=xyz.device).manual_seed(SEED)
+        m = plan["cluster"] * plan["threads"]
+        xf = torch.randn((b, m, 3), generator=gen, device=xyz.device)
+        mf = torch.ones((b, m), dtype=torch.bool, device=xyz.device)
+        floor = cuda_ms(lambda: fps._call(xf, mf, npoint, plan["cluster"]),
+                        3)
+    return plan, by_c, floor
+
+
 def phase_point_kernels(balls, samples, label):
     """K9 and K10 against their plain versions on the inputs a forward
     handed them (indices and counts equal), their times and bounds.
@@ -1596,10 +1727,14 @@ def phase_point_kernels(balls, samples, label):
     ms = {k: [0.0, 0.0] for k in errs}
     nbytes = {k: 0 for k in errs}
     ops = {k: 0 for k in errs}
-    log("{}: the ball query at its {} call shapes, on the forward's inputs "
-        "(per call: B x N supports, M queries, radius, nsample; kernel / "
-        "plain ms, bound, tests the walk needs, hits a query, share of "
-        "queries that fill nsample)".format(label, len(balls)))
+    if balls:
+        log("{}: the ball query at its {} call shapes, on the forward's "
+            "inputs (per call: B x N supports, M queries, radius, nsample; "
+            "kernel / plain ms, bound, tests the walk needs, hits a query, "
+            "share of queries that fill nsample)".format(label, len(balls)))
+    if samples:
+        log("{}: farthest-point sampling at its {} calls, on the inputs it "
+            "was handed".format(label, len(samples)))
     for i, a in enumerate(balls):
         radius, nsample, xyz, new_xyz, mask = a
         idx, cnt = ball_query.ball_query_batched(*a)
@@ -1652,11 +1787,20 @@ def phase_point_kernels(balls, samples, label):
         ms["farthest_point_sample"][1] += tp
         nbytes["farthest_point_sample"] += call_bytes
         ops["farthest_point_sample"] += call_ops
+        plan, by_c, floor = fps_plans(a, ref)
         log("  farthest-point sampling {} x {} ({} valid) -> {}: {:.4f} / "
-            "{:.4f} ms, {:.3f} us a step over {} dependent steps, bound "
-            "{:.5f} ms ({})".format(
+            "{:.4f} ms, {:.3f} us a step over {} dependent steps, cluster "
+            "of {} CTAs x {} threads x {} points a thread ({} clusters "
+            "resident as launched, {} with an SM a CTA), bound {:.5f} ms "
+            "({}), chain floor {} (one point a thread, the same cluster); "
+            "ms by cluster size {}, each index-equal".format(
                 b, n, mask.sum(dim=1).tolist(), npoint, t, tp,
-                t * 1e3 / max(npoint - 1, 1), npoint - 1, one[0], one[1]))
+                t * 1e3 / max(npoint - 1, 1), npoint - 1, plan["cluster"],
+                plan["threads"], plan["points_a_thread"], plan["resident"],
+                plan["resident_alone"], one[0], one[1],
+                "none (scratch path)" if floor is None else
+                "{:.4f} ms, {:.3f} us a step".format(
+                    floor, floor * 1e3 / max(npoint - 1, 1)), by_c))
     times = {k: tuple(v) for k, v in ms.items()}
     # no single PyTorch call computes either function: no library time
     extra = {k: (None,) + bound(nbytes[k], f32_ops=ops[k]) for k in errs}
@@ -1777,6 +1921,9 @@ def phase_kitti_voxel_kernels(model, points):
     keys, rows, cells = bevs[0]
     b, n, c = rows.shape
     name = sorted_scatter.kernel_for(n, cells)
+    if name == "sorted_segment_sum":
+        k2_call("PV-RCNN / Voxel-RCNN serving (the dense BEV of their "
+                "shared stage 1)", keys, rows, cells, False)
     table = sorted_scatter.scatter_rows(keys, rows, cells, False)
     ref = sorted_scatter.scatter_rows_plain(keys, rows, cells, False)
     torch.cuda.synchronize()
@@ -2607,7 +2754,7 @@ def phase_ts_train(device):
     import torch
 
     from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
-    from paddle3d_tpu_torch.ops import _build, iou_clip
+    from paddle3d_tpu_torch.ops import _build, fps, iou_clip, sorted_scatter
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     model, optimizer, scheduler, step, batch, size = ts_train_setup(
@@ -2637,11 +2784,17 @@ def phase_ts_train(device):
         ious.append(a)
         return fn(*a)
     with recorded(pv_rcnn, "proposal_targets") as kcalls, \
+            recorded(sorted_scatter, "scatter_rows") as bevs, \
             mock.patch.object(iou_clip, "pairwise_intersection_area",
                               iou_rec):
         kernel = record_step(step, model, optimizer, batch)
     check(len(ious) == 1, "expected one K11 call a step, got {}".format(
         len(ious)))
+    check(len(bevs) == 1, "expected one dense-BEV segment sum a step")
+    if sorted_scatter.kernel_for(bevs[0][0][1].shape[1],
+                                 bevs[0][0][2]) == "sorted_segment_sum":
+        k2_call("Voxel-RCNN training (the dense BEV)", *bevs[0][0])
+    del bevs
     errs, times, extra = phase_iou_kernel(ious[0], device)
     del ious
     restore()
@@ -2697,7 +2850,10 @@ def phase_ts_train(device):
 
     model, optimizer, _, step, batch, _ = ts_train_setup(device, PV_RCNN)
     _build.reset_launches()
-    pv_losses = [step(model, optimizer, batch) for _ in range(PV_TRAIN_STEPS)]
+    with recorded(fps, "farthest_point_sample_batched") as samples:
+        pv_losses = [step(model, optimizer, batch)]
+    pv_losses += [step(model, optimizer, batch)
+                  for _ in range(PV_TRAIN_STEPS - 1)]
     torch.cuda.synchronize()
     log("  PV-RCNN at B={}: {} steps, losses {}; launches {}".format(
         TS_TRAIN_BATCH, PV_TRAIN_STEPS,
@@ -2709,6 +2865,10 @@ def phase_ts_train(device):
     check(_build.LAUNCHES["farthest_point_sample"] == PV_TRAIN_STEPS and
           _build.LAUNCHES["pairwise_intersection_area"] == PV_TRAIN_STEPS,
           "PV-RCNN's steps missed K10 or K11")
+    check(len(samples) == 1, "expected one K10 call a PV-RCNN step")
+    phase_point_kernels([], [a for a, _ in samples],
+                        "phase 11 (PV-RCNN training, first step)")
+    del samples
     timed_train(step, model, optimizer, batch, "PV-RCNN", TS_TRAIN_ITERS,
                 ts_train_stages, plain=False)
     return errs, times, extra, launches
@@ -2990,6 +3150,9 @@ def phase_vx_train(device):
     check(len(kt) == len(pt) == 6 and all(
         torch.equal(a, b) for x, y in zip(kt, pt) for a, b in zip(x, y)),
         "the targets differ between the kernel and plain steps")
+    if bev == "sorted_segment_sum":
+        k2_call("CenterPoint-voxels training (the dense BEV)", keys, rows,
+                cells, False)
     del bevs, ktargets, ptargets, keys, rows
     keys = ["loss"] + ["{}_{}".format(k, i) for k in ("hm_loss", "loc_loss")
                        for i in range(6)]
@@ -3065,9 +3228,11 @@ def phase_ia_train(device):
     import torch
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    from paddle3d_tpu_torch.ops import fps
     model, optimizer, scheduler, step, batch = ia_train_setup(device)
     restore = saved_state(model, optimizer, scheduler)
-    kernel = record_step(step, model, optimizer, batch)
+    with recorded(fps, "farthest_point_sample_batched") as samples:
+        kernel = record_step(step, model, optimizer, batch)
     restore()
     with plain_path():
         plain = record_step(step, model, optimizer, batch)
@@ -3085,6 +3250,9 @@ def phase_ia_train(device):
           "the IA-SSD train step launched {} where 10 K9 and 3 K10 were "
           "due".format(launches))
     check(not any(plain[3].values()), "the plain step launched a kernel")
+    phase_point_kernels([], [a for a, _ in samples],
+                        "phase 14 (IA-SSD training)")
+    del samples
     step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6,
                               ("loss", "loss_cls", "loss_box", "loss_sa"))
     log("  vs the plain step: losses {:.3e} (tolerance 1e-6), grads {:.3e} "

@@ -8,23 +8,56 @@
 // sorted_segment_sum and sorted_segment_sum_split.
 //
 // What bounds it on the H100: bytes. On the PointPillars-KITTI canvas
-// (8 scans x 20,000 rows -> 214,272 cells x 65 channels, f32) the rows read
-// are ~42 MB but the dense table written is ~446 MB, and only ~4 % of its
-// cells are occupied, so the table is zeroed with cudaMemsetAsync, which
-// streams at the card's fill rate, and the kernel touches only the rows.
+// (8 scans x 20,000 rows -> 214,272 cells x 65 channels, f32, split) the
+// rows read are ~42 MB and the dense table written ~446 MB, of which ~96 %
+// of the cells are empty. The least the card can do is write every cell
+// once, zeros included, as one stream, and read the rows once.
 //
-// Design: because the keys are sorted, a cell's rows are one contiguous
-// segment. The thread of a segment's head row (key differs from the row
-// before) finds the segment's end, sums it in row order and writes its
-// cell: one writer per cell, no atomics, a deterministic order. A long
-// segment is still one thread's serial sum (PERF.md: the bench scans'
-// corner pillars hold ~1,000 rows). Threads walk (row, channel) with
-// the channel fastest, so row reads and table writes are coalesced. Keys
-// outside [0, num_cells) (the sentinel) are dropped. With `extra` set
-// (split form), the last channel goes to its own [B, cells] buffer, the
-// pillar canvas's occupancy side channel. The TPU kernel's one-hot MXU
-// products, cap-aligned DMA windows and prefetch slots are TPU workarounds
-// and have no counterpart here.
+// Design: one kernel writes every cell of the table (and of `extra`)
+// exactly once, and nothing else touches it: no memset runs before it. A
+// block of 512 threads owns a tile of consecutive cells (kK2Tile = 128;
+// 256 and 512 are built beside it so that chip_smoke.py can time them).
+// Because the keys are sorted, the tile's rows are one range [r0, r1); two
+// warps find its bounds at once, each by a 32-way search (a ballot over 32
+// probes a round: three dependent L2 loads at 20,000 rows, where a binary
+// search would chain fifteen). A tile with no row streams its zeros with
+// 16-byte streaming stores (__stcs of float4; a scalar head and tail where
+// the span is not 16-byte aligned, as when c_main is not a multiple of 4).
+// Clustered scans occupy most tiles (at KITTI ~94 % of the 128-cell tiles
+// hold a row, though ~96 % of the cells are empty), so the occupied tile
+// is the main path. It marks each cell's first row in shared memory (each
+// row writes the starts of the cells its key step crosses: O(rows +
+// cells), no search) and lists its occupied cells. Its empty cells get
+// their zeros as the same 16-byte streaming stores where c_main % 4 == 0
+// (each store tests its cell in shared memory), scalar ones otherwise. The
+// occupied cells are summed by a lane group a cell, a lane a channel, so
+// row reads and table writes coalesce along the channel (the split form's
+// rows are 65 floats, not 16-byte aligned, so they are read as scalars).
+// Every table store is a streaming one: mixing them with plain stores on
+// the same lines measured slower. The row reads are what the write stream
+// would stall: a tile whose rows fit the 32 KB shared-memory stage (at
+// most 126 rows of 65 floats) copies them there with cp.async as soon as
+// its range is known, so that they land while the block marks the starts
+// and streams the zeros; its cells are then summed from shared memory.
+// A larger tile's cells read their rows from device memory, eight rows'
+// loads issued before their adds; a segment of 64 rows or more (a clipped
+// scan piles ~1,000 rows into each of the grid's first and last cells)
+// is copied 16 KB at a time into one half of the stage while thread ch
+// adds channel ch of the other half. The blocks take the tiles from both
+// ends of the grid inward, every scan's tile together, so that those
+// corner segments start first instead of ending the kernel late. More
+// threads a tile and 128-cell tiles measured fastest: a block's time is
+// mostly the latency of its few dependent steps (search, starts, sums).
+// Each lane adds its cell's rows in row order starting from +0: the plain
+// row-order sum, bit for bit, whatever order the cells are listed in. One
+// writer a cell, no atomics on the table. Keys outside [0, num_cells) (the
+// sentinel) lie outside every tile's range and are dropped. With `extra`
+// set (split form), the last channel goes to its own [B, cells] buffer,
+// the pillar canvas's occupancy side channel. A tile-start array filled by
+// a pass over the keys would replace the search by O(1) reads, but needs a
+// [B, tiles + 1] buffer that this entry's signature has no argument for.
+// The TPU kernel's one-hot MXU products, cap-aligned DMA windows and
+// prefetch slots are TPU workarounds and have no counterpart here.
 //
 // K5: grad_rows[b, i] = g[b, keys[b, i]], zero where the key lies outside
 // [0, num_cells) (the sentinel 2^31-1 included). Replaces
@@ -90,12 +123,12 @@
 // the channel fastest, so a warp reads 32 channels of one row and writes 32
 // channels of one cell, coalesced, and each thread sums its cell's rows in
 // row order in a register: deterministic, one writer per output, no
-// atomics. Unlike K2 (one thread per segment), a cell's channels spread
-// over threads, so a long segment costs a row loop per thread, not per
-// segment. Keys outside [0, num_cells) are dropped; the split form writes
-// channel c - 1 to its own [B, cells] buffer. The TPU kernel's one-hot MXU
-// products over two abutting row views and its serial chunk DMAs are TPU
-// workarounds and have no counterpart here.
+// atomics. A cell's channels spread over threads, so a long segment costs a
+// row loop per thread, not per segment. Keys outside [0, num_cells) are
+// dropped; the split form writes channel c - 1 to its own [B, cells]
+// buffer. The TPU kernel's one-hot MXU products over two abutting row views
+// and its serial chunk DMAs are TPU workarounds and have no counterpart
+// here.
 //
 // K13: the function of K6 restricted to c | 128, out[b, cell, ch] = sum of
 // rows_cm[b, ch, i] over i < N with keys[b, i] == cell. Replaces the TPU
@@ -131,6 +164,7 @@
 // counterpart here.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace {
@@ -151,43 +185,257 @@ __device__ __forceinline__ int lower_bound(const int* keys, int lo, int hi,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// first index in [0, n) whose key is >= value (keys sorted), found by the
+// whole warp: each round 32 probes split the interval and a ballot keeps
+// the one part that holds the answer. Every lane returns it.
+__device__ __forceinline__ int warp_lower_bound(const int* keys, int n,
+                                                int value, int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    const unsigned less = __ballot_sync(0xffffffffu, p < hi && keys[p] < value);
+    if (less == 0u) return lo;
+    const int cnt = __popc(less);  // the probes below value are a prefix
+    hi = min(hi, lo + cnt * step);
+    lo += (cnt - 1) * step + 1;
+  }
+  return lo;
+}
+
+// zero p[0, len) with the block's threads: streaming stores, 16 bytes a
+// store between a scalar head and tail
+__device__ __forceinline__ void zero_fill(float* p, int len) {
+  const int mis = static_cast<int>(reinterpret_cast<size_t>(p) & 15) >> 2;
+  const int head = min(len, (4 - mis) & 3);
+  const int n4 = (len - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) __stcs(p + i, 0.f);
+  float4* q = reinterpret_cast<float4*>(p + head);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    __stcs(q + i, make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+  for (int i = head + 4 * n4 + threadIdx.x; i < len; i += blockDim.x) {
+    __stcs(p + i, 0.f);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+
+constexpr int kK2Tile = 128;       // cells a block owns
+constexpr int kK2Threads = 512;
+constexpr int kLongRows = 64;      // a segment at least this long is staged
+constexpr int kStageFloats = 8192; // the stage: two halves of 16 KB
+
+// rows of c floats in each half of K2's stage (0: long segments are not
+// staged, when a block has fewer threads than channels)
+__host__ __device__ constexpr int stage_rows(int c) {
+  return c > kK2Threads ? 0 : kStageFloats / 2 / c;
+}
+
+template <int TILE>
+__global__ void __launch_bounds__(kK2Threads)
     sorted_segment_sum_kernel(const int* __restrict__ keys,
                               const float* __restrict__ rows,
                               float* __restrict__ out,
                               float* __restrict__ extra, int n, int c,
                               int num_cells) {
-  const int b = blockIdx.y;
-  const size_t f = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (f >= static_cast<size_t>(n) * c) return;
-  const int i = static_cast<int>(f / c);
-  const int ch = static_cast<int>(f - static_cast<size_t>(i) * c);
+  extern __shared__ float s_stage[];  // [2 * stage_rows(c)][c]
+  // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
+  __shared__ int s_start[TILE + 1];
+  __shared__ int s_occ[TILE];   // the tile's occupied cells, in any order
+  __shared__ int s_range[2];
+  __shared__ int s_nocc;
+  // the tiles from both ends of the grid inward, every scan's tile t
+  // together: a scan clipped to its range piles its far points into the
+  // first and last cells, and those long segments start first rather than
+  // end the kernel late
+  const int batch = gridDim.x / ((num_cells + TILE - 1) / TILE);
+  const int b = blockIdx.x % batch;
+  const int pos = blockIdx.x / batch;
+  const int tile = (pos & 1) ? (num_cells + TILE - 1) / TILE - 1 - (pos >> 1)
+                             : pos >> 1;
+  const int cell0 = tile * TILE;
+  const int ncell = min(TILE, num_cells - cell0);
   const int* kb = keys + static_cast<size_t>(b) * n;
-  const int k = kb[i];
-  if (k < 0 || k >= num_cells || (i > 0 && kb[i - 1] == k)) return;
-  // segment end: gallop, then bisect; a loop that tests each row's key
-  // before loading it is a chain of dependent loads, and a scan clipped to
-  // its range piles ~1,000 rows into a corner cell
-  int lo = i + 1, hi = i + 1, step = 1;  // kb[lo - 1] == k throughout
-  while (hi < n && kb[hi] == k) {
-    lo = hi + 1;
-    hi = min(n, hi + step);
-    step *= 2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const int r = warp_lower_bound(kb, n, cell0 + (warp == 0 ? 0 : ncell),
+                                   lane);
+    if (lane == 0) s_range[warp] = r;
   }
-  const int end = lower_bound(kb, lo, hi, k + 1);
-  const float* rb = rows + static_cast<size_t>(b) * n * c + ch;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int j = i; j < end; ++j) {
-    acc += rb[static_cast<size_t>(j) * c];  // independent loads, row order
-  }
-  const size_t cell = static_cast<size_t>(b) * num_cells + k;
+  if (threadIdx.x == 0) s_nocc = 0;
+  __syncthreads();
+  const int r0 = s_range[0];
+  const int r1 = s_range[1];
   const int c_main = extra != nullptr ? c - 1 : c;
-  if (ch < c_main) {
-    out[cell * c_main + ch] = acc;
-  } else {
-    extra[cell] = acc;
+  const size_t g0 = static_cast<size_t>(b) * num_cells + cell0;
+  float* ob = out + g0 * c_main;
+  float* eb = extra != nullptr ? extra + g0 : nullptr;
+  if (r0 == r1) {  // no row in the tile
+    zero_fill(ob, ncell * c_main);
+    if (eb != nullptr) zero_fill(eb, ncell);
+    return;
   }
+  // a tile whose rows fit the stage copies them there now, so that their
+  // loads are in flight while the block marks the starts and streams zeros
+  const float* rb = rows + static_cast<size_t>(b) * n * c;
+  const int stage = stage_rows(c);
+  const bool prefetched = r1 - r0 <= 2 * stage;   // both halves
+  if (prefetched) {
+    const float* src = rb + static_cast<size_t>(r0) * c;
+    for (int q = threadIdx.x; q < (r1 - r0) * c; q += kK2Threads) {
+      cp_async4(s_stage + q, src + q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // each row starts the cells from just past its predecessor's key to its
+  // own (keys in [cell0, cell0 + ncell) here); the cells past the last key
+  // start at r1
+  for (int j = r0 + threadIdx.x; j < r1; j += kK2Threads) {
+    const int k = kb[j] - cell0;
+    for (int t = j > r0 ? kb[j - 1] - cell0 + 1 : 0; t <= k; ++t) {
+      s_start[t] = j;
+    }
+  }
+  const int last = kb[r1 - 1] - cell0;
+  for (int t = last + 1 + threadIdx.x; t <= ncell; t += kK2Threads) {
+    s_start[t] = r1;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < ncell; t += kK2Threads) {
+    if (s_start[t] < s_start[t + 1]) s_occ[atomicAdd(&s_nocc, 1)] = t;
+  }
+  __syncthreads();
+  const int nocc = s_nocc;
+  // the empty cells' zeros: 16 bytes a store where the tile's span allows
+  if ((c_main & 3) == 0 && (reinterpret_cast<size_t>(ob) & 15) == 0) {
+    const int q4 = c_main >> 2;
+    const int shift = (q4 & (q4 - 1)) == 0 ? __ffs(q4) - 1 : -1;
+    float4* o4 = reinterpret_cast<float4*>(ob);
+    for (int q = threadIdx.x; q < ncell * q4; q += kK2Threads) {
+      const int t = shift >= 0 ? q >> shift : q / q4;
+      if (s_start[t] == s_start[t + 1]) {
+        __stcs(o4 + q, make_float4(0.f, 0.f, 0.f, 0.f));
+      }
+    }
+  } else {
+    for (int f = threadIdx.x; f < ncell * c_main; f += kK2Threads) {
+      const int t = f / c_main;
+      if (s_start[t] == s_start[t + 1]) __stcs(ob + f, 0.f);
+    }
+  }
+  if (eb != nullptr) {
+    for (int t = threadIdx.x; t < ncell; t += kK2Threads) {
+      if (s_start[t] == s_start[t + 1]) __stcs(eb + t, 0.f);
+    }
+  }
+  if (prefetched) {   // the occupied cells summed from the stage
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    for (int f = threadIdx.x; f < nocc * c; f += kK2Threads) {
+      const int o = f / c;
+      const int ch = f - o * c;
+      const int cell = s_occ[o];
+      const int end = s_start[cell + 1] - r0;
+      float acc = 0.f;
+      for (int j = s_start[cell] - r0; j < end; ++j) {
+        acc += s_stage[j * c + ch];  // row order
+      }
+      if (ch < c_main) {
+        __stcs(ob + cell * c_main + ch, acc);
+      } else {
+        __stcs(eb + cell, acc);
+      }
+    }
+    return;
+  }
+  const int longest = stage > 0 ? kLongRows : INT_MAX;
+  // the occupied cells: a lane group a cell, a lane a channel
+  for (int f = threadIdx.x; f < nocc * c; f += kK2Threads) {
+    const int o = f / c;
+    const int ch = f - o * c;
+    const int cell = s_occ[o];
+    const int end = s_start[cell + 1];
+    if (end - s_start[cell] >= longest) continue;
+    // eight rows' loads issued before their adds (a loop of unknown length
+    // would wait a memory latency a row), then added in row order
+    float acc = 0.f;
+    for (int j = s_start[cell]; j < end; j += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        v[u] = j + u < end ? rb[static_cast<size_t>(j + u) * c + ch] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (j + u < end) acc += v[u];
+      }
+    }
+    if (ch < c_main) {
+      __stcs(ob + cell * c_main + ch, acc);
+    } else {
+      __stcs(eb + cell, acc);
+    }
+  }
+  // long segments: the block copies `stage` rows at a time into one half
+  // of the stage (one contiguous span, all of its loads in flight) while
+  // thread ch adds channel ch of the other half's rows in row order
+  for (int o = 0; o < nocc; ++o) {
+    const int cell = s_occ[o];
+    const int s0 = s_start[cell];
+    const int end = s_start[cell + 1];
+    if (end - s0 < longest) continue;
+    const int chunks = (end - s0 + stage - 1) / stage;
+    auto fetch = [&](int chunk) {
+      const int j0 = s0 + chunk * stage;
+      const int len = min(stage, end - j0) * c;
+      const float* src = rb + static_cast<size_t>(j0) * c;
+      float* dst = s_stage + (chunk & 1) * stage * c;
+      for (int q = threadIdx.x; q < len; q += kK2Threads) {
+        cp_async4(dst + q, src + q);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    float acc = 0.f;
+    fetch(0);
+    for (int i = 0; i < chunks; ++i) {
+      if (i + 1 < chunks) {
+        fetch(i + 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();
+      if (threadIdx.x < c) {
+        const float* src = s_stage + (i & 1) * stage * c;
+        const int len = min(stage, end - s0 - i * stage) * c;
+        for (int q = threadIdx.x; q < len; q += c) acc += src[q];
+      }
+      __syncthreads();   // the half is read before chunk i + 2 lands in it
+    }
+    if (threadIdx.x < c_main) {
+      __stcs(ob + cell * c_main + threadIdx.x, acc);
+    } else if (threadIdx.x < c) {
+      __stcs(eb + cell, acc);
+    }
+  }
+}
+
+template <int TILE>
+int launch_segment_sum(const int* keys, const float* rows, float* out,
+                       float* extra, int b, int n, int c, int num_cells,
+                       cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((num_cells + TILE - 1) / TILE) * b);
+  const size_t smem =
+      static_cast<size_t>(2) * stage_rows(c) * c * sizeof(float);
+  sorted_segment_sum_kernel<TILE><<<grid, kK2Threads, smem, s>>>(
+      keys, rows, out, extra, n, c, num_cells);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kTileRows = 32;
@@ -522,30 +770,47 @@ extern "C" int p3d_sorted_segment_sum_dense(const int* keys,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
-// out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
-// when extra is not null). Returns the first CUDA error of the zero-fill or
-// the launch.
-extern "C" int p3d_sorted_segment_sum(const int* keys, const float* rows,
-                                      float* out, float* extra, int b, int n,
-                                      int c, int num_cells, void* stream) {
+// K2 with the tile size given (128, 256 or 512 cells; 0 for the default,
+// kK2Tile). keys [b, n] int32 sorted ascending per batch row; rows
+// [b, n, c] f32; out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra
+// [b, num_cells] when extra is not null), every cell written once by one
+// kernel. Returns cudaGetLastError().
+extern "C" int p3d_sorted_segment_sum_tiled(const int* keys,
+                                            const float* rows, float* out,
+                                            float* extra, int b, int n,
+                                            int c, int num_cells, int tile,
+                                            void* stream) {
+  if (c < 0 || n < 0 || (extra != nullptr && c < 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (b == 0 || num_cells == 0 || c == 0) {
     return static_cast<int>(cudaSuccess);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c_main = extra != nullptr ? c - 1 : c;
-  const size_t cells = static_cast<size_t>(b) * num_cells;
-  cudaError_t err = cudaMemsetAsync(out, 0, cells * c_main * sizeof(float), s);
-  if (err == cudaSuccess && extra != nullptr) {
-    err = cudaMemsetAsync(extra, 0, cells * sizeof(float), s);
+  switch (tile == 0 ? kK2Tile : tile) {
+    case 128:
+      return launch_segment_sum<128>(keys, rows, out, extra, b, n, c,
+                                     num_cells, s);
+    case 256:
+      return launch_segment_sum<256>(keys, rows, out, extra, b, n, c,
+                                     num_cells, s);
+    case 512:
+      return launch_segment_sum<512>(keys, rows, out, extra, b, n, c,
+                                     num_cells, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const size_t elems = static_cast<size_t>(n) * c;
-  const dim3 grid(static_cast<unsigned>((elems + kThreads - 1) / kThreads), b);
-  sorted_segment_sum_kernel<<<grid, kThreads, 0, s>>>(keys, rows, out, extra,
-                                                      n, c, num_cells);
-  return static_cast<int>(cudaGetLastError());
+}
+
+// K2. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
+// out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
+// when extra is not null), every cell written once by one kernel (no
+// memset). Returns cudaGetLastError().
+extern "C" int p3d_sorted_segment_sum(const int* keys, const float* rows,
+                                      float* out, float* extra, int b, int n,
+                                      int c, int num_cells, void* stream) {
+  return p3d_sorted_segment_sum_tiled(keys, rows, out, extra, b, n, c,
+                                      num_cells, 0, stream);
 }
 
 // keys [b, n] int32; g: element (b, cell, ch) at g[b*gsb + cell*gsk +

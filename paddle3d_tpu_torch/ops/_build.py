@@ -47,6 +47,8 @@ _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
     "p3d_sorted_segment_sum": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
+    "p3d_sorted_segment_sum_tiled": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                                     _vp),
     "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                            _i, _i, _i, _f, _f, _f, _f, _i, _i, _vp),
     "p3d_fused_pfn2_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
@@ -68,6 +70,9 @@ _SIGNATURES = {
                           _i, _i, _i, _vp),
     "p3d_ball_query": (_vp, _vp, _vp, _vp, _vp, _f, _i, _i, _i, _i, _vp),
     "p3d_farthest_point_sample": (_vp, _vp, _vp, _vp, _i, _i, _i, _vp),
+    "p3d_farthest_point_sample_cluster": (_vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                                          _vp),
+    "p3d_farthest_point_sample_plan": (_i, _i, _i, _vp),
     "p3d_seg_window_max": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_seg_window_max_bwd": (_vp, _vp, _vp, _i, _i, _i, _i, _vp),
     "p3d_pairwise_intersection_area": (_vp, _vp, _vp, _i, _i, _i, _vp),

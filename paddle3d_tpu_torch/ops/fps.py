@@ -14,13 +14,30 @@ import torch
 from . import _build
 from .pointnet2 import farthest_point_sample as farthest_point_sample_plain
 
-__all__ = ["farthest_point_sample_batched", "farthest_point_sample_plain"]
+__all__ = ["farthest_point_sample_batched", "farthest_point_sample_plain",
+           "plan"]
 
-#: longest scan whose running distances the kernel keeps in registers
-_REGISTER_POINTS = 1024 * 32
+#: longest scan that a cluster of portable size (8 CTAs) holds on chip;
+#: a longer one may take the scratch path, which needs a [B, N] buffer
+_ON_CHIP_POINTS = 8 * 512 * 16
 
 
-def _launch(xyz, mask, npoint):
+def plan(b: int, n: int, cluster: int = 0) -> dict:
+    """What the kernel does with b scans of n points (cluster 0: its own
+    choice of cluster size, else that size): CTAs a scan (0 for the scratch
+    path), points a thread, threads a CTA, clusters resident at once as
+    launched, and with an SM for each CTA."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.function("p3d_farthest_point_sample_plan")(
+        b, n, cluster, out), "farthest_point_sample_plan")
+    return dict(zip(("cluster", "points_a_thread", "threads", "resident",
+                     "resident_alone"), out))
+
+
+def _call(xyz, mask, npoint, cluster=0):
+    """One launch, with the cluster size given (0: the kernel's choice);
+    counts nothing."""
     if xyz.dtype != torch.float32 or mask.dtype != torch.bool:
         raise TypeError("farthest_point_sample kernel takes f32 points and a "
                         "bool mask, got {} and {}".format(xyz.dtype,
@@ -39,12 +56,17 @@ def _launch(xyz, mask, npoint):
         raise ValueError("farthest_point_sample needs n >= 1 and npoint >= 1")
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     scratch = (torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-               if n > _REGISTER_POINTS else None)
-    err = _build.function("p3d_farthest_point_sample")(
+               if n > _ON_CHIP_POINTS else None)
+    err = _build.function("p3d_farthest_point_sample_cluster")(
         xyz.data_ptr(), mask.data_ptr(), idx.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, b, n, npoint,
-        _build.stream_ptr(xyz.device))
+        cluster, _build.stream_ptr(xyz.device))
     _build.check(err, "farthest_point_sample")
+    return idx
+
+
+def _launch(xyz, mask, npoint):
+    idx = _call(xyz, mask, npoint)
     _build.LAUNCHES["farthest_point_sample"] += 1
     return idx
 

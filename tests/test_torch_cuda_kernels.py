@@ -77,6 +77,72 @@ def test_sorted_segment_sum_matches_plain(cuda, split):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+K2_CASES = ["sentinel", "no_in_grid", "empty_tiles", "long_last",
+            "tile_edges"]
+
+
+def _k2_keys(case, b=3, n=4000, cells=214272):
+    """Sorted keys for K2's edge cases: every key the sentinel; a scan with
+    no key in the grid (past its end) beside one with negative keys; rows
+    only at the two ends of the grid (runs of empty tiles between); a
+    1,000-row segment in the last cell; occupied cells on both sides of
+    every tile boundary of the 128-, 256- and 512-cell tiles."""
+    rng = np.random.default_rng(K2_CASES.index(case))
+    keys = rng.integers(0, cells, (b, n))
+    if case == "sentinel":
+        keys[:] = SENT
+    elif case == "no_in_grid":
+        keys[0] = cells + rng.integers(0, 50, n)
+        keys[1, :1500] = -rng.integers(1, 5, 1500)
+        keys[2, -300:] = SENT
+    elif case == "empty_tiles":
+        keys = np.where(keys % 2 == 0, keys % 1500, cells - 1 - keys % 1500)
+    elif case == "long_last":
+        keys[:2, -1000:] = cells - 1
+    elif case == "tile_edges":
+        edges = np.arange(128, 4096, 128)
+        both = np.concatenate([edges - 1, edges])
+        keys[:, :both.size * 3] = np.tile(both, 3)
+    return torch.from_numpy(np.sort(keys, axis=1).astype(np.int32))
+
+
+@pytest.mark.parametrize("c,split", [(7, False), (64, False), (65, True)])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_sorted_segment_sum_edge_cases(cuda, case, c, split):
+    """K2 bit for bit against the row-order sum at its edge cases (see
+    _k2_keys), the table's span per tile 16-byte aligned (c_main = 64) and
+    not (c_main = 7), through the wrapper (one launch, the density rule's
+    sparse pick) and at each tile size of the kernel."""
+    cells = 214272
+    keys = _k2_keys(case, cells=cells).to(cuda)
+    rows = torch.from_numpy(np.random.default_rng(c).normal(
+        0, 1, tuple(keys.shape) + (c,)).astype(np.float32)).to(cuda)
+    assert sorted_scatter.kernel_for(keys.shape[1], cells) == \
+        "sorted_segment_sum"
+    ref = _row_order_sum(keys, rows, cells)
+    before = dict(_build.LAUNCHES)
+    got = sorted_scatter.scatter_rows(keys, rows, cells, split)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum"] == \
+        before["sorted_segment_sum"] + 1
+    got = torch.cat(got, dim=-1) if split else got
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    b, n = keys.shape
+    for tile in (128, 256, 512):
+        out = torch.full((b, cells, c - 1 if split else c), float("nan"),
+                         device=cuda)
+        extra = torch.full((b, cells, 1), float("nan"), device=cuda)
+        _build.check(_build.function("p3d_sorted_segment_sum_tiled")(
+            keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            extra.data_ptr() if split else None, b, n, c, cells, tile,
+            _build.stream_ptr(keys.device)), "sorted_segment_sum")
+        full = torch.cat([out, extra], dim=-1) if split else out
+        # NaN-filled first: every cell must be written
+        torch.testing.assert_close(full, ref, rtol=0, atol=0)
+    if case in ("sentinel", "no_in_grid"):
+        assert not got[0].any()
+
+
 PFN_CASES = [
     (32, 40000, 4, False),     # the KITTI settings
     (8, 300, 4, False),        # many pillars over P, the cap firing
@@ -769,7 +835,7 @@ def test_ball_query_refuses_what_it_cannot_take(cuda):
     (20000, 2048, (20000, 15000, 300)),     # PV-RCNN's keypoints
     (16384, 4096, (16384, 16000, 2000)),    # IA-SSD's first layer
     (1024, 512, (1024, 100, 0)),            # fewer valid than npoint, none
-    (40000, 64, (40000, 39000, 5)),         # past the register path
+    (40000, 64, (40000, 39000, 5)),         # a 16-CTA cluster
     (37, 50, (37, 20, 0)),                  # one warp's worth of points
 ], ids=["masked", "pv_rcnn", "iassd", "short", "scratch", "tiny"])
 def test_fps_matches_plain(cuda, n, npoint, valid):
@@ -811,6 +877,94 @@ def test_fps_ties_keep_the_lowest_index(cuda):
     torch.testing.assert_close(idx.cpu(), ref, rtol=0, atol=0)
     torch.testing.assert_close(idx, card, rtol=0, atol=0)
     assert idx[0, 0] == 7 and int(idx.max()) < 2 * lattice.shape[0]
+
+
+def _fps_check(cuda, xyz, mask, npoint, cluster=0):
+    """K10 (the cluster size given, or its own choice) index for index
+    against the plain version on the CPU."""
+    from paddle3d_tpu_torch.ops import fps
+    idx = fps._call(xyz.to(cuda), mask.to(cuda), npoint, cluster)
+    torch.cuda.synchronize()
+    ref = fps.farthest_point_sample_plain(xyz, mask, npoint)
+    torch.testing.assert_close(idx.cpu(), ref, rtol=0, atol=0)
+    return idx.cpu()
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_fps_ties_across_the_ctas_of_a_cluster(cuda, cluster):
+    """Equal farthest points in two CTAs of one cluster (one point a
+    thread): the lower index wins, whichever CTA holds it."""
+    from paddle3d_tpu_torch.ops import fps
+    n = cluster * 512
+    assert fps.plan(1, n, cluster)["points_a_thread"] == 1
+    rng = np.random.default_rng(cluster)
+    xyz = rng.normal(0, 1, (2, n, 3)).astype(np.float32)
+    far = [100, n - 100, 600, n - 600]     # CTA 0 and the last CTA
+    xyz[:, far[:2]] = (50., 0., 0.)
+    xyz[:, far[2:]] = (-50., 0., 0.)
+    mask = np.ones((2, n), bool)
+    mask[1, :100] = False                  # scan 1 starts past CTA 0's tie
+    idx = _fps_check(cuda, torch.from_numpy(xyz), torch.from_numpy(mask), 6,
+                     cluster)
+    low = min(600, n - 600)                # the lower of the second pair
+    assert sorted(idx[0, 1:3].tolist()) == [100, low]
+    assert idx[1, 0] == 100 and idx[1, 1] == low
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_fps_around_a_full_cluster(cuda, cluster, offset):
+    """n just below, at and just above C x 512 threads (C forced, or the
+    kernel's own choice around 8 x 512), with masked points and a scan with
+    fewer valid points than npoint."""
+    n = (cluster or 8) * 512 + offset
+    xyz, mask = _clustered(n + cluster, 3, n, (n, n // 2, 5), spread=2.0)
+    _fps_check(cuda, xyz, mask.roll(7, dims=1), 40, cluster)
+
+
+@pytest.mark.parametrize("n,npoint,valid", [
+    (1, 1, (1, 0)), (1, 5, (1, 0)), (700, 700, (700, 350)),
+    (2000, 64, (0, 0)), (2000, 100, (40, 1))],
+    ids=["one", "one_repeat", "npoint_n", "none_valid", "few_valid"])
+def test_fps_small_and_empty_scans(cuda, n, npoint, valid):
+    """n = 1, npoint = n, no valid point (index 0 throughout) and fewer
+    valid points than npoint (the first valid point repeats)."""
+    xyz, mask = _clustered(n + npoint, 2, n, valid)
+    idx = _fps_check(cuda, xyz, mask, npoint)
+    if valid[1] == 0:
+        assert not idx[1].any()
+
+
+def test_fps_clusters_in_waves(cuda):
+    """More scans than clusters resident at once: the clusters run in
+    waves and each scan still gets its own picks."""
+    from paddle3d_tpu_torch.ops import fps
+    n, cluster = 16 * 512, 16
+    b = fps.plan(1, n, cluster)["resident"] + 3
+    xyz, mask = _clustered(b, b, n, [n - i for i in range(b)], spread=3.0)
+    _fps_check(cuda, xyz, mask, 48, cluster)
+
+
+def test_fps_scratch_path(cuda):
+    """A scan longer than the largest cluster holds on chip takes the
+    scratch path (one block a scan, d2 in device memory)."""
+    from paddle3d_tpu_torch.ops import fps
+    n = 16 * 512 * 16 + 5000
+    assert fps.plan(2, n)["cluster"] == 0
+    xyz, mask = _clustered(n, 2, n, (n, n - 9000), spread=4.0, box=40.)
+    _fps_check(cuda, xyz, mask, 32)
+
+
+@pytest.mark.parametrize("b,n", [(4, 20000), (2, 20000), (4, 16384),
+                                 (8, 16384), (4, 4096), (8, 4096),
+                                 (4, 1024), (8, 1024)])
+def test_fps_path_shapes_take_one_cluster_a_scan(cuda, b, n):
+    """At the PV-RCNN and IA-SSD call shapes the sampler launches one
+    cluster a scan, all of them resident at once."""
+    from paddle3d_tpu_torch.ops import fps
+    p = fps.plan(b, n)
+    assert p["cluster"] >= 1 and p["resident"] >= b
+    assert p["cluster"] * p["threads"] * p["points_a_thread"] >= n
 
 
 def test_fps_refuses_what_it_cannot_take(cuda):
