@@ -29,11 +29,10 @@ non-zero and prints no result:
      K6 CenterPoint inference), with the stated tolerance; kernel, plain
      and library-call times and each kernel's bound (a scatter's library
      call, index_add_, goes from the kernel's own inputs to a fresh table:
-     index_add_call); K2 bit for bit against the row-order sum
-     (row_order_sum, tolerance 0) here and at every later K2 call of a
-     path, each logged with its index_add_call factor, its bound and the
-     share of its 128-cell tiles that hold a row (here also each tile
-     size's time);
+     index_add_call); K2 through its wrapper bit for bit against the
+     row-order sum (row_order_sum, tolerance 0) here and at every later K2
+     call of a path, each logged with its index_add_call factor, its bound
+     and the share of its 128-cell tiles that hold a row;
   3. the model's test_forward (eval BatchNorm) through the kernels (launch
      counters must move), then again with the plain versions swapped in:
      the outputs must agree; the tiny config's canvas on the card against
@@ -435,13 +434,15 @@ def phase_kernels(model, points):
     rows_t = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
     ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
     rows = rows_t.transpose(1, 2).contiguous()
-    table, occ = sorted_scatter.sorted_segment_sum_split(keys, rows, cells)
     torch.cuda.synchronize()
     check(tuple(rows.shape) == (BATCH, POINTS, 65), "K1 output shape")
+    # K2 through the wrapper the canvas calls, held and timed by k2_call
+    k2 = k2_call("KITTI serving", keys, rows, cells, True,
+                 call=lambda: sorted_scatter.sorted_segment_sum_split(
+                     keys, rows, cells))
     errs = {
         "fused_pfn_rows": (rows_t - ref_t).abs().max().item(),
-        "sorted_segment_sum": k2_call("KITTI serving", keys, rows, cells,
-                                      True, tiles=True)[0],
+        "sorted_segment_sum": k2[0],
     }
     times = {
         "fused_pfn_rows": (
@@ -450,8 +451,7 @@ def phase_kernels(model, points):
             cuda_ms(lambda: fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t,
                                                            b1, **kw), 10)),
         "sorted_segment_sum": (
-            cuda_ms(lambda: sorted_scatter.sorted_segment_sum_split(
-                keys, rows, cells), 50),
+            k2[1],
             cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
                 keys, rows, cells, True), 10)),
     }
@@ -466,10 +466,7 @@ def phase_kernels(model, points):
         "fused_pfn_rows": (None,) + bound(
             4 * (keys.numel() + pts_t.numel() + rows_t.numel()),
             f32_ops=seg["kept"] * 2 * w1t.numel()),
-        "sorted_segment_sum": (
-            cuda_ms(index_add_call(keys, rows, cells), 10),) + bound(
-                scatter_bytes(keys, cells, rows.shape[-1],
-                              table.numel() + occ.numel())),
+        "sorted_segment_sum": k2[2:],
     }
     report(INFER_KERNELS, errs, times, extra)
     return errs, times, extra
@@ -1319,31 +1316,13 @@ def row_major_direct(name, keys, rows, cells):
     return out
 
 
-def k2_direct(keys, rows, cells, split, tile=0):
-    """K2 through its C entry (tile 0: its own tile size); a comparison
-    launch, so LAUNCHES is not touched. -> (table, last channel or None)."""
-    import torch
-
-    from paddle3d_tpu_torch.ops import _build
-    b, n, c = rows.shape
-    out = torch.empty((b, cells, c - 1 if split else c), device=rows.device)
-    extra = torch.empty((b, cells, 1), device=rows.device) if split else None
-    _build.check(_build.function("p3d_sorted_segment_sum_tiled")(
-        keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        extra.data_ptr() if split else None, b, n, c, cells, tile,
-        _build.stream_ptr(keys.device)), "sorted_segment_sum")
-    return out, extra
-
-
-K2_TILES = (128, 256, 512)
-
-
-def k2_call(label, keys, rows, cells, split, tiles=False):
-    """K2 at one call of a path, on the inputs the path handed it: bit-equal
-    to the row-order sum (tolerance 0), its time, index_add_call's, their
-    factor and the bound, logged with the share of 128-cell tiles that hold
-    a row (and, with tiles, each tile size's time). -> (max_abs_err, ms,
-    library ms, bound ms, bound_by)."""
+def k2_call(label, keys, rows, cells, split, call=None):
+    """K2 at one call of a path, on the inputs the path handed it, through
+    its wrapper (call; by default scatter_rows, the forward without
+    autograd): bit-equal to the row-order sum (tolerance 0), its time,
+    index_add_call's, their factor and the bound, logged with the share of
+    128-cell tiles that hold a row. -> (max_abs_err, ms, library ms, bound
+    ms, bound_by)."""
     import torch
 
     from paddle3d_tpu_torch.ops import sorted_scatter
@@ -1351,34 +1330,31 @@ def k2_call(label, keys, rows, cells, split, tiles=False):
     b, n, c = rows.shape
     check(sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum",
           "{}: the density rule does not send this scan to K2".format(label))
-    out, extra = k2_direct(keys, rows, cells, split)
-    got = torch.cat([out, extra], dim=-1) if split else out
+    if call is None:
+        def call():
+            return sorted_scatter.scatter_rows(keys, rows, cells, split)
+    got = call()
+    got = torch.cat(got, dim=-1) if split else got
     ref = row_order_sum(keys, rows, cells)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     check(err == 0.0, "{}: K2 differs from the row-order sum by {:.3e}"
           .format(label, err))
-    del out, extra, got, ref
-    ms = cuda_ms(lambda: k2_direct(keys, rows, cells, split), 50)
+    del got, ref
+    ms = cuda_ms(call, 50)
     lib = cuda_ms(index_add_call(keys, rows, cells), 10)
     bnd = bound(scatter_bytes(keys, cells, c, b * cells * c))
     inside = (keys >= 0) & (keys < cells)
     tiles_total = -(-cells // 128)
     occupied = [int(torch.unique(r[m] // 128).numel())
                 for r, m in zip(keys.long(), inside)]
-    by_tile = {}
-    if tiles:
-        for t in K2_TILES:
-            by_tile[t] = round(cuda_ms(lambda: k2_direct(
-                keys, rows, cells, split, t), 50), 4)
     log("  K2 at {}: B={} N={} C={}{} cells={}, in-grid rows {}, 128-cell "
         "tiles holding a row {:.3f}: {:.4f} ms, index_add_call {:.4f} ms "
         "(kernel / library {:.3f}), bound {:.4f} ms ({}), bit-equal to the "
-        "row-order sum{}".format(
+        "row-order sum".format(
             label, b, n, c, " (split)" if split else "", cells,
             int(inside.sum()), sum(occupied) / (b * tiles_total), ms, lib,
-            ms / lib, bnd[0], bnd[1],
-            "; ms by tile size {}".format(by_tile) if tiles else ""))
+            ms / lib, bnd[0], bnd[1]))
     return err, ms, lib, bnd[0], bnd[1]
 
 

@@ -71,7 +71,9 @@
 // asked at a shared-memory size that leaves room for one CTA an SM: H100's
 // GPCs do not hold many clusters of 16); else the fewest points a thread
 // among the sizes that fit so; else the largest C that holds the scan on
-// chip, its clusters in waves. Scans longer than 16 CTAs x 512 threads x
+// chip, its clusters in waves. The occupancy answers and the kernel's
+// function attributes hold for one device: each device keeps its own,
+// under one lock. Scans longer than 16 CTAs x 512 threads x
 // 16 points, or with no cluster size resident, take the scratch path: one
 // block of 1,024 threads per scan that keeps d2 in a [B, N] buffer in
 // device memory and re-reads the coordinates each step.
@@ -85,6 +87,8 @@
 
 #include <climits>
 #include <cstddef>
+#include <map>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -460,11 +464,38 @@ cudaLaunchConfig_t config(int slot, int cluster, int b, cudaStream_t stream,
 // occupancy calculator, it counts the clusters whose CTAs each get an SM
 constexpr int kAloneSmem = 120 * 1024;
 
-// the kernel's function attributes, set once: dynamic shared memory past
-// 48 KB and the non-portable cluster size 16
+// What `prepare` and `resident` learn of a device: whether the kernel's
+// function attributes are set there, and its residency counts (-1: not
+// asked yet). Function attributes and occupancy answer for the current
+// device only, so each device keeps its own, filled under one lock.
+struct DeviceState {
+  bool prepared[kNumPpts] = {};
+  int resident[2][kNumPpts][5];
+  DeviceState() {
+    for (auto& table : resident) {
+      for (auto& row : table) {
+        for (int& v : row) v = -1;
+      }
+    }
+  }
+};
+
+std::mutex state_lock;
+
+// the current device's state; call with state_lock held
+DeviceState& device_state() {
+  static std::map<int, DeviceState> states;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) cudaGetLastError();
+  return states[dev];
+}
+
+// the kernel's function attributes, set once a device: dynamic shared
+// memory past 48 KB and the non-portable cluster size 16. Call with
+// state_lock held.
 cudaError_t prepare(int slot) {
-  static bool done[kNumPpts] = {};
-  if (done[slot]) return cudaSuccess;
+  bool& done = device_state().prepared[slot];
+  if (done) return cudaSuccess;
   const ClusterKernel k = cluster_kernel(slot);
   const size_t smem = smem_bytes(slot);
   cudaError_t err = cudaFuncSetAttribute(
@@ -474,25 +505,18 @@ cudaError_t prepare(int slot) {
     err = cudaFuncSetAttribute(
         k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  done[slot] = err == cudaSuccess;
+  done = err == cudaSuccess;
   return err;
 }
 
-// clusters of `cluster` CTAs that can be resident at once (0 when none can
-// launch): as launched (alone false) or with one CTA an SM (alone true);
-// cached per (points a thread, cluster size)
+// clusters of `cluster` CTAs that can be resident at once on the current
+// device (0 when none can launch): as launched (alone false) or with one
+// CTA an SM (alone true); cached per (points a thread, cluster size). Call
+// with state_lock held.
 int resident(int slot, int cluster, bool alone) {
-  static int cache[2][kNumPpts][5];
-  static bool init = false;
-  if (!init) {
-    for (auto& table : cache) {
-      for (auto& row : table) {
-        for (int& v : row) v = -1;
-      }
-    }
-    init = true;
-  }
-  int& hit = cache[alone][slot][__builtin_ctz(static_cast<unsigned>(cluster))];
+  int& hit = device_state().resident[alone][slot]
+                                    [__builtin_ctz(static_cast<unsigned>(
+                                        cluster))];
   if (hit < 0) {
     int num = 0;
     cudaLaunchAttribute attr;
@@ -564,6 +588,7 @@ extern "C" int p3d_farthest_point_sample_plan(int b, int n, int cluster,
       (cluster & (cluster - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const std::lock_guard<std::mutex> hold(state_lock);
   const Plan p = choose(b, n, cluster);
   plan[0] = p.cluster;
   plan[1] = p.slot < 0 ? 0 : kPpts[p.slot];
@@ -585,7 +610,14 @@ extern "C" int p3d_farthest_point_sample_cluster(
   }
   if (b == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = choose(b, n, cluster);
+  Plan p;
+  cudaError_t err = cudaSuccess;
+  {
+    const std::lock_guard<std::mutex> hold(state_lock);
+    p = choose(b, n, cluster);
+    if (p.cluster > 0) err = prepare(p.slot);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (p.cluster == 0) {
     if (cluster > 0 || scratch == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -594,8 +626,6 @@ extern "C" int p3d_farthest_point_sample_cluster(
                                                      scratch, n, npoint);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = prepare(p.slot);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(p.slot, p.cluster, b, s, &attr);
   err = cudaLaunchKernelEx(&cfg, cluster_kernel(p.slot), xyz, mask, idx, n,

@@ -86,7 +86,7 @@ def _k2_keys(case, b=3, n=4000, cells=214272):
     no key in the grid (past its end) beside one with negative keys; rows
     only at the two ends of the grid (runs of empty tiles between); a
     1,000-row segment in the last cell; occupied cells on both sides of
-    every tile boundary of the 128-, 256- and 512-cell tiles."""
+    the first 31 boundaries of the kernel's 128-cell tiles."""
     rng = np.random.default_rng(K2_CASES.index(case))
     keys = rng.integers(0, cells, (b, n))
     if case == "sentinel":
@@ -112,7 +112,7 @@ def test_sorted_segment_sum_edge_cases(cuda, case, c, split):
     """K2 bit for bit against the row-order sum at its edge cases (see
     _k2_keys), the table's span per tile 16-byte aligned (c_main = 64) and
     not (c_main = 7), through the wrapper (one launch, the density rule's
-    sparse pick) and at each tile size of the kernel."""
+    sparse pick) and through the C entry into a NaN-filled table."""
     cells = 214272
     keys = _k2_keys(case, cells=cells).to(cuda)
     rows = torch.from_numpy(np.random.default_rng(c).normal(
@@ -128,17 +128,16 @@ def test_sorted_segment_sum_edge_cases(cuda, case, c, split):
     got = torch.cat(got, dim=-1) if split else got
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     b, n = keys.shape
-    for tile in (128, 256, 512):
-        out = torch.full((b, cells, c - 1 if split else c), float("nan"),
-                         device=cuda)
-        extra = torch.full((b, cells, 1), float("nan"), device=cuda)
-        _build.check(_build.function("p3d_sorted_segment_sum_tiled")(
-            keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            extra.data_ptr() if split else None, b, n, c, cells, tile,
-            _build.stream_ptr(keys.device)), "sorted_segment_sum")
-        full = torch.cat([out, extra], dim=-1) if split else out
-        # NaN-filled first: every cell must be written
-        torch.testing.assert_close(full, ref, rtol=0, atol=0)
+    out = torch.full((b, cells, c - 1 if split else c), float("nan"),
+                     device=cuda)
+    extra = torch.full((b, cells, 1), float("nan"), device=cuda)
+    _build.check(_build.function("p3d_sorted_segment_sum")(
+        keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        extra.data_ptr() if split else None, b, n, c, cells,
+        _build.stream_ptr(keys.device)), "sorted_segment_sum")
+    full = torch.cat([out, extra], dim=-1) if split else out
+    # NaN-filled first: every cell must be written
+    torch.testing.assert_close(full, ref, rtol=0, atol=0)
     if case in ("sentinel", "no_in_grid"):
         assert not got[0].any()
 
