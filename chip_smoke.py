@@ -69,11 +69,11 @@ non-zero and prints no result:
      equal; K10 also at every cluster size that holds the scan, logged with
      its plan, us a step and chain floor: the same picks over one point a
      thread of the chosen cluster); K8 at the forward's 8 convs and 7 map
-     builds (bit-equal, index-equal); test_forward through the kernels (PV-RCNN: 7 K9
-     launches, one K10, 8 K8 conv and 7 map launches and one row-major
-     segment sum, K2 or K7 as the density rule picks; Voxel-RCNN: 2 K9, no
-     K10) and on the plain versions (BEV,
-     keypoints, proposals and outputs must agree); no valid stage voxel
+     builds (bit-equal, index-equal); test_forward through the kernels
+     (PV-RCNN: 7 K9 launches, one K10, 8 K8 conv and 7 map launches and one
+     row-major segment sum, K2 or K7 as the density rule picks; Voxel-RCNN:
+     2 K9, no K10) and on the plain versions (BEV, keypoints, proposals and
+     outputs must agree); no valid stage voxel
      outside its grid; timing, memory, a profile and the time of each
      stage;
   9. IA-SSD KITTI serving: K10 at its three call shapes and K9 at its ten,

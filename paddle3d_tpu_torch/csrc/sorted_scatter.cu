@@ -16,15 +16,16 @@
 // Design: one kernel writes every cell of the table (and of `extra`)
 // exactly once, and nothing else touches it: no memset runs before it. A
 // block of 512 threads owns a tile of kK2Tile = 128 consecutive cells.
-// Because the keys are sorted, the tile's rows are one range [r0, r1). A
-// first pass over the keys writes every tile's r0 into a [B, tiles + 1]
-// array (each row writes the starts of the tiles its key step crosses:
-// O(rows + tiles), no search), so a block reads its range with one load
-// where a search would chain several; the array comes from a
-// stream-ordered pool a device, freed on the stream after the table's
-// kernel. A tile with no row streams its zeros with
-// 16-byte streaming stores (__stcs of float4; a scalar head and tail where
-// the span is not 16-byte aligned, as when c_main is not a multiple of 4).
+// Because the keys are sorted, the tile's rows are one range [r0, r1); two
+// warps find its bounds at once, each by a 32-way search (a ballot over 32
+// probes a round: three dependent L2 loads at 20,000 rows, where a binary
+// search would chain fifteen). A tile-start array filled by a first pass
+// over the keys (O(rows + tiles), one load a block in place of the search)
+// measured 1.3 % slower at KITTI: its pass and launch cost more than the
+// search, whose latency the other blocks of an SM hide. A tile with no row
+// streams its zeros with 16-byte streaming stores (__stcs of float4; a
+// scalar head and tail where the span is not 16-byte aligned, as when
+// c_main is not a multiple of 4).
 // Clustered scans occupy most tiles (at KITTI ~94 % of the 128-cell tiles
 // hold a row, though ~96 % of the cells are empty), so the occupied tile
 // is the main path. It marks each cell's first row in shared memory (each
@@ -49,14 +50,15 @@
 // ends of the grid inward, every scan's tile together, so that those
 // corner segments start first instead of ending the kernel late. More
 // threads a tile and 128-cell tiles measured fastest: a block's time is
-// mostly the latency of its few dependent steps (range, starts, sums).
+// mostly the latency of its few dependent steps (search, starts, sums).
 // Each lane adds its cell's rows in row order starting from +0: the plain
 // row-order sum, bit for bit, whatever order the cells are listed in. One
 // writer a cell, no atomics on the table. Keys outside [0, num_cells) (the
 // sentinel) lie outside every tile's range and are dropped. With `extra`
 // set (split form), the last channel goes to its own [B, cells] buffer,
-// the pillar canvas's occupancy side channel. The TPU kernel's one-hot MXU products, cap-aligned DMA windows and
-// prefetch slots are TPU workarounds and have no counterpart here.
+// the pillar canvas's occupancy side channel. The TPU kernel's one-hot
+// MXU products, cap-aligned DMA windows and prefetch slots are TPU
+// workarounds and have no counterpart here.
 //
 // K5: grad_rows[b, i] = g[b, keys[b, i]], zero where the key lies outside
 // [0, num_cells) (the sentinel 2^31-1 included). Replaces
@@ -165,8 +167,6 @@
 
 #include <climits>
 #include <cstddef>
-#include <map>
-#include <mutex>
 
 namespace {
 
@@ -182,6 +182,25 @@ __device__ __forceinline__ int lower_bound(const int* keys, int lo, int hi,
     } else {
       hi = mid;
     }
+  }
+  return lo;
+}
+
+// first index in [0, n) whose key is >= value (keys sorted), found by the
+// whole warp: each round 32 probes split the interval and a ballot keeps
+// the one part that holds the answer. Every lane returns it.
+__device__ __forceinline__ int warp_lower_bound(const int* keys, int n,
+                                                int value, int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    const unsigned less =
+        __ballot_sync(0xffffffffu, p < hi && keys[p] < value);
+    if (less == 0u) return lo;
+    const int cnt = __popc(less);  // the probes below value are a prefix
+    hi = min(hi, lo + cnt * step);
+    lo += (cnt - 1) * step + 1;
   }
   return lo;
 }
@@ -219,29 +238,8 @@ __host__ __device__ constexpr int stage_rows(int c) {
   return c > kK2Threads ? 0 : kStageFloats / 2 / c;
 }
 
-// K2's first pass: starts[b, t] is the first row of scan b whose key lies
-// in tile t or past it, for t in [0, tiles] (keys below 0 come before tile
-// 0, keys at or past num_cells after the last tile). Thread j of rows
-// [0, n] writes the tiles from just past row j - 1's tile to row j's (row
-// n's: tiles), so every entry is written once, with no search.
-__global__ void __launch_bounds__(kThreads)
-    tile_starts_kernel(const int* __restrict__ keys, int* __restrict__ starts,
-                       int n, int num_cells, int tiles) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j > n) return;
-  const int* kb = keys + static_cast<size_t>(blockIdx.y) * n;
-  auto tile_of = [&](int i) {
-    const int k = kb[i];
-    return k < 0 ? -1 : k >= num_cells ? tiles : k / kK2Tile;
-  };
-  const int hi = j < n ? tile_of(j) : tiles;
-  int* sb = starts + static_cast<size_t>(blockIdx.y) * (tiles + 1);
-  for (int t = (j > 0 ? tile_of(j - 1) : -1) + 1; t <= hi; ++t) sb[t] = j;
-}
-
 __global__ void __launch_bounds__(kK2Threads)
     sorted_segment_sum_kernel(const int* __restrict__ keys,
-                              const int* __restrict__ starts,
                               const float* __restrict__ rows,
                               float* __restrict__ out,
                               float* __restrict__ extra, int n, int c,
@@ -250,6 +248,7 @@ __global__ void __launch_bounds__(kK2Threads)
   // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
   __shared__ int s_start[kK2Tile + 1];
   __shared__ int s_occ[kK2Tile];   // the tile's occupied cells, any order
+  __shared__ int s_range[2];
   __shared__ int s_nocc;
   // the tiles from both ends of the grid inward, every scan's tile t
   // together: a scan clipped to its range piles its far points into the
@@ -263,10 +262,17 @@ __global__ void __launch_bounds__(kK2Threads)
   const int cell0 = tile * kK2Tile;
   const int ncell = min(kK2Tile, num_cells - cell0);
   const int* kb = keys + static_cast<size_t>(b) * n;
-  const int* sb = starts + static_cast<size_t>(b) * (tiles + 1) + tile;
-  const int r0 = sb[0];   // the tile's rows: [r0, r1)
-  const int r1 = sb[1];
-  if (threadIdx.x == 0) s_nocc = 0;   // read after the next __syncthreads
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 2) {   // the tile's rows: [r0, r1)
+    const int r = warp_lower_bound(kb, n, cell0 + (warp == 0 ? 0 : ncell),
+                                   lane);
+    if (lane == 0) s_range[warp] = r;
+  }
+  if (threadIdx.x == 0) s_nocc = 0;
+  __syncthreads();
+  const int r0 = s_range[0];
+  const int r1 = s_range[1];
   const int c_main = extra != nullptr ? c - 1 : c;
   const size_t g0 = static_cast<size_t>(b) * num_cells + cell0;
   float* ob = out + g0 * c_main;
@@ -419,35 +425,6 @@ __global__ void __launch_bounds__(kK2Threads)
       __stcs(eb + cell, acc);
     }
   }
-}
-
-// the tile starts' memory: one stream-ordered pool a device, which keeps
-// what it holds across synchronizations, so that a call after the first
-// maps no new memory
-cudaError_t start_pool(cudaMemPool_t* pool) {
-  static std::mutex lock;
-  static std::map<int, cudaMemPool_t> pools;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::lock_guard<std::mutex> hold(lock);
-  const auto it = pools.find(dev);
-  if (it != pools.end()) {
-    *pool = it->second;
-    return cudaSuccess;
-  }
-  cudaMemPoolProps props = {};
-  props.allocType = cudaMemAllocationTypePinned;
-  props.location.type = cudaMemLocationTypeDevice;
-  props.location.id = dev;
-  err = cudaMemPoolCreate(pool, &props);
-  if (err != cudaSuccess) return err;
-  unsigned long long keep = ULLONG_MAX;
-  err = cudaMemPoolSetAttribute(*pool, cudaMemPoolAttrReleaseThreshold,
-                                &keep);
-  if (err != cudaSuccess) return err;
-  pools[dev] = *pool;
-  return cudaSuccess;
 }
 
 constexpr int kTileRows = 32;
@@ -784,8 +761,8 @@ extern "C" int p3d_sorted_segment_sum_dense(const int* keys,
 
 // K2. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;
 // out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
-// when extra is not null), every cell written once (no memset): the tile
-// starts' pass, then the table's. Returns the first CUDA error.
+// when extra is not null), every cell written once by one kernel (no
+// memset). Returns cudaGetLastError().
 extern "C" int p3d_sorted_segment_sum(const int* keys, const float* rows,
                                       float* out, float* extra, int b, int n,
                                       int c, int num_cells, void* stream) {
@@ -795,28 +772,13 @@ extern "C" int p3d_sorted_segment_sum(const int* keys, const float* rows,
   if (b == 0 || num_cells == 0 || c == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (num_cells + kK2Tile - 1) / kK2Tile;
-  cudaMemPool_t pool;
-  cudaError_t err = start_pool(&pool);
-  int* starts = nullptr;
-  if (err == cudaSuccess) {
-    err = cudaMallocFromPoolAsync(
-        reinterpret_cast<void**>(&starts),
-        static_cast<size_t>(b) * (tiles + 1) * sizeof(int), pool, s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 pass(static_cast<unsigned>(n / kThreads + 1), b);
-  tile_starts_kernel<<<pass, kThreads, 0, s>>>(keys, starts, n, num_cells,
-                                                tiles);
   const size_t smem =
       static_cast<size_t>(2) * stage_rows(c) * c * sizeof(float);
   sorted_segment_sum_kernel<<<static_cast<unsigned>(tiles) * b, kK2Threads,
-                              smem, s>>>(keys, starts, rows, out, extra, n,
-                                         c, num_cells);
-  err = cudaGetLastError();
-  const cudaError_t freed = cudaFreeAsync(starts, s);
-  return static_cast<int>(err != cudaSuccess ? err : freed);
+                              smem, static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, out, extra, n, c, num_cells);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // keys [b, n] int32; g: element (b, cell, ch) at g[b*gsb + cell*gsk +
