@@ -84,12 +84,14 @@ non-zero and prints no result:
      clip 35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): the
      segmented window max (K12) forward and backward at both PFN layers'
      shapes, on the inputs a train step hands them, against their plain
-     versions (values, offsets, gradients equal); one train step through
-     the kernels (2 K12 forward, 2 K12 backward, one K7, one K5 launch;
-     no K1, K2, K3, K4 or K6) against one on the plain versions from the
-     same state; the tiny two-layer train step on the card against the
-     CPU; 10 steps with finite losses that fall; train scans/s of both
-     paths, peak memory, a profile and the time of each stage;
+     versions (values, offsets, gradients equal bit for bit), with the
+     share of (row, step) pairs the forward works on and the in-segment
+     probes a row the backward makes, from the step's keys; one train step
+     through the kernels (2 K12 forward, 2 K12 backward, one K7, one K5
+     launch; no K1, K2, K3, K4 or K6) against one on the plain versions
+     from the same state; the tiny two-layer train step on the card
+     against the CPU; 10 steps with finite losses that fall; train scans/s
+     of both paths, peak memory, a profile and the time of each stage;
  11. two-stage KITTI training (the configs' AdamWOnecycle, clip 10 and
      OneCycle; the RPN head from the upstream init; bench.make_gt's boxes,
      half of them the model's own first proposals, jittered; 20 warm-up
@@ -366,7 +368,8 @@ def plain_path():
                 iou_clip.pairwise_intersection_area_plain)), \
             mock.patch.multiple(
             seg_window, seg_window_max_fwd=seg_window.seg_window_max_plain,
-            seg_window_max_bwd=seg_window.seg_window_max_bwd_plain), \
+            seg_window_max_bwd=lambda off, g, max_len, keys: (
+                seg_window.seg_window_max_bwd_plain(off, g, max_len))), \
             mock.patch.multiple(
             ball_query, ball_query_batched=ball_query.ball_query_plain), \
             mock.patch.multiple(
@@ -2120,7 +2123,8 @@ def cp_train_setup(device):
 
 def capture_sw_inputs(step, model, optimizer, batch):
     """One kernel-path train step, recording what it hands K12 forward
-    (vals, keys, max_len) and backward (offsets, cotangent, max_len)."""
+    (vals, keys, max_len) and backward (offsets, cotangent, max_len,
+    keys)."""
     from paddle3d_tpu_torch.ops import seg_window
     fwds, bwds = [], []
     fwd_fn, bwd_fn = seg_window.seg_window_max_fwd, \
@@ -2143,6 +2147,36 @@ def capture_sw_inputs(step, model, optimizer, batch):
     return fwds, bwds
 
 
+def sw_key_stats(keys, win):
+    """From sorted keys [B, N]: the share of (row, doubling step) pairs
+    with a same-key row at +-d (the rows the K12 forward works on at that
+    step) and the mean same-key rows within +-win of a row (the probes its
+    backward makes)."""
+    import torch
+    b, n = keys.shape
+    idx = torch.arange(n, device=keys.device).expand(b, n)
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    tail = torch.ones_like(head)
+    tail[:, :-1] = head[:, 1:]
+    start = torch.cummax(torch.where(head, idx, 0), 1).values
+    end = torch.flip(torch.cummin(torch.flip(torch.where(tail, idx, n), [1]),
+                                  1).values, [1])
+    dn = torch.clamp(idx - start, max=win)
+    up = torch.clamp(end - idx, max=win)
+    reach = torch.maximum(dn, up)
+    live = torch.stack([reach >= (1 << s)
+                        for s in range(win.bit_length())]).float()
+    return live.mean().item(), (dn + up).float().mean().item()
+
+
+def same_bits(a, b):
+    """Equal float32 bit patterns (tells -0 from +0, as torch.equal does
+    not)."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_sw_kernels(fwds, bwds):
     """K12 forward and backward against their plain versions on the inputs
     of a train step (layer 0 [8, 250k, 32], layer 1 [8, 250k, 64]); times
@@ -2155,16 +2189,19 @@ def phase_sw_kernels(fwds, bwds):
     nbytes = {name: 0 for name in SW_KERNELS}
     ops = {name: 0 for name in SW_KERNELS}
     note_ms = 0.0
-    for (vals, keys, p), (off_in, g, _) in zip(fwds, bwds[::-1]):
+    for (vals, keys, p), (off_in, g, _, bkeys) in zip(fwds, bwds[::-1]):
         out, off = seg_window.seg_window_max_fwd(vals, keys, p)
         ref, ref_off = seg_window.seg_window_max_plain(vals, keys, p)
-        gin = seg_window.seg_window_max_bwd(off_in, g, p)
+        gin = seg_window.seg_window_max_bwd(off_in, g, p, keys)
         ref_gin = seg_window.seg_window_max_bwd_plain(off_in, g.contiguous(),
                                                       p)
         torch.cuda.synchronize()
-        check(tuple(off_in.shape) == tuple(vals.shape),
-              "a backward met another layer's shape")
+        check(tuple(off_in.shape) == tuple(vals.shape) and
+              torch.equal(bkeys, keys),
+              "a backward met another layer's shape or keys")
         check(torch.equal(off, ref_off), "K12 offsets differ from plain")
+        check(same_bits(out, ref) and same_bits(gin, ref_gin),
+              "K12 values or gradients differ from plain in their bits")
         errs["seg_window_max"] = max(errs["seg_window_max"],
                                      (out - ref).abs().max().item())
         errs["seg_window_max_bwd"] = max(errs["seg_window_max_bwd"],
@@ -2176,7 +2213,8 @@ def phase_sw_kernels(fwds, bwds):
             cuda_ms(lambda: seg_window.seg_window_max_fwd(vals, keys, p), 20),
             cuda_ms(lambda: seg_window.seg_window_max_plain(vals, keys, p),
                     3),
-            cuda_ms(lambda: seg_window.seg_window_max_bwd(off_in, g, p), 20),
+            cuda_ms(lambda: seg_window.seg_window_max_bwd(off_in, g, p, keys),
+                    20),
             cuda_ms(lambda: seg_window.seg_window_max_bwd_plain(off_in, g, p),
                     2)]
         for i, name in enumerate(SW_KERNELS):
@@ -2204,11 +2242,14 @@ def phase_sw_kernels(fwds, bwds):
             acc.scatter_reduce_(0, idx, flat, reduce="amax")
             return torch.gather(acc, 0, idx)
         note_ms += cuda_ms(scatter_gather, 10)
+        live, probes = sw_key_stats(keys, win)
         log("  K12 at B={} N={} C={} P={} (window {} rows a side): forward "
             "{:.4f} ms (plain {:.4f}), backward {:.4f} ms (plain {:.4f}); "
-            "rows whose max came from another row {:.3f}".format(
+            "rows whose max came from another row {:.3f}; live (row, step) "
+            "pairs {:.4f}, in-segment probes a row {:.3f} of {}".format(
                 b, n, c, p, win, shape_t[0], shape_t[1], shape_t[2],
-                shape_t[3], (off != 0).float().mean().item()))
+                shape_t[3], (off != 0).float().mean().item(), live, probes,
+                2 * win))
     extra = {name: (None,) + bound(nbytes[name], f32_ops=ops[name])
              for name in SW_KERNELS}
     log("  scatter_reduce_(amax) + gather over segment ids (not the same "

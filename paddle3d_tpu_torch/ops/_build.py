@@ -72,7 +72,8 @@ _SIGNATURES = {
                                           _vp),
     "p3d_farthest_point_sample_plan": (_i, _i, _i, _vp),
     "p3d_seg_window_max": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
-    "p3d_seg_window_max_bwd": (_vp, _vp, _vp, _i, _i, _i, _i, _vp),
+    "p3d_seg_window_max_bwd": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                               _vp),
     "p3d_pairwise_intersection_area": (_vp, _vp, _vp, _i, _i, _i, _vp),
     "p3d_sorted_segment_sum_rw": (_vp, _vp, _ll, _ll, _ll, _vp, _i, _i, _i,
                                   _i, _vp),

@@ -20,8 +20,9 @@ cotangent where this routes it to one row.
 On a CUDA tensor `seg_window_max_fwd` and `seg_window_max_bwd` launch the
 hand-written kernels in csrc/seg_window.cu (whose header says what bounds
 them); on a CPU tensor they take the plain PyTorch versions beside them.
-`seg_window_max` is one torch.autograd.Function over the two; the keys get
-no gradient.
+`seg_window_max` is one torch.autograd.Function over the two; it saves the
+keys for the backward, whose kernel probes only each row's own segment,
+and they get no gradient.
 """
 import torch
 
@@ -107,6 +108,17 @@ def _check(name, tensors, dtypes, shape):
         raise ValueError("{} kernel needs contiguous inputs".format(name))
 
 
+def _rows_apart(g: torch.Tensor) -> int:
+    """Elements between g's rows where the kernel can read g [B, N, C] in
+    place (channels contiguous, rows evenly spaced: the slice of a
+    concatenation's gradient), else 0."""
+    b, n, c = g.shape
+    ld = g.stride(1)
+    if g.stride(2) == 1 and ld >= c and (b == 1 or g.stride(0) == n * ld):
+        return ld
+    return 0
+
+
 def seg_window_max_fwd(vals: torch.Tensor, keys: torch.Tensor, max_len: int):
     """vals [B, N, C] f32, keys [B, N] int32 sorted per batch row (>= -2)
     -> (window max [B, N, C] f32, arg-max offsets [B, N, C] int8)."""
@@ -129,23 +141,38 @@ def seg_window_max_fwd(vals: torch.Tensor, keys: torch.Tensor, max_len: int):
     return out, off
 
 
-def seg_window_max_bwd(off: torch.Tensor, g: torch.Tensor,
-                       max_len: int) -> torch.Tensor:
-    """off [B, N, C] int8 from the forward, g [B, N, C] f32 the cotangent of
-    its output -> the cotangent of its input [B, N, C]."""
+def seg_window_max_bwd(off: torch.Tensor, g: torch.Tensor, max_len: int,
+                       keys: torch.Tensor) -> torch.Tensor:
+    """off [B, N, C] int8 from the forward on the same keys [B, N] int32,
+    g [B, N, C] f32 the cotangent of its output -> the cotangent of its
+    input [B, N, C]. The kernel probes only each row's own segment of the
+    keys (an offset never points out of it); offsets from other keys give
+    another result than the plain version. It reads g in place where g's
+    rows are evenly spaced with contiguous channels, as the two-layer
+    canvas hands it a slice of its concatenation's gradient."""
     if not g.is_cuda:
         return seg_window_max_bwd_plain(off, g, max_len)
-    b, n, c = g.shape
-    g = g.contiguous()
-    _check("seg_window_max_bwd", (g, off), (torch.float32, torch.int8),
-           (b, n, c))
+    _check("seg_window_max_bwd", (off, keys), (torch.int8, torch.int32),
+           tuple(off.shape[:2]))
+    b, n, c = off.shape
+    if g.dtype != torch.float32:
+        raise TypeError("seg_window_max_bwd kernel takes an f32 cotangent, "
+                        "got {}".format(g.dtype))
+    if tuple(g.shape) != (b, n, c) or g.device != off.device:
+        raise ValueError("seg_window_max_bwd: a cotangent {} on {} expected, "
+                         "got {} on {}".format((b, n, c), off.device,
+                                               tuple(g.shape), g.device))
+    ld = _rows_apart(g)
+    if ld == 0:
+        g = g.contiguous()
+        ld = c
     win = window_of(max_len)
     if win > _MAX_WIN:
         raise ValueError("seg_window_max_bwd: max_len <= 128")
-    out = torch.empty_like(g)
+    out = torch.empty(off.shape, dtype=torch.float32, device=off.device)
     err = _build.function("p3d_seg_window_max_bwd")(
-        off.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, c, win,
-        _build.stream_ptr(g.device))
+        off.data_ptr(), g.data_ptr(), keys.data_ptr(), out.data_ptr(), b, n,
+        c, ld, win, _build.stream_ptr(g.device))
     _build.check(err, "seg_window_max_bwd")
     _build.LAUNCHES["seg_window_max_bwd"] += 1
     return out
@@ -156,14 +183,14 @@ class _SegWindowMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, keys, max_len):
         out, off = seg_window_max_fwd(vals, keys, max_len)
-        ctx.save_for_backward(off)
+        ctx.save_for_backward(off, keys)
         ctx.max_len = max_len
         return out
 
     @staticmethod
     def backward(ctx, g):
-        off, = ctx.saved_tensors
-        return seg_window_max_bwd(off, g, ctx.max_len), None, None
+        off, keys = ctx.saved_tensors
+        return seg_window_max_bwd(off, g, ctx.max_len, keys), None, None
 
 
 def seg_window_max(vals: torch.Tensor, keys: torch.Tensor,

@@ -1089,7 +1089,9 @@ def test_iassd_on_card_matches_cpu(cuda):
 def _seg_window_inputs(case, c, seed=0):
     """Sorted keys and values for K12: an exact-tie lattice (post-relu
     integers), segments longer than the window, an all-sentinel tail, the
-    -1e9 mask, N not a multiple of the 256-row tile."""
+    -1e9 mask, -0 values and cotangents, segments of 63 rows with one
+    maximum (a row that takes the cotangents of all 62 neighbours at
+    P = 20), segments of one row; N not a multiple of any tile."""
     rng = np.random.default_rng(seed)
     b, n = 2, 3001
     max_seg = 120 if case == "long" else 30
@@ -1097,6 +1099,10 @@ def _seg_window_inputs(case, c, seed=0):
     if case == "sentinel":
         keys[:, -700:] = SENT
         keys[1, :] = SENT
+    if case == "peak":
+        keys = np.tile(np.arange(n) // 63, (b, 1))
+    if case == "singletons":
+        keys = np.tile(np.arange(n) * 3, (b, 1))
     if case == "ties":
         vals = np.maximum(rng.integers(-3, 4, (b, n, c)), 0)
     else:
@@ -1104,22 +1110,38 @@ def _seg_window_inputs(case, c, seed=0):
     if case in ("masked", "sentinel"):
         vals = np.where(rng.random((b, n, 1)) < 0.3, -1e9, vals)
     g = rng.normal(0, 1, (b, n, c))
+    if case == "signed_zero":
+        vals = np.where(rng.random((b, n, c)) < 0.5,
+                        np.where(rng.random((b, n, c)) < 0.5, -0., 0.), vals)
+        zero_g = (rng.random((b, n, 1)) < 0.5) | (keys % 3 == 0)[..., None]
+        g = np.where(zero_g, -0., g)
+    if case == "peak":
+        vals[:, 31::63] += 10.
+        g = np.where((keys % 2 == 0)[..., None], -0., g)
     return (torch.from_numpy(vals.astype(np.float32)),
             torch.from_numpy(keys.astype(np.int32)),
             torch.from_numpy(g.astype(np.float32)))
 
 
-@pytest.mark.parametrize("c", [32, 64, 20])
-@pytest.mark.parametrize("case", ["ties", "long", "sentinel", "masked"])
+def _same_bits(a, b):
+    """Equal float32 bit patterns: tells -0 from +0, where torch.equal
+    does not."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("c", [32, 64, 20, 6])
+@pytest.mark.parametrize("case", ["ties", "long", "sentinel", "masked",
+                                  "signed_zero", "peak", "singletons"])
 def test_seg_window_max_matches_plain(cuda, case, c):
     """K12 forward and backward bit for bit against the plain versions:
-    values, int8 offsets and input gradients."""
+    values, int8 offsets and input gradients (c = 6 takes the kernels'
+    staging by plain loads)."""
     from paddle3d_tpu_torch.ops import seg_window
     vals, keys, g = (t.to(cuda) for t in _seg_window_inputs(case, c))
     for p in (20, 16):
         before = dict(_build.LAUNCHES)
         out, off = seg_window.seg_window_max_fwd(vals, keys, p)
-        gin = seg_window.seg_window_max_bwd(off, g, p)
+        gin = seg_window.seg_window_max_bwd(off, g, p, keys)
         ref, ref_off = seg_window.seg_window_max_plain(vals, keys, p)
         ref_gin = seg_window.seg_window_max_bwd_plain(ref_off, g, p)
         torch.cuda.synchronize()
@@ -1127,11 +1149,61 @@ def test_seg_window_max_matches_plain(cuda, case, c):
             before["seg_window_max"] + 1
         assert _build.LAUNCHES["seg_window_max_bwd"] == \
             before["seg_window_max_bwd"] + 1
-        assert torch.equal(out, ref)
+        assert _same_bits(out, ref)
         assert torch.equal(off, ref_off)
-        assert torch.equal(gin, ref_gin)
+        assert _same_bits(gin, ref_gin)
+        if case == "peak" and p == 20:
+            # every middle row of a whole segment took all 62 cotangents
+            # of its segment, none skipped: -0 ones stay -0
+            mid = gin[:, 31:keys.shape[1] // 63 * 63:63]
+            assert _same_bits(mid[:, ::2], torch.full_like(mid[:, ::2], -0.))
     if case == "ties":
         assert (off != 0).float().mean() > 0.3
+    if case == "signed_zero":
+        # a row alone in its segment with a -0 cotangent: the kernel
+        # probes nothing and must still give the plain version's +0
+        neg0 = torch.tensor(-0.).view(torch.int32).item()
+        alone = torch.ones_like(keys, dtype=torch.bool)
+        alone[:, 1:] &= keys[:, 1:] != keys[:, :-1]
+        alone[:, :-1] &= keys[:, :-1] != keys[:, 1:]
+        sel = alone[..., None] & (g.view(torch.int32) == neg0)
+        assert (g.view(torch.int32) == neg0).float().mean() > 0.3
+        assert (out.view(torch.int32) == neg0).any()
+        assert sel.any() and (gin.view(torch.int32)[sel] == 0).all()
+    if case == "singletons":
+        assert not off.any() and _same_bits(out, vals)
+
+
+def test_seg_window_max_bwd_reads_strided_g(cuda):
+    """A cotangent whose rows are evenly spaced (the slice of a wider
+    tensor, as a concatenation's gradient is) is read in place; one that is
+    not is copied first: both bit-equal to the plain version."""
+    from paddle3d_tpu_torch.ops import seg_window
+    vals, keys, g = (t.to(cuda) for t in _seg_window_inputs("ties", 32))
+    _, off = seg_window.seg_window_max_fwd(vals, keys, 20)
+    wide = torch.cat([torch.randn_like(g), g], dim=-1)[..., 32:]
+    cols = g.transpose(1, 2).contiguous().transpose(1, 2)
+    assert seg_window._rows_apart(wide) == 64
+    assert seg_window._rows_apart(cols) == 0
+    ref = seg_window.seg_window_max_bwd_plain(off, g, 20)
+    for view in (wide, cols):
+        assert _same_bits(seg_window.seg_window_max_bwd(off, view, 20, keys),
+                          ref)
+
+
+def test_seg_window_max_bwd_refuses_bad_keys(cuda):
+    """The backward takes the forward's keys: [B, N] int32 on the card."""
+    from paddle3d_tpu_torch.ops import seg_window
+    vals, keys, g = (t.to(cuda) for t in _seg_window_inputs("masked", 32))
+    _, off = seg_window.seg_window_max_fwd(vals, keys, 20)
+    with pytest.raises(TypeError):
+        seg_window.seg_window_max_bwd(off, g, 20, keys.long())
+    with pytest.raises(ValueError):
+        seg_window.seg_window_max_bwd(off, g, 20, keys[:, :-1].contiguous())
+    with pytest.raises(ValueError):
+        seg_window.seg_window_max_bwd(off, g, 20, keys[None])
+    with pytest.raises(ValueError):
+        seg_window.seg_window_max_bwd(off, g, 20, keys.cpu())
 
 
 def test_seg_window_max_autograd_on_card(cuda):

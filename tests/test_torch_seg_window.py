@@ -3,8 +3,10 @@ and pillar decoration of the multi-layer pillar train path.
 
 The port's plain versions of the K12 forward and backward against the JAX
 package's Pallas kernel in interpret mode (values, arg-max offsets and
-input gradients equal: ties, segments longer than the window, a length
-that is not a multiple of the Pallas block, the -1e9 mask), against the XLA
+input gradients equal bit for bit: ties, segments longer than the window,
+a length that is not a multiple of the Pallas block, the -1e9 mask, -0
+values and cotangents, segments of 2 win + 1 rows that route every
+cotangent to their middle row), against the XLA
 form seg_window_max_bounded (values equal; on tie-free data the autograd
 gradient equals jax.grad's, which splits tied cotangents where the kernel
 routes them to one row), the bounded scans against ops/segmented.py, and
@@ -45,7 +47,7 @@ def sorted_keys(rng, b, n, max_seg, sentinel_tail=0):
 
 
 def make_case(name):
-    rng = np.random.default_rng(sorted(CASES).index(name))
+    rng = np.random.default_rng(SEEDS.index(name))
     b, n, c, max_seg, p, tail = CASES[name]
     keys = sorted_keys(rng, b, n, max_seg, tail)
     if name == "ties":
@@ -56,6 +58,21 @@ def make_case(name):
     if name == "masked":
         vals = np.where(rng.random((b, n, 1)) < 0.3, -1e9, vals)
     g = rng.normal(size=(b, n, c)).astype(np.float32)
+    if name == "signed_zero":
+        # -0 and +0 values tie; -0 cotangents, whole segments of them
+        vals = np.where(rng.random((b, n, c)) < 0.5,
+                        np.where(rng.random((b, n, c)) < 0.5, -0., 0.), vals)
+        zero_g = (rng.random((b, n, 1)) < 0.5) | (keys % 3 == 0)[..., None]
+        g = np.where(zero_g, np.float32(-0.), g)
+    if name == "peak":
+        # segments of 2 win + 1 rows, each with one maximum in its middle
+        # row: that row receives from all 2 win positions, none skipped;
+        # every other segment's cotangents are -0
+        seg = 2 * seg_window.window_of(p) + 1
+        keys = np.broadcast_to(np.arange(n, dtype=np.int32) // seg,
+                               (b, n)).copy()
+        vals[:, seg // 2::seg] += 10.
+        g = np.where((keys % 2 == 0)[..., None], np.float32(-0.), g)
     return vals.astype(np.float32), keys, p, g
 
 
@@ -65,7 +82,16 @@ CASES = {
     "ties": (2, 600, 8, 40, 20, 0),
     "long_segments": (1, 1100, 4, 120, 16, 0),      # segments >> window
     "masked": (2, 513, 16, 30, 20, 37),             # N = block + 1
+    "signed_zero": (2, 600, 8, 12, 20, 0),
+    "peak": (2, 630, 8, 64, 20, 0),                 # keys made in make_case
 }
+# each case's seed: its place here (new cases at the end)
+SEEDS = ["long_segments", "masked", "random", "ties", "signed_zero", "peak"]
+
+
+def bits(a):
+    """The float32 bit patterns of a: equal bits tell -0 from +0."""
+    return np.asarray(a, np.float32).view(np.int32)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -77,12 +103,23 @@ def test_plain_matches_pallas_interpret(name):
     out, off = seg_window.seg_window_max_plain(torch.from_numpy(vals),
                                                torch.from_numpy(keys), p)
     assert off.dtype == torch.int8
-    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(bits(out.numpy()), bits(want))
     np.testing.assert_array_equal(off.numpy().astype(np.int32),
                                   np.asarray(want_off))
     assert np.abs(off.numpy()).max() <= seg_window.window_of(p)
     got_g = seg_window.seg_window_max_bwd_plain(off, torch.from_numpy(g), p)
-    np.testing.assert_array_equal(got_g.numpy(), np.asarray(want_g))
+    np.testing.assert_array_equal(bits(got_g.numpy()), bits(want_g))
+    if name == "signed_zero":
+        # -0 in; a sum with a skipped (+0) term out is +0
+        assert (bits(g) == bits(-0.)).mean() > 0.3
+        assert (bits(got_g.numpy()) == bits(-0.)).sum() == 0
+        assert (bits(out.numpy()) == bits(-0.)).sum() > 0
+    if name == "peak":
+        # each middle row takes all 2 win cotangents of its segment; a
+        # segment of -0 cotangents sums to -0, added nowhere else
+        middle = got_g.numpy()[:, 31::63]
+        np.testing.assert_array_equal(off.numpy()[:, 31::63], 0)
+        assert (bits(middle[:, ::2]) == bits(-0.)).all()
     if name == "ties":
         # ties routed to one row: each output's cotangent lands once
         assert (off.numpy() != 0).mean() > 0.3
