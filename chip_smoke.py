@@ -26,7 +26,8 @@ non-zero and prints no result:
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes (K1/K2 inference, K3/K4/K5 train, the two-layer K1 and
-     K6 CenterPoint inference), with the stated tolerance; kernel, plain
+     K6 CenterPoint inference), with the stated tolerance (the two-layer
+     K1 by bit pattern, tolerance 0); kernel, plain
      and library-call times and each kernel's bound (a scatter's library
      call, index_add_, goes from the kernel's own inputs to a fresh table:
      index_add_call); K2 through its wrapper bit for bit against the
@@ -66,7 +67,12 @@ non-zero and prints no result:
   8. PV-RCNN then Voxel-RCNN KITTI serving: the ball query (K9) at each of
      its call shapes and farthest-point sampling (K10) on the inputs a
      forward hands them, against their plain versions (indices and counts
-     equal; K10 also at every cluster size that holds the scan, logged with
+     equal; K9 logged with the tests of the first kernel's walk, the tests
+     the culled kernel runs and the in-ball points its bound counts, the
+     share of chunks its boxes skip and of points its block boxes mark,
+     failing if a skipped chunk or an unmarked point holds a hit (ball_work,
+     from ops/ball_query.cull_plain); K10 also at every cluster size that
+     holds the scan, logged with
      its plan, us a step and chain floor: the same picks over one point a
      thread of the chosen cluster); K8 at the forward's 8 convs and 7 map
      builds (bit-equal, index-equal); test_forward through the kernels
@@ -99,7 +105,8 @@ non-zero and prints no result:
      kernel (K11) bit for bit against its plain version on the train step's
      own corners, at 8 x 1,000 x 1,000 clustered boxes and on a tie
      lattice; one Voxel-RCNN train step through the kernels (one K11, two
-     K9, the dense BEV's segment sum, K2 held at its call, and its VJP; no
+     K9 held as in phase 8, the dense BEV's segment sum, K2 held at its
+     call, and its VJP; no
      K8: training takes the gather route) against one on the plain
      versions from the same state
      and sampler seed (targets equal, losses, grads, running stats); 10
@@ -107,7 +114,8 @@ non-zero and prints no result:
      that are non-empty at every step; train scans/s of both paths, peak
      memory, a profile and the time of each stage; then PV-RCNN: 3 steps
      with finite losses (K10 and K11 each step; the first step's K10 call
-     held as in phase 8), its train scans/s, memory, profile and stages;
+     and 7 K9 calls held as in phase 8), its train scans/s, memory, profile
+     and stages;
  12. the row-window channel-major segment sum (K13) and the row gather
      (K14), which no model path reaches, as ops: each called once at two
      shapes through its entry point (the launches the record counts), K13
@@ -130,7 +138,7 @@ non-zero and prints no result:
      and the time of each stage;
  14. IA-SSD KITTI training (the config's AdamWOnecycle, clip 10 and
      OneCycle; bench.make_gt's boxes): one train step through the kernels
-     (10 K9, 3 K10, the three K10 calls held as in phase 9) against one on
+     (10 K9, 3 K10, all held as in phase 9) against one on
      the plain versions from the same state;
      10 steps with finite losses that fall; train scans/s of both paths,
      peak memory, a profile and the time of each stage.
@@ -197,10 +205,11 @@ KERNELS = {
     "sorted_table_gather": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                             "paddle3d_tpu/ops/pallas/sorted_scatter.py:1315",
                             0.0),
-    # the two-layer branch of K1 (bit-equal by design, as K1) and K6 (one
-    # non-zero row per cell on its path: exact)
+    # the two-layer branch of K1 (bit-equal by design: compared by bit
+    # pattern, tolerance 0) and K6 (one non-zero row per cell on its path:
+    # exact)
     "fused_pfn_rows_2l": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
-                          "paddle3d_tpu/ops/pallas/fused_pfn.py:156", 1e-5),
+                          "paddle3d_tpu/ops/pallas/fused_pfn.py:156", 0.0),
     "sorted_segment_sum_cm": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                               "paddle3d_tpu/ops/pallas/sorted_scatter.py:568",
                               0.0),
@@ -411,7 +420,7 @@ def phase_build():
     log("phase 1: kernels built in {:.1f} s into {}".format(
         time.perf_counter() - t0, os.path.relpath(_build.BUILD_DIR, REPO)))
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log("  ptxas: " + line.strip())
 
 
@@ -1047,6 +1056,8 @@ def phase_cp_kernels(model, points):
     rnd_ref = sorted_scatter.sorted_segment_sum_cm_plain(keys, rnd, cells)
     torch.cuda.synchronize()
     check(tuple(table.shape) == (BATCH, cells, 64), "K6 output shape")
+    check(same_bits(rows_t, ref_t), "the two-layer fused_pfn_rows differs "
+          "from its plain version in its bits")
     errs = {"fused_pfn_rows_2l": (rows_t - ref_t).abs().max().item(),
             "sorted_segment_sum_cm": (table - ref_table).abs().max().item()}
     rnd_err = (rnd_table - rnd_ref).abs().max().item()
@@ -1092,6 +1103,11 @@ def phase_cp_kernels(model, points):
                 scatter_bytes(keys, cells, u2, table.numel())),
     }
     report(CP_KERNELS, errs, times, extra)
+    # what the two-layer kernel's own cap passes replace: the wrapper's
+    # cumsum of head flags over every row (the one-layer K1 still takes it)
+    log("  pillar_ordinals (the one-layer wrapper's cap input) at these "
+        "keys: {:.4f} ms".format(cuda_ms(
+            lambda: fused_pfn.pillar_ordinals(keys), 20)))
     return errs, times, extra, seg
 
 
@@ -1640,26 +1656,63 @@ def capture_point_inputs(model, points):
 
 
 def ball_work(radius, nsample, xyz, new_xyz, mask):
-    """What one ball query's data needs: -> (in-ball tests of a walk in
-    index order that stops at the nsample-th hit, hits a query uncapped,
-    share of the queries that fill nsample)."""
+    """What one ball query's data needs and what the kernel runs, from the
+    plain distance test and ops/ball_query.cull_plain: -> dict of `walk`
+    (the tests of a walk in index order that stops at the nsample-th hit:
+    the first kernel's), `need` (the in-ball valid points up to each
+    query's nsample-th: the tests no walk can skip, K9's operation bound),
+    `run` (the tests the culled kernel runs: the points the
+    block's box marks in the chunks whose box the ball reaches, up to the
+    chunk of the nsample-th hit), `skipped` (the share of (query, chunk)
+    pairs the box test skips), `kept` (the share of (block, point) pairs
+    the block's box marks), `hits` a query uncapped and `full` (the share
+    of queries that fill nsample). Fails if a skipped chunk or an unmarked
+    point holds a hit."""
     import torch
+    import torch.nn.functional as F
+
+    from paddle3d_tpu_torch.ops import ball_query
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
+    size, g = ball_query.CHUNK, ball_query.BLOCK_QUERIES
+    visit, keep = ball_query.cull_plain(radius, xyz, new_xyz, mask)
+    n_chunks = visit.shape[2]
+    pad = n_chunks * size - n
     r2 = torch.tensor(radius * radius, dtype=torch.float32,
                       device=xyz.device)
-    chunk = max(1, (1 << 25) // max(b * n, 1))
-    tests = hits = full = 0
-    for lo in range(0, m, chunk):
-        d = new_xyz[:, lo:lo + chunk, None, :] - xyz[:, None, :, :]
+    step = max(g, (1 << 25) // max(b * n, 1) // g * g)
+    work = dict(walk=0, need=0, run=0, hits=0, full=0, missed=0)
+    for lo in range(0, m, step):
+        d = new_xyz[:, lo:lo + step, None, :] - xyz[:, None, :, :]
         d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + \
             d[..., 2] * d[..., 2]
-        cum = torch.cumsum((d2 <= r2) & mask[:, None, :], dim=2)
-        before = (cum < nsample).sum(dim=2)
-        tests += int(torch.clamp(before + 1, max=n).sum())
-        hits += int(cum[..., -1].sum())
-        full += int((cum[..., -1] >= nsample).sum())
-    return tests, hits / max(b * m, 1), full / max(b * m, 1)
+        inb = (d2 <= r2) & mask[:, None, :]
+        mq = inb.shape[1]
+        cum = torch.cumsum(inb, dim=2)
+        total = cum[..., -1]
+        work["walk"] += int(torch.clamp((cum < nsample).sum(dim=2) + 1,
+                                        max=n).sum())
+        work["need"] += int(torch.clamp(total, max=nsample).sum())
+        work["hits"] += int(total.sum())
+        work["full"] += int((total >= nsample).sum())
+        marked = keep[:, lo // g:(lo + mq + g - 1) // g].repeat_interleave(
+            g, dim=1)[:, :mq]
+        vis = visit[:, lo:lo + mq]
+        hit_c = F.pad(inb, (0, pad)).reshape(b, mq, n_chunks, size).sum(-1)
+        mark_c = F.pad(marked, (0, pad)).reshape(b, mq, n_chunks,
+                                                 size).sum(-1)
+        work["missed"] += int((hit_c * ~vis).sum()) + int(
+            (inb & ~marked).sum())
+        before = torch.cumsum(hit_c, dim=2) - hit_c
+        work["run"] += int((mark_c * (vis & (before < nsample))).sum())
+    check(work["missed"] == 0, "the ball query's cull skips {} in-ball "
+          "points".format(work["missed"]))
+    work["skipped"] = 1.0 - visit.float().mean().item() if visit.numel() \
+        else 0.0
+    work["kept"] = keep.float().mean().item() if keep.numel() else 0.0
+    work["hits"] /= max(b * m, 1)
+    work["full"] /= max(b * m, 1)
+    return work
 
 
 def fps_plans(a, ref):
@@ -1709,8 +1762,11 @@ def phase_point_kernels(balls, samples, label):
     if balls:
         log("{}: the ball query at its {} call shapes, on the forward's "
             "inputs (per call: B x N supports, M queries, radius, nsample; "
-            "kernel / plain ms, bound, tests the walk needs, hits a query, "
-            "share of queries that fill nsample)".format(label, len(balls)))
+            "kernel / plain ms, bound, tests: the first kernel's walk, run "
+            "by the culled kernel, needed (the bound's count); share of "
+            "(query, chunk) pairs the chunk boxes skip and of (block, point) "
+            "pairs the block boxes mark; hits a query, share of queries that "
+            "fill nsample)".format(label, len(balls)))
     if samples:
         log("{}: farthest-point sampling at its {} calls, on the inputs it "
             "was handed".format(label, len(samples)))
@@ -1727,22 +1783,26 @@ def phase_point_kernels(balls, samples, label):
         m = new_xyz.shape[1]
         t = cuda_ms(lambda: ball_query.ball_query_batched(*a), 20)
         tp = cuda_ms(lambda: ball_query.ball_query_plain(*a), 2)
-        tests, hits, full = ball_work(*a)
+        work = ball_work(*a)
         # supports, queries and mask read once, indices and counts written;
-        # 8 f32 operations an in-ball test (3 differences, 3 products, 2
-        # sums)
+        # 8 f32 operations (3 differences, 3 products, 2 sums) an in-ball
+        # valid point up to the query's nsample-th: tests no cull can skip
         call_bytes = 4 * (xyz.numel() + new_xyz.numel() + idx.numel() +
                           cnt.numel()) + mask.numel()
-        one = bound(call_bytes, f32_ops=8 * tests)
+        one = bound(call_bytes, f32_ops=8 * work["need"])
         ms["ball_query"][0] += t
         ms["ball_query"][1] += tp
         nbytes["ball_query"] += call_bytes
-        ops["ball_query"] += 8 * tests
+        ops["ball_query"] += 8 * work["need"]
         log("  {} x {} supports ({} valid), {} queries, r {}, nsample {}: "
-            "{:.4f} / {:.4f} ms, bound {:.5f} ms ({}), tests {} of {}, hits "
-            "a query {:.2f}, full {:.3f}".format(
-                b, n, int(mask.sum()), m, radius, nsample, t, tp, one[0],
-                one[1], tests, b * m * n, hits, full))
+            "{:.4f} / {:.4f} ms, bound {:.5f} ms ({}; by the walk's tests "
+            "{:.5f}), tests walk {} / run {} / need {} of {}, chunks skipped "
+            "{:.4f}, points marked {:.4f}, hits a query {:.2f}, full {:.3f}"
+            .format(b, n, int(mask.sum()), m, radius, nsample, t, tp, one[0],
+                    one[1], bound(call_bytes, f32_ops=8 * work["walk"])[0],
+                    work["walk"], work["run"], work["need"], b * m * n,
+                    work["skipped"], work["kept"], work["hits"],
+                    work["full"]))
     for i, a in enumerate(samples):
         xyz, mask, npoint = a
         idx = fps.farthest_point_sample_batched(*a)
@@ -2771,7 +2831,8 @@ def phase_ts_train(device):
     import torch
 
     from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
-    from paddle3d_tpu_torch.ops import _build, fps, iou_clip, sorted_scatter
+    from paddle3d_tpu_torch.ops import (_build, ball_query, fps, iou_clip,
+                                        sorted_scatter)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     model, optimizer, scheduler, step, batch, size = ts_train_setup(
@@ -2802,11 +2863,18 @@ def phase_ts_train(device):
         return fn(*a)
     with recorded(pv_rcnn, "proposal_targets") as kcalls, \
             recorded(sorted_scatter, "scatter_rows") as bevs, \
+            recorded(ball_query, "ball_query_batched") as balls, \
             mock.patch.object(iou_clip, "pairwise_intersection_area",
                               iou_rec):
         kernel = record_step(step, model, optimizer, batch)
     check(len(ious) == 1, "expected one K11 call a step, got {}".format(
         len(ious)))
+    check(len(balls) == TST_LAUNCHES["ball_query"],
+          "expected {} K9 calls a step, got {}".format(
+              TST_LAUNCHES["ball_query"], len(balls)))
+    phase_point_kernels([a for a, _ in balls], [],
+                        "phase 11 (Voxel-RCNN training)")
+    del balls
     check(len(bevs) == 1, "expected one dense-BEV segment sum a step")
     if sorted_scatter.kernel_for(bevs[0][0][1].shape[1],
                                  bevs[0][0][2]) == "sorted_segment_sum":
@@ -2867,7 +2935,8 @@ def phase_ts_train(device):
 
     model, optimizer, _, step, batch, _ = ts_train_setup(device, PV_RCNN)
     _build.reset_launches()
-    with recorded(fps, "farthest_point_sample_batched") as samples:
+    with recorded(fps, "farthest_point_sample_batched") as samples, \
+            recorded(ball_query, "ball_query_batched") as balls:
         pv_losses = [step(model, optimizer, batch)]
     pv_losses += [step(model, optimizer, batch)
                   for _ in range(PV_TRAIN_STEPS - 1)]
@@ -2882,10 +2951,12 @@ def phase_ts_train(device):
     check(_build.LAUNCHES["farthest_point_sample"] == PV_TRAIN_STEPS and
           _build.LAUNCHES["pairwise_intersection_area"] == PV_TRAIN_STEPS,
           "PV-RCNN's steps missed K10 or K11")
-    check(len(samples) == 1, "expected one K10 call a PV-RCNN step")
-    phase_point_kernels([], [a for a, _ in samples],
+    check(len(samples) == 1 and len(balls) == 7,
+          "expected one K10 and 7 K9 calls a PV-RCNN step, got {} and {}"
+          .format(len(samples), len(balls)))
+    phase_point_kernels([a for a, _ in balls], [a for a, _ in samples],
                         "phase 11 (PV-RCNN training, first step)")
-    del samples
+    del samples, balls
     timed_train(step, model, optimizer, batch, "PV-RCNN", TS_TRAIN_ITERS,
                 ts_train_stages, plain=False)
     return errs, times, extra, launches
@@ -3245,10 +3316,11 @@ def phase_ia_train(device):
     import torch
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    from paddle3d_tpu_torch.ops import fps
+    from paddle3d_tpu_torch.ops import ball_query, fps
     model, optimizer, scheduler, step, batch = ia_train_setup(device)
     restore = saved_state(model, optimizer, scheduler)
-    with recorded(fps, "farthest_point_sample_batched") as samples:
+    with recorded(fps, "farthest_point_sample_batched") as samples, \
+            recorded(ball_query, "ball_query_batched") as balls:
         kernel = record_step(step, model, optimizer, batch)
     restore()
     with plain_path():
@@ -3267,9 +3339,9 @@ def phase_ia_train(device):
           "the IA-SSD train step launched {} where 10 K9 and 3 K10 were "
           "due".format(launches))
     check(not any(plain[3].values()), "the plain step launched a kernel")
-    phase_point_kernels([], [a for a, _ in samples],
+    phase_point_kernels([a for a, _ in balls], [a for a, _ in samples],
                         "phase 14 (IA-SSD training)")
-    del samples
+    del samples, balls
     step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6,
                               ("loss", "loss_cls", "loss_box", "loss_sa"))
     log("  vs the plain step: losses {:.3e} (tolerance 1e-6), grads {:.3e} "

@@ -66,7 +66,8 @@ _SIGNATURES = {
     "p3d_sparse_conv_map": (_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp),
     "p3d_sparse_conv3d": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                           _i, _i, _i, _vp),
-    "p3d_ball_query": (_vp, _vp, _vp, _vp, _vp, _f, _i, _i, _i, _i, _vp),
+    "p3d_ball_query": (_vp, _vp, _vp, _vp, _vp, _vp, _f, _i, _i, _i, _i,
+                       _vp),
     "p3d_farthest_point_sample": (_vp, _vp, _vp, _vp, _i, _i, _i, _vp),
     "p3d_farthest_point_sample_cluster": (_vp, _vp, _vp, _vp, _i, _i, _i, _i,
                                           _vp),

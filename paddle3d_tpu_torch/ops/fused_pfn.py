@@ -17,6 +17,8 @@ __all__ = ["fused_pfn_rows", "fused_pfn_rows_plain", "pillar_ordinals"]
 _SENT = 2**31 - 1
 _NEG = -1e9
 _MAX_C_IN = 8  # csrc/fused_pfn.cu kMaxCin
+_MAX_U1, _MAX_U2 = 32, 64  # csrc/fused_pfn.cu kU1, kU2 (two layers)
+_CAP_ROWS = 4096  # csrc/fused_pfn.cu kCapRows
 
 
 def _decorate_plain(keys, pts, P, maxV, nx, vx, vy, x_off, y_off,
@@ -160,24 +162,31 @@ def fused_pfn_rows(keys, pts_t, w1t, b1, w2t=None, b2=None, *, n_layers, P,
     if not 3 <= c_in <= _MAX_C_IN or c_dec != c_in + 5 + int(with_distance):
         raise ValueError("unsupported channels: C_in {}, C_dec {}".format(
             c_in, c_dec))
+    if n_layers == 2 and (u1 > _MAX_U1 or u_out > _MAX_U2):
+        raise ValueError("unsupported widths for the two-layer kernel: u1 "
+                         "{} (at most {}), u2 {} (at most {})".format(
+                             u1, _MAX_U1, u_out, _MAX_U2))
     if any(t.device != keys.device for t in tensors):
         raise ValueError("fused_pfn_rows inputs lie on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_pfn_rows kernel needs contiguous inputs")
-    vox = pillar_ordinals(keys)
     out = torch.empty((b, u_out + int(occupancy), n), dtype=torch.float32,
                       device=keys.device)
     geo = (nx, vx, vy, x_off, y_off, int(with_distance), int(occupancy),
            _build.stream_ptr(keys.device))
     if n_layers == 1:
+        vox = pillar_ordinals(keys)
         err = _build.function("p3d_fused_pfn_rows")(
             keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
             w1t.data_ptr(), b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec,
             u1, P, maxV, *geo)
         name = "fused_pfn_rows"
     else:
+        # the kernel's own cap passes: head counts a chunk, the cap row a scan
+        scratch = torch.empty(b * (-(-n // _CAP_ROWS) + 1),
+                              dtype=torch.int32, device=keys.device)
         err = _build.function("p3d_fused_pfn2_rows")(
-            keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+            keys.data_ptr(), pts_t.data_ptr(), scratch.data_ptr(),
             w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             out.data_ptr(), b, n, c_in, c_dec, u1, u_out, P, maxV, *geo)
         name = "fused_pfn_rows_2l"

@@ -221,6 +221,86 @@ def test_fused_pfn_two_layers_match_plain(cuda, P, maxV, c_in,
         assert (got[:, :64].amax(dim=(1, 2)) > 0).all()
 
 
+def _pfn2_edge_case(cuda, case, b=2):
+    """Sorted keys and points at the two-layer kernel's tile edges (tiles of
+    128 rows): -> (keys, pts_t, weights, kw, sizes of scan 0's pillars)."""
+    rng = np.random.default_rng(len(case))
+    P, maxV, nx = 20, 60000, 512
+    keys, pts = [], []
+    for s in range(b):
+        if case == "straddle":            # pillars of 1..30 rows
+            sizes = rng.integers(1, 31, 160)
+        elif case == "no_emission_tile":  # rows 120..399 emit and keep none
+            sizes = np.concatenate([[100, 300], rng.integers(1, 8, 90)])
+        elif case == "cuts":              # pillars over P, the maxV cap
+            sizes = rng.integers(15, 45, 60)
+            maxV = 25
+        elif case == "cap_at_chunk_edge":  # the cap row on row 8,192
+            if s == 0:
+                sizes = rng.integers(1, 9, 3000)
+                ends = np.cumsum(sizes)
+                j = int(np.searchsorted(ends, 8192))
+                sizes[j] -= ends[j] - 8192  # pillar j + 1 starts at 8,192
+                maxV = j + 1
+        else:                             # "singletons": rank-0 pillars
+            sizes = np.ones(700, np.int64)
+            sizes[::7] = 3
+        if s == 0:
+            sizes0 = sizes
+        cells = np.sort(rng.choice(nx * nx, len(sizes), replace=False))
+        k = np.repeat(cells, sizes)
+        n = sizes0.sum() + 77             # a ragged sentinel tail
+        k = np.concatenate([k, np.full(n - len(k), SENT)])[:n]
+        keys.append(k)
+        pts.append(rng.uniform([-51.2, -51.2, -5., 0., 0.],
+                               [51.2, 51.2, 3., 1., .5], (n, 5)).T)
+    n = min(len(k) for k in keys)
+    keys = torch.from_numpy(np.stack([k[:n] for k in keys]).astype(
+        np.int32)).to(cuda)
+    pts_t = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [p[:, :n] for p in pts]), dtype=np.float32)).to(cuda)
+    weights = [torch.from_numpy(rng.normal(0, sd, shape).astype(
+        np.float32)).to(cuda) for sd, shape in
+        ((.3, (32, 10)), (.1, (32, 1)), (.2, (64, 64)), (.1, (64, 1)))]
+    kw = dict(n_layers=2, P=P, maxV=maxV, nx=nx, vx=0.2, vy=0.2,
+              x_off=-51.1, y_off=-51.1, with_distance=False)
+    return keys, pts_t, weights, kw, sizes0
+
+
+@pytest.mark.parametrize("case", ["straddle", "no_emission_tile", "cuts",
+                                  "cap_at_chunk_edge", "singletons"])
+def test_fused_pfn_two_layers_tile_edges(cuda, case):
+    """The two-layer kernel at its tile edges, bit for bit against its
+    plain version with and without occupancy: pillars across tile edges,
+    tiles with no emission row, pillars cut at P and at maxV, the maxV cap
+    on the first row of a later 4,096-row chunk of the cap passes, rank-0
+    pillars."""
+    keys, pts_t, weights, kw, sizes = _pfn2_edge_case(cuda, case)
+    for occupancy in (False, True):
+        got = fused_pfn.fused_pfn_rows(keys, pts_t, *weights,
+                                       occupancy=occupancy, **kw)
+        ref = fused_pfn.fused_pfn_rows_plain(keys, pts_t, *weights,
+                                             occupancy=occupancy, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (2, 64 + occupancy, keys.shape[1])
+        assert _same_bits(got, ref)
+    emit = ref[0, -1].cpu().numpy()           # scan 0's emission rows
+    ends = np.cumsum(sizes)
+    starts = ends - sizes
+    kept_ends = starts + np.minimum(sizes, kw["P"]) - 1
+    if case == "straddle":
+        assert (starts // 128 != kept_ends // 128).any()
+    elif case == "no_emission_tile":
+        assert emit[128:256].sum() == 0 and emit[:128].sum() == 2
+    elif case == "cuts":
+        assert emit.sum() == kw["maxV"] and (sizes > kw["P"]).any()
+    elif case == "cap_at_chunk_edge":
+        assert starts[kw["maxV"]] == 8192 and emit.sum() == kw["maxV"]
+        assert emit[:8192].sum() == kw["maxV"] and not emit[8192:].any()
+    else:
+        assert (emit[starts[sizes == 1]] == 1).all()
+
+
 def test_fused_pfn_two_layers_raise_on_card(cuda):
     """The two-layer kernel refuses a second layer that does not fit."""
     keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
@@ -232,6 +312,42 @@ def test_fused_pfn_two_layers_raise_on_card(cuda):
                                                           device=cuda),
             torch.zeros((8, 1), device=cuda), n_layers=2, P=4, maxV=10,
             nx=4, vx=1., vy=1., x_off=.5, y_off=.5)
+
+
+@pytest.mark.parametrize("u1,u2", [(16, 32), (8, 64), (32, 40), (30, 61)])
+def test_fused_pfn_two_layers_narrow_widths(cuda, u1, u2):
+    """Layers narrower than the kernel's 32 and 64 channels take its
+    guarded instantiation: bit-equal to the plain version."""
+    keys, pts_t, _, kw, _ = _pfn2_edge_case(cuda, "straddle")
+    rng = np.random.default_rng(u1 * u2)
+    weights = [torch.from_numpy(rng.normal(0, sd, shape).astype(
+        np.float32)).to(cuda) for sd, shape in
+        ((.3, (u1, 10)), (.1, (u1, 1)), (.2, (u2, 2 * u1)), (.1, (u2, 1)))]
+    for occupancy in (False, True):
+        got = fused_pfn.fused_pfn_rows(keys, pts_t, *weights,
+                                       occupancy=occupancy, **kw)
+        ref = fused_pfn.fused_pfn_rows_plain(keys, pts_t, *weights,
+                                             occupancy=occupancy, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (2, u2 + occupancy, keys.shape[1])
+        assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("u1,u2", [(33, 64), (32, 65)])
+def test_fused_pfn_two_layers_refuse_wide_layers(cuda, u1, u2):
+    """The two-layer kernel holds at most 32 first-layer and 64
+    second-layer channels: wider layers raise before a launch."""
+    keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    pts_t = torch.zeros((1, 4, 4), device=cuda)
+    before = _build.LAUNCHES["fused_pfn_rows_2l"]
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fused_pfn.fused_pfn_rows(
+            keys, pts_t, torch.zeros((u1, 9), device=cuda),
+            torch.zeros((u1, 1), device=cuda),
+            torch.zeros((u2, 2 * u1), device=cuda),
+            torch.zeros((u2, 1), device=cuda), n_layers=2, P=4, maxV=10,
+            nx=4, vx=1., vy=1., x_off=.5, y_off=.5)
+    assert _build.LAUNCHES["fused_pfn_rows_2l"] == before
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -814,6 +930,114 @@ def test_ball_query_surface(cuda):
                                                        mask)
         torch.testing.assert_close(idx.cpu(), ref_idx, rtol=0, atol=0)
         torch.testing.assert_close(cnt.cpu(), ref_cnt, rtol=0, atol=0)
+
+
+def _key_sorted(xyz, mask, cell=0.2):
+    """Each scan's supports in the order of a voxel key (z, y, x cells of
+    `cell` m), as the sparse stages hand them."""
+    c = torch.floor(xyz / cell).to(torch.int64)
+    c = c - c.amin(dim=1, keepdim=True)
+    key = (c[..., 2] * 4096 + c[..., 1]) * 4096 + c[..., 0]
+    order = torch.argsort(key, dim=1, stable=True)
+    return (torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3)),
+            torch.gather(mask, 1, order))
+
+
+@pytest.mark.parametrize("queries", ["spread", "tight"])
+@pytest.mark.parametrize("order", ["key", "shuffled"])
+def test_ball_query_supports_in_key_and_shuffled_order(cuda, order,
+                                                       queries):
+    """The culled K9 index for index against its plain version with the
+    supports in key order (small chunk boxes: most chunks skipped) and
+    shuffled (wide boxes), the queries spread (random picks) or tight (in
+    key order, as an RoI's grid points)."""
+    from paddle3d_tpu_torch.ops import ball_query
+    n, m, nsample, radius = 6000, 2048, 16, 0.8
+    xyz, mask = _clustered(7, 3, n, [n, n // 2, n // 5], spread=1.5)
+    xyz, mask = _key_sorted(xyz, mask)
+    rng = np.random.default_rng(11)
+    if order == "shuffled":
+        perm = torch.from_numpy(rng.permutation(n))
+        xyz, mask = xyz[:, perm].contiguous(), mask[:, perm].contiguous()
+    pick = torch.from_numpy(rng.integers(0, n, (3, m)))
+    q = torch.gather(xyz, 1, pick[..., None].expand(-1, -1, 3)) + \
+        torch.from_numpy(rng.normal(0, 0.3, (3, m, 3)).astype(np.float32))
+    if queries == "tight":
+        q, _ = _key_sorted(q, torch.ones(q.shape[:2], dtype=torch.bool))
+    idx, cnt = ball_query.ball_query_batched(radius, nsample, xyz.to(cuda),
+                                             q.to(cuda), mask.to(cuda))
+    ref_idx, ref_cnt = ball_query.ball_query_plain(radius, nsample, xyz, q,
+                                                   mask)
+    torch.testing.assert_close(cnt.cpu(), ref_cnt, rtol=0, atol=0)
+    torch.testing.assert_close(idx.cpu(), ref_idx, rtol=0, atol=0)
+    assert (ref_cnt == nsample).any() and (ref_cnt < nsample).any()
+
+
+def _cull_edge_case(case, radius=0.75):
+    """One query scan around the origin, supports in chunks of 32 (K9's):
+    "surface": chunks whose box touches the ball exactly at the rounded r2
+    (a lattice point on the surface at the chunk's first or last lane, the
+    other 31 points outside with that point the box's nearest), each
+    followed by a chunk just beyond the ball; "masked_chunk": a chunk inside
+    the ball, every point masked, then one valid; "exactly_nsample": 8 hits,
+    a chunk beyond the ball, 8 hits, then 10 more. -> (xyz [1, N, 3], mask
+    [1, N], queries [1, 3, 3], nsample)."""
+    g = torch.arange(-8, 9, dtype=torch.float32) * 0.25
+    lat = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        -1, 3)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    d2 = (lat[:, 0] * lat[:, 0] + lat[:, 1] * lat[:, 1]) + \
+        lat[:, 2] * lat[:, 2]
+    order = torch.argsort(d2, stable=True)
+    lat, d2 = lat[order], d2[order]
+    inside, surf, out = lat[d2 < r2], lat[d2 == r2], lat[d2 > r2]
+    far = lat[lat[:, 0] > radius]            # the box lies beyond the ball
+    chunks, valid, nsample = [], [], 64
+    if case == "surface":
+        for i, s in enumerate(surf[:12]):
+            dom = (((out * s) > 0) | (s == 0)) & (out.abs() >= s.abs())
+            rest = out[dom.all(dim=1)][:31]
+            chunks += [torch.cat([s[None], rest] if i % 2 == 0 else
+                                 [rest, s[None]]), far[32 * i:32 * i + 32]]
+            valid += [True, True]
+    elif case == "masked_chunk":
+        chunks, valid = [inside[:32], inside[32:64]], [False, True]
+    else:
+        chunks = [torch.cat([inside[:8], out[:24]]), far[:32],
+                  torch.cat([inside[8:16], out[24:48]]),
+                  torch.cat([inside[16:26], out[48:70]])]
+        valid, nsample = [True] * 4, 16
+    assert all(len(c) == 32 for c in chunks)
+    xyz = torch.cat(chunks)[None]
+    mask = torch.tensor(valid).repeat_interleave(32)[None]
+    q = torch.zeros((1, 3, 3))
+    q[0, 1] = 0.125
+    q[0, 2, 0] = 0.3
+    return xyz, mask, q, nsample
+
+
+@pytest.mark.parametrize("radius", [0.75, 1.25, 1.0606601717798212])
+@pytest.mark.parametrize("case", ["surface", "masked_chunk",
+                                  "exactly_nsample"])
+def test_ball_query_cull_edges(cuda, case, radius):
+    """K9's chunk and block culls at their edges, index for index against
+    the plain version: boxes that touch the ball at the rounded r2, a fully
+    masked chunk, a ball of exactly nsample points across a skipped
+    chunk."""
+    from paddle3d_tpu_torch.ops import ball_query
+    xyz, mask, q, nsample = _cull_edge_case(case, radius)
+    idx, cnt = ball_query.ball_query_batched(radius, nsample, xyz.to(cuda),
+                                             q.to(cuda), mask.to(cuda))
+    ref_idx, ref_cnt = ball_query.ball_query_plain(radius, nsample, xyz, q,
+                                                   mask)
+    torch.testing.assert_close(cnt.cpu(), ref_cnt, rtol=0, atol=0)
+    torch.testing.assert_close(idx.cpu(), ref_idx, rtol=0, atol=0)
+    if case == "surface":
+        assert ref_cnt[0, 0] == 12
+    elif case == "masked_chunk":
+        assert ref_cnt[0, 0] == 32 and (ref_idx[0, 0] >= 32).all()
+    else:
+        assert ref_cnt[0, 0] == 16 and 64 <= ref_idx[0, 0, -1] < 96
 
 
 def test_ball_query_refuses_what_it_cannot_take(cuda):

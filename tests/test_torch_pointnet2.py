@@ -147,6 +147,106 @@ def test_ball_query_surface_and_chunks(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _surface_lattice(radius):
+    """Supports in chunks of 32 around a query at the origin: chunks whose
+    box touches the ball exactly at the rounded r2 (a lattice point on the
+    surface at the chunk's first or last lane, the other 31 outside with
+    that point the box's nearest), each followed by a chunk just beyond the
+    ball, then a chunk inside the ball with every point masked. -> (xyz
+    [1, N, 3], mask [1, N], queries [1, 3, 3], touching chunk ids, beyond
+    chunk ids)."""
+    g = torch.arange(-8, 9, dtype=torch.float32) * 0.25
+    lat = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(
+        -1, 3)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    d2 = (lat[:, 0] * lat[:, 0] + lat[:, 1] * lat[:, 1]) + \
+        lat[:, 2] * lat[:, 2]
+    order = torch.argsort(d2, stable=True)
+    lat, d2 = lat[order], d2[order]
+    surf, out = lat[d2 == r2], lat[d2 > r2]
+    far = lat[lat[:, 0] > radius]
+    chunks = []
+    for i, s in enumerate(surf[:12]):
+        dom = (((out * s) > 0) | (s == 0)) & (out.abs() >= s.abs())
+        rest = out[dom.all(dim=1)][:31]
+        chunks += [torch.cat([s[None], rest] if i % 2 == 0 else
+                             [rest, s[None]]), far[32 * i:32 * i + 32]]
+    chunks.append(lat[d2 < r2][:32])
+    xyz = torch.cat(chunks)[None]
+    mask = torch.ones(xyz.shape[:2], dtype=torch.bool)
+    mask[0, -32:] = False
+    q = torch.zeros((1, 3, 3))
+    q[0, 1] = 0.125
+    q[0, 2, 0] = 0.3
+    n_pairs = (len(chunks) - 1) // 2
+    return xyz, mask, q, 2 * np.arange(n_pairs), 2 * np.arange(n_pairs) + 1
+
+
+@pytest.mark.parametrize("kind,radius", [
+    ("shuffled", 0.8), ("key", 0.8), ("key", 1.6), ("lattice", 0.75),
+    ("lattice", 1.25), ("lattice", 1.0606601717798212)])
+def test_ball_query_cull_skips_no_hit(kind, radius):
+    """The CUDA ball query's two culls, in their plain form
+    (`ball_query.cull_plain`): no point of a chunk skipped by its box, and
+    no point left unmarked by the box of a block's queries, passes the
+    plain ball test of a query concerned; chunks whose box touches the ball
+    at the rounded r2 are visited, chunks beyond it and a masked chunk
+    skipped. The walk over what the culls leave gives the indices and
+    counts of the JAX package's Pallas kernel in interpret mode (its r2 is
+    rounded as the port's; the XLA form squares the radius in f32)."""
+    from paddle3d_tpu_torch.ops import ball_query
+    nsample, g, size = 16, ball_query.BLOCK_QUERIES, ball_query.CHUNK
+    if kind == "lattice":
+        xyz, mask, q, touching, beyond = _surface_lattice(radius)
+    else:
+        rng = np.random.default_rng(3)
+        pts, pmask = clustered(rng, 2, 2000, [2000, 1500], spread=1.0,
+                               box=6.)
+        xyz, mask = torch.from_numpy(pts), torch.from_numpy(pmask)
+        if kind == "key":   # voxel-key order (z, y, x cells of 0.2 m)
+            c = torch.floor(xyz / 0.2).to(torch.int64)
+            c = c - c.amin(dim=1, keepdim=True)
+            order = torch.argsort((c[..., 2] * 4096 + c[..., 1]) * 4096 +
+                                  c[..., 0], dim=1, stable=True)
+            xyz = torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3))
+            mask = torch.gather(mask, 1, order)
+        q = xyz[:, ::7][:, :250] + torch.from_numpy(
+            rng.normal(0, 0.2, (2, 250, 3)).astype(np.float32))
+    b, n, _ = xyz.shape
+    m = q.shape[1]
+    visit, keep = ball_query.cull_plain(radius, xyz, q, mask)
+    n_chunks = -(-n // size)
+    assert visit.shape == (b, m, n_chunks) and keep.shape == (b, -(-m // g),
+                                                              n)
+    d = q[:, :, None, :] - xyz[:, None, :, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + \
+        d[..., 2] * d[..., 2]
+    inb = (d2 <= torch.tensor(radius * radius, dtype=torch.float32)) & \
+        mask[:, None, :]
+    chunk_of = torch.arange(n) // size
+    assert not (inb & ~visit[:, :, chunk_of]).any()
+    marked = keep.repeat_interleave(g, dim=1)[:, :m]
+    assert not (inb & ~marked).any()
+    assert (~visit).any() and (~keep & mask[:, None, :]).any()
+    if kind == "lattice":
+        assert visit[0, 0, touching].all() and not visit[0, 0, beyond].any()
+        assert not visit[:, :, -1].any()
+        assert int(inb[0, 0].sum()) == len(touching)
+    # the walk over what the culls leave, against the JAX reference
+    left = inb & visit[:, :, chunk_of] & marked
+    rank = torch.cumsum(left, dim=2) - 1
+    cnt = left.sum(dim=2).clamp(max=nsample)
+    first = torch.where(left & (rank < nsample), torch.arange(n), n)
+    idx = torch.sort(first, dim=2).values[..., :nsample]
+    idx = torch.where(idx < n, idx, torch.where(
+        cnt[..., None] > 0, idx[..., :1], 0))
+    ref_idx, ref_cnt = jax_ball_query_batched(
+        radius, nsample, jnp.asarray(xyz.numpy()), jnp.asarray(q.numpy()),
+        jnp.asarray(mask.numpy()), interpret=True)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref_cnt))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+
+
 # -------------------------------------------------------------------- FPS
 @pytest.mark.parametrize("n,npoint,valid", [
     (1200, 128, (1200, 777)),
