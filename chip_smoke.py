@@ -27,7 +27,9 @@ non-zero and prints no result:
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes (K1/K2 inference, K3/K4/K5 train, the two-layer K1 and
      K6 CenterPoint inference), with the stated tolerance (the two-layer
-     K1 by bit pattern, tolerance 0); kernel, plain
+     K1 by bit pattern, tolerance 0; K6 on the path's rows and on random
+     rows bit for bit against the row-order sum, and within 1e-5 of the
+     largest value of index_add_ on random rows); kernel, plain
      and library-call times and each kernel's bound (a scatter's library
      call, index_add_, goes from the kernel's own inputs to a fresh table:
      index_add_call); K2 through its wrapper bit for bit against the
@@ -126,7 +128,8 @@ non-zero and prints no result:
      its plain version and to torch.gather; kernel, plain and library times
      (each library call from the kernel's own inputs: K13's index_add_
      makes the targets, the zeroed table and the transposed rows inside
-     its timing, torch.gather its int64 index) and bounds;
+     its timing, torch.gather its int64 index), the kernel / library
+     factor and bounds; K13 launches K6's kernel;
  13. CenterPoint-voxels nuScenes training (the config's OneCycleAdam, clip
      35 and OneCycleWarmupDecayLr; bench.make_gt's boxes): one train step
      through the kernels (the dense BEV's K2 or K7, as the density rule
@@ -206,8 +209,8 @@ KERNELS = {
                             "paddle3d_tpu/ops/pallas/sorted_scatter.py:1315",
                             0.0),
     # the two-layer branch of K1 (bit-equal by design: compared by bit
-    # pattern, tolerance 0) and K6 (one non-zero row per cell on its path:
-    # exact)
+    # pattern, tolerance 0) and K6, which adds each cell's rows in row order
+    # from +0: bit-equal to row_order_sum, tolerance 0
     "fused_pfn_rows_2l": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
                           "paddle3d_tpu/ops/pallas/fused_pfn.py:156", 0.0),
     "sorted_segment_sum_cm": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
@@ -239,8 +242,8 @@ KERNELS = {
     "pairwise_intersection_area": ("paddle3d_tpu_torch/csrc/iou_clip.cu",
                                    "paddle3d_tpu/ops/pallas/iou_clip.py:36",
                                    0.0),
-    # K13 adds each cell's rows in row order, as its plain version does:
-    # bit-equal; K14 copies rows: equal
+    # K13, K6's kernel, adds each cell's rows in row order, as its plain
+    # version does: bit-equal; K14 copies rows: equal
     "sorted_segment_sum_rw": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                               "paddle3d_tpu/ops/pallas/sorted_scatter.py:860",
                               0.0),
@@ -1023,8 +1026,10 @@ def build_centerpoint(device, path=NUSCENES):
 
 def phase_cp_kernels(model, points):
     """The two-layer K1 and K6 against their plain versions at the
-    CenterPoint-nuScenes shapes: K6 on the path's own rows (one non-zero
-    row per cell: exact) and on random rows (sums in another order)."""
+    CenterPoint-nuScenes shapes: K6 on the path's own rows and on random
+    rows, bit for bit against the row-order sum (tolerance 0) and within
+    1e-5 of the largest value of its plain version (index_add_, whose
+    atomics add in a run-dependent order)."""
     import torch
 
     from paddle3d_tpu_torch.ops import fused_pfn, pillar_ops, sorted_scatter
@@ -1054,12 +1059,24 @@ def phase_cp_kernels(model, points):
     rnd = torch.randn(rows_t.shape, generator=gen, device=points.device)
     rnd_table = sorted_scatter.sorted_segment_sum_cm(keys, rnd, cells)
     rnd_ref = sorted_scatter.sorted_segment_sum_cm_plain(keys, rnd, cells)
+    n = keys.shape[1]
+    row_sum = row_order_sum(keys, rows_t[:, :, :n].transpose(1, 2), cells)
+    rnd_row_sum = row_order_sum(keys, rnd[:, :, :n].transpose(1, 2), cells)
     torch.cuda.synchronize()
     check(tuple(table.shape) == (BATCH, cells, 64), "K6 output shape")
     check(same_bits(rows_t, ref_t), "the two-layer fused_pfn_rows differs "
           "from its plain version in its bits")
     errs = {"fused_pfn_rows_2l": (rows_t - ref_t).abs().max().item(),
-            "sorted_segment_sum_cm": (table - ref_table).abs().max().item()}
+            "sorted_segment_sum_cm": max(
+                (table - ref_table).abs().max().item(),
+                (table - row_sum).abs().max().item(),
+                (rnd_table - rnd_row_sum).abs().max().item())}
+    check(torch.equal(table, row_sum) and torch.equal(rnd_table, rnd_row_sum),
+          "sorted_segment_sum_cm differs from the row-order sum (tolerance "
+          "0): max_abs_err {:.3e} on the path's rows, {:.3e} on random "
+          "rows".format((table - row_sum).abs().max().item(),
+                        (rnd_table - rnd_row_sum).abs().max().item()))
+    del row_sum, rnd_row_sum
     rnd_err = (rnd_table - rnd_ref).abs().max().item()
     rnd_scale = rnd_ref.abs().max().item()
     seg = segments(keys, kw["P"], kw["maxV"])
@@ -1069,9 +1086,11 @@ def phase_cp_kernels(model, points):
         "longest segment {} rows".format(
             BATCH, CP_POINTS, cells, seg["pillars"], seg["capped"],
             seg["kept"], seg["longest"]))
-    log("  sorted_segment_sum_cm on random rows: max_abs_err {:.3e} against "
-        "a largest value of {:.3e} (tolerance 1e-5 of it: sums in another "
-        "order)".format(rnd_err, rnd_scale))
+    log("  sorted_segment_sum_cm bit-equal to the row-order sum on the "
+        "path's rows and on random rows; on random rows against its plain "
+        "version (index_add_): max_abs_err {:.3e} against a largest value of "
+        "{:.3e} (tolerance 1e-5 of it: sums in another order)".format(
+            rnd_err, rnd_scale))
     check(rnd_err <= 1e-5 * rnd_scale,
           "sorted_segment_sum_cm disagrees with its plain version on random "
           "rows")
@@ -3119,9 +3138,9 @@ def phase_ops(device):
         log("  K13 at B={} N={} C={} cells={} (longest segment {} rows): "
             "bit-equal to the row-order sum and to K6, index_add_ "
             "max_abs_err {:.3e}; {:.4f} ms (plain {:.4f}, index_add_ from "
-            "the channel-major rows to a fresh table {:.4f}, K6 {:.4f}), "
-            "bound {:.4f} ms ({})".format(
-                b, n, c, cells, longest, lib_err, *t, *bnd))
+            "the channel-major rows to a fresh table {:.4f}, K6 {:.4f}; "
+            "kernel / library {:.3f}), bound {:.4f} ms ({})".format(
+                b, n, c, cells, longest, lib_err, *t, t[0] / t[2], *bnd))
         errs["sorted_segment_sum_rw"] = max(
             errs.get("sorted_segment_sum_rw", 0.0), err)
         if i == 0:

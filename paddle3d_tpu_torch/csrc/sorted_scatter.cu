@@ -1,6 +1,6 @@
 // Sorted-key segment sum for sparse (K2) and dense (K7) scans, its VJP, the
-// sorted table gather (K5), its channel-major twin (K6), and the row-window
-// channel-major sum (K13).
+// sorted table gather (K5), and its channel-major twin (K6), which also
+// serves the row-window channel-major sum (K13).
 //
 // K2: out[b, cell] = sum of rows[b, i] over the rows with keys[b, i] ==
 // cell. Replaces the TPU kernel paddle3d_tpu/ops/pallas/sorted_scatter.py
@@ -74,35 +74,65 @@
 // channel comes from g_extra [B, cells] (strided alike), or is zero when
 // the occupancy had no cotangent (g_extra null).
 //
-// K6: the channel-major twin of K2, out[b, cell, ch] = sum of
-// rows_cm[b, ch, i] over i < N with keys[b, i] == cell. Replaces the TPU
-// kernels sorted_scatter.py:_kernel_cm (entry _sorted_segment_sum_cm) and
+// K6 and K13: out[b, cell, ch] = sum of rows_cm[b, ch, i] over i < N with
+// keys[b, i] == cell, from channel-major rows. One kernel replaces three TPU
+// kernels: sorted_scatter.py:_kernel_cm (entry _sorted_segment_sum_cm) and
 // :_kernel_cmg (entry _sorted_segment_sum_cmg, its grouped variant), both
-// reached through sorted_segment_sum_cm on dense scans: the fused PFN's
-// native [B, C, N] rows go to the canvas with no transpose copy. rows_cm
-// may be a strided view wider than needed ([B, C', N'], C' >= c, N' >= N):
-// only the first c channels and N columns are read.
+// reached through sorted_segment_sum_cm on dense scans, where the fused
+// PFN's native [B, C, N] rows go to the canvas with no transpose copy (K6);
+// and :_kernel_rw (entry _sorted_segment_sum_rw, K13), the same function for
+// c | 128 over fixed windows of sorted rows, so that the TPU's load did not
+// depend on how the rows spread over the cells. No path of the JAX package
+// reaches K13 (its tests and tools/bench_scatter_rw.py do); the port carries
+// it as an op, ops/sorted_scatter.sorted_segment_sum_rw. The TPU's row
+// windows served its DMA windows; here a block owns cells, so that it
+// writes every one of them once, and splits each chunk of its rows among
+// its threads: both entries launch this kernel (K13 without the split
+// form). rows_cm may be a strided view wider than needed ([B, C', N'],
+// C' >= c, N' >= N): only the first c channels and N columns are used.
 //
 // What bounds it on the H100: bytes. At CenterPoint-nuScenes (8 scans x
-// 250,000 rows x 64 channels onto 512 x 512 cells) ~512 MB of rows are read
-// and ~537 MB of table written, the table dense (most cells near the
-// sensor are occupied), so every cell is written once by the kernel, empty
+// 250,000 rows x 64 channels onto 512 x 512 cells, ~42 % of the cells
+// occupied) and at tools/bench_scatter_rw.py's shape (the same sizes, 60 %
+// of the rows in a quarter of the cells) ~512 MB of rows are read and
+// ~537 MB of table written; every cell is written once by the kernel, empty
 // ones as zero, and no memset runs before it.
 //
-// Design: a block owns a tile of consecutive cells (64 at c = 64) and all
-// channels. Because the keys are sorted, the tile's rows are one contiguous
-// range and each cell's rows a contiguous segment of it; tile + 1 threads
-// find the segment bounds by binary search at once. The range is staged
-// through shared memory in chunks of 64 rows x c channels (reads coalesced
-// along the rows of a channel; the stride padded to 65 against bank
-// conflicts), and each thread keeps up to 16 (cell, channel) sums in
-// registers, channel fastest, adding its cell's rows of each chunk in row
-// order: deterministic, one writer per output, no atomics, and the
-// [B, cells, c] writes coalesced straight from the registers. A long
-// segment costs one chunk loop per 64 rows, with the cell's c threads busy.
-// With `extra` set (split form), the last channel goes to its own
-// [B, cells] buffer. The TPU kernels' one-hot MXU products, view windows,
-// cell-block groups and serial chunk DMAs are TPU workarounds and have no
+// Design: a block of 512 threads owns a span of consecutive cells (512 at
+// c = 64: 32,768 / c, at most 512, halved up to twice where the grid would
+// give the card fewer than two blocks an SM) and all channels. Because the
+// keys are sorted, the span's rows are one range [r0, r1); two warps find
+// its bounds at once by 32-way searches (warp_lower_bound). The range is
+// streamed through shared memory in chunks of 8,192 / c rows (128 at
+// c = 64, 32 KB) through two buffers: chunk i + 1 is in flight while the
+// block adds chunk i. Where a channel's rows are contiguous (rsi == 1), one
+// thread a channel copies the channel's span with one bulk copy (TMA,
+// cp.async.bulk), completing on the buffer's mbarrier; the span is widened
+// to whole 16-byte units, which reads at most 12 bytes either side that lie
+// in the 16-byte granules of its first and last rows (never another page),
+// and each channel's rows keep their 16-byte phase in shared memory,
+// channels an odd number of 16-byte units apart. Other strides take 4-byte
+// cp.async copies. Each chunk's keys (and one on either side) are staged
+// beside it. Before the first chunk is added, every row marks its cell
+// occupied, and the empty cells get their zeros as 16-byte streaming stores
+// where c_main % 4 == 0 (each store tests its cell in shared memory), scalar
+// ones otherwise. The work is split by rows, not by cells, so that every
+// thread has the same share whatever the segments' lengths: thread (g, ch)
+// takes channel ch of the g-th of 512 / c slices of a chunk's rows (16 rows
+// at c = 64), skips the rows of a segment headed in an earlier slice, and
+// adds each segment headed in its slice in row order from +0, on past its
+// slice to the segment's end; a segment that runs on into the next chunk
+// leaves its partial sum in shared memory for thread (0, ch) to go on with.
+// So each (cell, channel) is its rows added one at a time in row order from
+// +0: bit-equal to the row-order sum, one writer a cell, no atomics. A warp
+// reads one staged row of 32 channels and writes 32 channels of one cell
+// (one 128-byte line) with a streaming store (__stcs); the row read meets a
+// 4-way bank conflict, the price of copying whole 16-byte units. Keys
+// outside [0, num_cells) (the sentinel) lie outside every span's range and
+// are dropped. With `extra` set (split form), channel c - 1 goes to its own
+// [B, cells] buffer, the pillar canvas's occupancy side channel. The TPU
+// kernels' one-hot MXU products, view windows, cell-block groups, chunk
+// carries, write slots and serial chunk DMAs are TPU workarounds and have no
 // counterpart here.
 //
 // K7: the same function as K2 for dense scans, out[b, cell] = sum of
@@ -130,39 +160,6 @@
 // buffer. The TPU kernel's one-hot MXU products over two abutting row views
 // and its serial chunk DMAs are TPU workarounds and have no counterpart
 // here.
-//
-// K13: the function of K6 restricted to c | 128, out[b, cell, ch] = sum of
-// rows_cm[b, ch, i] over i < N with keys[b, i] == cell. Replaces the TPU
-// kernel sorted_scatter.py:_kernel_rw (entry _sorted_segment_sum_rw), whose
-// grid walks fixed windows of sorted rows rather than cell blocks, so that
-// its load does not depend on how the rows spread over the cells. No path
-// of the JAX package reaches it (its tests and tools/bench_scatter_rw.py
-// do); the port carries it as an op, ops/sorted_scatter.sorted_segment_sum_rw.
-//
-// What bounds it on the H100: bytes. At tools/bench_scatter_rw.py's shape
-// (8 scans x 250,000 channel-major rows of 64 channels onto 512 x 512 cells,
-// 60 % of the rows in a quarter of the cells) ~512 MB of rows are read and
-// ~537 MB of table written; every cell is written once by the kernel, empty
-// ones as zero, and no memset runs before it.
-//
-// Design: as on the TPU, the unit of work is a window of sorted rows: a
-// block owns 8,192 / c rows (at most 1,024) and all channels. It finds the
-// segment heads in its window (rows whose key differs from the row
-// before), compacted in order with a ballot, and owns the contiguous cells
-// from just past the key before its first head to its last head's key
-// (to the table's end if that segment is the last): the blocks' cell
-// ranges tile the table, so each cell is written by one block, a head's
-// cell as its sum and a cell between heads as zero. The window's rows are
-// staged through shared memory (reads coalesced along the rows of a
-// channel, the stride padded against bank conflicts); threads run over
-// (cell, channel) with the channel fastest (coalesced writes), find the
-// cell's head by binary search in shared memory and add the segment's rows
-// in row order, reading on from device memory where a segment runs past the
-// window's end (the block of a segment's head walks it to its end):
-// deterministic, bit-equal to the row-order sum, no atomics. The TPU
-// kernel's one-hot MXU products over the flat 128-lane chunk layout, its
-// chunk carry and its write-slot DMAs are TPU workarounds and have no
-// counterpart here.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -469,82 +466,267 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kCmRows = 64;        // rows staged per chunk
-constexpr int kCmRowsPad = kCmRows + 1;
-constexpr int kCmPairs = 16;       // (cell, channel) sums a thread holds
-constexpr int kCmMaxTile = 64;     // cells per block
+constexpr int kCmThreads = 512;
+constexpr int kCmCells = 512;       // cells a block owns, at most
 constexpr int kCmMaxC = 256;
+constexpr int kCmBufFloats = 8192;  // floats of each of the two row buffers
 
-__host__ __device__ constexpr int cm_tile(int c) {
-  return kThreads * kCmPairs / c < kCmMaxTile ? kThreads * kCmPairs / c
-                                              : kCmMaxTile;
+// rows of a chunk: a multiple of 4, so that a channel's rows keep their
+// 16-byte phase from chunk to chunk
+__host__ __device__ constexpr int cm_rows(int c) {
+  return (kCmBufFloats / c) & ~3;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// floats from one channel's staged rows to the next: the rows, room for
+// their 16-byte phase, and an odd number of 16-byte units
+__host__ __device__ constexpr int cm_pitch(int c) {
+  return (cm_rows(c) >> 2) % 2 == 0 ? cm_rows(c) + 4 : cm_rows(c) + 8;
+}
+
+// floats of dynamic shared memory: two row buffers [c][cm_pitch(c)], two
+// key buffers [cm_rows(c) + 2], two carry rows [c]
+constexpr size_t cm_smem_floats(int c) {
+  return static_cast<size_t>(2) * c * cm_pitch(c) + 2 * (cm_rows(c) + 2) +
+         2 * c;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__global__ void __launch_bounds__(kCmThreads, 3)
     sorted_segment_sum_cm_kernel(const int* __restrict__ keys,
                                  const float* __restrict__ rows,
                                  long long rsb, long long rsc, long long rsi,
                                  float* __restrict__ out,
                                  float* __restrict__ extra, int n, int c,
-                                 int num_cells) {
-  extern __shared__ float s_rows[];  // [c][kCmRowsPad]
-  __shared__ int s_start[kCmMaxTile + 1];
-  const int tile = cm_tile(c);
-  const int b = blockIdx.y;
-  const int cell0 = blockIdx.x * tile;
-  const int ncell = min(tile, num_cells - cell0);
+                                 int num_cells, int span) {
+  extern __shared__ __align__(16) float s_buf[];
+  __shared__ int s_occ[kCmCells];   // cell cell0 + t holds a row
+  __shared__ int s_range[2];
+  // chunk i's rows have landed in buffer i & 1 (the copies with rsi == 1)
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  const int tiles = (num_cells + span - 1) / span;
+  const int batch = gridDim.x / tiles;
+  const int b = blockIdx.x % batch;
+  const int cell0 = blockIdx.x / batch * span;
+  const int ncell = min(span, num_cells - cell0);
   const int* kb = keys + static_cast<size_t>(b) * n;
-  // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
-  for (int t = threadIdx.x; t <= ncell; t += blockDim.x) {
-    s_start[t] = lower_bound(kb, 0, n, cell0 + t);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 2) {   // the block's rows: [r0, r1)
+    const int r = warp_lower_bound(kb, n, cell0 + (warp == 0 ? 0 : ncell),
+                                   lane);
+    if (lane == 0) s_range[warp] = r;
+  }
+  for (int t = threadIdx.x; t < ncell; t += kCmThreads) s_occ[t] = 0;
+  if (threadIdx.x == 0) {   // c copies arrive on a barrier each chunk
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(smem_u32(&s_bar[s])), "r"(c) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int npairs = ncell * c;
-  const int s = s_start[0];
-  const int e = s_start[ncell];
-  const float* rb = rows + b * rsb;
-  float acc[kCmPairs];
-#pragma unroll
-  for (int k = 0; k < kCmPairs; ++k) acc[k] = 0.f;
-
-  for (int r0 = s; r0 < e; r0 += kCmRows) {
-    const int len = min(kCmRows, e - r0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int t = threadIdx.x; t < c * kCmRows; t += blockDim.x) {
-      const int ch = t / kCmRows;
-      const int r = t - ch * kCmRows;
-      if (r < len) s_rows[ch * kCmRowsPad + r] = rb[ch * rsc + (r0 + r) * rsi];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kCmPairs; ++k) {
-      const int f = threadIdx.x + k * kThreads;
-      if (f < npairs) {
-        const int cell = f / c;
-        const int ch = f - cell * c;
-        const int lo = max(s_start[cell], r0) - r0;
-        const int hi = min(s_start[cell + 1], r0 + len) - r0;
-        const float* sr = s_rows + ch * kCmRowsPad;
-        for (int j = lo; j < hi; ++j) acc[k] += sr[j];  // row order
-      }
-    }
-  }
-
+  const int r0 = s_range[0];
+  const int r1 = s_range[1];
   const int c_main = extra != nullptr ? c - 1 : c;
-#pragma unroll
-  for (int k = 0; k < kCmPairs; ++k) {
-    const int f = threadIdx.x + k * kThreads;
-    if (f < npairs) {
-      const int cell = f / c;
-      const int ch = f - cell * c;
-      const size_t g = static_cast<size_t>(b) * num_cells + cell0 + cell;
-      if (ch < c_main) {
-        out[g * c_main + ch] = acc[k];
+  const size_t g0 = static_cast<size_t>(b) * num_cells + cell0;
+  float* ob = out + g0 * c_main;
+  float* eb = extra != nullptr ? extra + g0 : nullptr;
+  if (r0 == r1) {  // no row in the block's cells
+    zero_fill(ob, ncell * c_main);
+    if (eb != nullptr) zero_fill(eb, ncell);
+    return;
+  }
+  const float* rb = rows + b * rsb;
+  const int rows_buf = cm_rows(c);
+  const int pitch = cm_pitch(c);
+  const int chunks = (r1 - r0 + rows_buf - 1) / rows_buf;
+  int* s_keys = reinterpret_cast<int*>(s_buf + 2 * c * pitch);
+  float* s_carry = reinterpret_cast<float*>(s_keys + 2 * (rows_buf + 2));
+  // the 16-byte phase of channel ch's row r0, which its staged rows keep
+  auto phase = [&](int ch) {
+    return rsi == 1 ? static_cast<int>(
+                          reinterpret_cast<size_t>(rb + ch * rsc + r0) >> 2) &
+                          3
+                    : 0;
+  };
+  // chunk i, rows [j0, j0 + len): every channel's rows into row buffer
+  // i & 1 at their 16-byte phase, and keys j0 - 1 .. j0 + len into key
+  // buffer i & 1
+  auto fetch = [&](int i) {
+    const int j0 = r0 + i * rows_buf;
+    const int len = min(rows_buf, r1 - j0);
+    float* buf = s_buf + (i & 1) * c * pitch;
+    if (rsi == 1) {
+      // thread ch copies channel ch's span, widened to whole 16-byte units
+      // (at most 12 bytes either side, in the 16-byte granules of the
+      // span's first and last rows), in one bulk copy
+      if (threadIdx.x < c) {
+        const int ch = threadIdx.x;
+        const int ph = phase(ch);
+        const unsigned bytes =
+            static_cast<unsigned>((ph + len + 3) >> 2) * 16u;
+        const unsigned bar = smem_u32(&s_bar[i & 1]);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+            :: "r"(bar), "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n"
+            :: "r"(smem_u32(buf + ch * pitch)), "l"(rb + ch * rsc + j0 - ph),
+            "r"(bytes), "r"(bar) : "memory");
+      }
+    } else {
+      for (int ch = warp; ch < c; ch += kCmThreads / 32) {
+        const float* src = rb + ch * rsc + j0 * rsi;
+        for (int e = lane; e < len; e += 32) {
+          cp_async4(buf + ch * pitch + e, src + e * rsi);
+        }
+      }
+    }
+    int* sk = s_keys + (i & 1) * (rows_buf + 2);
+    for (int e = threadIdx.x; e < len + 2; e += kCmThreads) {
+      const int j = j0 - 1 + e;
+      if (j < 0) {
+        sk[e] = INT_MIN;
+      } else if (j >= n) {
+        sk[e] = INT_MAX;
       } else {
-        extra[g] = acc[k];
+        cp_async4(reinterpret_cast<float*>(sk + e),
+                  reinterpret_cast<const float*>(kb + j));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch(0);
+  for (int j = r0 + threadIdx.x; j < r1; j += kCmThreads) {
+    s_occ[kb[j] - cell0] = 1;
+  }
+  // thread (g, ch): channel ch of the rows [j0 + g * sub, ...) of a chunk
+  const int groups = kCmThreads / c;
+  const bool active = threadIdx.x < groups * c;
+  const int g = threadIdx.x / c;
+  const int ch = threadIdx.x - g * c;
+  const int ph = phase(ch);
+  const int sub = (rows_buf + groups - 1) / groups;
+  auto emit = [&](int cell, float v) {
+    if (ch < c_main) {
+      __stcs(ob + static_cast<size_t>(cell - cell0) * c_main + ch, v);
+    } else {
+      __stcs(eb + (cell - cell0), v);
+    }
+  };
+  for (int i = 0; i < chunks; ++i) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    if (rsi == 1) {
+      const unsigned bar = smem_u32(&s_bar[i & 1]);
+      const unsigned parity = (i >> 1) & 1;
+      unsigned done = 0;
+      do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+      } while (!done);
+    }
+    // chunk i has landed; chunk i - 1's buffers are read (and, at i = 0,
+    // the occupied cells marked)
+    __syncthreads();
+    if (i + 1 < chunks) fetch(i + 1);
+    if (i == 0) {   // the empty cells' zeros, 16 bytes a store where it can
+      if ((c_main & 3) == 0 && (reinterpret_cast<size_t>(ob) & 15) == 0) {
+        const int q4 = c_main >> 2;
+        float4* o4 = reinterpret_cast<float4*>(ob);
+        for (int q = threadIdx.x; q < ncell * q4; q += kCmThreads) {
+          if (!s_occ[q / q4]) __stcs(o4 + q, make_float4(0.f, 0.f, 0.f, 0.f));
+        }
+      } else {
+        for (int f = threadIdx.x; f < ncell * c_main; f += kCmThreads) {
+          if (!s_occ[f / c_main]) __stcs(ob + f, 0.f);
+        }
+      }
+      if (eb != nullptr) {
+        for (int t = threadIdx.x; t < ncell; t += kCmThreads) {
+          if (!s_occ[t]) __stcs(eb + t, 0.f);
+        }
+      }
+    }
+    if (!active) continue;
+    const int j0 = r0 + i * rows_buf;
+    const int j1 = min(j0 + rows_buf, r1);
+    const int* sk = s_keys + (i & 1) * (rows_buf + 2) + 1 - j0;  // key j
+    const float* sr = s_buf + (i & 1) * c * pitch + ch * pitch + ph - j0;
+    const float* carry_in = s_carry + ((i + 1) & 1) * c;
+    float* carry_out = s_carry + (i & 1) * c;
+    int j = j0 + g * sub;
+    const int e = min(j + sub, j1);
+    if (j >= e) continue;
+    // a segment's rows are added in row order from +0 by the thread whose
+    // rows hold its head, on past its own rows; one that runs on into the
+    // next chunk leaves its sum in carry_out for thread (0, ch)
+    if (g == 0 && sk[j0] == sk[j0 - 1]) {   // a segment open since chunk i - 1
+      const int k = sk[j];
+      float acc = carry_in[ch];
+      do {
+        acc += sr[j];
+      } while (++j < j1 && sk[j] == k);
+      if (j == j1 && sk[j1] == k) {
+        carry_out[ch] = acc;
+      } else {
+        emit(k, acc);
+      }
+    } else {
+      while (j < e && sk[j] == sk[j - 1]) ++j;   // an earlier thread's
+    }
+    while (j < e) {   // row j heads a segment
+      const int k = sk[j];
+      float acc = 0.f;
+      do {
+        acc += sr[j];
+      } while (++j < j1 && sk[j] == k);
+      if (j == j1 && sk[j1] == k) {
+        carry_out[ch] = acc;
+      } else {
+        emit(k, acc);
       }
     }
   }
+}
+
+// K6 and K13 on `stream`; `extra` null but for K6's split form
+int launch_segment_sum_cm(const int* keys, const float* rows, long long rsb,
+                          long long rsc, long long rsi, float* out,
+                          float* extra, int b, int n, int c, int num_cells,
+                          void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // cells a block owns: 32,768 / c, at most 512 (512 at c = 64), halved
+  // up to twice while the grid would give the card fewer than two blocks an
+  // SM
+  int span = kCmCells * 64 / c < kCmCells ? kCmCells * 64 / c : kCmCells;
+  for (int k = 0; k < 2 && static_cast<long long>(b) *
+                               ((num_cells + span - 1) / span) < 2LL * sms;
+       ++k) {
+    span = (span + 1) / 2;
+  }
+  const size_t smem = cm_smem_floats(c) * sizeof(float);
+  err = cudaFuncSetAttribute(sorted_segment_sum_cm_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (num_cells + span - 1) / span;
+  sorted_segment_sum_cm_kernel<<<static_cast<unsigned>(tiles) * b,
+                                 kCmThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, rsb, rsc, rsi, out, extra, n, c, num_cells, span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kDenseWork = 2048;   // (cell, channel) pairs per block
@@ -592,134 +774,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kRwTile = 8192;      // floats of the staged row window
-constexpr int kRwMaxRows = 1024;
-
-__host__ __device__ constexpr int rw_rows(int c) {
-  return kRwTile / c < kRwMaxRows ? kRwTile / c : kRwMaxRows;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    sorted_segment_sum_rw_kernel(const int* __restrict__ keys,
-                                 const float* __restrict__ rows,
-                                 long long rsb, long long rsc, long long rsi,
-                                 float* __restrict__ out, int n, int c,
-                                 int num_cells) {
-  extern __shared__ float s_win[];           // [c][w + 1]
-  // rows of the window's segment heads, then the last segment's end
-  __shared__ int s_head[kRwMaxRows + 1];
-  __shared__ int s_hkey[kRwMaxRows];         // their keys, ascending
-  __shared__ int s_warp[kThreads / 32];
-  __shared__ int s_nh, s_lo, s_hi;
-  const int w = rw_rows(c);
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * w;
-  const int rend = min(r0 + w, n);
-  const int* kb = keys + static_cast<size_t>(b) * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_nh = 0;
-  __syncthreads();
-  // compact the heads in row order, kThreads rows a pass
-  for (int p0 = r0; p0 < rend; p0 += kThreads) {
-    const int r = p0 + threadIdx.x;
-    bool head = false;
-    int k = 0;
-    if (r < rend) {
-      k = kb[r];
-      head = k >= 0 && k < num_cells && (r == 0 || kb[r - 1] != k);
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, head);
-    if (lane == 0) s_warp[warp] = __popc(mask);
-    __syncthreads();
-    int base = s_nh;
-    for (int i = 0; i < warp; ++i) base += s_warp[i];
-    if (head) {
-      const int pos = base + __popc(mask & ((1u << lane) - 1u));
-      s_head[pos] = r;
-      s_hkey[pos] = k;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int total = 0;
-      for (int i = 0; i < kThreads / 32; ++i) total += s_warp[i];
-      s_nh += total;
-    }
-    __syncthreads();
-  }
-  const int nh = s_nh;
-  if (threadIdx.x == 0) {
-    int lo = 0, hi = 0;
-    if (nh > 0) {
-      const int h0 = s_head[0];
-      lo = h0 > 0 ? max(kb[h0 - 1], -1) + 1 : 0;
-      // the last segment's end: gallop, then bisect (it may run past the
-      // window, through any number of windows)
-      const int kl = s_hkey[nh - 1];
-      int a = s_head[nh - 1] + 1, z = a, step = 1;  // kb[a - 1] == kl
-      while (z < n && kb[z] == kl) {
-        a = z + 1;
-        z = min(n, z + step);
-        step *= 2;
-      }
-      const int end = lower_bound(kb, a, z, kl + 1);
-      s_head[nh] = end;
-      hi = (end == n || kb[end] >= num_cells) ? num_cells : kl + 1;
-    } else if (blockIdx.x == 0) {
-      // no head in the first window: the row holds no valid key at all
-      // exactly when none lies in [0, num_cells); then this block zeroes
-      // the whole table
-      const int s = lower_bound(kb, 0, n, 0);
-      if (s == n || kb[s] >= num_cells) hi = num_cells;
-    }
-    s_lo = lo;
-    s_hi = hi;
-  }
-  __syncthreads();
-  const int cell_lo = s_lo;
-  const long long total = static_cast<long long>(s_hi - cell_lo) * c;
-  if (total == 0) return;
-  const float* rb = rows + b * rsb;
-  if (nh > 0) {
-    // stage the rows from the first head to the window's (or the last
-    // segment's) end; rows before the first head belong to an earlier
-    // block's segment
-    const int s0 = s_head[0] - r0;
-    const int s1 = min(rend, s_head[nh]) - r0;
-    for (int t = threadIdx.x; t < c * w; t += kThreads) {
-      const int ch = t / w;
-      const int r = t - ch * w;
-      if (r >= s0 && r < s1) {
-        s_win[ch * (w + 1) + r] = rb[ch * rsc + (r0 + r) * rsi];
-      }
-    }
-    __syncthreads();
-  }
-  float* ob = out + (static_cast<size_t>(b) * num_cells + cell_lo) * c;
-  for (long long f = threadIdx.x; f < total; f += kThreads) {
-    const int cell = cell_lo + static_cast<int>(f / c);
-    const int ch = static_cast<int>(f % c);
-    const int h = lower_bound(s_hkey, 0, nh, cell);
-    float acc = 0.f;
-    if (h < nh && s_hkey[h] == cell) {
-      const int j0 = s_head[h];
-      const int j1 = s_head[h + 1];
-      const int jw = min(j1, r0 + w);
-      const float* sr = s_win + ch * (w + 1);
-      for (int j = j0; j < jw; ++j) acc += sr[j - r0];  // row order
-      const float* gr = rb + ch * rsc;
-#pragma unroll 8
-      for (int j = jw; j < j1; ++j) acc += gr[j * rsi];
-    }
-    ob[f] = acc;
-  }
-}
-
 }  // namespace
 
-// K13. keys [b, n] int32 sorted ascending per batch row; rows: element
-// (b, ch, i) at rows[b*rsb + ch*rsc + i*rsi], ch < c, i < n, 128 % c == 0;
-// out [b, num_cells, c], every cell written. Returns cudaGetLastError().
+// K13: K6's kernel without the split form. keys [b, n] int32 sorted
+// ascending per batch row; rows: element (b, ch, i) at rows[b*rsb + ch*rsc +
+// i*rsi], ch < c, i < n, 128 % c == 0; out [b, num_cells, c], every cell
+// written once (no memset). Returns cudaGetLastError().
 extern "C" int p3d_sorted_segment_sum_rw(const int* keys, const float* rows,
                                          long long rsb, long long rsc,
                                          long long rsi, float* out, int b,
@@ -729,13 +789,8 @@ extern "C" int p3d_sorted_segment_sum_rw(const int* keys, const float* rows,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
-  const int w = rw_rows(c);
-  const size_t smem = static_cast<size_t>(c) * (w + 1) * sizeof(float);
-  const dim3 grid(n > 0 ? (n + w - 1) / w : 1, b);
-  sorted_segment_sum_rw_kernel<<<grid, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      keys, rows, rsb, rsc, rsi, out, n, c, num_cells);
-  return static_cast<int>(cudaGetLastError());
+  return launch_segment_sum_cm(keys, rows, rsb, rsc, rsi, out, nullptr, b, n,
+                               c, num_cells, stream);
 }
 
 // K7. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c]
@@ -812,30 +867,20 @@ extern "C" int p3d_sorted_table_gather(const int* keys, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys [b, n] int32 sorted ascending per batch row; rows: element
+// K6. keys [b, n] int32 sorted ascending per batch row; rows: element
 // (b, ch, i) at rows[b*rsb + ch*rsc + i*rsi], ch < c, i < n; out
 // [b, num_cells, c] (or [b, num_cells, c - 1] plus extra [b, num_cells]
-// when extra is not null), every cell written. Returns cudaGetLastError().
+// when extra is not null), every cell written once (no memset). Returns
+// cudaGetLastError().
 extern "C" int p3d_sorted_segment_sum_cm(const int* keys, const float* rows,
                                          long long rsb, long long rsc,
                                          long long rsi, float* out,
                                          float* extra, int b, int n, int c,
                                          int num_cells, void* stream) {
-  if (c < 1 || c > kCmMaxC || (extra != nullptr && c < 2)) {
+  if (c < 1 || c > kCmMaxC || n < 0 || (extra != nullptr && c < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(c) * kCmRowsPad * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sorted_segment_sum_cm_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int tile = cm_tile(c);
-  const dim3 grid((num_cells + tile - 1) / tile, b);
-  sorted_segment_sum_cm_kernel<<<grid, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      keys, rows, rsb, rsc, rsi, out, extra, n, c, num_cells);
-  return static_cast<int>(cudaGetLastError());
+  return launch_segment_sum_cm(keys, rows, rsb, rsc, rsi, out, extra, b, n,
+                               c, num_cells, stream);
 }

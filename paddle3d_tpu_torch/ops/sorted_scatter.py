@@ -9,7 +9,7 @@ sorted_segment_sum_split (TPU kernels `_kernel`, K2, for sparse scans and
 of the segment sum (TPU kernels `_kernel_cm` and `_kernel_cmg`, K6), and
 sorted_segment_sum_rw, the row-window form of that eval twin for c | 128
 (TPU kernel `_kernel_rw`, K13, which no path of the JAX package reaches: an
-op here). On a CUDA tensor `scatter_rows`, `sorted_table_gather`,
+op here, on K6's kernel). On a CUDA tensor `scatter_rows`, `sorted_table_gather`,
 `sorted_segment_sum_cm` and `sorted_segment_sum_rw` launch the hand-written
 kernels in csrc/sorted_scatter.cu (whose header says what bounds them and
 how they are built); on a CPU tensor they take the plain PyTorch versions
@@ -298,9 +298,10 @@ def sorted_segment_sum_rw_plain(keys, rows_cm, c: int,
 def sorted_segment_sum_rw(keys: torch.Tensor, rows_cm: torch.Tensor, c: int,
                           num_cells: int) -> torch.Tensor:
     """out[b, cell] = Σ_{i < N: keys[b,i]==cell} rows_cm[b, :c, i], the
-    function of sorted_segment_sum_cm for c dividing 128, taken over fixed
-    windows of sorted rows (the port of the JAX package's
-    _sorted_segment_sum_rw, argument order kept); no VJP, as there.
+    function of sorted_segment_sum_cm for c dividing 128 (the port of the
+    JAX package's _sorted_segment_sum_rw, argument order kept, whose TPU
+    kernel walks fixed windows of sorted rows); on the card it launches
+    sorted_segment_sum_cm's kernel, counted here. No VJP, as there.
 
     keys: [B, N] int32, sorted ascending per batch row; keys outside
     [0, num_cells) are dropped. rows_cm: [B, C', N'] f32 with C' >= c and

@@ -757,6 +757,82 @@ def test_sorted_segment_sum_dense_matches_plain(cuda, split):
     assert not got[1].any()
 
 
+CM_EDGE_CASES = ["strided", "transposed", "long_cell", "empty_tiles"]
+CM_EDGE_CELLS = 9001   # no multiple of any tile of the K6 / K13 kernel
+
+
+def _cm_edge_inputs(case, c, cuda, b=3, n=12000, cells=CM_EDGE_CELLS):
+    """Sorted keys and channel-major rows at the edges of the kernel K6 and
+    K13 share, each with keys past the table, negative keys and a last
+    batch row all sentinel: 'strided' reads a view [B, c + 3, N + 3] of a
+    wider buffer (N + 3 is no multiple of 4, so most channel rows start off
+    a 16-byte boundary); 'transposed' a [B, N + 3, c + 3] buffer viewed
+    channel-major (no channel row is contiguous: 4-byte copies only);
+    'long_cell' one cell holding 40 rows more than a stage buffer
+    ((8192 // c) & ~3 rows); 'empty_tiles' rows only at the two ends of
+    the table (runs of tiles with no row between)."""
+    rng = np.random.default_rng(10 * c + CM_EDGE_CASES.index(case))
+    keys = rng.integers(-3, cells + 40, (b, n))
+    if case == "long_cell":
+        keys[0, 100:100 + ((8192 // c) & ~3) + 40] = 4321
+    elif case == "empty_tiles":
+        keys = np.where(keys % 2 == 0, keys % 700, cells - 1 - keys % 700)
+    keys[-1] = SENT
+    keys = torch.from_numpy(np.sort(keys, axis=1).astype(np.int32)).to(cuda)
+    if case == "transposed":
+        wide = torch.from_numpy(rng.normal(0, 1, (b, n + 3, c + 3)).astype(
+            np.float32)).to(cuda).transpose(1, 2)
+    else:
+        wide = torch.from_numpy(rng.normal(0, 1, (b, c + 3, n + 3)).astype(
+            np.float32)).to(cuda)
+    return keys, wide
+
+
+@pytest.mark.parametrize("c", [1, 3, 64, 65, 256])
+@pytest.mark.parametrize("case", CM_EDGE_CASES)
+def test_segment_sum_cm_rw_kernel_edges(cuda, case, c):
+    """K6 and K13, one kernel, bit for bit at its edges (_cm_edge_inputs,
+    9,001 cells): K6 through its wrapper (the split form at c = 65) against
+    the row-order sum, and through its C entry into a NaN-filled table
+    (every cell written); K13 where c divides 128 against its plain version
+    and K6, and refusing the other widths."""
+    keys, wide = _cm_edge_inputs(case, c, cuda)
+    b, n = keys.shape
+    cells, split = CM_EDGE_CELLS, c == 65
+    ref = _row_order_sum(keys, wide[:, :c, :n].transpose(1, 2), cells)
+    before = dict(_build.LAUNCHES)
+    got = sorted_scatter.sorted_segment_sum_cm(keys, wide, cells, c=c,
+                                               split_last=split)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum_cm"] == \
+        before["sorted_segment_sum_cm"] + 1
+    got = torch.cat(got, dim=-1) if split else got
+    assert torch.equal(got, ref)
+    assert not got[-1].any()
+    out = torch.full((b, cells, c - 1 if split else c), float("nan"),
+                     device=cuda)
+    extra = torch.full((b, cells, 1), float("nan"), device=cuda)
+    _build.check(_build.function("p3d_sorted_segment_sum_cm")(
+        keys.data_ptr(), wide.data_ptr(), *wide.stride(), out.data_ptr(),
+        extra.data_ptr() if split else None, b, n, c, cells,
+        _build.stream_ptr(keys.device)), "sorted_segment_sum_cm")
+    torch.cuda.synchronize()
+    # NaN-filled first: every cell must be written
+    assert torch.equal(torch.cat([out, extra], dim=-1) if split else out,
+                       ref)
+    if 128 % c == 0:
+        rw = sorted_scatter.sorted_segment_sum_rw(keys, wide, c, cells)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["sorted_segment_sum_rw"] == \
+            before["sorted_segment_sum_rw"] + 1
+        assert torch.equal(rw, sorted_scatter.sorted_segment_sum_rw_plain(
+            keys, wide, c, cells))
+        assert torch.equal(rw, got)
+    else:
+        with pytest.raises(ValueError, match="dividing 128"):
+            sorted_scatter.sorted_segment_sum_rw(keys, wide, c, cells)
+
+
 RW_CASES = [(2, 5000, 64, 4096), (2, 1200, 16, 65536), (1, 4096, 8, 1024),
             (2, 700, 32, 2048), (3, 9000, 128, 5000)]
 

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from paddle3d_tpu.ops.pallas.sorted_scatter import (
-    _sorted_segment_sum_cmg, _sorted_segment_sum_pallas,
-    _sorted_segment_sum_rw, pick_cells_per_block, sorted_segment_sum_cm)
+    _sorted_segment_sum_cm, _sorted_segment_sum_cmg,
+    _sorted_segment_sum_pallas, _sorted_segment_sum_rw, pick_cells_per_block,
+    sorted_segment_sum_cm)
 from paddle3d_tpu_torch.ops import pillar_ops, sorted_scatter
 
 SENT = 2**31 - 1
@@ -262,3 +263,35 @@ def test_rw_plain_equals_row_major_sum(monkeypatch):
         kt, torch.from_numpy(rows_cm).transpose(1, 2).contiguous(), 700)
     assert torch.equal(got, ref)
     assert sorted_scatter._build.LAUNCHES["sorted_segment_sum_rw"] == 0
+
+
+@pytest.mark.parametrize("entry", ["cm", "rw"])
+def test_kernel_edge_shapes_match_interpret(entry):
+    """At the edges of the card kernel K6 and K13 share: one cell holding
+    200 rows, more than a stage buffer at c = 64 (128 rows), and 1,000
+    cells, no multiple of its 128-cell tile (sentinel tails and an
+    all-sentinel scan beside). The port's sorted_segment_sum_cm and
+    sorted_segment_sum_rw on the CPU against the JAX package's
+    _sorted_segment_sum_cm and _sorted_segment_sum_rw in interpret mode,
+    1e-5 relative and 1e-4 absolute (the TPU kernels sum by one-hot matrix
+    products, up to 200 rows a cell here)."""
+    b, n, c, cells = 2, 700, 64, 1000
+    keys, rows_cm = make_cm_inputs(10, b, n, c, cells)
+    keys[0, 300:500] = keys[0, 300]                   # the 200-row cell
+    assert keys[0, 300] < cells
+    kt, rt = torch.from_numpy(keys), torch.from_numpy(rows_cm)
+    if entry == "cm":
+        ref = _sorted_segment_sum_cm(jnp.asarray(keys),
+                                     _jax_rows(keys, rows_cm, c), c, cells,
+                                     interpret=True)
+        got = sorted_scatter.sorted_segment_sum_cm(kt, rt, cells, c=c)
+    else:
+        ref = _sorted_segment_sum_rw(jnp.asarray(keys),
+                                     _jax_rows(keys, rows_cm, c), c, cells,
+                                     interpret=True, wrows=256)
+        got = sorted_scatter.sorted_segment_sum_rw(kt, rt, c, cells)
+    assert got.shape == ref.shape == (b, cells, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
+    assert not got[-1].numpy().any()                  # the all-sentinel scan
+    assert got[0, keys[0, 300]].abs().sum() > 0
