@@ -29,7 +29,9 @@ non-zero and prints no result:
      K6 CenterPoint inference), with the stated tolerance (the two-layer
      K1 by bit pattern, tolerance 0; K6 on the path's rows and on random
      rows bit for bit against the row-order sum, and within 1e-5 of the
-     largest value of index_add_ on random rows); kernel, plain
+     largest value of index_add_ on random rows; K3 and K4 also bit for
+     bit against a second call of their own, and their wrappers timed in
+     parts); kernel, plain
      and library-call times and each kernel's bound (a scatter's library
      call, index_add_, goes from the kernel's own inputs to a fresh table:
      index_add_call); K2 through its wrapper bit for bit against the
@@ -113,7 +115,12 @@ non-zero and prints no result:
      versions from the same state
      and sampler seed (targets equal, losses, grads, running stats); 10
      steps with finite losses that fall and fg / hard-bg / easy-bg pools
-     that are non-empty at every step; train scans/s of both paths, peak
+     that are non-empty at every step (logged beside the same steps on
+     the plain versions when one is empty), run twice from one state:
+     losses and pools equal bit for bit. The warm-up, the compared steps
+     and the 10 steps run under torch's deterministic mode with
+     deterministic cuDNN, so every run takes the same trajectory; train
+     scans/s of both paths, peak
      memory, a profile and the time of each stage; then PV-RCNN: 3 steps
      with finite losses (K10 and K11 each step; the first step's K10 call
      and 7 K9 calls held as in phase 8), its train scans/s, memory, profile
@@ -149,7 +156,9 @@ non-zero and prints no result:
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
-cuDNN for the comparisons.
+cuDNN for the comparisons; phase 11's checked steps under
+torch.use_deterministic_algorithms (main() sets CUBLAS_WORKSPACE_CONFIG
+for it).
 """
 import contextlib
 import json
@@ -673,14 +682,83 @@ def held(name, got, ref, tol):
     return worst
 
 
-def phase_train_kernels(model, points):
-    """K3, K4 and K5 against their plain versions at the KITTI train shapes
-    (maxV 16000), on the statistics and cotangents the train step gives
-    them."""
+def pfn_parts(keys, pts_t, w1t, bwd_args, kw, iters=50):
+    """K3's and K4's wrappers timed in parts (CUDA events, ms a call) on the
+    train shapes: the C entry alone (its launches, buffers made before),
+    the whole wrapper, and the parts the earlier 64-row-block wrappers
+    added around their kernels, timed at these shapes: pillar_ordinals
+    (their cap input) and the PyTorch sum of their per-block f64 partials.
+    Run with such an earlier package on the path (its C entries take the
+    pillar ordinals), it times that package's own entries. -> dict of part
+    -> ms."""
     import torch
 
-    from paddle3d_tpu_torch.ops import fused_pfn_train, pillar_ops, \
-        sorted_scatter
+    from paddle3d_tpu_torch.ops import _build, fused_pfn, fused_pfn_train
+    b, c_in, n = pts_t.shape
+    u1, c_dec = w1t.shape
+    g_t, vecs = bwd_args[2], bwd_args[4:]
+    geo = (kw["P"], kw["maxV"], kw["nx"], kw["vx"], kw["vy"], kw["x_off"],
+           kw["y_off"], int(kw["with_distance"]))
+    stream = _build.stream_ptr(keys.device)
+    parent = hasattr(fused_pfn_train, "pillar_ordinals")
+    parts = {"pillar_ordinals": cuda_ms(
+        lambda: fused_pfn.pillar_ordinals(keys), iters)}
+    rows = {"pfn_stats": 4 + c_dec, "pfn_bwd": 2 + c_dec}
+    for name, r in rows.items():
+        part = torch.zeros((b, -(-n // 64), r, u1), dtype=torch.float64,
+                           device=keys.device)
+        parts[name + " partials' sum"] = cuda_ms(
+            lambda: part.sum(dim=(0, 1)), iters)
+    fns = {k: _build.function("p3d_" + k) for k in rows}
+    if parent:
+        vox = fused_pfn.pillar_ordinals(keys)
+        outs = {k: torch.empty((b, -(-n // 64), r, u1), dtype=torch.float64,
+                               device=keys.device) for k, r in rows.items()}
+        stats_args = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+                      w1t.data_ptr(), outs["pfn_stats"].data_ptr(), b, n,
+                      c_in, c_dec, u1) + geo + (stream,)
+        bwd_ptrs = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+                    w1t.data_ptr()) + tuple(v.data_ptr() for v in vecs) + (
+                        g_t.data_ptr(), *g_t.stride(),
+                        outs["pfn_bwd"].data_ptr())
+    else:
+        spans = fused_pfn_train.spans(b, n, keys.device)
+        outs = {k: torch.empty((spans * b + 1) * r * u1,
+                               dtype=torch.float64, device=keys.device)
+                for k, r in rows.items()}
+        stats_args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
+                      outs["pfn_stats"].data_ptr(), spans, b, n, c_in,
+                      c_dec, u1) + geo + (stream,)
+        bwd_ptrs = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr()) + \
+            tuple(v.data_ptr() for v in vecs) + (
+                g_t.data_ptr(), *g_t.stride(), outs["pfn_bwd"].data_ptr(),
+                spans)
+    bwd_args_c = bwd_ptrs + (b, n, c_in, c_dec, u1) + geo + (stream,)
+    parts["pfn_stats kernel alone"] = cuda_ms(
+        lambda: fns["pfn_stats"](*stats_args), iters)
+    parts["pfn_bwd kernel alone"] = cuda_ms(
+        lambda: fns["pfn_bwd"](*bwd_args_c), iters)
+    parts["pfn_stats wrapper"] = cuda_ms(
+        lambda: fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw), iters)
+    parts["pfn_bwd wrapper"] = cuda_ms(
+        lambda: fused_pfn_train.pfn_bwd(*bwd_args, **kw), iters)
+    log("  K3 / K4 wrapper parts ({}), ms a call: {}".format(
+        "the earlier package: ordinals, kernel, partials' sum" if parent
+        else "this package: the C entry alone (the kernel and its reduce "
+        "launch), the whole wrapper; beside them the parts the earlier "
+        "wrappers added, timed at these shapes",
+        ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items())))
+    return parts
+
+
+def pfn_train_inputs(model, points):
+    """K3's and K4's inputs at the KITTI train shapes (maxV 16000), with the
+    batch statistics and the cotangent layout a train step gives them.
+    -> (keys, pts_t, w1t, kw, bwd_args, plain K3 sums, the generator that
+    made the cotangent, for the next random inputs)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn_train, pillar_ops
     vox, pfn, mid = model.voxelizer, model.pillar_encoder, \
         model.middle_encoder
     keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
@@ -693,10 +771,7 @@ def phase_train_kernels(model, points):
               with_distance=pfn.with_distance)
     check(tuple(w1t.shape) == (64, 9) and kw["P"] == 32 and
           kw["maxV"] == 16000, "not the KITTI train PFN shapes")
-    cells = mid.ny * mid.nx
     gen = torch.Generator(device=points.device).manual_seed(SEED)
-
-    stats = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
     ref_stats = fused_pfn_train.pfn_stats_plain(keys, pts_t, w1t, **kw)
     # the batch statistics and BN fold of the train forward
     m = float(keys.numel())
@@ -709,8 +784,25 @@ def phase_train_kernels(model, points):
     # the [B, N, C] rows K5 gives
     g_t = torch.randn((BATCH, POINTS, 65), generator=gen,
                       device=points.device).transpose(1, 2)
-    bwd_args = (keys, pts_t, g_t, w1t, a, c, mu, invsig)
-    bwd = fused_pfn_train.pfn_bwd(*bwd_args, **kw)
+    return (keys, pts_t, w1t, kw, (keys, pts_t, g_t, w1t, a, c, mu, invsig),
+            ref_stats, gen)
+
+
+def phase_train_kernels(model, points):
+    """K3, K4 and K5 against their plain versions at the KITTI train shapes
+    (maxV 16000), on the statistics and cotangents the train step gives
+    them; K3 and K4 also against a second call of their own (bit for bit)
+    and timed in parts."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn_train, sorted_scatter
+    mid = model.middle_encoder
+    keys, pts_t, w1t, kw, bwd_args, ref_stats, gen = pfn_train_inputs(
+        model, points)
+    cells = mid.ny * mid.nx
+    stats = [fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+             for _ in range(2)]
+    bwd = [fused_pfn_train.pfn_bwd(*bwd_args, **kw) for _ in range(2)]
     ref_bwd = fused_pfn_train.pfn_bwd_plain(*bwd_args, **kw)
     # the canvas cotangent as the NCHW backbone hands it to K5
     g_canvas = torch.randn((BATCH, 64, cells), generator=gen,
@@ -719,6 +811,10 @@ def phase_train_kernels(model, points):
     rows = sorted_scatter.sorted_table_gather(*gather_args)
     ref_rows = sorted_scatter.sorted_table_gather_plain(*gather_args)
     torch.cuda.synchronize()
+    for name, (one, two) in (("pfn_stats", stats), ("pfn_bwd", bwd)):
+        check(all(same_bits(x, y) for x, y in zip(one, two)),
+              "{} gave other bits on a second call".format(name))
+    stats, bwd = stats[0], bwd[0]
     check(stats[2].item() == ref_stats[2].item(), "K3 kept-row count")
     check(tuple(rows.shape) == (BATCH, POINTS, 65), "K5 output shape")
     errs = {
@@ -744,8 +840,9 @@ def phase_train_kernels(model, points):
                 *gather_args), 10)),
     }
     log("  train kernels at B={} N={} C_dec=9 u1=64 P=32 maxV=16000 "
-        "cells={} C=65: kept rows {:.0f}".format(BATCH, POINTS, cells,
-                                                 stats[2].item()))
+        "cells={} C=65: kept rows {:.0f}; K3 and K4 bit-equal to a second "
+        "call".format(BATCH, POINTS, cells, stats[2].item()))
+    pfn_parts(keys, pts_t, w1t, bwd_args, kw)
     seg = segments(keys, kw["P"], kw["maxV"])
     check(seg["kept"] == int(stats[2].item()), "kept-row count")
     u1, c_dec = w1t.shape
@@ -754,23 +851,31 @@ def phase_train_kernels(model, points):
     c_main = g_canvas.shape[-1]
     safe = torch.where(inside, keys, 0).long()[..., None].expand(
         -1, -1, c_main)
-    # K3/K4: f32 products (z = W1 x, and t = a z + c in K4) and f64 sums;
-    # K4 needs the cotangent at emission rows only; K5 reads the table rows
-    # its keys name
+    # K3: f32 products z = W1 x and f64 sums over every kept row. K4: z and
+    # t = a z + c in f32 over every kept row, f64 sums only where dt is
+    # non-zero, at most one (argmax) row a pillar and channel: Σdt, Σdt·ẑ
+    # and Σx⊗dt (the earlier bound counted them over every kept row); the
+    # cotangent at emission rows only. K5 reads the table rows its keys name
+    k4_bytes = 4 * (keys.numel() + pts_t.numel() + emitted * u1)
+    k4_old = bound(k4_bytes, f32_ops=kept * 2 * u1 * (c_dec + 1),
+                   f64_ops=kept * (3 * u1 + 2 * c_dec * u1))
     extra = {
         "pfn_stats": (None,) + bound(
             4 * (keys.numel() + pts_t.numel()),
             f32_ops=kept * 2 * u1 * c_dec,
             f64_ops=kept * (3 * u1 + 2 * c_dec * u1 + c_dec)),
         "pfn_bwd": (None,) + bound(
-            4 * (keys.numel() + pts_t.numel() + emitted * u1),
-            f32_ops=kept * 2 * u1 * (c_dec + 1),
-            f64_ops=kept * (3 * u1 + 2 * c_dec * u1)),
+            k4_bytes, f32_ops=kept * 2 * u1 * (c_dec + 1),
+            f64_ops=emitted * u1 * (2 * c_dec + 3)),
         "sorted_table_gather": (
             cuda_ms(lambda: torch.gather(g_canvas, 1, safe), 10),) + bound(
                 4 * (keys.numel() + int(inside.sum()) * c_main +
                      rows.numel())),
     }
+    log("  K4's bound counts its f64 sums on argmax rows only ({} emitted "
+        "pillars): {:.4f} ms ({}); over every kept row, as before: {:.4f} "
+        "ms ({})".format(emitted, extra["pfn_bwd"][1], extra["pfn_bwd"][2],
+                         *k4_old))
     names = ("pfn_stats", "pfn_bwd", "sorted_table_gather")
     for name in names:
         tol = KERNELS[name][2]
@@ -827,8 +932,11 @@ def saved_state(model, optimizer, scheduler):
 
     def restore():
         model.load_state_dict(saved[0])
-        optimizer.load_state_dict(saved[1])
-        scheduler.load_state_dict(saved[2])
+        # copies each time: an optimizer keeps the state tensors it is
+        # given (same dtype and device) and updates them in place, which
+        # changed the saved state at every step after a restore
+        optimizer.load_state_dict(copy.deepcopy(saved[1]))
+        scheduler.load_state_dict(copy.deepcopy(saved[2]))
     return restore
 
 
@@ -2250,10 +2358,11 @@ def sw_key_stats(keys, win):
 
 
 def same_bits(a, b):
-    """Equal float32 bit patterns (tells -0 from +0, as torch.equal does
-    not)."""
+    """Equal f32 or f64 bit patterns (tells -0 from +0, as torch.equal
+    does not)."""
     import torch
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
 def phase_sw_kernels(fwds, bwds):
@@ -2843,19 +2952,37 @@ def timed_train(step, model, optimizer, batch, label, iters, stages,
     stages(step, model, optimizer, batch, 3)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Run the block deterministically: torch's deterministic mode (an op
+    with no deterministic form raises), deterministic cuDNN with no
+    autotuning. The mode needs main()'s cuBLAS workspace setting."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def phase_ts_train(device):
     """Two-stage KITTI training: Voxel-RCNN at full width through the
-    kernels against the plain versions, K11 bit for bit, 10 steps, timing;
-    then PV-RCNN's steps and timing."""
+    kernels against the plain versions, K11 bit for bit, 10 steps run
+    twice from one state (deterministic, equal bit for bit), timing; then
+    PV-RCNN's steps and timing."""
     import torch
 
     from paddle3d_tpu_torch.models.detection.pv_rcnn import pv_rcnn
     from paddle3d_tpu_torch.ops import (_build, ball_query, fps, iou_clip,
                                         sorted_scatter)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    model, optimizer, scheduler, step, batch, size = ts_train_setup(
-        device, VOXEL_RCNN)
+    # the checked trajectory (the warm-up, the compared steps and the ten
+    # steps) runs deterministically, so that every run of one tree on one
+    # card takes the same steps; the kernel checks and the timing do not
+    with deterministic():
+        model, optimizer, scheduler, step, batch, size = ts_train_setup(
+            device, VOXEL_RCNN)
     restore_state = saved_state(model, optimizer, scheduler)
 
     def restore():
@@ -2864,6 +2991,14 @@ def phase_ts_train(device):
 
     def pools(targets):
         return [tuple(r) for r in targets["pool_sizes"].tolist()]
+
+    def ten_steps(plain=False):
+        """TRAIN_STEPS deterministic steps -> (losses, pools a step)."""
+        with deterministic(), recorded(pv_rcnn, "proposal_targets") as calls, \
+                plain_path() if plain else contextlib.nullcontext():
+            losses = [step(model, optimizer, batch)["loss"].item()
+                      for _ in range(TRAIN_STEPS)]
+        return losses, [pools(out) for _, out in calls]
 
     log("phase 11: Voxel-RCNN KITTI training at B={} N={} (AdamWOnecycle, "
         "clip 10, OneCycle), {} gt boxes a scan ({} valid); the RPN head "
@@ -2880,7 +3015,7 @@ def phase_ts_train(device):
     def iou_rec(*a):
         ious.append(a)
         return fn(*a)
-    with recorded(pv_rcnn, "proposal_targets") as kcalls, \
+    with deterministic(), recorded(pv_rcnn, "proposal_targets") as kcalls, \
             recorded(sorted_scatter, "scatter_rows") as bevs, \
             recorded(ball_query, "ball_query_batched") as balls, \
             mock.patch.object(iou_clip, "pairwise_intersection_area",
@@ -2902,7 +3037,8 @@ def phase_ts_train(device):
     errs, times, extra = phase_iou_kernel(ious[0], device)
     del ious
     restore()
-    with recorded(pv_rcnn, "proposal_targets") as pcalls, plain_path():
+    with deterministic(), recorded(pv_rcnn, "proposal_targets") as pcalls, \
+            plain_path():
         plain = record_step(step, model, optimizer, batch)
     restore()
     launches = kernel[3]
@@ -2932,20 +3068,30 @@ def phase_ts_train(device):
         "the tensor's largest value".format(*step_errs))
     del kcalls, pcalls
 
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    losses = []
-    with recorded(pv_rcnn, "proposal_targets") as calls:
-        for _ in range(TRAIN_STEPS):
-            losses.append(step(model, optimizer, batch)["loss"].item())
-    per_step = [pools(out) for _, out in calls]
-    del calls
-    log("  {} steps on the fixed batch, loss per step: {}; pools (fg, hard "
-        "bg, easy bg) per step and scan: {}".format(
-            TRAIN_STEPS, [round(v, 4) for v in losses], per_step))
+    losses, per_step = ten_steps()
+    restore()
+    again = ten_steps()
+    log("  {} deterministic steps on the fixed batch, loss per step: {} "
+        "(hex {}); pools (fg, hard bg, easy bg) per step and scan: {}".format(
+            TRAIN_STEPS, [round(v, 4) for v in losses],
+            [v.hex() for v in losses], per_step))
+    check(([v.hex() for v in again[0]], again[1]) ==
+          ([v.hex() for v in losses], per_step),
+          "the {} steps run again from the same state differ: losses {}, "
+          "pools {}".format(TRAIN_STEPS, [v.hex() for v in again[0]],
+                            again[1]))
+    log("  the same steps run again from the same state: losses and pools "
+        "equal bit for bit")
     check(all(v == v and abs(v) < float("inf") for v in losses),
           "non-finite train loss")
     check(losses[-1] < losses[0], "the loss did not fall")
+    if not all(min(p) > 0 for scans in per_step for p in scans):
+        # is the empty pool the batch's or a kernel's? the plain versions
+        # from the same state
+        restore()
+        plain_losses, plain_pools = ten_steps(plain=True)
+        log("  the same steps on the plain path: losses {}; pools {}".format(
+            [round(v, 4) for v in plain_losses], plain_pools))
     check(all(min(p) > 0 for scans in per_step for p in scans),
           "a sampling pool was empty at a step")
     timed_train(step, model, optimizer, batch, "Voxel-RCNN", TS_TRAIN_ITERS,
@@ -3374,6 +3520,9 @@ def phase_ia_train(device):
 
 
 def main():
+    # phase 11's deterministic steps need cuBLAS's fixed workspace, set
+    # before any cuBLAS handle exists
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     try:
         import torch
     except ImportError:

@@ -2,56 +2,78 @@
 // the one-layer PFN batch-statistics BatchNorm and its backward.
 //
 //   K3 p3d_pfn_stats replaces paddle3d_tpu/ops/pallas/fused_pfn_train.py
-//      :_kernel_stats (entry _pfn_stats): per block, the sums
-//      [sum z, sum z^2, count, sum x (x) z, sum x] over its kept rows, with
-//      z = W1 x the pre-BN activation of a kept row's decorated input x.
+//      :_kernel_stats (entry _pfn_stats): the sums [sum z, sum z^2, count,
+//      sum x (x) z, sum x] over the kept rows, with z = W1 x the pre-BN
+//      activation of a kept row's decorated input x.
 //   K4 p3d_pfn_bwd replaces fused_pfn_train.py:_kernel_bwd (entry
 //      _pfn_bwd): recomputes z and t = a z + c, routes the cotangent of each
 //      pillar's emission row to its FIRST argmax row per channel, gated by
-//      relu' (t > 0), and sums per block [sum dt, sum dt zhat, sum x (x) dt],
+//      relu' (t > 0), and sums [sum dt, sum dt zhat, sum x (x) dt],
 //      zhat = (z - mu) invsig.
 //
-// The caller (paddle3d_tpu_torch/ops/fused_pfn_train.py) sums the
-// per-block partials in PyTorch, derives the batch mean and variance and the
-// dW1 / dgamma / dbeta formula, and runs K1 with the folded weights. No
-// float atomics: each block writes its own partial, in a fixed order, so two
-// runs agree bit for bit. The sums accumulate in f64 (each product of two
-// f32 values is exact there): the formula cancels (var = s2/M - mu^2,
-// t3 - sx mu^T over ~1e5 rows), and f32 sums taken in two orders gave dW1s
-// 2.7e-2 of its largest entry apart on the card.
+// The caller (paddle3d_tpu_torch/ops/fused_pfn_train.py) derives the batch
+// mean and variance and the dW1 / dgamma / dbeta formula from the sums and
+// runs K1 with the folded weights. The sums accumulate in f64 (each product
+// of two f32 values is exact there): the formula cancels (var = s2/M -
+// mu^2, t3 - sx mu^T over ~1e5 rows), and f32 sums taken in two orders gave
+// dW1s 2.7e-2 of its largest entry apart on the card. No float atomics,
+// and every sum runs in an order fixed by the shapes alone: two calls give
+// the same bits.
 //
-// Design: a block owns the pillars whose emission row (their last kept row)
-// lies in its kRows rows, and stages keys and points as K1 does
-// (csrc/pfn_common.cuh): every kept row of such a pillar lies at most p - 1
-// rows before its emission row, inside the window. Each window row is marked
-// with the block row of its emission row when that is in the block, so
-// every kept row is counted by exactly one block. The window rows are
-// decorated (one thread per row, the shared helpers, so bit for bit as K1
-// and the plain version), then z is computed in k order, one thread per
-// (row, channel). K3 reduces over the window in row order, one thread per
-// output; K4 runs one thread per (emission row, channel) over the pillar's
-// <= p rows (strictly greater, so the first maximum wins), keeps
-// (dt, zhat, argmax row) in shared memory, and reduces those in row
-// order. The TPU kernels' ones-dots, lane rolls and doubling scans have no
-// counterpart.
+// What bounds them on the H100 at KITTI (8 x 20,000 rows, 142,729 kept,
+// u1 = 64, C_dec = 9, P = 32): neither bytes (~3 MB in; K4 also reads the
+// cotangent's ~18 MB at the ~68,000 emission rows) nor f64 FMAs, but a
+// block's latency: staging a span from device memory, the rank scans and
+// the decoration with their barriers (about half of either kernel), then
+// K3's f32 products of z (9 a kept row and channel, each rounded alone: the
+// plain version's bits) and f64 sums, and K4's arg-max chain a pillar.
+// Neither more channels a thread, 128-thread blocks, nor K3's sums on the
+// f64 tensor cores (mma m8n8k4) made them faster on the card; K4's
+// cotangents through a cp.async ring did.
 //
-// Layouts: keys [B, N] int32 sorted (sentinel 2^31-1); points channel-major
-// [B, C_in, N]; vox [B, N] int32 pillar ordinals (the max_voxels cap);
-// w1t [u1, C_dec]; a, c, mu, invsig [u1]. K4's cotangent g is that of K1's
-// channel-major [B, C, N] rows, read through its strides (autograd hands it
-// over as a transposed view of the scatter VJP's [B, N, C] rows; channels
-// >= u1, the occupancy, are ignored). Partials, f64: K3 [B, nblk, 4 + C_dec,
-// u1] (rows s1, s2, count, t3[C_dec], sx padded to u1); K4 [B, nblk,
-// 2 + C_dec, u1] (rows sdt, sdtz, t1[C_dec]).
+// Design. A block owns a span of rows of one scan (about two blocks an SM
+// over the batch, at most kMaxSpan rows) and stages the span's keys and
+// points once, with the P-row halo behind it (csrc/pfn_common.cuh's
+// convention). It owns the pillars whose emission row (their last kept row)
+// lies in the span: their kept rows lie at most P - 1 rows before it. Rows
+// from the scan's sentinel tail on are skipped. The max_voxels cap it finds
+// itself: a row's pillar ordinal is at most its index, so only a span
+// reaching past max_voxels rows counts the pillar heads before it (16-byte
+// loads of the keys) and, by a block scan of its own heads, the cap row
+// inside it. It walks the span in kTile-row tiles, a thread a row: a
+// max-scan of head rows gives each row its arrival rank (the shared keep
+// and emission rules), one block scan gives each emission row its ordinal
+// and its kept rows' place in a compacted list, the emission thread sums
+// its pillar's mean, and each kept row is decorated once (the shared
+// helpers: bit for bit as K1 and the plain version) into an f32 and an f64
+// copy. Then groups of threads, a thread a channel (64 a group, or 32 for
+// u1 <= 32), compute z in f32 registers in k order from W1's row held in
+// registers. K3: a group takes every groups-th kept row and adds [z, z^2,
+// x z, x] into f64 registers kept for the whole span. K4: a group takes a
+// run of whole pillars (about 1 / groups of the tile's kept rows), runs
+// relu' and the first arg-max over each pillar's rows in f32, and only on
+// that row, where t > 0, adds [dt, dt zhat, x dt] in f64; each thread
+// copies its channel of the cotangent at the next kRing emission rows
+// into a ring in shared memory (cp.async, read through the strides), so no
+// register waits on those loads. At the span's end the groups' sums meet
+// in shared memory in group order, the block writes one f64 partial, and a
+// second small launch adds the partials in block order. The TPU kernels'
+// ones-dots, lane rolls and doubling scans have no counterpart.
 //
-// What bounds them on the H100 at KITTI (8 x 20,000 rows, u1 = 64,
-// P = 32): neither bytes (~3 MB in, ~8 MB of partials out) nor FLOPs
-// (~0.2 GFLOP): latency and the staging of a P - 1 row halo per 64-row
-// block. Both are simple first versions.
+// Layouts: keys [B, N] int32 sorted (sentinel 2^31-1); points
+// channel-major [B, C_in, N]; w1t [u1, C_dec], u1 <= 64; a, c, mu, invsig
+// [u1]. K4's cotangent g is that of K1's channel-major [B, C, N] rows, read
+// through its strides (autograd hands it over as a transposed view of the
+// scatter VJP's [B, N, C] rows; channels >= u1, the occupancy, are
+// ignored). buf, f64: the sums [rows][u1] (K3 rows s1, s2, count,
+// t3[C_dec], sx padded to u1; K4 rows sdt, sdtz, t1[C_dec]), then each
+// block's partial of the same shape.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 #include "pfn_common.cuh"
 
@@ -61,335 +83,628 @@ using p3d::Geometry;
 using p3d::kMaxCdec;
 using p3d::kMaxCin;
 
-constexpr int kRows = 64;
-constexpr int kRowsPad = kRows + 1;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 256;        // rows a tile: a thread a row
+constexpr int kMaxU1 = 64;        // channels a group, a thread a channel
+constexpr int kMaxSpan = 1024;    // rows a block (a multiple of 32)
+constexpr int kRing = 8;          // K4: cotangent copies in flight a thread
+constexpr int kReduceWarps = 32;
 
-__host__ __device__ constexpr int key_window(int p) { return kRows + p + 1; }
-__host__ __device__ constexpr int pts_window(int p) { return kRows + p - 1; }
+static_assert(kTile == kThreads, "the rank pass takes a thread a row");
 
-// Shared memory both kernels stage: floats, then ints.
-struct Stage {
-  float* w;     // [u1][c_dec]
-  float* pts;   // [c_in][pw]
-  float* x;     // [c_dec][pw]  decorated rows, zero where not owned
-  float* z;     // [u1][pw]     W1 x, zero where not owned
-  float* mean;  // [kRows][3]
-  float* cx;    // [kRows]
-  float* cy;    // [kRows]
-  int* key;     // [kw]
-  int* rank;    // [kRows]  emission rank of a block row, -1 if none
-  int* own;     // [pw]     block row of the window row's emission row, -1
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Shared memory, byte offsets from a 16-byte aligned base. The f64 and f32
+// copies of the decorated rows come first; after the last tile the groups'
+// sums reuse them.
+struct Layout {
+  int x64, x32, pts, mean, cx, cy, key, kown, kcol, kstart, erow, scan, ring;
+  int bytes;
 };
 
-__host__ __device__ size_t stage_floats(int c_in, int c_dec, int u1, int p) {
-  const size_t pw = pts_window(p);
-  return static_cast<size_t>(u1) * c_dec + (c_in + c_dec + u1) * pw +
-         5 * kRows;
+__host__ __device__ inline Layout layout(int c_in, int x32w, int x64w, int p,
+                                         int span, int red_rows, bool bwd) {
+  const int kmax = kTile + p - 1;   // kept rows of a tile's pillars
+  const int pw = span + p - 1;
+  Layout l{};
+  int o = 0;
+  l.x64 = o;
+  l.x32 = o + kmax * x64w * 8;
+  const int rows_bytes = kmax * (x64w * 8 + x32w * 4);
+  const int red_bytes = red_rows * kThreads * 8;
+  o += round_up(rows_bytes > red_bytes ? rows_bytes : red_bytes, 16);
+  l.pts = o;    o += round_up(c_in * pw * 4, 16);
+  l.mean = o;   o += kTile * 3 * 4;
+  l.cx = o;     o += kTile * 4;
+  l.cy = o;     o += kTile * 4;
+  l.key = o;    o += round_up((span + p + 1) * 4, 16);
+  l.kown = o;   o += round_up(kmax * 4, 16);
+  l.kcol = o;   o += round_up(kmax * 4, 16);
+  l.kstart = o; o += round_up((kTile + 1) * 4, 16);
+  l.erow = o;   o += kTile * 4;
+  l.scan = o;   o += 16 * 4;
+  l.ring = o;   o += bwd ? kRing * kThreads * 4 : 0;  // K4's cotangents
+  l.bytes = o;
+  return l;
 }
 
-__host__ __device__ size_t stage_ints(int p) {
-  return key_window(p) + kRows + pts_window(p);
-}
-
-__device__ Stage carve(float* smem, int c_in, int c_dec, int u1, int p,
-                       float** rest_f, int** rest_i, size_t extra_floats) {
-  const int pw = pts_window(p);
-  Stage s;
-  s.w = smem;
-  s.pts = s.w + u1 * c_dec;
-  s.x = s.pts + c_in * pw;
-  s.z = s.x + c_dec * pw;
-  s.mean = s.z + u1 * pw;
-  s.cx = s.mean + 3 * kRows;
-  s.cy = s.cx + kRows;
-  *rest_f = s.cy + kRows;
-  s.key = reinterpret_cast<int*>(*rest_f + extra_floats);
-  s.rank = s.key + key_window(p);
-  s.own = s.rank + kRows;
-  *rest_i = s.own + pw;
-  return s;
-}
-
-// Stage the block's window, find its emission rows, decorate the rows they
-// own and compute z = W1 x for them. Ends synchronised.
-__device__ void stage_block(const Stage& s, const int* kb, const float* pb,
-                            const int* vb, const float* w1t, int n, int r0,
-                            int c_in, int c_dec, int u1, int p,
-                            int max_voxels, const Geometry& geo,
-                            bool with_distance) {
-  const int kw = key_window(p);
-  const int pw = pts_window(p);
-  for (int t = threadIdx.x; t < u1 * c_dec; t += blockDim.x) s.w[t] = w1t[t];
-  for (int t = threadIdx.x; t < kw; t += blockDim.x) {
-    const int i = r0 - p + t;
-    s.key[t] = i < 0 ? -1 : (i < n ? kb[i] : p3d::kSent);
+// Inclusive sum (or with kMax, max) of v over the block's threads in
+// thread order, and the block's total (max); s_warp holds kWarps ints.
+// Every thread must call it.
+template <bool kMax = false>
+__device__ __forceinline__ int2 block_scan(int v, int* s_warp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const auto op = [](int a, int b) { return kMax ? max(a, b) : a + b; };
+  const int none = kMax ? INT_MIN : 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = op(v, up);
   }
-  for (int t = threadIdx.x; t < c_in * pw; t += blockDim.x) {
-    const int ch = t / pw;
-    const int i = r0 - p + 1 + (t - ch * pw);
-    s.pts[t] = (i >= 0 && i < n) ? pb[static_cast<size_t>(ch) * n + i] : 0.f;
+  if (lane == 31) s_warp[warp] = v;
+  __syncthreads();
+  int before = none, total = none;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = s_warp[w];
+    before = w < warp ? op(before, t) : before;
+    total = op(total, t);
   }
-  for (int t = threadIdx.x; t < pw; t += blockDim.x) s.own[t] = -1;
+  __syncthreads();
+  return make_int2(op(before, v), total);
+}
+
+// Valid pillar heads among rows [0, end) of a scan (end a multiple of 4),
+// summed over the block: 16-byte loads, kHeadUnroll a thread in flight,
+// each lane's previous key from its neighbour lane.
+constexpr int kHeadUnroll = 8;
+
+__device__ int heads_before(const int* __restrict__ kb, int end,
+                            int* s_warp) {
+  int h = 0;
+  const int lane = threadIdx.x & 31;
+  if ((reinterpret_cast<uintptr_t>(kb) & 15) == 0) {
+    const int4* k4 = reinterpret_cast<const int4*>(kb);
+    const int quads = end / 4;
+    // the loop runs alike for a warp's lanes (the shuffles need them all)
+    for (int q0 = threadIdx.x - lane; q0 < quads;
+         q0 += kThreads * kHeadUnroll) {
+      int4 v[kHeadUnroll];
+      int first[kHeadUnroll];
+#pragma unroll
+      for (int u = 0; u < kHeadUnroll; ++u) {
+        const int q = q0 + lane + u * kThreads;
+        v[u] = q < quads ? __ldg(k4 + q) : make_int4(-1, -1, -1, -1);
+        first[u] = (lane == 0 && q > 0 && q < quads) ? __ldg(kb + 4 * q - 1)
+                                                     : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kHeadUnroll; ++u) {
+        int prev = __shfl_up_sync(0xffffffffu, v[u].w, 1);
+        if (lane == 0) prev = first[u];
+        h += (v[u].x != p3d::kSent && v[u].x != -1 && v[u].x != prev) +
+             (v[u].y != p3d::kSent && v[u].y != v[u].x) +
+             (v[u].z != p3d::kSent && v[u].z != v[u].y) +
+             (v[u].w != p3d::kSent && v[u].w != v[u].z);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < end; i += kThreads) {
+      const int k = __ldg(kb + i);
+      h += k != p3d::kSent && (i == 0 || __ldg(kb + i - 1) != k);
+    }
+  }
+  return block_scan(h, s_warp).y;
+}
+
+// 4-byte asynchronous copy into shared memory: no register waits on it
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+struct Args {
+  const int* keys;
+  const float* pts;
+  const float* w1t;
+  const float* a;       // K4: the BN fold and statistics
+  const float* cc;
+  const float* mu;
+  const float* invsig;
+  const float* g;       // K4: the rows cotangent, through its strides
+  long long gsb, gsc, gsn;
+  double* part;         // [blocks][rows][u1]
+  int n, c_in, c_dec, u1, p, max_voxels, span;
+  Geometry geo;
+  int with_distance;
+};
+
+// kCin: the point channels with kDist the distance channel (KITTI's 4
+// and none: every config), or 0 for any C_in (guarded). kBwd: K4, else K3.
+template <int kCin, bool kDist, bool kBwd>
+__global__ void __launch_bounds__(kThreads, 2)
+    pfn_train_kernel(const Args A) {
+  constexpr int kN = kCin ? kCin + 5 + kDist : kMaxCdec;
+  constexpr int kX32 = (kN + 3) & ~3;   // f32 row: float4 loads
+  constexpr int kX64 = (kN + 1) & ~1;   // f64 row: double2 loads
+  const int c_dec = kCin ? kN : A.c_dec;
+  const int c_in = kCin ? kCin : A.c_in;
+  const bool with_distance = kCin ? kDist : A.with_distance != 0;
+  const int rows = (kBwd ? 2 : 4) + c_dec;
+  const int p = A.p, n = A.n, u1 = A.u1;
+  const int max_voxels = A.max_voxels;
+
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const Layout L = layout(c_in, kX32, kX64, p, A.span, rows, kBwd);
+  double* s_x64 = reinterpret_cast<double*>(base + L.x64);
+  float* s_x32 = reinterpret_cast<float*>(base + L.x32);
+  double* s_red = s_x64;                 // after the last tile
+  float* s_pts = reinterpret_cast<float*>(base + L.pts);
+  float* s_mean = reinterpret_cast<float*>(base + L.mean);
+  float* s_cx = reinterpret_cast<float*>(base + L.cx);
+  float* s_cy = reinterpret_cast<float*>(base + L.cy);
+  int* s_key = reinterpret_cast<int*>(base + L.key);
+  int* s_kown = reinterpret_cast<int*>(base + L.kown);
+  int* s_kcol = reinterpret_cast<int*>(base + L.kcol);
+  int* s_kstart = reinterpret_cast<int*>(base + L.kstart);
+  int* s_erow = reinterpret_cast<int*>(base + L.erow);
+  int* s_scan = reinterpret_cast<int*>(base + L.scan);  // kWarps + the cap
+  float* s_ring = reinterpret_cast<float*>(base + L.ring);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int s0 = blockIdx.x * A.span;
+  const int s_len = max(0, min(A.span, n - s0));
+  const int pw = A.span + p - 1;  // points of rows [s0 - p + 1, s0 + span)
+  const int* kb = A.keys + static_cast<size_t>(b) * n;
+  const float* pb = A.pts + static_cast<size_t>(b) * c_in * n;
+  const int gs = u1 <= 32 ? 32 : kMaxU1;   // a group: a thread a channel
+  const int groups = kThreads / gs;
+  const int c = tid % gs;
+  const int grp = tid / gs;
+  const bool live = c < u1;
+
+  // the span's keys (rows [s0 - p, s0 + s_len]) and points
+  for (int t = tid; t < s_len + p + 1; t += kThreads) {
+    const int i = s0 - p + t;
+    s_key[t] = i < 0 ? -1 : (i < n ? kb[i] : p3d::kSent);
+  }
+  for (int ch = 0; ch < c_in; ++ch) {
+    for (int j = tid; j < s_len + p - 1; j += kThreads) {
+      const int i = s0 - p + 1 + j;
+      s_pts[ch * pw + j] =
+          (i >= 0 && i < n) ? pb[static_cast<size_t>(ch) * n + i] : 0.f;
+    }
+  }
+
+  // per thread: W1's row of channel c, and for K4 its BN fold
+  float w[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    w[k] = (live && k < c_dec) ? A.w1t[c * c_dec + k] : 0.f;
+  }
+  float ac = 0.f, ccc = 0.f, muc = 0.f, isc = 0.f;
+  if (kBwd && live) {
+    ac = A.a[c];
+    ccc = A.cc[c];
+    muc = A.mu[c];
+    isc = A.invsig[c];
+  }
   __syncthreads();
 
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const int i = r0 + r;
+  // the start of the segment holding the span's previous row: rows
+  // -1, -2, .. -p at s_key[p - 1], .., s_key[0]; at most p rows back
+  // matter (a row further from its segment's start is not kept)
+  if (tid < 32) {
+    int run = p - 1;
+    for (int j0 = 0; j0 < p - 1; j0 += 32) {
+      const int j = j0 + tid;
+      const unsigned eq = __ballot_sync(
+          0xffffffffu, j < p - 1 && s_key[p - 2 - j] == s_key[p - 1]);
+      if (eq != 0xffffffffu) {
+        run = min(run, j0 + __ffs(~eq) - 1);
+        break;
+      }
+    }
+    if (tid == 0) s_scan[kWarps + 1] = -1 - run;
+  }
+
+  // the span's rows before the scan's sentinel tail (keys sort it last):
+  // the rows after them keep and emit nothing
+  int s_valid = 0;
+  for (int r0 = 0; r0 < s_len; r0 += kThreads) {
+    const int r = r0 + tid;
+    s_valid += __syncthreads_count(r < s_len && s_key[r + p] != p3d::kSent);
+  }
+
+  // the max_voxels cap: rows from `cap` on keep nothing
+  int cap = s0 + s_valid;
+  if (s_valid > 0 && s0 + s_valid > max_voxels) {  // uniform over the block
+    int before = heads_before(kb, s0, s_scan);
+    if (before > max_voxels) {
+      cap = s0;
+    } else {
+      if (tid == 0) s_scan[kWarps] = cap;
+      for (int r0 = 0; r0 < s_valid && before <= max_voxels;
+           r0 += kThreads) {
+        const int r = r0 + tid;
+        const int head = r < s_valid && s_key[r + p] != s_key[r + p - 1];
+        const int2 sc = block_scan(head, s_scan);
+        if (head && before + sc.x == max_voxels + 1) s_scan[kWarps] = s0 + r;
+        before += sc.y;
+      }
+      __syncthreads();
+      cap = s_scan[kWarps];
+    }
+  }
+
+  // f64 sums for the whole span. K3: s1, s2, t3[k], sx[c]; K4: sdt, sdtz,
+  // t1[k]
+  double acc0 = 0.0, acc1 = 0.0, accx = 0.0;
+  double acc[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) acc[k] = 0.0;
+  int kept_total = 0;
+  const float* gb = kBwd ? A.g + b * A.gsb : nullptr;
+
+  for (int t0 = 0; t0 < s_valid; t0 += kTile) {
+    // rank pass, a thread a row: each row's arrival rank in its pillar
+    // from a max-scan of the tile's head rows (and the start carried from
+    // the rows before); one scan of (emits, kept rows) then gives an
+    // emission row its ordinal e and its kept rows' place k
+    const int r = t0 + tid;
+    const bool in = r < s_valid;
+    const int key = in ? s_key[r + p] : p3d::kSent;
+    const int start = max(
+        block_scan<true>(in && key != s_key[r + p - 1] ? r : INT_MIN,
+                         s_scan).x,
+        s_scan[kWarps + 1]);
+    // kept: before the cap, a rank below p (the key is no sentinel: in);
+    // it emits as its pillar's last kept row
     int rank = -1;
-    if (i < n) {
-      rank = p3d::emit_rank(s.key, r + p, p, vb[i], max_voxels);
-      if (rank >= 0) {
-        const int j0 = r + p - 1 - rank;  // the pillar's head in the window
-        p3d::pillar_mean(s.pts, pw, j0, rank, s.mean + 3 * r);
-        p3d::cell_centre(s.key[r + p], geo, s.cx + r, s.cy + r);
-        for (int j = j0; j <= j0 + rank; ++j) s.own[j] = r;
-      }
+    if (in && s0 + r < cap && r - start < p &&
+        (s_key[r + p + 1] != key || r - start == p - 1)) {
+      rank = r - start;
     }
-    s.rank[r] = rank;
-  }
-  __syncthreads();
-
-  for (int w = threadIdx.x; w < pw; w += blockDim.x) {
-    const int o = s.own[w];
-    float x[kMaxCdec];
-    if (o >= 0) {
-      p3d::decorate(s.pts, pw, w, c_in, s.mean + 3 * o, s.cx[o], s.cy[o],
-                    with_distance, x);
-    }
-#pragma unroll
-    for (int q = 0; q < kMaxCdec; ++q) {
-      if (q < c_dec) s.x[q * pw + w] = o >= 0 ? x[q] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // z in k order (the plain version's order: bit for bit), channel fastest
-  for (int f = threadIdx.x; f < pw * u1; f += blockDim.x) {
-    const int w = f / u1;
-    const int c = f - w * u1;
-    float z = 0.f;
-    if (s.own[w] >= 0) {
-      const float* wc = s.w + c * c_dec;
-#pragma unroll
-      for (int q = 0; q < kMaxCdec; ++q) {
-        if (q < c_dec) z = __fadd_rn(z, __fmul_rn(wc[q], s.x[q * pw + w]));
-      }
-    }
-    s.z[c * pw + w] = z;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pfn_stats_kernel(const int* __restrict__ keys,
-                     const float* __restrict__ pts,
-                     const int* __restrict__ vox,
-                     const float* __restrict__ w1t, double* __restrict__ out,
-                     int n, int c_in, int c_dec, int u1, int p,
-                     int max_voxels, Geometry geo, int with_distance) {
-  extern __shared__ float smem[];
-  float* rest_f;
-  int* rest_i;
-  const Stage s = carve(smem, c_in, c_dec, u1, p, &rest_f, &rest_i, 0);
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const size_t bn = static_cast<size_t>(b) * n;
-  stage_block(s, keys + bn, pts + bn * c_in, vox + bn, w1t, n, r0, c_in,
-              c_dec, u1, p, max_voxels, geo, with_distance != 0);
-
-  const int pw = pts_window(p);
-  const int ro = 4 + c_dec;
-  double* ob = out + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) *
-                         ro * u1;
-  for (int f = threadIdx.x; f < ro * u1; f += blockDim.x) {
-    const int row = f / u1;
-    const int c = f - row * u1;
-    const float* zc = s.z + c * pw;
-    double acc = 0.0;
-    if (row == 0) {
-      for (int w = 0; w < pw; ++w) acc += zc[w];
-    } else if (row == 1) {
-      for (int w = 0; w < pw; ++w) {
-        acc += static_cast<double>(zc[w]) * zc[w];
-      }
-    } else if (row == 2) {
-      for (int w = 0; w < pw; ++w) acc += s.own[w] >= 0 ? 1.0 : 0.0;
-    } else if (row < 3 + c_dec) {
-      const float* xk = s.x + (row - 3) * pw;
-      for (int w = 0; w < pw; ++w) {
-        acc += static_cast<double>(xk[w]) * zc[w];
-      }
-    } else if (c < c_dec) {
-      const float* xk = s.x + c * pw;
-      for (int w = 0; w < pw; ++w) acc += xk[w];
-    }
-    ob[f] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pfn_bwd_kernel(const int* __restrict__ keys,
-                   const float* __restrict__ pts,
-                   const int* __restrict__ vox,
-                   const float* __restrict__ w1t,
-                   const float* __restrict__ a, const float* __restrict__ cc,
-                   const float* __restrict__ mu,
-                   const float* __restrict__ invsig,
-                   const float* __restrict__ g, long long gsb, long long gsc,
-                   long long gsn, double* __restrict__ out, int n, int c_in,
-                   int c_dec, int u1, int p, int max_voxels, Geometry geo,
-                   int with_distance) {
-  extern __shared__ float smem[];
-  float* rest_f;
-  int* rest_i;
-  const size_t extra = 4 * static_cast<size_t>(u1) + 2 * u1 * kRowsPad;
-  const Stage s = carve(smem, c_in, c_dec, u1, p, &rest_f, &rest_i, extra);
-  // per (channel, block row): [u1][kRowsPad], padded against bank conflicts
-  float* s_a = rest_f;           // [u1]
-  float* s_c = s_a + u1;         // [u1]
-  float* s_mu = s_c + u1;        // [u1]
-  float* s_is = s_mu + u1;       // [u1]
-  float* s_dt = s_is + u1;       // dt routed to the pillar's argmax row
-  float* s_zh = s_dt + u1 * kRowsPad;  // zhat of that row
-  int* s_arg = rest_i;           // window row of the argmax, -1 for none
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const size_t bn = static_cast<size_t>(b) * n;
-  for (int t = threadIdx.x; t < u1; t += blockDim.x) {
-    s_a[t] = a[t];
-    s_c[t] = cc[t];
-    s_mu[t] = mu[t];
-    s_is[t] = invsig[t];
-  }
-  stage_block(s, keys + bn, pts + bn * c_in, vox + bn, w1t, n, r0, c_in,
-              c_dec, u1, p, max_voxels, geo, with_distance != 0);
-
-  const int pw = pts_window(p);
-  const float* gb = g + static_cast<long long>(b) * gsb;
-  for (int f = threadIdx.x; f < kRows * u1; f += blockDim.x) {
-    const int r = f / u1;
-    const int c = f - r * u1;
-    const int rank = s.rank[r];
-    float dt = 0.f, zhat = 0.f;
-    int arg = -1;
+    const int packed = rank >= 0 ? (1 << 16) | (rank + 1) : 0;
+    const int2 sc = block_scan(packed, s_scan);
+    if (tid == kTile - 1) s_scan[kWarps + 1] = start;  // for the next tile
+    const int n_emit = sc.y >> 16;
+    const int n_kept = sc.y & 0xffff;
     if (rank >= 0) {
-      const float* zc = s.z + c * pw;
-      const int j0 = r + p - 1 - rank;
-      float best = -INFINITY, tbest = 0.f;
-      int jbest = j0;
-      for (int j = j0; j <= j0 + rank; ++j) {
-        const float t = __fadd_rn(__fmul_rn(zc[j], s_a[c]), s_c[c]);
+      const int excl = sc.x - packed;
+      const int e = excl >> 16;
+      const int k = excl & 0xffff;
+      const int j0 = r + p - 1 - rank;  // the pillar's head in s_pts
+      s_kstart[e] = k;
+      s_erow[e] = s0 + r;
+      for (int j = 0; j <= rank; ++j) {
+        s_kown[k + j] = e;
+        s_kcol[k + j] = j0 + j;
+      }
+      p3d::pillar_mean(s_pts, pw, j0, rank, s_mean + 3 * e);
+      p3d::cell_centre(s_key[r + p], A.geo, s_cx + e, s_cy + e);
+    }
+    if (tid == 0) s_kstart[n_emit] = n_kept;
+    kept_total += n_kept;
+    __syncthreads();
+
+    // K4: a group takes a run of whole pillars holding about 1 / groups of
+    // the tile's kept rows; each thread starts copying its channel of the
+    // first kRing pillars' cotangents into its ring while the rows are
+    // decorated (a copy a pillar, each committed as one group)
+    int e_lo = 0, e_hi = 0;
+    auto fetch = [&](int e, int slot) {
+      if (live && e < e_hi) {
+        cp_async4(s_ring + slot * kThreads + tid,
+                  gb + c * A.gsc + static_cast<long long>(s_erow[e]) * A.gsn);
+      }
+      cp_async_commit();
+    };
+    if (kBwd) {
+      auto first_at = [&](int row) {  // first pillar from kept row `row`
+        int lo = 0, hi = n_emit;
+        while (lo < hi) {
+          const int mid = (lo + hi) / 2;
+          if (s_kstart[mid] < row) lo = mid + 1; else hi = mid;
+        }
+        return lo;
+      };
+      e_lo = first_at(grp * n_kept / groups);
+      e_hi = first_at((grp + 1) * n_kept / groups);
+#pragma unroll
+      for (int i = 0; i < kRing; ++i) fetch(e_lo + i, i);
+    }
+
+    // each kept row decorated once, in f32 and f64
+    for (int q = tid; q < n_kept; q += kThreads) {
+      const int e = s_kown[q];
+      float x[kMaxCdec];
+      p3d::decorate(s_pts, pw, s_kcol[q], c_in, s_mean + 3 * e, s_cx[e],
+                    s_cy[e], with_distance, x);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        if (k < c_dec) {
+          s_x32[q * kX32 + k] = x[k];
+          s_x64[q * kX64 + k] = x[k];
+        }
+      }
+    }
+    __syncthreads();
+
+    if (!kBwd) {
+      // K3: a group every groups-th kept row
+#pragma unroll 2
+      for (int q = grp; q < n_kept; q += groups) {
+        float x[kX32];
+        const float4* xr = reinterpret_cast<const float4*>(s_x32 + q * kX32);
+#pragma unroll
+        for (int v = 0; v < kX32 / 4; ++v) {
+          const float4 f = xr[v];
+          x[4 * v] = f.x;
+          x[4 * v + 1] = f.y;
+          x[4 * v + 2] = f.z;
+          x[4 * v + 3] = f.w;
+        }
+        // z in k order, each product rounded alone (the plain version's
+        // order: bit for bit)
+        float z = __fmul_rn(x[0], w[0]);
+#pragma unroll
+        for (int k = 1; k < kN; ++k) {
+          if (k < c_dec) z = __fadd_rn(z, __fmul_rn(x[k], w[k]));
+        }
+        const double zd = z;
+        acc0 += zd;
+        acc1 = fma(zd, zd, acc1);
+        const double2* xd =
+            reinterpret_cast<const double2*>(s_x64 + q * kX64);
+#pragma unroll
+        for (int v = 0; v < kX64 / 2; ++v) {
+          const double2 d = xd[v];
+          if (2 * v < c_dec) acc[2 * v] = fma(d.x, zd, acc[2 * v]);
+          if (2 * v + 1 < c_dec) {
+            acc[2 * v + 1] = fma(d.y, zd, acc[2 * v + 1]);
+          }
+        }
+        if (c < c_dec) accx += s_x64[q * kX64 + c];
+      }
+    } else {
+      // K4: the group's rows in order; a pillar's relu' and first arg-max
+      // in f32 registers over its rows, and at its last row, where t > 0,
+      // its f64 sums with the cotangent from the thread's ring
+      int e = e_lo;
+      int q_last = e < e_hi ? s_kstart[e + 1] - 1 : -1;
+      float best = -INFINITY, tbest = 0.f, zbest = 0.f;
+      int qbest = 0;
+      const int q_hi = e_lo < e_hi ? s_kstart[e_hi] : 0;
+#pragma unroll 2
+      for (int q = e_lo < e_hi ? s_kstart[e_lo] : 0; q < q_hi; ++q) {
+        float x[kX32];
+        const float4* xr = reinterpret_cast<const float4*>(s_x32 + q * kX32);
+#pragma unroll
+        for (int v = 0; v < kX32 / 4; ++v) {
+          const float4 f = xr[v];
+          x[4 * v] = f.x;
+          x[4 * v + 1] = f.y;
+          x[4 * v + 2] = f.z;
+          x[4 * v + 3] = f.w;
+        }
+        float z = __fmul_rn(x[0], w[0]);
+#pragma unroll
+        for (int k = 1; k < kN; ++k) {
+          if (k < c_dec) z = __fadd_rn(z, __fmul_rn(x[k], w[k]));
+        }
+        const float t = __fadd_rn(__fmul_rn(z, ac), ccc);
         const float y = fmaxf(t, 0.f);
         if (y > best) {  // strictly: the first maximum wins
           best = y;
           tbest = t;
-          jbest = j;
+          zbest = z;
+          qbest = q;
+        }
+        if (q == q_last) {  // uniform over the group
+          // this pillar's copy is the oldest of the kRing in flight
+          cp_async_wait<kRing - 1>();
+          const int slot = (e - e_lo) % kRing;
+          const float dtf = s_ring[slot * kThreads + tid];
+          fetch(e + kRing, slot);
+          if (tbest > 0.f) {  // relu'(0) = 0
+            const double dt = dtf;
+            const double zhat = __fmul_rn(__fsub_rn(zbest, muc), isc);
+            acc0 += dt;
+            acc1 = fma(dt, zhat, acc1);
+            const double2* xd =
+                reinterpret_cast<const double2*>(s_x64 + qbest * kX64);
+#pragma unroll
+            for (int v = 0; v < kX64 / 2; ++v) {
+              const double2 d = xd[v];
+              if (2 * v < c_dec) acc[2 * v] = fma(d.x, dt, acc[2 * v]);
+              if (2 * v + 1 < c_dec) {
+                acc[2 * v + 1] = fma(d.y, dt, acc[2 * v + 1]);
+              }
+            }
+          }
+          ++e;
+          q_last = e < e_hi ? s_kstart[e + 1] - 1 : -1;
+          best = -INFINITY;
+          tbest = zbest = 0.f;
         }
       }
-      if (tbest > 0.f) {  // relu'(0) = 0
-        dt = gb[c * gsc + static_cast<long long>(r0 + r) * gsn];
-        zhat = __fmul_rn(__fsub_rn(zc[jbest], s_mu[c]), s_is[c]);
-        arg = jbest;
-      }
     }
-    s_dt[c * kRowsPad + r] = dt;
-    s_zh[c * kRowsPad + r] = zhat;
-    s_arg[c * kRowsPad + r] = arg;
+    if (kBwd) cp_async_wait<0>();
+    __syncthreads();  // the next tile rewrites the lists and rows
   }
-  __syncthreads();
 
-  const int ro = 2 + c_dec;
-  double* ob = out + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) *
-                         ro * u1;
-  for (int f = threadIdx.x; f < ro * u1; f += blockDim.x) {
-    const int row = f / u1;
-    const int c = f - row * u1;
-    const float* dtc = s_dt + c * kRowsPad;
-    double acc = 0.0;
-    if (row == 0) {
-      for (int r = 0; r < kRows; ++r) acc += dtc[r];
-    } else if (row == 1) {
-      const float* zhc = s_zh + c * kRowsPad;
-      for (int r = 0; r < kRows; ++r) {
-        acc += static_cast<double>(dtc[r]) * zhc[r];
-      }
-    } else {
-      const float* xk = s.x + (row - 2) * pw;
-      const int* argc = s_arg + c * kRowsPad;
-      for (int r = 0; r < kRows; ++r) {
-        if (argc[r] >= 0) acc += static_cast<double>(xk[argc[r]]) * dtc[r];
-      }
+  // the groups' sums in group order -> the block's partial [rows][u1]
+  const int nrow_acc = kBwd ? 2 : 3;  // rows before the x sums
+  auto put = [&](int row, double v) {
+    s_red[(row * groups + grp) * gs + c] = v;
+  };
+  put(0, acc0);
+  put(1, acc1);
+  if (!kBwd) put(2, tid == 0 ? static_cast<double>(kept_total) : 0.0);
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    if (k < c_dec) put(nrow_acc + k, acc[k]);
+  }
+  if (!kBwd) put(3 + c_dec, c < c_dec ? accx : 0.0);
+  __syncthreads();
+  double* out = A.part + static_cast<size_t>(blockIdx.y * gridDim.x +
+                                             blockIdx.x) * rows * u1;
+  for (int s = tid; s < rows * u1; s += kThreads) {
+    const int row = s / u1;
+    const int ch = s - row * u1;
+    double v = 0.0;
+    for (int gi = 0; gi < groups; ++gi) {
+      v += s_red[(row * groups + gi) * gs + ch];
     }
-    ob[f] = acc;
+    out[s] = v;
   }
 }
 
-bool bad_shape(int c_in, int c_dec, int u1, int p, int nx,
+// out[s] = the sum over blocks j of part[j][s], in block order by warps
+// (warp w takes blocks w, w + kReduceWarps, ...), then the warps in order.
+__global__ void __launch_bounds__(kReduceWarps * 32)
+    reduce_partials_kernel(const double* __restrict__ part,
+                           double* __restrict__ out, int slots, int blocks) {
+  __shared__ double s_sum[kReduceWarps][33];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int s = blockIdx.x * 32 + lane;
+  double v = 0.0;
+  if (s < slots) {
+#pragma unroll 4
+    for (int j = warp; j < blocks; j += kReduceWarps) {
+      v += part[static_cast<size_t>(j) * slots + s];
+    }
+  }
+  s_sum[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && s < slots) {
+    double t = s_sum[0][lane];
+    for (int w = 1; w < kReduceWarps; ++w) t += s_sum[w][lane];
+    out[s] = t;
+  }
+}
+
+bool bad_shape(int c_in, int c_dec, int u1, int p, int nx, int spans,
                int with_distance) {
   return c_in < 3 || c_in > kMaxCin ||
-         c_dec != c_in + 5 + (with_distance ? 1 : 0) || p < 1 || u1 < c_dec ||
-         nx < 1;
+         c_dec != c_in + 5 + (with_distance ? 1 : 0) || p < 1 ||
+         u1 < c_dec || u1 > kMaxU1 || nx < 1 || spans < 1;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+// The kernel over spans x b blocks, then the partials' sum into buf[0 ..
+// rows * u1). Rows of a span: n / spans rounded up to 32 (at most
+// kMaxSpan).
+template <bool kBwd>
+cudaError_t launch(Args a, int b, int spans, double* buf,
+                   cudaStream_t st) {
+  const int rows = (kBwd ? 2 : 4) + a.c_dec;
+  const int slots = rows * a.u1;
+  a.part = buf + slots;
+  int blocks = 0;
+  if (b > 0 && a.n > 0) {
+    a.span = round_up((a.n + spans - 1) / spans, 32);
+    if (a.span > kMaxSpan) return cudaErrorInvalidValue;
+    const bool four = a.c_in == 4 && !a.with_distance;  // every config
+    void (*kernel)(const Args) = four ? pfn_train_kernel<4, false, kBwd>
+                                      : pfn_train_kernel<0, false, kBwd>;
+    const int w = four ? 9 : kMaxCdec;
+    const Layout l = layout(a.c_in, (w + 3) & ~3, (w + 1) & ~1, a.p, a.span,
+                            rows, kBwd);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+    if (err != cudaSuccess) return err;
+    const int used = (a.n + a.span - 1) / a.span;
+    kernel<<<dim3(used, b), kThreads, l.bytes, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    blocks = used * b;
+  }
+  reduce_partials_kernel<<<(slots + 31) / 32, kReduceWarps * 32, 0, st>>>(
+      a.part, buf, slots, blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K3. out [b, ceil(n / 64), 4 + c_dec, u1] f64 partials (see the header).
-// Returns cudaGetLastError().
+// K3. buf: f64, (spans * b + 1) * (4 + c_dec) * u1 (the sums, then the
+// blocks' partials; see the header). Returns cudaGetLastError().
 extern "C" int p3d_pfn_stats(const int* keys, const float* pts,
-                             const int* vox, const float* w1t, double* out,
-                             int b, int n, int c_in, int c_dec, int u1, int p,
+                             const float* w1t, double* buf, int spans, int b,
+                             int n, int c_in, int c_dec, int u1, int p,
                              int max_voxels, int nx, float vx, float vy,
                              float x_off, float y_off, int with_distance,
                              void* stream) {
-  if (bad_shape(c_in, c_dec, u1, p, nx, with_distance)) {
+  if (bad_shape(c_in, c_dec, u1, p, nx, spans, with_distance)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (b == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = stage_floats(c_in, c_dec, u1, p) * sizeof(float) +
-                      stage_ints(p) * sizeof(int);
-  const cudaError_t err = allow_smem(pfn_stats_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows, b);
-  pfn_stats_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, pts, vox, w1t, out, n, c_in, c_dec, u1, p, max_voxels,
-      Geometry{nx, vx, vy, x_off, y_off}, with_distance);
-  return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.keys = keys;
+  a.pts = pts;
+  a.w1t = w1t;
+  a.n = n;
+  a.c_in = c_in;
+  a.c_dec = c_dec;
+  a.u1 = u1;
+  a.p = p;
+  a.max_voxels = max_voxels;
+  a.geo = Geometry{nx, vx, vy, x_off, y_off};
+  a.with_distance = with_distance;
+  return static_cast<int>(
+      launch<false>(a, b, spans, buf, static_cast<cudaStream_t>(stream)));
 }
 
 // K4. g: the rows cotangent, element (b, c, i) at g[b*gsb + c*gsc + i*gsn]
-// for c < u1. out [b, ceil(n / 64), 2 + c_dec, u1] f64 partials. Returns
+// for c < u1. buf: f64, (spans * b + 1) * (2 + c_dec) * u1. Returns
 // cudaGetLastError().
-extern "C" int p3d_pfn_bwd(const int* keys, const float* pts, const int* vox,
+extern "C" int p3d_pfn_bwd(const int* keys, const float* pts,
                            const float* w1t, const float* a, const float* cc,
                            const float* mu, const float* invsig,
                            const float* g, long long gsb, long long gsc,
-                           long long gsn, double* out, int b, int n, int c_in,
-                           int c_dec, int u1, int p, int max_voxels, int nx,
-                           float vx, float vy, float x_off, float y_off,
-                           int with_distance, void* stream) {
-  if (bad_shape(c_in, c_dec, u1, p, nx, with_distance)) {
+                           long long gsn, double* buf, int spans, int b,
+                           int n, int c_in, int c_dec, int u1, int p,
+                           int max_voxels, int nx, float vx, float vy,
+                           float x_off, float y_off, int with_distance,
+                           void* stream) {
+  if (bad_shape(c_in, c_dec, u1, p, nx, spans, with_distance)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (b == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem =
-      (stage_floats(c_in, c_dec, u1, p) + 4 * static_cast<size_t>(u1) +
-       2 * static_cast<size_t>(u1) * kRowsPad) * sizeof(float) +
-      (stage_ints(p) + static_cast<size_t>(u1) * kRowsPad) * sizeof(int);
-  const cudaError_t err = allow_smem(pfn_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kRows - 1) / kRows, b);
-  pfn_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      keys, pts, vox, w1t, a, cc, mu, invsig, g, gsb, gsc, gsn, out, n, c_in,
-      c_dec, u1, p, max_voxels, Geometry{nx, vx, vy, x_off, y_off},
-      with_distance);
-  return static_cast<int>(cudaGetLastError());
+  Args args{};
+  args.keys = keys;
+  args.pts = pts;
+  args.w1t = w1t;
+  args.a = a;
+  args.cc = cc;
+  args.mu = mu;
+  args.invsig = invsig;
+  args.g = g;
+  args.gsb = gsb;
+  args.gsc = gsc;
+  args.gsn = gsn;
+  args.n = n;
+  args.c_in = c_in;
+  args.c_dec = c_dec;
+  args.u1 = u1;
+  args.p = p;
+  args.max_voxels = max_voxels;
+  args.geo = Geometry{nx, vx, vy, x_off, y_off};
+  args.with_distance = with_distance;
+  return static_cast<int>(
+      launch<true>(args, b, spans, buf, static_cast<cudaStream_t>(stream)));
 }

@@ -52,10 +52,10 @@ _SIGNATURES = {
     "p3d_fused_pfn2_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                             _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i,
                             _i, _vp),
-    "p3d_pfn_stats": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
+    "p3d_pfn_stats": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
                       _i, _f, _f, _f, _f, _i, _vp),
-    "p3d_pfn_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
-                    _ll, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f,
+    "p3d_pfn_bwd": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _ll,
+                    _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f,
                     _i, _vp),
     "p3d_sorted_table_gather": (_vp, _vp, _ll, _ll, _ll, _vp, _ll, _ll, _vp,
                                 _i, _i, _i, _i, _i, _vp),

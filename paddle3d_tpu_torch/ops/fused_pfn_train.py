@@ -12,9 +12,12 @@ first argmax row per channel (gated by t > 0) and sums [Σdt, Σdt·ẑ,
 Σx⊗dt]; the dW1 / dγ / dβ formula runs here. The points get no gradient.
 
 On a CUDA tensor `pfn_stats` and `pfn_bwd` launch the hand-written kernels
-of csrc/fused_pfn_train.cu (its header says what bounds them); on a CPU
-tensor they take the plain PyTorch versions beside them. Both routes sum
-per-block partials or rows in a fixed order: no float atomics. The sums,
+of csrc/fused_pfn_train.cu (its header says what bounds them and how they
+work: a block a span of rows, the max_voxels cap found in the span, f64
+sums in registers, one partial a block added in block order by a second
+launch); on a CPU tensor they take the plain PyTorch versions beside them.
+Both routes sum in an order fixed by the shapes: no float atomics, so two
+calls give the same bits. The sums,
 and the formula built on them, are f64: it cancels (σ² = s2/M − μ²,
 T3 − Sx μᵀ over ~1e5 rows), and f32 sums in two orders left dW1 2.7e-2 of
 its largest entry apart on the card. z, t and ẑ stay f32, bit for bit
@@ -23,10 +26,26 @@ alike on both routes; the BN statistics go back to f32 for the forward.
 import torch
 
 from . import _build, fused_pfn
-from .fused_pfn import _decorate_plain, _segment_max, pillar_ordinals
+from .fused_pfn import _decorate_plain, _segment_max
 
 __all__ = ["fused_pfn_train_rows", "pfn_stats", "pfn_stats_plain",
-           "pfn_bwd", "pfn_bwd_plain"]
+           "pfn_bwd", "pfn_bwd_plain", "spans"]
+
+_MAX_U1 = 64        # csrc/fused_pfn_train.cu kMaxU1
+_MAX_SPAN = 1024    # csrc/fused_pfn_train.cu kMaxSpan
+_SMS = {}           # device index -> streaming multiprocessors
+
+
+def spans(b, n, device):
+    """Spans a scan's rows are split into on the card, a block each: about
+    two blocks an SM over the batch, at most _MAX_SPAN rows a span (the
+    kernel rounds n / spans up to 32 rows)."""
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    want = min(-(-2 * sms // max(b, 1)), -(-n // 32))
+    return max(want, -(-n // _MAX_SPAN), 1)
 
 
 def _pre_bn(x, w1t):
@@ -68,7 +87,24 @@ def _check(keys, pts_t, w1t, tensors, name):
                                            for t in tensors[:2]):
         raise ValueError("{} kernel needs contiguous keys, points and "
                          "weights".format(name))
+    if keys.is_cuda and u1 > _MAX_U1:
+        raise ValueError("{} kernel: unsupported widths, u1 {} (at most {})"
+                         .format(name, u1, _MAX_U1))
     return b, c_in, n, u1, c_dec
+
+
+def _launch(name, rows, keys, b, n, u1, ptrs, scalars):
+    """Launch K3 or K4 into one f64 buffer: the sums [rows, u1], then the
+    blocks' partials. -> the sums."""
+    nspan = spans(b, n, keys.device)
+    buf = torch.empty((nspan * b + 1) * rows * u1, dtype=torch.float64,
+                      device=keys.device)
+    err = _build.function("p3d_" + name)(
+        *ptrs, buf.data_ptr(), nspan, b, n, *scalars,
+        _build.stream_ptr(keys.device))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return buf[:rows * u1].view(rows, u1)
 
 
 def pfn_stats(keys, pts_t, w1t, *, P, maxV, nx, vx, vy, x_off, y_off,
@@ -84,17 +120,10 @@ def pfn_stats(keys, pts_t, w1t, *, P, maxV, nx, vx, vy, x_off, y_off,
                                    "pfn_stats")
     if not keys.is_cuda:
         return pfn_stats_plain(keys, pts_t, w1t, **kw)
-    nblk = -(-n // 64)                      # csrc/fused_pfn_train.cu kRows
-    out = torch.empty((b, nblk, 4 + c_dec, u1), dtype=torch.float64,
-                      device=keys.device)
-    err = _build.function("p3d_pfn_stats")(
-        keys.data_ptr(), pts_t.data_ptr(), pillar_ordinals(keys).data_ptr(),
-        w1t.data_ptr(), out.data_ptr(), b, n, c_in, c_dec, u1, P, maxV, nx,
-        vx, vy, x_off, y_off, int(with_distance),
-        _build.stream_ptr(keys.device))
-    _build.check(err, "pfn_stats")
-    _build.LAUNCHES["pfn_stats"] += 1
-    red = out.sum(dim=(0, 1))               # fixed order: deterministic
+    red = _launch("pfn_stats", 4 + c_dec, keys, b, n, u1,
+                  (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr()),
+                  (c_in, c_dec, u1, P, maxV, nx, vx, vy, x_off, y_off,
+                   int(with_distance)))
     return (red[0], red[1], red[2, 0], red[3:3 + c_dec],
             red[3 + c_dec, :c_dec])
 
@@ -146,18 +175,12 @@ def pfn_bwd(keys, pts_t, g_t, w1t, a, c, mu, invsig, *, P, maxV, nx, vx, vy,
             v.shape != (u1,) or not v.is_contiguous() for v in vecs):
         raise ValueError("pfn_bwd: cotangent {} or statistics do not fit "
                          "{} channels".format(tuple(g_t.shape), u1))
-    nblk = -(-n // 64)                      # csrc/fused_pfn_train.cu kRows
-    out = torch.empty((b, nblk, 2 + c_dec, u1), dtype=torch.float64,
-                      device=keys.device)
-    err = _build.function("p3d_pfn_bwd")(
-        keys.data_ptr(), pts_t.data_ptr(), pillar_ordinals(keys).data_ptr(),
-        w1t.data_ptr(), a.data_ptr(), c.data_ptr(), mu.data_ptr(),
-        invsig.data_ptr(), g_t.data_ptr(), *g_t.stride(), out.data_ptr(), b,
-        n, c_in, c_dec, u1, P, maxV, nx, vx, vy, x_off, y_off,
-        int(with_distance), _build.stream_ptr(keys.device))
-    _build.check(err, "pfn_bwd")
-    _build.LAUNCHES["pfn_bwd"] += 1
-    red = out.sum(dim=(0, 1))
+    red = _launch("pfn_bwd", 2 + c_dec, keys, b, n, u1,
+                  (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
+                   a.data_ptr(), c.data_ptr(), mu.data_ptr(),
+                   invsig.data_ptr(), g_t.data_ptr(), *g_t.stride()),
+                  (c_in, c_dec, u1, P, maxV, nx, vx, vy, x_off, y_off,
+                   int(with_distance)))
     return red[0], red[1], red[2:]
 
 

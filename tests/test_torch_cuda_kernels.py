@@ -402,6 +402,9 @@ def test_pfn_stats_matches_plain(cuda, P, maxV, c_in, with_distance):
     assert got[2].item() == ref[2].item() > 0       # kept rows, exact
     for g, r in zip(got, ref):
         _close(g, r, 1e-9)          # exact f64 products, f64 sums
+    # sums in an order fixed by the shapes: a second call, the same bits
+    again = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+    assert all(_same_bits(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.parametrize("P,maxV,c_in,with_distance", PFN_CASES)
@@ -429,6 +432,140 @@ def test_pfn_bwd_matches_plain(cuda, P, maxV, c_in, with_distance):
     assert (ref[0] != 0).any()
     for g, r in zip(got, ref):
         _close(g, r, 1e-9)          # exact f64 products, f64 sums
+    again = fused_pfn_train.pfn_bwd(*args, **kw)
+    assert all(_same_bits(x, y) for x, y in zip(got, again))
+
+
+PFN_TRAIN_EDGES = ["span_edge", "tiles", "cap_mid_span",
+                   "cap_at_span_start", "ragged", "short", "one_scan",
+                   "sentinel"]
+
+
+def _span(cuda, b, n):
+    """Rows of one block's span in the train kernels at this shape."""
+    spans = fused_pfn_train.spans(b, n, cuda)
+    return -(-(-(-n // spans)) // 32) * 32
+
+
+def _pfn_train_edge(cuda, case, P=32, nx=432, ny=496):
+    """Sorted keys and points at the train kernels' span edges: pillars of
+    1..40 rows across span edges, and across the 256-row tiles of spans
+    longer than a tile (one scan of 200,000 rows); the max_voxels cap
+    inside a span and on a span's first row (pillars of 1..8 rows); n not
+    a multiple of the span; n < P; one scan; a scan of sentinels only. ->
+    (keys, pts_t, w1t, kw, sizes of scan 0's pillars, span)."""
+    rng = np.random.default_rng(PFN_TRAIN_EDGES.index(case))
+    b = 1 if case in ("one_scan", "tiles") else 2
+    n = {"ragged": 12345, "short": 20, "tiles": 200000}.get(case, 12000)
+    span = _span(cuda, b, n)
+    hi = {"short": 6, "cap_mid_span": 9, "cap_at_span_start": 9}.get(case,
+                                                                     41)
+    keys = np.full((b, n), SENT, np.int64)
+    for s in range(b):
+        sizes = rng.integers(1, hi, n)
+        sizes = sizes[:np.searchsorted(np.cumsum(sizes), n - n // 10)]
+        if s == 0:
+            sizes0 = sizes
+            if case == "cap_at_span_start":  # pillar j + 1 starts at 2 span
+                ends = np.cumsum(sizes)
+                j = int(np.searchsorted(ends, 2 * span))
+                sizes[j] -= ends[j] - 2 * span
+        if case == "sentinel" and s == 1:
+            continue
+        cells = np.sort(rng.choice(nx * ny, len(sizes), replace=False))
+        k = np.repeat(cells, sizes)
+        keys[s, :len(k)] = k
+    starts = np.cumsum(sizes0) - sizes0
+    maxV = 40000
+    if case == "cap_mid_span":
+        maxV = int(np.flatnonzero((starts % span > 0) &
+                                  (starts > 2 * span))[0])
+    elif case == "cap_at_span_start":
+        maxV = int(np.flatnonzero(starts == 2 * span)[0])
+    pts = np.ascontiguousarray(rng.uniform(
+        [0., -39.68, -3., 0.], [69.12, 39.68, 1., 1.],
+        (b, n, 4)).transpose(0, 2, 1), dtype=np.float32)
+    w1t = rng.normal(0, .3, (64, 9)).astype(np.float32)
+    kw = dict(P=P, maxV=maxV, nx=nx, vx=0.16, vy=0.16, x_off=0.08,
+              y_off=-39.6, with_distance=False)
+    return (torch.from_numpy(keys.astype(np.int32)).to(cuda),
+            torch.from_numpy(pts).to(cuda), torch.from_numpy(w1t).to(cuda),
+            kw, sizes0, span)
+
+
+@pytest.mark.parametrize("case", PFN_TRAIN_EDGES)
+def test_pfn_train_span_edges(cuda, case):
+    """K3 and K4 at their span edges (see _pfn_train_edge): within 1e-9
+    of each output's largest plain value, the kept count exact, a second
+    call bit-equal."""
+    keys, pts_t, w1t, kw, sizes, span = _pfn_train_edge(cuda, case)
+    b, n = keys.shape
+    stats = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+    ref = fused_pfn_train.pfn_stats_plain(keys, pts_t, w1t, **kw)
+    torch.cuda.synchronize()
+    assert stats[2].item() == ref[2].item() > 0
+    for g, r in zip(stats, ref):
+        _close(g, r, 1e-9)
+    again = fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw)
+    assert all(_same_bits(x, y) for x, y in zip(stats, again))
+    rng = np.random.default_rng(n)
+    u1 = w1t.shape[0]
+    mu = (ref[0] / keys.numel()).float()
+    invsig = torch.rsqrt((ref[1] / keys.numel() - mu.double() ** 2).float()
+                         + 1e-3)
+    a = invsig * torch.from_numpy(rng.uniform(.5, 1.5, u1).astype(
+        np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(0, .5, u1).astype(np.float32)).to(cuda)
+    g_t = torch.from_numpy(rng.normal(0, 1, (b, n, u1 + 1)).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    args = (keys, pts_t, g_t, w1t, a, c, mu, invsig)
+    got = fused_pfn_train.pfn_bwd(*args, **kw)
+    ref_bwd = fused_pfn_train.pfn_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ref_bwd[0] != 0).any()
+    for g, r in zip(got, ref_bwd):
+        _close(g, r, 1e-9)
+    again = fused_pfn_train.pfn_bwd(*args, **kw)
+    assert all(_same_bits(x, y) for x, y in zip(got, again))
+    starts = np.cumsum(sizes) - sizes
+    kept_ends = starts + np.minimum(sizes, kw["P"]) - 1
+    if case == "span_edge":
+        assert (starts // span != kept_ends // span).sum() > 10
+    elif case == "tiles":   # pillars across a span's inner tile edges
+        edges = (np.arange(0, n, span)[:, None] +
+                 np.arange(256, span, 256)).ravel()
+        assert span > 256 and ((starts[:, None] < edges) &
+                               (edges <= kept_ends[:, None])).any()
+    elif case == "cap_mid_span":
+        assert starts[kw["maxV"]] % span > 0
+    elif case == "cap_at_span_start":
+        assert starts[kw["maxV"]] == 2 * span
+    elif case == "ragged":
+        assert n % span > 0 and n > span
+    elif case == "short":
+        assert n < kw["P"]
+    elif case == "sentinel":
+        one = fused_pfn_train.pfn_stats(keys[:1], pts_t[:1].contiguous(),
+                                        w1t, **kw)
+        assert one[2].item() == stats[2].item()
+    if case.startswith("cap"):
+        uncapped = fused_pfn_train.pfn_stats_plain(
+            keys, pts_t, w1t, **dict(kw, maxV=40000))
+        assert ref[2].item() < uncapped[2].item()
+
+
+def test_pfn_train_refuse_wide_layers(cuda):
+    """The train kernels hold at most 64 channels: a wider PFN raises
+    before a launch."""
+    keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    pts_t = torch.zeros((1, 4, 4), device=cuda)
+    before = _build.LAUNCHES["pfn_stats"]
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fused_pfn_train.pfn_stats(keys, pts_t, torch.zeros((65, 9),
+                                                          device=cuda),
+                                  P=4, maxV=10, nx=4, vx=1., vy=1., x_off=.5,
+                                  y_off=.5)
+    assert _build.LAUNCHES["pfn_stats"] == before
 
 
 @pytest.mark.parametrize("split,extra", [(False, False), (True, True),
@@ -1424,9 +1561,10 @@ def _seg_window_inputs(case, c, seed=0):
 
 
 def _same_bits(a, b):
-    """Equal float32 bit patterns: tells -0 from +0, where torch.equal
+    """Equal f32 or f64 bit patterns: tells -0 from +0, where torch.equal
     does not."""
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.parametrize("c", [32, 64, 20, 6])
