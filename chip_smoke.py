@@ -26,8 +26,11 @@ non-zero and prints no result:
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
   2. each kernel against its plain PyTorch version on the card, at its
      path's shapes (K1/K2 inference, K3/K4/K5 train, the two-layer K1 and
-     K6 CenterPoint inference), with the stated tolerance (the two-layer
-     K1 by bit pattern, tolerance 0; K6 on the path's rows and on random
+     K6 CenterPoint inference), with the stated tolerance (K1, one layer
+     at KITTI serving and at the train shape with the batch statistics
+     folded in, and two layers, by bit pattern, tolerance 0, the one-layer
+     K1 also against a second call and timed in parts, its C entry alone
+     and through its wrapper; K6 on the path's rows and on random
      rows bit for bit against the row-order sum, and within 1e-5 of the
      largest value of index_add_ on random rows; K3 and K4 also bit for
      bit against a second call of their own, and their wrappers timed in
@@ -63,7 +66,9 @@ non-zero and prints no result:
      path hands it and building its own, bit-equal to its plain version;
      its map kernel at each of the forward's eight map builds, equal to
      neighbour_map; the dense row-major sum (K7) at the dense BEV's, on
-     the inputs a forward hands them, against its plain version;
+     the inputs a forward hands them, against its plain version and bit
+     for bit against the row-order sum and a second call, and on random
+     keys bit for bit against the row-order sum;
      test_forward through the kernels (21 K8 conv and 8 map launches, one
      K7, no K2) and on the plain versions (canvas, head outputs and
      decoded boxes must agree); timing, memory, a profile and the time of
@@ -96,7 +101,10 @@ non-zero and prints no result:
      shapes, on the inputs a train step hands them, against their plain
      versions (values, offsets, gradients equal bit for bit), with the
      share of (row, step) pairs the forward works on and the in-segment
-     probes a row the backward makes, from the step's keys; one train step
+     probes a row the backward makes, from the step's keys; K7 on the
+     step's canvas rows (8 x 250,000 x 64 onto 512 x 512 cells) bit for
+     bit against the row-order sum and a second call, timed with its
+     index_add_call yardstick and its bound; one train step
      through the kernels (2 K12 forward, 2 K12 backward, one K7, one K5
      launch; no K1, K2, K3, K4 or K6) against one on the plain versions
      from the same state; the tiny two-layer train step on the card
@@ -155,6 +163,15 @@ non-zero and prints no result:
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+    python3 chip_smoke.py --parts TREE [TREE ...]
+
+times, in one process a checkout (TREE: a directory holding the package,
+e.g. a `git archive` of another commit), the one-layer K1 in parts and K7
+at both of their calls, and the scans/s of KITTI serving and training,
+nuScenes voxels serving and CenterPoint-pillars training through the
+kernels (parts_one); list parent, change, change, parent to compare two
+trees on one card.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
 cuDNN for the comparisons; phase 11's checked steps under
 torch.use_deterministic_algorithms (main() sets CUBLAS_WORKSPACE_CONFIG
@@ -198,13 +215,13 @@ HBM_BYTES_S, F32_FLOP_S, F64_FLOP_S = 3.35e12, 67e12, 34e12
 
 # kernel -> (source, replaced TPU kernel, tolerance against the plain
 # version). K1 runs the plain version's arithmetic in the same order
-# (bit-equal by design), K5 is a gather (exact); K3/K4 sum ~1e5 exact f64
-# products in another
-# order, so their tolerance is relative: max |kernel - plain| <= tol *
-# max |plain|, per output.
+# (bit-equal by design: compared by bit pattern, tolerance 0, at both of
+# its calls, and to a second call), K5 is a gather (exact); K3/K4 sum ~1e5
+# exact f64 products in another order, so their tolerance is relative:
+# max |kernel - plain| <= tol * max |plain|, per output.
 KERNELS = {
     "fused_pfn_rows": ("paddle3d_tpu_torch/csrc/fused_pfn.cu",
-                       "paddle3d_tpu/ops/pallas/fused_pfn.py:133", 1e-5),
+                       "paddle3d_tpu/ops/pallas/fused_pfn.py:133", 0.0),
     # K2 adds each cell's rows in row order from +0: bit-equal to
     # row_order_sum at every call, tolerance 0
     "sorted_segment_sum": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
@@ -225,9 +242,10 @@ KERNELS = {
     "sorted_segment_sum_cm": ("paddle3d_tpu_torch/csrc/sorted_scatter.cu",
                               "paddle3d_tpu/ops/pallas/sorted_scatter.py:568",
                               0.0),
-    # K7 (one non-zero row per BEV cell on its path: exact) and K8, whose
-    # plain version repeats its products and sums in its order: bit-equal,
-    # tolerance 0; K8's neighbour map is indices, equal to its plain version
+    # K7, which adds each cell's rows in row order from +0: bit-equal to
+    # row_order_sum at both of its calls and on random keys, tolerance 0;
+    # K8, whose plain version repeats its products and sums in its order:
+    # bit-equal; K8's neighbour map is indices, equal to its plain version
     "sorted_segment_sum_dense": (
         "paddle3d_tpu_torch/csrc/sorted_scatter.cu",
         "paddle3d_tpu/ops/pallas/sorted_scatter.py:396", 0.0),
@@ -455,19 +473,14 @@ def phase_kernels(model, points):
     cells = mid.ny * mid.nx
     check(cells == 214272, "not the KITTI grid")
 
-    rows_t = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
-    ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
+    rows_t, k1_err = k1_held("KITTI serving", keys, pts_t, w1t, b1, kw)
     rows = rows_t.transpose(1, 2).contiguous()
-    torch.cuda.synchronize()
     check(tuple(rows.shape) == (BATCH, POINTS, 65), "K1 output shape")
     # K2 through the wrapper the canvas calls, held and timed by k2_call
     k2 = k2_call("KITTI serving", keys, rows, cells, True,
                  call=lambda: sorted_scatter.sorted_segment_sum_split(
                      keys, rows, cells))
-    errs = {
-        "fused_pfn_rows": (rows_t - ref_t).abs().max().item(),
-        "sorted_segment_sum": k2[0],
-    }
+    errs = {"fused_pfn_rows": k1_err, "sorted_segment_sum": k2[0]}
     times = {
         "fused_pfn_rows": (
             cuda_ms(lambda: fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1,
@@ -493,7 +506,33 @@ def phase_kernels(model, points):
         "sorted_segment_sum": k2[2:],
     }
     report(INFER_KERNELS, errs, times, extra)
+    k1_parts("KITTI serving", keys, pts_t, w1t, b1,
+             {k: v for k, v in kw.items() if k != "n_layers"})
     return errs, times, extra
+
+
+def k1_held(label, keys, pts_t, w1t, b1, kw):
+    """The one-layer K1 at one call of a path: bit for bit (by bit pattern)
+    against its plain version and a second call. -> (its rows, the largest
+    absolute difference from the plain version)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn
+    rows_t = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
+    again = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
+    ref_t = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
+    torch.cuda.synchronize()
+    err = (rows_t - ref_t).abs().max().item()
+    check(same_bits(rows_t, ref_t), "{}: the one-layer fused_pfn_rows "
+          "differs from its plain version in its bits (max_abs_err "
+          "{:.3e})".format(label, err))
+    check(same_bits(again, rows_t), "{}: the one-layer fused_pfn_rows gave "
+          "other bits on a second call".format(label))
+    log("  K1 one layer at {}: bit-equal to its plain version and to a "
+        "second call; pillars emitted per scan {}".format(
+            label, rows_t[:, -1].sum(dim=1).int().tolist()
+            if kw["occupancy"] else "(no occupancy channel)"))
+    return rows_t, err
 
 
 def report(names, errs, times, extra):
@@ -688,9 +727,7 @@ def pfn_parts(keys, pts_t, w1t, bwd_args, kw, iters=50):
     the whole wrapper, and the parts the earlier 64-row-block wrappers
     added around their kernels, timed at these shapes: pillar_ordinals
     (their cap input) and the PyTorch sum of their per-block f64 partials.
-    Run with such an earlier package on the path (its C entries take the
-    pillar ordinals), it times that package's own entries. -> dict of part
-    -> ms."""
+    -> dict of part -> ms."""
     import torch
 
     from paddle3d_tpu_torch.ops import _build, fused_pfn, fused_pfn_train
@@ -700,7 +737,6 @@ def pfn_parts(keys, pts_t, w1t, bwd_args, kw, iters=50):
     geo = (kw["P"], kw["maxV"], kw["nx"], kw["vx"], kw["vy"], kw["x_off"],
            kw["y_off"], int(kw["with_distance"]))
     stream = _build.stream_ptr(keys.device)
-    parent = hasattr(fused_pfn_train, "pillar_ordinals")
     parts = {"pillar_ordinals": cuda_ms(
         lambda: fused_pfn.pillar_ordinals(keys), iters)}
     rows = {"pfn_stats": 4 + c_dec, "pfn_bwd": 2 + c_dec}
@@ -710,30 +746,16 @@ def pfn_parts(keys, pts_t, w1t, bwd_args, kw, iters=50):
         parts[name + " partials' sum"] = cuda_ms(
             lambda: part.sum(dim=(0, 1)), iters)
     fns = {k: _build.function("p3d_" + k) for k in rows}
-    if parent:
-        vox = fused_pfn.pillar_ordinals(keys)
-        outs = {k: torch.empty((b, -(-n // 64), r, u1), dtype=torch.float64,
-                               device=keys.device) for k, r in rows.items()}
-        stats_args = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
-                      w1t.data_ptr(), outs["pfn_stats"].data_ptr(), b, n,
-                      c_in, c_dec, u1) + geo + (stream,)
-        bwd_ptrs = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
-                    w1t.data_ptr()) + tuple(v.data_ptr() for v in vecs) + (
-                        g_t.data_ptr(), *g_t.stride(),
-                        outs["pfn_bwd"].data_ptr())
-    else:
-        spans = fused_pfn_train.spans(b, n, keys.device)
-        outs = {k: torch.empty((spans * b + 1) * r * u1,
-                               dtype=torch.float64, device=keys.device)
-                for k, r in rows.items()}
-        stats_args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
-                      outs["pfn_stats"].data_ptr(), spans, b, n, c_in,
-                      c_dec, u1) + geo + (stream,)
-        bwd_ptrs = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr()) + \
-            tuple(v.data_ptr() for v in vecs) + (
-                g_t.data_ptr(), *g_t.stride(), outs["pfn_bwd"].data_ptr(),
-                spans)
-    bwd_args_c = bwd_ptrs + (b, n, c_in, c_dec, u1) + geo + (stream,)
+    spans = fused_pfn.spans(b, n, keys.device)
+    outs = {k: torch.empty((spans * b + 1) * r * u1, dtype=torch.float64,
+                           device=keys.device) for k, r in rows.items()}
+    stats_args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
+                  outs["pfn_stats"].data_ptr(), spans, b, n, c_in, c_dec,
+                  u1) + geo + (stream,)
+    bwd_args_c = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr()) + \
+        tuple(v.data_ptr() for v in vecs) + (
+            g_t.data_ptr(), *g_t.stride(), outs["pfn_bwd"].data_ptr(),
+            spans, b, n, c_in, c_dec, u1) + geo + (stream,)
     parts["pfn_stats kernel alone"] = cuda_ms(
         lambda: fns["pfn_stats"](*stats_args), iters)
     parts["pfn_bwd kernel alone"] = cuda_ms(
@@ -742,12 +764,11 @@ def pfn_parts(keys, pts_t, w1t, bwd_args, kw, iters=50):
         lambda: fused_pfn_train.pfn_stats(keys, pts_t, w1t, **kw), iters)
     parts["pfn_bwd wrapper"] = cuda_ms(
         lambda: fused_pfn_train.pfn_bwd(*bwd_args, **kw), iters)
-    log("  K3 / K4 wrapper parts ({}), ms a call: {}".format(
-        "the earlier package: ordinals, kernel, partials' sum" if parent
-        else "this package: the C entry alone (the kernel and its reduce "
-        "launch), the whole wrapper; beside them the parts the earlier "
-        "wrappers added, timed at these shapes",
-        ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items())))
+    log("  K3 / K4 wrapper parts (the C entry alone: the kernel and its "
+        "reduce launch; the whole wrapper; beside them the parts the "
+        "earlier wrappers added, timed at these shapes), ms a call: {}"
+        .format(", ".join("{} {:.4f}".format(k, v)
+                          for k, v in parts.items())))
     return parts
 
 
@@ -843,6 +864,9 @@ def phase_train_kernels(model, points):
         "cells={} C=65: kept rows {:.0f}; K3 and K4 bit-equal to a second "
         "call".format(BATCH, POINTS, cells, stats[2].item()))
     pfn_parts(keys, pts_t, w1t, bwd_args, kw)
+    k1_args = k1_train_call(model, points)
+    k1_held("KITTI training", *k1_args[:4], dict(k1_args[4], n_layers=1))
+    k1_parts("KITTI training", *k1_args)
     seg = segments(keys, kw["P"], kw["maxV"])
     check(seg["kept"] == int(stats[2].item()), "kept-row count")
     u1, c_dec = w1t.shape
@@ -1230,11 +1254,6 @@ def phase_cp_kernels(model, points):
                 scatter_bytes(keys, cells, u2, table.numel())),
     }
     report(CP_KERNELS, errs, times, extra)
-    # what the two-layer kernel's own cap passes replace: the wrapper's
-    # cumsum of head flags over every row (the one-layer K1 still takes it)
-    log("  pillar_ordinals (the one-layer wrapper's cap input) at these "
-        "keys: {:.4f} ms".format(cuda_ms(
-            lambda: fused_pfn.pillar_ordinals(keys), 20)))
     return errs, times, extra, seg
 
 
@@ -1575,34 +1594,43 @@ def phase_vx_kernels(convs, maps, bevs):
     check(sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum_dense",
           "the dense BEV is not a dense scan")
     table = sorted_scatter.scatter_rows(keys, rows, cells, False)
+    again = sorted_scatter.scatter_rows(keys, rows, cells, False)
     ref = sorted_scatter.scatter_rows_plain(keys, rows, cells, False)
+    row_sum = row_order_sum(keys, rows, cells)
     main_, extra_ = sorted_scatter.scatter_rows(keys, rows, cells, True)
     gen = torch.Generator(device=keys.device).manual_seed(SEED)
-    # random keys, ~2.5 rows a cell: sums in another order than index_add_
+    # random keys, ~2.5 rows a cell: index_add_ sums them in another order
     rkeys = torch.sort(torch.randint(0, cells // 8, keys.shape, generator=gen,
                                      device=keys.device) * 8, dim=1)[0].int()
     rrows = torch.randn(rows.shape, generator=gen, device=keys.device)
     rnd = sorted_scatter.scatter_rows(rkeys, rrows, cells, False)
-    rnd_ref = sorted_scatter.scatter_rows_plain(rkeys, rrows, cells, False)
+    rnd_ref = row_order_sum(rkeys, rrows, cells)
     torch.cuda.synchronize()
     k7_err = max((table - ref).abs().max().item(),
                  (torch.cat([main_, extra_], -1) - ref).abs().max().item())
     rnd_err = (rnd - rnd_ref).abs().max().item()
-    check(rnd_err <= 1e-5 * rnd_ref.abs().max().item(),
-          "sorted_segment_sum_dense disagrees with its plain version on "
-          "random rows")
+    check(same_bits(table, row_sum) and same_bits(again, table) and
+          same_bits(torch.cat([main_, extra_], -1), row_sum),
+          "sorted_segment_sum_dense differs from the row-order sum or from "
+          "a second call on the path's rows")
+    check(same_bits(rnd, rnd_ref), "sorted_segment_sum_dense differs from "
+          "the row-order sum on random keys: max_abs_err {:.3e}".format(
+              rnd_err))
+    del row_sum
     # the density rule's choice, measured: K2 and K7 on the path's rows and
-    # on the random keys, each against the plain version
-    for label, (k_, r_, ref_) in (("path rows", (keys, rows, ref)),
-                                  ("random keys", (rkeys, rrows, rnd_ref))):
+    # on the random keys, each bit for bit against the row-order sum
+    for label, (k_, r_) in (("path rows", (keys, rows)),
+                            ("random keys", (rkeys, rrows))):
+        ref_ = row_order_sum(k_, r_, cells)
         for name in ("sorted_segment_sum", "sorted_segment_sum_dense"):
-            e = (row_major_direct(name, k_, r_, cells) - ref_).abs().max()
+            got_ = row_major_direct(name, k_, r_, cells)
             log("  {} on the {}: {:.4f} ms, max_abs_err {:.3e}".format(
                 name, label, cuda_ms(lambda: row_major_direct(
-                    name, k_, r_, cells), 50), e.item()))
-            check(e.item() <= 1e-5 * ref_.abs().max().item(),
-                  "{} disagrees with its plain version on the {}".format(
-                      name, label))
+                    name, k_, r_, cells), 50),
+                (got_ - ref_).abs().max().item()))
+            check(same_bits(got_, ref_), "{} differs from the row-order sum "
+                  "on the {}".format(name, label))
+        del ref_
     inside = (keys >= 0) & (keys < cells)
     times = {
         "sparse_conv3d": (ms, plain_ms),
@@ -1622,11 +1650,10 @@ def phase_vx_kernels(convs, maps, bevs):
     }
     errs = {"sparse_conv3d": err, "sparse_conv3d_map": 0.0,
             "sorted_segment_sum_dense": k7_err}
-    log("  dense BEV at B={} N={} cells={} C={}: valid rows {}; on random "
-        "keys max_abs_err {:.3e} against a largest value of {:.3e} "
-        "(tolerance 1e-5 of it)".format(
-            b, n, cells, c, int(inside.sum()), rnd_err,
-            rnd_ref.abs().max().item()))
+    log("  dense BEV at B={} N={} cells={} C={}: valid rows {}; bit-equal "
+        "to the row-order sum and a second call on the path's rows, and to "
+        "the row-order sum on random keys (largest value {:.3e})".format(
+            b, n, cells, c, int(inside.sum()), rnd_ref.abs().max().item()))
     report(VX_KERNELS, errs, times, extra)
     return errs, times, extra
 
@@ -2310,9 +2337,9 @@ def cp_train_setup(device):
 
 def capture_sw_inputs(step, model, optimizer, batch):
     """One kernel-path train step, recording what it hands K12 forward
-    (vals, keys, max_len) and backward (offsets, cotangent, max_len,
-    keys)."""
-    from paddle3d_tpu_torch.ops import seg_window
+    (vals, keys, max_len) and backward (offsets, cotangent, max_len, keys)
+    and the canvas's row-major sum (keys, rows, cells, split)."""
+    from paddle3d_tpu_torch.ops import seg_window, sorted_scatter
     fwds, bwds = [], []
     fwd_fn, bwd_fn = seg_window.seg_window_max_fwd, \
         seg_window.seg_window_max_bwd
@@ -2326,12 +2353,15 @@ def capture_sw_inputs(step, model, optimizer, batch):
         return bwd_fn(*a)
 
     with mock.patch.object(seg_window, "seg_window_max_fwd", fwd_rec), \
-            mock.patch.object(seg_window, "seg_window_max_bwd", bwd_rec):
+            mock.patch.object(seg_window, "seg_window_max_bwd", bwd_rec), \
+            recorded(sorted_scatter, "scatter_rows") as sums:
         step(model, optimizer, batch)
     check(len(fwds) == 2 and len(bwds) == 2,
           "expected two K12 forwards and backwards a step, got {} and {}"
           .format(len(fwds), len(bwds)))
-    return fwds, bwds
+    check(len(sums) == 1, "expected one row-major sum a step, got {}".format(
+        len(sums)))
+    return fwds, bwds, sums[0][0]
 
 
 def sw_key_stats(keys, win):
@@ -2513,12 +2543,14 @@ def phase_cp_train(device):
     check([layer.units for layer in pfn.pfn_layers] == [32, 64] and
           model.voxelizer.max_num_voxels_for(True) == 30000,
           "not the nuScenes train PFN")
-    fwds, bwds = capture_sw_inputs(step, model, optimizer, batch)
+    fwds, bwds, canvas_sum = capture_sw_inputs(step, model, optimizer, batch)
     restore()
-    log("phase 10: CenterPoint-nuScenes training at B={} N={}, K12 on the "
-        "train step's inputs".format(BATCH, CP_POINTS))
+    log("phase 10: CenterPoint-nuScenes training at B={} N={}, K12 and K7 "
+        "on the train step's inputs".format(BATCH, CP_POINTS))
     errs, times, extra = phase_sw_kernels(fwds, bwds)
     del fwds, bwds
+    k7_parts("the CenterPoint-pillars train canvas", *canvas_sum)
+    del canvas_sum
 
     keys = ["loss"] + ["{}_{}".format(k, i) for k in ("hm_loss", "loc_loss")
                        for i in range(6)]
@@ -3519,6 +3551,262 @@ def phase_ia_train(device):
     return launches
 
 
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi gave nothing"
+
+
+def k1_parts(label, keys, pts_t, w1t, b1, kw, iters=50):
+    """The one-layer K1 timed in parts (CUDA events, ms a call) at one call
+    of a path: its C entry alone (buffers made before), the whole wrapper,
+    and pillar_ordinals, the cap input that the earlier 128-row-block
+    wrapper computed before its kernel (timed at these keys whichever
+    package is loaded). With that earlier package on the path (its C entry
+    takes the ordinals), it times that package's own entry: `--parts`
+    compares such a tree with this one; once none is compared, that branch
+    goes. kw: the wrapper's keywords but n_layers. -> dict of part -> ms."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, fused_pfn
+    b, c_in, n = pts_t.shape
+    u1, c_dec = w1t.shape
+    occ = int(kw["occupancy"])
+    out = torch.empty((b, u1 + occ, n), device=keys.device)
+    geo = (b, n, c_in, c_dec, u1, kw["P"], kw["maxV"], kw["nx"], kw["vx"],
+           kw["vy"], kw["x_off"], kw["y_off"], int(kw["with_distance"]), occ,
+           _build.stream_ptr(keys.device))
+    fn = _build.function("p3d_fused_pfn_rows")
+    earlier = not hasattr(fused_pfn, "spans")
+    if earlier:
+        vox = fused_pfn.pillar_ordinals(keys)
+        args = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
+                w1t.data_ptr(), b1.data_ptr(), out.data_ptr()) + geo
+    else:
+        args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
+                b1.data_ptr(), out.data_ptr(),
+                fused_pfn.spans(b, n, keys.device)) + geo
+    parts = {
+        "kernel alone": cuda_ms(lambda: fn(*args), iters),
+        "wrapper": cuda_ms(lambda: fused_pfn.fused_pfn_rows(
+            keys, pts_t, w1t, b1, n_layers=1, **kw), iters),
+        "pillar_ordinals": cuda_ms(lambda: fused_pfn.pillar_ordinals(keys),
+                                   iters)}
+    log("  K1 one layer at {} ({} package), ms a call: {}".format(
+        label, "the earlier" if earlier else "this",
+        ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items())))
+    return parts
+
+
+def k1_train_call(model, points):
+    """What the KITTI train forward hands the one-layer K1: its inputs at
+    max_voxels 16,000 and the weights folded with the batch statistics, as
+    fused_pfn_train_rows computes them. -> (keys, pts_t, w1t, b1, kw
+    without n_layers)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import fused_pfn, fused_pfn_train, pillar_ops
+    vox, pfn, mid = model.voxelizer, model.pillar_encoder, \
+        model.middle_encoder
+    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
+                                                 vox.point_cloud_range)
+    mlp = pfn.pfn_layers[0].mlp
+    calls = []
+    fn = fused_pfn.fused_pfn_rows
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+    with torch.no_grad(), mock.patch.object(fused_pfn, "fused_pfn_rows", rec):
+        fused_pfn_train.fused_pfn_train_rows(
+            keys, pts_t, mlp.linear.weight, mlp.bn.weight, mlp.bn.bias,
+            P=pfn.max_num_points_in_voxel,
+            maxV=vox.max_num_voxels_for(True), nx=mid.nx, vx=pfn.vx,
+            vy=pfn.vy, x_off=pfn.x_offset, y_off=pfn.y_offset,
+            with_distance=pfn.with_distance, occupancy=True,
+            eps=mlp.bn.eps)
+    check(len(calls) == 1, "expected one K1 call in the train forward")
+    (keys, pts_t, w1t, b1), kw = calls[0]
+    check(kw.pop("n_layers") == 1 and kw["maxV"] == 16000,
+          "not the KITTI train K1 call")
+    return keys, pts_t, w1t, b1, kw
+
+
+def k7_parts(label, keys, rows, cells, split, iters=50):
+    """K7 at one call of a path, on the inputs the path handed it: bit for
+    bit against the row-order sum and a second call (tolerance 0), then its
+    wrapper (scatter_rows) and its C entry alone (buffers made before)
+    timed, with index_add_call, their factor and the bound. -> dict of part
+    -> ms."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    keys, rows = keys.detach().contiguous(), rows.detach().contiguous()
+    b, n, c = rows.shape
+    check(sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum_dense",
+          "{}: the density rule does not send this scan to K7".format(label))
+    out = torch.empty((b, cells, c - int(split)), device=keys.device)
+    extra = torch.empty((b, cells, 1), device=keys.device) if split else None
+    fn = _build.function("p3d_sorted_segment_sum_dense")
+    args = (keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            extra.data_ptr() if split else None, b, n, c, cells,
+            _build.stream_ptr(keys.device))
+    got, again = (sorted_scatter.scatter_rows(keys, rows, cells, split)
+                  for _ in range(2))
+    if split:
+        got, again = torch.cat(got, dim=-1), torch.cat(again, dim=-1)
+    check(same_bits(got, row_order_sum(keys, rows, cells)) and
+          same_bits(again, got), "{}: K7 differs from the row-order sum or "
+          "from a second call".format(label))
+    del got, again
+    parts = {"wrapper": cuda_ms(lambda: sorted_scatter.scatter_rows(
+                 keys, rows, cells, split), iters),
+             "kernel alone": cuda_ms(lambda: fn(*args), iters),
+             "index_add_call": cuda_ms(index_add_call(keys, rows, cells), 10)}
+    bnd = bound(scatter_bytes(keys, cells, c, b * cells * c))
+    log("  K7 at {}: B={} N={} C={}{} cells={}, bit-equal to the row-order "
+        "sum and a second call; ms a call: {}; kernel / library {:.3f}; "
+        "bound {:.4f} ms ({})".format(
+            label, b, n, c, " (split)" if split else "", cells,
+            ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items()),
+            parts["wrapper"] / parts["index_add_call"], *bnd))
+    return parts
+
+
+def cm_parts(label, call, keys, rows_cm, cells, iters=50):
+    """K6 or K13 (K7's kernel) at one shape through its wrapper `call`: bit
+    for bit against the row-order sum of the channel-major rows, then
+    timed. -> ms a call."""
+    import torch
+    n = keys.shape[1]
+    got = call()
+    ref = row_order_sum(keys, rows_cm[:, :, :n].transpose(1, 2), cells)
+    torch.cuda.synchronize()
+    check(same_bits(got, ref), "{} differs from the row-order sum".format(
+        label))
+    del got, ref
+    ms = cuda_ms(call, iters)
+    log("  {}: bit-equal to the row-order sum; {:.4f} ms a call".format(
+        label, ms))
+    return ms
+
+
+def parts_one(tree):
+    """One process of `--parts`: the package of `tree` (a checkout, first
+    on sys.path) built and timed at both calls of the one-layer K1 (KITTI
+    serving, KITTI training) and of K7 (the nuScenes voxel BEV, the
+    CenterPoint-pillars train canvas), K6 and K13, which launch K7's kernel
+    (the nuScenes pillar canvas, tools/bench_scatter_rw.py's shape), with
+    the scans/s of those four
+    cells through the kernels (KITTI serving 20 forwards, training 20
+    steps, voxels 10 forwards, pillar training 10 steps, each in two halves
+    after warm-up, cudnn.benchmark on)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    import paddle3d_tpu_torch
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import fused_pfn, pillar_ops, sorted_scatter
+    log("card: {}; parts of the package in {}".format(
+        card(), os.path.dirname(os.path.dirname(
+            os.path.abspath(paddle3d_tpu_torch.__file__)))))
+    phase_build()
+    dev = torch.device("cuda")
+    rates = {}
+
+    def halves(fn, iters):
+        return [round(fn(iters // 2), 2) for _ in range(2)]
+
+    model = Config(path=KITTI, device=dev).model.eval()
+    points = make_points(dev)
+    vox, pfn, mid = model.voxelizer, model.pillar_encoder, \
+        model.middle_encoder
+    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
+                                                 vox.point_cloud_range)
+    w1t, b1, _, _ = pillar_ops.pfn_folded_weights(pfn)
+    k1_parts("KITTI serving", keys, pts_t, w1t, b1, dict(
+        P=pfn.max_num_points_in_voxel, maxV=vox.max_num_voxels_for(False),
+        nx=mid.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
+        y_off=pfn.y_offset, with_distance=pfn.with_distance, occupancy=True))
+    k1_parts("KITTI training", *k1_train_call(model, points))
+    for _ in range(3):
+        model.test_forward({"data": points})
+    rates["KITTI serving"] = halves(
+        lambda i: timed_scans_per_s(model, points, i), ITERS)
+    del model
+    cfg = Config(path=KITTI, device=dev)
+    model = cfg.model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = make_train_batch(dev, points)
+    for _ in range(3):
+        step(model, cfg.optimizer, batch)
+    rates["KITTI training"] = halves(lambda i: timed_train_scans_per_s(
+        step, model, cfg.optimizer, batch, i), 20)
+    del model, cfg, step, batch, keys, pts_t
+
+    model = build_centerpoint(dev, VOXELS)
+    points = make_cp_points(dev, "centerpoint_voxels", VX_BATCH)
+    with recorded(sorted_scatter, "sorted_segment_sum") as bevs:
+        model.test_forward({"data": points})
+    check(len(bevs) == 1, "expected one dense BEV sum a voxel forward")
+    k7_parts("the nuScenes voxel BEV", *bevs[0][0], False)
+    del bevs
+    model.test_forward({"data": points})
+    rates["nuScenes voxels"] = halves(
+        lambda i: timed_scans_per_s(model, points, i), 10)
+    del model, points
+
+    model = build_centerpoint(dev)
+    points = make_cp_points(dev)
+    vox, pfn, mid = model.voxelizer, model.voxel_encoder, \
+        model.middle_encoder
+    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
+                                                 vox.point_cloud_range)
+    cells = mid.ny * mid.nx
+    rows_t = fused_pfn.fused_pfn_rows(
+        keys, pts_t, *pillar_ops.pfn_folded_weights(pfn), n_layers=2,
+        P=pfn.max_num_points_in_voxel, maxV=vox.max_num_voxels_for(False),
+        nx=mid.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
+        y_off=pfn.y_offset, with_distance=pfn.with_distance, occupancy=False)
+    cm_parts("K6 at the nuScenes pillar canvas", lambda: (
+        sorted_scatter.sorted_segment_sum_cm(keys, rows_t, cells)), keys,
+        rows_t, cells)
+    del model, points, keys, pts_t, rows_t
+    rkeys, rrows = rw_inputs(dev, *RW_CASES[0])
+    cm_parts("K13 at tools/bench_scatter_rw.py's shape", lambda: (
+        sorted_scatter.sorted_segment_sum_rw(rkeys, rrows, RW_CASES[0][2],
+                                             RW_CASES[0][3])), rkeys, rrows,
+        RW_CASES[0][3])
+    del rkeys, rrows
+
+    model, optimizer, _, step, batch = cp_train_setup(dev)
+    with recorded(sorted_scatter, "scatter_rows") as calls:
+        step(model, optimizer, batch)
+    check(len(calls) == 1, "expected one row-major sum a pillar train step")
+    k7_parts("the CenterPoint-pillars train canvas", *calls[0][0])
+    del calls
+    step(model, optimizer, batch)
+    rates["CenterPoint-pillars training"] = halves(
+        lambda i: timed_train_scans_per_s(step, model, optimizer, batch, i),
+        10)
+    log("  scans/s through the kernels, two halves each: {}".format(rates))
+
+
+def parts_main(trees):
+    """`python3 chip_smoke.py --parts TREE [TREE ...]`: parts_one for each
+    checkout in turn, each in a process of its own (a package is imported
+    once a process), on one card: list parent, change, change, parent to
+    compare two trees within one call."""
+    for tree in trees:
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--parts-one", os.path.abspath(tree)], check=True)
+
+
 def main():
     # phase 11's deterministic steps need cuBLAS's fixed workspace, set
     # before any cuBLAS handle exists
@@ -3537,12 +3825,8 @@ def main():
     except ImportError as e:
         sys.exit("chip_smoke: the port is not beside this script: {}"
                  .format(e))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
-    log("card: {}".format(card))
+    card_line = card()
+    log("card: {}".format(card_line))
     # f32 comparisons: no TF32 in convolutions or matmuls; deterministic
     # cuDNN so that the kernel and plain paths see the same conv arithmetic
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3622,7 +3906,7 @@ def main():
          "bound_ms": extra[name][1], "bound_by": extra[name][2],
          "library_ms": extra[name][0]}
         for name, (src, tpu, _) in KERNELS.items()]}
-    log(card)
+    log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3630,4 +3914,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parts"]:
+        parts_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--parts-one"]:
+        sys.path.insert(0, sys.argv[2])
+        parts_one(sys.argv[2])
+    else:
+        main()

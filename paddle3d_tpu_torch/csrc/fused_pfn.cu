@@ -12,22 +12,33 @@
 // point, xyz minus the mean over the pillar's kept rows, and x/y minus the
 // pillar centre; then relu(W x + b) and the max over the kept rows. The
 // pillar ordinal (the TPU kernel's SMEM carry across its sequential grid)
-// is computed by the wrapper as a cumsum of head flags and passed in
-// `vox`: blocks here run in no order, so nothing can carry between them.
+// has no carry here: blocks run in no order. Each kernel finds the cap row
+// itself instead (below).
 //
-// What bounds it on the H100: neither bytes nor FLOPs at the KITTI shape
-// (8 x 20,000 rows: ~2.6 MB of points in, ~42 MB of rows out, ~0.2 GFLOP),
-// so it is launch- and latency-bound; the output write is the largest
-// stream. Design: a block owns kRows output rows and stages their keys with
-// a halo of P rows behind and one ahead, and their points with P-1 rows
-// behind, in shared memory. One thread per row finds its rank by walking at
-// most P same-key neighbours; only emission rows do more, summing the
-// pillar's kept points for the mean. The 9 x u1 product runs in registers,
-// one thread per (emission row, output channel), with the folded weights in
-// shared memory; the max over the pillar is a loop over its <= P kept rows.
-// The tile goes out through shared memory so the channel-major [B, C, N]
-// writes are coalesced. The TPU's lane rolls and doubling scans have no
-// counterpart.
+// One PFN layer (p3d_fused_pfn_rows; PointPillars-KITTI serving, and its
+// training with the batch statistics folded into W1 and b1). What bounds
+// it on the H100: neither bytes nor FLOPs at the KITTI shape (8 x 20,000
+// rows, ~143,000 kept, u1 = 64: ~2.6 MB of points in, ~42 MB of rows out,
+// ~0.16 GFLOP, rounded multiplies and adds: 13 us of bytes), so a block's
+// latency: staging, the rank scans and their barriers, then one product
+// chain a kept row and channel. Design: the span machinery of the train
+// kernels (csrc/pfn_common.cuh: a block a span of ~600 rows of one scan,
+// about two blocks an SM, keys and points staged once with the P-row
+// halo; the max_voxels cap found inside the span, which costs nothing
+// where a span ends before row max_voxels, as at KITTI serving; ranks by a
+// max-scan of head rows; the sentinel tail skipped; each 256-row tile's
+// emission rows and their kept rows compacted into lists). Each kept row
+// is decorated once; a group of threads, a thread a channel with W1's row
+// and the bias in registers, takes a run of whole pillars and computes
+// four kept rows at once, each product from the bias up in k order, the
+// row read as float4 broadcasts; the pillar max goes to shared memory at
+// its last kept row, and the tile's channel rows leave as 16-byte streaming
+// stores, zeros included, each element written once (no memset). A layer
+// wider than 64 channels takes them 64 at a time. The earlier design
+// (128-row blocks with a halo each, a walk of up to P neighbours a row,
+// the decoration redone for every channel, the wrapper's cumsum of head
+// flags for the cap) took 0.19 ms at KITTI serving. The TPU's lane rolls
+// and doubling scans have no counterpart.
 //
 // Two PFN layers (p3d_fused_pfn2_rows, the TPU kernel's n_layers == 2
 // branch, CenterPoint-pillars): y1 = relu(W1 x + b1) on every kept row,
@@ -75,121 +86,235 @@ using p3d::Geometry;
 using p3d::kMaxCdec;
 using p3d::kMaxCin;
 
-constexpr int kRows = 128;
-constexpr int kThreads = 256;
-
-__host__ __device__ constexpr int key_window(int p) { return kRows + p + 1; }
-__host__ __device__ constexpr int pts_window(int p) { return kRows + p - 1; }
-
-size_t smem_bytes(int c_in, int c_dec, int u1, int p) {
-  const size_t floats = static_cast<size_t>(u1) * c_dec + u1 +
-                        static_cast<size_t>(c_in) * pts_window(p) +
-                        5 * kRows + static_cast<size_t>(u1) * (kRows + 1);
-  const size_t ints = key_window(p) + kRows;
-  return floats * sizeof(float) + ints * sizeof(int);
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- one layer -----------------------------------------------------------
+
+constexpr int kGroupC = 64;        // channels a group, a thread a channel
+constexpr int kRes = kGroupC + 1;  // s_res row stride (see the writes)
+constexpr int kIlp1 = 4;           // kept rows a thread carries at once
+
+// Shared memory of the one-layer kernel, byte offsets from a 16-byte
+// aligned base.
+struct Layout1 {
+  int x, res, pts, mean, cx, cy, key, kown, kcol, kstart, eidx, scan, bytes;
+};
+
+__host__ __device__ inline Layout1 layout1(int c_in, int kx, int p,
+                                           int span) {
+  const int kmax = p3d::kSpanTile + p - 1;  // kept rows of a tile's pillars
+  const int pw = span + p - 1;
+  Layout1 l{};
+  int o = 0;
+  l.x = o;      o += round_up(kmax * kx * 4, 16);   // [kept][kx] decorated
+  l.res = o;    o += p3d::kSpanTile * kRes * 4;     // [emit][kRes] maxima
+  l.pts = o;    o += round_up(c_in * pw * 4, 16);
+  l.mean = o;   o += p3d::kSpanTile * 3 * 4;
+  l.cx = o;     o += p3d::kSpanTile * 4;
+  l.cy = o;     o += p3d::kSpanTile * 4;
+  l.key = o;    o += round_up((span + p + 1) * 4, 16);
+  l.kown = o;   o += round_up(kmax * 4, 16);
+  l.kcol = o;   o += round_up(kmax * 4, 16);
+  l.kstart = o; o += round_up((p3d::kSpanTile + 1) * 4, 16);
+  l.eidx = o;   o += p3d::kSpanTile * 4;            // tile row -> e or -1
+  l.scan = o;   o += round_up(p3d::kScanInts * 4, 16);
+  l.bytes = o;
+  return l;
+}
+
+// value(k, t) into channel rows k < nch of p (n floats apart), tile rows
+// t < rows: 16-byte streaming stores where a channel row's 16-byte units
+// lie whole in [0, rows), scalar ones at its ends. Every element once.
+template <typename Value>
+__device__ __forceinline__ void write_tile(float* p, size_t n, int nch,
+                                           int rows, Value value) {
+  const int um = (rows + 6) >> 2;  // 16-byte units a row, at most
+  for (int f = threadIdx.x; f < nch * um; f += p3d::kSpanThreads) {
+    const int k = f / um;
+    const int u = f - k * um;
+    float* row = p + k * n;
+    const int ph = static_cast<int>(reinterpret_cast<size_t>(row) >> 2) & 3;
+    const int t = 4 * u - ph;        // the unit's first tile row
+    if (t >= rows) continue;
+    if (t >= 0 && t + 4 <= rows) {
+      __stcs(reinterpret_cast<float4*>(row + t),
+             make_float4(value(k, t), value(k, t + 1), value(k, t + 2),
+                         value(k, t + 3)));
+    } else {
+      for (int j = max(t, 0); j < min(t + 4, rows); ++j) {
+        __stcs(row + j, value(k, j));
+      }
+    }
+  }
+}
+
+// One block a span of one scan (p3d's span machinery: staging, the cap,
+// the rank pass and the tile's pillar lists). Per 256-row tile: each kept
+// row decorated once (s_x); then, per group of gs channels, a group of gs
+// threads (a thread a channel, W1's row and the bias in registers) takes a
+// run of whole pillars holding about 1 / groups of the tile's kept rows and
+// computes relu(b1 + W1 x) of kIlp1 rows at once, each from the bias up in
+// k order, the row read as float4 broadcasts; the pillar max goes to s_res
+// at its last kept row; then the tile's channel rows of that group leave
+// as 16-byte streaming stores, zeros included (with the occupancy channel
+// after the last group). A tile from the sentinel tail on writes zeros
+// only. kCin / kDist as in the train kernels: KITTI's 4 point channels
+// without the distance, or 0 for any (guarded).
+template <int kCin, bool kDist>
+__global__ void __launch_bounds__(p3d::kSpanThreads, 2)
     fused_pfn_kernel(const int* __restrict__ keys,
                      const float* __restrict__ pts,
-                     const int* __restrict__ vox,
                      const float* __restrict__ w1t,
                      const float* __restrict__ b1, float* __restrict__ out,
-                     int n, int c_in, int c_dec, int u1, int p,
-                     int max_voxels, Geometry geo, int with_distance,
-                     int occupancy) {
-  extern __shared__ float smem[];
-  const int kw = key_window(p);  // keys of rows [r0 - p, r0 + kRows]
-  const int pw = pts_window(p);  // points of rows [r0 - p + 1, r0 + kRows)
-  float* s_w = smem;                    // [u1][c_dec]
-  float* s_b = s_w + u1 * c_dec;        // [u1]
-  float* s_pts = s_b + u1;              // [c_in][pw]
-  float* s_mean = s_pts + c_in * pw;    // [kRows][3]
-  float* s_cx = s_mean + 3 * kRows;     // [kRows]
-  float* s_cy = s_cx + kRows;           // [kRows]
-  float* s_out = s_cy + kRows;          // [u1][kRows + 1], padded vs banks
-  int* s_key = reinterpret_cast<int*>(s_out + u1 * (kRows + 1));  // [kw]
-  int* s_rank = s_key + kw;  // [kRows]; -1 where the row emits nothing
+                     int n, int c_in_arg, int c_dec_arg, int u1, int p,
+                     int max_voxels, int span, Geometry geo,
+                     int with_distance_arg, int occupancy) {
+  constexpr int kN = kCin ? kCin + 5 + kDist : kMaxCdec;
+  constexpr int kX = (kN + 3) & ~3;   // s_x row: float4 loads
+  const int c_dec = kCin ? kN : c_dec_arg;
+  const int c_in = kCin ? kCin : c_in_arg;
+  const bool with_distance = kCin ? kDist : with_distance_arg != 0;
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const Layout1 L = layout1(c_in, kX, p, span);
+  float* s_x = reinterpret_cast<float*>(base + L.x);
+  float* s_res = reinterpret_cast<float*>(base + L.res);
+  float* s_pts = reinterpret_cast<float*>(base + L.pts);
+  int* s_key = reinterpret_cast<int*>(base + L.key);
+  int* s_kstart = reinterpret_cast<int*>(base + L.kstart);
+  int* s_eidx = reinterpret_cast<int*>(base + L.eidx);
+  int* s_scan = reinterpret_cast<int*>(base + L.scan);
+  const p3d::TileLists lists{
+      s_kstart, reinterpret_cast<int*>(base + L.kown),
+      reinterpret_cast<int*>(base + L.kcol),
+      reinterpret_cast<float*>(base + L.mean),
+      reinterpret_cast<float*>(base + L.cx),
+      reinterpret_cast<float*>(base + L.cy), nullptr, s_eidx};
 
+  const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
+  const int s0 = blockIdx.x * span;
+  const int len = max(0, min(span, n - s0));
+  const int pw = span + p - 1;  // points of rows [s0 - p + 1, s0 + span)
   const int* kb = keys + static_cast<size_t>(b) * n;
   const float* pb = pts + static_cast<size_t>(b) * c_in * n;
+  const int gs = u1 <= 32 ? 32 : kGroupC;  // a group: a thread a channel
+  const int groups = p3d::kSpanThreads / gs;
+  const int c = tid % gs;
+  const int grp = tid / gs;
 
-  for (int t = threadIdx.x; t < u1 * c_dec; t += blockDim.x) s_w[t] = w1t[t];
-  for (int t = threadIdx.x; t < u1; t += blockDim.x) s_b[t] = b1[t];
-  for (int t = threadIdx.x; t < kw; t += blockDim.x) {
-    const int i = r0 - p + t;
-    s_key[t] = i < 0 ? -1 : (i < n ? kb[i] : p3d::kSent);
-  }
-  for (int t = threadIdx.x; t < c_in * pw; t += blockDim.x) {
-    const int ch = t / pw;
-    const int i = r0 - p + 1 + (t - ch * pw);
-    s_pts[t] = (i >= 0 && i < n) ? pb[static_cast<size_t>(ch) * n + i] : 0.f;
-  }
-  __syncthreads();
-
-  // rank, keep, emit; mean and centre of each emitting row's pillar
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const int i = r0 + r;
-    const int t = r + p;  // row i in s_key
-    int emit_rank = -1;
-    if (i < n) {
-      emit_rank = p3d::emit_rank(s_key, t, p,
-                                 vox[static_cast<size_t>(b) * n + i],
-                                 max_voxels);
-      if (emit_rank >= 0) {
-        // kept rows are i - rank .. i, in row order; row i - rank is
-        // s_pts column r + p - 1 - rank
-        p3d::pillar_mean(s_pts, pw, r + p - 1 - emit_rank, emit_rank,
-                         s_mean + 3 * r);
-        p3d::cell_centre(s_key[t], geo, s_cx + r, s_cy + r);
-      }
-    }
-    s_rank[r] = emit_rank;
-  }
-  __syncthreads();
-
-  // one thread per (row, channel), channel fastest: a warp shares its row
-  for (int f = threadIdx.x; f < kRows * u1; f += blockDim.x) {
-    const int r = f / u1;
-    const int c = f - r * u1;
-    const int rank = s_rank[r];
-    float m = 0.f;
-    if (rank >= 0) {
-      const float* w = s_w + c * c_dec;
-      m = -INFINITY;
-      const int j0 = r + p - 1 - rank;
-      for (int j = j0; j <= j0 + rank; ++j) {
-        float x[kMaxCdec];
-        p3d::decorate(s_pts, pw, j, c_in, s_mean + 3 * r, s_cx[r], s_cy[r],
-                      with_distance, x);
-        float v = s_b[c];
+  p3d::stage_span(kb, pb, n, c_in, p, s0, len, pw, s_key, s_pts);
+  // W1's row and the bias of channel cg + c
+  float w[kN];
+  float bias = 0.f;
+  auto load_w = [&](int cg) {
+    const bool live = cg + c < u1;
 #pragma unroll
-        for (int q = 0; q < kMaxCdec; ++q) {
-          if (q < c_dec) v = __fadd_rn(v, __fmul_rn(w[q], x[q]));
-        }
-        m = fmaxf(m, fmaxf(v, 0.f));
-      }
+    for (int k = 0; k < kN; ++k) {
+      w[k] = (live && k < c_dec) ? w1t[(cg + c) * c_dec + k] : 0.f;
     }
-    s_out[c * (kRows + 1) + r] = m;
-  }
+    bias = live ? b1[cg + c] : 0.f;
+  };
+  load_w(0);
   __syncthreads();
+  const int2 vc = p3d::span_valid_cap(kb, s_key, s0, len, p, max_voxels,
+                                      s_scan);
+  const int valid = vc.x;
 
   const int c_out = u1 + (occupancy ? 1 : 0);
-  float* ob = out + static_cast<size_t>(b) * c_out * n;
-  for (int f = threadIdx.x; f < u1 * kRows; f += blockDim.x) {
-    const int c = f / kRows;
-    const int r = f - c * kRows;
-    if (r0 + r < n) {
-      ob[static_cast<size_t>(c) * n + r0 + r] = s_out[c * (kRows + 1) + r];
-    }
-  }
-  if (occupancy) {
-    for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-      if (r0 + r < n) {
-        ob[static_cast<size_t>(u1) * n + r0 + r] = s_rank[r] >= 0 ? 1.f : 0.f;
+  float* ob = out + static_cast<size_t>(b) * c_out * n + s0;
+  for (int t0 = 0; t0 < len; t0 += p3d::kSpanTile) {
+    const int rows = min(p3d::kSpanTile, len - t0);
+    int n_emit = 0, n_kept = 0;
+    if (t0 < valid) {  // uniform over the block
+      const int2 ek = p3d::rank_tile(t0, valid, vc.y, s0, p, pw, geo, s_key,
+                                     s_pts, s_scan, lists);
+      n_emit = ek.x;
+      n_kept = ek.y;
+      // each kept row decorated once
+      for (int q = tid; q < n_kept; q += p3d::kSpanThreads) {
+        const int e = lists.kown[q];
+        float x[kX > kMaxCdec ? kX : kMaxCdec];
+        p3d::decorate(s_pts, pw, lists.kcol[q], c_in, lists.mean + 3 * e,
+                      lists.cx[e], lists.cy[e], with_distance, x);
+#pragma unroll
+        for (int k = 0; k < kX; ++k) s_x[q * kX + k] = k < c_dec ? x[k] : 0.f;
       }
+    } else {
+      s_eidx[tid] = -1;  // the sentinel tail: zeros only
+    }
+    __syncthreads();
+
+    // the group's run of whole pillars: from the first pillar at or past
+    // kept row grp * n_kept / groups
+    auto first_at = [&](int row) {
+      int lo = 0, hi = n_emit;
+      while (lo < hi) {
+        const int mid = (lo + hi) / 2;
+        if (s_kstart[mid] < row) lo = mid + 1; else hi = mid;
+      }
+      return lo;
+    };
+    const int e_lo = first_at(grp * n_kept / groups);
+    const int e_hi = first_at((grp + 1) * n_kept / groups);
+    for (int cg = 0; cg < u1; cg += gs) {
+      if (u1 > gs) load_w(cg);  // a layer wider than a group
+      if (e_lo < e_hi) {  // uniform over the group
+        // relu(b1 + W1 x) of the group's kept rows in row order, kIlp1 at
+        // once, and each pillar's max over its kept rows into s_res
+        int e = e_lo;
+        int q_last = s_kstart[e + 1] - 1;
+        const int q_hi = s_kstart[e_hi];
+        float m = -INFINITY;
+        for (int q0 = s_kstart[e_lo]; q0 < q_hi; q0 += kIlp1) {
+          float y[kIlp1];
+#pragma unroll
+          for (int i = 0; i < kIlp1; ++i) {
+            const float4* xr = reinterpret_cast<const float4*>(
+                s_x + min(q0 + i, q_hi - 1) * kX);
+            float v = bias;
+#pragma unroll
+            for (int k4 = 0; k4 < kX / 4; ++k4) {
+              const float4 f = xr[k4];
+              const float xs[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int k = 4 * k4 + j;
+                if (k < kN && k < c_dec) {
+                  v = __fadd_rn(v, __fmul_rn(w[k], xs[j]));
+                }
+              }
+            }
+            y[i] = fmaxf(v, 0.f);
+          }
+#pragma unroll
+          for (int i = 0; i < kIlp1; ++i) {
+            if (q0 + i < q_hi) {
+              m = fmaxf(m, y[i]);
+              if (q0 + i == q_last) {  // the pillar's last kept row
+                s_res[e * kRes + c] = m;
+                m = -INFINITY;
+                ++e;
+                q_last = e < e_hi ? s_kstart[e + 1] - 1 : -1;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // the tile's rows of channels cg .. cg + ce - 1 (and the occupancy
+      // after the last group), zero off emission rows
+      const int ce = min(gs, u1 - cg);
+      const bool last = cg + gs >= u1;
+      write_tile(ob + static_cast<size_t>(cg) * n + t0, n,
+                 ce + (last && occupancy ? 1 : 0), rows,
+                 [&](int k, int t) {
+                   const int e = s_eidx[t];
+                   return e < 0 ? 0.f : (k < ce ? s_res[e * kRes + k] : 1.f);
+                 });
+      __syncthreads();  // s_res and the lists are read before they change
     }
   }
 }
@@ -687,35 +812,40 @@ __global__ void __launch_bounds__(kThreads2, 2)
 
 }  // namespace
 
-// keys [b, n] int32 sorted (sentinel 2^31-1); pts [b, c_in, n] f32; vox
-// [b, n] int32 pillar ordinals; w1t [u1, c_dec] and b1 [u1] BN-folded;
-// out [b, u1 (+1 with occupancy), n] f32. Returns cudaGetLastError().
+// keys [b, n] int32 sorted (sentinel 2^31-1); pts [b, c_in, n] f32; w1t
+// [u1, c_dec] and b1 [u1] BN-folded, any u1 >= 1; out [b, u1 (+1 with
+// occupancy), n] f32, every element written once. A block a span of
+// ceil(n / spans) rows rounded up to 32 (at most p3d::kMaxSpan) of one
+// scan. Returns cudaGetLastError().
 extern "C" int p3d_fused_pfn_rows(const int* keys, const float* pts,
-                                  const int* vox, const float* w1t,
-                                  const float* b1, float* out, int b, int n,
+                                  const float* w1t, const float* b1,
+                                  float* out, int spans, int b, int n,
                                   int c_in, int c_dec, int u1, int p,
                                   int max_voxels, int nx, float vx, float vy,
                                   float x_off, float y_off, int with_distance,
                                   int occupancy, void* stream) {
   if (c_in < 3 || c_in > kMaxCin || c_dec != c_in + 5 + (with_distance ? 1 : 0)
-      || p < 1 || u1 < 1 || nx < 1) {
+      || p < 1 || u1 < 1 || nx < 1 || spans < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || n == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const size_t smem = smem_bytes(c_in, c_dec, u1, p);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_pfn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((n + kRows - 1) / kRows, b);
+  const int span = round_up((n + spans - 1) / spans, 32);
+  if (span > p3d::kMaxSpan) return static_cast<int>(cudaErrorInvalidValue);
+  const bool four = c_in == 4 && !with_distance;  // every config
+  void (*kernel)(const int*, const float*, const float*, const float*,
+                 float*, int, int, int, int, int, int, int, Geometry, int,
+                 int) = four ? fused_pfn_kernel<4, false>
+                             : fused_pfn_kernel<0, false>;
+  const Layout1 l = layout1(c_in, four ? 12 : round_up(kMaxCdec, 4), p, span);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Geometry geo{nx, vx, vy, x_off, y_off};
-  fused_pfn_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, pts, vox, w1t, b1, out, n, c_in, c_dec, u1, p, max_voxels, geo,
+  kernel<<<dim3((n + span - 1) / span, b), p3d::kSpanThreads, l.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      keys, pts, w1t, b1, out, n, c_in, c_dec, u1, p, max_voxels, span, geo,
       with_distance, occupancy);
   return static_cast<int>(cudaGetLastError());
 }

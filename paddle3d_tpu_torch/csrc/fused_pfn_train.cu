@@ -34,7 +34,8 @@
 // Design. A block owns a span of rows of one scan (about two blocks an SM
 // over the batch, at most kMaxSpan rows) and stages the span's keys and
 // points once, with the P-row halo behind it (csrc/pfn_common.cuh's
-// convention). It owns the pillars whose emission row (their last kept row)
+// convention; the staging, the cap and the rank pass live there, shared
+// with the one-layer K1). It owns the pillars whose emission row (their last kept row)
 // lies in the span: their kept rows lie at most P - 1 rows before it. Rows
 // from the scan's sentinel tail on are skipped. The max_voxels cap it finds
 // itself: a row's pillar ordinal is at most its index, so only a span
@@ -70,10 +71,8 @@
 // block's partial of the same shape.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cmath>
 #include <cstddef>
-#include <cstdint>
 
 #include "pfn_common.cuh"
 
@@ -83,15 +82,12 @@ using p3d::Geometry;
 using p3d::kMaxCdec;
 using p3d::kMaxCin;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 256;        // rows a tile: a thread a row
+constexpr int kThreads = p3d::kSpanThreads;
+constexpr int kTile = p3d::kSpanTile;   // rows a tile: a thread a row
 constexpr int kMaxU1 = 64;        // channels a group, a thread a channel
-constexpr int kMaxSpan = 1024;    // rows a block (a multiple of 32)
+constexpr int kMaxSpan = p3d::kMaxSpan;
 constexpr int kRing = 8;          // K4: cotangent copies in flight a thread
 constexpr int kReduceWarps = 32;
-
-static_assert(kTile == kThreads, "the rank pass takes a thread a row");
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -125,80 +121,10 @@ __host__ __device__ inline Layout layout(int c_in, int x32w, int x64w, int p,
   l.kcol = o;   o += round_up(kmax * 4, 16);
   l.kstart = o; o += round_up((kTile + 1) * 4, 16);
   l.erow = o;   o += kTile * 4;
-  l.scan = o;   o += 16 * 4;
+  l.scan = o;   o += round_up(p3d::kScanInts * 4, 16);
   l.ring = o;   o += bwd ? kRing * kThreads * 4 : 0;  // K4's cotangents
   l.bytes = o;
   return l;
-}
-
-// Inclusive sum (or with kMax, max) of v over the block's threads in
-// thread order, and the block's total (max); s_warp holds kWarps ints.
-// Every thread must call it.
-template <bool kMax = false>
-__device__ __forceinline__ int2 block_scan(int v, int* s_warp) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const auto op = [](int a, int b) { return kMax ? max(a, b) : a + b; };
-  const int none = kMax ? INT_MIN : 0;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v = op(v, up);
-  }
-  if (lane == 31) s_warp[warp] = v;
-  __syncthreads();
-  int before = none, total = none;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int t = s_warp[w];
-    before = w < warp ? op(before, t) : before;
-    total = op(total, t);
-  }
-  __syncthreads();
-  return make_int2(op(before, v), total);
-}
-
-// Valid pillar heads among rows [0, end) of a scan (end a multiple of 4),
-// summed over the block: 16-byte loads, kHeadUnroll a thread in flight,
-// each lane's previous key from its neighbour lane.
-constexpr int kHeadUnroll = 8;
-
-__device__ int heads_before(const int* __restrict__ kb, int end,
-                            int* s_warp) {
-  int h = 0;
-  const int lane = threadIdx.x & 31;
-  if ((reinterpret_cast<uintptr_t>(kb) & 15) == 0) {
-    const int4* k4 = reinterpret_cast<const int4*>(kb);
-    const int quads = end / 4;
-    // the loop runs alike for a warp's lanes (the shuffles need them all)
-    for (int q0 = threadIdx.x - lane; q0 < quads;
-         q0 += kThreads * kHeadUnroll) {
-      int4 v[kHeadUnroll];
-      int first[kHeadUnroll];
-#pragma unroll
-      for (int u = 0; u < kHeadUnroll; ++u) {
-        const int q = q0 + lane + u * kThreads;
-        v[u] = q < quads ? __ldg(k4 + q) : make_int4(-1, -1, -1, -1);
-        first[u] = (lane == 0 && q > 0 && q < quads) ? __ldg(kb + 4 * q - 1)
-                                                     : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < kHeadUnroll; ++u) {
-        int prev = __shfl_up_sync(0xffffffffu, v[u].w, 1);
-        if (lane == 0) prev = first[u];
-        h += (v[u].x != p3d::kSent && v[u].x != -1 && v[u].x != prev) +
-             (v[u].y != p3d::kSent && v[u].y != v[u].x) +
-             (v[u].z != p3d::kSent && v[u].z != v[u].y) +
-             (v[u].w != p3d::kSent && v[u].w != v[u].z);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < end; i += kThreads) {
-      const int k = __ldg(kb + i);
-      h += k != p3d::kSent && (i == 0 || __ldg(kb + i - 1) != k);
-    }
-  }
-  return block_scan(h, s_warp).y;
 }
 
 // 4-byte asynchronous copy into shared memory: no register waits on it
@@ -262,7 +188,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   int* s_kcol = reinterpret_cast<int*>(base + L.kcol);
   int* s_kstart = reinterpret_cast<int*>(base + L.kstart);
   int* s_erow = reinterpret_cast<int*>(base + L.erow);
-  int* s_scan = reinterpret_cast<int*>(base + L.scan);  // kWarps + the cap
+  int* s_scan = reinterpret_cast<int*>(base + L.scan);  // p3d::kScanInts
   float* s_ring = reinterpret_cast<float*>(base + L.ring);
 
   const int tid = threadIdx.x;
@@ -279,17 +205,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bool live = c < u1;
 
   // the span's keys (rows [s0 - p, s0 + s_len]) and points
-  for (int t = tid; t < s_len + p + 1; t += kThreads) {
-    const int i = s0 - p + t;
-    s_key[t] = i < 0 ? -1 : (i < n ? kb[i] : p3d::kSent);
-  }
-  for (int ch = 0; ch < c_in; ++ch) {
-    for (int j = tid; j < s_len + p - 1; j += kThreads) {
-      const int i = s0 - p + 1 + j;
-      s_pts[ch * pw + j] =
-          (i >= 0 && i < n) ? pb[static_cast<size_t>(ch) * n + i] : 0.f;
-    }
-  }
+  p3d::stage_span(kb, pb, n, c_in, p, s0, s_len, pw, s_key, s_pts);
 
   // per thread: W1's row of channel c, and for K4 its BN fold
   float w[kN];
@@ -306,51 +222,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
 
-  // the start of the segment holding the span's previous row: rows
-  // -1, -2, .. -p at s_key[p - 1], .., s_key[0]; at most p rows back
-  // matter (a row further from its segment's start is not kept)
-  if (tid < 32) {
-    int run = p - 1;
-    for (int j0 = 0; j0 < p - 1; j0 += 32) {
-      const int j = j0 + tid;
-      const unsigned eq = __ballot_sync(
-          0xffffffffu, j < p - 1 && s_key[p - 2 - j] == s_key[p - 1]);
-      if (eq != 0xffffffffu) {
-        run = min(run, j0 + __ffs(~eq) - 1);
-        break;
-      }
-    }
-    if (tid == 0) s_scan[kWarps + 1] = -1 - run;
-  }
-
-  // the span's rows before the scan's sentinel tail (keys sort it last):
-  // the rows after them keep and emit nothing
-  int s_valid = 0;
-  for (int r0 = 0; r0 < s_len; r0 += kThreads) {
-    const int r = r0 + tid;
-    s_valid += __syncthreads_count(r < s_len && s_key[r + p] != p3d::kSent);
-  }
-
-  // the max_voxels cap: rows from `cap` on keep nothing
-  int cap = s0 + s_valid;
-  if (s_valid > 0 && s0 + s_valid > max_voxels) {  // uniform over the block
-    int before = heads_before(kb, s0, s_scan);
-    if (before > max_voxels) {
-      cap = s0;
-    } else {
-      if (tid == 0) s_scan[kWarps] = cap;
-      for (int r0 = 0; r0 < s_valid && before <= max_voxels;
-           r0 += kThreads) {
-        const int r = r0 + tid;
-        const int head = r < s_valid && s_key[r + p] != s_key[r + p - 1];
-        const int2 sc = block_scan(head, s_scan);
-        if (head && before + sc.x == max_voxels + 1) s_scan[kWarps] = s0 + r;
-        before += sc.y;
-      }
-      __syncthreads();
-      cap = s_scan[kWarps];
-    }
-  }
+  // the rows before the sentinel tail, and the max_voxels cap
+  const int2 vc = p3d::span_valid_cap(kb, s_key, s0, s_len, p, max_voxels,
+                                      s_scan);
+  const int s_valid = vc.x;
+  const int cap = vc.y;
 
   // f64 sums for the whole span. K3: s1, s2, t3[k], sx[c]; K4: sdt, sdtz,
   // t1[k]
@@ -362,46 +238,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* gb = kBwd ? A.g + b * A.gsb : nullptr;
 
   for (int t0 = 0; t0 < s_valid; t0 += kTile) {
-    // rank pass, a thread a row: each row's arrival rank in its pillar
-    // from a max-scan of the tile's head rows (and the start carried from
-    // the rows before); one scan of (emits, kept rows) then gives an
-    // emission row its ordinal e and its kept rows' place k
-    const int r = t0 + tid;
-    const bool in = r < s_valid;
-    const int key = in ? s_key[r + p] : p3d::kSent;
-    const int start = max(
-        block_scan<true>(in && key != s_key[r + p - 1] ? r : INT_MIN,
-                         s_scan).x,
-        s_scan[kWarps + 1]);
-    // kept: before the cap, a rank below p (the key is no sentinel: in);
-    // it emits as its pillar's last kept row
-    int rank = -1;
-    if (in && s0 + r < cap && r - start < p &&
-        (s_key[r + p + 1] != key || r - start == p - 1)) {
-      rank = r - start;
-    }
-    const int packed = rank >= 0 ? (1 << 16) | (rank + 1) : 0;
-    const int2 sc = block_scan(packed, s_scan);
-    if (tid == kTile - 1) s_scan[kWarps + 1] = start;  // for the next tile
-    const int n_emit = sc.y >> 16;
-    const int n_kept = sc.y & 0xffff;
-    if (rank >= 0) {
-      const int excl = sc.x - packed;
-      const int e = excl >> 16;
-      const int k = excl & 0xffff;
-      const int j0 = r + p - 1 - rank;  // the pillar's head in s_pts
-      s_kstart[e] = k;
-      s_erow[e] = s0 + r;
-      for (int j = 0; j <= rank; ++j) {
-        s_kown[k + j] = e;
-        s_kcol[k + j] = j0 + j;
-      }
-      p3d::pillar_mean(s_pts, pw, j0, rank, s_mean + 3 * e);
-      p3d::cell_centre(s_key[r + p], A.geo, s_cx + e, s_cy + e);
-    }
-    if (tid == 0) s_kstart[n_emit] = n_kept;
+    // rank pass, a thread a row: the tile's pillar lists
+    const int2 lists = p3d::rank_tile(
+        t0, s_valid, cap, s0, p, pw, A.geo, s_key, s_pts, s_scan,
+        p3d::TileLists{s_kstart, s_kown, s_kcol, s_mean, s_cx, s_cy, s_erow,
+                       nullptr});
+    const int n_emit = lists.x;
+    const int n_kept = lists.y;
     kept_total += n_kept;
-    __syncthreads();
 
     // K4: a group takes a run of whole pillars holding about 1 / groups of
     // the tile's kept rows; each thread starts copying its channel of the

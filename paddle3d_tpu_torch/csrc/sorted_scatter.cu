@@ -142,24 +142,30 @@
 // more than 2 x 128 rows per cell block (ops/sorted_scatter.is_dense_scan):
 // the dense BEV of the sparse-voxel middle encoders (4 scans x 20,000 rows
 // x 128 channels onto 2 x 180 x 180 cells at CenterPoint-voxels nuScenes)
-// and, later, dense pooling.
+// and the multi-layer pillar train canvas (8 x 250,000 rows x 64 channels
+// onto 512 x 512 cells at CenterPoint-pillars nuScenes).
 //
 // What bounds it on the H100: bytes. There the rows read are ~41 MB and
-// the table written ~133 MB, so every cell is written once by the kernel,
-// empty ones as zero, and no memset runs before it.
+// the table written ~133 MB (voxels), ~512 MB and ~537 MB (pillars); every
+// cell is written once by the kernel, empty ones as zero, and no memset
+// runs before it.
 //
-// Design: a block owns a tile of consecutive cells (2,048 / c of them) and
-// all channels. tile + 1 threads find the cells' segment bounds by binary
-// search at once (keys sorted); then threads run over (cell, channel) with
-// the channel fastest, so a warp reads 32 channels of one row and writes 32
-// channels of one cell, coalesced, and each thread sums its cell's rows in
-// row order in a register: deterministic, one writer per output, no
-// atomics. A cell's channels spread over threads, so a long segment costs a
-// row loop per thread, not per segment. Keys outside [0, num_cells) are
-// dropped; the split form writes channel c - 1 to its own [B, cells]
-// buffer. The TPU kernel's one-hot MXU products over two abutting row views
-// and its serial chunk DMAs are TPU workarounds and have no counterpart
-// here.
+// Design: K6's (above; sorted_segment_sum_rm_kernel): blocks own spans of
+// cells, find their row range by two searches, stream it through two
+// buffers and split each chunk's rows among their threads, a segment's
+// partial carried across chunks in shared memory. Row-major rows [B, N, c]
+// differ in the staging: a chunk of them is one contiguous byte range, so
+// one thread copies it with one bulk copy (TMA), widened to whole 16-byte
+// units as K6's channel copies are, into one of the two buffers as
+// [rows][c]. Thread (g, ch) reads staged row r at r * c + ch: a warp reads
+// 32 consecutive floats, with no bank conflict. Rows wider than 256
+// channels take groups of 256 channels, a grid row a group, each row's
+// group staged by 4-byte copies (no model path has such rows). One writer a
+// (cell, channel), each cell's rows added in row order from +0: bit-equal
+// to the row-order sum. The split form writes channel c - 1 to its own
+// [B, cells] buffer. The TPU kernel's one-hot MXU products over two
+// abutting row views and its serial chunk DMAs are TPU workarounds and have
+// no counterpart here.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -168,20 +174,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-// first index in [lo, hi) whose key is >= value (keys sorted)
-__device__ __forceinline__ int lower_bound(const int* keys, int lo, int hi,
-                                           int value) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < value) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 // first index in [0, n) whose key is >= value (keys sorted), found by the
 // whole warp: each round 32 probes split the interval and a ballot keeps
@@ -696,26 +688,34 @@ __global__ void __launch_bounds__(kCmThreads, 3)
   }
 }
 
-// K6 and K13 on `stream`; `extra` null but for K6's split form
-int launch_segment_sum_cm(const int* keys, const float* rows, long long rsb,
-                          long long rsc, long long rsi, float* out,
-                          float* extra, int b, int n, int c, int num_cells,
-                          void* stream) {
+// The cells a block of the span kernels owns: 32,768 / c, at most 512 (512
+// at c = 64), halved up to twice while the grid would give the card fewer
+// than two blocks an SM.
+cudaError_t span_cells(int b, int c, int num_cells, int* span) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // cells a block owns: 32,768 / c, at most 512 (512 at c = 64), halved
-  // up to twice while the grid would give the card fewer than two blocks an
-  // SM
-  int span = kCmCells * 64 / c < kCmCells ? kCmCells * 64 / c : kCmCells;
+  if (err != cudaSuccess) return err;
+  int s = kCmCells * 64 / c < kCmCells ? kCmCells * 64 / c : kCmCells;
   for (int k = 0; k < 2 && static_cast<long long>(b) *
-                               ((num_cells + span - 1) / span) < 2LL * sms;
+                               ((num_cells + s - 1) / s) < 2LL * sms;
        ++k) {
-    span = (span + 1) / 2;
+    s = (s + 1) / 2;
   }
+  *span = s;
+  return cudaSuccess;
+}
+
+// K6 and K13 on `stream`; `extra` null but for K6's split form
+int launch_segment_sum_cm(const int* keys, const float* rows, long long rsb,
+                          long long rsc, long long rsi, float* out,
+                          float* extra, int b, int n, int c, int num_cells,
+                          void* stream) {
+  int span = 0;
+  cudaError_t err = span_cells(b, c, num_cells, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = cm_smem_floats(c) * sizeof(float);
   err = cudaFuncSetAttribute(sorted_segment_sum_cm_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -729,49 +729,268 @@ int launch_segment_sum_cm(const int* keys, const float* rows, long long rsb,
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kDenseWork = 2048;   // (cell, channel) pairs per block
-constexpr int kDenseMaxTile = 256;
-
-__host__ __device__ constexpr int dense_tile(int c) {
-  return kDenseWork / c < 1               ? 1
-         : kDenseWork / c > kDenseMaxTile ? kDenseMaxTile
-                                          : kDenseWork / c;
+// Zeros into the cells t < ncell for which skip(t) is false: columns
+// [0, w) of rows `stride` floats apart from p (kContig: w == stride, one
+// range), 16 bytes a store where w, stride and p allow, streaming.
+template <bool kContig, typename Skip>
+__device__ __forceinline__ void zero_cells(float* p, int ncell, int stride,
+                                           int w, Skip skip) {
+  if (((stride | w) & 3) == 0 && (reinterpret_cast<size_t>(p) & 15) == 0) {
+    const int q4 = w >> 2;
+    float4* p4 = reinterpret_cast<float4*>(p);
+    for (int q = threadIdx.x; q < ncell * q4; q += blockDim.x) {
+      const int t = q / q4;
+      if (!skip(t)) {
+        __stcs(kContig ? p4 + q
+                       : p4 + static_cast<size_t>(t) * (stride >> 2) +
+                             (q - t * q4),
+               make_float4(0.f, 0.f, 0.f, 0.f));
+      }
+    }
+  } else {
+    for (int f = threadIdx.x; f < ncell * w; f += blockDim.x) {
+      const int t = f / w;
+      if (!skip(t)) {
+        __stcs(kContig ? p + f
+                       : p + static_cast<size_t>(t) * stride + (f - t * w),
+               0.f);
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sorted_segment_sum_dense_kernel(const int* __restrict__ keys,
-                                    const float* __restrict__ rows,
-                                    float* __restrict__ out,
-                                    float* __restrict__ extra, int n, int c,
-                                    int num_cells) {
-  __shared__ int s_start[kDenseMaxTile + 1];
-  const int tile = dense_tile(c);
-  const int b = blockIdx.y;
-  const int cell0 = blockIdx.x * tile;
-  const int ncell = min(tile, num_cells - cell0);
+// K7: K6's span design for contiguous row-major rows [B, N, c], staged
+// row-major: a chunk of rows is one byte range, copied by one bulk copy
+// (16-byte ends widened, as K6's channel copies), and thread (g, ch) reads
+// staged row r at r * c + ch. kGroups: c > kCmMaxC, a grid row a group of
+// kCmMaxC channels, each row's group staged by 4-byte copies kCmMaxC floats
+// apart. A kernel of its own: one template for both layouts made K6's
+// instantiation spill more registers and run 2-4 % slower on the card.
+template <bool kGroups>
+__global__ void __launch_bounds__(kCmThreads, 3)
+    sorted_segment_sum_rm_kernel(const int* __restrict__ keys,
+                                 const float* __restrict__ rows,
+                                 float* __restrict__ out,
+                                 float* __restrict__ extra, int n, int c,
+                                 int num_cells, int span) {
+  extern __shared__ __align__(16) float s_buf[];
+  __shared__ int s_occ[kCmCells];   // cell cell0 + t holds a row
+  __shared__ int s_range[2];
+  // chunk i's rows have landed in buffer i & 1 (the bulk copy)
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  const int tiles = (num_cells + span - 1) / span;
+  const int batch = gridDim.x / tiles;
+  const int b = blockIdx.x % batch;
+  const int cell0 = blockIdx.x / batch * span;
+  const int ncell = min(span, num_cells - cell0);
+  // the block's channels [cg, cg + cw), staged rows cs floats apart
+  const int cs = kGroups ? kCmMaxC : c;
+  const int cg = kGroups ? blockIdx.y * kCmMaxC : 0;
+  const int cw = kGroups ? min(kCmMaxC, c - cg) : c;
   const int* kb = keys + static_cast<size_t>(b) * n;
-  // s_start[t]: first row of cell cell0 + t; s_start[ncell]: the tile's end
-  for (int t = threadIdx.x; t <= ncell; t += blockDim.x) {
-    s_start[t] = lower_bound(kb, 0, n, cell0 + t);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < 2) {   // the block's rows: [r0, r1)
+    const int r = warp_lower_bound(kb, n, cell0 + (warp == 0 ? 0 : ncell),
+                                   lane);
+    if (lane == 0) s_range[warp] = r;
+  }
+  for (int t = threadIdx.x; t < ncell; t += kCmThreads) s_occ[t] = 0;
+  if (!kGroups && threadIdx.x == 0) {   // one copy a chunk on a barrier
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(smem_u32(&s_bar[s])), "r"(1) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const float* rb = rows + static_cast<size_t>(b) * n * c;
+  const int r0 = s_range[0];
+  const int r1 = s_range[1];
   const int c_main = extra != nullptr ? c - 1 : c;
-  for (int f = threadIdx.x; f < ncell * c; f += kThreads) {
-    const int cell = f / c;
-    const int ch = f - cell * c;
-    const int end = s_start[cell + 1];
-    float acc = 0.f;
-    for (int j = s_start[cell]; j < end; ++j) {
-      acc += rb[static_cast<size_t>(j) * c + ch];  // row order
-    }
-    const size_t g = static_cast<size_t>(b) * num_cells + cell0 + cell;
-    if (ch < c_main) {
-      out[g * c_main + ch] = acc;
+  const int cw_main = kGroups ? min(cw, c_main - cg) : c_main;
+  const size_t g0 = static_cast<size_t>(b) * num_cells + cell0;
+  float* ob = out + g0 * c_main + cg;
+  // channel c - 1 of the split form: the last group's
+  float* eb = extra != nullptr && (!kGroups || cg + cw == c) ? extra + g0
+                                                             : nullptr;
+  if (r0 == r1) {  // no row in the block's cells
+    if (kGroups) {
+      zero_cells<false>(ob, ncell, c_main, cw_main,
+                        [](int) { return false; });
     } else {
-      extra[g] = acc;
+      zero_fill(ob, ncell * c_main);
+    }
+    if (eb != nullptr) zero_fill(eb, ncell);
+    return;
+  }
+  const float* rb = rows + static_cast<size_t>(b) * n * c;
+  const int rows_buf = cm_rows(cs);
+  const int pitch = cm_pitch(cs);
+  const int chunks = (r1 - r0 + rows_buf - 1) / rows_buf;
+  int* s_keys = reinterpret_cast<int*>(s_buf + 2 * cs * pitch);
+  float* s_carry = reinterpret_cast<float*>(s_keys + 2 * (rows_buf + 2));
+  // the 16-byte phase of chunk i's first float, which its staged rows keep
+  auto phase = [&](int i) {
+    return kGroups ? 0
+                   : static_cast<int>(reinterpret_cast<size_t>(
+                         rb + static_cast<size_t>(r0 + i * rows_buf) * c) >>
+                         2) & 3;
+  };
+  // chunk i, rows [j0, j0 + len): its rows into row buffer i & 1 (from
+  // their 16-byte phase), and keys j0 - 1 .. j0 + len into key buffer i & 1
+  auto fetch = [&](int i) {
+    const int j0 = r0 + i * rows_buf;
+    const int len = min(rows_buf, r1 - j0);
+    float* buf = s_buf + (i & 1) * cs * pitch;
+    if (!kGroups) {
+      // one bulk copy, widened to whole 16-byte units (at most 12 bytes
+      // either side, in the 16-byte granules of its first and last floats;
+      // a buffer holds them: cm_pitch(c) >= cm_rows(c) + 4)
+      if (threadIdx.x == 0) {
+        const int ph = phase(i);
+        const unsigned bytes =
+            static_cast<unsigned>((ph + len * c + 3) >> 2) * 16u;
+        const unsigned bar = smem_u32(&s_bar[i & 1]);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+            :: "r"(bar), "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n"
+            :: "r"(smem_u32(buf)), "l"(rb + static_cast<size_t>(j0) * c - ph),
+            "r"(bytes), "r"(bar) : "memory");
+      }
+    } else {
+      for (int e = threadIdx.x; e < len * cw; e += kCmThreads) {
+        const int r = e / cw;
+        const int ch = e - r * cw;
+        cp_async4(buf + r * cs + ch,
+                  rb + static_cast<size_t>(j0 + r) * c + cg + ch);
+      }
+    }
+    int* sk = s_keys + (i & 1) * (rows_buf + 2);
+    for (int e = threadIdx.x; e < len + 2; e += kCmThreads) {
+      const int j = j0 - 1 + e;
+      if (j < 0) {
+        sk[e] = INT_MIN;
+      } else if (j >= n) {
+        sk[e] = INT_MAX;
+      } else {
+        cp_async4(reinterpret_cast<float*>(sk + e),
+                  reinterpret_cast<const float*>(kb + j));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch(0);
+  for (int j = r0 + threadIdx.x; j < r1; j += kCmThreads) {
+    s_occ[kb[j] - cell0] = 1;
+  }
+  // thread (g, ch): channel ch of the rows [j0 + g * sub, ...) of a chunk
+  const int groups = kCmThreads / cs;
+  const int g = threadIdx.x / cs;
+  const int ch = threadIdx.x - g * cs;
+  const bool active = threadIdx.x < groups * cs && (!kGroups || ch < cw);
+  const int sub = (rows_buf + groups - 1) / groups;
+  auto emit = [&](int cell, float v) {
+    if (cg + ch < c_main) {
+      __stcs(ob + static_cast<size_t>(cell - cell0) * c_main + ch, v);
+    } else {
+      __stcs(eb + (cell - cell0), v);
+    }
+  };
+  for (int i = 0; i < chunks; ++i) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    if (!kGroups) {
+      const unsigned bar = smem_u32(&s_bar[i & 1]);
+      const unsigned parity = (i >> 1) & 1;
+      unsigned done = 0;
+      do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+      } while (!done);
+    }
+    // chunk i has landed; chunk i - 1's buffers are read (and, at i = 0,
+    // the occupied cells marked)
+    __syncthreads();
+    if (i + 1 < chunks) fetch(i + 1);
+    if (i == 0) {   // the empty cells' zeros, 16 bytes a store where it can
+      zero_cells<!kGroups>(ob, ncell, c_main, cw_main,
+                           [&](int t) { return s_occ[t] != 0; });
+      if (eb != nullptr) {
+        for (int t = threadIdx.x; t < ncell; t += kCmThreads) {
+          if (!s_occ[t]) __stcs(eb + t, 0.f);
+        }
+      }
+    }
+    if (!active) continue;
+    const int j0 = r0 + i * rows_buf;
+    const int j1 = min(j0 + rows_buf, r1);
+    const int* sk = s_keys + (i & 1) * (rows_buf + 2) + 1 - j0;  // key j
+    // row j's value of channel ch at sr[(j - j0) * cs]
+    const float* sr = s_buf + (i & 1) * cs * pitch + phase(i) + ch;
+    const float* carry_in = s_carry + ((i + 1) & 1) * cs;
+    float* carry_out = s_carry + (i & 1) * cs;
+    int j = j0 + g * sub;
+    const int e = min(j + sub, j1);
+    if (j >= e) continue;
+    // a segment's rows are added in row order from +0 by the thread whose
+    // rows hold its head, on past its own rows; one that runs on into the
+    // next chunk leaves its sum in carry_out for thread (0, ch)
+    if (g == 0 && sk[j0] == sk[j0 - 1]) {   // a segment open since chunk i - 1
+      const int k = sk[j];
+      float acc = carry_in[ch];
+      do {
+        acc += sr[(j - j0) * cs];
+      } while (++j < j1 && sk[j] == k);
+      if (j == j1 && sk[j1] == k) {
+        carry_out[ch] = acc;
+      } else {
+        emit(k, acc);
+      }
+    } else {
+      while (j < e && sk[j] == sk[j - 1]) ++j;   // an earlier thread's
+    }
+    while (j < e) {   // row j heads a segment
+      const int k = sk[j];
+      float acc = 0.f;
+      do {
+        acc += sr[(j - j0) * cs];
+      } while (++j < j1 && sk[j] == k);
+      if (j == j1 && sk[j1] == k) {
+        carry_out[ch] = acc;
+      } else {
+        emit(k, acc);
+      }
     }
   }
+}
+
+// K7 on `stream`; `extra` null but for the split form
+int launch_segment_sum_rm(const int* keys, const float* rows, float* out,
+                          float* extra, int b, int n, int c, int num_cells,
+                          void* stream) {
+  const int cs = c < kCmMaxC ? c : kCmMaxC;
+  int span = 0;
+  cudaError_t err = span_cells(b, cs, num_cells, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void (*kernel)(const int*, const float*, float*, float*, int, int, int,
+                 int) = c > kCmMaxC ? sorted_segment_sum_rm_kernel<true>
+                                    : sorted_segment_sum_rm_kernel<false>;
+  const size_t smem = cm_smem_floats(cs) * sizeof(float);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (num_cells + span - 1) / span;
+  const dim3 grid(static_cast<unsigned>(tiles) * b,
+                  (c + kCmMaxC - 1) / kCmMaxC);
+  kernel<<<grid, kCmThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      keys, rows, out, extra, n, c, num_cells, span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -794,24 +1013,22 @@ extern "C" int p3d_sorted_segment_sum_rw(const int* keys, const float* rows,
 }
 
 // K7. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c]
-// f32; out [b, num_cells, c] (or [b, num_cells, c - 1] plus extra
-// [b, num_cells] when extra is not null), every cell written. Returns
+// f32 contiguous, any c >= 1; out [b, num_cells, c] (or [b, num_cells,
+// c - 1] plus extra [b, num_cells] when extra is not null), every cell
+// written once (no memset). Launches sorted_segment_sum_rm_kernel, a kernel
+// of its own on K6's span design with row-major staging. Returns
 // cudaGetLastError().
 extern "C" int p3d_sorted_segment_sum_dense(const int* keys,
                                             const float* rows, float* out,
                                             float* extra, int b, int n,
                                             int c, int num_cells,
                                             void* stream) {
-  if (c < 1 || (extra != nullptr && c < 2)) {
+  if (c < 1 || n < 0 || (extra != nullptr && c < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (b == 0 || num_cells == 0) return static_cast<int>(cudaSuccess);
-  const int tile = dense_tile(c);
-  const dim3 grid((num_cells + tile - 1) / tile, b);
-  sorted_segment_sum_dense_kernel<<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      keys, rows, out, extra, n, c, num_cells);
-  return static_cast<int>(cudaGetLastError());
+  return launch_segment_sum_rm(keys, rows, out, extra, b, n, c, num_cells,
+                               stream);
 }
 
 // K2. keys [b, n] int32 sorted ascending per batch row; rows [b, n, c] f32;

@@ -47,7 +47,7 @@ _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # ctypes would pass them as 32-bit ints)
 _SIGNATURES = {
     "p3d_sorted_segment_sum": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp),
-    "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+    "p3d_fused_pfn_rows": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                            _i, _i, _i, _f, _f, _f, _f, _i, _i, _vp),
     "p3d_fused_pfn2_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                             _i, _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _i,

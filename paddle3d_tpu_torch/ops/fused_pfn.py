@@ -5,20 +5,37 @@ Port of paddle3d_tpu/ops/pallas/fused_pfn.py:fused_pfn_rows (TPU kernel
 `_kernel` with `_decorate`). On a CUDA tensor the wrapper launches the
 hand-written kernel in csrc/fused_pfn.cu for one or two PFN layers (its
 header says what bounds them and how they are built); on a CPU tensor it
-takes the plain PyTorch version beside it.
+takes the plain PyTorch version beside it. pillar_ordinals is the plain
+version's cap; the kernels find the cap row themselves.
 """
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["fused_pfn_rows", "fused_pfn_rows_plain", "pillar_ordinals"]
+__all__ = ["fused_pfn_rows", "fused_pfn_rows_plain", "pillar_ordinals",
+           "spans"]
 
 _SENT = 2**31 - 1
 _NEG = -1e9
 _MAX_C_IN = 8  # csrc/fused_pfn.cu kMaxCin
 _MAX_U1, _MAX_U2 = 32, 64  # csrc/fused_pfn.cu kU1, kU2 (two layers)
 _CAP_ROWS = 4096  # csrc/fused_pfn.cu kCapRows
+_MAX_SPAN = 1024    # csrc/pfn_common.cuh kMaxSpan
+_SMS = {}           # device index -> streaming multiprocessors
+
+
+def spans(b, n, device):
+    """Spans a scan's rows are split into on the card by the one-layer K1
+    and by K3 / K4, a block each: about two blocks an SM over the batch, at
+    most _MAX_SPAN rows a span (the kernels round n / spans up to 32
+    rows)."""
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    want = min(-(-2 * sms // max(b, 1)), -(-n // 32))
+    return max(want, -(-n // _MAX_SPAN), 1)
 
 
 def _decorate_plain(keys, pts, P, maxV, nx, vx, vy, x_off, y_off,
@@ -175,11 +192,11 @@ def fused_pfn_rows(keys, pts_t, w1t, b1, w2t=None, b2=None, *, n_layers, P,
     geo = (nx, vx, vy, x_off, y_off, int(with_distance), int(occupancy),
            _build.stream_ptr(keys.device))
     if n_layers == 1:
-        vox = pillar_ordinals(keys)
+        # the kernel finds the max_voxels cap in each block's span
         err = _build.function("p3d_fused_pfn_rows")(
-            keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
-            w1t.data_ptr(), b1.data_ptr(), out.data_ptr(), b, n, c_in, c_dec,
-            u1, P, maxV, *geo)
+            keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+            out.data_ptr(), spans(b, n, keys.device), b, n, c_in, c_dec, u1,
+            P, maxV, *geo)
         name = "fused_pfn_rows"
     else:
         # the kernel's own cap passes: head counts a chunk, the cap row a scan

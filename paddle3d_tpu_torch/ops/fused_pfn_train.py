@@ -26,26 +26,12 @@ alike on both routes; the BN statistics go back to f32 for the forward.
 import torch
 
 from . import _build, fused_pfn
-from .fused_pfn import _decorate_plain, _segment_max
+from .fused_pfn import _decorate_plain, _segment_max, spans
 
 __all__ = ["fused_pfn_train_rows", "pfn_stats", "pfn_stats_plain",
-           "pfn_bwd", "pfn_bwd_plain", "spans"]
+           "pfn_bwd", "pfn_bwd_plain"]
 
 _MAX_U1 = 64        # csrc/fused_pfn_train.cu kMaxU1
-_MAX_SPAN = 1024    # csrc/fused_pfn_train.cu kMaxSpan
-_SMS = {}           # device index -> streaming multiprocessors
-
-
-def spans(b, n, device):
-    """Spans a scan's rows are split into on the card, a block each: about
-    two blocks an SM over the batch, at most _MAX_SPAN rows a span (the
-    kernel rounds n / spans up to 32 rows)."""
-    sms = _SMS.get(device.index)
-    if sms is None:
-        sms = _SMS[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    want = min(-(-2 * sms // max(b, 1)), -(-n // 32))
-    return max(want, -(-n // _MAX_SPAN), 1)
 
 
 def _pre_bn(x, w1t):

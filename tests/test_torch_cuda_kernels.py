@@ -186,11 +186,13 @@ def test_fused_pfn_rows_matches_plain(cuda, P, maxV, c_in, with_distance):
     kw.update(n_layers=1, occupancy=True)
     before = _build.LAUNCHES["fused_pfn_rows"]
     got = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
+    again = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["fused_pfn_rows"] == before + 1
+    assert _build.LAUNCHES["fused_pfn_rows"] == before + 2
     ref = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw)
-    # the same arithmetic in the same order (csrc/fused_pfn.cu): bit-equal
-    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # the same arithmetic in the same order (csrc/fused_pfn.cu): bit-equal,
+    # and to a second call
+    assert _same_bits(got, ref) and _same_bits(again, got)
     emitted = got[:, -1].sum(dim=1)
     assert (emitted > 0).all() and (emitted <= maxV).all()
 
@@ -267,9 +269,11 @@ def _pfn2_edge_case(cuda, case, b=2):
     return keys, pts_t, weights, kw, sizes0
 
 
-@pytest.mark.parametrize("case", ["straddle", "no_emission_tile", "cuts",
-                                  "cap_at_chunk_edge", "singletons"])
-def test_fused_pfn_two_layers_tile_edges(cuda, case):
+PFN2_EDGES = ["straddle", "no_emission_tile", "cuts", "cap_at_chunk_edge",
+              "singletons"]
+
+
+def _pfn2_edge(cuda, case):
     """The two-layer kernel at its tile edges, bit for bit against its
     plain version with and without occupancy: pillars across tile edges,
     tiles with no emission row, pillars cut at P and at maxV, the maxV cap
@@ -299,6 +303,7 @@ def test_fused_pfn_two_layers_tile_edges(cuda, case):
         assert emit[:8192].sum() == kw["maxV"] and not emit[8192:].any()
     else:
         assert (emit[starts[sizes == 1]] == 1).all()
+
 
 
 def test_fused_pfn_two_layers_raise_on_card(cuda):
@@ -443,7 +448,7 @@ PFN_TRAIN_EDGES = ["span_edge", "tiles", "cap_mid_span",
 
 def _span(cuda, b, n):
     """Rows of one block's span in the train kernels at this shape."""
-    spans = fused_pfn_train.spans(b, n, cuda)
+    spans = fused_pfn.spans(b, n, cuda)
     return -(-(-(-n // spans)) // 32) * 32
 
 
@@ -452,17 +457,23 @@ def _pfn_train_edge(cuda, case, P=32, nx=432, ny=496):
     1..40 rows across span edges, and across the 256-row tiles of spans
     longer than a tile (one scan of 200,000 rows); the max_voxels cap
     inside a span and on a span's first row (pillars of 1..8 rows); n not
-    a multiple of the span; n < P; one scan; a scan of sentinels only. ->
+    a multiple of the span; n < P; one scan; a scan of sentinels only; and
+    for the one-layer K1 a 1,000-row pillar (whole tiles with no emission
+    row, one scan of 200,000 rows). ->
     (keys, pts_t, w1t, kw, sizes of scan 0's pillars, span)."""
-    rng = np.random.default_rng(PFN_TRAIN_EDGES.index(case))
-    b = 1 if case in ("one_scan", "tiles") else 2
-    n = {"ragged": 12345, "short": 20, "tiles": 200000}.get(case, 12000)
+    rng = np.random.default_rng(
+        (PFN_TRAIN_EDGES + ["no_emission_tile"]).index(case))
+    b = 1 if case in ("one_scan", "tiles", "no_emission_tile") else 2
+    n = {"ragged": 12345, "short": 20, "tiles": 200000,
+         "no_emission_tile": 200000}.get(case, 12000)
     span = _span(cuda, b, n)
     hi = {"short": 6, "cap_mid_span": 9, "cap_at_span_start": 9}.get(case,
                                                                      41)
     keys = np.full((b, n), SENT, np.int64)
     for s in range(b):
         sizes = rng.integers(1, hi, n)
+        if case == "no_emission_tile":  # rows 72 .. 1,039 emit nothing
+            sizes[:2] = 40, 1000
         sizes = sizes[:np.searchsorted(np.cumsum(sizes), n - n // 10)]
         if s == 0:
             sizes0 = sizes
@@ -491,6 +502,85 @@ def _pfn_train_edge(cuda, case, P=32, nx=432, ny=496):
     return (torch.from_numpy(keys.astype(np.int32)).to(cuda),
             torch.from_numpy(pts).to(cuda), torch.from_numpy(w1t).to(cuda),
             kw, sizes0, span)
+
+
+PFN1_EDGES = PFN_TRAIN_EDGES + ["no_emission_tile", "c_in3", "c_in8",
+                                "distance", "u1_32", "u1_128"]
+
+
+def _pfn1_edge(cuda, case):
+    """The one-layer kernel at its span and tile edges (the train kernels'
+    spans and machinery), bit for bit against its plain version and a
+    second call, with and without occupancy: _pfn_train_edge's cases
+    (pillars across span edges and a span's inner 256-row tile edges, the
+    maxV cap inside a span and on a span's first row, n not a multiple of
+    the span, n < P, one scan, a scan of sentinels), whole tiles with no
+    emission row, and on span_edge's keys C_in 3 and 8, with_distance, u1
+    32 (a group of 32 channels) and 128 (two groups of 64)."""
+    base = case if case in PFN_TRAIN_EDGES + ["no_emission_tile"] \
+        else "span_edge"
+    keys, pts_t, w1t, kw, sizes, span = _pfn_train_edge(cuda, base)
+    b, n = keys.shape
+    rng = np.random.default_rng(100 + PFN1_EDGES.index(case))
+    c_in = {"c_in3": 3, "c_in8": 8}.get(case, 4)
+    u1 = {"u1_32": 32, "u1_128": 128}.get(case, 64)
+    kw["with_distance"] = case == "distance"
+    if case != base:
+        lo = np.array([0., -39.68, -3.] + [0.] * (c_in - 3))
+        hi = np.array([69.12, 39.68, 1.] + [1.] * (c_in - 3))
+        pts_t = torch.from_numpy(np.ascontiguousarray(rng.uniform(
+            lo, hi, (b, n, c_in)).transpose(0, 2, 1), dtype=np.float32)
+        ).to(cuda)
+        w1t = torch.from_numpy(rng.normal(
+            0, .3, (u1, c_in + 5 + int(kw["with_distance"]))).astype(
+                np.float32)).to(cuda)
+    b1 = torch.from_numpy(rng.normal(0, .1, (u1, 1)).astype(np.float32)
+                          ).to(cuda)
+    for occupancy in (False, True):
+        kw1 = dict(kw, n_layers=1, occupancy=occupancy)
+        before = _build.LAUNCHES["fused_pfn_rows"]
+        got = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw1)
+        again = fused_pfn.fused_pfn_rows(keys, pts_t, w1t, b1, **kw1)
+        ref = fused_pfn.fused_pfn_rows_plain(keys, pts_t, w1t, b1, **kw1)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["fused_pfn_rows"] == before + 2
+        assert got.shape == (b, u1 + occupancy, n)
+        assert _same_bits(got, ref) and _same_bits(again, got)
+    emit = ref[0, -1].cpu().numpy()           # scan 0's emission rows
+    starts = np.cumsum(sizes) - sizes
+    kept_ends = starts + np.minimum(sizes, kw["P"]) - 1
+    assert emit.sum() > 0
+    if case == "span_edge":
+        assert (starts // span != kept_ends // span).sum() > 10
+    elif case == "tiles":   # pillars across a span's inner tile edges
+        edges = (np.arange(0, n, span)[:, None] +
+                 np.arange(256, span, 256)).ravel()
+        assert span > 256 and ((starts[:, None] < edges) &
+                               (edges <= kept_ends[:, None])).any()
+    elif case == "no_emission_tile":   # rows 72 .. 1,039: one pillar
+        assert span > 512 and emit[:72].sum() == 2 and \
+            not emit[72:1040].any()
+    elif case.startswith("cap"):
+        assert emit.sum() == kw["maxV"] and (
+            starts[kw["maxV"]] == 2 * span if case == "cap_at_span_start"
+            else starts[kw["maxV"]] % span > 0)
+    elif case == "ragged":
+        assert n % span > 0 and n > span
+    elif case == "short":
+        assert n < kw["P"]
+    elif case == "sentinel":
+        assert not ref[1].any()
+
+
+PFN_EDGES = [(2, c) for c in PFN2_EDGES] + [(1, c) for c in PFN1_EDGES]
+
+
+@pytest.mark.parametrize("layers,case", PFN_EDGES,
+                         ids=["{}l-{}".format(*e) for e in PFN_EDGES])
+def test_fused_pfn_tile_edges(cuda, layers, case):
+    """K1 at its tile and span edges, one and two layers (_pfn1_edge,
+    _pfn2_edge): bit for bit against the plain version."""
+    (_pfn2_edge if layers == 2 else _pfn1_edge)(cuda, case)
 
 
 @pytest.mark.parametrize("case", PFN_TRAIN_EDGES)
@@ -892,6 +982,56 @@ def test_sorted_segment_sum_dense_matches_plain(cuda, split):
     # sums of up to 300 rows, in row order as the kernel adds them
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert not got[1].any()
+
+
+DENSE_EDGE_CASES = ["random", "long_cell", "empty_spans"]
+
+
+@pytest.mark.parametrize("c", [1, 3, 64, 65, 128, 129, 256, 300])
+@pytest.mark.parametrize("case", DENSE_EDGE_CASES)
+def test_sorted_segment_sum_dense_edges(cuda, case, c):
+    """K7 bit for bit at its edges, 3 scans of 12,000 rows onto 9,001 cells
+    (dense by the density rule), each with keys past the table, negative
+    keys and a last scan all sentinel: 'long_cell' one cell holding 9,000
+    rows (a segment across chunks at every c), 'empty_spans' rows only at
+    the two ends of the table (runs of spans with no row). Contiguous rows
+    [B, N, c]: where c is no multiple of 4 most chunks start off a 16-byte
+    boundary; c = 300 takes two channel groups; the split form at c = 65,
+    129 and 300. Through the wrapper against the row-order sum and a second
+    call, and through the C entry into a NaN-filled table (every cell
+    written)."""
+    b, n, cells = 3, 12000, 9001
+    split = c in (65, 129, 300)
+    rng = np.random.default_rng(10 * c + DENSE_EDGE_CASES.index(case))
+    keys = rng.integers(-3, cells + 40, (b, n))
+    if case == "long_cell":
+        keys[0, 1000:10000] = 4321
+    elif case == "empty_spans":
+        keys = np.where(keys % 2 == 0, keys % 700, cells - 1 - keys % 700)
+    keys[-1] = SENT
+    keys = torch.from_numpy(np.sort(keys, axis=1).astype(np.int32)).to(cuda)
+    rows = torch.from_numpy(rng.normal(0, 1, (b, n, c)).astype(
+        np.float32)).to(cuda)
+    assert sorted_scatter.kernel_for(n, cells) == "sorted_segment_sum_dense"
+    ref = _row_order_sum(keys, rows, cells)
+    before = dict(_build.LAUNCHES)
+    got, again = (sorted_scatter.scatter_rows(keys, rows, cells, split)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sorted_segment_sum_dense"] == \
+        before["sorted_segment_sum_dense"] + 2
+    if split:
+        got, again = torch.cat(got, dim=-1), torch.cat(again, dim=-1)
+    assert _same_bits(got, ref) and _same_bits(again, got)
+    assert not got[-1].any()
+    out = torch.full((b, cells, c - int(split)), float("nan"), device=cuda)
+    extra = torch.full((b, cells, 1), float("nan"), device=cuda)
+    _build.check(_build.function("p3d_sorted_segment_sum_dense")(
+        keys.data_ptr(), rows.data_ptr(), out.data_ptr(),
+        extra.data_ptr() if split else None, b, n, c, cells,
+        _build.stream_ptr(keys.device)), "sorted_segment_sum_dense")
+    torch.cuda.synchronize()
+    assert _same_bits(torch.cat([out, extra], dim=-1) if split else out, ref)
 
 
 CM_EDGE_CASES = ["strided", "transposed", "long_cell", "empty_tiles"]

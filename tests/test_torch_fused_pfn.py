@@ -50,15 +50,35 @@ def make_weights(seed, c_dec, u1=16, u2=None):
     return [None if a is None else a.astype(np.float32) for a in w]
 
 
-@pytest.mark.parametrize("n_layers,P,maxV,c_in,with_distance,occ", [
-    (1, 8, 512, 4, False, True),     # KITTI form: one layer + occupancy
-    (1, 8, 40, 4, False, True),      # max_voxels cap fires
-    (2, 8, 512, 4, False, False),    # CenterPoint form (plain only on CUDA)
-    (2, 8, 40, 5, True, True),       # cap + distance + 5 channels
+@pytest.mark.parametrize("n_layers,P,maxV,c_in,with_distance,occ,n", [
+    # KITTI form: one layer + occupancy
+    pytest.param(1, 8, 512, 4, False, True, 1000, id="1-8-512-4-False-True"),
+    # max_voxels cap fires
+    pytest.param(1, 8, 40, 4, False, True, 1000, id="1-8-40-4-False-True"),
+    # CenterPoint form (plain only on CUDA)
+    pytest.param(2, 8, 512, 4, False, False, 1000,
+                 id="2-8-512-4-False-False"),
+    # cap + distance + 5 channels
+    pytest.param(2, 8, 40, 5, True, True, 1000, id="2-8-40-5-True-True"),
+    # the one-layer kernel's edges: scan 0's cap on row 128 (maxV None: the
+    # heads before it), N < P, N no multiple of 128 (nor of the 256-row
+    # tiles)
+    pytest.param(1, 8, None, 4, False, True, 1000, id="1-cap-at-row-128"),
+    pytest.param(1, 8, 512, 4, False, True, 6, id="1-n-below-P"),
+    pytest.param(1, 8, 512, 3, False, True, 777, id="1-n-777-c_in-3"),
 ])
 def test_plain_matches_pallas_interpret(n_layers, P, maxV, c_in,
-                                        with_distance, occ):
-    keys, pts_t = make_sorted(n_layers * 10 + maxV, c=c_in)
+                                        with_distance, occ, n):
+    keys, pts_t = make_sorted(n_layers * 10 + (maxV or 7) +
+                              (n if n != 1000 else 0), n=n, c=c_in)
+    if maxV is None:
+        # a pillar head on row 128 of scan 0, and the cap just before it
+        k = keys[0]
+        if k[128] == k[127]:
+            k[128:][k[128:] == k[128]] += 1
+        heads = np.flatnonzero(k[:129] != np.r_[-1, k[:128]])
+        maxV = len(heads) - 1
+        assert heads[-1] == 128
     c_dec = c_in + 5 + int(with_distance)
     w1t, b1, w2t, b2 = make_weights(maxV, c_dec,
                                     u2=16 if n_layers == 2 else None)
@@ -78,6 +98,8 @@ def test_plain_matches_pallas_interpret(n_layers, P, maxV, c_in,
         # the cap bounds the emitted pillars per scan
         assert (emit.sum(axis=1) <= maxV).all()
         assert emit.sum() > 0
+        if n == 1000 and maxV < 100:    # the cap fires in scan 0
+            assert emit[0].sum() == maxV
 
 
 def test_pillar_ordinals_count_valid_heads():

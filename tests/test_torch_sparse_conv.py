@@ -450,14 +450,23 @@ def test_segmented_scans_match_jax(n, max_len):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("split", [False, True])
-def test_dense_plain_matches_pallas_interpret(split):
+@pytest.mark.parametrize("split,c,case", [
+    pytest.param(False, 9, "random", id="False"),
+    pytest.param(True, 9, "random", id="True"),
+    pytest.param(False, 9, "long_run", id="long-run"),
+    pytest.param(True, 3, "random", id="c3-split"),
+    pytest.param(True, 65, "random", id="c65-split"),
+])
+def test_dense_plain_matches_pallas_interpret(split, c, case):
     """K7's plain version (the row-major sum) against the dense TPU kernel
     on a dense tiny scan: 3,000 rows over 256 cells, duplicates, a sentinel
-    tail and keys past the table."""
-    rng = np.random.default_rng(8)
-    b, n, cells, c = 2, 3000, 256, 9
+    tail and keys past the table; 'long_run' puts rows 200 .. 2,699 of each
+    scan in one cell; c = 3 and 65 with the split form."""
+    rng = np.random.default_rng(8 if case == "random" and c == 9 else c + 1)
+    b, n, cells = 2, 3000, 256
     keys = np.sort(rng.integers(0, cells + 20, (b, n)), axis=1)
+    if case == "long_run":
+        keys[:, 200:2700] = keys[:, 200:201]
     keys[:, -100:] = 2**31 - 1
     keys = np.sort(keys, axis=1).astype(np.int32)
     rows = rng.normal(0, 1, (b, n, c)).astype(np.float32)
