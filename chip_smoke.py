@@ -116,7 +116,8 @@ non-zero and prints no result:
      steps on them before what follows): the rotated-box intersection
      kernel (K11) bit for bit against its plain version on the train step's
      own corners, at 8 x 1,000 x 1,000 clustered boxes and on a tie
-     lattice; one Voxel-RCNN train step through the kernels (one K11, two
+     lattice, with its chain floor (one launch on one clipped pair); one
+     Voxel-RCNN train step through the kernels (one K11, two
      K9 held as in phase 8, the dense BEV's segment sum, K2 held at its
      call, and its VJP; no
      K8: training takes the gather route) against one on the plain
@@ -167,11 +168,13 @@ The last two lines are the kernels' JSON record and
     python3 chip_smoke.py --parts TREE [TREE ...]
 
 times, in one process a checkout (TREE: a directory holding the package,
-e.g. a `git archive` of another commit), the one-layer K1 in parts and K7
-at both of their calls, and the scans/s of KITTI serving and training,
-nuScenes voxels serving and CenterPoint-pillars training through the
-kernels (parts_one); list parent, change, change, parent to compare two
-trees on one card.
+e.g. a `git archive` of another commit), the sorted table gather (K5) at
+its four train-step calls and the rotated-box intersection (K11) at the
+Voxel-RCNN train step's call, at 8 x 1,000 x 1,000 clustered boxes and on
+the tie lattice, each through its wrapper and its C entry alone, and the
+train scans/s of KITTI pillars, CenterPoint-pillars, CenterPoint-voxels and
+Voxel-RCNN through the kernels (parts_one); list parent, change, change,
+parent to compare two trees on one card.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
 cuDNN for the comparisons; phase 11's checked steps under
 torch.use_deterministic_algorithms (main() sets CUBLAS_WORKSPACE_CONFIG
@@ -809,6 +812,44 @@ def pfn_train_inputs(model, points):
             ref_stats, gen)
 
 
+def gather_work(keys, g, g_extra, num_cells, c):
+    """Bytes K5's data needs: the keys read, each distinct in-range cell of
+    a scan read once (c_main = g.shape[-1] values, and one of g_extra where
+    it is given) and the rows [B, N, c] written; beside them the earlier
+    count, c_main values read for every in-range row. -> (bytes, earlier
+    bytes, distinct cells)."""
+    import torch
+    b, n = keys.shape
+    c_main = g.shape[-1]
+    k = keys.long()
+    inside = (k >= 0) & (k < num_cells)
+    lin = (torch.arange(b, device=k.device)[:, None] * num_cells + k)[inside]
+    distinct = int(torch.unique(lin).numel())
+    per_cell = c_main + (1 if g_extra is not None and c > c_main else 0)
+    nbytes = 4 * (keys.numel() + distinct * per_cell + b * n * c)
+    old = 4 * (keys.numel() + int(inside.sum()) * c_main + b * n * c)
+    return nbytes, old, distinct
+
+
+def gather_sectors(keys, g, num_cells):
+    """The 32-byte sectors of g that hold the values K5 needs (c_main of
+    each in-range row's cell, g's own strides; g_extra's one value a cell
+    aside): what device memory must deliver at the least when each sector
+    comes from it once. -> sectors."""
+    import torch
+    b, n = keys.shape
+    gsb, gsk, gsc = g.stride()
+    k = keys.long()
+    inside = (k >= 0) & (k < num_cells)
+    lin = (torch.arange(b, device=k.device)[:, None] * num_cells + k)[inside]
+    cells = torch.unique(lin)
+    base = (cells // num_cells) * gsb + (cells % num_cells) * gsk
+    ch = torch.arange(g.shape[-1], device=k.device) * gsc
+    first = g.data_ptr() // 4 % 8               # floats into the first sector
+    return int(torch.unique((base[:, None] + ch[None, :] + first) // 8)
+               .numel())
+
+
 def phase_train_kernels(model, points):
     """K3, K4 and K5 against their plain versions at the KITTI train shapes
     (maxV 16000), on the statistics and cotangents the train step gives
@@ -875,11 +916,13 @@ def phase_train_kernels(model, points):
     c_main = g_canvas.shape[-1]
     safe = torch.where(inside, keys, 0).long()[..., None].expand(
         -1, -1, c_main)
+    k5_bytes, k5_old, distinct = gather_work(*gather_args)
     # K3: f32 products z = W1 x and f64 sums over every kept row. K4: z and
     # t = a z + c in f32 over every kept row, f64 sums only where dt is
     # non-zero, at most one (argmax) row a pillar and channel: Σdt, Σdt·ẑ
     # and Σx⊗dt (the earlier bound counted them over every kept row); the
-    # cotangent at emission rows only. K5 reads the table rows its keys name
+    # cotangent at emission rows only. K5 reads each distinct cell its keys
+    # name once (gather_work)
     k4_bytes = 4 * (keys.numel() + pts_t.numel() + emitted * u1)
     k4_old = bound(k4_bytes, f32_ops=kept * 2 * u1 * (c_dec + 1),
                    f64_ops=kept * (3 * u1 + 2 * c_dec * u1))
@@ -893,13 +936,17 @@ def phase_train_kernels(model, points):
             f64_ops=emitted * u1 * (2 * c_dec + 3)),
         "sorted_table_gather": (
             cuda_ms(lambda: torch.gather(g_canvas, 1, safe), 10),) + bound(
-                4 * (keys.numel() + int(inside.sum()) * c_main +
-                     rows.numel())),
+                k5_bytes),
     }
     log("  K4's bound counts its f64 sums on argmax rows only ({} emitted "
         "pillars): {:.4f} ms ({}); over every kept row, as before: {:.4f} "
         "ms ({})".format(emitted, extra["pfn_bwd"][1], extra["pfn_bwd"][2],
                          *k4_old))
+    log("  K5's bound counts each of the {} distinct in-range cells read once "
+        "({} in-range rows): {:.4f} ms ({}); one read a row, as before: "
+        "{:.4f} ms ({})".format(distinct, int(inside.sum()),
+                                *extra["sorted_table_gather"][1:],
+                                *bound(k5_old)))
     names = ("pfn_stats", "pfn_bwd", "sorted_table_gather")
     for name in names:
         tol = KERNELS[name][2]
@@ -1046,7 +1093,7 @@ def timed_train_scans_per_s(step, model, optimizer, batch, iters):
     for _ in range(iters):
         step(model, optimizer, batch)
     torch.cuda.synchronize()
-    return BATCH * iters / (time.perf_counter() - t0)
+    return batch["data"].shape[0] * iters / (time.perf_counter() - t0)
 
 
 def phase_train(points):
@@ -2761,6 +2808,35 @@ def iou_work(ca, cb):
     return nbytes, ops, pairs, clipped
 
 
+def iou_chain_pair(device):
+    """One pair that passes the guard and clips through all four stages: a
+    4 x 2 m box at the origin and the same box turned by 0.3 rad ->
+    (corners a, corners b), each [1, 1, 4, 2]."""
+    import torch
+
+    from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
+    a = torch.tensor([[[0., 0., 0., 4., 2., 1.5, 0.]]], device=device)
+    b = a.clone()
+    b[..., 6] = 0.3
+    return boxes_to_corners_bev(a), boxes_to_corners_bev(b)
+
+
+def iou_chain_floor(device, iters=50):
+    """K11's chain floor: ms a launch of its C entry on one pair that
+    passes the guard (iou_chain_pair), the launch and one pair's four
+    stages and 64-term fold with nothing in parallel; not counted as a
+    path's launch."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    ca, cb = iou_chain_pair(device)
+    out = torch.empty((1, 1, 1), device=device)
+    fn = _build.function("p3d_pairwise_intersection_area")
+    args = (ca.data_ptr(), cb.data_ptr(), out.data_ptr(), 1, 1, 1,
+            _build.stream_ptr(device))
+    return cuda_ms(lambda: fn(*args), iters)
+
+
 def phase_iou_kernel(step_inputs, device):
     """K11 against its plain version, bit for bit, on the train step's own
     corners, at 8 x 1,000 x 1,000 clustered boxes and on the tie lattice;
@@ -2799,6 +2875,8 @@ def phase_iou_kernel(step_inputs, device):
             "that differ 0 (bit-equal), overlapping pairs {}".format(
                 label, tuple(ca.shape[:-2]), tuple(cb.shape[-3:-2]), t, tp,
                 one[0], one[1], pairs, clipped, int((ref > 0).sum())))
+    log("  K11's chain floor (one launch on one clipped pair): {:.4f} ms"
+        .format(iou_chain_floor(device)))
     t, tp, one = rows["train step"]
     return ({name: worst}, {name: (t, tp)},
             {name: (None,) + one})
@@ -3564,11 +3642,8 @@ def k1_parts(label, keys, pts_t, w1t, b1, kw, iters=50):
     """The one-layer K1 timed in parts (CUDA events, ms a call) at one call
     of a path: its C entry alone (buffers made before), the whole wrapper,
     and pillar_ordinals, the cap input that the earlier 128-row-block
-    wrapper computed before its kernel (timed at these keys whichever
-    package is loaded). With that earlier package on the path (its C entry
-    takes the ordinals), it times that package's own entry: `--parts`
-    compares such a tree with this one; once none is compared, that branch
-    goes. kw: the wrapper's keywords but n_layers. -> dict of part -> ms."""
+    wrapper computed before its kernel (timed at these keys). kw: the
+    wrapper's keywords but n_layers. -> dict of part -> ms."""
     import torch
 
     from paddle3d_tpu_torch.ops import _build, fused_pfn
@@ -3576,28 +3651,20 @@ def k1_parts(label, keys, pts_t, w1t, b1, kw, iters=50):
     u1, c_dec = w1t.shape
     occ = int(kw["occupancy"])
     out = torch.empty((b, u1 + occ, n), device=keys.device)
-    geo = (b, n, c_in, c_dec, u1, kw["P"], kw["maxV"], kw["nx"], kw["vx"],
-           kw["vy"], kw["x_off"], kw["y_off"], int(kw["with_distance"]), occ,
-           _build.stream_ptr(keys.device))
     fn = _build.function("p3d_fused_pfn_rows")
-    earlier = not hasattr(fused_pfn, "spans")
-    if earlier:
-        vox = fused_pfn.pillar_ordinals(keys)
-        args = (keys.data_ptr(), pts_t.data_ptr(), vox.data_ptr(),
-                w1t.data_ptr(), b1.data_ptr(), out.data_ptr()) + geo
-    else:
-        args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(),
-                b1.data_ptr(), out.data_ptr(),
-                fused_pfn.spans(b, n, keys.device)) + geo
+    args = (keys.data_ptr(), pts_t.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+            out.data_ptr(), fused_pfn.spans(b, n, keys.device), b, n, c_in,
+            c_dec, u1, kw["P"], kw["maxV"], kw["nx"], kw["vx"], kw["vy"],
+            kw["x_off"], kw["y_off"], int(kw["with_distance"]), occ,
+            _build.stream_ptr(keys.device))
     parts = {
         "kernel alone": cuda_ms(lambda: fn(*args), iters),
         "wrapper": cuda_ms(lambda: fused_pfn.fused_pfn_rows(
             keys, pts_t, w1t, b1, n_layers=1, **kw), iters),
         "pillar_ordinals": cuda_ms(lambda: fused_pfn.pillar_ordinals(keys),
                                    iters)}
-    log("  K1 one layer at {} ({} package), ms a call: {}".format(
-        label, "the earlier" if earlier else "this",
-        ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items())))
+    log("  K1 one layer at {}, ms a call: {}".format(
+        label, ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items())))
     return parts
 
 
@@ -3676,42 +3743,119 @@ def k7_parts(label, keys, rows, cells, split, iters=50):
     return parts
 
 
-def cm_parts(label, call, keys, rows_cm, cells, iters=50):
-    """K6 or K13 (K7's kernel) at one shape through its wrapper `call`: bit
-    for bit against the row-order sum of the channel-major rows, then
-    timed. -> ms a call."""
+def k11_parts(label, ca, cb, iters=50):
+    """K11 at one call, on its inputs: bit for bit against its plain
+    version and a second call, then its wrapper and its C entry alone
+    (buffers made before) timed, with its operation bound and its chain
+    floor. -> dict of part -> ms."""
     import torch
-    n = keys.shape[1]
-    got = call()
-    ref = row_order_sum(keys, rows_cm[:, :, :n].transpose(1, 2), cells)
-    torch.cuda.synchronize()
-    check(same_bits(got, ref), "{} differs from the row-order sum".format(
-        label))
-    del got, ref
-    ms = cuda_ms(call, iters)
-    log("  {}: bit-equal to the row-order sum; {:.4f} ms a call".format(
-        label, ms))
-    return ms
+
+    from paddle3d_tpu_torch.ops import _build, iou_clip
+    n, m = ca.shape[-3], cb.shape[-3]
+    ca3 = ca.reshape(-1, n, 4, 2).contiguous()
+    cb3 = cb.reshape(-1, m, 4, 2).contiguous()
+    b = ca3.shape[0]
+    ref = iou_clip.pairwise_intersection_area_plain(ca3, cb3)
+    got, again = (iou_clip.pairwise_intersection_area(ca3, cb3)
+                  for _ in range(2))
+    check(same_bits(got, ref) and same_bits(again, got), "{}: K11 differs "
+          "from its plain version or a second call".format(label))
+    out = torch.empty((b, n, m), device=ca.device)
+    args = (ca3.data_ptr(), cb3.data_ptr(), out.data_ptr(), b, n, m,
+            _build.stream_ptr(ca.device))
+    fn = _build.function("p3d_pairwise_intersection_area")
+    parts = {"wrapper": cuda_ms(lambda: iou_clip.pairwise_intersection_area(
+                 ca3, cb3), iters),
+             "kernel alone": cuda_ms(lambda: fn(*args), iters)}
+    parts["chain floor"] = iou_chain_floor(ca.device, iters)
+    nbytes, ops, pairs, clipped = iou_work(ca3, cb3)
+    bnd = bound(nbytes, f32_ops=ops)
+    log("  K11 at {} {} x {}: bit-equal to its plain version and a second "
+        "call; {} pairs, {} past the guard; ms a call: {}; bound {:.5f} ms "
+        "({})".format(label, (b, n), m, pairs, clipped, ", ".join(
+            "{} {:.4f}".format(k, v) for k, v in parts.items()), *bnd))
+    return parts
+
+
+def k5_parts(label, keys, g, g_extra, cells, c, iters=50):
+    """K5 at one call, on the inputs the path handed it: bit for bit
+    against its plain version and a second call (tolerance 0), then its
+    wrapper and its C entry alone (buffers made before) timed; torch.gather
+    as the yardstick, the bound and the earlier count beside it, and the
+    sectors of the cotangent that hold the values read. -> dict of part ->
+    ms."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    b, n = keys.shape
+    c_main = g.shape[-1]
+    ref = sorted_scatter.sorted_table_gather_plain(keys, g, g_extra, cells, c)
+    got, again = (sorted_scatter.sorted_table_gather(keys, g, g_extra, cells,
+                                                     c) for _ in range(2))
+    check(same_bits(got, ref) and same_bits(again, got), "{}: K5 differs "
+          "from its plain version or a second call".format(label))
+    del got, again
+    out = torch.empty((b, n, c), device=keys.device)
+    es = g_extra.stride()[:2] if g_extra is not None else (0, 0)
+    args = (keys.data_ptr(), g.data_ptr(), *g.stride(),
+            g_extra.data_ptr() if g_extra is not None else None, *es,
+            out.data_ptr(), b, n, c, c_main, cells,
+            _build.stream_ptr(keys.device))
+    fn = _build.function("p3d_sorted_table_gather")
+    parts = {"wrapper": cuda_ms(lambda: sorted_scatter.sorted_table_gather(
+                 keys, g, g_extra, cells, c), iters),
+             "kernel alone": cuda_ms(lambda: fn(*args), iters)}
+    inside = (keys >= 0) & (keys < cells)
+    safe = torch.where(inside, keys, 0).long()[..., None].expand(
+        -1, -1, c_main)
+    parts["torch.gather"] = cuda_ms(lambda: torch.gather(g, 1, safe), 10)
+    nbytes, old, distinct = gather_work(keys, g, g_extra, cells, c)
+    sectors = gather_sectors(keys, g, cells)
+    log("  K5 at {}: B={} N={} c={} (c_main {}, g_extra {}) cells={}, g "
+        "strides {}, {} distinct in-range cells of {} in-range rows; "
+        "bit-equal to its plain version and a second call; ms a call: {}; "
+        "kernel / torch.gather {:.3f}; bound {:.4f} ms ({}); one read a row, "
+        "as before: {:.4f} ms ({}); the values needed lie in {} 32-byte "
+        "sectors of g ({:.1f} MB): with the rows written {:.4f} ms at the "
+        "card's memory rate".format(
+            label, b, n, c, c_main, "none" if g_extra is None else "given",
+            cells, tuple(g.stride()), distinct, int(inside.sum()),
+            ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items()),
+            parts["wrapper"] / parts["torch.gather"], *bound(nbytes),
+            *bound(old), sectors, sectors * 32 / 1e6,
+            bound(32 * sectors + 4 * (keys.numel() + b * n * c))[0]))
+    return parts
+
+
+def train_rates(step, model, optimizer, batch, iters):
+    """Train scans/s through the kernels in two halves of iters // 2 steps
+    after one warm-up step, cudnn.benchmark on."""
+    import torch
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    step(model, optimizer, batch)
+    return [round(timed_train_scans_per_s(step, model, optimizer, batch,
+                                          iters // 2), 2) for _ in range(2)]
 
 
 def parts_one(tree):
     """One process of `--parts`: the package of `tree` (a checkout, first
-    on sys.path) built and timed at both calls of the one-layer K1 (KITTI
-    serving, KITTI training) and of K7 (the nuScenes voxel BEV, the
-    CenterPoint-pillars train canvas), K6 and K13, which launch K7's kernel
-    (the nuScenes pillar canvas, tools/bench_scatter_rw.py's shape), with
-    the scans/s of those four
-    cells through the kernels (KITTI serving 20 forwards, training 20
-    steps, voxels 10 forwards, pillar training 10 steps, each in two halves
-    after warm-up, cudnn.benchmark on)."""
+    on sys.path) built, then K5 at its four calls (the train steps of
+    KITTI pillars, CenterPoint-pillars, CenterPoint-voxels and Voxel-RCNN,
+    on the inputs each step hands it) and K11 at its three shapes (the
+    Voxel-RCNN train step's call, 8 x 1,000 x 1,000 clustered boxes, the tie
+    lattice), each held bit for bit and timed in parts (k5_parts,
+    k11_parts), with the train scans/s of those four cells through the
+    kernels (20, 10, 10 and 6 steps, each in two halves after a warm-up
+    step, cudnn.benchmark on)."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
     import paddle3d_tpu_torch
     from paddle3d_tpu_torch.apis import Config, make_train_step
-    from paddle3d_tpu_torch.ops import fused_pfn, pillar_ops, sorted_scatter
+    from paddle3d_tpu_torch.ops import iou_clip, sorted_scatter
+    from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
     log("card: {}; parts of the package in {}".format(
         card(), os.path.dirname(os.path.dirname(
             os.path.abspath(paddle3d_tpu_torch.__file__)))))
@@ -3719,82 +3863,56 @@ def parts_one(tree):
     dev = torch.device("cuda")
     rates = {}
 
-    def halves(fn, iters):
-        return [round(fn(iters // 2), 2) for _ in range(2)]
+    def gather_call(label, step, model, optimizer, batch):
+        """K5's inputs at one train step of a path."""
+        with recorded(sorted_scatter, "sorted_table_gather") as calls:
+            step(model, optimizer, batch)
+        check(len(calls) == 1, "{}: expected one K5 call a train step, got "
+              "{}".format(label, len(calls)))
+        return calls[0][0]
 
-    model = Config(path=KITTI, device=dev).model.eval()
-    points = make_points(dev)
-    vox, pfn, mid = model.voxelizer, model.pillar_encoder, \
-        model.middle_encoder
-    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
-                                                 vox.point_cloud_range)
-    w1t, b1, _, _ = pillar_ops.pfn_folded_weights(pfn)
-    k1_parts("KITTI serving", keys, pts_t, w1t, b1, dict(
-        P=pfn.max_num_points_in_voxel, maxV=vox.max_num_voxels_for(False),
-        nx=mid.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
-        y_off=pfn.y_offset, with_distance=pfn.with_distance, occupancy=True))
-    k1_parts("KITTI training", *k1_train_call(model, points))
-    for _ in range(3):
-        model.test_forward({"data": points})
-    rates["KITTI serving"] = halves(
-        lambda i: timed_scans_per_s(model, points, i), ITERS)
-    del model
     cfg = Config(path=KITTI, device=dev)
     model = cfg.model.train()
     step = make_train_step(lr_scheduler=cfg.lr_scheduler)
-    batch = make_train_batch(dev, points)
-    for _ in range(3):
-        step(model, cfg.optimizer, batch)
-    rates["KITTI training"] = halves(lambda i: timed_train_scans_per_s(
-        step, model, cfg.optimizer, batch, i), 20)
-    del model, cfg, step, batch, keys, pts_t
-
-    model = build_centerpoint(dev, VOXELS)
-    points = make_cp_points(dev, "centerpoint_voxels", VX_BATCH)
-    with recorded(sorted_scatter, "sorted_segment_sum") as bevs:
-        model.test_forward({"data": points})
-    check(len(bevs) == 1, "expected one dense BEV sum a voxel forward")
-    k7_parts("the nuScenes voxel BEV", *bevs[0][0], False)
-    del bevs
-    model.test_forward({"data": points})
-    rates["nuScenes voxels"] = halves(
-        lambda i: timed_scans_per_s(model, points, i), 10)
-    del model, points
-
-    model = build_centerpoint(dev)
-    points = make_cp_points(dev)
-    vox, pfn, mid = model.voxelizer, model.voxel_encoder, \
-        model.middle_encoder
-    keys, pts_t = pillar_ops.sort_points_by_cell(points, vox.voxel_size,
-                                                 vox.point_cloud_range)
-    cells = mid.ny * mid.nx
-    rows_t = fused_pfn.fused_pfn_rows(
-        keys, pts_t, *pillar_ops.pfn_folded_weights(pfn), n_layers=2,
-        P=pfn.max_num_points_in_voxel, maxV=vox.max_num_voxels_for(False),
-        nx=mid.nx, vx=pfn.vx, vy=pfn.vy, x_off=pfn.x_offset,
-        y_off=pfn.y_offset, with_distance=pfn.with_distance, occupancy=False)
-    cm_parts("K6 at the nuScenes pillar canvas", lambda: (
-        sorted_scatter.sorted_segment_sum_cm(keys, rows_t, cells)), keys,
-        rows_t, cells)
-    del model, points, keys, pts_t, rows_t
-    rkeys, rrows = rw_inputs(dev, *RW_CASES[0])
-    cm_parts("K13 at tools/bench_scatter_rw.py's shape", lambda: (
-        sorted_scatter.sorted_segment_sum_rw(rkeys, rrows, RW_CASES[0][2],
-                                             RW_CASES[0][3])), rkeys, rrows,
-        RW_CASES[0][3])
-    del rkeys, rrows
+    batch = make_train_batch(dev, make_points(dev))
+    k5_parts("the KITTI pillar train step", *gather_call(
+        "KITTI", step, model, cfg.optimizer, batch))
+    rates["KITTI training"] = train_rates(step, model, cfg.optimizer, batch,
+                                          20)
+    del cfg, model, step, batch
 
     model, optimizer, _, step, batch = cp_train_setup(dev)
-    with recorded(sorted_scatter, "scatter_rows") as calls:
-        step(model, optimizer, batch)
-    check(len(calls) == 1, "expected one row-major sum a pillar train step")
-    k7_parts("the CenterPoint-pillars train canvas", *calls[0][0])
-    del calls
-    step(model, optimizer, batch)
-    rates["CenterPoint-pillars training"] = halves(
-        lambda i: timed_train_scans_per_s(step, model, optimizer, batch, i),
-        10)
-    log("  scans/s through the kernels, two halves each: {}".format(rates))
+    k5_parts("the CenterPoint-pillars train step", *gather_call(
+        "CenterPoint-pillars", step, model, optimizer, batch))
+    rates["CenterPoint-pillars training"] = train_rates(
+        step, model, optimizer, batch, 10)
+    del model, optimizer, step, batch
+
+    model, optimizer, _, step, batch = vx_train_setup(dev)
+    k5_parts("the CenterPoint-voxels train step", *gather_call(
+        "CenterPoint-voxels", step, model, optimizer, batch))
+    rates["CenterPoint-voxels training"] = train_rates(
+        step, model, optimizer, batch, 10)
+    del model, optimizer, step, batch
+
+    with deterministic():
+        model, optimizer, _, step, batch, _ = ts_train_setup(dev, VOXEL_RCNN)
+        with recorded(iou_clip, "pairwise_intersection_area") as ious:
+            gathered = gather_call("Voxel-RCNN", step, model, optimizer,
+                                   batch)
+    check(len(ious) == 1, "expected one K11 call a Voxel-RCNN train step")
+    k5_parts("the Voxel-RCNN train step", *gathered)
+    k11_parts("the Voxel-RCNN train step", *ious[0][0])
+    del ious, gathered
+    rates["Voxel-RCNN training"] = train_rates(step, model, optimizer, batch,
+                                               6)
+    del model, optimizer, step, batch
+    for label, (a, b) in (("8 x 1000 x 1000 clustered boxes",
+                           clustered_boxes(dev)),
+                          ("the tie lattice", tie_lattice(dev))):
+        k11_parts(label, boxes_to_corners_bev(a), boxes_to_corners_bev(b))
+    log("  train scans/s through the kernels, two halves each: {}".format(
+        rates))
 
 
 def parts_main(trees):

@@ -60,19 +60,50 @@
 // MXU products, cap-aligned DMA windows and prefetch slots are TPU
 // workarounds and have no counterpart here.
 //
-// K5: grad_rows[b, i] = g[b, keys[b, i]], zero where the key lies outside
-// [0, num_cells) (the sentinel 2^31-1 included). Replaces
+// K5: grad_rows[b, i] = [g | g_extra][b, keys[b, i]], zero where the key
+// lies outside [0, num_cells) (the sentinel 2^31-1 included). Replaces
 // sorted_scatter.py:_kernel_tg (entry _sorted_table_gather_tg): the TPU
 // kernel's one-hot window matmuls and serial chunk walks exist because a
-// row gather is slow there; here it is a gather. Bandwidth-bound: at KITTI
-// it reads ~42 MB of table rows (of a 446 MB table) and writes ~42 MB. The
-// cotangent g [B, cells, c_main] is read through its strides (autograd
-// hands the canvas cotangent over channel-major, a view of the backbone's
-// NCHW gradient), so a block stages 32 rows x all channels in shared
-// memory: the table is read along the sorted keys, row fastest, and the
-// [B, N, C] rows are written channel fastest. In the split form the last
-// channel comes from g_extra [B, cells] (strided alike), or is zero when
-// the occupancy had no cotangent (g_extra null).
+// row gather is slow there; here it is a gather. It runs once a train step
+// after K2 or K7: the KITTI pillar canvas (8 x 20,000 rows x 65 channels,
+// split, the occupancy with no cotangent), the CenterPoint-pillars canvas
+// (8 x 250,000 x 64), and the dense BEVs of the voxel and two-stage
+// trainings.
+//
+// What bounds it on the H100: bytes. The rows written ([B, N, c], ~42 MB
+// at KITTI, ~512 MB at CenterPoint-pillars) and each distinct cell's c
+// values read once. The cotangent g [B, cells, c_main] comes through its
+// strides: autograd hands the pillar canvases' over channel-major (a view
+// of the backbone's NCHW gradient), the dense BEVs' row-major. Read
+// channel-major, a cell's channel is 4 bytes of a 32-byte sector that only
+// occupied neighbours share: at KITTI (~4 % of the cells occupied) the
+// values needed lie in ~97 MB of sectors, more than the 42 MB written, and
+// that, not the count of distinct values, is the floor there. The first
+// design staged 32 rows a block and read a value per (row, channel), once
+// per row that names the cell, one load at a time a thread.
+//
+// Design: a block of 256 threads owns R consecutive rows of one scan (R =
+// 8,192 / c rounded down to a multiple of 4, within [4, 1024]: 128 at
+// c = 64, 124 at 65; halved, to at least 16, while the grid would give the
+// card fewer than 12 blocks an SM, since a block's phases run one after
+// another and only overlapping blocks keep the memory busy). It loads its
+// keys, marks the run heads (an in-range key that differs from the row
+// before; the block's first row heads its run) with a ballot a 32-row
+// chunk, numbers them by a scan of the chunks' counts and lists the
+// distinct cells. It reads each listed cell's c values once into a shared
+// table [D][c | 1], eight loads in flight a thread: for a row-major
+// cotangent (gsc == 1) lanes run along the channels, 16 bytes a load where
+// aligned; otherwise (channel-major) along the listed cells, a channel at
+// a time, so that neighbouring occupied cells share sectors. g_extra, or
+// zero where it is null, fills channel c - 1 in the split form. The
+// block's output out[b, r0:r0 + R, :] is R * c contiguous floats, written
+// as one stream of 16-byte streaming stores (__stcs of float4) between a
+// scalar head and tail; each element comes from the table through its
+// row's index into the list, or is 0 for an out-of-range key. A run longer
+// than R is read again by each block it reaches (the ~1,000-row corner
+// cells of a clipped scan: a few reads of one cell). It is a copy, so it
+// equals the plain torch.gather version bit for bit, whatever the keys'
+// order.
 //
 // K6 and K13: out[b, cell, ch] = sum of rows_cm[b, ch, i] over i < N with
 // keys[b, i] == cell, from channel-major rows. One kernel replaces three TPU
@@ -416,46 +447,220 @@ __global__ void __launch_bounds__(kK2Threads)
   }
 }
 
-constexpr int kTileRows = 32;
+// K5: a block owns rows of one scan (tg_rows), as many as keep its table
+// of distinct cells (at most one a row) within kTgTableFloats
+constexpr int kTgThreads = 256;
+constexpr int kTgTableFloats = 8192;
+constexpr int kTgMaxRows = 1024;
+constexpr int kTgMinRows = 16;
+constexpr int kTgDepth = 8;   // table loads in flight a thread
 
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int tg_rows(int c) {
+  const int r = (kTgTableFloats / c) & ~3;
+  return r < 4 ? 4 : (r > kTgMaxRows ? kTgMaxRows : r);
+}
+
+// bytes of dynamic shared memory for rows r at c channels: the table
+// [r][c | 1], the keys [r], each row's distinct index [r], the distinct
+// cells [r], the heads a 32-row chunk [32] and their count
+constexpr size_t tg_smem(int r, int c) {
+  return (static_cast<size_t>(r) * (c | 1) + 3 * static_cast<size_t>(r) +
+          33) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kTgThreads)
     sorted_table_gather_kernel(const int* __restrict__ keys,
                                const float* __restrict__ g, long long gsb,
                                long long gsk, long long gsc,
                                const float* __restrict__ g_extra,
                                long long esb, long long esk,
                                float* __restrict__ out, int n, int c,
-                               int c_main, int num_cells) {
-  extern __shared__ float s_tile[];  // [c][kTileRows + 1]
-  __shared__ int s_key[kTileRows];
+                               int c_main, int num_cells, int rows_a_block) {
+  extern __shared__ float s_tg[];
+  const int cp = c | 1;  // odd pitch: a warp along cells hits 32 banks
+  const int R = rows_a_block;
+  float* s_tab = s_tg;
+  int* s_key = reinterpret_cast<int*>(s_tab + static_cast<size_t>(R) * cp);
+  int* s_idx = s_key + R;
+  int* s_cell = s_idx + R;
+  int* s_chunk = s_cell + R;  // [32], then the distinct count
   const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kTileRows;
-  const int* kb = keys + static_cast<size_t>(b) * n;
-  for (int r = threadIdx.x; r < kTileRows; r += blockDim.x) {
-    s_key[r] = i0 + r < n ? kb[i0 + r] : -1;
+  const int r0 = blockIdx.x * R;
+  const int rows = min(R, n - r0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int* kb = keys + static_cast<size_t>(b) * n + r0;
+  for (int r = tid; r < rows; r += kTgThreads) s_key[r] = kb[r];
+  __syncthreads();
+
+  // run heads: an in-range key that differs from the row before (the
+  // block's first row always heads); each row's running head count within
+  // its 32-row chunk, the chunk's count
+  const int chunks = (rows + 31) >> 5;
+  for (int ch = tid >> 5; ch < chunks; ch += kTgThreads / 32) {
+    const int r = (ch << 5) + lane;
+    const int k = r < rows ? s_key[r] : -1;
+    const bool in = r < rows && k >= 0 && k < num_cells;
+    const bool head = in && (r == 0 || s_key[r - 1] != k);
+    const unsigned ballot = __ballot_sync(0xffffffffu, head);
+    if (r < rows) s_idx[r] = __popc(ballot & (0xffffffffu >> (31 - lane)));
+    if (lane == 0) s_chunk[ch] = __popc(ballot);
   }
   __syncthreads();
-  for (int f = threadIdx.x; f < c * kTileRows; f += blockDim.x) {
-    const int ch = f / kTileRows;
-    const int r = f - ch * kTileRows;
+  if (tid < 32) {
+    const int v = tid < chunks ? s_chunk[tid] : 0;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += u;
+    }
+    if (tid < chunks) s_chunk[tid] = incl - v;
+    if (tid == 31) s_chunk[32] = incl;
+  }
+  __syncthreads();
+  // each row's index into the distinct list (-1 out of range); the heads
+  // list their cells
+  for (int r = tid; r < rows; r += kTgThreads) {
     const int k = s_key[r];
-    float v = 0.f;
-    if (k >= 0 && k < num_cells) {
-      if (ch < c_main) {
-        v = g[b * gsb + k * gsk + ch * gsc];
-      } else if (g_extra != nullptr) {
-        v = g_extra[b * esb + k * esk];
+    const bool in = k >= 0 && k < num_cells;
+    const int idx = in ? s_chunk[r >> 5] + s_idx[r] - 1 : -1;
+    if (in && (r == 0 || s_key[r - 1] != k)) s_cell[idx] = k;
+    s_idx[r] = idx;
+  }
+  __syncthreads();
+
+  // each distinct cell's c values, read once, kTgDepth loads in flight a
+  // thread (one at a time left each thread a chain of device-memory waits)
+  const int D = s_chunk[32];
+  const float* gb = g + b * gsb;
+  if (gsc == 1 && (c_main & 3) == 0 && (gsk & 3) == 0 && (gsb & 3) == 0 &&
+      (reinterpret_cast<size_t>(g) & 15) == 0) {
+    // row-major and aligned: lanes along the channels, 16 bytes a load
+    const int q4 = c_main >> 2;
+    const int total = D * q4;
+    for (int f0 = tid; f0 < total; f0 += kTgDepth * kTgThreads) {
+      float4 v[kTgDepth];
+      int to[kTgDepth];
+#pragma unroll
+      for (int u = 0; u < kTgDepth; ++u) {
+        const int f = f0 + u * kTgThreads;
+        to[u] = -1;
+        if (f < total) {
+          const int d = f / q4;
+          const int ch = (f - d * q4) << 2;
+          to[u] = d * cp + ch;
+          v[u] = __ldg(reinterpret_cast<const float4*>(gb + s_cell[d] * gsk +
+                                                       ch));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTgDepth; ++u) {
+        if (to[u] >= 0) {
+          float* t = s_tab + to[u];
+          t[0] = v[u].x;
+          t[1] = v[u].y;
+          t[2] = v[u].z;
+          t[3] = v[u].w;
+        }
       }
     }
-    s_tile[ch * (kTileRows + 1) + r] = v;
+  } else {
+    // row-major unaligned: lanes along the channels; channel-major (or any
+    // other strides): lanes along the distinct cells, which sorted keys
+    // make ascending, a channel at a time
+    const bool rm = gsc == 1;
+    const int total = D * c_main;
+    for (int f0 = tid; f0 < total; f0 += kTgDepth * kTgThreads) {
+      float v[kTgDepth];
+      int to[kTgDepth];
+#pragma unroll
+      for (int u = 0; u < kTgDepth; ++u) {
+        const int f = f0 + u * kTgThreads;
+        to[u] = -1;
+        if (f < total) {
+          const int d = rm ? f / c_main : f % D;
+          const int ch = rm ? f - d * c_main : f / D;
+          to[u] = d * cp + ch;
+          v[u] = __ldg(gb + s_cell[d] * gsk + ch * gsc);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTgDepth; ++u) {
+        if (to[u] >= 0) s_tab[to[u]] = v[u];
+      }
+    }
+  }
+  if (c > c_main) {
+    for (int d = tid; d < D; d += kTgThreads) {
+      s_tab[d * cp + c_main] =
+          g_extra != nullptr ? __ldg(g_extra + b * esb + s_cell[d] * esk)
+                             : 0.f;
+    }
   }
   __syncthreads();
-  float* ob = out + (static_cast<size_t>(b) * n + i0) * c;
-  for (int f = threadIdx.x; f < kTileRows * c; f += blockDim.x) {
-    const int r = f / c;
-    const int ch = f - r * c;
-    if (i0 + r < n) ob[f] = s_tile[ch * (kTileRows + 1) + r];
+
+  // the block's rows, out[b, r0:r0 + rows, :], as one stream: 16-byte
+  // streaming stores between a scalar head and tail
+  float* ob = out + (static_cast<size_t>(b) * n + r0) * c;
+  const int len = rows * c;
+  const int head = min(
+      len, static_cast<int>((16 - (reinterpret_cast<size_t>(ob) & 15)) & 15) >>
+               2);
+  auto value = [&](int e) {
+    const int r = e / c;
+    const int idx = s_idx[r];
+    return idx >= 0 ? s_tab[idx * cp + (e - r * c)] : 0.f;
+  };
+  if (tid < head) __stcs(ob + tid, value(tid));
+  const int body = (len - head) >> 2;
+  float4* o4 = reinterpret_cast<float4*>(ob + head);
+  for (int q = tid; q < body; q += kTgThreads) {
+    const int e = head + (q << 2);
+    int r = e / c;
+    int ch = e - r * c;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = s_idx[r];
+      v[u] = idx >= 0 ? s_tab[idx * cp + ch] : 0.f;
+      if (++ch == c) {
+        ch = 0;
+        ++r;
+      }
+    }
+    __stcs(o4 + q, make_float4(v[0], v[1], v[2], v[3]));
   }
+  const int tail = head + (body << 2);
+  if (tail + tid < len) __stcs(ob + tail + tid, value(tail + tid));
+}
+
+// K5 on `stream` with `rows` rows a block
+int launch_table_gather(const int* keys, const float* g, long long gsb,
+                        long long gsk, long long gsc, const float* g_extra,
+                        long long esb, long long esk, float* out, int b,
+                        int n, int c, int c_main, int num_cells, int rows,
+                        void* stream) {
+  if (c_main > c || c_main < c - 1 || b < 0 || n < 0 || c < 0 || rows < 4 ||
+      rows > kTgMaxRows || (rows & 3) != 0 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || n == 0 || c == 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = tg_smem(rows, c);
+  static size_t smem_set = 48 * 1024;  // the most the kernel may take so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sorted_table_gather_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  const dim3 grid((n + rows - 1) / rows, b);
+  sorted_table_gather_kernel<<<grid, kTgThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      keys, g, gsb, gsk, gsc, g_extra, esb, esk, out, n, c, c_main,
+      num_cells, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kCmThreads = 512;
@@ -1053,10 +1258,12 @@ extern "C" int p3d_sorted_segment_sum(const int* keys, const float* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// keys [b, n] int32; g: element (b, cell, ch) at g[b*gsb + cell*gsk +
-// ch*gsc], ch < c_main; g_extra (nullable): element (b, cell) at
-// g_extra[b*esb + cell*esk], the channel c_main when c > c_main; out
-// [b, n, c] contiguous. Returns cudaGetLastError().
+// K5. keys [b, n] int32 (sorted ascending per batch row for the path's
+// speed; any order gives the same result); g: element (b, cell, ch) at
+// g[b*gsb + cell*gsk + ch*gsc], ch < c_main; g_extra (nullable): element
+// (b, cell) at g_extra[b*esb + cell*esk], the channel c_main when c >
+// c_main; out [b, n, c] contiguous, every element written; b <= 65,535.
+// Returns cudaGetLastError().
 extern "C" int p3d_sorted_table_gather(const int* keys, const float* g,
                                        long long gsb, long long gsk,
                                        long long gsc, const float* g_extra,
@@ -1064,24 +1271,26 @@ extern "C" int p3d_sorted_table_gather(const int* keys, const float* g,
                                        float* out, int b, int n, int c,
                                        int c_main, int num_cells,
                                        void* stream) {
-  if (c_main > c || c_main < c - 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (b == 0 || n == 0 || c == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(c) * (kTileRows + 1) *
-                      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sorted_table_gather_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // tg_rows(c), halved (to at least kTgMinRows) while the grid would give
+  // the card fewer than 12 blocks an SM: a block's phases (keys, table
+  // reads, row writes) run one after another, so the memory stays busy
+  // only where several blocks an SM overlap theirs
+  int rows = c > 0 ? tg_rows(c) : 4;
+  if (rows > kTgMinRows && b > 0 && n > 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
+    while (rows > kTgMinRows &&
+           static_cast<long long>(b) * ((n + rows - 1) / rows) < 12LL * sms) {
+      rows = ((rows >> 1) & ~3) < kTgMinRows ? kTgMinRows
+                                             : ((rows >> 1) & ~3);
+    }
   }
-  const dim3 grid((n + kTileRows - 1) / kTileRows, b);
-  sorted_table_gather_kernel<<<grid, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      keys, g, gsb, gsk, gsc, g_extra, esb, esk, out, n, c, c_main,
-      num_cells);
-  return static_cast<int>(cudaGetLastError());
+  return launch_table_gather(keys, g, gsb, gsk, gsc, g_extra, esb, esk, out,
+                             b, n, c, c_main, num_cells, rows, stream);
 }
 
 // K6. keys [b, n] int32 sorted ascending per batch row; rows: element

@@ -4,10 +4,11 @@ Port of paddle3d_tpu/ops/pallas/iou_clip.py (TPU kernel `_clip_area_kernel`,
 K11, entry pairwise_intersection_area_pallas), which computes the slot-list
 clip of paddle3d_tpu/ops/iou3d_nms.py:_pairwise_intersection_area. On a CUDA
 tensor `pairwise_intersection_area` launches the hand-written kernel in
-csrc/iou_clip.cu (whose header says what bounds it and how it is built); on a
-CPU tensor it takes the plain PyTorch version below. The two agree bit for
-bit: the kernel rounds every operation on its own in the plain version's
-order.
+csrc/iou_clip.cu (whose header says what bounds it and how it is built: the
+guard over a tile of pairs, then each passing pair's clip spread over a
+group of lanes); on a CPU tensor it takes the plain PyTorch version below.
+The two agree bit for bit: the kernel rounds every operation on its own in
+the plain version's order.
 
 The plain version is the XLA slot-list form op for op (no-compaction
 Sutherland-Hodgman: every clip stage emits two slots per slot, outside
@@ -24,6 +25,8 @@ __all__ = ["pairwise_intersection_area",
            "pairwise_intersection_area_plain"]
 
 _EPS = 1e-7
+#: batch rows one launch takes (the kernel's grid carries them on its y axis)
+MAX_BATCH = 65535
 
 
 def _circle(q: torch.Tensor):
@@ -105,6 +108,9 @@ def _launch(ca, cb):
     ca3 = ca.reshape(-1, n, 4, 2).contiguous()
     cb3 = cb.reshape(-1, m, 4, 2).contiguous()
     b = ca3.shape[0]
+    if b > MAX_BATCH:
+        raise ValueError("pairwise_intersection_area takes at most {} batch "
+                         "rows a call, got {}".format(MAX_BATCH, b))
     out = torch.empty((b, n, m), dtype=torch.float32, device=ca.device)
     err = _build.function("p3d_pairwise_intersection_area")(
         ca3.data_ptr(), cb3.data_ptr(), out.data_ptr(), b, n, m,

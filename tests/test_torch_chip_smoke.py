@@ -1,7 +1,9 @@
 """CPU tests of chip_smoke.py's helpers that phase 11's reproducibility
 check rests on: the saved train state restores to the same trajectory every
 time, the deterministic mode is scoped to its block, and bit-pattern
-equality tells -0 from +0 in f32 and f64."""
+equality tells -0 from +0 in f32 and f64; and of the work counts that the
+table gather's (K5) bound and the rotated-box intersection's (K11) chain
+floor rest on."""
 import pytest
 import torch
 
@@ -75,3 +77,61 @@ def test_same_bits_tells_signed_zeros_apart(dtype):
     assert not chip_smoke.same_bits(a, a.to(torch.float64 if dtype ==
                                             torch.float32 else
                                             torch.float32))
+
+
+SENT = 2**31 - 1
+
+
+@pytest.mark.parametrize("split,extra", [(False, False), (True, False),
+                                         (True, True)])
+def test_gather_work_counts_each_distinct_cell_once(split, extra):
+    """K5's bound reads the keys, each distinct in-range cell of a scan once
+    (c_main values, one more where g_extra is given) and writes the rows;
+    the earlier count read c_main values for every in-range row."""
+    keys = torch.tensor([[0, 0, 1, SENT, SENT, SENT],
+                         [-1, 3, 3, 3, 5, 7]], dtype=torch.int32)
+    cells, c = 6, 65
+    c_main = c - 1 if split else c
+    g = torch.zeros((2, cells, c_main))
+    g_extra = torch.zeros((2, cells, 1)) if extra else None
+    nbytes, old, distinct = chip_smoke.gather_work(keys, g, g_extra, cells, c)
+    assert distinct == 4                # {0, 1} and {3, 5}; -1, 7, SENT out
+    assert nbytes == 4 * (12 + 4 * (c_main + int(extra)) + 12 * c)
+    assert old == 4 * (12 + 7 * c_main + 12 * c)
+
+
+def test_gather_work_counts_a_cell_in_two_scans_twice():
+    keys = torch.tensor([[2, 2, 2], [2, 2, SENT]], dtype=torch.int32)
+    g = torch.zeros((2, 4, 8))
+    assert chip_smoke.gather_work(keys, g, None, 4, 8)[2] == 2
+
+
+def test_iou_chain_pair_clips_one_pair():
+    """K11's chain floor times one pair that passes the guard and has an
+    area to clip: the work count sees one pair, clipped."""
+    from paddle3d_tpu_torch.ops import iou_clip
+    ca, cb = chip_smoke.iou_chain_pair("cpu")
+    assert ca.shape == cb.shape == (1, 1, 4, 2)
+    nbytes, ops, pairs, clipped = chip_smoke.iou_work(ca, cb)
+    assert (pairs, clipped) == (1, 1)
+    assert nbytes == 4 * (8 + 8 + 1)
+    assert ops == (2 * chip_smoke.IOU_BOX_OPS + chip_smoke.IOU_EDGE_OPS +
+                   chip_smoke.IOU_GUARD_OPS + chip_smoke.IOU_CLIP_OPS)
+    area = iou_clip.pairwise_intersection_area_plain(ca, cb).item()
+    assert 4.0 < area < 8.0             # two 4 x 2 m boxes, 0.3 rad apart
+
+
+def test_gather_sectors_counts_the_sectors_the_values_lie_in():
+    """Channel-major: each needed value of a lone cell lies in a sector of
+    its own channel; eight neighbouring cells share one a channel.
+    Row-major: a cell's 64 channels fill eight sectors."""
+    keys = torch.tensor([[0, 1, 2, 3, 4, 5, 6, 7, 64, SENT]],
+                        dtype=torch.int32)
+    cm = torch.zeros((1, 64, 128)).transpose(1, 2)      # strides (.., 1, 128)
+    rm = torch.zeros((1, 128, 64))
+    first = cm.data_ptr() // 4 % 8
+    # cells 0-7 span one or two sectors a channel, cell 64 one more
+    assert chip_smoke.gather_sectors(keys, cm, 128) == 64 * (
+        (1 if first == 0 else 2) + 1)
+    if rm.data_ptr() % 32 == 0:
+        assert chip_smoke.gather_sectors(keys, rm, 128) == 9 * 8

@@ -658,16 +658,77 @@ def test_pfn_train_refuse_wide_layers(cuda):
     assert _build.LAUNCHES["pfn_stats"] == before
 
 
-@pytest.mark.parametrize("split,extra", [(False, False), (True, True),
-                                         (True, False)])
-def test_sorted_table_gather_matches_plain(cuda, split, extra):
-    keys, _ = _scatter_inputs(2, c=1)
-    keys = keys.to(cuda)
-    b, cells, c = keys.shape[0], 214272, 65
-    rng = np.random.default_rng(5)
-    # channel-major, as the canvas cotangent arrives from the NCHW backbone
-    g = torch.from_numpy(rng.normal(0, 1, (b, c, cells)).astype(
-        np.float32)).to(cuda).transpose(1, 2)
+def _gather_keys(case, b=4, n=5000, cells=30000):
+    """Sorted keys for K5: random cells with a sentinel tail, an empty scan,
+    a 300-row run and keys below 0; every key the sentinel; a run of 1,500
+    rows across block boundaries; n not a multiple of 4."""
+    rng = np.random.default_rng(2)
+    if case == "odd n":
+        n = 4999
+    keys = np.sort(rng.integers(0, cells, (b, n)), axis=1)
+    keys[:, -500:] = SENT
+    keys[1] = SENT                              # an empty batch row
+    keys[0, 100:400] = keys[0, 100]             # a long duplicate run
+    keys[2, :7] = -1                            # below the grid
+    if case == "long run":
+        keys[3, 1000:2500] = keys[3, 1000]
+    if case == "sentinel":
+        keys[:] = SENT
+    return torch.from_numpy(np.sort(keys, axis=1).astype(np.int32))
+
+
+# (layout, c, split, g_extra given, keys): the cotangent channel-major ("cm",
+# the pillar canvas's NCHW gradient), row-major ("rm"; "rm offset" not
+# 16-byte aligned), the dense BEV's permuted gradient over 2 z planes (a
+# row-major copy) and over 1 (a channel-major view), and other strides
+GATHER_CASES = (
+    ("cm", 65, True, False, "random"), ("cm", 65, True, True, "random"),
+    ("cm", 65, False, False, "random"), ("rm", 64, False, False, "random"),
+    ("rm", 65, True, True, "random"), ("rm", 256, False, False, "random"),
+    ("rm offset", 64, False, False, "random"),
+    ("cm", 256, False, False, "long run"), ("bev", 64, False, False, "random"),
+    ("bev1", 64, False, False, "random"), ("strided", 65, True, True, "random"),
+    ("cm", 1, False, False, "random"), ("rm", 1, False, False, "random"),
+    ("cm", 64, False, False, "sentinel"), ("rm", 65, True, False, "sentinel"),
+    ("cm", 65, True, False, "long run"), ("rm", 64, False, False, "odd n"),
+    ("cm", 65, True, True, "odd n"))
+
+
+def _cotangent(layout, b, cells, c, gen, device):
+    """g [b, cells, c] in the layout named."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    if layout == "cm":
+        return randn(b, c, cells).transpose(1, 2)
+    if layout == "rm":
+        return randn(b, cells, c)
+    if layout == "rm offset":
+        return randn(b, cells, c + 1)[..., 1:]
+    if layout == "strided":
+        return randn(b, cells, 2 * c)[..., ::2]
+    # the dense BEV: canvas [b, d*h*w, c] -> [b, h, w, d*c] -> NCHW; its
+    # gradient back through the same views (a copy where they do not merge)
+    d = 2 if layout == "bev" else 1
+    h, w = 100, cells // (100 * d)
+    g_nchw = randn(b, d * c, h, w)
+    return g_nchw.permute(0, 2, 3, 1).reshape(b, h, w, d, c).permute(
+        0, 3, 1, 2, 4).reshape(b, d * h * w, c)
+
+
+@pytest.mark.parametrize("layout,c,split,extra,keys_case", GATHER_CASES)
+def test_sorted_table_gather_matches_plain(cuda, layout, c, split, extra,
+                                           keys_case):
+    """K5 bit for bit against its plain version (a gather: tolerance 0) at
+    every layout the paths hand it, split with and without g_extra, at
+    c = 1 to 256, on sentinel-only scans, long runs and odd n."""
+    keys = _gather_keys(keys_case).to(cuda)
+    b, cells = keys.shape[0], 30000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = _cotangent(layout, b, cells, c, gen, cuda)
+    if layout == "bev":
+        assert g.is_contiguous()
+    if layout == "bev1":
+        assert g.stride()[1] == 1
     g_main = g[..., :-1] if split else g
     g_extra = g[..., -1:] if extra else None
     before = _build.LAUNCHES["sorted_table_gather"]
@@ -676,10 +737,13 @@ def test_sorted_table_gather_matches_plain(cuda, split, extra):
     assert _build.LAUNCHES["sorted_table_gather"] == before + 1
     ref = sorted_scatter.sorted_table_gather_plain(keys, g_main, g_extra,
                                                    cells, c)
-    torch.testing.assert_close(got, ref, rtol=0, atol=0)   # a gather
-    assert not got[keys == SENT].any()
+    assert _same_bits(got, ref)
+    inside = (keys >= 0) & (keys < cells)
+    assert not got[~inside].any()
     if split and not extra:
         assert not got[..., -1].any()
+    if keys_case == "sentinel":
+        assert not got.any()
 
 
 def test_train_canvas_on_card_matches_cpu(cuda):
@@ -1850,60 +1914,109 @@ def test_two_layer_train_canvas_on_card_matches_cpu(cuda, tmp_path):
         _close(got, ref, 1e-5)
 
 
-def _iou_cases(device):
-    """(name, corners a, corners b): clustered car-sized boxes and jittered
+IOU_CASES = ("clustered", "lattice", "degenerate", "far", "unbatched",
+             "all past the guard", "n is 1", "m is 1", "ragged tiles",
+             "zero size", "tie lattice", "grid limit")
+
+
+def _iou_case(name, device):
+    """Corners (a, b) of one K11 case: clustered car-sized boxes and jittered
     copies [4, 100] x [4, 120]; a tie lattice (unit and 2 x 1 m boxes on a
-    1 m lattice, duplicates, yaw a multiple of pi/2); degenerate boxes
-    (zero size, 1 mm) among ordinary ones; far-apart pairs; one unbatched
-    pair of sets."""
+    1 m lattice, duplicates, yaw a multiple of pi/2) and chip_smoke's 8 x 8
+    one; degenerate boxes (zero size, 1 mm) among ordinary ones; far-apart
+    pairs (no pair past the guard); one unbatched pair of sets; boxes that
+    all overlap; n or m of 1; n and m that leave ragged tiles (m past one
+    128-box tile, several A rows a tile); zero-size boxes on the others'
+    centres (past the guard, clipping nothing); the most batch rows a launch
+    takes."""
+    from chip_smoke import tie_lattice
     from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
     rng = np.random.default_rng(11)
-    a = np.zeros((4, 100, 7), np.float32)
-    a[..., :2] = rng.uniform(-20, 20, (4, 100, 2))
-    a[..., 3:6] = rng.uniform([1.4, 3.2, 1.3], [2.0, 4.6, 1.8], (4, 100, 3))
-    a[..., 6] = rng.uniform(-np.pi, np.pi, (4, 100))
-    b = np.concatenate([a, a[:, :20]], axis=1)
-    b[..., :2] += rng.normal(0, 0.8, b[..., :2].shape)
-    b[..., 6] += rng.normal(0, 0.2, b[..., 6].shape)
-    g = np.stack(np.meshgrid(np.arange(6.), np.arange(6.), indexing="ij"),
-                 -1).reshape(-1, 2)
-    lat = np.zeros((2, 36, 7), np.float32)
-    lat[..., :2] = g
-    lat[1, :, :2] += 0.5
-    lat[..., 3:6] = np.where((np.arange(36) % 3 == 0)[:, None], [2, 1, 1],
-                             [1, 1, 1])
-    lat[..., 6] = (np.arange(36) % 4) * np.pi / 2
-    lat_b = lat.copy()
-    lat_b[:, 1::2] = lat[:, ::2]
-    deg = a[:1, :24].copy()
-    deg[0, :4, 3:5] = [[0, 0], [1e-3, 1e-3], [0, 2], [1e-3, 4]]
-    deg[0, 4:8] = deg[0, 8:12]                         # coincident pairs
-    far = a[:1, :24].copy()
-    far[..., 0] += 1000.
-    cases = [("clustered", a, b), ("lattice", lat, lat_b),
-             ("degenerate", deg, deg), ("far", a[:1, :24], far),
-             ("unbatched", a[0], b[0])]
-    return [(name, boxes_to_corners_bev(torch.from_numpy(x).to(device)),
-             boxes_to_corners_bev(torch.from_numpy(y).to(device)))
-            for name, x, y in cases]
+
+    def cars(b, n, spread=20.):
+        x = np.zeros((b, n, 7), np.float32)
+        x[..., :2] = rng.uniform(-spread, spread, (b, n, 2))
+        x[..., 3:6] = rng.uniform([1.4, 3.2, 1.3], [2.0, 4.6, 1.8],
+                                  (b, n, 3))
+        x[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+        return x
+
+    def jitter(x, s=0.8):
+        y = x.copy()
+        y[..., :2] += rng.normal(0, s, y[..., :2].shape)
+        y[..., 6] += rng.normal(0, 0.2, y[..., 6].shape)
+        return y
+
+    a = cars(4, 100)
+    if name == "clustered":
+        x, y = a, jitter(np.concatenate([a, a[:, :20]], axis=1))
+    elif name == "lattice":
+        g = np.stack(np.meshgrid(np.arange(6.), np.arange(6.),
+                                 indexing="ij"), -1).reshape(-1, 2)
+        x = np.zeros((2, 36, 7), np.float32)
+        x[..., :2] = g
+        x[1, :, :2] += 0.5
+        x[..., 3:6] = np.where((np.arange(36) % 3 == 0)[:, None], [2, 1, 1],
+                               [1, 1, 1])
+        x[..., 6] = (np.arange(36) % 4) * np.pi / 2
+        y = x.copy()
+        y[:, 1::2] = x[:, ::2]
+    elif name == "tie lattice":
+        x, y = (t.cpu().numpy() for t in tie_lattice("cpu"))
+    elif name == "degenerate":
+        x = a[:1, :24].copy()
+        x[0, :4, 3:5] = [[0, 0], [1e-3, 1e-3], [0, 2], [1e-3, 4]]
+        x[0, 4:8] = x[0, 8:12]                         # coincident pairs
+        y = x
+    elif name == "far":
+        x, y = a[:1, :24], a[:1, :24].copy()
+        y[..., 0] += 1000.
+    elif name == "unbatched":
+        x, y = a[0], jitter(a[0])[:70]
+    elif name == "all past the guard":
+        x, y = cars(2, 40, 0.5), cars(2, 50, 0.5)
+    elif name == "n is 1":
+        x, y = a[:3, :1], jitter(a[:3, :70])
+    elif name == "m is 1":
+        x, y = a[:3, :70], jitter(a[:3, :1])
+    elif name == "ragged tiles":
+        x = cars(2, 300, 12.)
+        y = jitter(np.concatenate([x[:, :130], x[:, :3]], axis=1))
+    elif name == "zero size":
+        y = cars(2, 60)
+        x = jitter(y[:, :50], 0.)
+        x[..., 3:5] = 0.
+    else:                                   # "grid limit"
+        x = cars(65535, 1, 2.)
+        y = np.concatenate([jitter(x, 0.5), cars(65535, 1, 2.)], axis=1)
+    return (boxes_to_corners_bev(torch.from_numpy(x).to(device)),
+            boxes_to_corners_bev(torch.from_numpy(y).to(device)))
 
 
-def test_pairwise_intersection_area_matches_plain(cuda):
+@pytest.mark.parametrize("case", IOU_CASES)
+def test_pairwise_intersection_area_matches_plain(cuda, case):
     """K11 bit for bit against its plain version: one launch a call, the
     batch on the grid."""
     from paddle3d_tpu_torch.ops import iou_clip
-    for name, ca, cb in _iou_cases(cuda):
-        before = _build.LAUNCHES["pairwise_intersection_area"]
-        got = iou_clip.pairwise_intersection_area(ca, cb)
-        torch.cuda.synchronize()
-        assert _build.LAUNCHES["pairwise_intersection_area"] == before + 1
-        ref = iou_clip.pairwise_intersection_area_plain(ca, cb)
-        assert got.shape == ref.shape, name
-        assert torch.equal(got, ref), (name, (got - ref).abs().max().item())
-        if name in ("clustered", "lattice"):
-            assert (ref > 0).sum() > 50, name
-        if name == "far":
-            assert not got.any()
+    ca, cb = _iou_case(case, cuda)
+    before = _build.LAUNCHES["pairwise_intersection_area"]
+    got = iou_clip.pairwise_intersection_area(ca, cb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pairwise_intersection_area"] == before + 1
+    ref = iou_clip.pairwise_intersection_area_plain(ca, cb)
+    assert got.shape == ref.shape
+    assert _same_bits(got, ref), (got - ref).abs().max().item()
+    if case in ("clustered", "lattice", "tie lattice", "ragged tiles"):
+        assert (ref > 0).sum() > 50
+    if case == "far":
+        assert not got.any()
+    if case == "zero size":
+        from chip_smoke import iou_work
+        assert iou_work(ca, cb)[3] > 50 and not got.any()
+    if case == "all past the guard":
+        from chip_smoke import iou_work
+        _, _, pairs, clipped = iou_work(ca, cb)
+        assert clipped == pairs
 
 
 def test_pairwise_intersection_area_refuses_what_it_cannot_take(cuda):
@@ -1915,6 +2028,11 @@ def test_pairwise_intersection_area_refuses_what_it_cannot_take(cuda):
         iou_clip.pairwise_intersection_area(ca, ca[:1])
     with pytest.raises(ValueError, match="expected"):
         iou_clip.pairwise_intersection_area(ca[..., :1], ca[..., :1])
+    before = _build.LAUNCHES["pairwise_intersection_area"]
+    big = torch.zeros((iou_clip.MAX_BATCH + 1, 1, 4, 2), device=cuda)
+    with pytest.raises(ValueError, match="batch rows"):
+        iou_clip.pairwise_intersection_area(big, big)
+    assert _build.LAUNCHES["pairwise_intersection_area"] == before
 
 
 def test_two_stage_train_step_on_card_matches_cpu(cuda, tmp_path):
