@@ -18,9 +18,11 @@ IA-SSD KITTI serving (configs/iassd/iassd_kitti.yml) on 4 scans of 16,384,
 CenterPoint-pillars nuScenes training on 8 scans of 250,000, Voxel-RCNN
 then PV-RCNN KITTI training on 2 scans of 20,000 (the configs' batch), the
 row-window segment sum and the row gather as ops, CenterPoint-voxels
-nuScenes training on 4 scans of 250,000 and IA-SSD KITTI training on 8 scans
-of 16,384 (the configs' batches), in phases; any failing phase exits
-non-zero and prints no result:
+nuScenes training on 4 scans of 250,000, IA-SSD KITTI training on 8 scans
+of 16,384 (the configs' batches) and SMOKE, the first camera model
+(configs/smoke/smoke_dla34_no_dcn_kitti.yml, full width, seeded random
+weights), serving 1 and 8 images of 384 x 1280 and training on 8, in
+phases; any failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -134,9 +136,9 @@ non-zero and prints no result:
      with finite losses (K10 and K11 each step; the first step's K10 call
      and 7 K9 calls held as in phase 8), its train scans/s, memory, profile
      and stages;
- 12. the row-window channel-major segment sum (K13) and the row gather
-     (K14), which no model path reaches, as ops: each called once at two
-     shapes through its entry point (the launches the record counts), K13
+ 12. the row-window channel-major segment sum (K13), which no model path
+     reaches, and the row gather (K14) as ops: each called once at two
+     shapes through its entry point (K13's launches the record counts), K13
      at tools/bench_scatter_rw.py's 8 x 250,000 x 64 onto 512 x 512 cells
      and at 2 x 5,000 x 64 onto 4,096, bit-equal to the row-order sum (its
      plain version) and to K6, within 1e-5 of index_add_; K14 at
@@ -160,7 +162,22 @@ non-zero and prints no result:
      (10 K9, 3 K10, all held as in phase 9) against one on
      the plain versions from the same state;
      10 steps with finite losses that fall; train scans/s of both paths,
-     peak memory, a profile and the time of each stage.
+     peak memory, a profile and the time of each stage;
+ 15. SMOKE KITTI (DLA-34, 3 classes, 256-channel heads, 50 detections) at
+     tools/bench_camera.py's 384 x 1280 images and intrinsics:
+     test_forward at batch 1 and 8 through the kernels (one K14 launch a
+     forward, nothing else; the decode reads the NCHW regression map in
+     place) and on the plain versions (every output equal by bit
+     pattern); K14 at both decode calls bit for bit against its plain
+     version and a second call, timed through its wrapper, alone, in each
+     form, beside torch.gather, its byte bound and its chain floor (one
+     launch on one float); the tiny config's test_forward on the card
+     against the CPU; frames/s of both paths at batch 1 and 8, peak memory
+     and a profile; training at batch 8 (the config's Adam and
+     PiecewiseDecay, targets from the port's Gt2SmokeTarget; no kernel
+     launches: the loss gathers with torch.gather under autograd), 10
+     steps with finite losses that fall, train frames/s, peak memory and a
+     profile.
 
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -168,13 +185,12 @@ The last two lines are the kernels' JSON record and
     python3 chip_smoke.py --parts TREE [TREE ...]
 
 times, in one process a checkout (TREE: a directory holding the package,
-e.g. a `git archive` of another commit), the sorted table gather (K5) at
-its four train-step calls and the rotated-box intersection (K11) at the
-Voxel-RCNN train step's call, at 8 x 1,000 x 1,000 clustered boxes and on
-the tie lattice, each through its wrapper and its C entry alone, and the
-train scans/s of KITTI pillars, CenterPoint-pillars, CenterPoint-voxels and
-Voxel-RCNN through the kernels (parts_one); list parent, change, change,
-parent to compare two trees on one card.
+e.g. a `git archive` of another commit), the row gather (K14) at
+gather.py's 8 x 1,000 x 7, a voxel-row gather's 4 x 120,000 x 64,
+SMOKE's decode (8 x 50 rows of 10 from the NCHW map, read in place) and
+8 x 100,000 rows of 3, each through its wrapper, its C entry alone and,
+where the tree has them, each of its forms (parts_one); list parent,
+change, change, parent to compare two trees on one card.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
 cuDNN for the comparisons; phase 11's checked steps under
 torch.use_deterministic_algorithms (main() sets CUBLAS_WORKSPACE_CONFIG
@@ -203,6 +219,9 @@ PV_RCNN = os.path.join(REPO, "configs", "pv_rcnn",
 VOXEL_RCNN = os.path.join(REPO, "configs", "voxel_rcnn",
                           "voxel_rcnn_005voxel_kitti_car.yml")
 IASSD = os.path.join(REPO, "configs", "iassd", "iassd_kitti.yml")
+SMOKE_KITTI = os.path.join(REPO, "configs", "smoke",
+                           "smoke_dla34_no_dcn_kitti.yml")
+SMOKE_TINY = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
 BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
 TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
@@ -400,12 +419,13 @@ def segments(keys, P, maxV):
 @contextlib.contextmanager
 def plain_path():
     """The model with every kernel of its paths swapped for its plain
-    version (forward and backward): all but K13 and K14, which no model
-    path reaches."""
+    version (forward and backward): all but K13, which no model path
+    reaches."""
     from paddle3d_tpu_torch.ops import ball_query, fps, fused_pfn, \
-        fused_pfn_train, iou_clip, pillar_ops, seg_window, sorted_scatter, \
-        sparse_conv
-    with mock.patch.multiple(
+        fused_pfn_train, gather, iou_clip, pillar_ops, seg_window, \
+        sorted_scatter, sparse_conv
+    with mock.patch.multiple(gather, gather_rows=gather.gather_rows_plain), \
+            mock.patch.multiple(
             iou_clip, pairwise_intersection_area=(
                 iou_clip.pairwise_intersection_area_plain)), \
             mock.patch.multiple(
@@ -942,11 +962,15 @@ def phase_train_kernels(model, points):
         "pillars): {:.4f} ms ({}); over every kept row, as before: {:.4f} "
         "ms ({})".format(emitted, extra["pfn_bwd"][1], extra["pfn_bwd"][2],
                          *k4_old))
+    sectors = gather_sectors(keys, g_canvas, cells)
     log("  K5's bound counts each of the {} distinct in-range cells read once "
         "({} in-range rows): {:.4f} ms ({}); one read a row, as before: "
-        "{:.4f} ms ({})".format(distinct, int(inside.sum()),
-                                *extra["sorted_table_gather"][1:],
-                                *bound(k5_old)))
+        "{:.4f} ms ({}); the values needed lie in {} 32-byte sectors of the "
+        "cotangent: with the rows written {:.4f} ms at the card's memory "
+        "rate".format(distinct, int(inside.sum()),
+                      *extra["sorted_table_gather"][1:], *bound(k5_old),
+                      sectors, bound(32 * sectors + 4 * (
+                          keys.numel() + rows.numel()))[0]))
     names = ("pfn_stats", "pfn_bwd", "sorted_table_gather")
     for name in names:
         tol = KERNELS[name][2]
@@ -3243,7 +3267,8 @@ def phase_ts_train(device):
 # (tests/ops/test_sorted_scatter.py:263); K14 at the shape of
 # paddle3d_tpu/ops/pallas/gather.py:3-4 (8 x 1,000 rows of 7 from 107,136
 # anchors) and at a voxel-row gather's (4 x 120,000 rows of 64 from
-# 160,000). No model path reaches either: the record counts phase 12's calls
+# 160,000). No model path reaches K13: the record counts phase 12's calls
+# of it (K14's come from SMOKE's decode, phase 15)
 RW_CASES = ((8, 250000, 64, 512 * 512), (2, 5000, 64, 4096))
 GATHER_CASES = ((8, 107136, 7, 1000), (4, 160000, 64, 120000))
 OP_KERNELS = ("sorted_segment_sum_rw", "gather_rows")
@@ -3629,6 +3654,362 @@ def phase_ia_train(device):
     return launches
 
 
+# Phase 15: SMOKE, the first camera model, on KITTI's image size
+# (tools/bench_camera.py:70-83: 384 x 1280, f = 721.5, the principal point
+# at the image centre, down_ratio 4); batch 1 as a camera stack serves it,
+# batch 8 the config's batch_size
+SMOKE_HW = (384, 1280)
+SMOKE_FOCAL = 721.5
+SMOKE_BATCH = 8
+SMOKE_ITERS = 20        # timed forwards per path and batch (halves of 10)
+SMOKE_TRAIN_ITERS = 10  # timed train steps (halves of 5)
+SMOKE_OBJECTS = 8       # synthetic objects an image
+# the tiny config's class head gets this contrast before the card-vs-CPU
+# check: its random heatmap is flat at sigmoid(-2.19), and near-equal
+# scores would order differently on the two devices
+SMOKE_CLS_GAIN = 8.0
+# its outputs on the card against the CPU, relative to the largest value
+SMOKE_TINY_TOL = {"scores": 1e-4, "box3d_cam": 1e-3, "bbox_2d": 1e-3,
+                  "alphas": 5e-3}
+
+
+def smoke_intrinsics(h, w):
+    import numpy as np
+    return np.array([[SMOKE_FOCAL, 0., w / 2], [0., SMOKE_FOCAL, h / 2],
+                     [0., 0., 1.]], np.float32)
+
+
+def smoke_serve_batch(device, b, seed=SEED, hw=None):
+    """b synthetic images in [0, 255), NHWC, at hw (SMOKE_HW by default),
+    and tools/bench_camera.py's serving target (K, K_inv, trans_mat,
+    image_size, down_ratio 4) each."""
+    import numpy as np
+    import torch
+    h, w = hw or SMOKE_HW
+    rng = np.random.default_rng(seed)
+    k = np.broadcast_to(smoke_intrinsics(h, w), (b, 3, 3))
+    target = {"K": k, "K_inv": np.linalg.inv(k).astype(np.float32),
+              "trans_mat": np.broadcast_to(np.eye(3, dtype=np.float32),
+                                           (b, 3, 3)),
+              "image_size": np.tile(np.array([h, w], np.float32), (b, 1)),
+              "down_ratio": np.full((b, 2), 4, np.float32)}
+    return {"data": torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3))
+                                     .astype(np.float32)).to(device),
+            "target": {key: torch.from_numpy(np.array(v)).to(device)
+                       for key, v in target.items()}}
+
+
+def smoke_train_batch(device, cfg_dic, b=None, seed=SEED):
+    """b (SMOKE_BATCH) synthetic images with SMOKE_OBJECTS objects each
+    (classes from the config's dim_ref, in front of the camera, random
+    yaw), through the port's Gt2SmokeTarget built from the config's train
+    transform (flips seeded): -> the collated batch on `device`."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.sample import Sample
+    from paddle3d_tpu_torch.transforms import Gt2SmokeTarget
+    params = dict(next(t for t in cfg_dic["train_dataset"]["transforms"]
+                       if t["type"] == "Gt2SmokeTarget"))
+    params.pop("type")
+    gen = Gt2SmokeTarget(**params)
+    h, w = gen.input_h, gen.input_w
+    b = b or SMOKE_BATCH
+    dim_ref = np.asarray(cfg_dic["model"]["dim_ref"], np.float32)  # l, h, w
+    rng = np.random.default_rng(seed)
+    np.random.seed(seed)                    # Gt2SmokeTarget's flips
+    made = []
+    for _ in range(b):
+        s = Sample(path=None, modality="image")
+        s.data = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        s.meta.camera_intrinsic = smoke_intrinsics(h, w)
+        labels = rng.integers(0, len(dim_ref), SMOKE_OBJECTS)
+        lhw = dim_ref[labels] * rng.uniform(0.9, 1.1, (SMOKE_OBJECTS, 3))
+        z = rng.uniform(8, 45, SMOKE_OBJECTS)
+        boxes = np.stack([rng.uniform(-0.3, 0.3, SMOKE_OBJECTS) * z,
+                          rng.uniform(1.5, 1.8, SMOKE_OBJECTS), z,
+                          lhw[:, 1], lhw[:, 2], lhw[:, 0],
+                          rng.uniform(-np.pi, np.pi, SMOKE_OBJECTS)], 1)
+        s.bboxes_3d = boxes.astype(np.float32)  # x, y, z, h, w, l, ry
+        s.labels = labels.astype(np.int64)
+        made.append(gen(s))
+    return {"data": torch.from_numpy(np.stack([s.data for s in made])).to(
+                device),
+            "target": {key: torch.from_numpy(np.stack(
+                [s.target[key] for s in made])).to(device)
+                for key in made[0].target}}
+
+
+def gather_bytes(b, k, c):
+    """Bytes K14 must move: each index read once, each gathered row read
+    once and written once."""
+    return 4 * b * k + 8 * b * k * c
+
+
+def gather_chain_floor(device, iters=50):
+    """K14's chain floor: ms a launch of its C entry on one row of one
+    float (an index load, a row load, a store, nothing in parallel); not
+    counted as a path's launch."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    src = torch.zeros((1, 1, 1), device=device)
+    idx = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    out = torch.empty((1, 1, 1), device=device)
+    fn = _build.function("p3d_gather_rows")
+    args = (src.data_ptr(), *src.stride(), idx.data_ptr(), out.data_ptr(), 1,
+            1, 1, 1, _build.stream_ptr(device))
+    return cuda_ms(lambda: fn(*args), iters)
+
+
+def k14_parts(label, src, idx, iters=50):
+    """K14 at one call, on its inputs: bit for bit against its plain
+    version and a second call, then its wrapper, its C entry alone (the
+    output made before) and, where the tree has it, each form forced,
+    timed; torch.gather with its int64 index made inside as the yardstick,
+    the byte bound and the chain floor. -> (dict of part -> ms, max_abs_err
+    against the plain version)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, gather
+    b, a, c = src.shape
+    k = idx.shape[1]
+    ref = gather.gather_rows_plain(src, idx)
+    got, again = (gather.gather_rows(src, idx) for _ in range(2))
+    check(same_bits(got, ref) and same_bits(again, got), "{}: K14 differs "
+          "from its plain version or a second call".format(label))
+    out = torch.empty((b, k, c), device=src.device)
+    head = (src.data_ptr(), *src.stride(), idx.data_ptr(), out.data_ptr(), b,
+            a, k, c)
+    stream = _build.stream_ptr(src.device)
+    fn = _build.function("p3d_gather_rows")
+    parts = {"wrapper": cuda_ms(lambda: gather.gather_rows(src, idx), iters),
+             "kernel alone": cuda_ms(lambda: fn(*head, stream), iters),
+             "plain": cuda_ms(lambda: gather.gather_rows_plain(src, idx),
+                              iters)}
+    if "p3d_gather_rows_form" in _build._SIGNATURES:
+        form = _build.function("p3d_gather_rows_form")
+        for name, f in (("lane groups", 1), ("flat", 2)):
+            parts[name] = cuda_ms(lambda: form(*head, f, stream), iters)
+            check(same_bits(out, ref), "{}: K14's {} form differs from its "
+                  "plain version".format(label, name))
+    parts["torch.gather"] = cuda_ms(lambda: torch.gather(
+        src, 1, idx.long()[..., None].expand(-1, -1, c)), iters)
+    parts["chain floor"] = gather_chain_floor(src.device, iters)
+    log("  K14 at {}: B={} A={} C={} K={}, src strides {}; bit-equal to its "
+        "plain version and a second call; ms a call: {}; bound {:.5f} ms "
+        "({})".format(label, b, a, c, k, tuple(src.stride()), ", ".join(
+            "{} {:.4f}".format(n, v) for n, v in parts.items()),
+            *bound(gather_bytes(b, k, c))))
+    return parts, (got - ref).abs().max().item()
+
+
+def check_smoke_outputs(out, b, k, classes):
+    """SMOKE's fixed-shape outputs: finite, -1 padded, labels in range."""
+    import torch
+    check(tuple(out["box3d_cam"].shape) == (b, k, 7) and
+          tuple(out["bbox_2d"].shape) == (b, k, 4) and
+          tuple(out["scores"].shape) == tuple(out["label_preds"].shape) ==
+          tuple(out["alphas"].shape) == (b, k), "SMOKE output shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "non-finite SMOKE outputs")
+    kept = out["scores"] >= 0
+    labels = out["label_preds"]
+    check(bool((labels[kept] >= 0).all() & (labels[kept] < classes).all() &
+               (labels[~kept] == -1).all() & (out["scores"][~kept] == -1)
+               .all()), "SMOKE scores / labels outside the padding "
+          "convention")
+    return kept.sum(dim=1).tolist()
+
+
+def smoke_frames_per_s(model, batch, iters):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.test_forward(batch)
+    torch.cuda.synchronize()
+    return batch["data"].shape[0] * iters / (time.perf_counter() - t0)
+
+
+def smoke_timing(model, batch):
+    """Frames/s of both paths in kernel/plain/plain/kernel halves after a
+    warm-up (cudnn.benchmark on, as a server runs), peak memory and a
+    profile of one forward through the kernels."""
+    import torch
+    b = batch["data"].shape[0]
+    for _ in range(2):
+        model.test_forward(batch)
+        with plain_path():
+            model.test_forward(batch)
+    rates = {"kernels": [], "plain": []}
+    half = SMOKE_ITERS // 2
+    for order in (("kernels", "plain"), ("plain", "kernels")):
+        for path in order:
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                rates[path].append(smoke_frames_per_s(model, batch, half))
+    rate = {k: SMOKE_ITERS / sum(half / r for r in v)
+            for k, v in rates.items()}
+    log("  batch {}: {} forwards a path (kernel/plain/plain/kernel halves, "
+        "cudnn.benchmark on): kernel path {:.2f} frames/s ({:.3f} ms a "
+        "frame), plain path {:.2f} frames/s ({:.3f} ms); halves {}".format(
+            b, SMOKE_ITERS, rate["kernels"], 1e3 / rate["kernels"],
+            rate["plain"], 1e3 / rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+    torch.cuda.reset_peak_memory_stats()
+    model.test_forward(batch)
+    log("  peak device memory of one forward at batch {}: {:.1f} "
+        "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: model.test_forward(batch))
+
+
+def phase_smoke_tiny():
+    """A small input against the CPU path: the tiny config's test_forward,
+    the class head's kernel scaled by SMOKE_CLS_GAIN, K14 on the card vs
+    the plain gather on the CPU; labels equal, the rest relative to the
+    largest value within SMOKE_TINY_TOL: cuDNN and the CPU's convolutions
+    sum in other orders (1.1e-5 of the scores measured, PR 18), which the
+    decode's arctans amplify in the alphas."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build
+    model = Config(path=SMOKE_TINY, device="cpu").model.eval()
+    with torch.no_grad():
+        model.head.cls_conv2.weight.mul_(SMOKE_CLS_GAIN)
+    batch = smoke_serve_batch("cpu", 2, hw=(96, 128))   # its input_size
+    with torch.no_grad():
+        ref = model.test_forward(batch)
+        model.cuda()
+        _build.reset_launches()
+        got = model.test_forward({"data": batch["data"].cuda(), "target": {
+            k: v.cuda() for k, v in batch["target"].items()}})
+        torch.cuda.synchronize()
+    check(_build.LAUNCHES["gather_rows"] == 1,
+          "the tiny SMOKE on the card missed K14")
+    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
+          "tiny SMOKE labels differ between the card and the CPU")
+    errs = {key: ((got[key].cpu() - ref[key]).abs().max() /
+                  ref[key].abs().max()).item() for key in SMOKE_TINY_TOL}
+    log("  tiny config test_forward, card (K14) vs CPU (plain): labels "
+        "equal; relative errors {} (tolerances {})".format(
+            {k: "{:.3e}".format(v) for k, v in errs.items()},
+            SMOKE_TINY_TOL))
+    check(all(errs[k] <= tol for k, tol in SMOKE_TINY_TOL.items()),
+          "tiny SMOKE outputs differ between the card and the CPU")
+
+
+def phase_smoke(device):
+    """SMOKE on the KITTI config at full width (DLA-34, 3 classes,
+    256-channel heads, 50 detections, seeded random weights, f32, TF32
+    off): serving at batch 1 and 8 through K14 and on the plain versions
+    (outputs equal by bit pattern under deterministic cuDNN), K14 held and
+    timed at the decode's calls, the tiny config card vs CPU, frames/s,
+    memory, profiles; training at batch 8 (the config's Adam and
+    PiecewiseDecay, targets from the port's Gt2SmokeTarget), 10 falling
+    losses, train frames/s, memory, profile. -> (errs, times, extra,
+    launches) of K14 for the record: its launches on the two forwards, its
+    times at the config's batch."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build, gather
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=SMOKE_KITTI, device=device)
+    model = cfg.model.eval()
+    head = model.head
+    batches = {b: smoke_serve_batch(device, b) for b in (1, SMOKE_BATCH)}
+    outs = {}
+    with torch.no_grad(), recorded(gather, "gather_rows") as calls:
+        _build.reset_launches()
+        for b, batch in batches.items():
+            outs[b] = model.test_forward(batch)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    kept = {b: check_smoke_outputs(out, b, model.max_detection,
+                                   head.num_classes)
+            for b, out in outs.items()}
+    log("phase 15: SMOKE KITTI serving at {} x {} (DLA-34, {} classes, "
+        "{}-channel heads, {} detections): launches {}; boxes over the "
+        "threshold a frame {}".format(
+            *SMOKE_HW, head.num_classes, head.cls_conv1.out_channels,
+            model.max_detection, {k: v for k, v in launches.items() if v},
+            kept))
+    check(launches["gather_rows"] == len(batches) and
+          sum(launches.values()) == len(batches),
+          "the SMOKE forwards launched {} where one K14 a forward was "
+          "due".format(launches))
+    hw = (SMOKE_HW[0] // 4) * (SMOKE_HW[1] // 4)
+    for (src, idx), _ in calls:
+        check(tuple(src.stride()) == (head.reg_heads * hw, 1, hw),
+              "the decode did not read the NCHW map in place")
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            with plain_path():
+                ref = model.test_forward(batch)
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "the plain path launched a kernel")
+            differ = [k for k in ref if not same_bits(outs[b][k], ref[k])]
+            check(not differ, "batch {}: {} differ from the plain path by "
+                  "bit pattern".format(b, differ))
+    log("  vs the plain path (deterministic cuDNN): every output equal by "
+        "bit pattern at batch 1 and {}".format(SMOKE_BATCH))
+    parts = {b: k14_parts("SMOKE's decode at batch {}".format(b), *args)
+             for b, (args, _) in zip(batches, calls)}
+    src, idx = calls[-1][0]                 # the config's batch
+    k14_bytes = gather_bytes(idx.shape[0], idx.shape[1], src.shape[2])
+    del calls, outs, src, idx
+    phase_smoke_tiny()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        for batch in batches.values():
+            smoke_timing(model, batch)
+    del batches
+
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = smoke_train_batch(device, cfg.dic)
+    _build.reset_launches()
+    losses = step(model, cfg.optimizer, batch)
+    torch.cuda.synchronize()
+    log("  training at batch {} ({}, {}; {} objects an "
+        "image, {} kept by Gt2SmokeTarget): first step losses {}; launches "
+        "{}".format(SMOKE_BATCH, cfg.dic["optimizer"]["type"],
+                    cfg.dic["lr_scheduler"],
+                    SMOKE_OBJECTS, int(batch["target"]["reg_mask"].sum()),
+                    {k: round(v.item(), 4) for k, v in losses.items()},
+                    {k: v for k, v in _build.LAUNCHES.items() if v}))
+    check(not any(_build.LAUNCHES.values()), "the SMOKE train step launched "
+          "a kernel (its loss gathers with torch.gather under autograd)")
+    falling_losses(step, model, cfg.optimizer, batch)
+    half = SMOKE_TRAIN_ITERS // 2
+    step(model, cfg.optimizer, batch)
+    train = [round(timed_train_scans_per_s(step, model, cfg.optimizer, batch,
+                                           half), 2) for _ in range(2)]
+    log("  {} train steps of batch {} (two halves, cudnn.benchmark on): {} "
+        "frames/s; halves {}".format(
+            SMOKE_TRAIN_ITERS, SMOKE_BATCH,
+            round(SMOKE_TRAIN_ITERS / sum(half / r for r in train), 2),
+            train))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, cfg.optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, cfg.optimizer, batch))
+    del model, step, batch, cfg
+
+    p, err = parts[SMOKE_BATCH]
+    return ({"gather_rows": err}, {"gather_rows": (p["wrapper"], p["plain"])},
+            {"gather_rows": (p["torch.gather"],) + bound(k14_bytes)},
+            {"gather_rows": launches["gather_rows"]})
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -3743,176 +4124,43 @@ def k7_parts(label, keys, rows, cells, split, iters=50):
     return parts
 
 
-def k11_parts(label, ca, cb, iters=50):
-    """K11 at one call, on its inputs: bit for bit against its plain
-    version and a second call, then its wrapper and its C entry alone
-    (buffers made before) timed, with its operation bound and its chain
-    floor. -> dict of part -> ms."""
+def smoke_decode_inputs(device, b=SMOKE_BATCH, k=50, reg=10):
+    """K14's inputs at SMOKE's decode without the model (another tree may
+    have none): a random NCHW regression map [b, reg, H/4, W/4] as the
+    [b, H*W/16, reg] view the decode hands it, and k distinct positions a
+    frame, as its top-k gives them."""
     import torch
-
-    from paddle3d_tpu_torch.ops import _build, iou_clip
-    n, m = ca.shape[-3], cb.shape[-3]
-    ca3 = ca.reshape(-1, n, 4, 2).contiguous()
-    cb3 = cb.reshape(-1, m, 4, 2).contiguous()
-    b = ca3.shape[0]
-    ref = iou_clip.pairwise_intersection_area_plain(ca3, cb3)
-    got, again = (iou_clip.pairwise_intersection_area(ca3, cb3)
-                  for _ in range(2))
-    check(same_bits(got, ref) and same_bits(again, got), "{}: K11 differs "
-          "from its plain version or a second call".format(label))
-    out = torch.empty((b, n, m), device=ca.device)
-    args = (ca3.data_ptr(), cb3.data_ptr(), out.data_ptr(), b, n, m,
-            _build.stream_ptr(ca.device))
-    fn = _build.function("p3d_pairwise_intersection_area")
-    parts = {"wrapper": cuda_ms(lambda: iou_clip.pairwise_intersection_area(
-                 ca3, cb3), iters),
-             "kernel alone": cuda_ms(lambda: fn(*args), iters)}
-    parts["chain floor"] = iou_chain_floor(ca.device, iters)
-    nbytes, ops, pairs, clipped = iou_work(ca3, cb3)
-    bnd = bound(nbytes, f32_ops=ops)
-    log("  K11 at {} {} x {}: bit-equal to its plain version and a second "
-        "call; {} pairs, {} past the guard; ms a call: {}; bound {:.5f} ms "
-        "({})".format(label, (b, n), m, pairs, clipped, ", ".join(
-            "{} {:.4f}".format(k, v) for k, v in parts.items()), *bnd))
-    return parts
-
-
-def k5_parts(label, keys, g, g_extra, cells, c, iters=50):
-    """K5 at one call, on the inputs the path handed it: bit for bit
-    against its plain version and a second call (tolerance 0), then its
-    wrapper and its C entry alone (buffers made before) timed; torch.gather
-    as the yardstick, the bound and the earlier count beside it, and the
-    sectors of the cotangent that hold the values read. -> dict of part ->
-    ms."""
-    import torch
-
-    from paddle3d_tpu_torch.ops import _build, sorted_scatter
-    b, n = keys.shape
-    c_main = g.shape[-1]
-    ref = sorted_scatter.sorted_table_gather_plain(keys, g, g_extra, cells, c)
-    got, again = (sorted_scatter.sorted_table_gather(keys, g, g_extra, cells,
-                                                     c) for _ in range(2))
-    check(same_bits(got, ref) and same_bits(again, got), "{}: K5 differs "
-          "from its plain version or a second call".format(label))
-    del got, again
-    out = torch.empty((b, n, c), device=keys.device)
-    es = g_extra.stride()[:2] if g_extra is not None else (0, 0)
-    args = (keys.data_ptr(), g.data_ptr(), *g.stride(),
-            g_extra.data_ptr() if g_extra is not None else None, *es,
-            out.data_ptr(), b, n, c, c_main, cells,
-            _build.stream_ptr(keys.device))
-    fn = _build.function("p3d_sorted_table_gather")
-    parts = {"wrapper": cuda_ms(lambda: sorted_scatter.sorted_table_gather(
-                 keys, g, g_extra, cells, c), iters),
-             "kernel alone": cuda_ms(lambda: fn(*args), iters)}
-    inside = (keys >= 0) & (keys < cells)
-    safe = torch.where(inside, keys, 0).long()[..., None].expand(
-        -1, -1, c_main)
-    parts["torch.gather"] = cuda_ms(lambda: torch.gather(g, 1, safe), 10)
-    nbytes, old, distinct = gather_work(keys, g, g_extra, cells, c)
-    sectors = gather_sectors(keys, g, cells)
-    log("  K5 at {}: B={} N={} c={} (c_main {}, g_extra {}) cells={}, g "
-        "strides {}, {} distinct in-range cells of {} in-range rows; "
-        "bit-equal to its plain version and a second call; ms a call: {}; "
-        "kernel / torch.gather {:.3f}; bound {:.4f} ms ({}); one read a row, "
-        "as before: {:.4f} ms ({}); the values needed lie in {} 32-byte "
-        "sectors of g ({:.1f} MB): with the rows written {:.4f} ms at the "
-        "card's memory rate".format(
-            label, b, n, c, c_main, "none" if g_extra is None else "given",
-            cells, tuple(g.stride()), distinct, int(inside.sum()),
-            ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items()),
-            parts["wrapper"] / parts["torch.gather"], *bound(nbytes),
-            *bound(old), sectors, sectors * 32 / 1e6,
-            bound(32 * sectors + 4 * (keys.numel() + b * n * c))[0]))
-    return parts
-
-
-def train_rates(step, model, optimizer, batch, iters):
-    """Train scans/s through the kernels in two halves of iters // 2 steps
-    after one warm-up step, cudnn.benchmark on."""
-    import torch
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    step(model, optimizer, batch)
-    return [round(timed_train_scans_per_s(step, model, optimizer, batch,
-                                          iters // 2), 2) for _ in range(2)]
+    hw = (SMOKE_HW[0] // 4, SMOKE_HW[1] // 4)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    nchw = torch.randn((b, reg) + tuple(hw), generator=gen).to(device)
+    idx = torch.stack([torch.randperm(hw[0] * hw[1], generator=gen)[:k]
+                       for _ in range(b)]).to(torch.int32).to(device)
+    return nchw.flatten(2).transpose(1, 2), idx
 
 
 def parts_one(tree):
     """One process of `--parts`: the package of `tree` (a checkout, first
-    on sys.path) built, then K5 at its four calls (the train steps of
-    KITTI pillars, CenterPoint-pillars, CenterPoint-voxels and Voxel-RCNN,
-    on the inputs each step hands it) and K11 at its three shapes (the
-    Voxel-RCNN train step's call, 8 x 1,000 x 1,000 clustered boxes, the tie
-    lattice), each held bit for bit and timed in parts (k5_parts,
-    k11_parts), with the train scans/s of those four cells through the
-    kernels (20, 10, 10 and 6 steps, each in two halves after a warm-up
-    step, cudnn.benchmark on)."""
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    on sys.path) built, then K14 held bit for bit and timed in parts
+    (k14_parts) at four shapes: gather.py's 8 x 1,000 rows of 7 from
+    107,136, a voxel-row gather's 4 x 120,000 rows of 64 from 160,000,
+    SMOKE's decode, 8 x 50 rows of 10 from the NCHW map's 30,720 cells
+    read in place (smoke_decode_inputs), and 8 x 100,000 rows of 3."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import paddle3d_tpu_torch
-    from paddle3d_tpu_torch.apis import Config, make_train_step
-    from paddle3d_tpu_torch.ops import iou_clip, sorted_scatter
-    from paddle3d_tpu_torch.ops.box_ops import boxes_to_corners_bev
     log("card: {}; parts of the package in {}".format(
         card(), os.path.dirname(os.path.dirname(
             os.path.abspath(paddle3d_tpu_torch.__file__)))))
     phase_build()
     dev = torch.device("cuda")
-    rates = {}
-
-    def gather_call(label, step, model, optimizer, batch):
-        """K5's inputs at one train step of a path."""
-        with recorded(sorted_scatter, "sorted_table_gather") as calls:
-            step(model, optimizer, batch)
-        check(len(calls) == 1, "{}: expected one K5 call a train step, got "
-              "{}".format(label, len(calls)))
-        return calls[0][0]
-
-    cfg = Config(path=KITTI, device=dev)
-    model = cfg.model.train()
-    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
-    batch = make_train_batch(dev, make_points(dev))
-    k5_parts("the KITTI pillar train step", *gather_call(
-        "KITTI", step, model, cfg.optimizer, batch))
-    rates["KITTI training"] = train_rates(step, model, cfg.optimizer, batch,
-                                          20)
-    del cfg, model, step, batch
-
-    model, optimizer, _, step, batch = cp_train_setup(dev)
-    k5_parts("the CenterPoint-pillars train step", *gather_call(
-        "CenterPoint-pillars", step, model, optimizer, batch))
-    rates["CenterPoint-pillars training"] = train_rates(
-        step, model, optimizer, batch, 10)
-    del model, optimizer, step, batch
-
-    model, optimizer, _, step, batch = vx_train_setup(dev)
-    k5_parts("the CenterPoint-voxels train step", *gather_call(
-        "CenterPoint-voxels", step, model, optimizer, batch))
-    rates["CenterPoint-voxels training"] = train_rates(
-        step, model, optimizer, batch, 10)
-    del model, optimizer, step, batch
-
-    with deterministic():
-        model, optimizer, _, step, batch, _ = ts_train_setup(dev, VOXEL_RCNN)
-        with recorded(iou_clip, "pairwise_intersection_area") as ious:
-            gathered = gather_call("Voxel-RCNN", step, model, optimizer,
-                                   batch)
-    check(len(ious) == 1, "expected one K11 call a Voxel-RCNN train step")
-    k5_parts("the Voxel-RCNN train step", *gathered)
-    k11_parts("the Voxel-RCNN train step", *ious[0][0])
-    del ious, gathered
-    rates["Voxel-RCNN training"] = train_rates(step, model, optimizer, batch,
-                                               6)
-    del model, optimizer, step, batch
-    for label, (a, b) in (("8 x 1000 x 1000 clustered boxes",
-                           clustered_boxes(dev)),
-                          ("the tie lattice", tie_lattice(dev))):
-        k11_parts(label, boxes_to_corners_bev(a), boxes_to_corners_bev(b))
-    log("  train scans/s through the kernels, two halves each: {}".format(
-        rates))
+    for case in GATHER_CASES:
+        k14_parts("gather.py's shape" if case[2] == 7 else
+                  "a voxel-row gather", *gather_inputs(dev, *case))
+    k14_parts("SMOKE's decode", *smoke_decode_inputs(dev))
+    # rows of 3 floats, 8 x 100,000 from 100,000: past one launch's
+    # latency, where the flat form and c lanes a row part
+    k14_parts("narrow rows", *gather_inputs(dev, 8, 100000, 3, 100000))
 
 
 def parts_main(trees):
@@ -4007,14 +4255,19 @@ def main():
                                {"pairwise_intersection_area": ts_launches[
                                    "pairwise_intersection_area"]})):
             into.update(part)
-        # K13 and K14 counted on phase 12's op calls
+        # K13 counted on phase 12's op calls
         op_errs, op_times, op_extra, op_launches = phase_ops(device)
         for into, part in zip((errs, times, extra, launches),
                               (op_errs, op_times, op_extra,
-                               {k: op_launches[k] for k in OP_KERNELS})):
+                               {"sorted_segment_sum_rw": op_launches[
+                                   "sorted_segment_sum_rw"]})):
             into.update(part)
         phase_vx_train(device)
         phase_ia_train(device)
+        # K14 counted on SMOKE's serving path (phase 12 runs it as an op)
+        for into, part in zip((errs, times, extra, launches),
+                              phase_smoke(device)):
+            into.update(part)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

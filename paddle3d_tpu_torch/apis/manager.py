@@ -60,8 +60,9 @@ LOSSES = ComponentManager("losses")
 OPTIMIZERS = ComponentManager("optimizers")
 LR_SCHEDULERS = ComponentManager("lr_schedulers")
 POINT_ENCODERS = ComponentManager("point_encoders")
+TRANSFORMS = ComponentManager("transforms")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
-    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS
+    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS, TRANSFORMS
 ]

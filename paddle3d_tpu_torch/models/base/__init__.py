@@ -1,1 +1,1 @@
-from .base_model import Base3DModel, BaseLidarModel
+from .base_model import Base3DModel, BaseLidarModel, BaseMonoModel

@@ -34,6 +34,11 @@ class BaseLidarModel(Base3DModel):
     modality = "lidar"
 
 
+class BaseMonoModel(Base3DModel):
+    """Monocular-camera family marker."""
+    modality = "image"
+
+
 def raise_if_training(model: nn.Module):
     """test_forward serves with running-stat BN and the test voxel cap; a
     model in train mode would fold train-mode BN modules wrongly and move

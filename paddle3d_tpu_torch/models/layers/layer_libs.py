@@ -1,6 +1,6 @@
 """Shared layer building blocks, torch port of
 paddle3d_tpu/models/layers/layer_libs.py (uniform_init, uniform_bias_init,
-ConvBNReLU, DeconvBNReLU, LinearBN1DReLU).
+ConvBNReLU, DeconvBNReLU, LinearBN1DReLU, heatmap_nms, gather_topk_feat).
 
 NCHW layout. Two conventions of the JAX package are kept on purpose:
   * flax `padding="SAME"` pads (total // 2, total - total // 2), which on a
@@ -18,9 +18,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import gather
+
 __all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "BatchNorm1d",
            "BatchNorm2d", "same_pads", "uniform_", "uniform_init",
-           "uniform_bias_init", "default_generator"]
+           "uniform_bias_init", "default_generator", "heatmap_nms",
+           "gather_topk_feat"]
 
 
 def default_generator(generator: torch.Generator = None) -> torch.Generator:
@@ -159,3 +162,20 @@ class LinearBN1DReLU(nn.Module):
         # BatchNorm1d normalises axis 1: fold the leading dims into rows
         return torch.relu(self.bn(y.reshape(-1, y.shape[-1])).reshape(
             y.shape))
+
+
+def heatmap_nms(heatmap: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """Keep the local maxima of an NHWC heatmap [B, H, W, C], zero the rest
+    (the maxpool trick). max_pool2d pads with -inf, as the JAX package's
+    reduce_window does; a plateau keeps every cell equal to its window's
+    max. -> NHWC, a view of an NCHW tensor."""
+    x = heatmap.permute(0, 3, 1, 2)
+    hmax = F.max_pool2d(x, kernel, 1, (kernel - 1) // 2)
+    return torch.where(hmax == x, x, 0.).permute(0, 2, 3, 1)
+
+
+def gather_topk_feat(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of feat [B, N, C] at idx [B, K] -> [B, K, C]: the row gather
+    K14 (ops/gather.gather_rows; forward only), the JAX package's
+    take_along_axis."""
+    return gather.gather_rows(feat, idx.to(torch.int32))

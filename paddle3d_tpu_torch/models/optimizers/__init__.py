@@ -1,3 +1,3 @@
 from .optimizers import (Adam, ClipGradByGlobalNorm, OneCycleAdam,
                          OneCycleDecayWarmupMomentum, OneCycleWarmupDecayLr,
-                         StepDecay)
+                         PiecewiseDecay, StepDecay)

@@ -1,7 +1,7 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
 OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle, StepDecay,
-OneCycleWarmupDecayLr, OneCycle).
+PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle).
 
 The JAX package builds optax transformations; torch builds an optimizer
 over parameters, which a YAML config does not have. So `Adam` returns a
@@ -20,7 +20,7 @@ import torch
 from ...apis import manager
 
 __all__ = ["ClipGradByGlobalNorm", "Adam", "OneCycleAdam", "AdamWOnecycle",
-           "OneCycleDecayWarmupMomentum", "StepDecay",
+           "OneCycleDecayWarmupMomentum", "StepDecay", "PiecewiseDecay",
            "OneCycleWarmupDecayLr", "OneCycle"]
 
 
@@ -81,6 +81,32 @@ class StepDecay:
     def factor(self, step: int) -> float:
         """lr(step) / learning_rate."""
         return self.gamma ** (step // self.step_size)
+
+
+@manager.LR_SCHEDULERS.add_component
+class PiecewiseDecay:
+    """lr = values[0] times the ratio values[i + 1] / values[i] of every
+    boundary i the step has reached (from the boundary step on), as the JAX
+    package builds optax.piecewise_constant_schedule from paddle's
+    PiecewiseDecay; step counts optimizer updates from 0."""
+
+    def __init__(self, boundaries, values):
+        if len(values) != len(boundaries) + 1:
+            raise ValueError("PiecewiseDecay takes one value more than "
+                             "boundaries, got {} and {}".format(
+                                 len(values), len(boundaries)))
+        self.boundaries = [int(b) for b in boundaries]
+        self.ratios = [values[i + 1] / values[i]
+                       for i in range(len(boundaries))]
+        self.learning_rate = float(values[0])
+
+    def factor(self, step: int) -> float:
+        """lr(step) / learning_rate."""
+        f = 1.0
+        for b, ratio in sorted(zip(self.boundaries, self.ratios)):
+            if step >= b:
+                f *= ratio
+        return f
 
 
 class _CosineOneCycle:

@@ -2,10 +2,12 @@
 
 Port of paddle3d_tpu/ops/pallas/gather.py (TPU kernel `_gather_kernel`,
 K14, entry `_pallas_gather`, public `gather_rows`), which no path of the
-JAX package calls: an op here. On a CUDA tensor `gather_rows` launches the
-hand-written kernel in csrc/gather.cu (whose header says what bounds it and
-how it is built); on a CPU tensor it takes the plain PyTorch version
-beside it. Forward only: the JAX kernel has no VJP.
+JAX package calls. In the port SMOKE's decode gathers its top-k rows of the
+regression map with it (models/detection/smoke/smoke.py, the NCHW map read
+in place as a strided [B, H*W, C] view). On a CUDA tensor `gather_rows`
+launches the hand-written kernel in csrc/gather.cu (whose header says what
+bounds it and how it is built); on a CPU tensor it takes the plain PyTorch
+version beside it. Forward only: the JAX kernel has no VJP.
 
 Out-of-range indices follow the JAX function's CPU form,
 jnp.take_along_axis: an index in [-A, 0) wraps once to idx + A, any other
@@ -60,6 +62,8 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, a, c = src.shape
     k = idx.shape[1]
     out = src.new_empty((b, k, c))
+    if not out.numel():
+        return out
     err = _build.function("p3d_gather_rows")(
         src.data_ptr(), *src.stride(), idx.data_ptr(), out.data_ptr(), b, a,
         k, c, _build.stream_ptr(src.device))

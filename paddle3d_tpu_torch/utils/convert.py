@@ -22,8 +22,8 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
     """-> (torch attribute name, array in torch layout)."""
     if isinstance(module, (nn.modules.batchnorm._BatchNorm,
-                           MaskedBatchNorm)):
-        return _BN_NAMES[leaf], arr
+                           MaskedBatchNorm, nn.GroupNorm)):
+        return _BN_NAMES[leaf], arr         # GroupNorm: scale and bias
     if isinstance(module, SparseConv3D) and leaf == "weight":
         return "weight", arr                # [K^3 * Cin, Cout] as it is
     if leaf == "bias":

@@ -1,11 +1,14 @@
 """CPU tests of chip_smoke.py's helpers that phase 11's reproducibility
 check rests on: the saved train state restores to the same trajectory every
 time, the deterministic mode is scoped to its block, and bit-pattern
-equality tells -0 from +0 in f32 and f64; and of the work counts that the
+equality tells -0 from +0 in f32 and f64; of the work counts that the
 table gather's (K5) bound and the rotated-box intersection's (K11) chain
-floor rest on."""
+floor rest on; and of phase 15's SMOKE batches and the row gather's (K14)
+byte count and decode inputs."""
+import numpy as np
 import pytest
 import torch
+import yaml
 
 import chip_smoke
 
@@ -135,3 +138,61 @@ def test_gather_sectors_counts_the_sectors_the_values_lie_in():
         (1 if first == 0 else 2) + 1)
     if rm.data_ptr() % 32 == 0:
         assert chip_smoke.gather_sectors(keys, rm, 128) == 9 * 8
+
+
+def test_smoke_serve_batch_follows_bench_camera():
+    """NHWC images in [0, 255) and tools/bench_camera.py's target: f =
+    721.5 with the principal point at the image centre, down_ratio 4."""
+    batch = chip_smoke.smoke_serve_batch("cpu", 2, hw=(96, 128))
+    data, target = batch["data"], batch["target"]
+    assert tuple(data.shape) == (2, 96, 128, 3)
+    assert data.dtype == torch.float32 and 0 <= data.min() and \
+        data.max() < 255
+    k = target["K"][1].numpy()
+    np.testing.assert_array_equal(k, [[721.5, 0, 64], [0, 721.5, 48],
+                                      [0, 0, 1]])
+    np.testing.assert_allclose(target["K_inv"][1].numpy() @ k, np.eye(3),
+                               atol=1e-6)
+    assert (target["down_ratio"] == 4).all()
+    assert target["image_size"][0].tolist() == [96, 128]
+
+
+def test_smoke_train_batch_makes_targets_from_the_config():
+    """The config's Gt2SmokeTarget (here the tiny config's: 96 x 128, one
+    class, max_objs 8) over seeded synthetic objects: collated targets on
+    the output map, objects kept in every image, the same batch for the
+    same seed."""
+    with open(chip_smoke.SMOKE_TINY) as f:
+        dic = yaml.safe_load(f)
+    one, two = (chip_smoke.smoke_train_batch("cpu", dic, b=2)
+                for _ in range(2))
+    assert tuple(one["data"].shape) == (2, 96, 128, 3)
+    t = one["target"]
+    assert tuple(t["hm"].shape) == (2, 24, 32, 1)
+    assert tuple(t["proj_p"].shape) == (2, 8, 2)
+    kept = t["reg_mask"].bool()
+    assert kept.sum(dim=1).min() > 0
+    assert (t["proj_p"][kept][:, 0] < 32).all() and \
+        (t["proj_p"][kept][:, 1] < 24).all()
+    assert (t["hm"].amax(dim=(1, 2, 3)) == 1).all()
+    assert all(torch.equal(one["target"][k], two["target"][k]) for k in t)
+    assert torch.equal(one["data"], two["data"])
+
+
+def test_gather_bytes_counts_indices_and_rows():
+    """K14 reads each index once and each gathered row once, and writes
+    each row once."""
+    assert chip_smoke.gather_bytes(8, 50, 10) == 4 * 400 + 2 * 4 * 4000
+    assert chip_smoke.gather_bytes(4, 120000, 64) == 4 * 480000 * 129
+
+
+def test_smoke_decode_inputs_match_the_decode():
+    """The regression map as SMOKE's decode hands it to K14 (NCHW, read in
+    place: channel stride H*W) and distinct in-range positions a frame."""
+    src, idx = chip_smoke.smoke_decode_inputs("cpu", b=2, k=50)
+    hw = (384 // 4) * (1280 // 4)
+    assert tuple(src.shape) == (2, hw, 10)
+    assert src.stride() == (10 * hw, 1, hw)
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (2, 50)
+    assert ((idx >= 0) & (idx < hw)).all()
+    assert all(row.unique().numel() == 50 for row in idx)

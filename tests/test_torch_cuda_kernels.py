@@ -1211,30 +1211,89 @@ def test_sorted_segment_sum_rw_matches_row_order(cuda, b, n, c, cells):
         sorted_scatter.sorted_segment_sum_rw(keys, wide, 65, cells)
 
 
-@pytest.mark.parametrize("c,strided", [(7, False), (64, False), (64, True),
-                                       (1, False)])
-def test_gather_rows_matches_plain(cuda, c, strided):
-    """K14 equal to its plain version: the vector path (c = 64), one float a
-    lane (c = 7, c = 1, a strided view), out-of-range indices (wrapped once
-    or NaN)."""
+def _gather_case(cuda, c, layout, b=3, a=5000, k=1000, seed=0):
+    """K14's inputs: src [B, A, C] in one of the layouts a caller hands it
+    (contiguous; a column slice of wider rows; the NCHW view SMOKE passes,
+    channel stride A; contiguous but 4 bytes off 16-byte alignment), idx
+    [B, K] int32 with the ends, a repeat, wrapped negatives and indices
+    past either end among random ones."""
+    rng = np.random.default_rng(seed + c)
+    vals = rng.normal(size=(b, a, c)).astype(np.float32)
+    if layout == "contiguous":
+        src = torch.from_numpy(vals).to(cuda)
+    elif layout == "strided":
+        wide = torch.zeros((b, a, c + 8), device=cuda)
+        wide[..., 4:4 + c] = torch.from_numpy(vals).to(cuda)
+        src = wide[..., 4:4 + c]
+    elif layout == "nchw":
+        src = torch.from_numpy(np.ascontiguousarray(vals.transpose(
+            0, 2, 1))).to(cuda).transpose(1, 2)
+    else:
+        flat = torch.zeros(b * a * c + 1, device=cuda)
+        flat[1:] = torch.from_numpy(vals.reshape(-1)).to(cuda)
+        src = flat[1:].view(b, a, c)
+    idx = rng.integers(0, a, (b, k)).astype(np.int32)
+    if k >= 9:
+        idx[0, :9] = [0, a - 1, 0, -1, -a, a, -a - 1, 2**31 - 1, -2**31]
+    return src, torch.from_numpy(idx).to(cuda)
+
+
+@pytest.mark.parametrize("c", [1, 7, 10, 16, 64, 65, 256])
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "nchw",
+                                    "unaligned"])
+def test_gather_rows_matches_plain(cuda, c, layout):
+    """K14 bit for bit against its plain version (NaN rows equal by bit
+    pattern): lane groups on float4 rows (c = 16, 64, 256, contiguous or a
+    slice 16 bytes in), the flat form on the others (c = 1, 7, 10, 65, the
+    NCHW view, the unaligned source); out-of-range indices wrapped once or
+    NaN; one launch a call; int64 indices refused."""
     from paddle3d_tpu_torch.ops import gather
-    rng = np.random.default_rng(c)
-    a = 107136 if c == 7 else 5000
-    src = torch.from_numpy(rng.normal(size=(3, a, c + 4)).astype(
-        np.float32)).to(cuda)
-    src = src[..., 2:2 + c] if strided else src[..., :c].contiguous()
-    idx = rng.integers(0, a, (3, 1000)).astype(np.int32)
-    idx[0, :6] = [-1, -a, a, -a - 1, 2**31 - 1, 0]
-    idx = torch.from_numpy(idx).to(cuda)
+    src, idx = _gather_case(cuda, c, layout)
     before = _build.LAUNCHES["gather_rows"]
     got = gather.gather_rows(src, idx)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["gather_rows"] == before + 1
-    ref = gather.gather_rows_plain(src, idx)
-    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
-    assert torch.isnan(got[0, 2:5]).all() and not torch.isnan(got[0, 5:]).any()
+    assert tuple(got.shape) == (3, 1000, c) and got.is_contiguous()
+    assert _same_bits(got, gather.gather_rows_plain(src, idx))
+    assert torch.isnan(got[0, 5:9]).all()
+    assert not torch.isnan(got[0, :5]).any() and not torch.isnan(
+        got[1:]).any()
     with pytest.raises(TypeError, match="int32"):
         gather.gather_rows(src, idx.long())
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 7, 10, 64])
+@pytest.mark.parametrize("form", [1, 2])
+def test_gather_rows_forms_match_plain(cuda, c, form):
+    """Both of K14's forms (lane groups: float4s, or c lanes a float each;
+    flat) forced through p3d_gather_rows_form, on the NCHW view and on
+    contiguous rows."""
+    from paddle3d_tpu_torch.ops import gather
+    fn = _build.function("p3d_gather_rows_form")
+    for layout in ("contiguous", "nchw"):
+        src, idx = _gather_case(cuda, c, layout, b=2, a=700, k=129)
+        b, a, c = src.shape
+        out = torch.empty((b, idx.shape[1], c), device=cuda)
+        _build.check(fn(src.data_ptr(), *src.stride(), idx.data_ptr(),
+                        out.data_ptr(), b, a, idx.shape[1], c, form,
+                        _build.stream_ptr(cuda)), "gather_rows_form")
+        torch.cuda.synchronize()
+        assert _same_bits(out, gather.gather_rows_plain(src, idx))
+
+
+@pytest.mark.parametrize("b,a,k,c", [(3, 50, 0, 10), (0, 50, 7, 10),
+                                     (70000, 3, 2, 10), (40000, 4, 3, 64)])
+def test_gather_rows_empty_and_many_batch_rows(cuda, b, a, k, c):
+    """K = 0 or B = 0: an empty result and no launch; tens of thousands of
+    batch rows of a few indices each: bit-equal to the plain version."""
+    from paddle3d_tpu_torch.ops import gather
+    src, idx = _gather_case(cuda, c, "contiguous", b=b, a=a, k=k)
+    before = _build.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, k, c)
+    assert _build.LAUNCHES["gather_rows"] == before + int(got.numel() > 0)
+    assert _same_bits(got, gather.gather_rows_plain(src, idx))
 
 
 def test_voxel_canvas_on_card_matches_cpu(cuda, tmp_path):

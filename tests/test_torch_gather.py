@@ -128,3 +128,20 @@ def test_launch_path_refuses_and_binds_once(monkeypatch):
     assert _build.function("p3d_gather_rows") is fake_kernel
     with pytest.raises(AssertionError, match="library requested"):
         _build.function("p3d_sparse_conv3d_not_cached")
+
+
+def test_nchw_view_matches_jax_cpu_form():
+    """SMOKE's decode hands the regression map NCHW [B, C, H, W] as the
+    view [B, H*W, C] (channel stride H*W): the plain version reads it in
+    place and gives the JAX CPU form on the NHWC rows, at c = 10."""
+    rng = np.random.default_rng(4)
+    b, c, h, w, k = 2, 10, 6, 8, 11
+    nchw = rng.normal(size=(b, c, h, w)).astype(np.float32)
+    idx = rng.integers(0, h * w, (b, k)).astype(np.int32)
+    rows = torch.from_numpy(nchw).flatten(2).transpose(1, 2)
+    assert rows.stride() == (c * h * w, 1, h * w)
+    ref = np.asarray(jax_gather_rows(
+        jnp.asarray(nchw.transpose(0, 2, 3, 1).reshape(b, h * w, c)),
+        jnp.asarray(idx)))
+    got = gather.gather_rows(rows, torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), ref)

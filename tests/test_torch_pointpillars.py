@@ -149,10 +149,12 @@ def test_entry_points(models):
 
 def test_port_imports_no_jax():
     """The port imports torch and never jax, flax or paddle3d_tpu: import
-    it, its sparse-voxel modules and the weight converter, and build the
-    tiny model and the CenterPoint-voxels model in a fresh interpreter."""
+    it, its sparse-voxel modules, the weight converter and the camera host
+    layer (Sample, Gt2SmokeTarget), and build the tiny model, the
+    CenterPoint-voxels model and the tiny SMOKE in a fresh interpreter."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
                           "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
+    smoke = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
     code = (
         "import sys\n"
         "from paddle3d_tpu_torch.apis import Config\n"
@@ -160,14 +162,18 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.ops.sparse\n"
         "import paddle3d_tpu_torch.ops.segmented\n"
         "import paddle3d_tpu_torch.utils.convert\n"
+        "import paddle3d_tpu_torch.sample\n"
+        "import paddle3d_tpu_torch.transforms.target_generator\n"
         "m = Config(path=sys.argv[1], device='cpu').model\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"
+        "s = Config(path=sys.argv[3], device='cpu').model\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'flax', 'paddle3d_tpu'))\n"
         "assert type(m).__name__ == 'PointPillars'\n"
         "assert type(v.middle_encoder).__name__ == 'SparseResNet3D'\n"
+        "assert type(s.backbone).__name__ == 'DLA'\n"
         "print(bad)\n")
-    res = subprocess.run([sys.executable, "-c", code, TINY, voxels],
+    res = subprocess.run([sys.executable, "-c", code, TINY, voxels, smoke],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
