@@ -169,8 +169,8 @@ phases; any failing phase exits non-zero and prints no result:
      forward, nothing else; the decode reads the NCHW regression map in
      place) and on the plain versions (every output equal by bit
      pattern); K14 at both decode calls bit for bit against its plain
-     version and a second call, timed through its wrapper, alone, in each
-     form, beside torch.gather, its byte bound and its chain floor (one
+     version and a second call, timed through its wrapper and alone,
+     beside torch.gather, its byte bound and its chain floor (one
      launch on one float); the tiny config's test_forward on the card
      against the CPU; frames/s of both paths at batch 1 and 8, peak memory
      and a profile; training at batch 8 (the config's Adam and
@@ -188,8 +188,8 @@ times, in one process a checkout (TREE: a directory holding the package,
 e.g. a `git archive` of another commit), the row gather (K14) at
 gather.py's 8 x 1,000 x 7, a voxel-row gather's 4 x 120,000 x 64,
 SMOKE's decode (8 x 50 rows of 10 from the NCHW map, read in place) and
-8 x 100,000 rows of 3, each through its wrapper, its C entry alone and,
-where the tree has them, each of its forms (parts_one); list parent,
+8 x 100,000 rows of 3, each through its wrapper and its C entry alone
+(parts_one); list parent,
 change, change, parent to compare two trees on one card.
 f32 throughout, with TF32 off for convolutions and matmuls; deterministic
 cuDNN for the comparisons; phase 11's checked steps under
@@ -3668,9 +3668,11 @@ SMOKE_OBJECTS = 8       # synthetic objects an image
 # check: its random heatmap is flat at sigmoid(-2.19), and near-equal
 # scores would order differently on the two devices
 SMOKE_CLS_GAIN = 8.0
-# its outputs on the card against the CPU, relative to the largest value
-SMOKE_TINY_TOL = {"scores": 1e-4, "box3d_cam": 1e-3, "bbox_2d": 1e-3,
-                  "alphas": 5e-3}
+# its outputs on the card against the CPU, relative to the largest value:
+# about 10x the readings on an H100 (scores 1.1e-5, box3d_cam 4.0e-6,
+# bbox_2d 5.8e-7, alphas 1.1e-5)
+SMOKE_TINY_TOL = {"scores": 1e-4, "box3d_cam": 5e-5, "bbox_2d": 1e-5,
+                  "alphas": 1e-4}
 
 
 def smoke_intrinsics(h, w):
@@ -3764,10 +3766,9 @@ def gather_chain_floor(device, iters=50):
 
 def k14_parts(label, src, idx, iters=50):
     """K14 at one call, on its inputs: bit for bit against its plain
-    version and a second call, then its wrapper, its C entry alone (the
-    output made before) and, where the tree has it, each form forced,
-    timed; torch.gather with its int64 index made inside as the yardstick,
-    the byte bound and the chain floor. -> (dict of part -> ms, max_abs_err
+    version and a second call, then its wrapper and its C entry alone (the
+    output made before), timed; torch.gather with its int64 index made
+    inside as the yardstick, the byte bound and the chain floor. -> (dict of part -> ms, max_abs_err
     against the plain version)."""
     import torch
 
@@ -3787,12 +3788,6 @@ def k14_parts(label, src, idx, iters=50):
              "kernel alone": cuda_ms(lambda: fn(*head, stream), iters),
              "plain": cuda_ms(lambda: gather.gather_rows_plain(src, idx),
                               iters)}
-    if "p3d_gather_rows_form" in _build._SIGNATURES:
-        form = _build.function("p3d_gather_rows_form")
-        for name, f in (("lane groups", 1), ("flat", 2)):
-            parts[name] = cuda_ms(lambda: form(*head, f, stream), iters)
-            check(same_bits(out, ref), "{}: K14's {} form differs from its "
-                  "plain version".format(label, name))
     parts["torch.gather"] = cuda_ms(lambda: torch.gather(
         src, 1, idx.long()[..., None].expand(-1, -1, c)), iters)
     parts["chain floor"] = gather_chain_floor(src.device, iters)
@@ -4158,8 +4153,8 @@ def parts_one(tree):
         k14_parts("gather.py's shape" if case[2] == 7 else
                   "a voxel-row gather", *gather_inputs(dev, *case))
     k14_parts("SMOKE's decode", *smoke_decode_inputs(dev))
-    # rows of 3 floats, 8 x 100,000 from 100,000: past one launch's
-    # latency, where the flat form and c lanes a row part
+    # rows of 3 floats, 8 x 100,000 from 100,000: the flat form past one
+    # launch's latency
     k14_parts("narrow rows", *gather_inputs(dev, 8, 100000, 3, 100000))
 
 

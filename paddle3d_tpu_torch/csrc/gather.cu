@@ -23,9 +23,8 @@
 // the index before the row load, so a warp kept one row in flight and at
 // c = 64 half its lanes idle. Here:
 //   * a group of lanes sized to the row serves it: c / 4 lanes for rows
-//     of float4s (two rows a warp at c = 64, eight at c = 16; c lanes, a
-//     float each, where the form is forced on other rows); a row wider
-//     than 32 units is cut into pieces of 32;
+//     of float4s (two rows a warp at c = 64, eight at c = 16); a row wider
+//     than 32 float4s is cut into pieces of 32;
 //   * a warp's indices come in one coalesced load (a lane an index) and
 //     reach their groups by shuffles;
 //   * each thread issues its loads for kInFlight pieces before its first
@@ -35,8 +34,9 @@
 //     H*W) is read in place, one float a lane, in the flat form;
 //   * rows that are not whole float4s take the flat form: a thread
 //     kInFlight output floats a block apart, every lane busy (c lanes a
-//     row left lanes idle and measured slower; p3d_gather_rows_form
-//     forces either form, for chip_smoke.py --parts).
+//     row, a float each, left lanes idle and measured 13-14 % slower at
+//     8 x 100,000 x 3; the flat form on float4 rows 1.9x slower than lane
+//     groups: PERF.md, PR 18).
 //
 // Built by ops/_build.py with nvcc for sm_90a into the git-ignored
 // build/torch_kernels/, with the other csrc/ sources, and bound with
@@ -45,7 +45,6 @@
 
 #include <climits>
 #include <cstddef>
-#include <type_traits>
 
 namespace {
 
@@ -60,7 +59,7 @@ struct Args {
   const int* idx;           // [B, K] contiguous
   float* out;               // [B, K, C] contiguous
   int a, k, c;
-  int units;    // units a row: c / 4 float4s or c floats
+  int units;    // float4s a row: c / 4
   int pieces;   // pieces a row: ceil(units / g)
   int g;        // lanes a piece
   int r;        // pieces a warp serves at once: 32 / g
@@ -76,7 +75,7 @@ __device__ __forceinline__ int wrap(int j, int a) {
   return (j < 0 || j >= a) ? -1 : j;
 }
 
-template <bool kVec>
+// Lane groups on rows of whole float4s.
 __global__ void __launch_bounds__(kThreads)
     gather_rows_group_kernel(const Args p) {
   const int lane = threadIdx.x & 31;
@@ -91,8 +90,7 @@ __global__ void __launch_bounds__(kThreads)
   const int grp = lane / p.g;  // the piece of a set this lane serves
   const int sub = lane - grp * p.g;
   const bool active = grp < p.r;
-  using V = typename std::conditional<kVec, float4, float>::type;
-  V val[kInFlight];
+  float4 val[kInFlight];
   int row[kInFlight], unit[kInFlight];
 #pragma unroll
   for (int t = 0; t < kInFlight; ++t) {
@@ -107,30 +105,18 @@ __global__ void __launch_bounds__(kThreads)
     row[t] = rw;
     const int jj = wrap(j, p.a);
     if (jj < 0) {
-      if constexpr (kVec) {
-        val[t] = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
-      } else {
-        val[t] = nan_f();
-      }
+      val[t] = make_float4(nan_f(), nan_f(), nan_f(), nan_f());
       continue;
     }
     const float* s = p.src + static_cast<long long>(rw / p.k) * p.ssb +
                      static_cast<long long>(jj) * p.ssa;
-    if constexpr (kVec) {
-      val[t] = __ldg(reinterpret_cast<const float4*>(s) + unit[t]);
-    } else {
-      val[t] = __ldg(s + static_cast<long long>(unit[t]) * p.ssc);
-    }
+    val[t] = __ldg(reinterpret_cast<const float4*>(s) + unit[t]);
   }
 #pragma unroll
   for (int t = 0; t < kInFlight; ++t) {
     if (row[t] < 0) continue;
-    if constexpr (kVec) {
-      reinterpret_cast<float4*>(p.out + static_cast<long long>(row[t]) * p.c)
-          [unit[t]] = val[t];
-    } else {
-      p.out[static_cast<long long>(row[t]) * p.c + unit[t]] = val[t];
-    }
+    reinterpret_cast<float4*>(p.out + static_cast<long long>(row[t]) * p.c)
+        [unit[t]] = val[t];
   }
 }
 
@@ -180,11 +166,10 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// form: 0 the rule below, 1 lane groups, 2 the flat form.
 int launch(const float* src, long long ssb, long long ssa, long long ssc,
-           const int* idx, float* out, int b, int a, int k, int c, int form,
+           const int* idx, float* out, int b, int a, int k, int c,
            cudaStream_t stream) {
-  if (c < 0 || a < 0 || k < 0 || b < 0 || form < 0 || form > 2) {
+  if (c < 0 || a < 0 || k < 0 || b < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long nout = static_cast<long long>(b) * k * c;
@@ -202,11 +187,8 @@ int launch(const float* src, long long ssb, long long ssa, long long ssc,
   // a grid of fewer than two blocks an SM leaves SMs idle at the small
   // shapes: there a thread loads one unit, so the work spreads
   const long long few = 2LL * sms * kThreads * kInFlight;
-  // the rule: rows of whole float4s take lane groups, other rows the flat
-  // form (faster than c lanes a row at c = 3, 7 and 10, contiguous or
-  // strided, and equal at c = 1: chip_smoke.py --parts)
-  if (form == 0) form = vec ? 1 : 2;
-  if (form == 2) {
+  // rows of whole float4s take lane groups, other rows the flat form
+  if (!vec) {
     const bool wide = nout >= few;
     const int per_block = kThreads * (wide ? kInFlight : 1);
     const unsigned grid =
@@ -220,7 +202,7 @@ int launch(const float* src, long long ssb, long long ssa, long long ssc,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  p.units = vec ? c / 4 : c;
+  p.units = c / 4;
   p.g = p.units < 32 ? p.units : 32;
   p.pieces = (p.units + p.g - 1) / p.g;
   p.r = 32 / p.g;
@@ -231,11 +213,7 @@ int launch(const float* src, long long ssb, long long ssa, long long ssc,
   const int per_warp = p.r * p.u;
   const long long warps = (total + per_warp - 1) / per_warp;
   const unsigned grid = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  if (vec) {
-    gather_rows_group_kernel<true><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    gather_rows_group_kernel<false><<<grid, kThreads, 0, stream>>>(p);
-  }
+  gather_rows_group_kernel<<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,16 +225,6 @@ int launch(const float* src, long long ssb, long long ssa, long long ssc,
 extern "C" int p3d_gather_rows(const float* src, long long ssb, long long ssa,
                                long long ssc, const int* idx, float* out,
                                int b, int a, int k, int c, void* stream) {
-  return launch(src, ssb, ssa, ssc, idx, out, b, a, k, c, 0,
-                static_cast<cudaStream_t>(stream));
-}
-
-// The same with the form forced (1 lane groups, 2 flat; 0 the rule), for
-// timing the two forms against each other.
-extern "C" int p3d_gather_rows_form(const float* src, long long ssb,
-                                    long long ssa, long long ssc,
-                                    const int* idx, float* out, int b, int a,
-                                    int k, int c, int form, void* stream) {
-  return launch(src, ssb, ssa, ssc, idx, out, b, a, k, c, form,
+  return launch(src, ssb, ssa, ssc, idx, out, b, a, k, c,
                 static_cast<cudaStream_t>(stream));
 }

@@ -79,8 +79,6 @@ _SIGNATURES = {
     "p3d_sorted_segment_sum_rw": (_vp, _vp, _ll, _ll, _ll, _vp, _i, _i, _i,
                                   _i, _vp),
     "p3d_gather_rows": (_vp, _ll, _ll, _ll, _vp, _vp, _i, _i, _i, _i, _vp),
-    "p3d_gather_rows_form": (_vp, _ll, _ll, _ll, _vp, _vp, _i, _i, _i, _i,
-                             _i, _vp),
 }
 
 _lib = None

@@ -1262,25 +1262,6 @@ def test_gather_rows_matches_plain(cuda, c, layout):
         gather.gather_rows(src, idx.long())
 
 
-@pytest.mark.parametrize("c", [1, 2, 3, 7, 10, 64])
-@pytest.mark.parametrize("form", [1, 2])
-def test_gather_rows_forms_match_plain(cuda, c, form):
-    """Both of K14's forms (lane groups: float4s, or c lanes a float each;
-    flat) forced through p3d_gather_rows_form, on the NCHW view and on
-    contiguous rows."""
-    from paddle3d_tpu_torch.ops import gather
-    fn = _build.function("p3d_gather_rows_form")
-    for layout in ("contiguous", "nchw"):
-        src, idx = _gather_case(cuda, c, layout, b=2, a=700, k=129)
-        b, a, c = src.shape
-        out = torch.empty((b, idx.shape[1], c), device=cuda)
-        _build.check(fn(src.data_ptr(), *src.stride(), idx.data_ptr(),
-                        out.data_ptr(), b, a, idx.shape[1], c, form,
-                        _build.stream_ptr(cuda)), "gather_rows_form")
-        torch.cuda.synchronize()
-        assert _same_bits(out, gather.gather_rows_plain(src, idx))
-
-
 @pytest.mark.parametrize("b,a,k,c", [(3, 50, 0, 10), (0, 50, 7, 10),
                                      (70000, 3, 2, 10), (40000, 4, 3, 64)])
 def test_gather_rows_empty_and_many_batch_rows(cuda, b, a, k, c):
