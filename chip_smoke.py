@@ -19,10 +19,13 @@ CenterPoint-pillars nuScenes training on 8 scans of 250,000, Voxel-RCNN
 then PV-RCNN KITTI training on 2 scans of 20,000 (the configs' batch), the
 row-window segment sum and the row gather as ops, CenterPoint-voxels
 nuScenes training on 4 scans of 250,000, IA-SSD KITTI training on 8 scans
-of 16,384 (the configs' batches) and SMOKE, the first camera model
+of 16,384 (the configs' batches), SMOKE, the first camera model
 (configs/smoke/smoke_dla34_no_dcn_kitti.yml, full width, seeded random
-weights), serving 1 and 8 images of 384 x 1280 and training on 8, in
-phases; any failing phase exits non-zero and prints no result:
+weights), serving 1 and 8 images of 384 x 1280 and training on 8, and
+CADDN, the second (configs/caddn/caddn_ocrnet_hrnetw18_kitti.yml, full
+width, seeded random weights), serving 1 and 4 images of 384 x 1248 and
+training on 4, in phases; any failing phase exits non-zero and prints no
+result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -177,9 +180,39 @@ phases; any failing phase exits non-zero and prints no result:
      PiecewiseDecay, targets from the port's Gt2SmokeTarget; no kernel
      launches: the loss gathers with torch.gather under autograd), 10
      steps with finite losses that fall, train frames/s, peak memory and a
-     profile.
+     profile;
+ 16. CADDN KITTI (HRNet-W18 + OCRNet, 80 LID bins, BEV 376 x 280 x 64,
+     CenterHead of 3 classes, NMS pre 1,000 / post 100) at 384 x 1248
+     under a KITTI camera (caddn_camera: f = 721.5, the principal point at
+     the centre, KITTI's lidar -> camera axes and offsets; the share of
+     frustum rows in the grid and the most rows of a cell and of a
+     512-cell span logged): test_forward at batch 1 and 4 through the
+     kernels (one K7 a forward: the frustum pool of 2,396,160 rows a
+     frame onto 105,280 cells, dense by the density rule; nothing else)
+     and on the plain versions (labels equal, the pooled BEV, scores and
+     boxes within CADDN_TOL); K7 at both pools bit for bit against the
+     row-order sum and a second call, timed through its wrapper and alone
+     beside index_add_call and its bound (in-grid rows only) and its
+     plain version; the tiny config's test_forward on the card (its pool
+     of 192 rows onto 32 x 32 cells is sparse: one K2, held bit for bit)
+     against the CPU (CADDN_TINY_TOL); frames/s of both paths at batch 1
+     and 4, peak memory, a profile and the time of each stage (image
+     branch, FFE, frustum ranks, sort, row rebuild, K7, BEV net, head,
+     decode + NMS); training at batch 4 (the config's AdamWOnecycle, clip
+     10 and OneCycle; 8 boxes an image in range and in view, depth maps
+     at the feature stride): one step through the kernels (one K7, one
+     K5, nothing else) against one on the plain versions from the same
+     state, both in torch's deterministic mode (whose index_add_ adds in
+     row order: the pooled BEVs bit-equal, so K7 is held at the step's
+     pool; losses, grads, running stats compared), K5 held at its VJP (bit
+     for bit against its plain version and a second call, timed through
+     its wrapper and alone beside torch.gather and its bound); 10 steps
+     with finite losses that fall; train frames/s of both paths, peak
+     memory and a profile.
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
+calls in entries of their own, each with a "path" key, after the entries of
+their earlier paths) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --parts TREE [TREE ...]
@@ -203,6 +236,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1063,15 +1097,20 @@ def compare_steps(got, ref, loss_tol, grad_tol, stat_tol,
               1e-6 * largest for k in dead),
           "a parameter with no gradient got one: {}".format(
               {k: g2[k].abs().max().item() for k in dead}))
+    worst = [max(l2, key=lambda k: abs(l1[k] - l2[k]) /
+                 max(abs(l2[k]), 1e-30))]
     for a, b in ((g1, g2), (s1, s2)):
         check(set(a) == set(b), "tensor names differ")
-        errs.append(max((a[k] - b[k]).abs().max().item() /
-                        max(b[k].abs().max().item(), 1e-30) for k in b
-                        if k not in dead))
-    for err, tol, what in zip(errs, (loss_tol, grad_tol, stat_tol),
-                              ("losses", "grads", "running stats")):
-        check(err <= tol, "{} differ: {:.3e} > {:.0e}".format(what, err,
-                                                               tol))
+        rel = {k: (a[k] - b[k]).abs().max().item() /
+               max(b[k].abs().max().item(), 1e-30) for k in b
+               if k not in dead}
+        worst.append(max(rel, key=rel.get))
+        errs.append(rel[worst[-1]])
+    for err, tol, what, name in zip(errs, (loss_tol, grad_tol, stat_tol),
+                                    ("losses", "grads", "running stats"),
+                                    worst):
+        check(err <= tol, "{} differ: {:.3e} > {:.0e} (worst: {})".format(
+            what, err, tol, name))
     return errs
 
 
@@ -3087,12 +3126,13 @@ def timed_train(step, model, optimizer, batch, label, iters, stages,
 
 
 @contextlib.contextmanager
-def deterministic():
+def deterministic(warn_only=False):
     """Run the block deterministically: torch's deterministic mode (an op
-    with no deterministic form raises), deterministic cuDNN with no
-    autotuning. The mode needs main()'s cuBLAS workspace setting."""
+    with no deterministic form raises, or with warn_only runs as it is
+    with a warning), deterministic cuDNN with no autotuning. The mode
+    needs main()'s cuBLAS workspace setting."""
     import torch
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
@@ -4005,6 +4045,516 @@ def phase_smoke(device):
             {"gather_rows": launches["gather_rows"]})
 
 
+# Phase 16: CADDN (HRNet-W18 + OCRNet), the second camera model, at the
+# config's image size (configs/caddn/caddn_ocrnet_hrnetw18_kitti.yml:
+# 384 x 1248, BEV 376 x 280 x 64, 80 LID bins at stride 4), under a KITTI
+# camera: smoke_intrinsics' f = 721.5 with the principal point at the centre
+# times lidar -> camera axes (x_cam = -y, y_cam = -z, z_cam = x) with the
+# offsets of KITTI's Tr_velo_to_cam (training frame 000000); batch 1 as
+# tools/bench_camera.py serves it, batch 4 the config's batch_size
+CADDN_KITTI = os.path.join(REPO, "configs", "caddn",
+                           "caddn_ocrnet_hrnetw18_kitti.yml")
+CADDN_TINY = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
+CADDN_HW = (384, 1248)
+CADDN_BATCH = 4
+CADDN_ITERS = 10        # timed forwards per path and batch (halves of 5)
+CADDN_TRAIN_ITERS = 6   # timed train steps per path (halves of 3)
+CADDN_OBJECTS = 8       # synthetic boxes an image
+KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
+# the tiny config (64 x 96 images) sees its 16 x 16 m grid through a camera
+# of this focal length
+CADDN_TINY_FOCAL = 60.0
+# the tiny config's outputs on the card against the CPU, relative to the
+# largest value: cuDNN and the CPU's convolutions sum in other orders
+CADDN_TINY_TOL = {"scores": 1e-4, "box3d_lidar": 1e-4}
+# the CADDN kernel and plain paths on the card, relative to the largest
+# value (BEV) or absolute (scores, boxes): K7 adds a cell's rows in row
+# order, index_add_ in a run-dependent order
+CADDN_TOL = {"bev": 1e-5, "scores": 1e-5, "box3d_lidar": 1e-4}
+CADDN_LOSSES = ("loss", "hm_loss_0", "loc_loss_0", "loss_depth")
+
+
+def caddn_camera(h, w, focal=SMOKE_FOCAL, yaw=0.0):
+    """img2lidar [4, 4] f32 of a camera looking along lidar x (turned by
+    yaw about lidar z): the inverse of K @ lidar2cam, K the pinhole with the
+    principal point at the image centre, lidar2cam KITTI's axes and
+    offsets."""
+    import numpy as np
+    k = np.eye(4)
+    k[:3, :3] = smoke_intrinsics(h, w)
+    k[0, 0] = k[1, 1] = focal
+    c, s = np.cos(yaw), np.sin(yaw)
+    l2c = np.eye(4)
+    l2c[:3, :3] = np.array([[0., -1, 0], [0, 0, -1], [1, 0, 0]]) @ np.array(
+        [[c, s, 0], [-s, c, 0], [0, 0, 1]])
+    l2c[:3, 3] = KITTI_VELO_TO_CAM_T
+    return np.linalg.inv(k @ l2c).astype(np.float32)
+
+
+def caddn_serve_batch(device, b, seed=SEED, hw=None, focal=SMOKE_FOCAL):
+    """b images of uniform pixels in [0, 255), NHWC at hw (CADDN_HW by
+    default), each with caddn_camera's img2lidar."""
+    import numpy as np
+    import torch
+    h, w = hw or CADDN_HW
+    rng = np.random.default_rng(seed)
+    cam = np.broadcast_to(caddn_camera(h, w, focal), (b, 4, 4))
+    return {"data": torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3))
+                                     .astype(np.float32)).to(device),
+            "img2lidars": torch.from_numpy(np.array(cam)).to(device)}
+
+
+def caddn_train_batch(device, model, b=None, seed=SEED):
+    """caddn_serve_batch of b (CADDN_BATCH) images with CADDN_OBJECTS boxes
+    an image (the config's classes, KITTI-sized, on the ground, inside the
+    point-cloud range and in the camera's view, random yaw) and a depth map
+    at the feature stride with depths in the config's range, all from the
+    seed."""
+    import numpy as np
+    import torch
+    b = b or CADDN_BATCH
+    batch = caddn_serve_batch(device, b, seed)
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = model.pc_range[:3], model.pc_range[3:]
+    n = CADDN_OBJECTS
+    x = rng.uniform(lo[0] + 4, hi[0] - 3, (b, n))
+    half_view = x * (CADDN_HW[1] / 2 - 40) / SMOKE_FOCAL
+    y = rng.uniform(-1, 1, (b, n)) * np.minimum(half_view, hi[1] - 2)
+    # the config's Car, Cyclist, Pedestrian: KITTI's mean sizes (l, w, h)
+    labels = rng.integers(0, sum(model.bbox_head.num_classes), (b, n))
+    lwh = np.array([[3.9, 1.6, 1.56], [1.76, 0.6, 1.73],
+                    [0.8, 0.6, 1.73]])[labels % 3] * rng.uniform(
+                        0.9, 1.1, (b, n, 3))
+    boxes = np.concatenate([x[..., None], y[..., None],
+                            np.full((b, n, 1), -1.73), lwh,
+                            rng.uniform(-np.pi, np.pi, (b, n, 1))], -1)
+    h, w = (-(-s // model.downsample) for s in CADDN_HW)
+    d0, d1 = model.depth_range
+    batch.update(
+        gt_boxes=torch.from_numpy(boxes.astype(np.float32)).to(device),
+        gt_labels=torch.from_numpy(labels).to(device),
+        depth_map=torch.from_numpy(rng.uniform(d0, d1, (b, h, w)).astype(
+            np.float32)).to(device))
+    return batch
+
+
+def frustum_stats(model, img2lidars):
+    """The first image's frustum at the feature map's size (image_size /
+    downsample): rows, the share in the grid, BEV cells hit, the most rows
+    of a cell and of a 512-cell span. -> dict."""
+    import torch
+    h, w = (-(-s // model.downsample) for s in model.image_size)
+    rank, valid = model.frustum_ranks(img2lidars[:1], h, w)
+    keys = rank[valid].long()
+    counts = torch.bincount(keys)
+    return {"rows": valid.numel(), "in_grid": int(valid.sum()),
+            "share": valid.float().mean().item(),
+            "cells": int((counts > 0).sum()), "longest": int(counts.max()),
+            "span": int(torch.bincount(keys // 512).max())}
+
+
+def check_caddn_outputs(out, b, k, classes):
+    """CADDN's CenterHead outputs: shapes, finite, -1 padded."""
+    import torch
+    boxes, scores, labels = (out["box3d_lidar"], out["scores"],
+                             out["label_preds"])
+    check(tuple(boxes.shape) == (b, k, 7) and tuple(scores.shape) ==
+          tuple(labels.shape) == (b, k), "CADDN output shapes")
+    check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
+          "non-finite CADDN outputs")
+    kept = scores >= 0
+    check(bool((labels[kept] >= 0).all() & (labels[kept] < classes).all() &
+               (labels[~kept] == -1).all() & (scores[~kept] == -1).all()),
+          "CADDN scores / labels outside the padding convention")
+    return kept.sum(dim=1).tolist()
+
+
+def k5_parts(label, keys, g, g_extra, cells, c, iters=20):
+    """K5 at one call of a path, on the inputs the path handed it: bit for
+    bit against its plain version and a second call, then its wrapper and
+    its C entry alone (output made before) timed, beside its plain version,
+    torch.gather with its int64 index made inside the timing, and the byte
+    bound (gather_work). -> (dict of part -> ms, max_abs_err, bound)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    args = (keys, g, g_extra, cells, c)
+    ref = sorted_scatter.sorted_table_gather_plain(*args)
+    got, again = (sorted_scatter.sorted_table_gather(*args)
+                  for _ in range(2))
+    check(same_bits(got, ref) and same_bits(again, got), "{}: K5 differs "
+          "from its plain version or a second call".format(label))
+    err = (got - ref).abs().max().item()
+    del again, ref
+    b, n = keys.shape
+    es = g_extra.stride()[:2] if g_extra is not None else (0, 0)
+    fn = _build.function("p3d_sorted_table_gather")
+    head = (keys.data_ptr(), g.data_ptr(), *g.stride(),
+            g_extra.data_ptr() if g_extra is not None else None, *es,
+            got.data_ptr(), b, n, c, g.shape[-1], cells,
+            _build.stream_ptr(keys.device))
+
+    def library():
+        inside = (keys >= 0) & (keys < cells)
+        idx = torch.where(inside, keys, 0).long()[..., None].expand(
+            -1, -1, g.shape[-1])
+        return torch.where(inside[..., None], torch.gather(g, 1, idx), 0.)
+    parts = {"wrapper": cuda_ms(lambda: sorted_scatter.sorted_table_gather(
+                 *args), iters),
+             "kernel alone": cuda_ms(lambda: fn(*head), iters),
+             "plain": cuda_ms(lambda: sorted_scatter.sorted_table_gather_plain(
+                 *args), 5),
+             "torch.gather": cuda_ms(library, 5)}
+    nbytes, _, distinct = gather_work(*args)
+    bnd = bound(nbytes)
+    log("  K5 at {}: B={} N={} C={} cells={} (cotangent strides {}), {} "
+        "distinct in-range cells; bit-equal to its plain version and a "
+        "second call; ms a call: {}; kernel / library {:.3f}; bound {:.4f} "
+        "ms ({})".format(label, b, n, c, cells, tuple(g.stride()), distinct,
+                         ", ".join("{} {:.4f}".format(k, v)
+                                   for k, v in parts.items()),
+                         parts["wrapper"] / parts["torch.gather"], *bnd))
+    return parts, err, bnd
+
+
+def caddn_stages(model, batch, iters):
+    """The stage times of CADDN's test_forward: the image branch (HRNet and
+    the OCR features), the FFE (depth head, softmax, channel reduce), the
+    frustum ranks, the sort of the scalar payloads, the row rebuild, K7,
+    the BEV net, the head convs, decode + NMS."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    gx, gy, _ = model.grid_size
+    cells = gx * gy
+
+    def ffe(f):
+        prob = torch.softmax(model.depth_head(f), dim=1)[:, :-1]
+        return model.chan_reduce(f), prob
+
+    def ranks(x):
+        feats, prob = x
+        b, c, h, w = feats.shape
+        return (feats, prob) + model.frustum_ranks(batch["img2lidars"], h, w)
+
+    def sort(x):
+        feats, prob, rank, valid = x
+        b = feats.shape[0]
+        key = torch.where(valid, rank, SENT).reshape(b, -1)
+        keys, order = torch.sort(key, dim=-1, stable=True)
+        hw = feats.shape[2] * feats.shape[3]
+        spix = torch.remainder(order, hw)
+        sdep = torch.gather(prob.reshape(b, -1), 1, order)
+        return feats, keys.contiguous(), spix, sdep
+
+    def rebuild(x):
+        feats, keys, spix, sdep = x
+        b, c = feats.shape[:2]
+        tab = feats.permute(0, 2, 3, 1).reshape(b, -1, c)
+        rows = torch.gather(tab, 1, spix[..., None].expand(-1, -1, c)) * \
+            sdep[..., None]
+        return keys, rows
+
+    def k7(x):
+        return sorted_scatter.scatter_rows(*x, cells, False)
+
+    stage_times([
+        ("image branch", lambda bt: model._image_features(bt["data"])),
+        ("FFE", ffe), ("frustum ranks", ranks), ("sort", sort),
+        ("row rebuild", rebuild), ("K7", k7),
+        ("BEV net", lambda t: model.bev_backbone(t.reshape(
+            t.shape[0], gy, gx, -1).permute(0, 3, 1, 2).contiguous())),
+        ("head convs", model.bbox_head),
+        ("decode + NMS", lambda preds: model.bbox_head.predict(
+            preds, model.test_cfg))], batch, iters)
+
+
+def caddn_timing(model, batch):
+    """Frames/s of both paths in kernel/plain/plain/kernel halves after a
+    warm-up (cudnn.benchmark on), the convolutions' and matmuls' work a
+    frame, peak memory, a profile of one forward through the kernels and
+    the stage times."""
+    import torch
+    b = batch["data"].shape[0]
+    for _ in range(2):
+        model.test_forward(batch)
+        with plain_path():
+            model.test_forward(batch)
+    rates = {"kernels": [], "plain": []}
+    half = CADDN_ITERS // 2
+    for order in (("kernels", "plain"), ("plain", "kernels")):
+        for path in order:
+            ctx = plain_path() if path == "plain" else contextlib.nullcontext()
+            with ctx:
+                rates[path].append(smoke_frames_per_s(model, batch, half))
+    rate = {k: CADDN_ITERS / sum(half / r for r in v)
+            for k, v in rates.items()}
+    log("  batch {}: {} forwards a path (kernel/plain/plain/kernel halves, "
+        "cudnn.benchmark on): kernel path {:.2f} frames/s ({:.3f} ms a "
+        "frame), plain path {:.2f} frames/s ({:.3f} ms); halves {}".format(
+            b, CADDN_ITERS, rate["kernels"], 1e3 / rate["kernels"],
+            rate["plain"], 1e3 / rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        model.test_forward(batch)
+    gflop = counter.get_total_flops() / 1e9 / b
+    log("  {:.1f} GFLOP a frame in convolutions and matmuls "
+        "(torch.utils.flop_counter over one forward): {:.2f} TFLOP/s at "
+        "the kernel path's ms a frame".format(
+            gflop, gflop * rate["kernels"] / 1e3))
+    torch.cuda.reset_peak_memory_stats()
+    model.test_forward(batch)
+    log("  peak device memory of one forward at batch {}: {:.1f} "
+        "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: model.test_forward(batch))
+    caddn_stages(model, batch, 3)
+
+
+def phase_caddn_tiny():
+    """The tiny config's test_forward on the card (its pool: 192 rows a
+    frame onto 32 x 32 cells, sparse, so K2, held bit for bit at its call)
+    against the CPU path: labels equal, scores and boxes within
+    CADDN_TINY_TOL of the largest value. -> K2's (max_abs_err, ms, library
+    ms, bound ms, bound_by), its plain version's ms and its launches."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    model = Config(path=CADDN_TINY, device="cpu").model.eval()
+    batch = caddn_serve_batch("cpu", 2, hw=model.image_size,
+                              focal=CADDN_TINY_FOCAL)
+    with torch.no_grad():
+        ref = model.test_forward(batch)
+        model.cuda()
+        with recorded(sorted_scatter, "scatter_rows") as calls:
+            _build.reset_launches()
+            got = model.test_forward({k: v.cuda() for k, v in batch.items()})
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+    check(launches["sorted_segment_sum"] == 1 and
+          sum(launches.values()) == 1, "the tiny CADDN on the card launched "
+          "{} where one K2 was due".format(launches))
+    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
+          "tiny CADDN labels differ between the card and the CPU")
+    errs = {key: ((got[key].cpu() - ref[key]).abs().max() /
+                  ref[key].abs().max()).item() for key in CADDN_TINY_TOL}
+    log("  tiny config test_forward, card (K2) vs CPU (plain): labels "
+        "equal; relative errors {} (tolerances {})".format(
+            {k: "{:.3e}".format(v) for k, v in errs.items()},
+            CADDN_TINY_TOL))
+    check(all(errs[k] <= tol for k, tol in CADDN_TINY_TOL.items()),
+          "tiny CADDN outputs differ between the card and the CPU")
+    (keys, rows, cells, split), _ = calls[0]
+    k2 = k2_call("the tiny CADDN's pool", keys, rows, cells, split)
+    plain_ms = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys, rows, cells, split), 20)
+    log("  K2 at the tiny CADDN's pool, plain version: {:.4f} ms".format(
+        plain_ms))
+    return k2, plain_ms, launches["sorted_segment_sum"]
+
+
+def caddn_compare(out, ref, bev, bev_ref):
+    """The kernel path against the plain path: labels equal, the BEV
+    table, scores and boxes within CADDN_TOL. -> the errors."""
+    import torch
+    check(torch.equal(out["label_preds"], ref["label_preds"]),
+          "CADDN labels differ from the plain path")
+    errs = {"bev": ((bev - bev_ref).abs().max() / bev_ref.abs().max())
+            .item(),
+            "scores": (out["scores"] - ref["scores"]).abs().max().item(),
+            "box3d_lidar": (out["box3d_lidar"] - ref["box3d_lidar"]).abs()
+            .max().item()}
+    check(all(errs[k] <= tol for k, tol in CADDN_TOL.items()),
+          "CADDN outputs differ from the plain path: {}".format(errs))
+    return errs
+
+
+def phase_caddn(device):
+    """CADDN on the OCRNet-HRNet-W18 KITTI config at full width (seeded
+    random weights, f32, TF32 off): serving at batch 1 and 4 through K7
+    and on the plain versions (BEV, scores, boxes within CADDN_TOL, labels
+    equal), K7 held bit for bit and timed at both pools, the tiny config
+    card (K2) vs CPU, frames/s, memory, profiles, stages; training at
+    batch 4 (AdamWOnecycle, clip 10, OneCycle; depth maps): one step
+    through K7 and K5 against one on the plain versions from the same
+    state (deterministic mode), K5 held and timed at the step's VJP, 10
+    falling losses, train frames/s, memory, profile. -> the record's entries of
+    K7, K5 and K2 at CADDN's calls."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=CADDN_KITTI, device=device)
+    model = cfg.model.eval()
+    gx, gy, _ = model.grid_size
+    post = model.test_cfg["nms"]["nms_post_max_size"]
+    classes = model.bbox_head.num_classes[0]
+    batches = {b: caddn_serve_batch(device, b) for b in (1, CADDN_BATCH)}
+    stats = frustum_stats(model, batches[1]["img2lidars"])
+    log("phase 16: CADDN KITTI (HRNet-W18 + OCRNet, {} LID bins, BEV {} x "
+        "{} x {}, {} classes) at {} x {}: a frame's frustum has {} rows, "
+        "{} in the grid (share {:.4f}) on {} cells, at most {} rows a cell "
+        "and {} a 512-cell span".format(
+            model.depth_bins, gy, gx, model.feat_channels, classes,
+            *CADDN_HW, stats["rows"], stats["in_grid"], stats["share"],
+            stats["cells"], stats["longest"], stats["span"]))
+    check(stats["share"] > 0.5, "less than half the frustum is in the grid")
+    outs, bevs = {}, {}
+    with torch.no_grad(), recorded(sorted_scatter, "scatter_rows") as calls, \
+            recorded(model, "_frustum_to_bev") as pooled:
+        _build.reset_launches()
+        for b, batch in batches.items():
+            outs[b] = model.test_forward(batch)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    kept = {b: check_caddn_outputs(out, b, post, classes)
+            for b, out in outs.items()}
+    log("  serving through the kernels: launches {}; boxes over the "
+        "threshold a frame {}".format(
+            {k: v for k, v in launches.items() if v}, kept))
+    check(launches["sorted_segment_sum_dense"] == len(batches) and
+          sum(launches.values()) == len(batches),
+          "the CADDN forwards launched {} where one K7 a forward was "
+          "due".format(launches))
+    bevs = {b: out for b, ((_, out)) in zip(batches, pooled)}
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            with plain_path(), recorded(model, "_frustum_to_bev") as ref_bev:
+                ref = model.test_forward(batch)
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "the plain path launched a kernel")
+            errs = caddn_compare(outs[b], ref, bevs[b], ref_bev[0][1])
+            log("  batch {} vs the plain path: labels equal; BEV {:.3e} of "
+                "its largest value, scores {:.3e}, boxes {:.3e} (tolerances "
+                "{})".format(b, errs["bev"], errs["scores"],
+                             errs["box3d_lidar"], CADDN_TOL))
+    del outs, bevs, pooled, ref, ref_bev
+    k7 = {}
+    for b, ((keys, rows, cells, split), _) in zip(batches, calls):
+        k7[b] = k7_parts("CADDN's pool at batch {}".format(b), keys, rows,
+                         cells, split, iters=20)
+    keys, rows, cells, _ = calls[-1][0]
+    k7_bytes = scatter_bytes(keys, cells, rows.shape[-1],
+                             keys.shape[0] * cells * rows.shape[-1])
+    k7_plain = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys, rows, cells, False), 5)
+    log("  K7 at CADDN's pool at batch {}, plain version: {:.4f} ms".format(
+        CADDN_BATCH, k7_plain))
+    del calls, keys, rows
+    k2, k2_plain, k2_launches = phase_caddn_tiny()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        for batch in batches.values():
+            caddn_timing(model, batch)
+    del batches
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch = caddn_train_batch(device, model)
+    restore = saved_state(model, optimizer, scheduler)
+    # both steps in torch's deterministic mode: its index_add_ then adds
+    # each cell's rows in row order, as K7 does, so the two BEVs agree bit
+    # for bit and no relu input near 0 falls on another side (with
+    # index_add_'s atomics the BEV differs by ~3e-6 of its largest value,
+    # and a BEV conv's grads by up to 1.5e-2 of their largest). The
+    # upsamplings' backward (HRNet) has no deterministic form: warn_only
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        with deterministic(warn_only=True), \
+                recorded(sorted_scatter, "scatter_rows") as fwd, \
+                recorded(sorted_scatter, "sorted_table_gather") as bwd, \
+                recorded(model, "_frustum_to_bev") as kbev:
+            kernel = record_step(step, model, optimizer, batch)
+        restore()
+        with deterministic(warn_only=True), plain_path(), \
+                recorded(model, "_frustum_to_bev") as pbev:
+            plain = record_step(step, model, optimizer, batch)
+        restore()
+    equal = same_bits(kbev[0][1], pbev[0][1])
+    log("  train forward's BEV, kernel step vs plain step (deterministic "
+        "mode): {}; ops the mode ran without a deterministic form: {}"
+        .format("bit-equal" if equal else "differ by {:.3e}".format(
+            (kbev[0][1] - pbev[0][1]).abs().max().item()),
+                sorted({str(w.message).split(" does not")[0]
+                        for w in warned})))
+    check(equal, "the train step's pool (K7) differs from the plain step's "
+          "row-order index_add_")
+    del kbev, pbev
+    log("  training at batch {} ({}, clip {}, {}; {} boxes an image, depth "
+        "maps at the feature stride): kernel step losses {}; launches {}; "
+        "plain step launches {}".format(
+            CADDN_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], CADDN_OBJECTS,
+            {k: round(v, 5) for k, v in kernel[0].items()},
+            {k: v for k, v in kernel[3].items() if v},
+            {k: v for k, v in plain[3].items() if v}))
+    check(kernel[3]["sorted_segment_sum_dense"] == 1 and
+          kernel[3]["sorted_table_gather"] == 1 and
+          sum(kernel[3].values()) == 2, "the CADDN train step launched {} "
+          "where one K7 and one K5 were due".format(kernel[3]))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    # the OCR head's aux-classifier bias shifts every pixel of a region's
+    # logits alike, and f_object's bias every region of a pixel's
+    # similarities: both softmaxes take them away; f_down's and f_up's
+    # shift every pixel of a context channel alike, which the projection's
+    # batch-statistics BN takes away
+    names = dict(model.named_parameters())
+    dead = [n for n in ("class_head.aux_head.layers.1.bias",
+                        "class_head.spatial_ocr.f_object.bias",
+                        "class_head.spatial_ocr.f_down.bias",
+                        "class_head.spatial_ocr.f_up.bias") if n in names]
+    step_errs = compare_steps(kernel, plain, 1e-6, 1e-4, 1e-6, CADDN_LOSSES,
+                              dead)
+    log("  vs the plain step (deterministic mode): losses {:.3e} "
+        "(tolerance 1e-6), grads {:.3e} (1e-4), running stats {:.3e} "
+        "(1e-6), relative; {} have no gradient on either step".format(
+            *step_errs, dead))
+    # K7 at the step's pool: held above (its BEV bit-equal to the plain
+    # step's, whose index_add_ adds in row order in deterministic mode)
+    check(len(fwd) == 1 and fwd[0][0][0].shape == (CADDN_BATCH, stats[
+        "rows"]), "expected one pool of whole frames a train step")
+    k5 = k5_parts("CADDN's train backward", *bwd[0][0])
+    k5_launches = kernel[3]["sorted_table_gather"]
+    del fwd, bwd, kernel, plain
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch)
+    timed_train(step, model, optimizer, batch, "CADDN", CADDN_TRAIN_ITERS,
+                lambda *a: None)
+    del model, step, batch, cfg, optimizer, scheduler, restore
+
+    p7 = k7[CADDN_BATCH]
+    k5_ms, k5_err, k5_bound = k5
+
+    def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
+        src, tpu, _ = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, "path": path}
+    # K7's error: k7_parts held it bit for bit against the row-order sum
+    return [entry("sorted_segment_sum_dense", "CADDN serving, batch {}"
+                  .format(CADDN_BATCH), launches["sorted_segment_sum_dense"],
+                  0.0, p7["wrapper"], k7_plain, p7["index_add_call"],
+                  bound(k7_bytes)),
+            entry("sorted_table_gather", "CADDN training, batch {}".format(
+                CADDN_BATCH), k5_launches, k5_err, k5_ms["wrapper"],
+                  k5_ms["plain"], k5_ms["torch.gather"], k5_bound),
+            entry("sorted_segment_sum", "the tiny CADDN config's serving",
+                  k2_launches, k2[0], k2[1], k2_plain, k2[2], k2[3:])]
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4263,6 +4813,8 @@ def main():
         for into, part in zip((errs, times, extra, launches),
                               phase_smoke(device)):
             into.update(part)
+        # K7, K5 and K2 at CADDN's calls, entries of their own
+        caddn = phase_caddn(device)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [
@@ -4271,7 +4823,7 @@ def main():
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": extra[name][1], "bound_by": extra[name][2],
          "library_ms": extra[name][0]}
-        for name, (src, tpu, _) in KERNELS.items()]}
+        for name, (src, tpu, _) in KERNELS.items()] + caddn}
     log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,2 +1,4 @@
 from .dla import DLA, DLA34
-from .second_backbone import SecondBackbone
+from .hrnet import HRNet, HRNet_W18
+from .resnet import ResNet
+from .second_backbone import BaseBEVBackbone, SecondBackbone

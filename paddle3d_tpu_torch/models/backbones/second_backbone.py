@@ -1,5 +1,6 @@
 """SECOND backbone, torch port of
-paddle3d_tpu/models/backbones/second_backbone.py (SecondBackbone).
+paddle3d_tpu/models/backbones/second_backbone.py (SecondBackbone,
+BaseBEVBackbone).
 
 Plain strided conv stages, NCHW, on cuDNN.
 """
@@ -10,8 +11,9 @@ from torch import nn
 
 from ...apis import manager
 from ..layers.layer_libs import ConvBNReLU, default_generator
+from ..necks.second_fpn import SecondFPN
 
-__all__ = ["SecondBackbone"]
+__all__ = ["SecondBackbone", "BaseBEVBackbone"]
 
 
 @manager.BACKBONES.add_component
@@ -48,3 +50,30 @@ class SecondBackbone(nn.Module):
                 x = layer(x)
             outs.append(x)
         return tuple(outs)
+
+
+@manager.BACKBONES.add_component
+class BaseBEVBackbone(nn.Module):
+    """SECOND-style dense BEV backbone that returns a single fused map
+    (reference: paddle3d/models/backbones/base_bev_backbone.py): the
+    SecondBackbone's strided blocks, then the SecondFPN's deconvs to a
+    common stride, concatenated. CADDN's BEV net; NCHW in and out."""
+
+    def __init__(self,
+                 in_channels: int = 64,
+                 layer_nums: Sequence[int] = (5, 5),
+                 layer_strides: Sequence[int] = (1, 2),
+                 num_filters: Sequence[int] = (128, 256),
+                 upsample_strides: Sequence[int] = (1, 2),
+                 num_upsample_filters: Sequence[int] = (256, 256),
+                 generator: torch.Generator = None):
+        super().__init__()
+        generator = default_generator(generator)
+        self.blocks = SecondBackbone(in_channels, num_filters, layer_nums,
+                                     layer_strides, generator=generator)
+        self.fuse = SecondFPN(num_filters, num_upsample_filters,
+                              upsample_strides, generator=generator)
+        self.out_channels = sum(num_upsample_filters)
+
+    def forward(self, x):
+        return self.fuse(self.blocks(x))

@@ -1,3 +1,4 @@
+from .caddn import CADDN
 from .centerpoint import CenterHead, CenterPoint
 from .iassd import IASSD
 from .pointpillars import PointPillars, SSDHead

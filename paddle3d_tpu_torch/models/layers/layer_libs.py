@@ -1,6 +1,7 @@
 """Shared layer building blocks, torch port of
 paddle3d_tpu/models/layers/layer_libs.py (uniform_init, uniform_bias_init,
-ConvBNReLU, DeconvBNReLU, LinearBN1DReLU, heatmap_nms, gather_topk_feat).
+ConvBNReLU, DeconvBNReLU, LinearBN1DReLU, heatmap_nms, gather_topk_feat),
+and Sequential, nnx.Sequential's layout.
 
 NCHW layout. Two conventions of the JAX package are kept on purpose:
   * flax `padding="SAME"` pads (total // 2, total - total // 2), which on a
@@ -21,9 +22,9 @@ from torch import nn
 from ...ops import gather
 
 __all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "BatchNorm1d",
-           "BatchNorm2d", "same_pads", "uniform_", "uniform_init",
-           "uniform_bias_init", "default_generator", "heatmap_nms",
-           "gather_topk_feat"]
+           "BatchNorm2d", "Sequential", "same_pads", "uniform_",
+           "uniform_init", "uniform_bias_init", "default_generator",
+           "heatmap_nms", "gather_topk_feat"]
 
 
 def default_generator(generator: torch.Generator = None) -> torch.Generator:
@@ -93,6 +94,21 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
+
+
+class Sequential(nn.Module):
+    """nnx.Sequential's layout: the parts in `layers`, applied in order, so
+    that the JAX package's dotted paths (`stem1.layers.0.kernel`) name the
+    same submodules."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
 
 
 class ConvBNReLU(nn.Module):

@@ -2155,3 +2155,71 @@ def test_two_stage_train_step_on_card_matches_cpu(cuda, tmp_path):
         if "running" in name:
             err = (s.cpu() - r).abs().max().item()
             assert err <= 1e-4 * max(r.abs().max().item(), 1e-30), name
+
+
+def _caddn(cuda, b=2):
+    """CADDN's full-width frustum (80 x 96 x 312 rows a frame onto 376 x
+    280 cells) under chip_smoke.py's KITTI camera, and its pool's inputs
+    from a seed: (model, img2lidars on the card, feature table [B, h*w,
+    64], depth weights [B, D, h, w])."""
+    import chip_smoke
+    from paddle3d_tpu_torch.apis import Config
+    model = Config(path=chip_smoke.CADDN_KITTI, device="cpu").model
+    cam = torch.from_numpy(np.stack([
+        chip_smoke.caddn_camera(*chip_smoke.CADDN_HW, yaw=0.05 * i)
+        for i in range(b)])).to(cuda)
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    table = torch.randn((b, 96 * 312, 64), generator=gen).to(cuda)
+    dep = torch.rand((b, 80, 96, 312), generator=gen).to(cuda)
+    return model, cam, table, dep
+
+
+def test_caddn_frustum_ranks_on_card_match_cpu(cuda):
+    """The frustum's rank and valid computed on the card index for index
+    as on the CPU (true divisions on both)."""
+    model, cam, _, _ = _caddn(cuda)
+    rank, valid = model.frustum_ranks(cam, 96, 312)
+    ref_rank, ref_valid = model.frustum_ranks(cam.cpu(), 96, 312)
+    assert torch.equal(valid.cpu(), ref_valid) and valid.float().mean() > .5
+    assert torch.equal(rank.cpu()[ref_valid], ref_rank[ref_valid])
+
+
+def test_caddn_pool_runs_k7_and_k5_at_full_width(cuda, monkeypatch):
+    """ops/scatter.bev_pool_sorted at CADDN's full-width call: the
+    forward launches K7 (a dense scan by the density rule), bit-equal to
+    the row-order sum of the rows it was handed; the backward launches K5,
+    bit-equal to its plain version on the cotangent it was handed."""
+    from paddle3d_tpu_torch.ops import scatter
+    model, cam, table, dep = _caddn(cuda)
+    rank, valid = model.frustum_ranks(cam, 96, 312)
+    b, cells = cam.shape[0], 376 * 280
+    seen = {}
+    fwd, bwd = sorted_scatter.scatter_rows, sorted_scatter.sorted_table_gather
+
+    def rec_fwd(*args):
+        seen["fwd"] = (args, fwd(*args))
+        return seen["fwd"][1]
+
+    def rec_bwd(*args):
+        seen["bwd"] = (args, bwd(*args))
+        return seen["bwd"][1]
+    monkeypatch.setattr(sorted_scatter, "scatter_rows", rec_fwd)
+    monkeypatch.setattr(sorted_scatter, "sorted_table_gather", rec_bwd)
+    table.requires_grad_()
+    before = dict(_build.LAUNCHES)
+    out = scatter.bev_pool_sorted(
+        table, torch.arange(96 * 312, device=cuda).repeat(80)[None].expand(
+            b, -1), dep.reshape(b, -1), rank.reshape(b, -1),
+        valid.reshape(b, -1), cells)
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before
+            if _build.LAUNCHES[k] != before[k]} == {
+                "sorted_segment_sum_dense": 1, "sorted_table_gather": 1}
+    (keys, rows, n_cells, _), got = seen["fwd"]
+    assert n_cells == cells and keys.shape == (b, 80 * 96 * 312)
+    torch.testing.assert_close(got, _row_order_sum(keys, rows, cells),
+                               rtol=0, atol=0)
+    args, got = seen["bwd"]
+    torch.testing.assert_close(
+        got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
