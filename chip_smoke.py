@@ -4066,7 +4066,7 @@ KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
 CADDN_TINY_FOCAL = 60.0
 # the tiny config's outputs on the card against the CPU, relative to the
 # largest value: cuDNN and the CPU's convolutions sum in other orders
-CADDN_TINY_TOL = {"scores": 1e-4, "box3d_lidar": 1e-4}
+CADDN_TINY_TOL = {"scores": 2e-6, "box3d_lidar": 5e-7}
 # the CADDN kernel and plain paths on the card, relative to the largest
 # value (BEV) or absolute (scores, boxes): K7 adds a cell's rows in row
 # order, index_add_ in a run-dependent order
@@ -4220,11 +4220,12 @@ def k5_parts(label, keys, g, g_extra, cells, c, iters=20):
 def caddn_stages(model, batch, iters):
     """The stage times of CADDN's test_forward: the image branch (HRNet and
     the OCR features), the FFE (depth head, softmax, channel reduce), the
-    frustum ranks, the sort of the scalar payloads, the row rebuild, K7,
-    the BEV net, the head convs, decode + NMS."""
+    frustum ranks (the model's pool_inputs), the sort of the scalar payloads
+    and the row rebuild (ops/scatter's halves of bev_pool_sorted), K7, the
+    BEV net, the head convs, decode + NMS."""
     import torch
 
-    from paddle3d_tpu_torch.ops import sorted_scatter
+    from paddle3d_tpu_torch.ops import scatter, sorted_scatter
     gx, gy, _ = model.grid_size
     cells = gx * gy
 
@@ -4232,36 +4233,22 @@ def caddn_stages(model, batch, iters):
         prob = torch.softmax(model.depth_head(f), dim=1)[:, :-1]
         return model.chan_reduce(f), prob
 
-    def ranks(x):
-        feats, prob = x
-        b, c, h, w = feats.shape
-        return (feats, prob) + model.frustum_ranks(batch["img2lidars"], h, w)
-
     def sort(x):
-        feats, prob, rank, valid = x
-        b = feats.shape[0]
-        key = torch.where(valid, rank, SENT).reshape(b, -1)
-        keys, order = torch.sort(key, dim=-1, stable=True)
-        hw = feats.shape[2] * feats.shape[3]
-        spix = torch.remainder(order, hw)
-        sdep = torch.gather(prob.reshape(b, -1), 1, order)
-        return feats, keys.contiguous(), spix, sdep
+        tab, pix, dep, rank, valid = x
+        return (tab,) + scatter.sort_payloads(pix, dep, rank, valid,
+                                              tab.dtype)
 
     def rebuild(x):
-        feats, keys, spix, sdep = x
-        b, c = feats.shape[:2]
-        tab = feats.permute(0, 2, 3, 1).reshape(b, -1, c)
-        rows = torch.gather(tab, 1, spix[..., None].expand(-1, -1, c)) * \
-            sdep[..., None]
-        return keys, rows
-
-    def k7(x):
-        return sorted_scatter.scatter_rows(*x, cells, False)
+        tab, keys, spix, sdep = x
+        return keys, scatter.rebuild_rows(tab, spix, sdep)
 
     stage_times([
         ("image branch", lambda bt: model._image_features(bt["data"])),
-        ("FFE", ffe), ("frustum ranks", ranks), ("sort", sort),
-        ("row rebuild", rebuild), ("K7", k7),
+        ("FFE", ffe),
+        ("frustum ranks", lambda x: model.pool_inputs(
+            *x, batch["img2lidars"])),
+        ("sort", sort), ("row rebuild", rebuild),
+        ("K7", lambda x: sorted_scatter.scatter_rows(*x, cells, False)),
         ("BEV net", lambda t: model.bev_backbone(t.reshape(
             t.shape[0], gy, gx, -1).permute(0, 3, 1, 2).contiguous())),
         ("head convs", model.bbox_head),
@@ -4402,21 +4389,22 @@ def phase_caddn(device):
             *CADDN_HW, stats["rows"], stats["in_grid"], stats["share"],
             stats["cells"], stats["longest"], stats["span"]))
     check(stats["share"] > 0.5, "less than half the frustum is in the grid")
-    outs, bevs = {}, {}
+    outs, launches = {}, {}
     with torch.no_grad(), recorded(sorted_scatter, "scatter_rows") as calls, \
             recorded(model, "_frustum_to_bev") as pooled:
-        _build.reset_launches()
         for b, batch in batches.items():
+            _build.reset_launches()
             outs[b] = model.test_forward(batch)
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            launches[b] = dict(_build.LAUNCHES)
     kept = {b: check_caddn_outputs(out, b, post, classes)
             for b, out in outs.items()}
-    log("  serving through the kernels: launches {}; boxes over the "
-        "threshold a frame {}".format(
-            {k: v for k, v in launches.items() if v}, kept))
-    check(launches["sorted_segment_sum_dense"] == len(batches) and
-          sum(launches.values()) == len(batches),
+    log("  serving through the kernels: launches by batch {}; boxes over "
+        "the threshold a frame {}".format(
+            {b: {k: v for k, v in n.items() if v}
+             for b, n in launches.items()}, kept))
+    check(all(n["sorted_segment_sum_dense"] == 1 and sum(n.values()) == 1
+              for n in launches.values()),
           "the CADDN forwards launched {} where one K7 a forward was "
           "due".format(launches))
     bevs = {b: out for b, ((_, out)) in zip(batches, pooled)}
@@ -4534,7 +4522,7 @@ def phase_caddn(device):
                 lambda *a: None)
     del model, step, batch, cfg, optimizer, scheduler, restore
 
-    p7 = k7[CADDN_BATCH]
+    p7, k7_err = k7[CADDN_BATCH]
     k5_ms, k5_err, k5_bound = k5
 
     def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
@@ -4543,10 +4531,10 @@ def phase_caddn(device):
                 "replaces": tpu, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": library_ms, "path": path}
-    # K7's error: k7_parts held it bit for bit against the row-order sum
     return [entry("sorted_segment_sum_dense", "CADDN serving, batch {}"
-                  .format(CADDN_BATCH), launches["sorted_segment_sum_dense"],
-                  0.0, p7["wrapper"], k7_plain, p7["index_add_call"],
+                  .format(CADDN_BATCH),
+                  launches[CADDN_BATCH]["sorted_segment_sum_dense"], k7_err,
+                  p7["wrapper"], k7_plain, p7["index_add_call"],
                   bound(k7_bytes)),
             entry("sorted_table_gather", "CADDN training, batch {}".format(
                 CADDN_BATCH), k5_launches, k5_err, k5_ms["wrapper"],
@@ -4632,8 +4620,8 @@ def k7_parts(label, keys, rows, cells, split, iters=50):
     """K7 at one call of a path, on the inputs the path handed it: bit for
     bit against the row-order sum and a second call (tolerance 0), then its
     wrapper (scatter_rows) and its C entry alone (buffers made before)
-    timed, with index_add_call, their factor and the bound. -> dict of part
-    -> ms."""
+    timed, with index_add_call, their factor and the bound. -> (dict of
+    part -> ms, max_abs_err against the row-order sum)."""
     import torch
 
     from paddle3d_tpu_torch.ops import _build, sorted_scatter
@@ -4651,10 +4639,11 @@ def k7_parts(label, keys, rows, cells, split, iters=50):
                   for _ in range(2))
     if split:
         got, again = torch.cat(got, dim=-1), torch.cat(again, dim=-1)
-    check(same_bits(got, row_order_sum(keys, rows, cells)) and
-          same_bits(again, got), "{}: K7 differs from the row-order sum or "
-          "from a second call".format(label))
-    del got, again
+    ref = row_order_sum(keys, rows, cells)
+    check(same_bits(got, ref) and same_bits(again, got), "{}: K7 differs "
+          "from the row-order sum or from a second call".format(label))
+    err = (got - ref).abs().max().item()
+    del got, again, ref
     parts = {"wrapper": cuda_ms(lambda: sorted_scatter.scatter_rows(
                  keys, rows, cells, split), iters),
              "kernel alone": cuda_ms(lambda: fn(*args), iters),
@@ -4666,7 +4655,7 @@ def k7_parts(label, keys, rows, cells, split, iters=50):
             label, b, n, c, " (split)" if split else "", cells,
             ", ".join("{} {:.4f}".format(k, v) for k, v in parts.items()),
             parts["wrapper"] / parts["index_add_call"], *bnd))
-    return parts
+    return parts, err
 
 
 def smoke_decode_inputs(device, b=SMOKE_BATCH, k=50, reg=10):

@@ -243,19 +243,26 @@ class CADDN(BaseMonoModel):
             valid &= (vox[a] >= 0) & (vox[a] < self.grid_size[a])
         return vox[1] * self.grid_size[0] + vox[0], valid
 
+    def pool_inputs(self, feats, depth_prob, img2lidars):
+        """feats [B, C, h, w] (NCHW); depth_prob [B, D, h, w]; img2lidars
+        [B, 4, 4] -> bev_pool_sorted's arguments but the cell count: the
+        NHWC table [B, h*w, C], the pixel [B, D*h*w] int32, the depth
+        weight, the rank and valid of every frustum row."""
+        b, c, h, w = feats.shape
+        rank, valid = self.frustum_ranks(img2lidars, h, w)
+        feat_tab = feats.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        pix = torch.arange(h * w, dtype=torch.int32, device=feats.device
+                           ).repeat(self.depth_bins)[None].expand(b, -1)
+        return (feat_tab, pix, depth_prob.reshape(b, -1), rank.reshape(b, -1),
+                valid.reshape(b, -1))
+
     def _frustum_to_bev(self, feats, depth_prob, img2lidars):
         """feats [B, C, h, w] (NCHW); depth_prob [B, D, h, w]; img2lidars
         [B, 4, 4] -> the pooled BEV table [B, gy, gx, C] (NHWC)."""
-        b, c, h, w = feats.shape
-        d = self.depth_bins
-        rank, valid = self.frustum_ranks(img2lidars, h, w)
-        feat_tab = feats.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        pix = torch.arange(h * w, dtype=torch.int32,
-                           device=feats.device).repeat(d)[None].expand(b, -1)
+        b, c = feats.shape[:2]
         gx, gy, _ = self.grid_size
-        bev = bev_pool_sorted(feat_tab, pix, depth_prob.reshape(b, -1),
-                              rank.reshape(b, -1), valid.reshape(b, -1),
-                              gy * gx)
+        bev = bev_pool_sorted(*self.pool_inputs(feats, depth_prob,
+                                                img2lidars), gy * gx)
         return bev.reshape(b, gy, gx, c)
 
     # ---------------------------------------------------------------- model

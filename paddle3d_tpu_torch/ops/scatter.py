@@ -13,7 +13,8 @@ import torch
 
 from . import sorted_scatter
 
-__all__ = ["pillar_scatter", "bev_pool", "bev_pool_sorted"]
+__all__ = ["pillar_scatter", "bev_pool", "bev_pool_sorted", "sort_payloads",
+           "rebuild_rows"]
 
 SENT = 2**31 - 1        # the key of a dropped row: past every cell
 
@@ -51,6 +52,32 @@ def bev_pool(feats: torch.Tensor, ranks: torch.Tensor, valid: torch.Tensor,
     return out.index_add(0, idx, feats)[:num_cells]
 
 
+def sort_payloads(pix: torch.Tensor, depth_w: torch.Tensor,
+                  ranks: torch.Tensor, valid: torch.Tensor, dtype):
+    """The first half of bev_pool_sorted: each batch row's scalar payloads
+    by a stable sort of its keys (invalid rows keyed past every cell).
+
+    pix [B, R] int; depth_w [B, R] float; ranks [B, R] int; valid [B, R]
+    bool. -> (keys [B, R] int32 sorted, pixels [B, R] int64, depth weights
+    [B, R] in dtype)."""
+    key = torch.where(valid, ranks.to(torch.int32), SENT).to(torch.int32)
+    keys, order = torch.sort(key, dim=-1, stable=True)
+    spix = torch.gather(pix.long(), 1, order)
+    # the weights travel as f32, as in the JAX package's sort (an f64 model
+    # gets them rounded to f32 there too)
+    sdep = torch.gather(depth_w.to(torch.float32), 1, order).to(dtype)
+    return keys.contiguous(), spix, sdep
+
+
+def rebuild_rows(feat_table: torch.Tensor, spix: torch.Tensor,
+                 sdep: torch.Tensor) -> torch.Tensor:
+    """The second half of bev_pool_sorted: the sorted rows
+    feat_table[b, spix] * sdep, [B, R, C]."""
+    c = feat_table.shape[-1]
+    return torch.gather(feat_table, 1, spix[..., None].expand(-1, -1, c)) \
+        * sdep[..., None]
+
+
 def bev_pool_sorted(feat_table: torch.Tensor, pix: torch.Tensor,
                     depth_w: torch.Tensor, ranks: torch.Tensor,
                     valid: torch.Tensor, num_cells: int) -> torch.Tensor:
@@ -58,26 +85,18 @@ def bev_pool_sorted(feat_table: torch.Tensor, pix: torch.Tensor,
     pix] over the rows of that cell.
 
     Only the scalar payloads are sorted (rank, pixel, depth weight), each
-    batch row by a stable sort of its keys (invalid rows keyed past every
-    cell), so that the kernel and plain paths see one row order; the rows
-    are rebuilt from the small per-pixel table by a gather and reduced by
-    the sorted segment sum (K7 or K2 forward, K5 backward on the card).
-    The JAX package's sort is unstable: there the rows of a cell may be
-    summed in another order.
+    batch row by a stable sort of its keys (sort_payloads), so that the
+    kernel and plain paths see one row order; the rows are rebuilt from the
+    small per-pixel table by a gather (rebuild_rows) and reduced by the
+    sorted segment sum (K7 or K2 forward, K5 backward on the card). The JAX
+    package's sort is unstable: there the rows of a cell may be summed in
+    another order.
 
     feat_table [B, Npix, C]; pix [B, R] int row index into Npix; depth_w
     [B, R] float; ranks [B, R] int cell ids; valid [B, R] bool.
     -> pooled [B, num_cells, C] in feat_table's dtype, differentiable in
     feat_table and depth_w."""
-    c = feat_table.shape[-1]
-    key = torch.where(valid, ranks.to(torch.int32), SENT).to(torch.int32)
-    keys, order = torch.sort(key, dim=-1, stable=True)
-    spix = torch.gather(pix.long(), 1, order)
-    # the weights travel as f32, as in the JAX package's sort (an f64 model
-    # gets them rounded to f32 there too)
-    sdep = torch.gather(depth_w.to(torch.float32), 1, order).to(
-        feat_table.dtype)
-    rows = torch.gather(feat_table, 1, spix[..., None].expand(-1, -1, c)) \
-        * sdep[..., None]
-    return sorted_scatter.sorted_segment_sum(keys.contiguous(), rows,
-                                             num_cells)
+    keys, spix, sdep = sort_payloads(pix, depth_w, ranks, valid,
+                                     feat_table.dtype)
+    return sorted_scatter.sorted_segment_sum(
+        keys, rebuild_rows(feat_table, spix, sdep), num_cells)

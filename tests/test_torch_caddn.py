@@ -413,16 +413,15 @@ def jax_frustum(jm, img2lidars, h, w):
 def test_frustum_rank_and_valid_index_equal(tiny, full, which):
     """rank and valid index for index against the JAX frustum: the tiny
     config's 8 x 4 x 6 frustum under the test cameras (their LID depths
-    put x on voxel faces: 3.0 m is a face of the 0.5 m grid), and the
-    full-width frustum (80 x 96 x 312) under chip_smoke's KITTI camera,
-    more than half of whose rows land in the grid."""
+    put x on voxel faces: 3.0 m is a face of the 0.5 m grid), and one
+    frame of the full-width frustum (80 x 96 x 312) under chip_smoke's
+    KITTI camera, more than half of whose rows land in the grid."""
     if which == "tiny_camera":
         jm, _, model = tiny
         img2lidars, h, w = serve_batch()["img2lidars"], FH, FW
     else:
         jm, _, model = full
-        img2lidars = np.stack([chip_smoke.caddn_camera(384, 1248),
-                               chip_smoke.caddn_camera(384, 1248, yaw=0.05)])
+        img2lidars = chip_smoke.caddn_camera(384, 1248)[None]
         h, w = 96, 312
     ref_rank, v = jax_frustum(jm, img2lidars, h, w)
     rank, valid = model.frustum_ranks(torch.from_numpy(img2lidars), h, w)
@@ -435,13 +434,13 @@ def test_frustum_rank_and_valid_index_equal(tiny, full, which):
         assert v.mean() > 0.5
 
 
-def test_chip_smoke_caddn_batch_is_mostly_in_grid():
+def test_chip_smoke_caddn_batch_is_mostly_in_grid(full):
     """chip_smoke.py's CADDN serving batch (its KITTI camera) puts more
     than half of the full-width frustum's rows in the grid, on cells with
     up to thousands of rows: a dense pool for K7. tools/bench_camera.py's
     CADDN img2lidars (:84-93, its y row scaled by u·z) puts under 1 %
     there."""
-    model = Config(path=OCR_HRNET, device="cpu").model
+    model = full[2]
     batch = chip_smoke.caddn_serve_batch("cpu", 1)
     assert tuple(batch["data"].shape) == (1, 384, 1248, 3)
     stats = chip_smoke.frustum_stats(model, batch["img2lidars"])
