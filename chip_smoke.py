@@ -24,8 +24,11 @@ of 16,384 (the configs' batches), SMOKE, the first camera model
 weights), serving 1 and 8 images of 384 x 1280 and training on 8, and
 CADDN, the second (configs/caddn/caddn_ocrnet_hrnetw18_kitti.yml, full
 width, seeded random weights), serving 1 and 4 images of 384 x 1248 and
-training on 4, in phases; any failing phase exits non-zero and prints no
-result:
+training on 4, and PETR and PETRv2, the third and fourth
+(configs/petr/petr{,v2}_vovnet_gridmask_p4_800x320.yml, full width, seeded
+random weights), serving 1 and 2 frames of six 320 x 800 images (PETRv2:
+1 frame of twelve) and training on 2, in phases; any failing phase exits
+non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -209,6 +212,22 @@ result:
      its wrapper and alone beside torch.gather and its bound); 10 steps
      with finite losses that fall; train frames/s of both paths, peak
      memory and a profile.
+ 17. PETR and PETRv2 (VoVNet-99-eSE, CPFPN 768 / 1024 -> 256, 900
+     queries, 6 decoder layers, 8 heads, 64 LID bins, 10 classes) at 320 x
+     800 under petr_rig (tools/bench_camera.py's six-camera ring, its
+     intrinsics for [0, 1] image coordinates; PETRv2's previous frame
+     0.5 m behind); PETR reaches no hand-written kernel: test_forward of
+     PETR at batch 1 and 2 and of PETRv2 at batch 1, each twice (outputs
+     equal by bit pattern, no launch counter moves); the tiny config's
+     test_forward on the card against the CPU (PETR_TINY_TOL); frames/s,
+     GFLOP a frame by module, peak memory, a profile and the stage times
+     (backbone, neck, tokens + position embedding, decoder with its self-
+     and cross-attention apart, decode); training PETR at batch 2 (the
+     config's AdamW, clip 35 and CosineDecay; 8 boxes a frame in range and
+     in view, two padded slots): 10 steps with finite losses that fall,
+     train frames/s, the Hungarian matches' host time, peak memory and a
+     profile; one train step each of PETRv2 with query denoising and of
+     PETRv2-BEVseg at batch 1, finite losses and grads.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls in entries of their own, each with a "path" key, after the entries of
@@ -4543,6 +4562,497 @@ def phase_caddn(device):
                   k2_launches, k2[0], k2[1], k2_plain, k2[2], k2[3:])]
 
 
+# Phase 17: PETR and PETRv2 (VoVNet-99-eSE + CPFPN + the 3-D position-
+# embedded DETR head: 900 queries, 6 layers, 64 LID bins), bench.py's third
+# and fourth camera models, at the configs' 320 x 800 images of uniform
+# pixels under tools/bench_camera.py's six-camera ring (_rig: a yaw ring,
+# fx = fy = 800, principal point (400, 225)) with its intrinsics for the [0,
+# 1] image coordinates the head lifts; PETRv2's previous frame is the same
+# ring PETR_EGO m behind. A frame is one sample: 6 images (PETRv2: 12, the
+# current and the previous frame's), one set of boxes
+PETR_V1 = os.path.join(REPO, "configs", "petr",
+                       "petr_vovnet_gridmask_p4_800x320.yml")
+PETR_V2 = os.path.join(REPO, "configs", "petr",
+                       "petrv2_vovnet_gridmask_p4_800x320.yml")
+PETR_DN = os.path.join(REPO, "configs", "petr",
+                       "petrv2_dn_vovnet_gridmask_p4_800x320.yml")
+PETR_SEG = os.path.join(REPO, "configs", "petr", "petrv2_BEVseg_800x320.yml")
+PETR_TINY = os.path.join(REPO, "configs", "petr", "petr_synthetic_tiny.yml")
+PETR_HW = (320, 800)
+PETR_CAMS = 6
+PETR_BATCH = 2          # the configs' batch_size; bench.py serves batch 1
+PETR_ITERS = 10         # timed forwards per batch (halves of 5)
+PETR_TRAIN_ITERS = 6    # timed train steps (halves of 3)
+PETR_OBJECTS = 8        # gt boxes a frame, then two padded slots
+PETR_EGO = 0.5          # m the ego moved between PETRv2's two frames
+# the tiny config's class branch gets this contrast before the card-vs-CPU
+# check: its random scores sit near sigmoid(-2.19), and near-equal scores
+# would order differently on the two devices
+PETR_CLS_GAIN = 8.0
+# its outputs on the card against the CPU, relative to the largest value:
+# about 10x the readings on an H100 (scores 8.4e-7, boxes 7.8e-7)
+PETR_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
+
+
+def bench_camera():
+    """tools/bench_camera.py as a module (it imports numpy only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "bench_camera", os.path.join(REPO, "tools", "bench_camera.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def petr_rig(hw, n=PETR_CAMS, frames=1, ego=PETR_EGO):
+    """tools/bench_camera.py's ring of n cameras (_rig) for h x w images:
+    its K scaled by w / 800 (the 800-wide image's field of view at any
+    width), then for [0, 1] image coordinates. -> (img2lidars [frames * n,
+    4, 4] f32, frame f's cameras f * ego m behind along lidar x, and
+    lidar2img [n, 4, 4] in pixels)."""
+    import numpy as np
+    h, w = hw
+    l2c, ks = bench_camera()._rig(None, n)
+    k4 = np.tile(np.eye(4), (n, 1, 1))
+    k4[:, :3, :3] = ks
+    k4[:, :2] *= w / 800.0
+    l2i = k4 @ l2c
+    to_unit = np.diag([1.0 / w, 1.0 / h, 1.0, 1.0])
+    cams = []
+    for f in range(frames):
+        back = np.eye(4)
+        back[0, 3] = -f * ego
+        cams.append(back @ np.linalg.inv(to_unit @ l2i))
+    return np.concatenate(cams).astype(np.float32), l2i
+
+
+def petr_serve_batch(device, b, frames=1, seed=SEED, hw=None, n=PETR_CAMS):
+    """b frames of n uniform-pixel images in [0, 255) each (frames x n
+    for PETRv2), NHWC at hw (PETR_HW by default), with petr_rig's
+    img2lidars."""
+    import numpy as np
+    import torch
+    h, w = hw or PETR_HW
+    rng = np.random.default_rng(seed)
+    cams = petr_rig((h, w), n, frames)[0]
+    return {"img": torch.from_numpy(rng.uniform(
+                0, 255, (b, frames * n, h, w, 3)).astype(np.float32)).to(
+                    device),
+            "img2lidars": torch.from_numpy(np.broadcast_to(
+                cams, (b, frames * n, 4, 4)).copy()).to(device)}
+
+
+def petr_gt(rng, b, hw, classes, n=PETR_CAMS, objects=PETR_OBJECTS):
+    """b frames of `objects` car-sized boxes each, 10-45 m out, their
+    centres in some camera's image (rejection sampled), then two padded
+    slots: gt_boxes [b, objects + 2, 9] (x, y, bottom z, w, l, h, yaw,
+    vx, vy), gt_labels [b, objects + 2] (-1 padded)."""
+    import numpy as np
+    h, w = hw
+    l2i = petr_rig(hw, n)[1]
+    boxes = np.zeros((b, objects + 2, 9), np.float32)
+    labels = np.full((b, objects + 2), -1, np.int64)
+    for s in range(b):
+        k = 0
+        while k < objects:
+            az = rng.uniform(-np.pi, np.pi)
+            r = rng.uniform(10, 45)
+            dims = np.array([1.9, 4.6, 1.7]) * rng.uniform(0.9, 1.1, 3)
+            zb = rng.uniform(-2.0, -1.4)
+            ctr = np.array([r * np.cos(az), r * np.sin(az), zb + dims[2] / 2,
+                            1.0])
+            p = l2i @ ctr
+            seen = (p[:, 2] > 0.1) & np.all(
+                (p[:, :2] / p[:, 2:3] >= 0) & (p[:, :2] / p[:, 2:3] < [w, h]),
+                axis=1)
+            if not seen.any():
+                continue
+            boxes[s, k] = [ctr[0], ctr[1], zb, *dims,
+                           rng.uniform(-np.pi, np.pi), *rng.uniform(-2, 2, 2)]
+            labels[s, k] = rng.integers(0, classes)
+            k += 1
+    return boxes, labels
+
+
+def petr_train_batch(device, model, b, frames=1, seed=SEED, hw=None):
+    """petr_serve_batch with petr_gt's targets (and, with a seg head, a
+    random occupancy gt_semantic_map [b, bev_h, bev_w, classes] at 0.2)."""
+    import numpy as np
+    import torch
+    hw = hw or PETR_HW
+    batch = petr_serve_batch(device, b, frames, seed, hw)
+    rng = np.random.default_rng(seed + 1)
+    boxes, labels = petr_gt(rng, b, hw, model.head.num_classes)
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device))
+    seg = model.seg_head
+    if seg is not None:
+        batch["gt_semantic_map"] = torch.from_numpy(
+            (rng.random((b, seg.bev_h, seg.bev_w, seg.num_classes)) < 0.2)
+            .astype(np.float32)).to(device)
+    return batch
+
+
+def check_petr_outputs(out, b, k, code, classes):
+    """PETR's fixed-shape outputs: finite, labels in range, scores in
+    (0, 1) (the threshold is 0: every top-k score is kept)."""
+    import torch
+    check(tuple(out["box3d_lidar"].shape) == (b, k, code - 1) and
+          tuple(out["scores"].shape) == tuple(out["label_preds"].shape) ==
+          (b, k), "PETR output shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "non-finite PETR outputs")
+    labels = out["label_preds"]
+    check(bool(((labels >= 0) & (labels < classes)).all() &
+               (out["scores"] > 0).all() & (out["scores"] < 1).all()),
+          "PETR scores / labels out of range")
+
+
+def petr_stages(model, batch, iters=3):
+    """Host-clock ms of test_forward's stages (each ended by a
+    synchronize): backbone, neck, tokens + position embedding, decoder
+    (its self- and cross-attention apart: each attention call timed
+    between two synchronizes), decode; averaged over iters after a
+    warm-up. PETRv2's time-embedding add is left out (one add)."""
+    import torch
+    head = model.head
+    b, n, h, w, c = batch["img"].shape
+    attn = {"self-attention": [], "cross-attention": []}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            attn[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    stages = [
+        ("backbone", lambda bt: model.backbone(
+            bt["img"].reshape(b * n, h, w, c).permute(0, 3, 1, 2)
+            .contiguous())),
+        ("neck", model.neck),
+        ("tokens + position embedding", lambda feats: head.tokens(
+            feats[0].reshape((b, n) + tuple(feats[0].shape[1:])),
+            batch["img2lidars"])),
+        ("decoder", lambda tk: head._decode(*tk)),
+        ("decode", lambda out: head.predict(*out))]
+    patches = [mock.patch.object(layer.attns[i].attn, "forward",
+                                 timed(key, layer.attns[i].attn.forward))
+               for layer in head.decoder.layers
+               for i, key in ((0, "self-attention"),
+                              (1, "cross-attention"))]
+
+    def run():
+        x, out = batch, []
+        for _, fn in stages:
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        run()
+        for v in attn.values():
+            v.clear()
+        ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
+    parts = {k: sum(v) / iters for k, v in attn.items()}
+    times = dict(zip((s for s, _ in stages), ms))
+    log("  stages a batch (host clock, synchronised; each attention call "
+        "between two synchronizes): {}; of the decoder: self-attention "
+        "{:.3f} ms, cross-attention {:.3f} ms, the rest {:.3f} ms".format(
+            ", ".join("{} {:.3f} ms".format(k, v) for k, v in times.items()),
+            parts["self-attention"], parts["cross-attention"],
+            times["decoder"] - sum(parts.values())))
+    return times, parts
+
+
+def petr_flops(model, batch):
+    """GFLOP a frame of one test_forward's convolutions and matmuls
+    (torch.utils.flop_counter), in all and by module: backbone, neck,
+    head, and the decoder's attention products."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    b = batch["img"].shape[0]
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model.test_forward(batch)
+    counts = counter.get_flop_counts()
+    total = counter.get_total_flops()
+
+    def of(name):
+        return sum(counts.get(name, {}).values()) / 1e9 / b
+
+    # the attention products (q.k and weights.v): each attention module's
+    # count (the tracker names it by its path under the head, whose count
+    # holds its children's) less its four projections'
+    head = type(model.head).__name__
+    attn = [k for k in counts if k.startswith(head + ".decoder.") and
+            k.endswith(".attn")]
+    products = sum(of(k) - sum(of(k + "." + p) for p in (
+        "query", "key", "value", "out")) for k in attn)
+    return {"total": total / 1e9 / b,
+            "backbone": of(type(model.backbone).__name__),
+            "neck": of(type(model.neck).__name__), "head": of(head),
+            "attention products": products}
+
+
+def petr_timing(model, batch, label):
+    """Frames/s over PETR_ITERS forwards in two halves after a warm-up
+    (cudnn.benchmark on, as a server runs), the convolutions' and
+    matmuls' work a frame, peak memory, a profile of one forward and the
+    stage times."""
+    import torch
+    b = batch["img"].shape[0]
+    for _ in range(2):
+        model.test_forward(batch)
+    half = PETR_ITERS // 2
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(half):
+            model.test_forward(batch)
+        torch.cuda.synchronize()
+        rates.append(b * half / (time.perf_counter() - t0))
+    rate = PETR_ITERS / sum(half / r for r in rates)
+    flops = petr_flops(model, batch)
+    log("  {} batch {}: {} forwards (two halves, cudnn.benchmark on): {:.2f} "
+        "frames/s ({:.3f} ms a frame; {} images a frame); halves {}; "
+        "GFLOP a frame (torch.utils.flop_counter) {}: {:.2f} TFLOP/s at that "
+        "rate".format(label, b, PETR_ITERS, rate, 1e3 / rate,
+                      batch["img"].shape[1], [round(r, 2) for r in rates],
+                      {k: round(v, 1) for k, v in flops.items()},
+                      flops["total"] * rate / 1e3))
+    torch.cuda.reset_peak_memory_stats()
+    model.test_forward(batch)
+    log("  peak device memory of one forward at batch {}: {:.1f} "
+        "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: model.test_forward(batch))
+    petr_stages(model, batch)
+
+
+def petr_serve(model, batches, label):
+    """test_forward at each batch twice: outputs equal by bit pattern, no
+    hand-kernel launch, the outputs' shapes and ranges. -> outputs."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    head = model.head
+    outs = {}
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            out, again = (model.test_forward(batch) for _ in range(2))
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "{} launched {}: PETR reaches no hand-written kernel"
+                  .format(label, {k: v for k, v in _build.LAUNCHES.items()
+                                  if v}))
+            differ = [k for k in out if not same_bits(out[k], again[k])]
+            check(not differ, "{} at batch {}: two calls differ in {}"
+                  .format(label, b, differ))
+            check_petr_outputs(out, b, min(300, head.num_query *
+                                            head.num_classes),
+                               head.code_size, head.num_classes)
+            outs[b] = out
+    log("  {}: test_forward at batch {}: no kernel launch; two calls equal "
+        "by bit pattern; top scores a frame {}".format(
+            label, list(batches), {b: [round(v, 4) for v in o["scores"][
+                :, 0].tolist()] for b, o in outs.items()}))
+    return outs
+
+
+def phase_petr_tiny():
+    """The tiny config's test_forward on the card against the CPU, its
+    class branch's last weight scaled by PETR_CLS_GAIN: labels equal,
+    scores and boxes within PETR_TINY_TOL of the largest value (cuDNN and
+    cuBLAS against the CPU's convolutions and matmuls). -> the errors."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build
+    model = Config(path=PETR_TINY, device="cpu").model.eval()
+    with torch.no_grad():
+        model.head.cls_branch.layers[2].weight.mul_(PETR_CLS_GAIN)
+    batch = petr_serve_batch("cpu", 2, hw=(32, 48), n=2)
+    with torch.no_grad():
+        ref = model.test_forward(batch)
+        model.cuda()
+        _build.reset_launches()
+        got = model.test_forward({k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()), "the tiny PETR launched a "
+          "kernel")
+    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
+          "tiny PETR labels differ between the card and the CPU")
+    errs = {key: ((got[key].cpu() - ref[key]).abs().max() /
+                  ref[key].abs().max()).item() for key in PETR_TINY_TOL}
+    log("  tiny config test_forward, card vs CPU: labels equal; relative "
+        "errors {} (tolerances {})".format(
+            {k: "{:.3e}".format(v) for k, v in errs.items()}, PETR_TINY_TOL))
+    check(all(errs[k] <= tol for k, tol in PETR_TINY_TOL.items()),
+          "tiny PETR outputs differ between the card and the CPU")
+    return errs
+
+
+@contextlib.contextmanager
+def hungarian_clock():
+    """Host ms of the train step's Hungarian work: -> dict of lists, a
+    value a call: "match" (hungarian_match: the cost's copy to the host,
+    which waits for the queued forward, then the solves) and "solve" (each
+    scipy solve alone)."""
+    from paddle3d_tpu_torch.models.heads import target_assigners as ta
+    ms = {"match": [], "solve": []}
+
+    def clocked(key, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    with mock.patch.object(ta, "hungarian_match",
+                           clocked("match", ta.hungarian_match)), \
+            mock.patch.object(ta, "_solve_host",
+                              clocked("solve", ta._solve_host)):
+        yield ms
+
+
+def petr_one_step(device, path, label):
+    """One train step of a PETRv2 config at batch 1 (two frames of six
+    cameras): finite losses and grads. -> the losses."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    cfg = Config(path=path, device=device)
+    model = cfg.model.train()
+    batch = petr_train_batch(device, model, 1, frames=2)
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = step(model, cfg.optimizer, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(not any(_build.LAUNCHES.values()), "{} launched a kernel"
+          .format(label))
+    finite = all(bool(torch.isfinite(v).all()) for v in losses.values())
+    grads = all(bool(torch.isfinite(p.grad).all())
+                for p in model.parameters())
+    log("  {} train step at batch 1 ({} images): losses {}; grads finite: "
+        "{}; {:.3f} s (the first, cold); peak {:.1f} MiB".format(
+            label, batch["img"].shape[1],
+            {k: round(v.item(), 5) for k, v in losses.items()}, grads, sec,
+            torch.cuda.max_memory_allocated() / 2**20))
+    check(finite and grads, "{}: non-finite losses or grads".format(label))
+    return losses
+
+
+def phase_petr(device):
+    """PETR and PETRv2 at full width (VoVNet-99-eSE, CPFPN 768 / 1024 ->
+    256, 900 queries, 6 layers, 8 heads, 64 LID bins, 10 classes; seeded
+    random weights, f32, TF32 off) at 320 x 800 under petr_rig: serving v1
+    at batch 1 and 2 and v2 at batch 1 (two calls equal, no hand-kernel
+    launch), the tiny config card vs CPU, frames/s, GFLOP, memory,
+    profiles, stages; training v1 at batch 2 (the config's AdamW, clip 35,
+    CosineDecay; petr_gt's boxes), 10 falling losses, train frames/s,
+    memory, profile, the Hungarian solves' host time; one step each of
+    PETRv2 with query denoising and PETRv2-BEVseg at batch 1."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=PETR_V1, device=device)
+    model = cfg.model.eval()
+    head = model.head
+    log("phase 17: PETR (VoVNet-99-eSE + CPFPN, {} queries, {} layers, {} "
+        "LID bins, {} classes) at {} x {} under a ring of {} cameras".format(
+            head.num_query, head.num_layers, head.depth_num,
+            head.num_classes, *PETR_HW, PETR_CAMS))
+    batches = {b: petr_serve_batch(device, b) for b in (1, PETR_BATCH)}
+    petr_serve(model, batches, "PETR")
+    phase_petr_tiny()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        for batch in batches.values():
+            petr_timing(model, batch, "PETR")
+    del batches
+
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer = cfg.optimizer
+    batch = petr_train_batch(device, model, PETR_BATCH)
+    _build.reset_launches()
+    with hungarian_clock() as hung:
+        losses = step(model, optimizer, batch)
+        torch.cuda.synchronize()
+    log("  training at batch {} ({}, clip {}, {}; {} boxes a frame in range "
+        "and in view, 2 padded slots): first step losses {}; launches {}; "
+        "{} Hungarian matches ({} scipy solves)".format(
+            PETR_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], PETR_OBJECTS,
+            {k: round(v.item(), 5) for k, v in losses.items()},
+            {k: v for k, v in _build.LAUNCHES.items() if v},
+            len(hung["match"]), len(hung["solve"])))
+    check(not any(_build.LAUNCHES.values()), "the PETR train step launched "
+          "a kernel")
+    check(len(hung["match"]) == head.num_layers and
+          len(hung["solve"]) == head.num_layers * PETR_BATCH,
+          "expected one host match a decoder layer, a solve a frame")
+    falling_losses(step, model, optimizer, batch)
+    half = PETR_TRAIN_ITERS // 2
+    step(model, optimizer, batch)
+    with hungarian_clock() as hung:
+        rates = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(half):
+                step(model, optimizer, batch)
+            torch.cuda.synchronize()
+            rates.append(PETR_BATCH * half / (time.perf_counter() - t0))
+    log("  {} train steps of batch {} (two halves, cudnn.benchmark on): "
+        "{:.2f} frames/s; halves {}; Hungarian host ms a step: matches "
+        "(copy to the host, waiting for the forward, then the solves) "
+        "{:.3f}, scipy solves alone {:.3f}".format(
+            PETR_TRAIN_ITERS, PETR_BATCH,
+            PETR_TRAIN_ITERS / sum(half / r for r in rates),
+            [round(r, 2) for r in rates],
+            sum(hung["match"]) / PETR_TRAIN_ITERS,
+            sum(hung["solve"]) / PETR_TRAIN_ITERS))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, optimizer, batch))
+    del model, step, batch, cfg, optimizer
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = Config(path=PETR_V2, device=device).model.eval()
+    batches = {1: petr_serve_batch(device, 1, frames=2)}
+    petr_serve(model, batches, "PETRv2")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        petr_timing(model, batches[1], "PETRv2")
+    del model, batches
+    dn = petr_one_step(device, PETR_DN, "PETRv2 with query denoising")
+    check({"loss_cls_dn", "loss_bbox_dn"} <= set(dn), "no DN losses")
+    seg = petr_one_step(device, PETR_SEG, "PETRv2-BEVseg")
+    check({"loss_seg_bce", "loss_seg_dice"} <= set(seg), "no seg losses")
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -4804,6 +5314,8 @@ def main():
             into.update(part)
         # K7, K5 and K2 at CADDN's calls, entries of their own
         caddn = phase_caddn(device)
+        # PETR reaches no hand-written kernel
+        phase_petr(device)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [

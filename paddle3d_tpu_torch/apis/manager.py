@@ -61,8 +61,18 @@ OPTIMIZERS = ComponentManager("optimizers")
 LR_SCHEDULERS = ComponentManager("lr_schedulers")
 POINT_ENCODERS = ComponentManager("point_encoders")
 TRANSFORMS = ComponentManager("transforms")
+TRANSFORMER_ENCODERS = ComponentManager("transformer_encoders")
+TRANSFORMER_ENCODER_LAYERS = ComponentManager("transformer_encoder_layers")
+ATTENTIONS = ComponentManager("attentions")
+BBOX_ASSIGNERS = ComponentManager("bbox_assigners")
+MATCH_COSTS = ComponentManager("match_costs")
+TRANSFORMER_DECODER_LAYERS = ComponentManager("transformer_decoder_layers")
+TRANSFORMER_DECODERS = ComponentManager("transformer_decoders")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
-    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS, TRANSFORMS
+    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS, TRANSFORMS,
+    TRANSFORMER_ENCODERS, TRANSFORMER_ENCODER_LAYERS, ATTENTIONS,
+    BBOX_ASSIGNERS, MATCH_COSTS, TRANSFORMER_DECODER_LAYERS,
+    TRANSFORMER_DECODERS
 ]

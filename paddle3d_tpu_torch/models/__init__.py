@@ -1,3 +1,3 @@
 from . import backbones, common, detection, heads, losses, \
-    middle_encoders, necks, optimizers, point_encoders, voxel_encoders, \
-    voxelizers
+    middle_encoders, necks, optimizers, point_encoders, transformers, \
+    voxel_encoders, voxelizers

@@ -1,1 +1,2 @@
-from .base_model import Base3DModel, BaseLidarModel, BaseMonoModel
+from .base_model import (Base3DModel, BaseLidarModel, BaseMonoModel,
+                         BaseMultiViewModel)

@@ -39,6 +39,11 @@ class BaseMonoModel(Base3DModel):
     modality = "image"
 
 
+class BaseMultiViewModel(Base3DModel):
+    """Multi-view camera family marker."""
+    modality = "multiview"
+
+
 def raise_if_training(model: nn.Module):
     """test_forward serves with running-stat BN and the test voxel cap; a
     model in train mode would fold train-mode BN modules wrongly and move

@@ -1,6 +1,7 @@
 from .caddn import CADDN
 from .centerpoint import CenterHead, CenterPoint
 from .iassd import IASSD
+from .petr import PETR
 from .pointpillars import PointPillars, SSDHead
 from .pv_rcnn import PVRCNN, VoxelRCNN
 from .smoke import SMOKE, SMOKELossComputation, SMOKEPredictor

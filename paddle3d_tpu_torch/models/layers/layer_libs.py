@@ -23,8 +23,8 @@ from ...ops import gather
 
 __all__ = ["ConvBNReLU", "DeconvBNReLU", "LinearBN1DReLU", "BatchNorm1d",
            "BatchNorm2d", "Sequential", "same_pads", "uniform_",
-           "uniform_init", "uniform_bias_init", "default_generator",
-           "heatmap_nms", "gather_topk_feat"]
+           "uniform_init", "lecun_normal_", "uniform_bias_init",
+           "default_generator", "heatmap_nms", "gather_topk_feat"]
 
 
 def default_generator(generator: torch.Generator = None) -> torch.Generator:
@@ -46,6 +46,20 @@ def uniform_init(weight: torch.Tensor,
     """uniform(±1/sqrt(fan_in)) for a torch weight ([out, in, *kernel]:
     fan_in = in · prod(kernel)), the JAX package's uniform_init."""
     return uniform_(weight, weight[0].numel(), generator)
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """In-place lecun normal for a torch weight ([out, in, *kernel]: fan_in
+    = in · prod(kernel)), flax's default kernel init: a normal of std
+    sqrt(1 / fan_in) / 0.8796 truncated at two stds, drawn by its inverse
+    CDF (one uniform draw an element)."""
+    std = math.sqrt(1.0 / max(weight[0].numel(), 1)) / .87962566103423978
+    edge = math.erf(2.0 / math.sqrt(2.0))       # 2 Phi(2) - 1
+    with torch.no_grad():
+        weight.uniform_(-edge, edge, generator=generator)
+        weight.erfinv_().mul_(std * math.sqrt(2.0))
+        return weight.clamp_(-2 * std, 2 * std)
 
 
 def uniform_bias_init(bias: torch.Tensor, fan_in: int,

@@ -1,1 +1,2 @@
 from .second_fpn import SecondFPN
+from .fpn import CPFPN, FPN

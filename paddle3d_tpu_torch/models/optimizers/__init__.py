@@ -1,3 +1,4 @@
-from .optimizers import (Adam, ClipGradByGlobalNorm, OneCycleAdam,
+from .optimizers import (Adam, AdamW, ClipGradByGlobalNorm, CosineDecay,
+                         OneCycleAdam,
                          OneCycleDecayWarmupMomentum, OneCycleWarmupDecayLr,
                          PiecewiseDecay, StepDecay)

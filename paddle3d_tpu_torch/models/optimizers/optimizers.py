@@ -1,7 +1,7 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
-OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle, StepDecay,
-PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle).
+AdamW, OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle,
+StepDecay, PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle, CosineDecay).
 
 The JAX package builds optax transformations; torch builds an optimizer
 over parameters, which a YAML config does not have. So `Adam` returns a
@@ -19,9 +19,10 @@ import torch
 
 from ...apis import manager
 
-__all__ = ["ClipGradByGlobalNorm", "Adam", "OneCycleAdam", "AdamWOnecycle",
-           "OneCycleDecayWarmupMomentum", "StepDecay", "PiecewiseDecay",
-           "OneCycleWarmupDecayLr", "OneCycle"]
+__all__ = ["ClipGradByGlobalNorm", "Adam", "AdamW", "OneCycleAdam",
+           "AdamWOnecycle", "OneCycleDecayWarmupMomentum", "StepDecay",
+           "PiecewiseDecay", "OneCycleWarmupDecayLr", "OneCycle",
+           "CosineDecay"]
 
 
 @manager.OPTIMIZERS.add_component
@@ -107,6 +108,28 @@ class PiecewiseDecay:
             if step >= b:
                 f *= ratio
         return f
+
+
+@manager.LR_SCHEDULERS.add_component
+class CosineDecay:
+    """optax.cosine_decay_schedule(learning_rate, total_step, alpha =
+    eta_min / learning_rate): lr = learning_rate · ((1 - alpha) · (1 +
+    cos(pi · min(step, total_step) / total_step)) / 2 + alpha), eta_min
+    from total_step on; step counts optimizer updates from 0."""
+
+    def __init__(self, learning_rate: float, total_step: int,
+                 eta_min: float = 0.0):
+        if total_step <= 0:
+            raise ValueError("CosineDecay needs total_step > 0")
+        self.learning_rate = float(learning_rate)
+        self.total_step = int(total_step)
+        self.alpha = eta_min / max(self.learning_rate, 1e-12)
+
+    def factor(self, step: int) -> float:
+        """lr(step) / learning_rate."""
+        count = min(step, self.total_step)
+        cosine = 0.5 * (1 + math.cos(math.pi * count / self.total_step))
+        return (1 - self.alpha) * cosine + self.alpha
 
 
 class _CosineOneCycle:
@@ -234,6 +257,25 @@ def Adam(learning_rate=1e-3, beta1: float = 0.9, beta2: float = 0.999,
         else:
             opt = torch.optim.Adam(params, **kw)
         return _clipped(opt, clip)
+
+    return build
+
+
+@manager.OPTIMIZERS.add_component
+def AdamW(learning_rate=1e-3, weight_decay: float = 0.01, beta1: float = 0.9,
+          beta2: float = 0.999, epsilon: float = 1e-8,
+          grad_clip_norm: float = None, grad_clip=None):
+    """-> build(params) -> torch.optim.AdamW: optax.adamw's decoupled decay
+    over every parameter, the clip (grad_clip_norm, else grad_clip) first,
+    as the JAX package chains them; `learning_rate` a float or a schedule,
+    whose base rate it starts at."""
+    lr = _base_rate(learning_rate)
+    clip = _clip(grad_clip_norm, grad_clip)
+
+    def build(params):
+        return _clipped(torch.optim.AdamW(
+            params, lr=lr, betas=(beta1, beta2), eps=epsilon,
+            weight_decay=weight_decay), clip)
 
     return build
 

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..models.layers.sparse_layers import MaskedBatchNorm, SparseConv3D
+from ..models.transformers.transformer_layers import HeadsLinear
 
 __all__ = ["load_jax_params", "to_torch_names"]
 
@@ -22,12 +23,23 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
     """-> (torch attribute name, array in torch layout)."""
     if isinstance(module, (nn.modules.batchnorm._BatchNorm,
-                           MaskedBatchNorm, nn.GroupNorm)):
-        return _BN_NAMES[leaf], arr         # GroupNorm: scale and bias
+                           MaskedBatchNorm, nn.GroupNorm, nn.LayerNorm)):
+        return _BN_NAMES[leaf], arr         # Group/LayerNorm: scale, bias
     if isinstance(module, SparseConv3D) and leaf == "weight":
         return "weight", arr                # [K^3 * Cin, Cout] as it is
+    if isinstance(module, HeadsLinear):
+        # nnx.MultiHeadAttention's projections: q / k / v kernel [in,
+        # heads, head_dim] and bias [heads, head_dim]; out kernel [heads,
+        # head_dim, out] -> nn.Linear over the flattened heads
+        if leaf == "bias":
+            return "bias", arr.reshape(-1)
+        return "weight", arr.reshape(module.in_features, -1).T
     if leaf == "bias":
         return "bias", arr
+    if leaf in module._parameters:
+        # a bare nnx.Param (PETR's reference_points, time_embed): its path
+        # ends at the parameter, which the torch module holds by that name
+        return leaf, arr
     if leaf != "kernel":
         raise KeyError("no torch counterpart for leaf {!r} of {}".format(
             leaf, type(module).__name__))
@@ -59,7 +71,7 @@ def to_torch_names(model: nn.Module,
         if tuple(target.shape) != arr.shape:
             raise ValueError("{}: torch {} vs converted {}".format(
                 path, tuple(target.shape), arr.shape))
-        out["{}.{}".format(prefix, name)] = torch.from_numpy(
+        out[".".join(filter(None, (prefix, name)))] = torch.from_numpy(
             arr.copy())  # own strides
     return out
 
