@@ -27,8 +27,13 @@ width, seeded random weights), serving 1 and 4 images of 384 x 1248 and
 training on 4, and PETR and PETRv2, the third and fourth
 (configs/petr/petr{,v2}_vovnet_gridmask_p4_800x320.yml, full width, seeded
 random weights), serving 1 and 2 frames of six 320 x 800 images (PETRv2:
-1 frame of twelve) and training on 2, in phases; any failing phase exits
-non-zero and prints no result:
+1 frame of twelve) and training on 2, and BEVFormer-tiny and BEVDet4D,
+the fifth and sixth (configs/bevformer/bevformer_tiny_r50_fpn_nuscenes.yml,
+configs/bevdet/bevdet4d_r50_depth_nuscenes.yml, full width, seeded random
+weights), serving two consecutive frames of six 450 x 800 images padded to
+480 x 800 and training on 1 with a history frame, serving 1 and 8 frames
+of six 256 x 704 images and training on 8 with an adjacent frame, in
+phases; any failing phase exits non-zero and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -228,10 +233,51 @@ non-zero and prints no result:
      train frames/s, the Hungarian matches' host time, peak memory and a
      profile; one train step each of PETRv2 with query denoising and of
      PETRv2-BEVseg at batch 1, finite losses and grads.
+ 18. BEVFormer-tiny (ResNet-50 to C5, FPN 2048 -> 256, a 50 x 50 BEV of
+     256 channels, 3 encoder layers of temporal self-attention and
+     spatial cross-attention on ops/ms_deform_attn, 900 queries, 6
+     decoder layers with box refinement) under bevformer_rig (petr_rig's
+     pixel lidar2img divided by the image size; the share of BEV queries
+     some camera sees logged), the sampling offsets given seeded weights;
+     BEVFormer reaches no hand-written kernel: two consecutive frames at
+     batch 1 (the second with the first's bev_feature and a can_bus, so
+     that the rotation and the shift run), each twice (outputs equal by
+     bit pattern, no launch counter moves); the tiny model on the card
+     against the CPU over two frames (BEVFORMER_TINY_TOL); frames/s, GFLOP
+     a frame by module, peak memory, a profile and the stage times
+     (backbone + FPN, the encoder with its TSA and SCA apart, the
+     decoder, predict); training at batch 1 with a one-frame history queue
+     (the config's AdamW, clip 35, CosineDecay; petr_gt's boxes): two steps
+     from one state in deterministic mode, bit-equal; 10 steps with finite
+     losses that fall; train frames/s, peak memory, a profile, the
+     Hungarian matches' host time.
+ 19. BEVDet4D (ResNet-50 to C4, the LSS view transformer of 59 depth bins
+     onto 128 x 128 cells of 64 channels, the previous frame's BEV,
+     CustomResNet + FPN_LSS, CenterHead of 10 classes, NMS 1,000 / 500)
+     under bevdet_rig (tools/bench_camera.py's ring through the
+     ResizeCropFlipImage test transform; the frustum's in-grid share
+     logged): serving at batch 1 and 8 with a prev_bev state through the
+     kernels (one K7 a forward: 249,216 rows a frame onto 16,384 cells,
+     dense by the density rule; nothing else) and on the plain versions,
+     both in deterministic mode (index_add_ in row order: every output
+     equal by bit pattern); K7 at both pools bit for bit against the
+     row-order sum and a second call, timed through its wrapper and alone
+     beside index_add_call and its bound (in-grid rows); the tiny model on
+     the card (one K7 a forward, held the same way) against the CPU
+     (BEVDET_TINY_TOL); frames/s of both paths, GFLOP a frame, peak
+     memory, a profile and the stage times (backbone, depth net, frustum
+     ranks, sort, row rebuild, K7, BEV encoder + neck, head convs, decode
+     + NMS); training at batch 8 with an adjacent frame (the config's
+     AdamW, clip 5, CosineDecay): one step through the kernels (K7 twice,
+     the adjacent frame's pool without gradient too, and one K5) against
+     one on the plain versions from the same state in deterministic mode
+     (the pooled BEVs, losses, grads and running stats bit-equal), K5
+     held and timed at the step's VJP; 10 steps with finite losses that
+     fall; train frames/s, peak memory and a profile.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
-calls in entries of their own, each with a "path" key, after the entries of
-their earlier paths) and
+calls and K7 and K5 at BEVDet4D's in entries of their own, each with a
+"path" key, after the entries of their earlier paths) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --parts TREE [TREE ...]
@@ -5053,6 +5099,920 @@ def phase_petr(device):
     check({"loss_seg_bce", "loss_seg_dice"} <= set(seg), "no seg losses")
 
 
+# Phase 18: BEVFormer-tiny (ResNet-50 to C5, FPN to 256, a 50 x 50 BEV of
+# 256 channels, 3 encoder layers of temporal self-attention and spatial
+# cross-attention, the 6-layer decoder of 900 queries with box refinement),
+# bench.py's fifth camera model, on six 450 x 800 uniform-pixel images a
+# frame padded to 480 x 800 (PadMultiViewImage's size_divisor 32) under
+# bevformer_rig: tools/bench_camera.py's ring for [0, 1] image coordinates.
+BEVFORMER = os.path.join(REPO, "configs", "bevformer",
+                         "bevformer_tiny_r50_fpn_nuscenes.yml")
+BEVFORMER_HW = (480, 800)       # the padded images
+BEVFORMER_IMAGE = (450, 800)    # the images before padding
+
+
+def bevformer_rig(hw, n=PETR_CAMS):
+    """lidar2imgs [n, 4, 4] f32 for [0, 1] image coordinates of h x w
+    images: petr_rig's pixel lidar2img (tools/bench_camera.py's ring, its
+    K scaled by w / 800) divided by w and h."""
+    import numpy as np
+    h, w = hw
+    l2i = petr_rig(hw, n)[1]
+    return (np.diag([1.0 / w, 1.0 / h, 1.0, 1.0]) @ l2i).astype(np.float32)
+
+
+# Phase 19: BEVDet4D (ResNet-50 to C4, the LSS view transformer of 59 depth
+# bins onto a 128 x 128 BEV of 64 channels, the previous frame's BEV
+# concatenated, CustomResNet + FPN_LSS, CenterHead of 10 classes), bench.py's
+# sixth camera model, on six 256 x 704 uniform-pixel images a frame under
+# bevdet_rig.
+BEVDET = os.path.join(REPO, "configs", "bevdet",
+                      "bevdet4d_r50_depth_nuscenes.yml")
+BEVDET_HW = (256, 704)
+
+
+def _small_rotation(rng, std):
+    """A rotation [3, 3] about a random axis by a normal angle of std rad
+    (Rodrigues' formula)."""
+    import numpy as np
+    v = rng.normal(0.0, std, 3)
+    t = np.linalg.norm(v)
+    if t == 0:
+        return np.eye(3)
+    k = v / t
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(t) * kx + (1 - np.cos(t)) * kx @ kx
+
+
+def bevdet_rig(hw, n=PETR_CAMS, b=1, tilt=0.0, bda_yaw=0.0, seed=SEED):
+    """BEVDet's camera matrices for b frames of n h x w images:
+    tools/bench_camera.py's ring (_rig: a yaw ring, K for 450 x 800 images)
+    as BEVDet's test pipeline hands it, the 450 x 800 image resized by w /
+    800 and its top rows cropped to h (ResizeCropFlipImage: post_rots
+    diag(r, r, 1), post_trans (0, -crop, 0)); rots / trans camera -> ego;
+    with tilt, each camera turned by a small rotation of that std (rad,
+    seeded: real rigs pitch and roll a little); bda a yaw of bda_yaw rad.
+    -> dict of f32 numpy arrays, each with a leading [b]."""
+    import numpy as np
+    h, w = hw
+    l2c, ks = bench_camera()._rig(None, n)
+    c2l = np.linalg.inv(l2c.astype(np.float64))
+    rng = np.random.default_rng(seed)
+    if tilt:
+        c2l[:, :3, :3] = np.stack([c2l[i, :3, :3] @ _small_rotation(
+            rng, tilt) for i in range(n)])
+    r = w / 800.0
+    crop = round(450 * r) - h
+    post_rots = np.tile(np.diag([r, r, 1.0]), (n, 1, 1))
+    post_trans = np.tile([0.0, -crop, 0.0], (n, 1))
+    c, s = np.cos(bda_yaw), np.sin(bda_yaw)
+    bda = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+
+    def tile(x):
+        return np.broadcast_to(x, (b,) + x.shape).astype(np.float32).copy()
+    return {"rots": tile(c2l[:, :3, :3]), "trans": tile(c2l[:, :3, 3]),
+            "cam2imgs": tile(ks.astype(np.float64)),
+            "post_rots": tile(post_rots), "post_trans": tile(post_trans),
+            "bda": tile(bda)}
+
+
+BEVFORMER_ITERS = 6         # timed forwards (halves of 3)
+BEVFORMER_TRAIN_ITERS = 4   # timed train steps (halves of 2)
+# the second served frame's ego motion: dx, dy (m), the ego's yaw and the
+# yaw delta (rad)
+BEVFORMER_MOTION = (0.6, 0.15, 0.4, 0.03)
+# the images are normalised as the configs' NormalizeMultiviewImage does
+BEVFORMER_MEAN, BEVFORMER_STD = (103.530, 116.280, 123.675), (1., 1., 1.)
+BEVDET_MEAN, BEVDET_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+# the tiny configs on the card against the CPU, relative to the largest
+# value: cuDNN and cuBLAS against the CPU's convolutions and matmuls
+# (BEVFormer: 2.5 to 16x its readings on an H100, scores 4.0e-6, boxes
+# 6.3e-7, BEV 1.6e-6, the class gain amplifying the encoder's rounding;
+# BEVDet4D: about 10x, scores 1.5e-7, boxes 1.8e-8, BEV 3.2e-7)
+BEVFORMER_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5,
+                      "bev_feature": 1e-5}
+BEVDET_TINY_TOL = {"scores": 2e-6, "box3d_lidar": 2e-7,
+                   "bev_feature": 5e-6}
+TINY_CLS_GAIN = 8.0         # as PETR_CLS_GAIN: near-equal random scores
+BEVDET_BATCH = 8            # the config's batch_size
+BEVDET_ITERS = 6            # timed forwards per path and batch (halves)
+BEVDET_TRAIN_ITERS = 4      # timed train steps (halves of 2)
+BEVDET_OBJECTS = 16         # gt boxes a frame, then two padded slots
+BEVDET_LOSSES = ("loss", "hm_loss_0", "loc_loss_0")
+
+
+def normalised_images(rng, shape, mean, std, pad_to=None):
+    """Uniform pixels in [0, 255) of shape [..., H, W, 3], normalised by
+    mean / std, zero-padded at the bottom and right to pad_to (h, w)."""
+    import numpy as np
+    img = (rng.uniform(0, 255, shape) - np.asarray(mean)) / np.asarray(std)
+    if pad_to is not None:
+        pads = [(0, 0)] * (img.ndim - 3) + [
+            (0, pad_to[0] - shape[-3]), (0, pad_to[1] - shape[-2]), (0, 0)]
+        img = np.pad(img, pads)
+    return img.astype(np.float32)
+
+
+def move_samples(model, generator):
+    """Give every deformable attention's sampling offsets lecun-normal
+    weights from generator (the JAX package starts them at zero, so an
+    untrained model samples at its reference points; a trained one does
+    not)."""
+    import torch
+
+    from paddle3d_tpu_torch.models.layers.layer_libs import lecun_normal_
+    from paddle3d_tpu_torch.models.transformers import MSDeformableAttention
+    for m in model.modules():
+        if isinstance(m, MSDeformableAttention):
+            w = torch.empty(m.sampling_offsets.weight.shape)
+            lecun_normal_(w, generator)
+            with torch.no_grad():
+                m.sampling_offsets.weight.copy_(w)
+
+
+def bevformer_serve_batch(device, b, seed=SEED, hw=None, image=None,
+                          n=PETR_CAMS, motion=None):
+    """b frames of n normalised uniform-pixel images of `image` (by default
+    BEVFORMER_IMAGE) padded to hw (BEVFORMER_HW), with bevformer_rig's
+    lidar2imgs; with motion (dx, dy, yaw, yaw delta) a can_bus [b, 18]."""
+    import numpy as np
+    import torch
+    hw = hw or BEVFORMER_HW
+    image = image or BEVFORMER_IMAGE
+    rng = np.random.default_rng(seed)
+    batch = {"img": torch.from_numpy(normalised_images(
+                 rng, (b, n) + tuple(image) + (3,), BEVFORMER_MEAN,
+                 BEVFORMER_STD, pad_to=hw)).to(device),
+             "lidar2imgs": torch.from_numpy(np.broadcast_to(
+                 bevformer_rig(hw, n), (b, n, 4, 4)).copy()).to(device)}
+    if motion is not None:
+        can = np.zeros((b, 18), np.float32)
+        can[:, 0], can[:, 1], can[:, -2], can[:, -1] = motion
+        batch["can_bus"] = torch.from_numpy(can).to(device)
+    return batch
+
+
+def bevformer_train_batch(device, model, b, seed=SEED):
+    """bevformer_serve_batch with BEVFORMER_MOTION, a one-frame history
+    queue (its own images, the same cameras, a can_bus of its own motion)
+    and petr_gt's boxes."""
+    import numpy as np
+    import torch
+    batch = bevformer_serve_batch(device, b, seed,
+                                  motion=BEVFORMER_MOTION)
+    prev = bevformer_serve_batch(device, b, seed + 2,
+                                 motion=(0.5, 0.0, 0.37, 0.0))
+    batch.update(img_queue=prev["img"][:, None],
+                 lidar2imgs_queue=prev["lidar2imgs"][:, None],
+                 can_bus_queue=prev["can_bus"][:, None])
+    boxes, labels = petr_gt(np.random.default_rng(seed + 1), b,
+                            BEVFORMER_HW, model.head.num_classes)
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device))
+    return batch
+
+
+def bevformer_tiny():
+    """The parity tests' tiny BEVFormer (ResNet-18 at base 8 to C5, an 8 x
+    8 BEV of 32 channels, 2 encoder layers, a 2-layer BEVFormerHead of 16
+    queries and 2 classes over +-10 m), seeded weights, the samples moved
+    off their reference points, the class branches' last weights scaled by
+    TINY_CLS_GAIN; on the CPU, in eval mode."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import ResNet
+    from paddle3d_tpu_torch.models.detection import BEVFormer
+    from paddle3d_tpu_torch.models.heads import BEVFormerHead
+    pc = [-10., -10., -3., 10., 10., 3.]
+    gen = torch.Generator().manual_seed(SEED)
+    head = BEVFormerHead(with_box_refine=True, num_classes=2, in_channels=32,
+                         embed_dims=32, num_query=16, num_heads=4,
+                         num_layers=2, depth_num=4, pc_range=pc,
+                         position_range=pc, generator=gen)
+    model = BEVFormer(ResNet(depth=18, base_channels=8, out_indices=(3,),
+                             generator=gen), None, head, bev_h=8, bev_w=8,
+                      embed_dims=32, num_heads=4, encoder_layers=2,
+                      pc_range=pc, generator=gen)
+    move_samples(model, gen)
+    with torch.no_grad():
+        for branch in head.cls_branches:
+            branch.layers[2].weight.mul_(TINY_CLS_GAIN)
+    return model.eval()
+
+
+def tiny_card_vs_cpu(label, model, frames, tol, carry):
+    """frames (CPU batches, each later one taking carry(the one before's
+    outputs) as prev_bev) through model on the CPU, then on the card:
+    labels equal, every key of tol within tol of its largest value (the
+    last frame's). -> (errors, the card's launches over the frames)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+
+    def run(on_card):
+        out = None
+        for f in frames:
+            batch = {k: v.cuda() if on_card else v for k, v in f.items()}
+            if out is not None:
+                batch["prev_bev"] = carry(out)
+            out = model.test_forward(batch)
+        return out
+    with torch.no_grad():
+        ref = run(False)
+        model.cuda()
+        _build.reset_launches()
+        got = run(True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        model.cpu()
+    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
+          "tiny {} labels differ between the card and the CPU".format(label))
+    errs = {k: ((got[k].cpu() - ref[k]).abs().max() /
+                ref[k].abs().max()).item() for k in tol}
+    log("  tiny {}, {} frames, card vs CPU: labels equal; relative errors "
+        "{} (tolerances {}); card launches over the frames {}".format(
+            label, len(frames), {k: "{:.3e}".format(v)
+                                 for k, v in errs.items()}, tol, launches))
+    check(all(errs[k] <= t for k, t in tol.items()),
+          "tiny {} outputs differ between the card and the CPU".format(label))
+    return errs, launches
+
+
+def bevformer_sees(model, lidar2imgs):
+    """The share of BEV queries whose pillar some camera sees, and the
+    cameras seeing a query on average."""
+    hit = model.encoder[0].sca.project(model.bev_reference(), lidar2imgs)[1]
+    seen = hit.sum(dim=1).float()
+    return (seen > 0).float().mean().item(), seen.mean().item()
+
+
+@contextlib.contextmanager
+def timed_calls(fns):
+    """Host ms of each call of the given (name, obj, attr) methods, each
+    between two synchronizes: -> dict name -> list of ms."""
+    import torch
+    ms = {name: [] for name, _, _ in fns}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+    with contextlib.ExitStack() as stack:
+        for name, obj, attr in fns:
+            stack.enter_context(mock.patch.object(
+                obj, attr, timed(name, getattr(obj, attr))))
+        yield ms
+
+
+def bevformer_stages(model, batch, iters=3):
+    """Host ms of test_forward's stages (each ended by a synchronize):
+    backbone + FPN (the camera tokens), the encoder (its temporal self-
+    and spatial cross-attentions apart: each call between two
+    synchronizes), the decoder, predict; averaged over iters after a
+    warm-up."""
+    import torch
+    head = model.head
+    stages = [
+        ("backbone + FPN", lambda bt: model.camera_tokens(bt["img"])),
+        ("encoder", lambda tk: model.encode(
+            *tk, batch["lidar2imgs"], batch.get("prev_bev"),
+            batch.get("can_bus"))),
+        ("decoder", lambda bev: head.decode_over_tokens(bev)),
+        ("predict", lambda out: head.predict(*out))]
+    fns = [(key, getattr(layer, attr), "forward")
+           for layer in model.encoder
+           for key, attr in (("TSA", "tsa"), ("SCA", "sca"))]
+
+    def run():
+        x, out = batch, []
+        for _, fn in stages:
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    with torch.no_grad(), timed_calls(fns) as attn:
+        run()
+        for v in attn.values():
+            v.clear()
+        ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
+    parts = {k: sum(v) / iters for k, v in attn.items()}
+    times = dict(zip((s for s, _ in stages), ms))
+    log("  stages a batch (host clock, synchronised; each attention call "
+        "between two synchronizes): {}; of the encoder's {} layers: TSA "
+        "{:.3f} ms, SCA {:.3f} ms, the rest {:.3f} ms".format(
+            ", ".join("{} {:.3f} ms".format(k, v) for k, v in times.items()),
+            len(model.encoder), parts["TSA"], parts["SCA"],
+            times["encoder"] - sum(parts.values())))
+    return times, parts
+
+
+def module_flops(model, fn, b, names):
+    """GFLOP a frame of fn()'s convolutions and matmuls
+    (torch.utils.flop_counter), in all and by module (the counter names a
+    module by its class and path: names maps a label to such a key)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        fn()
+    counts = counter.get_flop_counts()
+    out = {"total": counter.get_total_flops() / 1e9 / b}
+    for label, key in names.items():
+        out[label] = sum(counts.get(key, {}).values()) / 1e9 / b
+    return out
+
+
+def frames_per_s(model, batch, iters, ctx=contextlib.nullcontext):
+    """Frames/s of iters test_forward calls ended by a synchronize, after
+    a warm-up call, all inside ctx()."""
+    import torch
+    with ctx():
+        model.test_forward(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.test_forward(batch)
+        torch.cuda.synchronize()
+    return batch["img"].shape[0] * iters / (time.perf_counter() - t0)
+
+
+def bevformer_timing(model, batch, label):
+    """Frames/s (two halves of BEVFORMER_ITERS, cudnn.benchmark on), GFLOP
+    a frame by module, peak memory, a profile of one forward and the
+    stage times."""
+    import torch
+    half = BEVFORMER_ITERS // 2
+    with torch.no_grad():
+        rates = [frames_per_s(model, batch, half) for _ in range(2)]
+    rate = 2 / sum(1 / r for r in rates)
+    b = batch["img"].shape[0]
+    flops = module_flops(model, lambda: model.test_forward(batch), b, {
+        "backbone": "ResNet", "neck": "FPN",
+        "encoder": "BEVFormerEncoderLayer", "encoder TSA":
+        "BEVFormerEncoderLayer.tsa", "encoder SCA":
+        "BEVFormerEncoderLayer.sca",
+        # the decode runs outside the head's forward: its layers are
+        # counted under their own class
+        "decoder layers": "BaseTransformerLayer"})
+    log("  {} batch {}: {} forwards (two halves, cudnn.benchmark on): {:.2f} "
+        "frames/s ({:.3f} ms a frame); halves {}; GFLOP a frame "
+        "(torch.utils.flop_counter) {}: {:.2f} TFLOP/s at that rate".format(
+            label, b, BEVFORMER_ITERS, rate, 1e3 / rate,
+            [round(r, 2) for r in rates],
+            {k: round(v, 2) for k, v in flops.items()},
+            flops["total"] * rate / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    bevformer_stages(model, batch)
+
+
+def train_rate(step, model, optimizer, batch, iters, label):
+    """Train frames/s over iters steps in two halves after a warm-up step
+    (cudnn.benchmark on), peak memory and a profile of one step."""
+    import torch
+    b = batch["img"].shape[0]
+    half = iters // 2
+    step(model, optimizer, batch)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(half):
+            step(model, optimizer, batch)
+        torch.cuda.synchronize()
+        rates.append(b * half / (time.perf_counter() - t0))
+    log("  {}: {} train steps of batch {} (two halves, cudnn.benchmark on): "
+        "{:.2f} frames/s; halves {}".format(
+            label, 2 * half, b, 2 * half / sum(half / r for r in rates),
+            [round(r, 2) for r in rates]))
+    torch.cuda.reset_peak_memory_stats()
+    step(model, optimizer, batch)
+    log("  peak device memory of one train step: {:.1f} MiB".format(
+        torch.cuda.max_memory_allocated() / 2**20))
+    profile(lambda: step(model, optimizer, batch))
+
+
+def steps_agree(label, step, model, optimizer, scheduler, batch, keys,
+                plain=False, tols=(1e-6, 1e-4, 1e-6)):
+    """Two train steps from one saved state, both in torch's deterministic
+    mode (warn_only), the second on the plain versions when plain: losses,
+    grads and running stats bit-equal (compare_steps at tolerance 0), or
+    within tols (losses, grads, running stats, relative) where the mode
+    warned of an op with no deterministic form (their backward adds with
+    atomics). -> (the two steps' records, the ops the mode warned of)."""
+    restore = saved_state(model, optimizer, scheduler)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        with deterministic(warn_only=True):
+            first = record_step(step, model, optimizer, batch)
+        restore()
+        with deterministic(warn_only=True), \
+                plain_path() if plain else contextlib.nullcontext():
+            second = record_step(step, model, optimizer, batch)
+        restore()
+    ops = sorted({str(w.message).split(" does not")[0] for w in warned})
+    errs = compare_steps(first, second, *(tols if ops else (0., 0., 0.)),
+                         keys)
+    log("  {}: two train steps from one state in deterministic mode{}: "
+        "losses, grads and running stats {} (relative errors {}); ops "
+        "without a deterministic form: {}".format(
+            label, " (the second on the plain versions)" if plain else "",
+            "within {}".format(tols) if ops else "bit-equal",
+            ["{:.3e}".format(e) for e in errs], ops))
+    return first, second, ops
+
+
+def phase_bevformer(device):
+    """BEVFormer-tiny at full width (ResNet-50 to C5, FPN 2048 -> 256, a 50
+    x 50 BEV of 256 channels, 3 encoder layers, 900 queries, 6 decoder
+    layers with box refinement; seeded random weights, the samples moved
+    off their reference points, f32, TF32 off) on six 450 x 800 images
+    padded to 480 x 800 under bevformer_rig: two consecutive frames at
+    batch 1 (the second with the first's bev_feature and a can_bus), each
+    served twice (equal by bit pattern, no launch counter moves); the tiny
+    model card vs CPU over two frames; frames/s, GFLOP, memory, profile,
+    stages; training at batch 1 with a one-frame history queue (the
+    config's AdamW, clip 35, CosineDecay): two steps from one state
+    bit-equal, 10 falling losses, train frames/s, memory, profile, the
+    Hungarian matches' host time."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=BEVFORMER, device=device)
+    model = cfg.model.eval()
+    move_samples(model, torch.Generator().manual_seed(SEED))
+    head = model.head
+    frames = [bevformer_serve_batch(device, 1),
+              bevformer_serve_batch(device, 1, SEED + 1,
+                                    motion=BEVFORMER_MOTION)]
+    share, per_query = bevformer_sees(model, frames[0]["lidar2imgs"])
+    log("phase 18: BEVFormer-tiny (ResNet-50 + FPN, BEV {} x {} x {}, {} "
+        "encoder layers, {} queries, {} decoder layers, box refinement {}) "
+        "at {} x {} padded to {} x {} under a ring of {} cameras: {:.4f} of "
+        "the BEV queries seen by a camera ({:.3f} cameras a query)".format(
+            model.bev_h, model.bev_w, model.embed_dims, len(model.encoder),
+            head.num_query, head.num_layers, head.with_box_refine,
+            *BEVFORMER_IMAGE, *BEVFORMER_HW, PETR_CAMS, share, per_query))
+    check(share > 0.5, "SCA: under half of the BEV queries seen")
+    outs = []
+    with torch.no_grad():
+        _build.reset_launches()
+        for i, batch in enumerate(frames):
+            if outs:
+                batch["prev_bev"] = outs[-1]["bev_feature"]
+            out, again = (model.test_forward(batch) for _ in range(2))
+            torch.cuda.synchronize()
+            differ = [k for k in out if not same_bits(out[k], again[k])]
+            check(not differ, "BEVFormer frame {}: two calls differ in {}"
+                  .format(i + 1, differ))
+            check_petr_outputs(out, 1, min(300, head.num_query *
+                                           head.num_classes),
+                               head.code_size, head.num_classes)
+            outs.append(out)
+        torch.cuda.synchronize()
+        check(not any(_build.LAUNCHES.values()), "BEVFormer launched {}: it "
+              "reaches no hand-written kernel".format(
+                  {k: v for k, v in _build.LAUNCHES.items() if v}))
+    moved = (outs[1]["bev_feature"] - outs[0]["bev_feature"]).abs().max()
+    log("  serving two frames at batch 1 (the second with prev_bev and a "
+        "can_bus of dx {}, dy {} m, yaw {} and delta {} rad): no kernel "
+        "launch; two calls equal by bit pattern; top scores {}; BEVs differ "
+        "by up to {:.4f}".format(*BEVFORMER_MOTION, [round(
+            o["scores"][0, 0].item(), 4) for o in outs], moved.item()))
+    tiny = bevformer_tiny()
+    tiny_frames = [bevformer_serve_batch("cpu", 2, hw=(64, 64),
+                                         image=(60, 64), n=2)]
+    tiny_frames.append(bevformer_serve_batch("cpu", 2, SEED + 1, hw=(64, 64),
+                                             image=(60, 64), n=2,
+                                             motion=BEVFORMER_MOTION))
+    _, tiny_launches = tiny_card_vs_cpu("BEVFormer", tiny, tiny_frames,
+                                        BEVFORMER_TINY_TOL,
+                                        lambda out: out["bev_feature"])
+    check(not tiny_launches, "the tiny BEVFormer launched a kernel")
+    del tiny
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    bevformer_timing(model, frames[1], "BEVFormer-tiny, the second frame")
+    del frames, outs
+
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch = bevformer_train_batch(device, model, 1)
+    steps_agree("BEVFormer", step, model, optimizer, scheduler, batch,
+                ("loss", "loss_cls", "loss_bbox"))
+    _build.reset_launches()
+    with hungarian_clock() as hung:
+        losses = step(model, optimizer, batch)
+        torch.cuda.synchronize()
+    log("  training at batch 1 ({}, clip {}, {}; a one-frame history queue, "
+        "{} boxes in range and in view, 2 padded slots): first step losses "
+        "{}; launches {}; {} Hungarian matches ({} scipy solves)".format(
+            cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], PETR_OBJECTS,
+            {k: round(v.item(), 5) for k, v in losses.items()},
+            {k: v for k, v in _build.LAUNCHES.items() if v},
+            len(hung["match"]), len(hung["solve"])))
+    check(not any(_build.LAUNCHES.values()), "the BEVFormer train step "
+          "launched a kernel")
+    check(len(hung["match"]) == head.num_layers, "expected one host match "
+          "a decoder layer")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch)
+    with hungarian_clock() as hung:
+        train_rate(step, model, optimizer, batch, BEVFORMER_TRAIN_ITERS,
+                   "BEVFormer-tiny")
+    steps = BEVFORMER_TRAIN_ITERS + 3
+    log("  Hungarian host ms a step: matches (copy to the host, waiting for "
+        "the forward, then the solves) {:.3f}, scipy solves alone {:.3f}"
+        .format(sum(hung["match"]) / steps, sum(hung["solve"]) / steps))
+
+
+def bevdet_serve_batch(device, b, seed=SEED, hw=None, n=PETR_CAMS):
+    """b frames of n normalised uniform-pixel h x w images (BEVDET_HW by
+    default) with bevdet_rig's matrices."""
+    import numpy as np
+    import torch
+    hw = hw or BEVDET_HW
+    rng = np.random.default_rng(seed)
+    batch = {"img": normalised_images(rng, (b, n) + tuple(hw) + (3,),
+                                      BEVDET_MEAN, BEVDET_STD)}
+    batch.update(bevdet_rig(hw, n, b))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def bevdet_train_batch(device, model, b, seed=SEED):
+    """bevdet_serve_batch with an adjacent frame (its own images, the
+    cameras 0.5 m behind: img_adj, rots_adj, trans_adj) and petr_gt's
+    boxes (BEVDET_OBJECTS a frame) in the ring's view."""
+    import numpy as np
+    import torch
+    batch = bevdet_serve_batch(device, b, seed)
+    adj = bevdet_serve_batch(device, b, seed + 2)
+    back = torch.tensor([-0.5, 0.0, 0.0], device=device)
+    batch.update(img_adj=adj["img"], rots_adj=adj["rots"],
+                 trans_adj=adj["trans"] + back)
+    boxes, labels = petr_gt(np.random.default_rng(seed + 1), b,
+                            (450, 800), sum(model.bbox_head.num_classes),
+                            objects=BEVDET_OBJECTS)
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device))
+    return batch
+
+
+def bevdet_frustum_stats(vt, batch):
+    """The first frame's frustum: rows, the share in the grid, BEV cells
+    hit, the most rows of a cell."""
+    import torch
+    mats = {k: batch[k][:1] for k in ("rots", "trans", "cam2imgs",
+                                      "post_rots", "post_trans", "bda")}
+    rank, valid = vt.frustum_ranks(**mats)
+    counts = torch.bincount(rank[valid].long())
+    return {"rows": valid.numel(), "in_grid": int(valid.sum()),
+            "share": valid.float().mean().item(),
+            "cells": int((counts > 0).sum()), "longest": int(counts.max())}
+
+
+def check_bevdet_outputs(out, b, k, classes, code):
+    """CenterHead's fixed-shape outputs: finite, -1 padded."""
+    import torch
+    boxes, scores, labels = (out["box3d_lidar"], out["scores"],
+                             out["label_preds"])
+    check(tuple(boxes.shape) == (b, k, code) and tuple(scores.shape) ==
+          tuple(labels.shape) == (b, k), "BEVDet4D output shapes")
+    check(bool(torch.isfinite(boxes).all() & torch.isfinite(scores).all()),
+          "non-finite BEVDet4D outputs")
+    kept = scores >= 0
+    check(bool((labels[kept] >= 0).all() & (labels[kept] < classes).all() &
+               (labels[~kept] == -1).all()), "BEVDet4D labels outside the "
+          "padding convention")
+    return kept.sum(dim=1).tolist()
+
+
+def bevdet_stages(model, batch, iters=3):
+    """Host ms of test_forward's stages (each ended by a synchronize): the
+    backbone, the depth net, the lift (the frustum's ranks, the sort of the
+    scalar payloads, the row rebuild), the pool (K7), the BEV encoder +
+    neck (the previous BEV concatenated), the head convs, decode + NMS."""
+    from paddle3d_tpu_torch.ops import scatter, sorted_scatter
+    vt = model.img_view_transformer
+    gx, gy, _ = vt.grid_size
+    cells = gx * gy
+    mats = {k: batch[k] for k in ("rots", "trans", "cam2imgs", "post_rots",
+                                  "post_trans", "bda")}
+
+    def sort(x):
+        tab, pix, dep, rank, valid = x
+        return (tab,) + scatter.sort_payloads(pix, dep, rank, valid,
+                                              tab.dtype)
+
+    def rebuild(x):
+        tab, keys, spix, sdep = x
+        return keys, scatter.rebuild_rows(tab, spix, sdep)
+
+    def encoder(t):
+        bev = t.reshape(t.shape[0], gy, gx, -1)
+        bev = model._temporal_bev(bev, batch)
+        return model.img_bev_encoder_neck(model.img_bev_encoder_backbone(
+            bev.permute(0, 3, 1, 2).contiguous()))
+
+    stage_times([
+        ("backbone", lambda bt: model.image_features(bt["img"])),
+        ("depth net", vt.depth_and_context),
+        ("frustum ranks", lambda x: vt.pool_inputs(*x, **mats)),
+        ("sort", sort), ("row rebuild", rebuild),
+        ("K7", lambda x: sorted_scatter.scatter_rows(*x, cells, False)),
+        ("BEV encoder + neck", encoder),
+        ("head convs", model.bbox_head),
+        ("decode + NMS", lambda preds: model.bbox_head.predict(
+            preds, model.test_cfg))], batch, iters)
+
+
+def bevdet_timing(model, batch):
+    """Frames/s of both paths (kernel/plain/plain/kernel halves of
+    BEVDET_ITERS, cudnn.benchmark on), GFLOP a frame by module, peak
+    memory, a profile of one forward through the kernels and the stage
+    times."""
+    import torch
+    b = batch["img"].shape[0]
+    rates = {"kernels": [], "plain": []}
+    with torch.no_grad():
+        for order in (("kernels", "plain"), ("plain", "kernels")):
+            for path in order:
+                rates[path].append(frames_per_s(
+                    model, batch, BEVDET_ITERS // 2, plain_path
+                    if path == "plain" else contextlib.nullcontext))
+    rate = {k: 2 / sum(1 / r for r in v) for k, v in rates.items()}
+    flops = module_flops(model, lambda: model.test_forward(batch), b, {
+        "backbone": "ResNet", "depth net": "LSSViewTransformer.depth_net",
+        "BEV encoder": "CustomResNet", "neck": "FPN_LSS",
+        "head": "CenterHead"})
+    log("  batch {}: forwards a path (kernel/plain/plain/kernel halves, "
+        "cudnn.benchmark on): kernel path {:.2f} frames/s ({:.3f} ms a "
+        "frame), plain path {:.2f} frames/s ({:.3f} ms); halves {}; GFLOP a "
+        "frame (torch.utils.flop_counter) {}: {:.2f} TFLOP/s at the kernel "
+        "path's rate".format(
+            b, rate["kernels"], 1e3 / rate["kernels"], rate["plain"],
+            1e3 / rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()},
+            {k: round(v, 2) for k, v in flops.items()},
+            flops["total"] * rate["kernels"] / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    bevdet_stages(model, batch)
+
+
+def bevdet_tiny():
+    """The parity tests' tiny BEVDet4D (ResNet-18 at base 8 to C4 on 64 x
+    96 images, 8 depth bins onto a 32 x 32 grid of 16 channels at 0.5 m,
+    CustomResNet (32 -> 16, 32) + FPN_LSS, a one-class CenterHead), seeded
+    weights, the heatmap tower's last weights scaled by TINY_CLS_GAIN; on
+    the CPU, in eval mode."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import CustomResNet, ResNet
+    from paddle3d_tpu_torch.models.detection import BEVDet, CenterHead
+    from paddle3d_tpu_torch.models.necks import FPN_LSS
+    from paddle3d_tpu_torch.models.transformers import LSSViewTransformer
+    gen = torch.Generator().manual_seed(SEED)
+    grid = dict(x=[-8., 8., 0.5], y=[-8., 8., 0.5], z=[-3., 3., 6.],
+                depth=[1., 9., 1.])
+    head = CenterHead(in_channels=16, tasks=[dict(num_class=1,
+                                                  class_names=["car"])],
+                      weight=0.25, code_weights=[1.] * 8,
+                      common_heads=dict(reg=(2, 2), height=(1, 2),
+                                        dim=(3, 2), rot=(2, 2)),
+                      share_conv_channel=16, generator=gen)
+    with torch.no_grad():
+        head.task_heads[0].towers["hm"][-1].weight.mul_(TINY_CLS_GAIN)
+    model = BEVDet(
+        img_backbone=ResNet(depth=18, base_channels=8, out_indices=(2,),
+                            generator=gen),
+        img_neck=None,
+        img_view_transformer=LSSViewTransformer(
+            grid, input_size=(64, 96), downsample=16, in_channels=32,
+            out_channels=16, generator=gen),
+        img_bev_encoder_backbone=CustomResNet(
+            32, num_layer=(1, 1), num_channels=(16, 32), stride=(1, 2),
+            generator=gen),
+        img_bev_encoder_neck=FPN_LSS(16 + 32, 16, generator=gen),
+        bbox_head=head,
+        test_cfg=dict(nms=dict(nms_pre_max_size=64, nms_post_max_size=8,
+                               nms_iou_threshold=0.2),
+                      score_threshold=0.05,
+                      point_cloud_range=[-8., -8., -3., 8., 8., 3.],
+                      down_ratio=1, voxel_size=[0.5, 0.5, 6.0],
+                      post_center_limit_range=[-12., -12., -5., 12., 12.,
+                                               5.]),
+        target_assign_cfg=dict(down_ratio=1, max_objs=8), temporal=True)
+    return model.eval()
+
+
+def phase_bevdet_tiny():
+    """The tiny BEVDet4D on the card against the CPU over two frames (the
+    second with the first's BEV as prev_bev; its pool, 2 x 384 rows onto 32
+    x 32 cells, is dense by the density rule: one K7 a forward, held bit
+    for bit against the row-order sum at its call)."""
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    model = bevdet_tiny()
+    frames = [bevdet_serve_batch("cpu", 2, SEED + i, hw=(64, 96), n=2)
+              for i in range(2)]
+    with recorded(sorted_scatter, "scatter_rows") as calls:
+        _, launches = tiny_card_vs_cpu(
+            "BEVDet4D", model, frames, BEVDET_TINY_TOL,
+            lambda out: out["bev_feature"][..., :16].contiguous())
+    check(launches == {"sorted_segment_sum_dense": 2}, "the tiny BEVDet4D "
+          "on the card launched {} where one K7 a forward was due".format(
+              launches))
+    k7_parts("the tiny BEVDet4D's pool", *calls[-1][0], iters=20)
+
+
+def phase_bevdet(device):
+    """BEVDet4D on its nuScenes config at full width (ResNet-50 to C4, 59
+    depth bins onto 128 x 128 cells of 64 channels, the previous frame's
+    BEV, CustomResNet + FPN_LSS, CenterHead of 10 classes, NMS 1,000 /
+    500; seeded random weights, f32, TF32 off) on six 256 x 704 images
+    under bevdet_rig: serving at batch 1 and 8 with a prev_bev state (from
+    a first frame) through the kernels (one K7 a forward, nothing else) and
+    on the plain versions, both in deterministic mode (every output equal
+    by bit pattern); K7 at both pools bit for bit against the row-order
+    sum and a second call, timed beside index_add_call and its bound; the
+    tiny model card (K7) vs CPU; frames/s of both paths, GFLOP, memory,
+    profiles, stages; training at batch 8 with an adjacent frame (the
+    config's AdamW, clip 5, CosineDecay): one step through the kernels (K7
+    twice, the adjacent frame's pool without gradient, and one K5) against
+    one on the plain versions from the same state, in deterministic mode,
+    bit-equal; K5 held and timed at the step's VJP; 10 falling losses,
+    train frames/s, memory, profile. -> the record's entries of K7 and K5
+    at BEVDet4D's calls."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=BEVDET, device=device)
+    model = cfg.model.eval()
+    vt = model.img_view_transformer
+    gx, gy, _ = vt.grid_size
+    c = vt.out_channels
+    classes = sum(model.bbox_head.num_classes)
+    post = model.test_cfg["nms"]["nms_post_max_size"]
+    batches = {b: bevdet_serve_batch(device, b) for b in (1, BEVDET_BATCH)}
+    stats = bevdet_frustum_stats(vt, batches[1])
+    log("phase 19: BEVDet4D (ResNet-50 to C4, {} depth bins, BEV {} x {} x "
+        "{} and the previous frame's, {} classes) at {} x {} under a ring of "
+        "{} cameras: a frame's frustum has {} rows, {} in the grid (share "
+        "{:.4f}) on {} cells, at most {} rows a cell".format(
+            vt.D, gy, gx, c, classes, *BEVDET_HW, PETR_CAMS, stats["rows"],
+            stats["in_grid"], stats["share"], stats["cells"],
+            stats["longest"]))
+    check(stats["share"] > 0.3, "under 0.3 of the frustum is in the grid")
+    with torch.no_grad():
+        for batch in batches.values():      # a first frame: the state
+            first = model.test_forward(batch)
+            batch["prev_bev"] = first["bev_feature"][..., :c].contiguous()
+    outs, launches = {}, {}
+    with torch.no_grad(), recorded(sorted_scatter, "scatter_rows") as calls, \
+            deterministic(warn_only=True):
+        for b, batch in batches.items():
+            _build.reset_launches()
+            outs[b] = model.test_forward(batch)
+            torch.cuda.synchronize()
+            launches[b] = dict(_build.LAUNCHES)
+    kept = {b: check_bevdet_outputs(out, b, post, classes, 9)
+            for b, out in outs.items()}
+    log("  serving with a prev_bev state through the kernels: launches by "
+        "batch {}; boxes kept a frame {}".format(
+            {b: {k: v for k, v in n.items() if v}
+             for b, n in launches.items()}, kept))
+    check(all(n["sorted_segment_sum_dense"] == 1 and sum(n.values()) == 1
+              for n in launches.values()), "the BEVDet4D forwards launched "
+          "{} where one K7 a forward was due".format(launches))
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            with deterministic(warn_only=True), plain_path():
+                ref = model.test_forward(batch)
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "the plain path launched a kernel")
+            differ = [k for k in ref if not same_bits(outs[b][k], ref[k])]
+            check(not differ, "BEVDet4D batch {}: the kernel and plain paths "
+                  "differ in {}".format(b, differ))
+    log("  batch {} vs the plain path (its index_add_ in row order: "
+        "deterministic mode): every output equal by bit pattern".format(
+            list(batches)))
+    del outs, ref
+    k7 = {}
+    for b, ((keys, rows, cells, split), _) in zip(batches, calls):
+        k7[b] = k7_parts("BEVDet4D's pool at batch {}".format(b), keys, rows,
+                         cells, split, iters=20)
+    keys, rows, cells, _ = calls[-1][0]
+    k7_bytes = scatter_bytes(keys, cells, rows.shape[-1],
+                             keys.shape[0] * cells * rows.shape[-1])
+    k7_plain = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys, rows, cells, False), 5)
+    log("  K7 at BEVDet4D's pool at batch {}, plain version: {:.4f} ms"
+        .format(BEVDET_BATCH, k7_plain))
+    del calls, keys, rows
+    phase_bevdet_tiny()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for batch in batches.values():
+        bevdet_timing(model, batch)
+    del batches
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch = bevdet_train_batch(device, model, BEVDET_BATCH)
+    with recorded(sorted_scatter, "scatter_rows") as fwd, \
+            recorded(sorted_scatter, "sorted_table_gather") as bwd, \
+            recorded(model, "_camera_bev") as bevs:
+        kernel, plain, ops = steps_agree(
+            "BEVDet4D at batch {} (an adjacent frame)".format(BEVDET_BATCH),
+            step, model, optimizer, scheduler, batch, BEVDET_LOSSES,
+            plain=True)
+    log("  training at batch {} ({}, clip {}, {}; an adjacent frame, {} "
+        "boxes a frame in view, 2 padded slots): kernel step losses {}; "
+        "launches {}; plain step launches {}".format(
+            BEVDET_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], BEVDET_OBJECTS,
+            {k: round(v, 5) for k, v in kernel[0].items()},
+            {k: v for k, v in kernel[3].items() if v},
+            {k: v for k, v in plain[3].items() if v}))
+    # the current frame's pool and the adjacent frame's (no gradient): two
+    # K7; the current frame's VJP: one K5
+    check(kernel[3]["sorted_segment_sum_dense"] == 2 and
+          kernel[3]["sorted_table_gather"] == 1 and
+          sum(kernel[3].values()) == 3, "the BEVDet4D train step launched "
+          "{} where two K7 and one K5 were due".format(kernel[3]))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    check(len(fwd) == 2 and len(bwd) == 1 and len(bevs) == 4, "expected two "
+          "pools and one VJP in the kernel step")
+    # the current and the adjacent frame's pooled BEVs: K7 against the plain
+    # step's row-order index_add_ (deterministic mode)
+    same = [same_bits(bevs[i][1][0], bevs[i + 2][1][0]) for i in range(2)]
+    log("  the train step's pooled BEVs (current, adjacent frame), kernel "
+        "step vs plain step: {}".format(
+            ["bit-equal" if e else "differ" for e in same]))
+    check(all(same), "the train step's pools (K7) differ from the plain "
+          "step's row-order index_add_")
+    del bevs
+    k5 = k5_parts("BEVDet4D's train backward", *bwd[0][0])
+    k5_launches = kernel[3]["sorted_table_gather"]
+    k7_train = kernel[3]["sorted_segment_sum_dense"]
+    del fwd, bwd, kernel, plain
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch)
+    train_rate(step, model, optimizer, batch, BEVDET_TRAIN_ITERS, "BEVDet4D")
+    del model, step, batch, cfg, optimizer, scheduler
+
+    p7, k7_err = k7[BEVDET_BATCH]
+    k5_ms, k5_err, k5_bound = k5
+
+    def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
+        src, tpu, _ = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, "path": path}
+    log("  K7 launches: one a serving forward; {} a train step (the "
+        "adjacent frame's pool too)".format(k7_train))
+    return [entry("sorted_segment_sum_dense", "BEVDet4D serving, batch {}"
+                  .format(BEVDET_BATCH),
+                  launches[BEVDET_BATCH]["sorted_segment_sum_dense"], k7_err,
+                  p7["wrapper"], k7_plain, p7["index_add_call"],
+                  bound(k7_bytes)),
+            entry("sorted_table_gather", "BEVDet4D training, batch {}".format(
+                BEVDET_BATCH), k5_launches, k5_err, k5_ms["wrapper"],
+                  k5_ms["plain"], k5_ms["torch.gather"], k5_bound)]
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -5316,6 +6276,10 @@ def main():
         caddn = phase_caddn(device)
         # PETR reaches no hand-written kernel
         phase_petr(device)
+        # nor does BEVFormer; K7 and K5 at BEVDet4D's calls, entries of
+        # their own
+        phase_bevformer(device)
+        bevdet = phase_bevdet(device)
     except PhaseError as e:
         sys.exit("chip_smoke: FAILED: {}".format(e))
     record = {"kernels": [
@@ -5324,7 +6288,7 @@ def main():
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": extra[name][1], "bound_by": extra[name][2],
          "library_ms": extra[name][0]}
-        for name, (src, tpu, _) in KERNELS.items()] + caddn}
+        for name, (src, tpu, _) in KERNELS.items()] + caddn + bevdet}
     log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

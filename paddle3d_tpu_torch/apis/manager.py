@@ -68,11 +68,12 @@ BBOX_ASSIGNERS = ComponentManager("bbox_assigners")
 MATCH_COSTS = ComponentManager("match_costs")
 TRANSFORMER_DECODER_LAYERS = ComponentManager("transformer_decoder_layers")
 TRANSFORMER_DECODERS = ComponentManager("transformer_decoders")
+TRANSFORMERS = ComponentManager("transformers")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
     HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS, TRANSFORMS,
     TRANSFORMER_ENCODERS, TRANSFORMER_ENCODER_LAYERS, ATTENTIONS,
     BBOX_ASSIGNERS, MATCH_COSTS, TRANSFORMER_DECODER_LAYERS,
-    TRANSFORMER_DECODERS
+    TRANSFORMER_DECODERS, TRANSFORMERS
 ]

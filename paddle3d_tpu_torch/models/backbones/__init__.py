@@ -1,3 +1,4 @@
+from .custom_resnet import CustomResNet
 from .dla import DLA, DLA34
 from .hrnet import HRNet, HRNet_W18
 from .resnet import ResNet

@@ -1,3 +1,5 @@
+from .bevdet import BEVDet
+from .bevformer import BEVFormer, BEVFormerEncoderLayer
 from .caddn import CADDN
 from .centerpoint import CenterHead, CenterPoint
 from .iassd import IASSD

@@ -19,11 +19,11 @@ NHWC [B, gy, gx, C] as there and goes to NCHW once for the BEV net.
 The frustum's voxel indices and the depth bins are floors of computed
 values: the port computes them in the arithmetic XLA compiles the JAX
 package's to under jit on the CPU, in the dtype of the input (its linspace
-as i * (stop / (n - 1)); each coordinate as the pairwise sum (p0 + p1) +
-(p2 + p3) of its four products, as XLA's dot sums them; a division of a
-computed value by a constant as a multiplication by its reciprocal; a
-correctly rounded square root), so that a point on a voxel face or a depth
-on a bin edge lands on the same side.
+and the reciprocal of a constant divisor from ops/xla_arith; each
+coordinate as the pairwise sum (p0 + p1) + (p2 + p3) of its four
+products, as XLA's dot sums them; a correctly rounded square root), so
+that a point on a voxel face or a depth on a bin edge lands on the same
+side.
 
 Not ported yet: `postprocess_to_samples` (the runtime's host layer,
 ROADMAP.md, queue 1, item 5).
@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ....apis import manager
+from ....ops import xla_arith
 from ....ops.box_ops import limit_period
 from ....ops.scatter import bev_pool_sorted
 from ...backbones.second_backbone import SecondBackbone
@@ -67,27 +68,6 @@ class _BEVNet(nn.Module):
 
     def forward(self, x):
         return self.fpn(self.net(x))
-
-
-def _jax_linspace(stop: float, num: int, dtype) -> torch.Tensor:
-    """jnp.linspace(0, stop, num) in the arithmetic XLA compiles it to:
-    i * (stop / (num - 1)) for i < num - 1, rounded in dtype, then stop
-    (torch.linspace rounds otherwise)."""
-    if num == 1:
-        return torch.zeros(1, dtype=dtype)
-    delta = torch.tensor(stop, dtype=dtype) / (num - 1)
-    return torch.cat([torch.arange(num - 1, dtype=dtype) * delta,
-                      torch.full((1,), stop, dtype=dtype)])
-
-
-def _reciprocal(v: float, like: torch.Tensor) -> torch.Tensor:
-    """1 / v rounded in like's dtype, as a one-element tensor on like's
-    device. Under jit XLA turns the JAX package's divisions by a constant
-    (the voxel size, the bin size) into multiplications by this
-    reciprocal; the port multiplies by it too, so that a value on a voxel
-    face or a bin edge falls on the same side."""
-    one = torch.ones(1, dtype=like.dtype)
-    return (one / torch.tensor(v, dtype=like.dtype)).to(like.device)
 
 
 @manager.MODELS.add_component
@@ -212,7 +192,8 @@ class CADDN(BaseMonoModel):
             bin_size = 2 * (d1 - d0) / (d * (1 + d))
             return d0 + bin_size / 2 * (i * (i + 1) + i + 1)
         # XLA folds (d1 - d0) / d into one f32 constant
-        return d0 + (i + 0.5) * (torch.tensor(d1 - d0) * _reciprocal(d, i))
+        return d0 + (i + 0.5) * (torch.tensor(d1 - d0) *
+                                 xla_arith.reciprocal(d, i))
 
     def frustum_ranks(self, img2lidars: torch.Tensor, h: int, w: int):
         """img2lidars [B, 4, 4] (image pixel x depth -> lidar) and the
@@ -223,8 +204,8 @@ class CADDN(BaseMonoModel):
         dtype, dev = img2lidars.dtype, img2lidars.device
         h_in, w_in = self.image_size
         z = self._bin_depths().to(dtype=dtype, device=dev)[:, None, None]
-        uu = _jax_linspace(w_in - 1, w, dtype).to(dev)[None, None, :]
-        vv = _jax_linspace(h_in - 1, h, dtype).to(dev)[None, :, None]
+        uu = xla_arith.jax_linspace(w_in - 1, w, dtype).to(dev)[None, None, :]
+        vv = xla_arith.jax_linspace(h_in - 1, h, dtype).to(dev)[None, :, None]
         pts = [uu * z, vv * z, z.expand(-1, h, w)]
         m = img2lidars[:, :3, :, None, None, None]            # [B,3,4,1,1,1]
         lo = torch.tensor(self.pc_range[:3], dtype=dtype, device=dev)
@@ -234,7 +215,7 @@ class CADDN(BaseMonoModel):
             # pairs as XLA's CPU dot sums the einsum's four products
             xyz = (m[:, a, 0] * pts[0] + m[:, a, 1] * pts[1]) + (
                 m[:, a, 2] * pts[2] + m[:, a, 3])
-            cell = torch.floor((xyz - lo[a:a + 1]) * _reciprocal(
+            cell = torch.floor((xyz - lo[a:a + 1]) * xla_arith.reciprocal(
                 self.voxel_size[a], xyz))
             # far points saturate past the grid rather than wrap
             vox.append(cell.clamp(-1, self.grid_size[a]).to(torch.int32))
@@ -296,13 +277,13 @@ class CADDN(BaseMonoModel):
         x = depth_map
         if self.depth_mode == "LID":
             bin_size = 2 * (d1 - d0) / (d * (1 + d))
-            y = 1 + 8 * (x - d0) * _reciprocal(bin_size, x)
+            y = 1 + 8 * (x - d0) * xla_arith.reciprocal(bin_size, x)
             # a correctly rounded square root, as XLA's: torch's f32 one on
             # the CPU is not (sqrt(16640.998) gave 128.99998, not 129.0);
             # through f64 it is
             idx = -0.5 + 0.5 * torch.sqrt(y.to(torch.float64)).to(y.dtype)
         else:
-            idx = (x - d0) * _reciprocal((d1 - d0) / d, x)
+            idx = (x - d0) * xla_arith.reciprocal((d1 - d0) / d, x)
         idx = torch.where((x < d0) | (x > d1), float(d), idx)
         return torch.clamp(idx, 0, d).to(torch.int64)
 

@@ -1,4 +1,5 @@
 from .anchor3d_head import Anchor3DHead
+from .bevformer_head import BEVFormerHead
 from .class_heads import DeepLabV3Head, OCRNetHead
 from .roi_head import RoIGridHead
 from .denoising import DenoisingConfig

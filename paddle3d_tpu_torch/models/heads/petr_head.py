@@ -183,6 +183,12 @@ class PETRHead(nn.Module):
         return self._decode(tokens, key_pos, dn_ref=dn_ref,
                             attn_mask=attn_mask)
 
+    def decode_over_tokens(self, tokens, token_shape=None):
+        """The DETR decode over tokens encoded elsewhere (BEVFormer's BEV
+        tokens [B, T, embed_dims]), with no key position embedding ->
+        (all_cls, all_bbox) as forward gives them."""
+        return self._decode(tokens, None)
+
     def query_reference_points(self, batch_size: int, dn_ref=None):
         """[B, Qt, 3] matching (then DN) reference points in [0, 1]."""
         ref = torch.sigmoid(inverse_sigmoid(
@@ -193,6 +199,8 @@ class PETRHead(nn.Module):
         return ref
 
     def _decode(self, tokens, key_pos, dn_ref=None, attn_mask=None):
+        """tokens and key_pos [B, T, embed_dims] (key_pos None: the keys
+        carry no position embedding)."""
         b = tokens.shape[0]
         ref = self.query_reference_points(b, dn_ref)
         query_pos = self.query_embedding(pos2posemb3d(ref,

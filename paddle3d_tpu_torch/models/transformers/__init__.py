@@ -1,2 +1,5 @@
+from .attentions import (MSDeformableAttention, SpatialCrossAttention,
+                         TemporalSelfAttention)
+from .bevdet_transformer import LSSViewTransformer
 from .transformer_layers import (BaseTransformerLayer, FFN,
                                  MultiHeadAttention, TransformerLayerSequence)

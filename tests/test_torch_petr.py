@@ -620,7 +620,7 @@ def train_step_case(path, batch, monkeypatch):
                                                            jnp.float64)))
         stats = flat_state(jm64)
         draws = None
-        if jm.dn_cfg is not None:
+        if getattr(jm, "dn_cfg", None) is not None:
             draws = jax_draws(dn_key, *batch["gt_labels"].shape,
                               jm.head.num_classes, jm.dn_cfg)
     model = Config(path=path, device="cpu").model
