@@ -32,8 +32,14 @@ the fifth and sixth (configs/bevformer/bevformer_tiny_r50_fpn_nuscenes.yml,
 configs/bevdet/bevdet4d_r50_depth_nuscenes.yml, full width, seeded random
 weights), serving two consecutive frames of six 450 x 800 images padded to
 480 x 800 and training on 1 with a history frame, serving 1 and 8 frames
-of six 256 x 704 images and training on 8 with an adjacent frame, in
-phases; any failing phase exits non-zero and prints no result:
+of six 256 x 704 images and training on 8 with an adjacent frame, and
+CAPE / CAPE-T and RTEBev, the seventh and eighth
+(configs/cape/cape{,_t}_*.yml,
+configs/rtebev/rtebev_r50_nuscenes_256x704_msdepth_hybrid_{1f,4f}.yml,
+full width, seeded random weights), serving 1 and 2 frames of six 512 x
+1408 images and training CAPE-T on 2, serving 1 and 4 frames of six 256 x
+704 images and training on 4 with an adjacent frame, in phases; any
+failing phase exits non-zero, names the phase and prints no result:
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -229,8 +235,9 @@ phases; any failing phase exits non-zero and prints no result:
      (backbone, neck, tokens + position embedding, decoder with its self-
      and cross-attention apart, decode); training PETR at batch 2 (the
      config's AdamW, clip 35 and CosineDecay; 8 boxes a frame in range and
-     in view, two padded slots): 10 steps with finite losses that fall,
-     train frames/s, the Hungarian matches' host time, peak memory and a
+     in view, two padded slots): 10 steps in deterministic mode with
+     finite losses that fall (falling_losses' fixed), train frames/s, the
+     Hungarian matches' host time, peak memory and a
      profile; one train step each of PETRv2 with query denoising and of
      PETRv2-BEVseg at batch 1, finite losses and grads.
  18. BEVFormer-tiny (ResNet-50 to C5, FPN 2048 -> 256, a 50 x 50 BEV of
@@ -248,8 +255,9 @@ phases; any failing phase exits non-zero and prints no result:
      (backbone + FPN, the encoder with its TSA and SCA apart, the
      decoder, predict); training at batch 1 with a one-frame history queue
      (the config's AdamW, clip 35, CosineDecay; petr_gt's boxes): two steps
-     from one state in deterministic mode, bit-equal; 10 steps with finite
-     losses that fall; train frames/s, peak memory, a profile, the
+     from one state in deterministic mode, bit-equal; 10 steps in
+     deterministic mode with finite losses that fall; train frames/s, peak
+     memory, a profile, the
      Hungarian matches' host time.
  19. BEVDet4D (ResNet-50 to C4, the LSS view transformer of 59 depth bins
      onto 128 x 128 cells of 64 channels, the previous frame's BEV,
@@ -274,9 +282,23 @@ phases; any failing phase exits non-zero and prints no result:
      (the pooled BEVs, losses, grads and running stats bit-equal), K5
      held and timed at the step's VJP; 10 steps with finite losses that
      fall; train frames/s, peak memory and a profile.
+ 20. CAPE and CAPE-T (phase_cape): CAPE at batch 1 and 2 and CAPE-T at
+     batch 1 served twice (bit-equal, no launch counter moves); CAPE-T
+     training at batch 2 (DN queries, the previous stream's aux loss):
+     two steps from one state in deterministic mode, 10 steps in
+     deterministic mode with finite losses that fall; the VoVNet-99
+     CAPE-T config served once; the tiny CAPE-T card vs CPU.
+ 21. RTEBev (phase_rtebev): serving 1f at batch 1 and 4 with the first
+     frame's own BEV as bev_adj (one K7 a forward, kernel vs plain path
+     bit-equal), K7 held and timed with its skew, 4f served at batch 1;
+     training at batch 4 with an adjacent frame and a projected gt_depth
+     (two K7 and one K5 a step, kernel vs plain step bit-equal, K5 held
+     and timed), 10 steps in deterministic mode with finite losses that
+     fall, one 4f step (five K7); the tiny model card vs CPU.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
-calls and K7 and K5 at BEVDet4D's in entries of their own, each with a
+calls and K7 and K5 at BEVDet4D's and at RTEBev's in entries of their
+own, each with a
 "path" key, after the entries of their earlier paths) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1134,14 +1156,31 @@ def saved_state(model, optimizer, scheduler):
     return restore
 
 
-def falling_losses(step, model, optimizer, batch):
-    losses = [step(model, optimizer, batch)["loss"].item()
-              for _ in range(TRAIN_STEPS)]
-    log("  {} steps on the fixed batch, loss per step: {}".format(
-        TRAIN_STEPS, [round(v, 4) for v in losses]))
+def falling_losses(step, model, optimizer, batch, fixed=False):
+    """TRAIN_STEPS steps on the fixed batch: finite losses, the last under
+    the first. fixed runs them in torch's deterministic mode (warn_only)
+    with deterministic cuDNN, for a set-prediction loss: its Hungarian
+    matches flip from step to step, so that its loss jumps, and where the
+    autotuner's pick of algorithms steers the steps the last loss against
+    the first differs from run to run. In the mode the ten steps take one
+    path on every run of the card and software (the ops that have no
+    deterministic form are logged), when the steps before them ran in
+    fixed_path too."""
+    with warnings.catch_warnings(record=True) as warned, \
+            fixed_path() if fixed else contextlib.nullcontext():
+        warnings.simplefilter("always")
+        losses = [step(model, optimizer, batch)["loss"].item()
+                  for _ in range(TRAIN_STEPS)]
+    log("  {} steps on the fixed batch{}, loss per step: {}".format(
+        TRAIN_STEPS, " in deterministic mode (ops without a deterministic "
+        "form: {})".format(sorted({str(w.message).split(" does not")[0]
+                                   for w in warned
+                                   if "deterministic" in str(w.message)}))
+        if fixed else "", [round(v, 4) for v in losses]))
     check(all(v == v and abs(v) < float("inf") for v in losses),
           "non-finite train loss")
-    check(losses[-1] < losses[0], "the loss did not fall")
+    check(losses[-1] < losses[0], "the loss did not fall: {} steps, loss "
+          "per step {}".format(TRAIN_STEPS, losses))
 
 
 def compare_steps(got, ref, loss_tol, grad_tol, stat_tol,
@@ -3206,6 +3245,21 @@ def deterministic(warn_only=False):
         torch.use_deterministic_algorithms(False)
 
 
+@contextlib.contextmanager
+def fixed_path():
+    """deterministic(warn_only=True), with cuDNN's flags put back after: for
+    the train steps falling_losses(fixed=True) runs and every step before
+    them on the same state."""
+    import torch
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        with deterministic(warn_only=True):
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.backends.cudnn.benchmark = flags[1]
+
+
 def phase_ts_train(device):
     """Two-stage KITTI training: Voxel-RCNN at full width through the
     kernels against the plain versions, K11 bit for bit, 10 steps run
@@ -4672,6 +4726,23 @@ def petr_rig(hw, n=PETR_CAMS, frames=1, ego=PETR_EGO):
     return np.concatenate(cams).astype(np.float32), l2i
 
 
+def cape_rig(hw, n=PETR_CAMS, frames=1, ego=PETR_EGO):
+    """petr_rig's img2lidars and the lidar2cams that agree with them:
+    frame f's lidar -> camera maps are tools/bench_camera.py's lidar2cam
+    after the frame's ego offset, so that lidar2cam @ img2lidar is the
+    camera-frame lift of [0, 1] image coordinates, the same for every
+    frame. -> (img2lidars, lidar2cams), both [frames * n, 4, 4] f32."""
+    import numpy as np
+    cams = petr_rig(hw, n, frames, ego)[0]
+    l2c = bench_camera()._rig(None, n)[0].astype(np.float64)
+    out = []
+    for f in range(frames):
+        back = np.eye(4)
+        back[0, 3] = -f * ego
+        out.append(l2c @ np.linalg.inv(back))
+    return cams, np.concatenate(out).astype(np.float32)
+
+
 def petr_serve_batch(device, b, frames=1, seed=SEED, hw=None, n=PETR_CAMS):
     """b frames of n uniform-pixel images in [0, 255) each (frames x n
     for PETRv2), NHWC at hw (PETR_HW by default), with petr_rig's
@@ -4847,11 +4918,11 @@ def petr_flops(model, batch):
             "attention products": products}
 
 
-def petr_timing(model, batch, label):
+def petr_timing(model, batch, label, stages=None):
     """Frames/s over PETR_ITERS forwards in two halves after a warm-up
     (cudnn.benchmark on, as a server runs), the convolutions' and
     matmuls' work a frame, peak memory, a profile of one forward and the
-    stage times."""
+    stage times (stages(model, batch), petr_stages by default)."""
     import torch
     b = batch["img"].shape[0]
     for _ in range(2):
@@ -4879,7 +4950,7 @@ def petr_timing(model, batch, label):
     log("  peak device memory of one forward at batch {}: {:.1f} "
         "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
     profile(lambda: model.test_forward(batch))
-    petr_stages(model, batch)
+    (stages or petr_stages)(model, batch)
 
 
 def petr_serve(model, batches, label):
@@ -5038,7 +5109,8 @@ def phase_petr(device):
     optimizer = cfg.optimizer
     batch = petr_train_batch(device, model, PETR_BATCH)
     _build.reset_launches()
-    with hungarian_clock() as hung:
+    # the ten falling steps' path starts from this step's state
+    with hungarian_clock() as hung, fixed_path():
         losses = step(model, optimizer, batch)
         torch.cuda.synchronize()
     log("  training at batch {} ({}, clip {}, {}; {} boxes a frame in range "
@@ -5055,7 +5127,7 @@ def phase_petr(device):
     check(len(hung["match"]) == head.num_layers and
           len(hung["solve"]) == head.num_layers * PETR_BATCH,
           "expected one host match a decoder layer, a solve a frame")
-    falling_losses(step, model, optimizer, batch)
+    falling_losses(step, model, optimizer, batch, fixed=True)
     half = PETR_TRAIN_ITERS // 2
     step(model, optimizer, batch)
     with hungarian_clock() as hung:
@@ -5543,7 +5615,8 @@ def phase_bevformer(device):
     stages; training at batch 1 with a one-frame history queue (the
     config's AdamW, clip 35, CosineDecay): two steps from one state
     bit-equal, 10 falling losses, train frames/s, memory, profile, the
-    Hungarian matches' host time."""
+    Hungarian matches' host time; the 10 falling losses in deterministic
+    mode."""
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
@@ -5614,7 +5687,8 @@ def phase_bevformer(device):
     steps_agree("BEVFormer", step, model, optimizer, scheduler, batch,
                 ("loss", "loss_cls", "loss_bbox"))
     _build.reset_launches()
-    with hungarian_clock() as hung:
+    # the ten falling steps' path starts from this step's state
+    with hungarian_clock() as hung, fixed_path():
         losses = step(model, optimizer, batch)
         torch.cuda.synchronize()
     log("  training at batch 1 ({}, clip {}, {}; a one-frame history queue, "
@@ -5632,7 +5706,7 @@ def phase_bevformer(device):
           "a decoder layer")
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
-    falling_losses(step, model, optimizer, batch)
+    falling_losses(step, model, optimizer, batch, fixed=True)
     with hungarian_clock() as hung:
         train_rate(step, model, optimizer, batch, BEVFORMER_TRAIN_ITERS,
                    "BEVFormer-tiny")
@@ -6013,6 +6087,815 @@ def phase_bevdet(device):
                   k5_ms["plain"], k5_ms["torch.gather"], k5_bound)]
 
 
+# Phase 20: CAPE and CAPE-T (PETR's model with the camera-view position
+# embeddings: every camera decoded in its own frame, fused by visibility;
+# CAPE-T's two frames as two fused query streams), bench.py's "cape" key,
+# on petr_rig's cameras with the lidar2cams that agree with them
+# (cape_rig). CAPE reaches no hand-written kernel.
+CAPE = os.path.join(REPO, "configs", "cape", "cape_r50_1408x512.yml")
+CAPE_T = os.path.join(REPO, "configs", "cape", "cape_t_r50_704x256.yml")
+CAPE_T_V99 = os.path.join(REPO, "configs", "cape", "cape_t_v99_800x320.yml")
+CAPE_HW = (512, 1408)
+CAPE_T_HW = (256, 704)
+CAPE_V99_HW = (320, 800)
+CAPE_BATCH = 2          # the configs' batch_size; bench.py serves batch 1
+CAPE_MEAN, CAPE_STD = (103.530, 116.280, 123.675), (57.375, 57.120, 58.395)
+# the tiny CAPE-T (petr_synthetic_tiny.yml with a CAPE-T head) on the card
+# against the CPU, relative to the largest value: cuDNN and cuBLAS against
+# the CPU's convolutions and matmuls, as PETR_TINY_TOL
+CAPE_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
+CAPE_LOSSES = ("loss", "loss_cls", "loss_bbox", "loss_cls_dn",
+               "loss_bbox_dn", "loss_cls_prev", "loss_bbox_prev")
+
+
+def cape_serve_batch(device, b, hw, frames=1, seed=SEED, n=PETR_CAMS):
+    """b frames of n normalised uniform-pixel h x w images (frames x n for
+    CAPE-T) with cape_rig's img2lidars and lidar2cams."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    i2l, l2c = cape_rig(hw, n, frames)
+    views = frames * n
+    batch = {"img": normalised_images(rng, (b, views) + tuple(hw) + (3,),
+                                      CAPE_MEAN, CAPE_STD),
+             "img2lidars": np.broadcast_to(i2l, (b, views, 4, 4)).copy(),
+             "lidar2cams": np.broadcast_to(l2c, (b, views, 4, 4)).copy()}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def cape_train_batch(device, model, b, hw, frames, seed=SEED):
+    """cape_serve_batch with petr_gt's boxes (in range and in view)."""
+    import numpy as np
+    import torch
+    batch = cape_serve_batch(device, b, hw, frames, seed)
+    boxes, labels = petr_gt(np.random.default_rng(seed + 1), b, hw,
+                            model.head.num_classes)
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device))
+    return batch
+
+
+def cape_visible(model, batch):
+    """The share of (matching query, camera) pairs whose camera sees the
+    query's reference point (camera z above 0.1) in the first frame, and
+    the queries no camera sees."""
+    import torch
+    head = model.head
+    l2c = batch["lidar2cams"][:1]
+    n = l2c.shape[1] // (2 if head.with_time else 1)
+    feats = torch.zeros((1, n, head.input_proj.in_channels, 1, 1),
+                        device=l2c.device)
+    with torch.no_grad():
+        vis = head._camera_frame_inputs(feats, batch["img2lidars"][:1, :n],
+                                        l2c[:, :n], None)[3]
+    return vis.mean().item(), (vis.sum(dim=1) == 0).float().mean().item()
+
+
+def cape_stages(model, batch, iters=3):
+    """Host ms of CAPE's test_forward stages (each ended by a
+    synchronize): backbone + neck, the camera-frame inputs (tokens, key and
+    query position embeddings, visibility), the decoder (its
+    self-attention and its per-camera cross-attention apart: each call
+    between two synchronizes; the rest is the FFN, norms and fusion), the
+    branches and decode."""
+    import torch
+    head = model.head
+    attn = {"self-attention": [], "cross-attention": []}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            attn[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    n = batch["img"].shape[1]
+    half = n // 2
+
+    def decoder(x):
+        tokens, key_pos, q_pos_cam, visible, q_pos_global, ref = x
+        if not head.with_time:
+            return head._decode_layers(tokens, key_pos, q_pos_cam, visible,
+                                       q_pos_global, None), ref
+
+        def split_cat(t):
+            return torch.cat([t[:, :half], t[:, half:]], dim=0)
+        l2c = batch["lidar2cams"]
+        ego = torch.matmul(torch.linalg.inv(l2c[:, 0]),
+                           l2c[:, half])[:, :3, :3]
+        return head._decode_layers(
+            split_cat(tokens), split_cat(key_pos), split_cat(q_pos_cam),
+            split_cat(visible), torch.cat([q_pos_global] * 2), None,
+            fusion_ego=ego)[:, :tokens.shape[0]], ref
+
+    stages = [
+        ("backbone + neck", lambda bt: model._extract_feats(bt["img"])),
+        ("camera-frame inputs", lambda f: head._camera_frame_inputs(
+            f, batch["img2lidars"], batch["lidar2cams"], None)),
+        ("decoder", decoder),
+        ("branches + decode", lambda x: head.predict(
+            *head._branches(*x)))]
+    patches = [mock.patch.object(layer.attns[i].attn, "forward",
+                                 timed(key, layer.attns[i].attn.forward))
+               for layer in head.decoder.layers
+               for i, key in ((0, "self-attention"),
+                              (1, "cross-attention"))]
+
+    def run():
+        x, out = batch, []
+        for _, fn in stages:
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad(), contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        run()
+        for v in attn.values():
+            v.clear()
+        ms = [sum(v) / iters for v in zip(*(run() for _ in range(iters)))]
+    parts = {k: sum(v) / iters for k, v in attn.items()}
+    times = dict(zip((s for s, _ in stages), ms))
+    log("  stages a batch (host clock, synchronised; each attention call "
+        "between two synchronizes): {}; of the decoder: self-attention "
+        "{:.3f} ms, per-camera cross-attention (the cameras one call) "
+        "{:.3f} ms, FFN, norms{} and the rest {:.3f} ms".format(
+            ", ".join("{} {:.3f} ms".format(k, v) for k, v in times.items()),
+            parts["self-attention"], parts["cross-attention"],
+            ", fusion" if head.with_time else "",
+            times["decoder"] - sum(parts.values())))
+    return times, parts
+
+
+def cape_tiny_yml(tmp):
+    """The tiny PETR config with a CAPE-T head (two fused streams, the
+    previous stream's aux loss, version 2 from the head), written to tmp."""
+    import yaml
+    path = os.path.join(tmp, "cape_t_tiny.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"_base_": PETR_TINY,
+                        "model": {"version": None,
+                                  "head": {"type": "CAPEHead",
+                                           "with_time": True,
+                                           "with_prev_aux_loss": True}}}, f)
+    return path
+
+
+def phase_cape_tiny():
+    """The tiny CAPE-T's test_forward on the card against the CPU (two
+    frames of two cameras at 32 x 48), its class branch's last weight
+    scaled by PETR_CLS_GAIN: no launch, labels equal, scores and boxes
+    within CAPE_TINY_TOL of the largest value."""
+    import tempfile
+
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    with tempfile.TemporaryDirectory() as tmp:
+        model = Config(path=cape_tiny_yml(tmp), device="cpu").model.eval()
+    with torch.no_grad():
+        model.head.cls_branch.layers[2].weight.mul_(PETR_CLS_GAIN)
+    batch = cape_serve_batch("cpu", 2, (32, 48), frames=2, n=2)
+    errs, launches = tiny_card_vs_cpu("CAPE-T", model, [batch],
+                                      CAPE_TINY_TOL, None)
+    check(not launches, "the tiny CAPE-T launched a kernel")
+    return errs
+
+
+def cape_steps(model, base_step):
+    """The train step with the DN noise drawn anew from SEED each call, so
+    that two steps from one state see the same noisy queries."""
+    def step(m, optimizer, batch):
+        model.dn_generator.manual_seed(SEED)
+        return base_step(m, optimizer, batch)
+    return step
+
+
+def phase_cape(device):
+    """CAPE (ResNet-50 to C4 / C5, CPFPN 1024 / 2048 -> 256, 900 queries, 6
+    layers decoded per camera in its frame, 64 LID bins; seeded random
+    weights, f32, TF32 off) on six 512 x 1408 images under cape_rig:
+    serving at batch 1 and 2 (two calls bit-equal, no launch), the share
+    of visible (query, camera) pairs, frames/s, GFLOP, memory, profile,
+    stages; CAPE-T (the same at 256 x 704, two frames of six cameras
+    PETR_EGO apart, the streams fused after every layer) serving at batch
+    1, and training at batch 2 (DN queries, the previous stream's aux loss;
+    the config's AdamW, clip 35, CosineDecay): two steps from one state
+    compared in deterministic mode, 10 falling losses in deterministic
+    mode, train frames/s,
+    memory, profile, the Hungarian solves' host time; the VoVNet-99 CAPE-T
+    config serving one batch-1 call; the tiny CAPE-T card vs CPU."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = Config(path=CAPE, device=device).model.eval()
+    head = model.head
+    batches = {b: cape_serve_batch(device, b, CAPE_HW)
+               for b in (1, CAPE_BATCH)}
+    share, unseen = cape_visible(model, batches[1])
+    log("phase 20: CAPE (ResNet-50 + CPFPN, {} queries, {} layers decoded "
+        "per camera, {} LID bins, {} classes) at {} x {} under a ring of {} "
+        "cameras: {:.4f} of the (query, camera) pairs visible, {:.4f} of "
+        "the queries in no camera".format(
+            head.num_query, head.num_layers, head.depth_num,
+            head.num_classes, *CAPE_HW, PETR_CAMS, share, unseen))
+    check(0.2 < share < 0.8, "the visibility share leaves the per-camera "
+          "decode idle or full")
+    petr_serve(model, batches, "CAPE")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        for batch in batches.values():
+            petr_timing(model, batch, "CAPE", cape_stages)
+    del model, batches
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=CAPE_T, device=device)
+    model = cfg.model.eval()
+    head = model.head
+    check(model.version == 2 and head.with_time and head.with_prev_aux_loss
+          and model.dn_cfg is not None, "not the CAPE-T config")
+    batches = {1: cape_serve_batch(device, 1, CAPE_T_HW, frames=2)}
+    share, _ = cape_visible(model, batches[1])
+    log("  CAPE-T at {} x {}, two frames {} m apart: {:.4f} of the (query, "
+        "camera) pairs visible".format(*CAPE_T_HW, PETR_EGO, share))
+    petr_serve(model, batches, "CAPE-T")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    with torch.no_grad():
+        petr_timing(model, batches[1], "CAPE-T", cape_stages)
+    del batches
+
+    model.train()
+    step = cape_steps(model, make_train_step(lr_scheduler=cfg.lr_scheduler))
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch = cape_train_batch(device, model, CAPE_BATCH, CAPE_T_HW, 2)
+    with hungarian_clock() as hung:
+        first, _, ops = steps_agree(
+            "CAPE-T at batch {} (DN queries, the previous stream's aux "
+            "loss)".format(CAPE_BATCH), step, model, optimizer, scheduler,
+            batch, CAPE_LOSSES)
+    log("  CAPE-T training at batch {} ({}, clip {}, {}): first step losses "
+        "{}; launches {}; {} Hungarian matches ({} scipy solves) in the two "
+        "steps".format(
+            CAPE_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"],
+            {k: round(v, 5) for k, v in first[0].items()},
+            {k: v for k, v in first[3].items() if v}, len(hung["match"]),
+            len(hung["solve"])))
+    check(not any(first[3].values()), "the CAPE-T train step launched a "
+          "kernel")
+    check(len(hung["match"]) == 2 * 2 * head.num_layers and
+          len(hung["solve"]) == 2 * 2 * head.num_layers * CAPE_BATCH,
+          "expected a host match a decoder layer and stream, a solve a "
+          "frame")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch, fixed=True)
+    with hungarian_clock() as hung:
+        train_rate(step, model, optimizer, batch, PETR_TRAIN_ITERS,
+                   "CAPE-T")
+    steps = PETR_TRAIN_ITERS + 3        # the warm-up, memory and profile
+    log("  CAPE-T Hungarian host ms a step: matches (copy to the host, "
+        "waiting for the forward, then the solves) {:.3f}, scipy solves "
+        "alone {:.3f}".format(sum(hung["match"]) / steps,
+                              sum(hung["solve"]) / steps))
+    del model, step, batch, cfg, optimizer, scheduler
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = Config(path=CAPE_T_V99, device=device).model.eval()
+    petr_serve(model, {1: cape_serve_batch(device, 1, CAPE_V99_HW,
+                                           frames=2)}, "CAPE-T VoVNet-99")
+    del model
+    phase_cape_tiny()
+
+
+# Phase 21: RTEBev (ResNet-50 to C3-C5, FPN to 256 at three levels, the
+# multi-scale-depth LSS view transformer of 118 depth bins onto a 128 x 128
+# BEV of 80 channels, num_adj earlier frames' BEVs concatenated,
+# CustomResNet + FPN_LSS, the hybrid-matching RTEBevHead), bench.py's
+# "rtebev_1f" key, on six 256 x 704 images a frame under bevdet_rig.
+RTEBEV = os.path.join(REPO, "configs", "rtebev",
+                      "rtebev_r50_nuscenes_256x704_msdepth_hybrid_1f.yml")
+RTEBEV_4F = os.path.join(REPO, "configs", "rtebev",
+                         "rtebev_r50_nuscenes_256x704_msdepth_hybrid_4f.yml")
+RTEBEV_BATCH = 4            # the configs' batch_size; bench.py serves 1
+RTEBEV_ITERS = 6            # timed forwards per path and batch (halves)
+RTEBEV_TRAIN_ITERS = 4      # timed train steps (halves of 2)
+RTEBEV_POINTS = 34720       # a nuScenes sweep's LiDAR returns, for gt_depth
+RTEBEV_LOSSES = ("loss", "loss_cls", "loss_bbox", "loss_cls_one2many",
+                 "loss_bbox_one2many", "loss_depth")
+# the tiny RTEBev on the card against the CPU, relative to the largest
+# value: cuDNN and cuBLAS against the CPU's convolutions and matmuls (in
+# eval mode: the camera BatchNorm normalises by its running stats, so the
+# train-mode variance noise of tests/test_torch_rtebev.py does not enter)
+RTEBEV_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
+SKEW_SPAN = 512             # cells of a K7 block's span, for the skew
+
+
+def rtebev_gt_depth(mats, hw, seed=SEED, points=RTEBEV_POINTS):
+    """A LiDAR depth map a camera, [B, N, H, W] f32 (0: no return): each
+    frame's bench.make_scans sweep (clustered, over the nuScenes range)
+    moved into each camera (rots / trans: camera -> ego), projected by
+    cam2imgs and the image augmentation (post_rots, post_trans), the
+    nearest return a pixel kept."""
+    import numpy as np
+
+    import bench
+    m = {k: v.detach().cpu().numpy().astype(np.float64)
+         for k, v in mats.items()}
+    b, n = m["rots"].shape[:2]
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    scans = bench.make_scans(rng, b, points, [-51.2, -51.2, -5.0],
+                             [51.2, 51.2, 3.0], "clustered")
+    out = np.zeros((b, n, h, w), np.float32)
+    for i in range(b):
+        p = scans[i, :, :3].astype(np.float64)
+        for c in range(n):
+            cam = (p - m["trans"][i, c]) @ m["rots"][i, c]   # R^T (p - t)
+            uvd = cam @ m["cam2imgs"][i, c].T
+            d = uvd[:, 2]
+            keep = d > 0.1
+            uv1 = np.stack([uvd[keep, 0] / d[keep], uvd[keep, 1] / d[keep],
+                            np.ones(keep.sum())], axis=1)
+            aug = uv1 @ m["post_rots"][i, c].T + m["post_trans"][i, c]
+            u = np.floor(aug[:, 0]).astype(np.int64)
+            v = np.floor(aug[:, 1]).astype(np.int64)
+            inside = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+            depth = np.full(h * w, np.inf)
+            np.minimum.at(depth, v[inside] * w + u[inside], d[keep][inside])
+            depth[np.isinf(depth)] = 0.0
+            out[i, c] = depth.reshape(h, w)
+    return out
+
+
+def rtebev_train_batch(device, model, b, frames=1, seed=SEED):
+    """bevdet_serve_batch with `frames` adjacent frames (their own images,
+    the cameras 0.5 m further back a frame: img_adj, rots_adj, trans_adj;
+    no frame axis for one), petr_gt's boxes (BEVDET_OBJECTS a frame) and
+    rtebev_gt_depth. -> (batch, the share of labelled feature pixels)."""
+    import numpy as np
+    import torch
+    batch = bevdet_serve_batch(device, b, seed)
+    adj = [bevdet_serve_batch(device, b, seed + 2 + f)
+           for f in range(frames)]
+    back = [torch.tensor([-0.5 * (f + 1), 0.0, 0.0], device=device)
+            for f in range(frames)]
+    img_adj = torch.stack([a["img"] for a in adj], dim=1)
+    rots_adj = torch.stack([a["rots"] for a in adj], dim=1)
+    trans_adj = torch.stack([a["trans"] + t for a, t in zip(adj, back)],
+                            dim=1)
+    if frames == 1:
+        img_adj, rots_adj, trans_adj = img_adj[:, 0], rots_adj[:, 0], \
+            trans_adj[:, 0]
+    batch.update(img_adj=img_adj, rots_adj=rots_adj, trans_adj=trans_adj)
+    boxes, labels = petr_gt(np.random.default_rng(seed + 1), b, (450, 800),
+                            model.bbox_head.num_classes,
+                            objects=BEVDET_OBJECTS)
+    depth = rtebev_gt_depth({k: batch[k] for k in (
+        "rots", "trans", "cam2imgs", "post_rots", "post_trans")},
+        BEVDET_HW, seed + 5)
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device),
+                 gt_depth=torch.from_numpy(depth).to(device))
+    labels = model.img_view_transformer.get_downsampled_gt_depth(
+        batch["gt_depth"])
+    return batch, (labels.amax(dim=1) > 0).float().mean().item()
+
+
+def k7_skew(keys, cells, span=SKEW_SPAN):
+    """The first frame's in-grid rows a span of `span` cells (a K7 block's
+    share): the busiest span's rows over the mean, and the busiest cell's
+    rows over the mean of the cells hit."""
+    import torch
+    k = keys[0].long()
+    k = k[(k >= 0) & (k < cells)]
+    counts = torch.bincount(k, minlength=cells).float()
+    spans = counts[:cells // span * span].reshape(-1, span).sum(dim=1)
+    return {"span_max_over_mean": (spans.max() / spans.mean()).item(),
+            "span_max_rows": int(spans.max()),
+            "cell_max_over_mean": (counts.max() /
+                                   counts[counts > 0].mean()).item()}
+
+
+def check_rtebev_outputs(out, b, k, classes):
+    """RTEBev's fixed-shape outputs: finite, scores in (0, 1) (threshold
+    0: every top-k score kept), labels in range."""
+    import torch
+    check(tuple(out["box3d_lidar"].shape) == (b, k, 9) and
+          tuple(out["scores"].shape) == tuple(out["label_preds"].shape) ==
+          (b, k), "RTEBev output shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "non-finite RTEBev outputs")
+    labels = out["label_preds"]
+    check(bool(((labels >= 0) & (labels < classes)).all() &
+               (out["scores"] > 0).all() & (out["scores"] < 1).all()),
+          "RTEBev scores / labels out of range")
+
+
+def rtebev_stages(model, batch, iters=3):
+    """Host ms of test_forward's stages (each ended by a synchronize): the
+    backbone + FPN, the depth net (the camera terms, the MS depth net, the
+    softmax), the frustum ranks, the sort of the scalar payloads, the row
+    rebuild, the pool (K7), the BEV encoder + neck (the earlier frames'
+    BEVs concatenated), the head's decoder, the decode."""
+    from paddle3d_tpu_torch.ops import scatter, sorted_scatter
+    vt = model.img_view_transformer
+    gx, gy, _ = vt.grid_size
+    cells = gx * gy
+    mats = {k: batch[k] for k in ("rots", "trans", "cam2imgs", "post_rots",
+                                  "post_trans", "bda")}
+
+    def sort(x):
+        tab, pix, dep, rank, valid = x
+        return (tab,) + scatter.sort_payloads(pix, dep, rank, valid,
+                                              tab.dtype)
+
+    def rebuild(x):
+        tab, keys, spix, sdep = x
+        return keys, scatter.rebuild_rows(tab, spix, sdep)
+
+    def encoder(t):
+        bev = model._temporal_bev(t.reshape(t.shape[0], gy, gx, -1), batch)
+        x = model.img_bev_encoder_neck(model.img_bev_encoder_backbone(
+            bev.permute(0, 3, 1, 2).contiguous()))
+        return x[0] if isinstance(x, (tuple, list)) else x
+
+    stage_times([
+        ("backbone + FPN", lambda bt: model.image_features(bt["img"])),
+        ("depth net", lambda f: vt.depth_and_context(
+            f[:3], vt.get_mlp_input(**mats))),
+        ("frustum ranks", lambda x: vt.pool_inputs(*x, **mats)),
+        ("sort", sort), ("row rebuild", rebuild),
+        ("K7", lambda x: sorted_scatter.scatter_rows(*x, cells, False)),
+        ("BEV encoder + neck", encoder),
+        ("head decoder", lambda f: model.bbox_head(f, training=False)),
+        ("decode", lambda out: model.bbox_head.predict(*out))], batch, iters)
+
+
+def rtebev_timing(model, batch):
+    """Frames/s of both paths (kernel/plain/plain/kernel halves of
+    RTEBEV_ITERS, cudnn.benchmark on), GFLOP a frame by module, peak
+    memory, a profile of one forward through the kernels and the stage
+    times."""
+    import torch
+    b = batch["img"].shape[0]
+    rates = {"kernels": [], "plain": []}
+    with torch.no_grad():
+        for order in (("kernels", "plain"), ("plain", "kernels")):
+            for path in order:
+                rates[path].append(frames_per_s(
+                    model, batch, RTEBEV_ITERS // 2, plain_path
+                    if path == "plain" else contextlib.nullcontext))
+    rate = {k: 2 / sum(1 / r for r in v) for k, v in rates.items()}
+    flops = module_flops(model, lambda: model.test_forward(batch), b, {
+        "backbone": "ResNet", "FPN": "FPN",
+        "depth net": "MSLSSViewTransformerBEVDepth.depth_net",
+        "BEV encoder": "CustomResNet", "neck": "FPN_LSS",
+        "head": "RTEBevHead"})
+    log("  batch {}: forwards a path (kernel/plain/plain/kernel halves, "
+        "cudnn.benchmark on): kernel path {:.2f} frames/s ({:.3f} ms a "
+        "frame), plain path {:.2f} frames/s ({:.3f} ms); halves {}; GFLOP a "
+        "frame (torch.utils.flop_counter) {}: {:.2f} TFLOP/s at the kernel "
+        "path's rate".format(
+            b, rate["kernels"], 1e3 / rate["kernels"], rate["plain"],
+            1e3 / rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()},
+            {k: round(v, 2) for k, v in flops.items()},
+            flops["total"] * rate["kernels"] / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    rtebev_stages(model, batch)
+
+
+def rtebev_tiny():
+    """tests/test_torch_rtebev.py's tiny RTEBev (ResNet-18 at base 8 to
+    C3-C5 on 64 x 96 images, FPN to 16 at three levels, the MS depth LSS
+    of 8 bins onto a 32 x 32 grid of 8 channels, one earlier frame,
+    CustomResNet + FPN_LSS, a 32-channel head of 8 + 16 queries), seeded
+    weights; on the CPU, in eval mode."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import CustomResNet, ResNet
+    from paddle3d_tpu_torch.models.detection import RTEBev
+    from paddle3d_tpu_torch.models.heads import RTEBevHead
+    from paddle3d_tpu_torch.models.necks import FPN, FPN_LSS
+    from paddle3d_tpu_torch.models.transformers import \
+        MSLSSViewTransformerBEVDepth
+    gen = torch.Generator().manual_seed(SEED)
+    grid = dict(x=[-8., 8., 0.5], y=[-8., 8., 0.5], z=[-3., 3., 6.],
+                depth=[1., 9., 1.])
+    model = RTEBev(
+        img_backbone=ResNet(depth=18, base_channels=8, out_indices=(1, 2, 3),
+                            generator=gen),
+        img_neck=FPN([16, 32, 64], 16, num_outs=3, generator=gen),
+        img_view_transformer=MSLSSViewTransformerBEVDepth(
+            grid, input_size=(64, 96), downsample=8, in_channels=16,
+            out_channels=8, depthnet_cfg=dict(use_sppf=True), generator=gen),
+        img_bev_encoder_backbone=CustomResNet(
+            16, num_layer=(1, 1), num_channels=(16, 32), stride=(1, 2),
+            generator=gen),
+        img_bev_encoder_neck=FPN_LSS(16 + 32, 16, generator=gen),
+        pts_bbox_head=RTEBevHead(
+            num_classes=3, in_channels=16, embed_dims=32, num_query=24,
+            num_queries_one2one=8, k_one2many=2, num_layers=2, num_heads=4,
+            feedforward_channels=64, bev_h=32, bev_w=32,
+            pc_range=[-8., -8., -3., 8., 8., 3.], generator=gen),
+        num_adj=1, use_depth=True, use_ms_depth=True,
+        test_cfg=dict(score_threshold=0.0))
+    move_samples(model, gen)
+    return model.eval()
+
+
+def phase_rtebev_tiny():
+    """The tiny RTEBev on the card against the CPU, an earlier frame's BEV
+    fed back (its pool, 2 x 1,536 rows onto 32 x 32 cells, dense by the
+    density rule: one K7 a forward, held bit for bit at its call)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    model = rtebev_tiny()
+    batch = bevdet_serve_batch("cpu", 2, SEED, hw=(64, 96), n=2)
+    first = bevdet_serve_batch("cpu", 2, SEED + 1, hw=(64, 96), n=2)
+    with torch.no_grad():
+        batch["bev_adj"] = model._frame_bev(
+            first["img"], *(first[k] for k in (
+                "rots", "trans", "cam2imgs", "post_rots", "post_trans",
+                "bda")))[0]
+    with recorded(sorted_scatter, "scatter_rows") as calls:
+        errs, launches = tiny_card_vs_cpu("RTEBev", model, [batch],
+                                          RTEBEV_TINY_TOL, None)
+    check(launches == {"sorted_segment_sum_dense": 1}, "the tiny RTEBev on "
+          "the card launched {} where one K7 was due".format(launches))
+    k7_parts("the tiny RTEBev's pool", *calls[-1][0], iters=20)
+    return errs
+
+
+def rtebev_one_step_4f(device):
+    """One train step of the 4-frame config at batch 1 (four adjacent
+    frames' images, a gt_depth): five K7 (every frame pooled) and one K5,
+    finite losses and grads. -> the launches."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    cfg = Config(path=RTEBEV_4F, device=device)
+    model = cfg.model.train()
+    batch, fg = rtebev_train_batch(device, model, 1, frames=4)
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = step(model, cfg.optimizer, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    grads = all(bool(torch.isfinite(p.grad).all())
+                for p in model.parameters())
+    log("  RTEBev 4f train step at batch 1 (four adjacent frames, gt_depth "
+        "on {:.4f} of the feature pixels): losses {}; grads finite: {}; "
+        "launches {}; {:.3f} s (the first, cold); peak {:.1f} MiB".format(
+            fg, {k: round(v.item(), 5) for k, v in losses.items()}, grads,
+            launches, sec, torch.cuda.max_memory_allocated() / 2**20))
+    check(grads and all(bool(torch.isfinite(v)) for v in losses.values()),
+          "RTEBev 4f: non-finite losses or grads")
+    check(launches == {"sorted_segment_sum_dense": 5,
+                       "sorted_table_gather": 1}, "the RTEBev 4f step "
+          "launched {} where five K7 and one K5 were due".format(launches))
+    return launches
+
+
+def phase_rtebev(device):
+    """RTEBev on its nuScenes 1f config at full width (ResNet-50 to C3-C5,
+    FPN 256 x 3, 118 depth bins onto 128 x 128 cells of 80 channels, the
+    previous frame's BEV, CustomResNet + FPN_LSS, 512 + 1,024 queries;
+    seeded random weights, the deformable samples moved, f32, TF32 off) on
+    six 256 x 704 images under bevdet_rig: serving at batch 1 and 4 with
+    bev_adj (the first frame's
+    own pooled BEV) through the kernels (one K7 a forward, nothing else)
+    and on the plain versions, in deterministic mode (every output equal
+    by bit pattern); K7 at both pools bit for bit against the row-order
+    sum, timed beside index_add_call and its bound, the skew; the 4f
+    config serving at batch 1 with a [1, 4, 128, 128, 80] bev_adj; the
+    tiny model card vs CPU; frames/s of both paths, GFLOP, memory,
+    profiles, stages; training at batch 4 with an adjacent frame and a
+    gt_depth (the config's AdamW, clip 5, CosineDecay): a step through the
+    kernels (K7 twice, one K5) against one on the plain versions from the
+    same state, in deterministic mode; K5 held and timed at the step's
+    VJP; 10 falling losses in deterministic mode, train frames/s, memory,
+    profile; one 4f train
+    step at batch 1 (five K7). -> the record's entries of K7 and K5 at
+    RTEBev's calls."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=RTEBEV, device=device)
+    model = cfg.model.eval()
+    # the deformable samples moved off their reference points, as a
+    # trained model's are
+    move_samples(model, torch.Generator().manual_seed(SEED))
+    vt = model.img_view_transformer
+    head = model.bbox_head
+    gx, gy, _ = vt.grid_size
+    c = vt.out_channels
+    mats_keys = ("rots", "trans", "cam2imgs", "post_rots", "post_trans",
+                 "bda")
+    batches = {b: bevdet_serve_batch(device, b) for b in (1, RTEBEV_BATCH)}
+    stats = bevdet_frustum_stats(vt, batches[1])
+    log("phase 21: RTEBev (ResNet-50 + FPN, {} depth bins, BEV {} x {} x "
+        "{} and the previous frame's, {} + {} queries, {} classes) at {} x "
+        "{} under a ring of {} cameras: a frame's frustum has {} rows, {} in "
+        "the grid (share {:.4f}) on {} cells, at most {} rows a cell".format(
+            vt.D, gy, gx, c, head.num_queries_one2one,
+            head.num_query - head.num_queries_one2one, head.num_classes,
+            *BEVDET_HW, PETR_CAMS, stats["rows"], stats["in_grid"],
+            stats["share"], stats["cells"], stats["longest"]))
+    check(stats["rows"] == 1993728 and stats["share"] > 0.3,
+          "not RTEBev's frustum, or under 0.3 of it in the grid")
+    with torch.no_grad():
+        for b, batch in batches.items():    # frame 1: its own BEV
+            first = bevdet_serve_batch(device, b, SEED + 7)
+            batch["bev_adj"] = model._frame_bev(
+                first["img"], *(first[k] for k in mats_keys))[0]
+    outs, launches = {}, {}
+    with torch.no_grad(), recorded(sorted_scatter, "scatter_rows") as calls, \
+            deterministic(warn_only=True):
+        for b, batch in batches.items():
+            _build.reset_launches()
+            outs[b] = model.test_forward(batch)
+            torch.cuda.synchronize()
+            launches[b] = dict(_build.LAUNCHES)
+    for b, out in outs.items():
+        check_rtebev_outputs(out, b, min(300, head.num_queries_one2one *
+                                         head.num_classes),
+                             head.num_classes)
+    log("  serving with bev_adj (frame 1's own pooled BEV) through the "
+        "kernels: launches by batch {}; top scores a frame {}".format(
+            {b: {k: v for k, v in n.items() if v}
+             for b, n in launches.items()},
+            {b: [round(v, 4) for v in o["scores"][:, 0].tolist()]
+             for b, o in outs.items()}))
+    check(all(n["sorted_segment_sum_dense"] == 1 and sum(n.values()) == 1
+              for n in launches.values()), "the RTEBev forwards launched "
+          "{} where one K7 a forward was due".format(launches))
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            with deterministic(warn_only=True), plain_path():
+                ref = model.test_forward(batch)
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "the plain path launched a kernel")
+            differ = [k for k in ref if not same_bits(outs[b][k], ref[k])]
+            check(not differ, "RTEBev batch {}: the kernel and plain paths "
+                  "differ in {}".format(b, differ))
+    log("  batch {} vs the plain path (its index_add_ in row order: "
+        "deterministic mode): every output equal by bit pattern".format(
+            list(batches)))
+    del outs, ref
+    k7 = {}
+    for b, ((keys, rows, cells, split), _) in zip(batches, calls):
+        k7[b] = k7_parts("RTEBev's pool at batch {}".format(b), keys, rows,
+                         cells, split, iters=20)
+    keys, rows, cells, _ = calls[-1][0]
+    skew = k7_skew(keys, cells)
+    log("  K7 skew at RTEBev's pool (the first frame, {}-cell spans): the "
+        "busiest span {} rows, {:.3f} x the mean; the busiest cell {:.1f} x "
+        "the mean of the cells hit".format(
+            SKEW_SPAN, skew["span_max_rows"], skew["span_max_over_mean"],
+            skew["cell_max_over_mean"]))
+    k7_bytes = scatter_bytes(keys, cells, rows.shape[-1],
+                             keys.shape[0] * cells * rows.shape[-1])
+    k7_plain = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys, rows, cells, False), 5)
+    log("  K7 at RTEBev's pool at batch {}, plain version: {:.4f} ms"
+        .format(RTEBEV_BATCH, k7_plain))
+    del calls, keys, rows
+
+    model4 = Config(path=RTEBEV_4F, device=device).model.eval()
+    batch4 = bevdet_serve_batch(device, 1)
+    with torch.no_grad():
+        frames = [model4._frame_bev(*(lambda f: [f["img"]] + [
+            f[k] for k in mats_keys])(bevdet_serve_batch(
+                device, 1, SEED + 10 + i)))[0] for i in range(4)]
+        batch4["bev_adj"] = torch.stack(frames, dim=1)
+        _build.reset_launches()
+        out4 = model4.test_forward(batch4)
+        torch.cuda.synchronize()
+    check_rtebev_outputs(out4, 1, min(300, head.num_queries_one2one *
+                                      head.num_classes), head.num_classes)
+    log("  RTEBev 4f serving at batch 1 with bev_adj {} (four earlier "
+        "frames' own BEVs): launches {}; top score {:.4f}".format(
+            list(batch4["bev_adj"].shape),
+            {k: v for k, v in _build.LAUNCHES.items() if v},
+            out4["scores"][0, 0].item()))
+    check(dict((k, v) for k, v in _build.LAUNCHES.items() if v) ==
+          {"sorted_segment_sum_dense": 1}, "the RTEBev 4f forward did not "
+          "launch one K7")
+    del model4, batch4, frames, out4
+    phase_rtebev_tiny()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for batch in batches.values():
+        rtebev_timing(model, batch)
+    del batches
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch, fg = rtebev_train_batch(device, model, RTEBEV_BATCH)
+    with recorded(sorted_scatter, "scatter_rows") as fwd, \
+            recorded(sorted_scatter, "sorted_table_gather") as bwd, \
+            recorded(model, "_frame_bev") as bevs, \
+            hungarian_clock() as hung:
+        kernel, plain, ops = steps_agree(
+            "RTEBev at batch {} (an adjacent frame, gt_depth)".format(
+                RTEBEV_BATCH), step, model, optimizer, scheduler, batch,
+            RTEBEV_LOSSES, plain=True)
+    log("  training at batch {} ({}, clip {}, {}; an adjacent frame, {} "
+        "boxes a frame in view, 2 padded slots, gt_depth from a {}-point "
+        "sweep on {:.4f} of the feature pixels): kernel step losses {}; "
+        "launches {}; plain step launches {}; Hungarian host ms a step "
+        "{:.3f} ({} matches, {} scipy solves {:.3f} ms)".format(
+            RTEBEV_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], BEVDET_OBJECTS, RTEBEV_POINTS,
+            fg, {k: round(v, 5) for k, v in kernel[0].items()},
+            {k: v for k, v in kernel[3].items() if v},
+            {k: v for k, v in plain[3].items() if v},
+            sum(hung["match"]) / 2, len(hung["match"]) // 2,
+            len(hung["solve"]) // 2, sum(hung["solve"]) / 2))
+    check(0.05 < fg < 1.0, "the gt_depth labels no foreground")
+    # the current frame's pool and the adjacent frame's (no gradient): two
+    # K7; the current frame's VJP: one K5
+    check(kernel[3]["sorted_segment_sum_dense"] == 2 and
+          kernel[3]["sorted_table_gather"] == 1 and
+          sum(kernel[3].values()) == 3, "the RTEBev train step launched "
+          "{} where two K7 and one K5 were due".format(kernel[3]))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    check(len(fwd) == 2 and len(bwd) == 1 and len(bevs) == 4, "expected two "
+          "pools and one VJP in the kernel step")
+    same = [same_bits(bevs[i][1][0], bevs[i + 2][1][0]) for i in range(2)]
+    log("  the train step's pooled BEVs (current, adjacent frame), kernel "
+        "step vs plain step: {}".format(
+            ["bit-equal" if e else "differ" for e in same]))
+    check(all(same), "the train step's pools (K7) differ from the plain "
+          "step's row-order index_add_")
+    del bevs
+    k5 = k5_parts("RTEBev's train backward", *bwd[0][0])
+    k5_launches = kernel[3]["sorted_table_gather"]
+    k7_train = kernel[3]["sorted_segment_sum_dense"]
+    del fwd, bwd, kernel, plain
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch, fixed=True)
+    train_rate(step, model, optimizer, batch, RTEBEV_TRAIN_ITERS, "RTEBev")
+    del model, step, batch, cfg, optimizer, scheduler
+    rtebev_one_step_4f(device)
+
+    p7, k7_err = k7[RTEBEV_BATCH]
+    k5_ms, k5_err, k5_bound = k5
+
+    def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
+        src, tpu, _ = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, "path": path}
+    log("  K7 launches: one a serving forward; {} a train step (the "
+        "adjacent frame's pool too)".format(k7_train))
+    return [entry("sorted_segment_sum_dense", "RTEBev serving, batch {}"
+                  .format(RTEBEV_BATCH),
+                  launches[RTEBEV_BATCH]["sorted_segment_sum_dense"], k7_err,
+                  p7["wrapper"], k7_plain, p7["index_add_call"],
+                  bound(k7_bytes)),
+            entry("sorted_table_gather", "RTEBev training, batch {}".format(
+                RTEBEV_BATCH), k5_launches, k5_err, k5_ms["wrapper"],
+                  k5_ms["plain"], k5_ms["torch.gather"], k5_bound)]
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -6280,15 +7163,25 @@ def main():
         # their own
         phase_bevformer(device)
         bevdet = phase_bevdet(device)
+        # CAPE reaches no hand-written kernel; K7 and K5 at RTEBev's calls,
+        # entries of their own
+        phase_cape(device)
+        rtebev = phase_rtebev(device)
     except PhaseError as e:
-        sys.exit("chip_smoke: FAILED: {}".format(e))
+        # the phase that failed: its name from the innermost phase_ frame
+        import traceback
+        where = [f.name for f in traceback.extract_tb(e.__traceback__)
+                 if f.name.startswith("phase_")]
+        sys.exit("chip_smoke: FAILED in {}: {}".format(
+            where[-1] if where else "main", e))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": extra[name][1], "bound_by": extra[name][2],
          "library_ms": extra[name][0]}
-        for name, (src, tpu, _) in KERNELS.items()] + caddn + bevdet}
+        for name, (src, tpu, _) in KERNELS.items()] + caddn + bevdet +
+        rtebev}
     log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -60,6 +60,7 @@ LOSSES = ComponentManager("losses")
 OPTIMIZERS = ComponentManager("optimizers")
 LR_SCHEDULERS = ComponentManager("lr_schedulers")
 POINT_ENCODERS = ComponentManager("point_encoders")
+POSITIONAL_ENCODING = ComponentManager("positional_encoding")
 TRANSFORMS = ComponentManager("transforms")
 TRANSFORMER_ENCODERS = ComponentManager("transformer_encoders")
 TRANSFORMER_ENCODER_LAYERS = ComponentManager("transformer_encoder_layers")
@@ -72,7 +73,8 @@ TRANSFORMERS = ComponentManager("transformers")
 
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
-    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS, TRANSFORMS,
+    HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS,
+    POSITIONAL_ENCODING, TRANSFORMS,
     TRANSFORMER_ENCODERS, TRANSFORMER_ENCODER_LAYERS, ATTENTIONS,
     BBOX_ASSIGNERS, MATCH_COSTS, TRANSFORMER_DECODER_LAYERS,
     TRANSFORMER_DECODERS, TRANSFORMERS

@@ -6,4 +6,5 @@ from .iassd import IASSD
 from .petr import PETR
 from .pointpillars import PointPillars, SSDHead
 from .pv_rcnn import PVRCNN, VoxelRCNN
+from .rtebev import RTEBev
 from .smoke import SMOKE, SMOKELossComputation, SMOKEPredictor

@@ -32,9 +32,10 @@ video caller hands the first C channels on as the next frame's prev_bev.
 
 Not ported yet: `postprocess_to_samples` (the runtime's host layer,
 ROADMAP.md, queue 1, item 5), and the JAX model's knobs that no config of
-the repo sets: pts_bbox_head, pre_process, use_depth with the depth loss
-(it comes with the BEVDepth view transformers, RTEBev's; ROADMAP.md, queue
-1, item 9), align_after_view_transfromation, start_temporal_epoch.
+the repo sets: pts_bbox_head, pre_process, use_depth (the depth loss is
+added whenever the view transformer has one and the batch a gt_depth, as
+the JAX package adds it for the BEVDepth view transformers),
+align_after_view_transfromation, start_temporal_epoch.
 """
 import math
 
@@ -149,10 +150,11 @@ class BEVDet(BaseMultiViewModel):
         return self.img_bev_encoder_neck(feats), bev, depth
 
     def train_forward(self, batch) -> dict:
-        """-> {"loss" (the total), the head's losses}. Train-mode BN:
-        batch statistics, running stats updated (an adjacent frame's too,
-        after the current frame's)."""
-        feats, _, _ = self.extract_bev(batch)
+        """-> {"loss" (the total), the head's losses, and loss_depth with
+        a BEVDepth view transformer and a gt_depth [B, N, H, W]}.
+        Train-mode BN: batch statistics, running stats updated (an
+        adjacent frame's too, after the current frame's)."""
+        feats, _, depth = self.extract_bev(batch)
         preds = self.bbox_head(feats)
         gt_boxes = batch["gt_boxes"]
         gt_boxes = torch.cat([
@@ -160,7 +162,14 @@ class BEVDet(BaseMultiViewModel):
             limit_period(gt_boxes[..., 6:7], 0.5, 2 * math.pi),
             gt_boxes[..., 7:]], dim=-1)
         targets = self.target_generator(gt_boxes, batch["gt_labels"])
-        return self.bbox_head.loss(preds, targets)
+        losses = self.bbox_head.loss(preds, targets)
+        if hasattr(self.img_view_transformer, "get_depth_loss") and \
+                "gt_depth" in batch:
+            dl = self.img_view_transformer.get_depth_loss(batch["gt_depth"],
+                                                          depth)
+            losses["loss_depth"] = dl
+            losses["loss"] = losses["loss"] + dl
+        return losses
 
     @torch.no_grad()
     def test_forward(self, batch) -> dict:

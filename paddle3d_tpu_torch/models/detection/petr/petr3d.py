@@ -10,21 +10,24 @@ Batch contract (fixed shapes):
     gt_boxes:        [B, G, 7|9] bottom-z lidar boxes (+ vx, vy)
     gt_labels:       [B, G] (-1 padded)
     gt_semantic_map: [B, bev_h, bev_w, C] in {0, 1} (with a seg head)
+    lidar2cams:      [B, N_cam, 4, 4]   lidar -> each camera's frame (for a
+                                        head that wants_lidar2cams: CAPE)
 
 The N images of a sample run through the backbone and the neck as one
 NCHW batch; the neck's first (finest) level is the head's feature map.
 version 2 (PETRv2) takes the previous frame's images as N/2 more views,
 whose img2lidar matrices carry the ego motion, and adds a learned time
-embedding to each frame's features (when their channels fit it). With
+embedding to each frame's features (when their channels fit it); the
+version defaults to 2 for a head with_time (CAPE-T), else 1. With
 dn_config, train_forward adds noisy gt queries (heads/denoising.py) drawn
 from an explicit torch.Generator. test_forward refuses a model in train
 mode, as the port's other models do.
 
 Not ported yet: `postprocess_to_samples` (the runtime's host layer,
 ROADMAP.md, queue 1, item 5) and the JAX model's other names for its parts
-(img_backbone / img_neck / pts_bbox_head, a head's with_time and
-with_denoise), which the reference configs of CAPE and the reference type
-names bring (ROADMAP.md, queue 1, items 9 and 5).
+(img_backbone / img_neck / pts_bbox_head, a PETRHead's with_time and
+with_denoise), which the reference type names bring (ROADMAP.md, queue 1,
+item 5): no config of the repo sets them.
 """
 import torch
 from torch import nn
@@ -43,7 +46,7 @@ __all__ = ["PETR"]
 @manager.MODELS.add_component
 class PETR(BaseMultiViewModel):
     def __init__(self, backbone=None, neck=None, head=None, seg_head=None,
-                 use_grid_mask: bool = False, version: int = 1,
+                 use_grid_mask: bool = False, version: int = None,
                  dn_config: dict = None, pretrained: str = None,
                  generator: torch.Generator = None):
         super().__init__()
@@ -62,6 +65,8 @@ class PETR(BaseMultiViewModel):
             if seg_head is None:
                 seg_head = PETRSegHead(num_classes=3, bev_size=(side, side),
                                        patch_size=patch, **seg_spec)
+        if version is None:
+            version = 2 if getattr(head, "with_time", False) else 1
         self.head = head
         self.seg_head = seg_head
         self.use_grid_mask = use_grid_mask
@@ -96,6 +101,12 @@ class PETR(BaseMultiViewModel):
             f = torch.cat([f[:, :half] + te[0], f[:, half:] + te[1]], dim=1)
         return f
 
+    def _head_kwargs(self, batch) -> dict:
+        if getattr(self.head, "wants_lidar2cams", False) and \
+                "lidar2cams" in batch:
+            return {"lidar2cams": batch["lidar2cams"]}
+        return {}
+
     def train_forward(self, batch) -> dict:
         feats = self._extract_feats(batch["img"])
         gt_boxes = batch["gt_boxes"].clone()
@@ -112,7 +123,8 @@ class PETR(BaseMultiViewModel):
             attn_mask = dn_attn_mask(self.head.num_query, dn_meta["groups"],
                                      dn_meta["group_size"], feats.device)
         all_cls, all_bbox = self.head(feats, batch["img2lidars"],
-                                      dn_ref=dn_ref, attn_mask=attn_mask)
+                                      dn_ref=dn_ref, attn_mask=attn_mask,
+                                      **self._head_kwargs(batch))
         losses = self.head.loss(all_cls, all_bbox, gt_boxes, gt_labels,
                                 dn_meta=dn_meta)
         if self.seg_head is not None and "gt_semantic_map" in batch:
@@ -127,7 +139,8 @@ class PETR(BaseMultiViewModel):
     def test_forward(self, batch) -> dict:
         raise_if_training(self)
         feats = self._extract_feats(batch["img"])
-        out = self.head.predict(*self.head(feats, batch["img2lidars"]))
+        out = self.head.predict(*self.head(feats, batch["img2lidars"],
+                                           **self._head_kwargs(batch)))
         if self.seg_head is not None:
             out.update(self.seg_head.predict(
                 self.seg_head(feats, batch["img2lidars"])))

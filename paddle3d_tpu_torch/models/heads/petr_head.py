@@ -37,7 +37,8 @@ from ..transformers.transformer_layers import (BaseTransformerLayer,
                                                linear)
 from .target_assigners import HungarianAssigner3D
 
-__all__ = ["PETRHead", "pos2posemb3d", "inverse_sigmoid"]
+__all__ = ["PETRHead", "pos2posemb3d", "inverse_sigmoid", "encode_gt",
+           "set_loss", "nms_free_decode"]
 
 
 def pos2posemb3d(pos: torch.Tensor, num_feats: int = 128,
@@ -60,6 +61,76 @@ def pos2posemb3d(pos: torch.Tensor, num_feats: int = 128,
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x = x.clamp(eps, 1 - eps)
     return torch.log(x / (1 - x))
+
+
+def encode_gt(gt_boxes: torch.Tensor, code_size: int) -> torch.Tensor:
+    """[..., G, 7|9] boxes (centre z) -> [..., G, code_size] targets [cx,
+    cy, cz, log w, log l, log h, sin, cos, (vx, vy)]."""
+    logs = torch.log(gt_boxes[..., 3:6].clamp(min=1e-3))
+    yaw = gt_boxes[..., 6:7]
+    parts = [gt_boxes[..., :3], logs, torch.sin(yaw), torch.cos(yaw)]
+    if code_size > 8:
+        parts.append(gt_boxes[..., 7:9] if gt_boxes.shape[-1] > 7 else
+                     gt_boxes.new_zeros(gt_boxes.shape[:-1] + (2,)))
+    return torch.cat(parts, dim=-1)
+
+
+def set_loss(assigner, all_cls, all_bbox, gt_enc, gt_labels,
+             code_weights, num_classes):
+    """The Hungarian set loss of every layer (one host solve a layer for
+    the batch): all_cls [L, B, Q, C], all_bbox [L, B, Q, code], gt_enc [B,
+    G, code] (encode_gt), gt_labels [B, G] (-1 pad) -> (the focal class
+    loss and the weighted L1 box loss, each over the matched queries,
+    averaged over the batch, summed over the layers)."""
+    cw = torch.tensor(code_weights, dtype=all_bbox.dtype,
+                      device=all_bbox.device)
+    code = gt_enc.shape[-1]
+    total_cls = total_reg = 0.
+    for cls_l, bbox_l in zip(all_cls, all_bbox):
+        assigned, is_fg = assigner.assign(bbox_l, cls_l, gt_enc, gt_labels)
+        safe = assigned.clamp(min=0)
+        tgt_label = torch.where(is_fg, torch.gather(gt_labels.long(), 1,
+                                                    safe), num_classes)
+        onehot = F.one_hot(tgt_label, num_classes + 1)[
+            ..., :num_classes].to(cls_l.dtype)
+        num_fg = is_fg.sum(dim=1).clamp(min=1)
+        cls_loss = sigmoid_focal_loss(cls_l, onehot).sum(dim=(1, 2)) / num_fg
+        tgt_box = torch.gather(gt_enc, 1, safe[..., None].expand(-1, -1,
+                                                                 code))
+        reg_l1 = torch.abs(bbox_l - tgt_box) * cw
+        reg_loss = torch.where(is_fg[..., None], reg_l1, 0.).sum(
+            dim=(1, 2)) / num_fg
+        total_cls = total_cls + cls_loss.mean()
+        total_reg = total_reg + reg_loss.mean()
+    return total_cls, total_reg
+
+
+def nms_free_decode(cls, bbox, num_classes, code_size, max_num,
+                    score_threshold) -> dict:
+    """One layer's NMS-free decode: cls [B, Q, C], bbox [B, Q, code] ->
+    the top max_num scores over queries x classes (a stable descending
+    sort: ties keep the lower index, as jax.lax.top_k), box3d_lidar [B, K,
+    7|9] as (x, y, z bottom, w, l, h, yaw, [vx, vy]), scores [B, K] and
+    label_preds [B, K], -1 where a score is not above the threshold."""
+    b = cls.shape[0]
+    scores = torch.sigmoid(cls).reshape(b, -1)
+    k = min(max_num, scores.shape[1])
+    top, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top, idx = top[:, :k], idx[:, :k]
+    qi = idx // num_classes
+    labels = idx % num_classes
+    box = torch.gather(bbox, 1, qi[..., None].expand(-1, -1,
+                                                      bbox.shape[-1]))
+    yaw = torch.atan2(box[..., 6], box[..., 7])
+    dims = torch.exp(box[..., 3:6])
+    cols = [box[..., 0:2], (box[..., 2] - dims[..., 2] / 2)[..., None],
+            dims, yaw[..., None]]
+    if code_size > 8:
+        cols.append(box[..., 8:10])
+    valid = top > score_threshold
+    return {"box3d_lidar": torch.cat(cols, dim=-1),
+            "scores": torch.where(valid, top, -1.),
+            "label_preds": torch.where(valid, labels, -1)}
 
 
 def _mlp(cin, mid, cout, generator):
@@ -210,6 +281,12 @@ class PETRHead(nn.Module):
         inter = self.decoder(query, key=tokens, value=tokens,
                              query_pos=query_pos, key_pos=key_pos,
                              attn_masks=attn_mask)             # [L, B, Q, C]
+        return self.branches(inter, ref)
+
+    def branches(self, inter, ref):
+        """Every layer's queries inter [L, B, Q, C] and their reference
+        points ref [B, Q, 3] -> (all_cls [L, B, Q, num_classes], all_bbox
+        [L, B, Q, code_size])."""
         cls = self.cls_branch(inter)
         reg = self.reg_branch(inter)
         pc = self.pc_range
@@ -228,22 +305,14 @@ class PETRHead(nn.Module):
 
     # ------------------------------------------------------------------ loss
     def _encode_gt(self, gt_boxes: torch.Tensor) -> torch.Tensor:
-        """[..., G, 7|9] boxes (centre z) -> [..., G, code_size] targets
-        [cx, cy, cz, log w, log l, log h, sin, cos, (vx, vy)]."""
-        logs = torch.log(gt_boxes[..., 3:6].clamp(min=1e-3))
-        yaw = gt_boxes[..., 6:7]
-        parts = [gt_boxes[..., :3], logs, torch.sin(yaw), torch.cos(yaw)]
-        if self.code_size > 8:
-            parts.append(gt_boxes[..., 7:9] if gt_boxes.shape[-1] > 7 else
-                         gt_boxes.new_zeros(gt_boxes.shape[:-1] + (2,)))
-        return torch.cat(parts, dim=-1)
+        return encode_gt(gt_boxes, self.code_size)
 
     def loss(self, all_cls, all_bbox, gt_boxes, gt_labels,
              dn_meta=None) -> dict:
         """gt_boxes [B, G, 7|9] (centre z), gt_labels [B, G] (-1 pad).
-        Each layer's matching queries get the Hungarian loss (one host
-        solve a layer for the batch); with dn_meta the queries past
-        num_query get the known-assignment DN loss (heads/denoising.py)."""
+        Each layer's matching queries get the Hungarian loss (set_loss);
+        with dn_meta the queries past num_query get the known-assignment
+        DN loss (heads/denoising.py)."""
         gt_enc = self._encode_gt(gt_boxes)
         out_dn = None
         if dn_meta is not None:
@@ -253,29 +322,9 @@ class PETRHead(nn.Module):
                              gt_enc, self.code_weights, self.num_classes)
             all_cls = all_cls[:, :, :self.num_query]
             all_bbox = all_bbox[:, :, :self.num_query]
-        cw = torch.tensor(self.code_weights, dtype=all_bbox.dtype,
-                          device=all_bbox.device)
-        code = gt_enc.shape[-1]
-        total_cls = total_reg = 0.
-        for cls_l, bbox_l in zip(all_cls, all_bbox):
-            assigned, is_fg = self.assigner.assign(bbox_l, cls_l, gt_enc,
-                                                   gt_labels)
-            safe = assigned.clamp(min=0)
-            tgt_label = torch.where(
-                is_fg, torch.gather(gt_labels.long(), 1, safe),
-                self.num_classes)
-            onehot = F.one_hot(tgt_label, self.num_classes + 1)[
-                ..., :self.num_classes].to(cls_l.dtype)
-            num_fg = is_fg.sum(dim=1).clamp(min=1)
-            cls_loss = sigmoid_focal_loss(cls_l, onehot).sum(dim=(1, 2)) / \
-                num_fg
-            tgt_box = torch.gather(gt_enc, 1, safe[..., None].expand(
-                -1, -1, code))
-            reg_l1 = torch.abs(bbox_l - tgt_box) * cw
-            reg_loss = torch.where(is_fg[..., None], reg_l1, 0.).sum(
-                dim=(1, 2)) / num_fg
-            total_cls = total_cls + cls_loss.mean()
-            total_reg = total_reg + reg_loss.mean()
+        total_cls, total_reg = set_loss(self.assigner, all_cls, all_bbox,
+                                        gt_enc, gt_labels, self.code_weights,
+                                        self.num_classes)
         out = {"loss_cls": self.cls_weight * total_cls,
                "loss_bbox": self.reg_weight * total_reg}
         if out_dn is not None:
@@ -287,26 +336,6 @@ class PETRHead(nn.Module):
     # --------------------------------------------------------------- predict
     def predict(self, all_cls, all_bbox, max_num: int = 300,
                 score_threshold: float = 0.0) -> dict:
-        """The last layer's NMS-free decode -> box3d_lidar [B, K, 7|9] as
-        (x, y, z bottom, w, l, h, yaw, [vx, vy]), scores [B, K] and
-        label_preds [B, K], -1 where a score is not above the threshold."""
-        cls, bbox = all_cls[-1], all_bbox[-1]       # [B, Q, C], [B, Q, D]
-        b = cls.shape[0]
-        scores = torch.sigmoid(cls).reshape(b, -1)
-        k = min(max_num, scores.shape[1])
-        top, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-        top, idx = top[:, :k], idx[:, :k]
-        qi = idx // self.num_classes
-        labels = idx % self.num_classes
-        box = torch.gather(bbox, 1, qi[..., None].expand(-1, -1,
-                                                          bbox.shape[-1]))
-        yaw = torch.atan2(box[..., 6], box[..., 7])
-        dims = torch.exp(box[..., 3:6])
-        cols = [box[..., 0:2], (box[..., 2] - dims[..., 2] / 2)[..., None],
-                dims, yaw[..., None]]
-        if self.code_size > 8:
-            cols.append(box[..., 8:10])
-        valid = top > score_threshold
-        return {"box3d_lidar": torch.cat(cols, dim=-1),
-                "scores": torch.where(valid, top, -1.),
-                "label_preds": torch.where(valid, labels, -1)}
+        """The last layer's NMS-free decode (nms_free_decode)."""
+        return nms_free_decode(all_cls[-1], all_bbox[-1], self.num_classes,
+                               self.code_size, max_num, score_threshold)

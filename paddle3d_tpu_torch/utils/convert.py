@@ -34,6 +34,8 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray):
         if leaf == "bias":
             return "bias", arr.reshape(-1)
         return "weight", arr.reshape(module.in_features, -1).T
+    if isinstance(module, nn.Embedding) and leaf == "embedding":
+        return "weight", arr                 # nnx.Embed [num, features]
     if leaf == "bias":
         return "bias", arr
     if leaf in module._parameters:

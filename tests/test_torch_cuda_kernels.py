@@ -2295,3 +2295,74 @@ def test_bevdet_pool_runs_k7_and_k5_at_full_width(cuda, monkeypatch):
     torch.testing.assert_close(
         got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
     assert torch.isfinite(depth.grad).all() and torch.isfinite(feat.grad).all()
+
+
+def _rtebev(cuda, b=2):
+    """RTEBev's full-width view transformer (six 256 x 704 cameras at
+    stride 8, 118 depth bins onto 128 x 128 cells: 1,993,728 frustum rows
+    a frame) under chip_smoke.py's rig, tilted and under a BEV yaw, and
+    its pool's inputs from a seed: (view transformer, the camera matrices
+    on the card, depth probabilities [B, 6, 118, 32, 88], context [B, 6,
+    80, 32, 88])."""
+    import chip_smoke
+    from paddle3d_tpu_torch.apis import Config
+    vt = Config(path=chip_smoke.RTEBEV, device="cpu").model \
+        .img_view_transformer
+    mats = {k: torch.from_numpy(v).to(cuda) for k, v in chip_smoke.bevdet_rig(
+        chip_smoke.BEVDET_HW, b=b, tilt=0.02, bda_yaw=0.2).items()}
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    depth = torch.softmax(torch.randn((b, 6, 118, 32, 88), generator=gen),
+                          dim=2).to(cuda)
+    feat = torch.randn((b, 6, 80, 32, 88), generator=gen).to(cuda)
+    return vt, mats, depth, feat
+
+
+def test_rtebev_frustum_ranks_on_card_match_cpu(cuda):
+    """RTEBev's frustum points on the card bit for bit as on the CPU, so
+    its rank and valid index for index."""
+    vt, mats, _, _ = _rtebev(cuda)
+    cpu = {k: v.cpu() for k, v in mats.items()}
+    coor = vt.get_lidar_coor(**mats)
+    ref = vt.get_lidar_coor(**cpu)
+    assert torch.equal(coor.cpu().view(torch.int32), ref.view(torch.int32))
+    rank, valid = vt.frustum_ranks(**mats)
+    ref_rank, ref_valid = vt.frustum_ranks(**cpu)
+    assert torch.equal(valid.cpu(), ref_valid) and valid.float().mean() > .3
+    assert torch.equal(rank.cpu()[ref_valid], ref_rank[ref_valid])
+
+
+def test_rtebev_pool_runs_k7_and_k5_at_full_width(cuda, monkeypatch):
+    """lift_splat at RTEBev's full-width call: the forward launches K7,
+    bit-equal to the row-order sum of the rows it was handed; the backward
+    launches K5, bit-equal to its plain version on its cotangent."""
+    vt, mats, depth, feat = _rtebev(cuda)
+    b, cells = depth.shape[0], 128 * 128
+    seen = {}
+    fwd, bwd = sorted_scatter.scatter_rows, sorted_scatter.sorted_table_gather
+
+    def rec_fwd(*args):
+        seen["fwd"] = (args, fwd(*args))
+        return seen["fwd"][1]
+
+    def rec_bwd(*args):
+        seen["bwd"] = (args, bwd(*args))
+        return seen["bwd"][1]
+    monkeypatch.setattr(sorted_scatter, "scatter_rows", rec_fwd)
+    monkeypatch.setattr(sorted_scatter, "sorted_table_gather", rec_bwd)
+    feat.requires_grad_()
+    depth.requires_grad_()
+    before = dict(_build.LAUNCHES)
+    out = vt.lift_splat(depth, feat, **mats)
+    out.backward(torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before
+            if _build.LAUNCHES[k] != before[k]} == {
+                "sorted_segment_sum_dense": 1, "sorted_table_gather": 1}
+    (keys, rows, n_cells, _), got = seen["fwd"]
+    assert n_cells == cells and keys.shape == (b, 6 * 118 * 32 * 88)
+    torch.testing.assert_close(got, _row_order_sum(keys, rows, cells),
+                               rtol=0, atol=0)
+    args, got = seen["bwd"]
+    torch.testing.assert_close(
+        got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
+    assert torch.isfinite(depth.grad).all() and torch.isfinite(feat.grad).all()
