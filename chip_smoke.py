@@ -38,8 +38,14 @@ CAPE / CAPE-T and RTEBev, the seventh and eighth
 configs/rtebev/rtebev_r50_nuscenes_256x704_msdepth_hybrid_{1f,4f}.yml,
 full width, seeded random weights), serving 1 and 2 frames of six 512 x
 1408 images and training CAPE-T on 2, serving 1 and 4 frames of six 256 x
-704 images and training on 4 with an adjacent frame, in phases; any
-failing phase exits non-zero, names the phase and prints no result:
+704 images and training on 4 with an adjacent frame, and BEVFusion
+(configs/bevfusion/bevf_{pp,lidar,cam}_nuscenes.yml, full width, seeded
+random weights), serving 1 and 2 frames of a 250,000-point nuScenes scan
+and six 448 x 800 images and training on 2, and DD3D
+(configs/dd3d/dd3d_{dla34,v2_99}_kitti.yml, full width, seeded random
+weights), serving 1 and 8 images of 384 x 1280 and training on 8, in
+phases; any failing phase exits non-zero, names the phase and prints no
+result (each phase's first line leads with the seconds since the start):
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -64,7 +70,7 @@ failing phase exits non-zero, names the phase and prints no result:
      counters must move), then again with the plain versions swapped in:
      the outputs must agree; the tiny config's canvas on the card against
      the CPU path;
-  4. 20 timed iterations of each path (scans/s) and a profile of the
+  4. 10 timed iterations of each path (scans/s) and a profile of the
      kernel path, with cuDNN autotuning on as a server would run;
   5. training (train BatchNorm, the config's Adam, clip and StepDecay):
      from one saved state, one train step through the kernels (all five
@@ -78,7 +84,7 @@ failing phase exits non-zero, names the phase and prints no result:
      two-layer K1 and K6 counters must move, K2's must not; pillars before
      and after the max_voxels cap, the longest segment and the boxes NMS
      keeps are logged), then on the plain versions (the outputs must
-     agree); 20 timed iterations of each path (scans/s), peak memory, a
+     agree); 10 timed iterations of each path (scans/s), peak memory, a
      profile and the time of each stage of the forward;
   7. CenterPoint-voxels nuScenes serving: the sparse conv kernel (K8) at
      each of the nine conv shapes of the path, given the neighbour map the
@@ -295,11 +301,34 @@ failing phase exits non-zero, names the phase and prints no result:
      (two K7 and one K5 a step, kernel vs plain step bit-equal, K5 held
      and timed), 10 steps in deterministic mode with finite losses that
      fall, one 4f step (five K7); the tiny model card vs CPU.
+ 22. BEVFusion (phase_bevfusion): the L+C config serving at batch 1 and 2
+     through the kernels (the [V, P, C] hard voxelization and buffer PFN,
+     the pillar scatter on K2 as the density rule picks for 40,000 pillars
+     on 400 x 400 cells, the LSS pool on K7: one of each a forward) and on
+     the plain versions in deterministic mode (every output equal by bit
+     pattern); K2 and K7 held bit for bit at both calls and timed; the
+     lidar-only (one K2) and camera-only (one K7) configs at batch 1; the
+     tiny model card vs CPU (a K2 and a K7); frames/s of both paths, GFLOP,
+     memory, profiles, stages; training at batch 2 with img_depth from
+     each frame's own scan (bevfusion_img_depth, the dataset's math): a
+     step through the kernels (K2, K7, two K5) against one on the plain
+     versions from the same state, bit-equal; K5 held and timed at both
+     VJPs; 10 falling losses, train frames/s, memory, profile.
+ 23. DD3D (phase_dd3d): both KITTI configs serving at batch 1 and 8 (no
+     launch counter moves); frames/s, GFLOP, memory, profiles, stages;
+     the tiny model card vs CPU; the DLA-34 config training at batch 8 on
+     dd3d_gt's projected boxes, 10 falling losses, train frames/s,
+     memory, profile.
+
+Since phases 22 and 23 came, the timing loops of phases 4-10, 13 and
+15-17 run fewer iterations (ITERS 10, CP_TRAIN_ITERS and VX_TRAIN_ITERS
+6, SMOKE_ITERS 10, SMOKE_TRAIN_ITERS 6, CADDN_ITERS and PETR_ITERS 6);
+no check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
-calls and K7 and K5 at BEVDet4D's and at RTEBev's in entries of their
-own, each with a
-"path" key, after the entries of their earlier paths) and
+calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
+at BEVFusion's in entries of their own, each with a "path" key, after
+the entries of their earlier paths) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --parts TREE [TREE ...]
@@ -343,7 +372,7 @@ IASSD = os.path.join(REPO, "configs", "iassd", "iassd_kitti.yml")
 SMOKE_KITTI = os.path.join(REPO, "configs", "smoke",
                            "smoke_dla34_no_dcn_kitti.yml")
 SMOKE_TINY = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
-BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 20, 10
+BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 10, 10
 TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
 VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
@@ -441,7 +470,14 @@ class PhaseError(RuntimeError):
     pass
 
 
+_START = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's first line ("phase N: ...") leads with the
+    seconds since the script started."""
+    if msg.startswith("phase "):
+        msg = "[{:.0f} s] {}".format(time.perf_counter() - _START, msg)
     print(msg, flush=True)
 
 
@@ -2521,7 +2557,7 @@ def phase_iassd(device):
     return errs, times, extra, launches
 
 
-CP_TRAIN_ITERS = 10     # train steps timed per path (halves of 5)
+CP_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
 
 
 def cp_train_setup(device):
@@ -3618,7 +3654,7 @@ def phase_ops(device):
     return errs, times, extra, launches
 
 
-VX_TRAIN_ITERS = 10     # train steps timed per path (halves of 5)
+VX_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
 def vx_train_setup(device):
     """The nuScenes voxel config in train mode (seeded random weights), its
     OneCycleAdam (clip 35) and OneCycleWarmupDecayLr inherited from the
@@ -3820,8 +3856,8 @@ def phase_ia_train(device):
 SMOKE_HW = (384, 1280)
 SMOKE_FOCAL = 721.5
 SMOKE_BATCH = 8
-SMOKE_ITERS = 20        # timed forwards per path and batch (halves of 10)
-SMOKE_TRAIN_ITERS = 10  # timed train steps (halves of 5)
+SMOKE_ITERS = 10        # timed forwards per path and batch (halves of 5)
+SMOKE_TRAIN_ITERS = 6   # timed train steps (halves of 3)
 SMOKE_OBJECTS = 8       # synthetic objects an image
 # the tiny config's class head gets this contrast before the card-vs-CPU
 # check: its random heatmap is flat at sigmoid(-2.19), and near-equal
@@ -4176,7 +4212,7 @@ CADDN_KITTI = os.path.join(REPO, "configs", "caddn",
 CADDN_TINY = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
 CADDN_HW = (384, 1248)
 CADDN_BATCH = 4
-CADDN_ITERS = 10        # timed forwards per path and batch (halves of 5)
+CADDN_ITERS = 6         # timed forwards per path and batch (halves of 3)
 CADDN_TRAIN_ITERS = 6   # timed train steps per path (halves of 3)
 CADDN_OBJECTS = 8       # synthetic boxes an image
 KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
@@ -4681,7 +4717,7 @@ PETR_TINY = os.path.join(REPO, "configs", "petr", "petr_synthetic_tiny.yml")
 PETR_HW = (320, 800)
 PETR_CAMS = 6
 PETR_BATCH = 2          # the configs' batch_size; bench.py serves batch 1
-PETR_ITERS = 10         # timed forwards per batch (halves of 5)
+PETR_ITERS = 6          # timed forwards per batch (halves of 3)
 PETR_TRAIN_ITERS = 6    # timed train steps (halves of 3)
 PETR_OBJECTS = 8        # gt boxes a frame, then two padded slots
 PETR_EGO = 0.5          # m the ego moved between PETRv2's two frames
@@ -6404,30 +6440,26 @@ RTEBEV_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
 SKEW_SPAN = 512             # cells of a K7 block's span, for the skew
 
 
-def rtebev_gt_depth(mats, hw, seed=SEED, points=RTEBEV_POINTS):
+def depth_maps(scans, mats, hw, near):
     """A LiDAR depth map a camera, [B, N, H, W] f32 (0: no return): each
-    frame's bench.make_scans sweep (clustered, over the nuScenes range)
-    moved into each camera (rots / trans: camera -> ego), projected by
-    cam2imgs and the image augmentation (post_rots, post_trans), the
-    nearest return a pixel kept."""
+    frame's scan [B, M, >= 3] (numpy; non-finite rows dropped) moved into
+    each camera (rots / trans: camera -> ego), projected by cam2imgs and
+    the image augmentation (post_rots, post_trans), the nearest return
+    farther than `near` m a pixel kept."""
     import numpy as np
-
-    import bench
     m = {k: v.detach().cpu().numpy().astype(np.float64)
          for k, v in mats.items()}
     b, n = m["rots"].shape[:2]
     h, w = hw
-    rng = np.random.default_rng(seed)
-    scans = bench.make_scans(rng, b, points, [-51.2, -51.2, -5.0],
-                             [51.2, 51.2, 3.0], "clustered")
     out = np.zeros((b, n, h, w), np.float32)
     for i in range(b):
         p = scans[i, :, :3].astype(np.float64)
+        p = p[np.isfinite(p).all(axis=1)]
         for c in range(n):
             cam = (p - m["trans"][i, c]) @ m["rots"][i, c]   # R^T (p - t)
             uvd = cam @ m["cam2imgs"][i, c].T
             d = uvd[:, 2]
-            keep = d > 0.1
+            keep = d > near
             uv1 = np.stack([uvd[keep, 0] / d[keep], uvd[keep, 1] / d[keep],
                             np.ones(keep.sum())], axis=1)
             aug = uv1 @ m["post_rots"][i, c].T + m["post_trans"][i, c]
@@ -6439,6 +6471,20 @@ def rtebev_gt_depth(mats, hw, seed=SEED, points=RTEBEV_POINTS):
             depth[np.isinf(depth)] = 0.0
             out[i, c] = depth.reshape(h, w)
     return out
+
+
+def rtebev_gt_depth(mats, hw, seed=SEED, points=RTEBEV_POINTS):
+    """RTEBev's gt_depth [B, N, H, W]: depth_maps of a bench.make_scans
+    sweep a frame (clustered, over the nuScenes range), returns past 0.1
+    m."""
+    import numpy as np
+
+    import bench
+    b = mats["rots"].shape[0]
+    rng = np.random.default_rng(seed)
+    scans = bench.make_scans(rng, b, points, [-51.2, -51.2, -5.0],
+                             [51.2, 51.2, 3.0], "clustered")
+    return depth_maps(scans, mats, hw, 0.1)
 
 
 def rtebev_train_batch(device, model, b, frames=1, seed=SEED):
@@ -6896,6 +6942,809 @@ def phase_rtebev(device):
                   k5_ms["plain"], k5_ms["torch.gather"], k5_bound)]
 
 
+# Phase 22: BEVFusion (pillars + camera), its lidar-only and camera-only
+# variants: the [V, P, C] hard voxelization, the buffer PFN and the pillar
+# scatter (K2 by the density rule at 30,000 / 40,000 pillars on 400 x 400
+# cells), the LSS pool (K7), both VJPs on K5 in training.
+BEVF = os.path.join(REPO, "configs", "bevfusion", "bevf_pp_nuscenes.yml")
+BEVF_LIDAR = os.path.join(REPO, "configs", "bevfusion",
+                          "bevf_lidar_nuscenes.yml")
+BEVF_CAM = os.path.join(REPO, "configs", "bevfusion", "bevf_cam_nuscenes.yml")
+BEVF_HW = (448, 800)
+BEVF_BATCH = 2              # the config's batch_size
+BEVF_ITERS = 4              # timed forwards per path and batch (halves)
+BEVF_TRAIN_ITERS = 4        # timed train steps (halves of 2)
+BEVF_DEPTH_STRIDE = 16      # the L+C train_dataset's depth_stride
+BEVF_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
+
+
+def bevfusion_batch(device, b, seed=SEED, hw=BEVF_HW, n=PETR_CAMS):
+    """b nuScenes 10-sweep scans of 250,000 points (make_cp_points) and b
+    frames of n normalised uniform-pixel images under bevdet_rig(hw):
+    tools/bench_camera.py's ring with its K for 450 x 800 images, which a
+    448 x 800 image keeps once its top two rows are cropped (post_trans):
+    the matrices are those of the images handed."""
+    batch = bevdet_serve_batch(device, b, seed, hw=hw, n=n)
+    batch["data"] = make_cp_points(device, batch=b)
+    return batch
+
+
+def bevfusion_img_depth(scans, mats, hw, stride, depth_range):
+    """BEVFusion's camera depth target, [B, N, H / s, W / s, 1 + D] f32, as
+    paddle3d_tpu/datasets/nuscenes/nuscenes_multi_modality.py:58-94 builds
+    it (its math copied): the frame's scan projected into every camera
+    (depth_maps: the nearest return a pixel past 1 m, as the dataset's
+    _depth_maps keeps them), cut into s x s patches; channel 0 a patch's
+    least depth (0 where it holds none), then the differences at the depth
+    bins' edges of a normal CDF with the least depth as mean and the
+    patch's depth std (1 where it holds one return), both in bin units."""
+    import numpy as np
+    from scipy.special import erf
+    lo, hi, step = depth_range
+    full = depth_maps(scans, mats, hw, 1.0)
+    b, n, hh, ww = full.shape
+    s = stride
+    patches = full.reshape(b, n, hh // s, s, ww // s, s).transpose(
+        0, 1, 2, 4, 3, 5).reshape(b, n, hh // s, ww // s, s * s)
+    valid = patches > 0
+    vnum = np.maximum(valid.sum(-1), 1)
+    min_depth = np.min(np.where(valid, patches, np.inf), axis=-1)
+    min_depth = np.where(np.isfinite(min_depth), min_depth, 0.)
+    mean = np.where(valid, patches, 0.).sum(-1) / vnum
+    var = np.where(valid, (patches - mean[..., None]) ** 2, 0.).sum(-1) / vnum
+    std = np.where(valid.sum(-1) <= 1, 1.0, np.sqrt(var))
+    edges = np.arange(lo, hi + 1, step, np.float32)
+    mu = (min_depth / step)[..., None]
+    sg = np.maximum(std / step, 1e-3)[..., None]
+    cdf = 0.5 * (1 + erf((edges / step - mu) / (sg * np.sqrt(2.0))))
+    dist = (cdf[..., 1:] - cdf[..., :-1]).astype(np.float32)
+    return np.concatenate([min_depth[..., None].astype(np.float32), dist],
+                          axis=-1)
+
+
+def bevfusion_train_batch(device, model, b, seed=SEED):
+    """bevfusion_batch with petr_gt's boxes (BEVDET_OBJECTS a frame in the
+    ring's view, 2 padded slots) and img_depth from each frame's own scan.
+    -> (batch, the share of feature patches whose least depth lies in
+    camera_depth_range)."""
+    import numpy as np
+    import torch
+    batch = bevfusion_batch(device, b, seed)
+    boxes, labels = petr_gt(np.random.default_rng(seed + 1), b, (450, 800),
+                            sum(model.bbox_head.num_classes),
+                            objects=BEVDET_OBJECTS)
+    lo, hi, step = model.camera_depth_range
+    depth = bevfusion_img_depth(
+        batch["data"].cpu().numpy(), {k: batch[k] for k in (
+            "rots", "trans", "cam2imgs", "post_rots", "post_trans")},
+        BEVF_HW, BEVF_DEPTH_STRIDE, (lo, hi, step))
+    batch.update(gt_boxes=torch.from_numpy(boxes).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device),
+                 img_depth=torch.from_numpy(depth).to(device))
+    md = depth[..., 0]
+    return batch, float(((md >= lo) & (md <= hi)).mean())
+
+
+def bevfusion_voxels(model, points, training):
+    """The voxelizer's pillars a scan and the most points a pillar (of the
+    first scan), and the share of slots the buffer fills."""
+    vox = model.lidar_voxelizer(points, training)
+    n, mask = vox[2], vox[3]
+    return {"pillars": mask.sum(dim=1).tolist(), "cap": mask.shape[1],
+            "most_points": int(n[0].max()),
+            "slots_filled": (n.sum().item() / n.numel() /
+                             model.lidar_voxelizer.max_num_points_in_voxel)}
+
+
+def check_bevfusion_outputs(out, b, k, code=9):
+    """CenterHead's fixed-shape outputs (`code`-dof boxes: 9 with
+    velocity), finite, -1 padded. -> the boxes kept a frame."""
+    import torch
+    check(tuple(out["box3d_lidar"].shape) == (b, k, code) and
+          tuple(out["scores"].shape) == tuple(out["label_preds"].shape) ==
+          (b, k), "BEVFusion output shapes {}".format(
+              {key: tuple(v.shape) for key, v in out.items()}))
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "non-finite BEVFusion outputs")
+    kept = out["scores"] >= 0
+    check(bool(((out["label_preds"] >= 0) == kept).all()),
+          "BEVFusion labels and scores disagree on the padding")
+    return kept.sum(dim=1).tolist()
+
+
+def bevfusion_stages(model, batch, iters=3):
+    """Host ms of the L+C test_forward's stages (each ended by a
+    synchronize): the hard voxelization, the buffer PFN, the pillar
+    scatter (K2), the lidar backbone + neck, the image backbone, the depth
+    net, the frustum ranks, the sort, the row rebuild, the pool (K7), the
+    fusion conv + SE, the head convs, decode + NMS."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import scatter, sorted_scatter
+    vt = model.img_view_transformer
+    gx, gy, _ = vt.grid_size
+    cells = gx * gy
+    mid = model.lidar_middle_encoder
+    mats = {k: batch[k] for k in ("rots", "trans", "cam2imgs", "post_rots",
+                                  "post_trans", "bda")}
+    keep = {}
+
+    def pfn(v):
+        feats = model.lidar_voxel_encoder(v[0], v[2], v[1])
+        return feats * v[3][..., None].to(feats.dtype), v[1], v[3]
+
+    def scatter_k2(x):
+        return scatter.pillar_scatter(*x, mid.ny, mid.nx)
+
+    def lidar_net(canvas):
+        x = model.pts_neck(model.pts_backbone(canvas.permute(
+            0, 3, 1, 2).contiguous()))
+        keep["lidar"] = x
+        return batch["img"]
+
+    def sort(x):
+        tab, pix, dep, rank, valid = x
+        return (tab,) + scatter.sort_payloads(pix, dep, rank, valid,
+                                              tab.dtype)
+
+    def rebuild(x):
+        tab, keys, spix, sdep = x
+        return keys, scatter.rebuild_rows(tab, spix, sdep)
+
+    def fuse(t):
+        cam = t.reshape(t.shape[0], gy, gx, -1).permute(0, 3, 1, 2)
+        return model.seblock(model.fuse_conv(torch.cat(
+            [keep["lidar"], cam], dim=1).contiguous()))
+
+    stage_times([
+        ("voxelize", lambda bt: model.lidar_voxelizer(bt["data"], False)),
+        ("PFN", pfn), ("pillar scatter (K2)", scatter_k2),
+        ("lidar backbone + neck", lidar_net),
+        ("image backbone", model.image_features),
+        ("depth net", vt.depth_and_context),
+        ("frustum ranks", lambda x: vt.pool_inputs(*x, **mats)),
+        ("sort", sort), ("row rebuild", rebuild),
+        ("pool (K7)", lambda x: sorted_scatter.scatter_rows(*x, cells,
+                                                           False)),
+        ("fusion conv + SE", fuse), ("head convs", model.bbox_head),
+        ("decode + NMS", lambda preds: model.bbox_head.predict(
+            preds, model.test_cfg))], batch, iters)
+
+
+def bevfusion_timing(model, batch):
+    """Frames/s of both paths (kernel/plain/plain/kernel halves of
+    BEVF_ITERS, cudnn.benchmark on), GFLOP a frame by module, peak memory,
+    a profile of one forward through the kernels and the stage times."""
+    import torch
+    b = batch["img"].shape[0]
+    rates = {"kernels": [], "plain": []}
+    with torch.no_grad():
+        for order in (("kernels", "plain"), ("plain", "kernels")):
+            for path in order:
+                rates[path].append(frames_per_s(
+                    model, batch, BEVF_ITERS // 2, plain_path
+                    if path == "plain" else contextlib.nullcontext))
+    rate = {k: 2 / sum(1 / r for r in v) for k, v in rates.items()}
+    flops = module_flops(model, lambda: model.test_forward(batch), b, {
+        "PFN": "PillarFeatureNet", "lidar backbone": "SecondBackbone",
+        "lidar neck": "SecondFPN", "image backbone": "ResNet",
+        "depth net": "LSSViewTransformer.depth_net",
+        "fusion conv": "ConvBNReLU", "head": "CenterHead"})
+    log("  batch {}: forwards a path (kernel/plain/plain/kernel halves, "
+        "cudnn.benchmark on): kernel path {:.2f} frames/s ({:.3f} ms a "
+        "frame), plain path {:.2f} frames/s ({:.3f} ms); halves {}; GFLOP a "
+        "frame (torch.utils.flop_counter) {}: {:.2f} TFLOP/s at the kernel "
+        "path's rate".format(
+            b, rate["kernels"], 1e3 / rate["kernels"], rate["plain"],
+            1e3 / rate["plain"],
+            {k: [round(x, 2) for x in v] for k, v in rates.items()},
+            {k: round(v, 2) for k, v in flops.items()},
+            flops["total"] * rate["kernels"] / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    bevfusion_stages(model, batch)
+
+
+def bevfusion_tiny():
+    """The parity tests' tiny L+C BEVFusion (tests/test_torch_bevfusion.py:
+    pillars of 0.5 m onto 32 x 32 cells, a cap of 100, a PFN of 16,
+    SecondBackbone + SecondFPN, ResNet-18 at base 8 to C4, 8 depth bins
+    onto the same grid, SE fusion to 32, a one-class CenterHead), seeded
+    weights, the heatmap tower's last weights scaled by TINY_CLS_GAIN; on
+    the CPU, in eval mode."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import ResNet, SecondBackbone
+    from paddle3d_tpu_torch.models.detection import BEVFusion, CenterHead
+    from paddle3d_tpu_torch.models.middle_encoders import PointPillarsScatter
+    from paddle3d_tpu_torch.models.necks import SecondFPN
+    from paddle3d_tpu_torch.models.transformers import LSSViewTransformer
+    from paddle3d_tpu_torch.models.voxel_encoders import PillarFeatureNet
+    from paddle3d_tpu_torch.models.voxelizers import HardVoxelizer
+    gen = torch.Generator().manual_seed(SEED)
+    pc, vs = [-8., -8., -3., 8., 8., 3.], [0.5, 0.5, 6.0]
+    grid = dict(x=[-8., 8., 0.5], y=[-8., 8., 0.5], z=[-3., 3., 6.],
+                depth=[1., 9., 1.])
+    head = CenterHead(in_channels=32, tasks=[dict(num_class=1,
+                                                  class_names=["car"])],
+                      weight=0.25, code_weights=[1.] * 8,
+                      common_heads=dict(reg=(2, 2), height=(1, 2),
+                                        dim=(3, 2), rot=(2, 2)),
+                      share_conv_channel=16, generator=gen)
+    with torch.no_grad():
+        head.task_heads[0].towers["hm"][-1].weight.mul_(TINY_CLS_GAIN)
+    model = BEVFusion(
+        bbox_head=head, point_cloud_range=pc, voxel_size=vs,
+        lidar_voxelizer=HardVoxelizer(vs, pc, 8, 100),
+        lidar_voxel_encoder=PillarFeatureNet(
+            4, (16,), max_num_points_in_voxel=8, voxel_size=vs,
+            point_cloud_range=pc, legacy=False, generator=gen),
+        lidar_middle_encoder=PointPillarsScatter(16, vs, pc),
+        pts_backbone=SecondBackbone(in_channels=16, out_channels=(16, 32),
+                                    layer_nums=(1, 1),
+                                    downsample_strides=(1, 2),
+                                    generator=gen),
+        pts_neck=SecondFPN(in_channels=(16, 32), out_channels=(8, 8),
+                           upsample_strides=(1, 2), generator=gen),
+        img_backbone=ResNet(depth=18, base_channels=8, out_indices=(2,),
+                            generator=gen),
+        img_view_transformer=LSSViewTransformer(
+            grid, input_size=(64, 96), downsample=16, in_channels=32,
+            out_channels=16, generator=gen),
+        fusion_channels=32, lidar_channels=16, camera_channels=16, se=True,
+        camera_depth_range=[1.0, 9.0, 1.0],
+        test_cfg=dict(nms=dict(nms_pre_max_size=64, nms_post_max_size=8,
+                               nms_iou_threshold=0.2),
+                      score_threshold=0.05, point_cloud_range=pc,
+                      down_ratio=1, voxel_size=vs,
+                      post_center_limit_range=[-12., -12., -5., 12., 12.,
+                                               5.]),
+        target_assign_cfg=dict(down_ratio=1, max_objs=8), generator=gen)
+    return model.eval()
+
+
+def bevfusion_tiny_batch(b=2, seed=SEED):
+    """The tiny model's CPU batch: 300 points a frame over its range (a
+    tenth NaN, a tenth past it), two cameras of 64 x 96 under bevdet_rig."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-8, -8, -3, 0], [8, 8, 3, 1], (b, 300, 4))
+    pts[:, ::10] = np.nan
+    pts[:, 5::10, 0] = 9.5
+    batch = bevdet_serve_batch("cpu", b, seed, hw=(64, 96), n=2)
+    batch["data"] = torch.from_numpy(pts.astype(np.float32))
+    return batch
+
+
+def phase_bevfusion_tiny():
+    """The tiny L+C BEVFusion on the card against the CPU (the hard
+    voxelization's sorts, cumulative max and index writes on both; by the
+    density rule its pillar scatter, 100 pillars onto 32 x 32 cells, is
+    sparse: one K2; its pool, 2 x 384 rows onto the same cells, dense: one
+    K7)."""
+    model = bevfusion_tiny()
+    _, launches = tiny_card_vs_cpu("BEVFusion", model,
+                                   [bevfusion_tiny_batch()], BEVF_TINY_TOL,
+                                   None)
+    check(launches == {"sorted_segment_sum": 1,
+                       "sorted_segment_sum_dense": 1}, "the tiny BEVFusion "
+          "on the card launched {} where one K2 and one K7 were due".format(
+              launches))
+
+
+def build_bevfusion(device, path=BEVF):
+    """A BEVFusion config (returned: its model and optimizer) at full
+    width, seeded random weights, the model in eval mode. The
+    plain conv stacks (the lidar backbone and neck, the fusion conv, the
+    head) are scaled by sqrt(6), as build_centerpoint scales CenterPoint's
+    same stack, so that the head sees the scene and the NMS has work; the
+    image backbone, a residual net, keeps its scale (scaled, its sums grow
+    block by block until the head's exp overflows)."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    cfg = Config(path=path, device=device)
+    model = cfg.model.eval()
+    stacks = [model.pts_backbone, model.pts_neck, model.fuse_conv,
+              model.bbox_head]
+    with torch.no_grad():
+        for stack in filter(None, stacks):
+            for m in stack.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                    m.weight.mul_(6 ** 0.5)
+    return cfg
+
+
+def bevfusion_one_stream(device, path, label, want):
+    """One forward at batch 1 of a one-stream config (build_bevfusion):
+    outputs finite and -1 padded, `want` the launches."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    model = build_bevfusion(device, path).model
+    batch = bevfusion_batch(device, 1, SEED + 3)
+    with torch.no_grad():
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = model.test_forward(batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    kept = check_bevfusion_outputs(out, 1, out["scores"].shape[1])
+    log("  {} at batch 1: launches {}; boxes kept {}; {:.3f} s (the "
+        "first forward, cold)".format(label, launches, kept, sec))
+    check(launches == want, "{} launched {} where {} was due".format(
+        label, launches, want))
+
+
+def phase_bevfusion(device):
+    """BEVFusion on its nuScenes L+C config at full width (pillars of 0.25
+    m onto 400 x 400 cells, 64 points a pillar, 30,000 / 40,000 pillars,
+    PFN [64, 64] in the [V, P, C] buffer, SecondBackbone + SecondFPN to
+    384 channels at 200 x 200; ResNet-50 to C4, 41 depth bins onto 200 x
+    200 cells of 80 channels; SE fusion to 384; CenterHead of 6 tasks with
+    velocity, NMS 1,000 / 83; seeded random weights, the plain conv
+    stacks scaled by build_bevfusion; f32, TF32 off) on make_cp_points'
+    nuScenes scans and six 448 x 800 images under bevdet_rig((448, 800)):
+    serving at batch 1 and 2 through the kernels (a K2 for the pillar
+    scatter, as the density rule picks, and a K7 for the pool, each once a
+    forward) and on the plain versions, both in deterministic mode (every
+    output equal by bit pattern); K2 and K7 held bit for bit and timed at
+    both calls; the lidar-only and camera-only configs at batch 1; the
+    tiny model card vs CPU; frames/s of both paths, GFLOP, memory,
+    profiles, stages; training at batch 2 with img_depth (the config's
+    AdamW, clip 35, CosineDecay): one step through the kernels (K2, K7 and
+    two K5) against one on the plain versions from the same state, in
+    deterministic mode, bit-equal; K5 held and timed at both VJPs; 10
+    falling losses, train frames/s, memory, profile. -> the record's
+    entries of K2, K7 and K5 at BEVFusion's calls."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import make_train_step
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = build_bevfusion(device)
+    model = cfg.model
+    vt, mid = model.img_view_transformer, model.lidar_middle_encoder
+    gx, gy, _ = vt.grid_size
+    post = model.test_cfg["nms"]["nms_post_max_size"]
+    k = post * len(model.bbox_head.num_classes)
+    batches = {b: bevfusion_batch(device, b) for b in (1, BEVF_BATCH)}
+    stats = bevdet_frustum_stats(vt, batches[1])
+    vox = bevfusion_voxels(model, batches[BEVF_BATCH]["data"], False)
+    log("phase 22: BEVFusion L+C (pillars {} x {}, a [V, P, C] buffer of "
+        "{} x {} x {}, PFN [64, 64]; ResNet-50 to C4, {} depth bins onto {} "
+        "x {} x {}; SE fusion to {}; {} tasks) on scans of {} points and six "
+        "{} x {} images: pillars a scan {} of the cap {} (most points a "
+        "pillar {}, buffer slots filled {:.4f}); a frame's frustum has {} "
+        "rows, {} in the grid (share {:.4f}) on {} cells, at most {} rows a "
+        "cell".format(
+            mid.ny, mid.nx, vox["cap"],
+            model.lidar_voxelizer.max_num_points_in_voxel, 5, vt.D, gy, gx,
+            vt.out_channels, model.fuse_conv.conv.out_channels,
+            len(model.bbox_head.num_classes), CP_POINTS, *BEVF_HW,
+            vox["pillars"], vox["cap"], vox["most_points"],
+            vox["slots_filled"], stats["rows"], stats["in_grid"],
+            stats["share"], stats["cells"], stats["longest"]))
+    check(stats["rows"] == 6 * 41 * 28 * 50 and stats["share"] > 0.3,
+          "not BEVFusion's frustum, or under 0.3 of it in the grid")
+    check(sorted_scatter.kernel_for(vox["cap"], mid.ny * mid.nx) ==
+          "sorted_segment_sum" and sorted_scatter.kernel_for(
+              stats["rows"], gy * gx) == "sorted_segment_sum_dense",
+          "the density rule no longer sends the pillar scatter to K2 and "
+          "the pool to K7")
+    outs, launches = {}, {}
+    with torch.no_grad(), recorded(sorted_scatter, "scatter_rows") as calls, \
+            deterministic(warn_only=True):
+        for b, batch in batches.items():
+            _build.reset_launches()
+            outs[b] = model.test_forward(batch)
+            torch.cuda.synchronize()
+            launches[b] = {n: v for n, v in _build.LAUNCHES.items() if v}
+    kept = {b: check_bevfusion_outputs(out, b, k) for b, out in outs.items()}
+    log("  serving through the kernels: launches by batch {}; boxes kept a "
+        "frame {}; top scores {}".format(
+            launches, kept, {b: [round(v, 4) for v in o["scores"][:, 0]
+                                 .tolist()] for b, o in outs.items()}))
+    check(all(n == {"sorted_segment_sum": 1, "sorted_segment_sum_dense": 1}
+              for n in launches.values()), "the BEVFusion forwards launched "
+          "{} where one K2 and one K7 a forward were due".format(launches))
+    with torch.no_grad():
+        for b, batch in batches.items():
+            _build.reset_launches()
+            with deterministic(warn_only=True), plain_path():
+                ref = model.test_forward(batch)
+            torch.cuda.synchronize()
+            check(not any(_build.LAUNCHES.values()),
+                  "the plain path launched a kernel")
+            differ = [key for key in ref
+                      if not same_bits(outs[b][key], ref[key])]
+            check(not differ, "BEVFusion batch {}: the kernel and plain "
+                  "paths differ in {}".format(b, differ))
+    log("  batch {} vs the plain path (its index_add_ in row order: "
+        "deterministic mode): every output equal by bit pattern".format(
+            list(batches)))
+    del outs, ref
+    # a forward's calls: the pillar scatter (K2), then the pool (K7)
+    check(len(calls) == 4 and [sorted_scatter.kernel_for(
+        a[1].shape[1], a[2]) for a, _ in calls] == [
+            "sorted_segment_sum", "sorted_segment_sum_dense"] * 2,
+        "expected a pillar scatter then a pool a forward")
+    k2, k7 = {}, {}
+    for i, b in enumerate(batches):
+        k2[b] = k2_call("BEVFusion's pillar scatter at batch {}".format(b),
+                        *calls[2 * i][0])
+        k7[b] = k7_parts("BEVFusion's pool at batch {}".format(b),
+                         *calls[2 * i + 1][0], iters=20)
+    keys2, rows2, cells2, _ = calls[2][0]
+    k2_plain = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys2, rows2, cells2, False), 5)
+    keys7, rows7, cells7, _ = calls[3][0]
+    k7_bytes = scatter_bytes(keys7, cells7, rows7.shape[-1],
+                             keys7.shape[0] * cells7 * rows7.shape[-1])
+    k7_plain = cuda_ms(lambda: sorted_scatter.scatter_rows_plain(
+        keys7, rows7, cells7, False), 5)
+    log("  at batch {}, plain versions: the pillar scatter {:.4f} ms, the "
+        "pool {:.4f} ms".format(BEVF_BATCH, k2_plain, k7_plain))
+    del calls, keys2, rows2, keys7, rows7
+    bevfusion_one_stream(device, BEVF_LIDAR, "BEVFusion lidar-only",
+                         {"sorted_segment_sum": 1})
+    bevfusion_one_stream(device, BEVF_CAM, "BEVFusion camera-only",
+                         {"sorted_segment_sum_dense": 1})
+    phase_bevfusion_tiny()
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for batch in batches.values():
+        bevfusion_timing(model, batch)
+    del batches
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    batch, in_range = bevfusion_train_batch(device, model, BEVF_BATCH)
+    keys = ["loss", "img_depth_loss"] + [
+        "{}_loss_{}".format(kind, t)
+        for t in range(len(model.bbox_head.num_classes))
+        for kind in ("hm", "loc")]
+    vox = bevfusion_voxels(model, batch["data"], True)
+    with recorded(sorted_scatter, "scatter_rows") as fwd, \
+            recorded(sorted_scatter, "sorted_table_gather") as bwd:
+        kernel, plain, ops = steps_agree(
+            "BEVFusion at batch {} (img_depth)".format(BEVF_BATCH), step,
+            model, optimizer, scheduler, batch, keys, plain=True)
+    log("  training at batch {} ({}, clip {}, {}; {} boxes a frame in view, "
+        "2 padded slots; pillars a scan {} of the train cap {}; img_depth "
+        "from each frame's scan, {:.4f} of the patches in the depth range): "
+        "kernel step losses {}; launches {}; plain step launches {}".format(
+            BEVF_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], BEVDET_OBJECTS, vox["pillars"],
+            vox["cap"], in_range,
+            {key: round(v, 5) for key, v in kernel[0].items()},
+            {key: v for key, v in kernel[3].items() if v},
+            {key: v for key, v in plain[3].items() if v}))
+    check(0.01 < in_range < 1.0, "img_depth has no patch in the depth range")
+    # the pillar scatter (K2), the pool (K7) and both VJPs (two K5)
+    check({key: v for key, v in kernel[3].items() if v} == {
+        "sorted_segment_sum": 1, "sorted_segment_sum_dense": 1,
+        "sorted_table_gather": 2}, "the BEVFusion train step launched {} "
+        "where K2, K7 and two K5 were due".format(kernel[3]))
+    check(not any(plain[3].values()), "the plain step launched a kernel")
+    check(len(fwd) == 2 and len(bwd) == 2, "expected two scatters and two "
+          "VJPs in the kernel step")
+    k2_train = k2_call("BEVFusion's train pillar scatter", *fwd[0][0])
+    # the two VJPs told apart by their tables: the pillar canvas's cells
+    # and the camera BEV's
+    vjp = {"the pillar scatter" if args[3] == mid.ny * mid.nx else
+           "the pool": args for args, _ in bwd}
+    check(len(vjp) == 2, "the two VJPs' tables are not the canvas and the "
+          "camera BEV")
+    k5 = {what: k5_parts("BEVFusion's train backward, {}".format(what),
+                         *args) for what, args in sorted(vjp.items())}
+    del fwd, bwd, vjp, kernel, plain
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    falling_losses(step, model, optimizer, batch)
+    train_rate(step, model, optimizer, batch, BEVF_TRAIN_ITERS, "BEVFusion")
+    del model, step, batch, cfg, optimizer, scheduler
+
+    def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
+        src, tpu, _ = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": tpu, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library_ms, "path": path}
+    err2, ms2, lib2, b2, by2 = k2[BEVF_BATCH]
+    p7, err7 = k7[BEVF_BATCH]
+    log("  K2 at the train step's pillar scatter: {:.4f} ms".format(
+        k2_train[1]))
+    serving = "BEVFusion serving, batch {}".format(BEVF_BATCH)
+    return [entry("sorted_segment_sum", serving + ", the pillar scatter",
+                  launches[BEVF_BATCH]["sorted_segment_sum"], err2, ms2,
+                  k2_plain, lib2, (b2, by2)),
+            entry("sorted_segment_sum_dense", serving + ", the LSS pool",
+                  launches[BEVF_BATCH]["sorted_segment_sum_dense"], err7,
+                  p7["wrapper"], k7_plain, p7["index_add_call"],
+                  bound(k7_bytes))] + [
+        entry("sorted_table_gather", "BEVFusion training, batch {}, {}'s "
+              "VJP".format(BEVF_BATCH, what), 1, err, ms["wrapper"],
+              ms["plain"], ms["torch.gather"], bnd)
+        for what, (ms, err, bnd) in k5.items()]
+
+
+# Phase 23: DD3D (DLA-34 or VoVNet-99 + FPN, FCOS-style towers and heads),
+# a monocular KITTI detector that reaches no hand-written kernel: its convs
+# run on cuDNN, its decode is a stable sort and gathers.
+DD3D_DLA = os.path.join(REPO, "configs", "dd3d", "dd3d_dla34_kitti.yml")
+DD3D_V99 = os.path.join(REPO, "configs", "dd3d", "dd3d_v2_99_kitti.yml")
+DD3D_BATCH = 8              # the configs' batch_size
+DD3D_ITERS = 4              # timed forwards per batch (halves of 2)
+DD3D_TRAIN_ITERS = 4        # timed train steps (halves of 2)
+DD3D_OBJECTS = 8            # synthetic objects an image
+# served with seeded random weights, DD3D's class logits sit at the head's
+# bias (-2.19), every score under the 0.2 threshold; scaled, as SMOKE's
+# class head is (SMOKE_CLS_GAIN), some pass it and the decode keeps them
+DD3D_CLS_GAIN = 8.0
+# the tiny DD3D on the card against the CPU, relative to the largest
+# value: cuDNN's and the CPU's convolutions sum in other orders, which the
+# depth's scale (depth_ref 8 m a unit) and the unprojection carry into
+# the boxes
+DD3D_TINY_TOL = {"scores": 1e-5, "box3d_cam": 1e-4}
+
+
+def dd3d_serve_batch(device, b, seed=SEED, hw=None):
+    """b synthetic images in [0, 255), NHWC, at hw (SMOKE_HW, KITTI's 384 x
+    1280, by default), and K_inv of smoke_intrinsics (f = 721.5 px, the
+    principal point at the centre)."""
+    import numpy as np
+    import torch
+    h, w = hw or SMOKE_HW
+    rng = np.random.default_rng(seed)
+    k_inv = np.linalg.inv(smoke_intrinsics(h, w)).astype(np.float32)
+    return {"data": torch.from_numpy(rng.uniform(0, 255, (b, h, w, 3))
+                                     .astype(np.float32)).to(device),
+            "K_inv": torch.from_numpy(np.broadcast_to(
+                k_inv, (b, 3, 3)).copy()).to(device)}
+
+
+def dd3d_gt(rng, b, hw, dim_ref, objects=DD3D_OBJECTS):
+    """b frames of `objects` objects each, then two padded slots: classes
+    of dim_ref (l, h, w a class, each scaled by 0.9-1.1), 8-45 m in front
+    of smoke_intrinsics' camera, a random yaw (KITTI's camera axes: y
+    down; y at the box's bottom). The 2-D box is the box's eight corners
+    projected and clipped to the image (rejection sampled until it holds
+    pixels). -> gt_boxes_2d [b, G, 4], gt_boxes_cam [b, G, 7] (x, y, z and
+    the dims in dim_ref's order, ry), gt_labels [b, G] (-1 padded)."""
+    import numpy as np
+    h, w = hw
+    kmat = smoke_intrinsics(h, w).astype(np.float64)
+    dim_ref = np.asarray(dim_ref, np.float64)
+    g = objects + 2
+    box2d = np.zeros((b, g, 4), np.float32)
+    box3d = np.zeros((b, g, 7), np.float32)
+    labels = np.full((b, g), -1, np.int64)
+    for s in range(b):
+        j = 0
+        while j < objects:
+            cls = int(rng.integers(0, len(dim_ref)))
+            dims = dim_ref[cls] * rng.uniform(0.9, 1.1, 3)
+            ln, ht, wd = dims
+            z = rng.uniform(8, 45)
+            x, y = rng.uniform(-0.4, 0.4) * z, rng.uniform(1.4, 1.9)
+            ry = rng.uniform(-np.pi, np.pi)
+            cx, cz = np.array([1, 1, -1, -1]) * ln / 2, \
+                np.array([1, -1, -1, 1]) * wd / 2
+            c, sn = np.cos(ry), np.sin(ry)
+            corners = np.stack([
+                np.tile(c * cx + sn * cz, 2) + x,
+                np.repeat([y, y - ht], 4),
+                np.tile(-sn * cx + c * cz, 2) + z], axis=1)
+            if (corners[:, 2] < 1.0).any():
+                continue
+            uvw = corners @ kmat.T
+            u, v = uvw[:, 0] / uvw[:, 2], uvw[:, 1] / uvw[:, 2]
+            x1, y1 = max(u.min(), 0.), max(v.min(), 0.)
+            x2, y2 = min(u.max(), w - 1.), min(v.max(), h - 1.)
+            if x2 - x1 < 4 or y2 - y1 < 4:
+                continue
+            box2d[s, j] = [x1, y1, x2, y2]
+            box3d[s, j] = [x, y, z, *dims, ry]
+            labels[s, j] = cls
+            j += 1
+    return box2d, box3d, labels
+
+
+def dd3d_train_batch(device, cfg_dic, b, seed=SEED, hw=None):
+    """dd3d_serve_batch with dd3d_gt's targets for the config's classes."""
+    import numpy as np
+    import torch
+    hw = hw or SMOKE_HW
+    batch = dd3d_serve_batch(device, b, seed, hw)
+    box2d, box3d, labels = dd3d_gt(np.random.default_rng(seed + 1), b, hw,
+                                   cfg_dic["model"]["dim_ref"])
+    batch.update(gt_boxes_2d=torch.from_numpy(box2d).to(device),
+                 gt_boxes_cam=torch.from_numpy(box3d).to(device),
+                 gt_labels=torch.from_numpy(labels).to(device))
+    return batch
+
+
+def check_dd3d_outputs(out, b, k):
+    """DD3D's fixed-shape outputs: finite, the labels -1 exactly where the
+    scores are. -> the detections kept a frame."""
+    import torch
+    check(tuple(out["box3d_cam"].shape) == (b, k, 7) and
+          tuple(out["scores"].shape) == tuple(out["label_preds"].shape) ==
+          (b, k), "DD3D output shapes {}".format(
+              {key: tuple(v.shape) for key, v in out.items()}))
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          "non-finite DD3D outputs")
+    kept = out["scores"] >= 0
+    check(bool(((out["label_preds"] >= 0) == kept).all()),
+          "DD3D labels and scores disagree on the padding")
+    return kept.sum(dim=1).tolist()
+
+
+def dd3d_stages(model, batch, iters=3):
+    """Host ms of test_forward's stages (each ended by a synchronize): the
+    backbone, the FPN, the towers and heads, the decode."""
+    stage_times([
+        ("backbone", lambda bt: model.backbone(model._images(bt))),
+        ("FPN", model.neck), ("towers + heads", model.level_outputs),
+        ("decode", lambda outs: model.decode(outs, batch["K_inv"]))],
+        batch, iters)
+
+
+def dd3d_timing(model, batch, label):
+    """Frames/s (two halves of DD3D_ITERS, cudnn.benchmark on), GFLOP a
+    frame by module, peak memory, a profile of one forward and the stage
+    times."""
+    import torch
+    b = batch["data"].shape[0]
+    half = DD3D_ITERS // 2
+    with torch.no_grad():
+        rates = [frames_per_s(model, {"img": batch["data"], **batch}, half)
+                 for _ in range(2)]
+    rate = 2 / sum(1 / r for r in rates)
+    flops = module_flops(model, lambda: model.test_forward(batch), b, {
+        "backbone": type(model.backbone).__name__, "neck": "FPN"})
+    log("  {} batch {}: {} forwards (two halves, cudnn.benchmark on): {:.2f} "
+        "frames/s ({:.3f} ms a frame); halves {}; GFLOP a frame "
+        "(torch.utils.flop_counter) {}: {:.2f} TFLOP/s at that rate".format(
+            label, b, DD3D_ITERS, rate, 1e3 / rate,
+            [round(r, 2) for r in rates],
+            {k: round(v, 2) for k, v in flops.items()},
+            flops["total"] * rate / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    dd3d_stages(model, batch)
+
+
+def dd3d_tiny():
+    """The parity tests' tiny DD3D (tests/test_torch_dd3d.py: ResNet-18 at
+    base 8 to C3-C5, FPN to 16, a one-conv tower, two classes, 16
+    detections a level), seeded weights, the class head's scaled by
+    TINY_CLS_GAIN (scores spread apart, so that the top-k order does not
+    hang on rounding); on the CPU, in eval mode, every top-k kept."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import ResNet
+    from paddle3d_tpu_torch.models.detection import DD3D
+    from paddle3d_tpu_torch.models.necks import FPN
+    gen = torch.Generator().manual_seed(SEED)
+    model = DD3D(ResNet(depth=18, base_channels=8, out_indices=(1, 2, 3),
+                       generator=gen),
+                FPN(in_channels=[16, 32, 64], out_channels=16,
+                    generator=gen),
+                num_classes=2, in_channels=16, feat_channels=16,
+                num_convs=1, strides=(8, 16, 32),
+                size_ranges=((0, 32), (32, 64), (64, 1e8)),
+                depth_ref=(15., 8.),
+                dim_ref=((3.88, 1.63, 1.53), (0.8, 1.7, 0.7)),
+                max_detection=16, score_threshold=0.0, generator=gen)
+    with torch.no_grad():
+        model.cls_head.weight.mul_(TINY_CLS_GAIN)
+    return model.eval()
+
+
+def phase_dd3d_tiny():
+    """The tiny DD3D's test_forward on the card against the CPU (no
+    launch: DD3D reaches no hand-written kernel)."""
+    _, launches = tiny_card_vs_cpu(
+        "DD3D", dd3d_tiny(), [dd3d_serve_batch("cpu", 2, hw=(64, 96))],
+        DD3D_TINY_TOL, None)
+    check(not launches, "the tiny DD3D launched {}".format(launches))
+
+
+def dd3d_serve(device, path, label):
+    """One config at full width, seeded random weights (the class head's
+    scaled by DD3D_CLS_GAIN), eval: test_forward at batch 1 and
+    DD3D_BATCH, a full top-k a level, finite outputs, no launch counter
+    moving. -> the model."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build
+    model = Config(path=path, device=device).model.eval()
+    with torch.no_grad():
+        model.cls_head.weight.mul_(DD3D_CLS_GAIN)
+    levels = len(model.strides)
+    for b in (1, DD3D_BATCH):
+        with torch.no_grad():
+            _build.reset_launches()
+            out = model.test_forward(dd3d_serve_batch(device, b))
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        k = out["scores"].shape[1]
+        kept = check_dd3d_outputs(out, b, k)
+        log("  {} batch {}: {} levels, {} detections a frame; kept (score "
+            ">= {}) {}; top scores {}; launches {}".format(
+                label, b, levels, k, model.score_threshold, kept,
+                [round(v, 4) for v in out["scores"][:, 0].tolist()],
+                launches))
+        check(k == levels * model.max_detection, "not a full top-k a level")
+        check(not launches, "DD3D launched {}".format(launches))
+    return model
+
+
+def phase_dd3d(device):
+    """DD3D on both KITTI configs at full width (DLABase34 with batch-stat
+    BN at strides 8 / 16 / 32, or VoVNet-99-eSE's stage4 / stage5 with an
+    extra conv at strides 16 / 32 / 64; FPN to 256; four GroupNorm convs a
+    tower; 3 classes, 100 detections a level; seeded random weights, f32,
+    TF32 off) at 384 x 1280 under smoke_intrinsics: serving at batch 1 and
+    8 (no launch), frames/s, GFLOP, memory, profiles, stages; the tiny
+    model card vs CPU; training the DLA-34 config at batch 8 (its SGD,
+    clip 10, OneCycle; dd3d_gt's projected boxes): 10 falling losses,
+    train frames/s, memory, profile."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    log("phase 23: DD3D at {} x {} (KITTI), no hand-written kernel".format(
+        *SMOKE_HW))
+    models = {label: dd3d_serve(device, path, label)
+              for label, path in (("DD3D DLA-34", DD3D_DLA),
+                                  ("DD3D V-99", DD3D_V99))}
+    phase_dd3d_tiny()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for label, model in models.items():
+        for b in (1, DD3D_BATCH):
+            dd3d_timing(model, dd3d_serve_batch(device, b), label)
+    del models
+
+    cfg = Config(path=DD3D_DLA, device=device)
+    model = cfg.model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = dd3d_train_batch(device, cfg.dic, DD3D_BATCH)
+    losses = step(model, cfg.optimizer, batch)
+    log("  training DD3D DLA-34 at batch {} ({}, clip {}, {}; {} objects "
+        "an image, 2 padded slots): first step losses {}".format(
+            DD3D_BATCH, cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"], DD3D_OBJECTS,
+            {k: round(v.item(), 5) for k, v in losses.items()}))
+    check(all(bool(torch.isfinite(v)) for v in losses.values()) and
+          losses["loss_3d"] > 0, "DD3D: non-finite losses or no foreground")
+    falling_losses(step, model, cfg.optimizer, batch)
+    train_rate(step, model, cfg.optimizer, {"img": batch["data"], **batch},
+               DD3D_TRAIN_ITERS, "DD3D DLA-34")
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -7167,6 +8016,10 @@ def main():
         # entries of their own
         phase_cape(device)
         rtebev = phase_rtebev(device)
+        # K2, K7 and both K5 at BEVFusion's calls, entries of their own
+        bevfusion = phase_bevfusion(device)
+        # DD3D reaches no hand-written kernel
+        phase_dd3d(device)
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback
@@ -7181,7 +8034,7 @@ def main():
          "bound_ms": extra[name][1], "bound_by": extra[name][2],
          "library_ms": extra[name][0]}
         for name, (src, tpu, _) in KERNELS.items()] + caddn + bevdet +
-        rtebev}
+        rtebev + bevfusion}
     log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 from .custom_resnet import CustomResNet
-from .dla import DLA, DLA34
+from .dla import DLA, DLA34, DLABase34
 from .hrnet import HRNet, HRNet_W18
 from .resnet import ResNet
 from .second_backbone import BaseBEVBackbone, SecondBackbone

@@ -1,6 +1,7 @@
 """DLA backbone with DLAUp / IDAUp aggregation, torch port of
 paddle3d_tpu/models/backbones/dla.py (BasicBlock, Root, Tree, DLABase,
-_UpConv, IDAUp, DLAUp, DLA, DLA34).
+_UpConv, IDAUp, DLAUp, DLA, DLA34, and DD3D's multi-scale trunk
+DLABase34).
 
 NCHW on cuDNN, with the JAX package's module tree and its conventions:
   * GroupNorm with min(32, c) groups and flax's eps 1e-6 (torch's default is
@@ -14,10 +15,14 @@ NCHW on cuDNN, with the JAX package's module tree and its conventions:
     (utils/convert.py flips it), initialised, as on the JAX side, to a
     depthwise bilinear upsampler, so that seeded random weights upsample
     smoothly.
+  * the "bn" norm is flax's nnx.BatchNorm(eps 1e-5, momentum 0.9): torch
+    momentum 0.1 with flax's biased running variance (layer_libs
+    .BatchNorm2d); batch statistics in train mode, the running averages in
+    eval mode, as the JAX package's model.eval() (use_running_average)
+    gives them. DLABase34 reads "frozen_bn" as "bn", as the JAX package
+    does.
 Other weights are uniform(±1/sqrt(fan_in)) from an explicit
-torch.Generator (default seed 0). Only the GroupNorm ("gn") norm is ported:
-the JAX package's "bn" is batch-statistics BN even at eval and arrives with
-DD3D (DLABase34).
+torch.Generator (default seed 0).
 """
 import math
 from typing import Sequence
@@ -28,20 +33,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...apis import manager
-from ..layers.layer_libs import default_generator, uniform_init
+from ..layers.layer_libs import BatchNorm2d, default_generator, uniform_init
 
-__all__ = ["DLA", "DLA34"]
+__all__ = ["DLA", "DLA34", "DLABase34"]
 
 GN_EPS = 1e-6       # flax nnx.GroupNorm's epsilon
+BN_EPS = 1e-5       # the "bn" norm: nnx.BatchNorm(epsilon=1e-5,
+BN_MOMENTUM = 0.1   # momentum=0.9), torch's momentum 1 - 0.9
 
 
 def _norm(c, norm_type):
-    if norm_type != "gn":
-        raise NotImplementedError(
-            "DLA norm_type {!r}: the port has the GroupNorm ('gn') DLA of "
-            "SMOKE; batch-statistics BN arrives with DD3D (ROADMAP.md, "
-            "queue 1, item 9)".format(norm_type))
-    return nn.GroupNorm(min(32, c), c, eps=GN_EPS)
+    if norm_type == "gn":
+        return nn.GroupNorm(min(32, c), c, eps=GN_EPS)
+    if norm_type == "bn":
+        return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+    raise ValueError("DLA norm_type {!r}: 'gn' or 'bn'".format(norm_type))
 
 
 def _conv(cin, cout, k, stride=1, dilation=1, *, generator=None):
@@ -317,3 +323,30 @@ class DLA(nn.Module):
 def DLA34(**kwargs):
     return DLA(levels=(1, 1, 1, 2, 2, 1),
                channels=(16, 32, 64, 128, 256, 512), **kwargs)
+
+
+@manager.BACKBONES.add_component
+class DLABase34(nn.Module):
+    """DD3D's multi-scale DLA-34 trunk: DLABase's levels at out_features
+    (3, 4, 5: strides 8, 16, 32, channels 128, 256, 512) for an FPN. NCHW
+    images in, a list of NCHW maps out."""
+
+    _CHANNELS = (16, 32, 64, 128, 256, 512)
+
+    def __init__(self,
+                 out_features: Sequence[int] = (3, 4, 5),
+                 norm_type: str = "bn",
+                 pretrained: str = None,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.pretrained = pretrained      # unread, as in the JAX package
+        if norm_type == "frozen_bn":      # read as plain BN, as there
+            norm_type = "bn"
+        self.out_features = list(out_features)
+        self.base = DLABase([1, 1, 1, 2, 2, 1], list(self._CHANNELS),
+                            norm_type, generator=default_generator(generator))
+        self.out_channels = [self._CHANNELS[i] for i in self.out_features]
+
+    def forward(self, x):
+        y = self.base(x)
+        return [y[i] for i in self.out_features]

@@ -171,11 +171,12 @@ class DeconvBNReLU(nn.Module):
 
 class LinearBN1DReLU(nn.Module):
     """Linear (no bias) -> BatchNorm over the last axis -> ReLU, on
-    [..., in_features] with any leading dimensions. The fused pillar path
-    calls it only to train a PFN of two or more layers; otherwise it runs
-    the layer inside its kernels (ops/pillar_ops.py: the BN folded from
-    running stats in eval, from batch stats in one-layer train) and reads
-    the parameters only."""
+    [..., in_features] with any leading dimensions (train-mode statistics
+    over all of them). The buffer PillarFeatureNet calls it on [B, V, P,
+    C]; the fused pillar path calls it only to train a PFN of two or more
+    layers, and otherwise runs the layer inside its kernels
+    (ops/pillar_ops.py: the BN folded from running stats in eval, from
+    batch stats in one-layer train) and reads the parameters only."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator = None, eps: float = 1e-3,

@@ -1,13 +1,17 @@
 """FPN necks for camera models, torch port of
-paddle3d_tpu/models/necks/fpn.py (FPN, CPFPN; FPNC and the P6 / P7 top
-blocks arrive with BEVFusion and DD3D).
+paddle3d_tpu/models/necks/fpn.py (FPN, CPFPN, FPNC, and the P6 / P7 top
+blocks LastLevelP6 and LastLevelP6P7).
 
 NCHW. The top-down path upsamples with jax.image.resize's "nearest", which
 samples the source at floor((i + 0.5) * in / out): torch's
 "nearest-exact" ("nearest" takes floor(i * in / out), another cell at odd
 sizes). The convs pad (k - 1) // 2 a side, as the JAX package gives it
 explicitly, with uniform(±1/sqrt(fan_in)) weights and biases from an
-explicit torch.Generator (default seed 0).
+explicit torch.Generator (default seed 0). FPNC upsamples its coarser
+levels with jax.image.resize's "bilinear", which upsampling is torch's
+align_corners=False. The top blocks' stride-2 convs are nnx.Conv's
+defaults: flax SAME padding ((0, 1) over an even size), lecun-normal
+kernels, zero biases.
 """
 from typing import Sequence
 
@@ -16,10 +20,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...apis import manager
-from ..layers.layer_libs import (default_generator, uniform_bias_init,
-                                 uniform_init)
+from ..layers.layer_libs import (default_generator, lecun_normal_,
+                                 same_pads, uniform_bias_init, uniform_init)
 
-__all__ = ["FPN", "CPFPN"]
+__all__ = ["FPN", "CPFPN", "FPNC", "LastLevelP6", "LastLevelP6P7"]
 
 
 def _conv(cin, cout, k, stride=1, *, generator):
@@ -116,3 +120,79 @@ class CPFPN(FPN):
     def forward(self, inputs):
         laterals = self._laterals(inputs)
         return (self.fpn_convs[0](laterals[0]),) + tuple(laterals[1:])
+
+
+@manager.NECKS.add_component
+class FPNC(FPN):
+    """BEVFusion's camera neck: FPN's levels, the coarser ones upsampled
+    bilinearly to the finest, concatenated and fused by a 3 x 3 conv into
+    one map: a 1-tuple of NCHW [B, fuse_channels, H, W]."""
+
+    def __init__(self, in_channels, out_channels=256, num_outs=None,
+                 final_dim=None, fuse_channels=None,
+                 generator: torch.Generator = None):
+        generator = default_generator(generator)
+        super().__init__(in_channels, out_channels, num_outs,
+                         generator=generator)
+        fuse_channels = fuse_channels or out_channels
+        self.fuse = _conv(out_channels * len(in_channels), fuse_channels, 3,
+                          generator=generator)
+        self.out_channels = fuse_channels
+
+    def forward(self, inputs):
+        outs = super().forward(inputs)
+        ups = [outs[0]] + [F.interpolate(o, size=outs[0].shape[-2:],
+                                         mode="bilinear", align_corners=False)
+                           for o in outs[1:]]
+        return (self.fuse(torch.cat(ups, dim=1)),)
+
+
+class _SameConv(nn.Conv2d):
+    """A conv with flax SAME padding (padded in forward)."""
+
+    def forward(self, x):
+        ph = same_pads(x.shape[2], 3, 2)
+        pw = same_pads(x.shape[3], 3, 2)
+        return super().forward(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+
+
+def _same_conv(cin, cout, generator):
+    """nnx.Conv(kernel 3, stride 2, "SAME") with its default init:
+    lecun-normal kernel, zero bias."""
+    conv = nn.utils.skip_init(_SameConv, cin, cout, 3, 2, padding=0)
+    lecun_normal_(conv.weight, generator)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+@manager.NECKS.add_component
+class LastLevelP6(nn.Module):
+    """FPN top block: P6 from P5 (or from the last input when in_feature
+    names a "res" level) by one stride-2 conv."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 in_feature: str = "p5", generator: torch.Generator = None):
+        super().__init__()
+        self.in_feature = in_feature
+        self.p6 = _same_conv(in_channels, out_channels,
+                             default_generator(generator))
+
+    def forward(self, x):
+        return [self.p6(x)]
+
+
+@manager.NECKS.add_component
+class LastLevelP6P7(nn.Module):
+    """FPN top block: P6 and P7, stride-2 convs with a ReLU between."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 in_feature: str = "p5", generator: torch.Generator = None):
+        super().__init__()
+        generator = default_generator(generator)
+        self.in_feature = in_feature
+        self.p6 = _same_conv(in_channels, out_channels, generator)
+        self.p7 = _same_conv(out_channels, out_channels, generator)
+
+    def forward(self, x):
+        p6 = self.p6(x)
+        return [p6, self.p7(torch.relu(p6))]

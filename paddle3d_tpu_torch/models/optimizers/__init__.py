@@ -1,4 +1,4 @@
-from .optimizers import (Adam, AdamW, ClipGradByGlobalNorm, CosineDecay,
-                         OneCycleAdam,
+from .optimizers import (SGD, Adam, AdamW, AdamWOnecycle, ClipGradByGlobalNorm,
+                         CosineDecay, OneCycle, OneCycleAdam,
                          OneCycleDecayWarmupMomentum, OneCycleWarmupDecayLr,
                          PiecewiseDecay, StepDecay)

@@ -1,6 +1,6 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
-AdamW, OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle,
+AdamW, SGD, OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle,
 StepDecay, PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle, CosineDecay).
 
 The JAX package builds optax transformations; torch builds an optimizer
@@ -19,7 +19,7 @@ import torch
 
 from ...apis import manager
 
-__all__ = ["ClipGradByGlobalNorm", "Adam", "AdamW", "OneCycleAdam",
+__all__ = ["ClipGradByGlobalNorm", "Adam", "AdamW", "SGD", "OneCycleAdam",
            "AdamWOnecycle", "OneCycleDecayWarmupMomentum", "StepDecay",
            "PiecewiseDecay", "OneCycleWarmupDecayLr", "OneCycle",
            "CosineDecay"]
@@ -276,6 +276,20 @@ def AdamW(learning_rate=1e-3, weight_decay: float = 0.01, beta1: float = 0.9,
         return _clipped(torch.optim.AdamW(
             params, lr=lr, betas=(beta1, beta2), eps=epsilon,
             weight_decay=weight_decay), clip)
+
+    return build
+
+
+@manager.OPTIMIZERS.add_component
+def SGD(learning_rate=1e-3, grad_clip_norm: float = None):
+    """-> build(params) -> torch.optim.SGD: optax.sgd (no momentum), the
+    clip first, as the JAX package chains them; `learning_rate` a float or
+    a schedule, whose base rate it starts at."""
+    lr = _base_rate(learning_rate)
+    clip = _clip(grad_clip_norm, None)
+
+    def build(params):
+        return _clipped(torch.optim.SGD(params, lr=lr), clip)
 
     return build
 

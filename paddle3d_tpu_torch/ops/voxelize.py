@@ -1,9 +1,11 @@
-"""Point → voxel-grid coordinates, and the fused voxelize + mean.
+"""Point → voxel-grid coordinates, the hard voxelization into a [V, P, C]
+buffer, and the fused voxelize + mean.
 
-Port of paddle3d_tpu/ops/voxelize.py: points_to_voxel_coords, and
-voxel_mean with its batched entry voxel_mean_batch as one function over a
-batch [B, N, C] (the JAX package vmaps the per-sample voxel_mean). Plain
-PyTorch: the JAX package runs these as XLA, not as Pallas kernels.
+Port of paddle3d_tpu/ops/voxelize.py: points_to_voxel_coords,
+hard_voxelize with its batched entry hard_voxelize_batch, and voxel_mean
+with its batched entry voxel_mean_batch, each batched one as one function
+over a batch [B, N, C] (the JAX package vmaps the per-sample functions).
+Plain PyTorch: the JAX package runs these as XLA, not as Pallas kernels.
 """
 from typing import Sequence, Tuple
 
@@ -12,7 +14,8 @@ import torch
 
 from .segmented import blocked_cumsum, seg_prefix_sum_bounded
 
-__all__ = ["points_to_voxel_coords", "voxel_mean_batch"]
+__all__ = ["points_to_voxel_coords", "hard_voxelize_batch",
+           "voxel_mean_batch"]
 
 _EMPTY_KEY = 2**31 - 1
 
@@ -40,6 +43,79 @@ def points_to_voxel_coords(points: torch.Tensor, voxel_size: Sequence[float],
     return coords, in_range & finite
 
 
+def _grid_and_keys(points, voxel_size, point_cloud_range):
+    """-> (coords_xyz [B, N, 3] int32, valid [B, N], the z-major cell key
+    [B, N] int32 with invalid points at the sentinel, (gx, gy, gz),
+    sentinel gx * gy * gz + 1)."""
+    coords_xyz, valid = points_to_voxel_coords(points, voxel_size,
+                                               point_cloud_range)
+    pc = np.asarray(point_cloud_range, np.float32)
+    vs = np.asarray(voxel_size, np.float32)
+    gx, gy, gz = (int(g) for g in np.round((pc[3:6] - pc[0:3]) / vs))
+    sentinel = gx * gy * gz + 1
+    key = (coords_xyz[..., 2] * (gy * gx) + coords_xyz[..., 1] * gx +
+           coords_xyz[..., 0])
+    key = torch.where(valid, key, sentinel).to(torch.int32)
+    return coords_xyz, valid, key, (gx, gy, gz), sentinel
+
+
+def hard_voxelize_batch(points: torch.Tensor, voxel_size: Sequence[float],
+                        point_cloud_range: Sequence[float],
+                        max_points_in_voxel: int, max_voxels: int):
+    """Hard voxelization of a batch into fixed-capacity buffers.
+
+    points [B, N, C] (NaN or out-of-range rows are padding) ->
+    (voxels [B, V, P, C] zero padded, coords [B, V, 3] (z, y, x) int32 with
+    -1 padding, num_points [B, V] int32 (<= P), voxel_mask [B, V] bool),
+    V = min(max_voxels, N), P = max_points_in_voxel.
+
+    The JAX package's semantics: the z-major cell key (invalid points at
+    the sentinel gx * gy * gz + 1), a stable sort by it; the first
+    max_voxels voxels in ascending key order, the first P points of each
+    voxel in input order; the mask is the first min(voxels, V) slots."""
+    b, n, c = points.shape
+    p = max_points_in_voxel
+    v = min(max_voxels, n)
+    dev = points.device
+    coords_xyz, _, key, _, sentinel = _grid_and_keys(
+        points, voxel_size, point_cloud_range)
+    skey, order = torch.sort(key, dim=1, stable=True)
+    svalid = skey < sentinel
+    first = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    head = torch.cat([first, skey[:, 1:] != skey[:, :-1]], dim=1) & svalid
+    voxel_id = torch.cumsum(head.to(torch.int32), dim=1) - 1
+    pos = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+    seg_start = torch.cummax(torch.where(head, pos, -1), dim=1).values
+    rank = pos - seg_start
+    keep = svalid & (voxel_id < v) & (rank < p)
+
+    # every batch row's buffer has a trash slot (v * p) that is sliced away
+    row = torch.arange(b, device=dev)[:, None]
+    flat = torch.where(keep, voxel_id * p + rank, v * p) + row * (v * p + 1)
+    flat = flat.reshape(-1).long()
+    spts = torch.gather(points, 1, order[..., None].expand(-1, -1, c))
+    voxels = points.new_zeros((b * (v * p + 1), c))
+    voxels.index_put_((flat,), spts.reshape(-1, c))
+    filled = torch.zeros(b * (v * p + 1), dtype=torch.bool, device=dev)
+    filled.index_put_((flat,), keep.reshape(-1))
+    voxels = voxels.view(b, v * p + 1, c)[:, :-1].reshape(b, v, p, c)
+    num_points = filled.view(b, v * p + 1)[:, :-1].reshape(b, v, p).sum(
+        dim=-1, dtype=torch.int32)
+
+    # (z, y, x) at each kept voxel's head
+    szyx = torch.gather(coords_xyz, 1, order[..., None].expand(-1, -1, 3))
+    szyx = szyx.flip(-1).to(torch.int32)
+    slot = torch.where(head & (voxel_id < v), voxel_id, v) + row * (v + 1)
+    coords = torch.full((b * (v + 1), 3), -1, dtype=torch.int32, device=dev)
+    coords.index_put_((slot.reshape(-1).long(),), szyx.reshape(-1, 3))
+    coords = coords.view(b, v + 1, 3)[:, :-1]
+
+    n_vox = head.sum(dim=1, keepdim=True)
+    voxel_mask = torch.arange(v, device=dev)[None] < torch.clamp(n_vox,
+                                                                max=v)
+    return voxels, coords, num_points, voxel_mask
+
+
 def voxel_mean_batch(points: torch.Tensor, voxel_size: Sequence[float],
                      point_cloud_range: Sequence[float],
                      max_points_in_voxel: int, max_voxels: int,
@@ -63,16 +139,8 @@ def voxel_mean_batch(points: torch.Tensor, voxel_size: Sequence[float],
     p = max_points_in_voxel
     max_voxels = min(max_voxels, n)
     dev = points.device
-    coords_xyz, valid = points_to_voxel_coords(points, voxel_size,
-                                               point_cloud_range)
-    pc = np.asarray(point_cloud_range, np.float32)
-    vs = np.asarray(voxel_size, np.float32)
-    gx, gy, gz = (int(g) for g in np.round((pc[3:6] - pc[0:3]) / vs))
-    sentinel = gx * gy * gz + 1
-
-    key = (coords_xyz[..., 2] * (gy * gx) + coords_xyz[..., 1] * gx +
-           coords_xyz[..., 0])
-    key = torch.where(valid, key, sentinel).to(torch.int32)
+    _, _, key, (gx, gy, _), sentinel = _grid_and_keys(
+        points, voxel_size, point_cloud_range)
     skey, perm = torch.sort(key, dim=1, stable=True)
     svals = torch.gather(points[..., :cm].to(torch.float32), 1,
                          perm[..., None].expand(-1, -1, cm))

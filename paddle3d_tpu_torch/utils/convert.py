@@ -3,7 +3,11 @@
 The caller flattens the nnx state (nnx.Param and nnx.BatchStat) to dotted
 paths and numpy arrays; this module imports no JAX, so it also runs where
 only torch is installed. The port mirrors the JAX module tree, so a path
-names the same submodule on both sides.
+names the same submodule on both sides. The rules below are by module
+type, so a new module whose layers are of these types needs none of its
+own: BEVFusion's PFN, SE gate and fusion conv, DD3D's BatchNorm DLA
+(scale, bias and running stats), GroupNorm towers, heads, top-block convs
+and its bare `depth_scales` parameter all go through them.
 """
 from typing import Dict
 

@@ -2366,3 +2366,92 @@ def test_rtebev_pool_runs_k7_and_k5_at_full_width(cuda, monkeypatch):
     torch.testing.assert_close(
         got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
     assert torch.isfinite(depth.grad).all() and torch.isfinite(feat.grad).all()
+
+
+def _voxel_case(case, cuda):
+    """Points for the hard voxelizer: BEVFusion's nuScenes scans
+    (make_cp_points, 2 x 250,000 points of 5 channels, pillars of 0.25 m
+    onto 400 x 400 cells, 64 points a pillar, the eval cap 40,000), or a
+    small overflowing lattice with NaN rows and points on cell faces."""
+    import chip_smoke
+    if case == "bevfusion":
+        return (chip_smoke.make_cp_points(cuda, batch=2), (0.25, 0.25, 8.0),
+                (-50., -50., -5., 50., 50., 3.), 64, 40000)
+    rng = np.random.default_rng(31)
+    lattice = np.stack(np.meshgrid(*(np.arange(0, 2.01, 0.25),) * 3,
+                                   indexing="ij"), -1).reshape(-1, 3)
+    pts = np.concatenate([np.tile(lattice, (3, 1)),
+                          rng.uniform(-0.5, 2.5, (700, 3))])
+    pts = np.concatenate([pts, rng.uniform(0, 1, (len(pts), 1))], -1)
+    pts = rng.permutation(pts)[None].repeat(2, 0)
+    pts[1, ::9] = np.nan
+    return (torch.from_numpy(pts.astype(np.float32)).to(cuda),
+            (0.5, 0.5, 0.5), (0., 0., 0., 2., 2., 2.), 3, 40)
+
+
+@pytest.mark.parametrize("case", ["lattice", "bevfusion"])
+def test_hard_voxelize_on_card_matches_cpu(cuda, case):
+    """ops/voxelize.hard_voxelize_batch on the card (its sort, cumulative
+    max and index writes) equal to the CPU's, output for output."""
+    from paddle3d_tpu_torch.ops.voxelize import hard_voxelize_batch
+    pts, vs, pc, p, v = _voxel_case(case, cuda)
+    got = hard_voxelize_batch(pts, vs, pc, p, v)
+    ref = hard_voxelize_batch(pts.cpu(), vs, pc, p, v)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    mask, num = ref[3], ref[2]
+    assert mask.any() and (num[mask] > 0).all()
+    if case == "bevfusion":
+        assert (num == p).any() and bool(mask.all())
+
+
+def test_bevfusion_pillar_canvas_runs_k2_and_k5_at_full_width(cuda,
+                                                              monkeypatch):
+    """The L+C config's lidar stream at full width on the card, from the
+    hard voxelizer (train cap 30,000) through the buffer PFN to
+    PointPillarsScatter: the forward launches K2 (sparse by the density
+    rule: 30,000 pillars onto 400 x 400 cells), bit-equal to the row-order
+    sum; the backward launches K5, bit-equal to its plain version; the PFN
+    on the card within 1e-5 of the CPU's in eval mode."""
+    import chip_smoke
+    from paddle3d_tpu_torch.apis import Config
+    model = Config(path=chip_smoke.BEVF, device="cpu").model
+    vox, pfn, mid = (model.lidar_voxelizer, model.lidar_voxel_encoder,
+                     model.lidar_middle_encoder)
+    points = chip_smoke.make_cp_points(cuda, batch=2)
+    voxels, coords, num, mask = vox(points, True)
+    pfn.eval()
+    ref = pfn(voxels.cpu(), num.cpu(), coords.cpu())
+    pfn.to(cuda)
+    feats = pfn(voxels, num, coords)
+    torch.testing.assert_close(feats.cpu(), ref, rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    seen = {}
+    fwd, bwd = sorted_scatter.scatter_rows, sorted_scatter.sorted_table_gather
+
+    def rec_fwd(*args):
+        seen["fwd"] = (args, fwd(*args))
+        return seen["fwd"][1]
+
+    def rec_bwd(*args):
+        seen["bwd"] = (args, bwd(*args))
+        return seen["bwd"][1]
+    monkeypatch.setattr(sorted_scatter, "scatter_rows", rec_fwd)
+    monkeypatch.setattr(sorted_scatter, "sorted_table_gather", rec_bwd)
+    rows = (feats.detach() * mask[..., None]).requires_grad_()
+    before = dict(_build.LAUNCHES)
+    canvas = mid(rows, coords, mask)
+    canvas.permute(0, 3, 1, 2).contiguous().backward(
+        torch.randn((2, 64, 400, 400), device=cuda))
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before
+            if _build.LAUNCHES[k] != before[k]} == {
+                "sorted_segment_sum": 1, "sorted_table_gather": 1}
+    (keys, krows, n_cells, _), got = seen["fwd"]
+    assert n_cells == 400 * 400 and keys.shape == (2, 30000)
+    torch.testing.assert_close(got, _row_order_sum(keys, krows, n_cells),
+                               rtol=0, atol=0)
+    args, got = seen["bwd"]
+    torch.testing.assert_close(
+        got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
+    assert torch.isfinite(rows.grad).all()

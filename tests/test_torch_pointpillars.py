@@ -150,8 +150,9 @@ def test_entry_points(models):
 def test_port_imports_no_jax():
     """The port imports torch and never jax, flax or paddle3d_tpu: import
     it, its sparse-voxel modules, the weight converter and the camera host
-    layer (Sample, Gt2SmokeTarget), and build the tiny model, the
-    CenterPoint-voxels model and the tiny SMOKE in a fresh interpreter."""
+    layer (Sample, Gt2SmokeTarget), the BEVFusion and DD3D modules, and
+    build the tiny model, the CenterPoint-voxels model and the tiny SMOKE
+    in a fresh interpreter."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
                           "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
     smoke = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
@@ -164,6 +165,8 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.utils.convert\n"
         "import paddle3d_tpu_torch.sample\n"
         "import paddle3d_tpu_torch.transforms.target_generator\n"
+        "import paddle3d_tpu_torch.models.detection.bevfusion\n"
+        "import paddle3d_tpu_torch.models.detection.dd3d\n"
         "m = Config(path=sys.argv[1], device='cpu').model\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"
         "s = Config(path=sys.argv[3], device='cpu').model\n"
