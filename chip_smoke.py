@@ -43,7 +43,11 @@ full width, seeded random weights), serving 1 and 2 frames of six 512 x
 random weights), serving 1 and 2 frames of a 250,000-point nuScenes scan
 and six 448 x 800 images and training on 2, and DD3D
 (configs/dd3d/dd3d_{dla34,v2_99}_kitti.yml, full width, seeded random
-weights), serving 1 and 8 images of 384 x 1280 and training on 8, in
+weights), serving 1 and 8 images of 384 x 1280 and training on 8, and
+SqueezeSegV3 (configs/squeezesegv3/*_semantickitti.yml, RangeNet-21 and
+-53), PAConv (configs/paconv/paconv_modelnet40.yml) and BEV-LaneDet
+(configs/bev_lanedet/bev_lanedet_apollo_576x1024.yml), full width, seeded
+random weights, serving and training at their configs' batches, in
 phases; any failing phase exits non-zero, names the phase and prints no
 result (each phase's first line leads with the seconds since the start):
 
@@ -319,11 +323,33 @@ result (each phase's first line leads with the seconds since the start):
      the tiny model card vs CPU; the DLA-34 config training at batch 8 on
      dd3d_gt's projected boxes, 10 falling losses, train frames/s,
      memory, profile.
+ 24. SqueezeSegV3 (phase_squeezeseg): RangeNet-21 and -53 serving at
+     batch 1 and the configs' batch (4, 2) on range_batch's 64 x 2,048
+     images (120,000-point sweeps through the port's range projection and
+     the configs' normalisation; no launch counter moves), frames/s,
+     GFLOP by module, memory, profiles, stages (each SAC block); the tiny
+     config card vs CPU; RangeNet-21 training at batch 4 (SGD, clip 10,
+     LinearWarmup over StepDecay: the first step at rate 0, the 10
+     falling steps past the warm-up), train frames/s, memory, profile;
+     RangeNet-53 training at batch 2.
+ 25. PAConv (phase_paconv): serving at batch 1 and 32 on primitive_clouds
+     of 1,024 points (no launch), assign_score_withk at each layer's call
+     against the JAX order (PACONV_ASSIGN_TOL), both timed; frames/s,
+     GFLOP, memory, profiles, stages; the tiny config card vs CPU;
+     training at batch 32 (SGD, clip 10, CosineDecay), 10 falling losses,
+     train frames/s, memory, profile.
+ 26. BEV-LaneDet (phase_lanedet): serving at batch 1 and 16 on 576 x 1,024
+     uniform-pixel images with the identity bev_grid (no launch),
+     frames/s, GFLOP, memory, profiles, stages (backbone, reduce, warp,
+     BEV convs, heads); a small model card vs CPU; training at batch 16
+     on lane_batch's rasterised lanes (AdamW, clip 35, CosineDecay), 10
+     falling losses, train frames/s, memory, profile.
 
 Since phases 22 and 23 came, the timing loops of phases 4-10, 13 and
-15-17 run fewer iterations (ITERS 10, CP_TRAIN_ITERS and VX_TRAIN_ITERS
-6, SMOKE_ITERS 10, SMOKE_TRAIN_ITERS 6, CADDN_ITERS and PETR_ITERS 6);
-no check changed.
+15-17 run fewer iterations; since phases 24-26 came, fewer again (ITERS
+6, CP_TRAIN_ITERS, TS_TRAIN_ITERS, VX_TRAIN_ITERS and IA_TRAIN_ITERS 4,
+SMOKE_ITERS 6, CADDN_ITERS, CADDN_TRAIN_ITERS, PETR_ITERS and
+PETR_TRAIN_ITERS 4); no check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
@@ -372,7 +398,7 @@ IASSD = os.path.join(REPO, "configs", "iassd", "iassd_kitti.yml")
 SMOKE_KITTI = os.path.join(REPO, "configs", "smoke",
                            "smoke_dla34_no_dcn_kitti.yml")
 SMOKE_TINY = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
-BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 10, 10
+BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 6, 10
 TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
 VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
@@ -2557,7 +2583,7 @@ def phase_iassd(device):
     return errs, times, extra, launches
 
 
-CP_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+CP_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
 
 
 def cp_train_setup(device):
@@ -2914,7 +2940,7 @@ def phase_cp_tiny_train(tmp):
 
 
 TS_TRAIN_BATCH = 2      # the KITTI two-stage configs' batch_size
-TS_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+TS_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
 PV_TRAIN_STEPS = 3
 # The RPN head starts from the upstream AnchorHeadSingle's init (box weights
 # N(0, RPN_BOX_STD), the class bias at the prior RPN_PRIOR) instead of the
@@ -3654,7 +3680,7 @@ def phase_ops(device):
     return errs, times, extra, launches
 
 
-VX_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+VX_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
 def vx_train_setup(device):
     """The nuScenes voxel config in train mode (seeded random weights), its
     OneCycleAdam (clip 35) and OneCycleWarmupDecayLr inherited from the
@@ -3764,7 +3790,7 @@ def phase_vx_train(device):
 
 
 IA_TRAIN_BATCH = 8      # configs/iassd/iassd_kitti.yml's batch_size
-IA_TRAIN_ITERS = 6      # train steps timed per path (halves of 3)
+IA_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
 
 
 def ia_train_setup(device):
@@ -3856,7 +3882,7 @@ def phase_ia_train(device):
 SMOKE_HW = (384, 1280)
 SMOKE_FOCAL = 721.5
 SMOKE_BATCH = 8
-SMOKE_ITERS = 10        # timed forwards per path and batch (halves of 5)
+SMOKE_ITERS = 6         # timed forwards per path and batch (halves of 3)
 SMOKE_TRAIN_ITERS = 6   # timed train steps (halves of 3)
 SMOKE_OBJECTS = 8       # synthetic objects an image
 # the tiny config's class head gets this contrast before the card-vs-CPU
@@ -4212,8 +4238,8 @@ CADDN_KITTI = os.path.join(REPO, "configs", "caddn",
 CADDN_TINY = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
 CADDN_HW = (384, 1248)
 CADDN_BATCH = 4
-CADDN_ITERS = 6         # timed forwards per path and batch (halves of 3)
-CADDN_TRAIN_ITERS = 6   # timed train steps per path (halves of 3)
+CADDN_ITERS = 4         # timed forwards per path and batch (halves of 2)
+CADDN_TRAIN_ITERS = 4   # timed train steps per path (halves of 2)
 CADDN_OBJECTS = 8       # synthetic boxes an image
 KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
 # the tiny config (64 x 96 images) sees its 16 x 16 m grid through a camera
@@ -4717,8 +4743,8 @@ PETR_TINY = os.path.join(REPO, "configs", "petr", "petr_synthetic_tiny.yml")
 PETR_HW = (320, 800)
 PETR_CAMS = 6
 PETR_BATCH = 2          # the configs' batch_size; bench.py serves batch 1
-PETR_ITERS = 6          # timed forwards per batch (halves of 3)
-PETR_TRAIN_ITERS = 6    # timed train steps (halves of 3)
+PETR_ITERS = 4          # timed forwards per batch (halves of 2)
+PETR_TRAIN_ITERS = 4    # timed train steps (halves of 2)
 PETR_OBJECTS = 8        # gt boxes a frame, then two padded slots
 PETR_EGO = 0.5          # m the ego moved between PETRv2's two frames
 # the tiny config's class branch gets this contrast before the card-vs-CPU
@@ -5408,11 +5434,13 @@ def bevformer_tiny():
     return model.eval()
 
 
-def tiny_card_vs_cpu(label, model, frames, tol, carry):
+def tiny_card_vs_cpu(label, model, frames, tol, carry,
+                     labels="label_preds"):
     """frames (CPU batches, each later one taking carry(the one before's
     outputs) as prev_bev) through model on the CPU, then on the card:
-    labels equal, every key of tol within tol of its largest value (the
-    last frame's). -> (errors, the card's launches over the frames)."""
+    the output `labels` equal (none compared when None), every key of tol
+    within tol of its largest value (the last frame's). -> (errors, the
+    card's launches over the frames)."""
     import torch
 
     from paddle3d_tpu_torch.ops import _build
@@ -5433,14 +5461,15 @@ def tiny_card_vs_cpu(label, model, frames, tol, carry):
         torch.cuda.synchronize()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         model.cpu()
-    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
+    check(labels is None or torch.equal(got[labels].cpu(), ref[labels]),
           "tiny {} labels differ between the card and the CPU".format(label))
     errs = {k: ((got[k].cpu() - ref[k]).abs().max() /
                 ref[k].abs().max()).item() for k in tol}
-    log("  tiny {}, {} frames, card vs CPU: labels equal; relative errors "
+    log("  tiny {}, {} frames, card vs CPU: {}relative errors "
         "{} (tolerances {}); card launches over the frames {}".format(
-            label, len(frames), {k: "{:.3e}".format(v)
-                                 for k, v in errs.items()}, tol, launches))
+            label, len(frames), "labels equal; " if labels else "",
+            {k: "{:.3e}".format(v) for k, v in errs.items()}, tol,
+            launches))
     check(all(errs[k] <= t for k, t in tol.items()),
           "tiny {} outputs differ between the card and the CPU".format(label))
     return errs, launches
@@ -7745,6 +7774,628 @@ def phase_dd3d(device):
                DD3D_TRAIN_ITERS, "DD3D DLA-34")
 
 
+# Phases 24-26: SqueezeSegV3 (range-image segmentation), PAConv (point-cloud
+# classification) and BEV-LaneDet (BEV lane detection), the last model
+# families of configs/ outside rendering and quant. None reaches a
+# hand-written kernel: convs, unfolds, resizes, gathers, einsums and the
+# knn's stable sort run as torch ops.
+SSG21 = os.path.join(REPO, "configs", "squeezesegv3",
+                     "squeezesegv3_rangenet21_semantickitti.yml")
+SSG53 = os.path.join(REPO, "configs", "squeezesegv3",
+                     "squeezesegv3_rangenet53_semantickitti.yml")
+SSG_TINY = os.path.join(REPO, "configs", "squeezesegv3",
+                        "squeezesegv3_synthetic_tiny.yml")
+SSG_HW = (64, 2048)         # the configs' proj_H x proj_W
+SSG_POINTS = 120000         # the returns of an HDL-64 sweep
+SSG_CLASSES = 20            # the train ids (0 ignored by the metric)
+SSG_ITERS = 4               # timed forwards per batch (halves of 2)
+SSG_TRAIN_ITERS = 4         # timed train steps (halves of 2)
+# LinearWarmup holds the configs' rate at 0 and ramps it over 1,000
+# updates: the ten-step smoke starts past it
+SSG_WARM = 1000
+# the tiny model on the card against the CPU, relative to the largest
+# logit: cuDNN's and the CPU's convolutions sum in other orders
+SSG_TINY_TOL = {"logits": 1e-5}
+PACONV = os.path.join(REPO, "configs", "paconv", "paconv_modelnet40.yml")
+PACONV_TINY = os.path.join(REPO, "configs", "paconv",
+                           "paconv_synthetic_tiny.yml")
+PACONV_POINTS = 1024        # the config's num_points
+PACONV_ITERS = 4
+PACONV_TRAIN_ITERS = 4
+# assign_score_withk in the transformed order against the JAX order
+# (assign_score_withk_plain) on the card, relative to the largest value:
+# the same sums of Cin x M products in another order (f32, TF32 off)
+PACONV_ASSIGN_TOL = 1e-5
+PACONV_TINY_TOL = {"logits": 1e-5}
+LANEDET = os.path.join(REPO, "configs", "bev_lanedet",
+                       "bev_lanedet_apollo_576x1024.yml")
+LANE_HW = (576, 1024)       # the config's image_size
+LANE_RANGE = ((3.0, 103.0), (-10.0, 10.0))   # ApolloLaneDataset's x, y
+LANE_ITERS = 4
+LANE_TRAIN_ITERS = 4
+LANE_TINY_TOL = {"lane_conf": 1e-5, "lane_offset": 1e-5,
+                 "lane_height": 1e-5, "lane_embed": 1e-5}
+
+
+def launched():
+    """The launch counters that moved since the last reset."""
+    from paddle3d_tpu_torch.ops import _build
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+def no_launches(fn):
+    """fn() with the launch counters set to 0 first -> (its result, the
+    counters that moved)."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import _build
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launched()
+
+
+def forward_stages(model, batch, fns, iters=3):
+    """Host ms of test_forward (ended by a synchronize) and of each (name,
+    obj, attr) call inside it, each call between two synchronizes,
+    averaged over iters after a warm-up: the model's own code, timed where
+    it runs."""
+    import torch
+    with torch.no_grad(), timed_calls(fns) as ms:
+        model.test_forward(batch)
+        torch.cuda.synchronize()
+        for v in ms.values():
+            v.clear()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model.test_forward(batch)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3 / iters
+    parts = {k: sum(v) / iters for k, v in ms.items()}
+    log("  stages a batch (host clock, each call between two synchronizes): "
+        "test_forward {:.3f} ms; {}".format(total, ", ".join(
+            "{} {:.3f} ms".format(k, v) for k, v in parts.items())))
+    return total, parts
+
+
+def serving_timing(model, batch, label, iters, fns, names):
+    """Frames/s (two halves of iters, cudnn.benchmark on), GFLOP a frame by
+    module (names: module_flops'), peak memory, a profile of one forward
+    and the stage times (forward_stages over fns)."""
+    import torch
+    b = batch["data"].shape[0]
+    timed = {"img": batch["data"], **batch}
+    with torch.no_grad():
+        rates = [frames_per_s(model, timed, iters // 2) for _ in range(2)]
+    rate = 2 / sum(1 / r for r in rates)
+    flops = module_flops(model, lambda: model.test_forward(batch), b, names)
+    log("  {} batch {}: {} forwards (two halves, cudnn.benchmark on): {:.2f} "
+        "frames/s ({:.3f} ms a frame); halves {}; GFLOP a frame "
+        "(torch.utils.flop_counter) {}: {:.2f} TFLOP/s at that rate".format(
+            label, b, iters, rate, 1e3 / rate, [round(r, 2) for r in rates],
+            {k: round(v, 3) for k, v in flops.items()},
+            flops["total"] * rate / 1e3))
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        model.test_forward(batch)
+        log("  peak device memory of one forward at batch {}: {:.1f} "
+            "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
+        profile(lambda: model.test_forward(batch))
+    forward_stages(model, batch, fns)
+
+
+def ssg_norm():
+    """The RangeNet configs' NormalizeRangeImage mean and std."""
+    from paddle3d_tpu_torch.apis import Config
+    for t in Config(path=SSG21, device="cpu").dic["train_dataset"][
+            "transforms"]:
+        if t["type"] == "NormalizeRangeImage":
+            return t["mean"], t["std"]
+    raise PhaseError("no NormalizeRangeImage in {}".format(SSG21))
+
+
+def range_scans(rng, b, n=None):
+    """b velodyne-like sweeps [b, n, 4] (x, y, z, remission in [0, 1)):
+    bench.make_scans' clustered scans over the KITTI pillar config's range
+    mirrored behind the sensor, so that they cover the whole circle as a
+    sweep does."""
+    import bench
+    lo, hi = bench.MODELS["pointpillars"][2]
+    return bench.make_scans(rng, b, n or SSG_POINTS,
+                            [-hi[0]] + list(lo[1:]), hi,
+                            "clustered")
+
+
+def range_batch(device, b, seed=SEED, hw=None, points=None):
+    """b range_scans through the port's range projection at hw (the
+    LoadSemanticKITTIRange of the configs) and the configs'
+    NormalizeRangeImage, each point's label drawn from the 20 train ids:
+    {"data" [b, H, W, 5], "proj_mask" [b, H, W] bool, "proj_labels" [b,
+    H, W] int64} on device."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.sample import Sample
+    from paddle3d_tpu_torch.transforms import (NormalizeRangeImage,
+                                               project_range)
+    normalise = NormalizeRangeImage(*ssg_norm())
+    hw = hw or SSG_HW
+    rng = np.random.default_rng(seed)
+    out = {"data": [], "proj_mask": [], "proj_labels": []}
+    for pts in range_scans(rng, b, points):
+        labels = rng.integers(0, SSG_CLASSES, len(pts)).astype(np.int32)
+        proj = project_range(pts[:, :3], pts[:, 3], hw[0], hw[1],
+                             labels=labels)
+        s = Sample(None, "lidar")
+        s.data, s.proj_mask = proj["data"], proj["proj_mask"]
+        out["data"].append(normalise(s).data)
+        out["proj_mask"].append(proj["proj_mask"])
+        out["proj_labels"].append(proj["proj_labels"].astype(np.int64))
+    return {k: torch.from_numpy(np.stack(v)).to(device)
+            for k, v in out.items()}
+
+
+def check_seg_outputs(out, b, hw, classes):
+    """SqueezeSegV3's outputs: shapes, finite logits, labels in range. ->
+    the share of each frame's pixels per predicted class (the top three)."""
+    import torch
+    check(tuple(out["pred_labels"].shape) == (b,) + tuple(hw) and
+          tuple(out["logits"].shape) == (b,) + tuple(hw) + (classes,),
+          "SqueezeSegV3 output shapes {}".format(
+              {k: tuple(v.shape) for k, v in out.items()}))
+    check(bool(torch.isfinite(out["logits"]).all()),
+          "non-finite SqueezeSegV3 logits")
+    labels = out["pred_labels"]
+    check(bool(((labels >= 0) & (labels < classes)).all()),
+          "SqueezeSegV3 labels out of range")
+    share = torch.bincount(labels.flatten(), minlength=classes).float()
+    share = share / labels.numel()
+    top = torch.topk(share, 3)
+    return {int(i): round(v, 4) for v, i in zip(top.values.tolist(),
+                                                top.indices.tolist())}
+
+
+def ssg_fns(model):
+    """The calls forward_stages times inside SqueezeSegV3's test_forward:
+    the backbone whole, its stem and each SAC block, the head."""
+    bb = model.backbone
+    return ([("backbone", bb, "forward"), ("stem", bb.stem, "forward")] +
+            [("SAC block {}".format(i), blk, "forward")
+             for i, blk in enumerate(bb.blocks)] +
+            [("head", model.head, "forward")])
+
+
+def phase_squeezeseg(device):
+    """SqueezeSegV3 on both SemanticKITTI configs at full width (RangeNet-21
+    [32, 64, 128, 256] and RangeNet-53 [64, 128, 256, 512, 1024], 20
+    classes; seeded random weights, f32, TF32 off) on range_batch's 64 x
+    2,048 images: serving at batch 1 and the configs' batch (4, 2) with no
+    launch counter moving, frames/s, GFLOP by module, memory, a profile and
+    the stage times; the tiny config card vs CPU; training RangeNet-21 at
+    batch 4 (the config's SGD, clip 10, LinearWarmup over StepDecay): the
+    first step at the warm-up's rate 0, then, past the warm-up, 10 steps
+    with finite losses that fall, train frames/s, memory, profile;
+    RangeNet-53 at batch 2: train frames/s and memory."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    full = range_batch(device, 4)
+    batches = {b: {k: v[:b] for k, v in full.items()} for b in (1, 2, 4)}
+    filled = full["proj_mask"].float().mean(dim=(1, 2)).tolist()
+    log("phase 24: SqueezeSegV3 (SAC range nets, 20 classes) on {} x {} "
+        "range images of {}-point sweeps: pixels holding a point {}; no "
+        "hand-written kernel".format(*SSG_HW, SSG_POINTS,
+                                     [round(v, 4) for v in filled]))
+    models = {}
+    for label, path in (("RangeNet-21", SSG21), ("RangeNet-53", SSG53)):
+        cfg = Config(path=path, device=device)
+        model = cfg.model.eval()
+        for b in (1, cfg.dic["batch_size"]):
+            with torch.no_grad():
+                out, launches = no_launches(
+                    lambda: model.test_forward(batches[b]))
+            log("  {} batch {}: classes by pixel share {}; launches "
+                "{}".format(label, b, check_seg_outputs(
+                    out, b, SSG_HW, model.num_classes), launches))
+            check(not launches, "SqueezeSegV3 launched {}".format(launches))
+        models[label] = (model, cfg.dic["batch_size"])
+    model = Config(path=SSG_TINY, device="cpu").model.eval()
+    x = torch.randn((2, 16, 64, 5), generator=torch.Generator().manual_seed(
+        SEED))
+    _, launches = tiny_card_vs_cpu("SqueezeSegV3", model, [{"data": x}],
+                                   SSG_TINY_TOL, None, labels="pred_labels")
+    check(not launches, "the tiny SqueezeSegV3 launched {}".format(launches))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for label, (model, bsz) in models.items():
+        for b in (1, bsz):
+            serving_timing(model, batches[b], label, SSG_ITERS,
+                           ssg_fns(model), dict(
+                               [("backbone", "SACRangeNet"),
+                                ("stem", "SACRangeNet.stem")] +
+                               [("SAC block {}".format(i),
+                                 "SACRangeNet.blocks.{}".format(i))
+                                for i in range(len(model.backbone.blocks))] +
+                               [("head", "Sequential")]))
+    del models
+
+    cfg = Config(path=SSG21, device=device)
+    model = cfg.model.train()
+    optimizer, scheduler = cfg.optimizer, cfg.lr_scheduler
+    step = make_train_step(lr_scheduler=scheduler)
+    batch = batches[cfg.dic["batch_size"]]
+    lr0 = optimizer.param_groups[0]["lr"]
+    _build.reset_launches()
+    losses = step(model, optimizer, batch)
+    log("  training RangeNet-21 at batch {} ({}, clip {}, {} over {}): "
+        "first step at rate {} losses {}".format(
+            cfg.dic["batch_size"], cfg.dic["optimizer"]["type"],
+            cfg.dic["optimizer"].get("grad_clip_norm"),
+            cfg.dic["lr_scheduler"]["type"],
+            cfg.dic["lr_scheduler"]["learning_rate"]["type"], lr0,
+            {k: round(v.item(), 5) for k, v in losses.items()}))
+    check(all(bool(torch.isfinite(v)) for v in losses.values()),
+          "SqueezeSegV3: non-finite losses")
+    # the ten steps start past LinearWarmup's ramp (at rate 0 they could
+    # not move the weights): the scheduler read at update SSG_WARM
+    scheduler.last_epoch = SSG_WARM - 1
+    scheduler.step()
+    log("  the {} steps below start at update {}, past the warm-up, at "
+        "rate {}".format(TRAIN_STEPS, SSG_WARM,
+                         optimizer.param_groups[0]["lr"]))
+    falling_losses(step, model, optimizer, batch)
+    train_rate(step, model, optimizer, {"img": batch["data"], **batch},
+               SSG_TRAIN_ITERS, "SqueezeSegV3 RangeNet-21")
+    del model, optimizer, scheduler
+    cfg = Config(path=SSG53, device=device)
+    model = cfg.model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = {k: v[:cfg.dic["batch_size"]] for k, v in batch.items()}
+    train_rate(step, model, cfg.optimizer, {"img": batch["data"], **batch},
+               SSG_TRAIN_ITERS, "SqueezeSegV3 RangeNet-53")
+    check(not launched(), "SqueezeSegV3 training launched {}".format(
+        launched()))
+
+
+def primitive_clouds(rng, b, n=None, classes=40):
+    """b clouds of n points sampled on random primitive surfaces (a class
+    picks the primitive, class % 4: ellipsoid, box, cylinder, cone, and
+    its aspect ratios), randomly rotated, centred and scaled into the unit
+    sphere, as ModelNet40's are. -> (points [b, n, 3] f32, labels [b]
+    int64)."""
+    import numpy as np
+    n = n or PACONV_POINTS
+    labels = rng.integers(0, classes, b)
+    out = np.empty((b, n, 3), np.float32)
+    for i, c in enumerate(labels):
+        aspect = 0.4 + 0.6 * np.array([(c * 7 % 10) / 9, (c * 3 % 10) / 9,
+                                       1.0])
+        u, v = rng.uniform(0, 1, n), rng.uniform(0, 1, n)
+        kind = c % 4
+        if kind == 0:                           # ellipsoid
+            p = rng.normal(size=(n, 3))
+            p /= np.linalg.norm(p, axis=1, keepdims=True)
+        elif kind == 1:                         # box surface
+            p = rng.uniform(-1, 1, (n, 3))
+            face = rng.integers(0, 3, n)
+            p[np.arange(n), face] = np.sign(rng.uniform(-1, 1, n))
+        elif kind == 2:                         # cylinder
+            t = 2 * np.pi * u
+            p = np.stack([np.cos(t), np.sin(t), 2 * v - 1], axis=1)
+        else:                                   # cone
+            t = 2 * np.pi * u
+            r = 1 - v
+            p = np.stack([r * np.cos(t), r * np.sin(t), 2 * v - 1], axis=1)
+        p = p * aspect + rng.normal(0, 0.01, (n, 3))
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        p = p @ q.T
+        p -= p.mean(axis=0)
+        out[i] = p / np.linalg.norm(p, axis=1).max()
+    return out, labels.astype(np.int64)
+
+
+def paconv_batch(device, b, seed=SEED):
+    import numpy as np
+    import torch
+    pts, labels = primitive_clouds(np.random.default_rng(seed), b)
+    return {"data": torch.from_numpy(pts).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def paconv_assign(model, batch):
+    """assign_score_withk at each layer's call of one forward (recorded),
+    against the JAX order (assign_score_withk_plain) on the same inputs:
+    relative error, both timed (CUDA events), their products counted."""
+    import torch
+
+    from paddle3d_tpu_torch.models.classification import paconv
+    calls = []
+    fn = paconv.assign_score_withk
+
+    def rec(*a):
+        calls.append(a)
+        return fn(*a)
+    with torch.no_grad(), mock.patch.object(paconv, "assign_score_withk",
+                                            rec):
+        model.test_forward(batch)
+    check(len(calls) == len(model.weight_banks),
+          "expected one assign_score_withk call a layer")
+    worst = 0.
+    with torch.no_grad():
+        for i, a in enumerate(calls):
+            got = fn(*a)
+            ref = paconv.assign_score_withk_plain(*a)
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            worst = max(worst, err)
+            b, n, k, m = a[0].shape
+            cin, cout = a[4].shape[1:]
+            ms = cuda_ms(lambda: fn(*a), 10)
+            plain_ms = cuda_ms(lambda: paconv.assign_score_withk_plain(*a),
+                               10)
+            del got, ref
+            log("  assign_score_withk, layer {}: B={} N={} K={} M={} {} -> "
+                "{}: transformed {:.4f} ms ({:.3f} GFLOP), JAX order {:.4f} "
+                "ms ({:.3f} GFLOP); relative error {:.3e}".format(
+                    i, b, n, k, m, cin, cout, ms,
+                    2 * b * n * m * cout * (cin + 2 * k) / 1e9, plain_ms,
+                    2 * b * n * k * m * cout * (cin + 1) / 1e9, err))
+    check(worst <= PACONV_ASSIGN_TOL, "assign_score_withk differs from the "
+          "JAX order by {:.3e} (tolerance {})".format(worst,
+                                                      PACONV_ASSIGN_TOL))
+    return worst
+
+
+def paconv_fns(model):
+    from paddle3d_tpu_torch.models.classification import paconv
+    return ([("knn", paconv, "knn_query"),
+             ("assign_score_withk", paconv, "assign_score_withk")] +
+            [("ScoreNet {}".format(i), net, "forward")
+             for i, net in enumerate(model.score_nets)] +
+            [("classifier", model.classifier, "forward")])
+
+
+def phase_paconv(device):
+    """PAConv on paconv_modelnet40.yml at full width (k 20, 8 kernels,
+    channels [64, 64, 128, 256], 40 classes; seeded random weights, f32,
+    TF32 off) on primitive_clouds of 1,024 points: serving at batch 1 and
+    32 (no launch), assign_score_withk held against the JAX order on each
+    layer's call, frames/s, GFLOP, memory, profile, stages; the tiny
+    config card vs CPU; training at batch 32 (the config's SGD, clip 10,
+    CosineDecay): 10 falling losses, train frames/s, memory, profile."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=PACONV, device=device)
+    bsz = cfg.dic["batch_size"]
+    model = cfg.model.eval()
+    log("phase 25: PAConv (k {}, {} kernels, channels {}, {} classes) on "
+        "clouds of {} points; no hand-written kernel".format(
+            model.k, model.weight_banks[0].shape[0],
+            [p.shape[-1] for p in model.weight_banks], model.num_classes,
+            PACONV_POINTS))
+    batches = {b: paconv_batch(device, b) for b in (1, bsz)}
+    for b, batch in batches.items():
+        with torch.no_grad():
+            out, launches = no_launches(lambda: model.test_forward(batch))
+        check(tuple(out["logits"].shape) == (b, model.num_classes) and
+              bool(torch.isfinite(out["logits"]).all()),
+              "PAConv logits {}".format(tuple(out["logits"].shape)))
+        log("  batch {}: predicted classes {}; launches {}".format(
+            b, out["pred"].tolist()[:8], launches))
+        check(not launches, "PAConv launched {}".format(launches))
+    paconv_assign(model, batches[bsz])
+    tiny = Config(path=PACONV_TINY, device="cpu").model.eval()
+    pts = torch.randn((2, 128, 3), generator=torch.Generator().manual_seed(
+        SEED))
+    _, launches = tiny_card_vs_cpu("PAConv", tiny, [{"data": pts}],
+                                   PACONV_TINY_TOL, None, labels="pred")
+    check(not launches, "the tiny PAConv launched {}".format(launches))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for b, batch in batches.items():
+        # the einsums and the scored gather's products run outside any
+        # module: they count in the total only
+        serving_timing(model, batch, "PAConv", PACONV_ITERS,
+                       paconv_fns(model), {"ScoreNets": "ScoreNet",
+                                           "classifier": "Sequential"})
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = batches[bsz]
+    _build.reset_launches()
+    losses = step(model, cfg.optimizer, batch)
+    log("  training at batch {} ({}, clip {}, {}): first step losses "
+        "{}".format(bsz, cfg.dic["optimizer"]["type"],
+                    cfg.dic["optimizer"].get("grad_clip_norm"),
+                    cfg.dic["lr_scheduler"]["type"],
+                    {k: round(v.item(), 5) for k, v in losses.items()}))
+    check(all(bool(torch.isfinite(v)) for v in losses.values()),
+          "PAConv: non-finite losses")
+    falling_losses(step, model, cfg.optimizer, batch)
+    train_rate(step, model, cfg.optimizer, {"img": batch["data"], **batch},
+               PACONV_TRAIN_ITERS, "PAConv")
+    check(not launched(), "PAConv training launched {}".format(launched()))
+
+
+def lane_grid(hb, wb):
+    """ApolloLaneDataset's identity image-to-BEV grid [hb, wb, 2]: (u, v) =
+    (column, 1 - row) in [0, 1]."""
+    import numpy as np
+    gy, gx = np.meshgrid(np.linspace(0, 1, hb), np.linspace(0, 1, wb),
+                         indexing="ij")
+    return np.stack([gx, 1 - gy], axis=-1).astype(np.float32)
+
+
+def lane_polylines(rng, lanes=(4, 8), x_range=LANE_RANGE[0]):
+    """One frame's 4-8 lanes as [K, 3] (x, y, z) polylines in ego space,
+    a point every 0.5 m from 3 to 103 m ahead: about 2.1-2.6 m apart,
+    with a gentle curve and grade, as ApolloLaneDataset's laneLines."""
+    import numpy as np
+    n = int(rng.integers(lanes[0], lanes[1] + 1))
+    xs = np.arange(x_range[0], x_range[1], 0.5)
+    y0 = (np.arange(n) - (n - 1) / 2) * 3.5 * rng.uniform(0.6, 0.75) + \
+        rng.normal(0, 0.3)
+    curve = rng.normal(0, 2e-4)
+    grade = rng.normal(0, 0.01)
+    return [np.stack([xs, y0[li] + curve * xs ** 2,
+                      grade * xs + rng.normal(0, 0.02)], axis=1)
+            for li in range(n)]
+
+
+def rasterise_lanes(lanes, hb, wb, x_range=LANE_RANGE[0],
+                    y_range=LANE_RANGE[1]):
+    """ApolloLaneDataset's targets of one frame's polylines on the hb x wb
+    grid: a cell holds the last lane point landing in it (conf 1, the
+    lateral offset in the cell, the height, the instance id 1..8). ->
+    conf, offset, height [hb, wb] f32, instance [hb, wb] int64."""
+    import numpy as np
+    conf = np.zeros((hb, wb), np.float32)
+    offset = np.zeros((hb, wb), np.float32)
+    height = np.zeros((hb, wb), np.float32)
+    inst = np.zeros((hb, wb), np.int64)
+    dx = (x_range[1] - x_range[0]) / hb
+    dy = (y_range[1] - y_range[0]) / wb
+    for li, lane in enumerate(lanes[:8]):
+        for p in np.asarray(lane, np.float32):
+            r = int((p[0] - x_range[0]) / dx)
+            c = (p[1] - y_range[0]) / dy
+            ci = int(c)
+            if 0 <= r < hb and 0 <= ci < wb:
+                conf[r, ci] = 1.0
+                offset[r, ci] = c - ci
+                height[r, ci] = p[2]
+                inst[r, ci] = li + 1
+    return conf, offset, height, inst
+
+
+def lane_targets(rng, b, hb, wb):
+    """b frames of lane_polylines rasterised (rasterise_lanes) -> conf,
+    offset, height [b, hb, wb] f32, instance [b, hb, wb] int64."""
+    import numpy as np
+    return tuple(np.stack(v) for v in zip(*(
+        rasterise_lanes(lane_polylines(rng), hb, wb) for _ in range(b))))
+
+
+def lane_batch(device, b, bev, seed=SEED, hw=None):
+    """b uniform-pixel NHWC images in [0, 255) at hw, the identity
+    bev_grid and lane_targets on device."""
+    import numpy as np
+    import torch
+    hw = hw or LANE_HW
+    rng = np.random.default_rng(seed)
+    conf, offset, height, inst = lane_targets(rng, b, *bev)
+    arrays = {
+        "data": rng.uniform(0, 255, (b,) + tuple(hw) + (3,)).astype(
+            np.float32),
+        "bev_grid": np.broadcast_to(lane_grid(*bev), (b,) + tuple(bev) +
+                                    (2,)).copy(),
+        "lane_conf": conf, "lane_offset": offset, "lane_height": height,
+        "lane_instance": inst}
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def lanedet_tiny():
+    """A small BEV-LaneDet (ResNet-18 at base 8 to its third stage, 32
+    channels at stride 16, reduced to 8, a 20 x 8 BEV) on the CPU, seeded,
+    in eval mode."""
+    import torch
+
+    from paddle3d_tpu_torch.models.backbones import ResNet
+    from paddle3d_tpu_torch.models.detection import BEVLaneDet
+    gen = torch.Generator().manual_seed(SEED)
+    return BEVLaneDet(ResNet(depth=18, base_channels=8, out_indices=(2,),
+                             generator=gen),
+                      bev_size=(20, 8), in_channels=32, feat_channels=8,
+                      generator=gen).eval()
+
+
+def lanedet_fns(model):
+    from paddle3d_tpu_torch.models.detection.bev_lanedet import bev_lanedet
+    return [("backbone", model.backbone, "forward"),
+            ("reduce", model.reduce, "forward"),
+            ("warp", bev_lanedet, "bilinear_warp"),
+            ("BEV convs", model.bev_conv, "forward")] + [
+        (name, getattr(model, name), "forward")
+        for name in ("conf_head", "offset_head", "embed_head",
+                     "height_head")]
+
+
+def phase_lanedet(device):
+    """BEV-LaneDet on bev_lanedet_apollo_576x1024.yml at full width
+    (ResNet-34 to its third stage, 256 channels at stride 16, reduced to
+    64, warped onto the 100 x 25 BEV; seeded random weights, f32, TF32 off)
+    on 576 x 1,024 uniform-pixel images with the identity bev_grid:
+    serving at batch 1 and 16 (no launch), frames/s, GFLOP, memory,
+    profile, stages; the small model card vs CPU; training at batch 16 on
+    lane_targets (the config's AdamW, clip 35, CosineDecay): 10 falling
+    losses, train frames/s, memory, profile."""
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, make_train_step
+    from paddle3d_tpu_torch.ops import _build
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(path=LANEDET, device=device)
+    bsz = cfg.dic["batch_size"]
+    model = cfg.model.eval()
+    bev = (model.bev_h, model.bev_w)
+    batches = {b: lane_batch(device, b, bev) for b in (1, bsz)}
+    lanes = [len(v.unique()) - 1 for v in batches[bsz]["lane_instance"]]
+    log("phase 26: BEV-LaneDet (ResNet-34 to stride 16, BEV {} x {}) at {} "
+        "x {}: lanes a frame {}, lane cells a frame {}; no hand-written "
+        "kernel".format(*bev, *LANE_HW, lanes, batches[bsz]["lane_conf"]
+                        .sum(dim=(1, 2)).int().tolist()))
+    for b, batch in batches.items():
+        with torch.no_grad():
+            out, launches = no_launches(lambda: model.test_forward(batch))
+        check(all(tuple(out[k].shape) == (b,) + bev for k in (
+            "lane_conf", "lane_offset", "lane_height")) and
+            tuple(out["lane_embed"].shape) == (b,) + bev + (4,),
+            "BEV-LaneDet output shapes {}".format(
+                {k: tuple(v.shape) for k, v in out.items()}))
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              "non-finite BEV-LaneDet outputs")
+        log("  batch {}: cells with conf > 0.5 a frame {}; launches "
+            "{}".format(b, (out["lane_conf"] > 0.5).sum(dim=(1, 2))
+                        .tolist(), launches))
+        check(not launches, "BEV-LaneDet launched {}".format(launches))
+    tiny = lanedet_tiny()
+    small = lane_batch("cpu", 2, (20, 8), hw=(64, 96))
+    _, launches = tiny_card_vs_cpu(
+        "BEV-LaneDet", tiny, [{k: small[k] for k in ("data", "bev_grid")}],
+        LANE_TINY_TOL, None, labels=None)
+    check(not launches, "the small BEV-LaneDet launched {}".format(launches))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for b, batch in batches.items():
+        serving_timing(model, batch, "BEV-LaneDet", LANE_ITERS,
+                       lanedet_fns(model), {
+                           "backbone": "ResNet", "reduce": "ConvBNReLU",
+                           "BEV convs": "Sequential", "heads": "Conv2d"})
+    model.train()
+    step = make_train_step(lr_scheduler=cfg.lr_scheduler)
+    batch = batches[bsz]
+    _build.reset_launches()
+    losses = step(model, cfg.optimizer, batch)
+    log("  training at batch {} ({}, clip {}, {}): first step losses "
+        "{}".format(bsz, cfg.dic["optimizer"]["type"],
+                    cfg.dic["optimizer"].get("grad_clip_norm"),
+                    cfg.dic["lr_scheduler"]["type"],
+                    {k: round(v.item(), 5) for k, v in losses.items()}))
+    check(all(bool(torch.isfinite(v)) for v in losses.values()),
+          "BEV-LaneDet: non-finite losses")
+    falling_losses(step, model, cfg.optimizer, batch)
+    train_rate(step, model, cfg.optimizer, {"img": batch["data"], **batch},
+               LANE_TRAIN_ITERS, "BEV-LaneDet")
+    check(not launched(), "BEV-LaneDet training launched {}".format(
+        launched()))
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -8020,6 +8671,10 @@ def main():
         bevfusion = phase_bevfusion(device)
         # DD3D reaches no hand-written kernel
         phase_dd3d(device)
+        # nor do SqueezeSegV3, PAConv and BEV-LaneDet
+        phase_squeezeseg(device)
+        phase_paconv(device)
+        phase_lanedet(device)
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback

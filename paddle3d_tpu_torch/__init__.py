@@ -4,5 +4,5 @@ The JAX package beside it is the reference. This package imports torch and
 never jax, flax or paddle3d_tpu. Importing it fills the registries, so that
 `apis.Config(path=...).model` builds a config's model.
 """
-from . import apis, models, ops, transforms
+from . import apis, datasets, models, ops, transforms
 from .apis import Config

@@ -62,6 +62,7 @@ LR_SCHEDULERS = ComponentManager("lr_schedulers")
 POINT_ENCODERS = ComponentManager("point_encoders")
 POSITIONAL_ENCODING = ComponentManager("positional_encoding")
 TRANSFORMS = ComponentManager("transforms")
+DATASETS = ComponentManager("datasets")
 TRANSFORMER_ENCODERS = ComponentManager("transformer_encoders")
 TRANSFORMER_ENCODER_LAYERS = ComponentManager("transformer_encoder_layers")
 ATTENTIONS = ComponentManager("attentions")
@@ -74,7 +75,7 @@ TRANSFORMERS = ComponentManager("transformers")
 ALL_MANAGERS = [
     BACKBONES, MIDDLE_ENCODERS, MODELS, NECKS, VOXEL_ENCODERS, VOXELIZERS,
     HEADS, LOSSES, OPTIMIZERS, LR_SCHEDULERS, POINT_ENCODERS,
-    POSITIONAL_ENCODING, TRANSFORMS,
+    POSITIONAL_ENCODING, TRANSFORMS, DATASETS,
     TRANSFORMER_ENCODERS, TRANSFORMER_ENCODER_LAYERS, ATTENTIONS,
     BBOX_ASSIGNERS, MATCH_COSTS, TRANSFORMER_DECODER_LAYERS,
     TRANSFORMER_DECODERS, TRANSFORMERS

@@ -1,3 +1,3 @@
-from . import backbones, common, detection, heads, losses, \
-    middle_encoders, necks, optimizers, point_encoders, transformers, \
-    voxel_encoders, voxelizers
+from . import backbones, classification, common, detection, heads, \
+    losses, middle_encoders, necks, optimizers, point_encoders, \
+    segmentation, transformers, voxel_encoders, voxelizers

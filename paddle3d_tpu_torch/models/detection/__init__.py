@@ -1,3 +1,4 @@
+from .bev_lanedet import BEVLaneDet
 from .bevdet import BEVDet
 from .bevfusion import BEVFusion
 from .bevformer import BEVFormer, BEVFormerEncoderLayer

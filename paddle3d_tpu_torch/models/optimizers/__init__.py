@@ -1,4 +1,4 @@
 from .optimizers import (SGD, Adam, AdamW, AdamWOnecycle, ClipGradByGlobalNorm,
-                         CosineDecay, OneCycle, OneCycleAdam,
+                         CosineDecay, LinearWarmup, OneCycle, OneCycleAdam,
                          OneCycleDecayWarmupMomentum, OneCycleWarmupDecayLr,
                          PiecewiseDecay, StepDecay)

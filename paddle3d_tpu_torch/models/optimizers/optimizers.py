@@ -1,7 +1,8 @@
 """Optimizer, gradient-clip and LR-schedule components, torch port of
 paddle3d_tpu/models/optimizers/optimizers.py (ClipGradByGlobalNorm, Adam,
 AdamW, SGD, OneCycleAdam with OneCycleDecayWarmupMomentum, AdamWOnecycle,
-StepDecay, PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle, CosineDecay).
+StepDecay, PiecewiseDecay, OneCycleWarmupDecayLr, OneCycle, CosineDecay,
+LinearWarmup).
 
 The JAX package builds optax transformations; torch builds an optimizer
 over parameters, which a YAML config does not have. So `Adam` returns a
@@ -22,7 +23,7 @@ from ...apis import manager
 __all__ = ["ClipGradByGlobalNorm", "Adam", "AdamW", "SGD", "OneCycleAdam",
            "AdamWOnecycle", "OneCycleDecayWarmupMomentum", "StepDecay",
            "PiecewiseDecay", "OneCycleWarmupDecayLr", "OneCycle",
-           "CosineDecay"]
+           "CosineDecay", "LinearWarmup"]
 
 
 @manager.OPTIMIZERS.add_component
@@ -130,6 +131,45 @@ class CosineDecay:
         count = min(step, self.total_step)
         cosine = 0.5 * (1 + math.cos(math.pi * count / self.total_step))
         return (1 - self.alpha) * cosine + self.alpha
+
+
+def _rate_at(schedule, step: int) -> float:
+    """The rate of a float or of a schedule object at update `step`."""
+    if isinstance(schedule, (int, float)):
+        return float(schedule)
+    return schedule.learning_rate * schedule.factor(step)
+
+
+@manager.LR_SCHEDULERS.add_component
+class LinearWarmup:
+    """A linear warm-up from start_lr to the wrapped schedule's rate at
+    update 0 (or to end_lr, which then replaces the schedule by that
+    constant) over the first warmup_steps updates, then the wrapped
+    schedule, read at the update count itself (not shifted by the
+    warm-up), as the JAX package's LinearWarmup; `learning_rate` is a
+    float or a built schedule (a YAML's nested `{type: StepDecay, ...}`).
+    Its base rate is the wrapped schedule's."""
+
+    def __init__(self, learning_rate, warmup_steps: int = 1000,
+                 start_lr: float = 0., end_lr: float = None):
+        self.base = learning_rate if end_lr is None else float(end_lr)
+        self.peak = _rate_at(self.base, 0)
+        self.warmup_steps = int(warmup_steps)
+        self.start_lr = float(start_lr)
+        self.learning_rate = _base_rate(self.base)
+        if self.learning_rate == 0:
+            raise ValueError("LinearWarmup needs a nonzero base rate")
+
+    def __call__(self, step: int) -> float:
+        """The rate at update `step`."""
+        if step < self.warmup_steps:
+            frac = min(step / max(self.warmup_steps, 1), 1.0)
+            return self.start_lr + (self.peak - self.start_lr) * frac
+        return _rate_at(self.base, step)
+
+    def factor(self, step: int) -> float:
+        """lr(step) / learning_rate."""
+        return self(step) / self.learning_rate
 
 
 class _CosineOneCycle:

@@ -7,7 +7,11 @@ names the same submodule on both sides. The rules below are by module
 type, so a new module whose layers are of these types needs none of its
 own: BEVFusion's PFN, SE gate and fusion conv, DD3D's BatchNorm DLA
 (scale, bias and running stats), GroupNorm towers, heads, top-block convs
-and its bare `depth_scales` parameter all go through them.
+and its bare `depth_scales` parameter all go through them, and so do
+SqueezeSegV3's nnx.Sequential paths (`position_mlp.layers.<i>`,
+`head.layers.<i>`: layer_libs.Sequential keeps them) and PAConv's bare
+weight banks in an nnx.List (`weight_banks.<i>`, the parameters of an
+nn.ParameterList).
 """
 from typing import Dict
 

@@ -3,8 +3,9 @@ check rests on: the saved train state restores to the same trajectory every
 time, the deterministic mode is scoped to its block, and bit-pattern
 equality tells -0 from +0 in f32 and f64; of the work counts that the
 table gather's (K5) bound and the rotated-box intersection's (K11) chain
-floor rest on; and of phase 15's SMOKE batches and the row gather's (K14)
-byte count and decode inputs."""
+floor rest on; of phase 15's SMOKE batches and the row gather's (K14)
+byte count and decode inputs; and of the inputs of phases 24-26: the
+range batch, the point clouds and the lane rasteriser."""
 import numpy as np
 import pytest
 import torch
@@ -196,3 +197,71 @@ def test_smoke_decode_inputs_match_the_decode():
     assert idx.dtype == torch.int32 and tuple(idx.shape) == (2, 50)
     assert ((idx >= 0) & (idx < hw)).all()
     assert all(row.unique().numel() == 50 for row in idx)
+
+
+def test_range_batch_projects_and_normalises_the_scans(monkeypatch):
+    """Phase 24's batch: range_scans (360-degree clustered sweeps over the
+    KITTI range, x in [-69.12, 69.12]) through project_range and the
+    configs' NormalizeRangeImage, labels from the 20 train ids, at a
+    small image."""
+    from paddle3d_tpu_torch.sample import Sample
+    from paddle3d_tpu_torch.transforms import (NormalizeRangeImage,
+                                               project_range)
+    monkeypatch.setattr(chip_smoke, "SSG_POINTS", 3000)
+    batch = chip_smoke.range_batch("cpu", 2, hw=(16, 256))
+    assert tuple(batch["data"].shape) == (2, 16, 256, 5)
+    assert batch["proj_mask"].dtype == torch.bool
+    assert batch["proj_labels"].dtype == torch.int64
+    mask = batch["proj_mask"]
+    assert 0.1 < mask.float().mean() < 1
+    assert (batch["data"][~mask] == 0).all()
+    labels = batch["proj_labels"][mask]
+    assert labels.min() >= 0 and labels.max() < 20
+    assert (batch["proj_labels"][~mask] == 0).all()
+    rng = np.random.default_rng(chip_smoke.SEED)
+    scans = chip_smoke.range_scans(rng, 2)
+    assert scans.shape == (2, 3000, 4)
+    assert scans[..., 0].min() < -30 and scans[..., 0].max() > 30
+    rng.integers(0, 20, 3000)                 # frame 0's labels
+    proj = project_range(scans[0, :, :3], scans[0, :, 3], 16, 256)
+    s = Sample(None, "lidar")
+    s.data, s.proj_mask = proj["data"], proj["proj_mask"]
+    np.testing.assert_array_equal(
+        batch["data"][0].numpy(),
+        NormalizeRangeImage(*chip_smoke.ssg_norm())(s).data)
+
+
+def test_primitive_clouds_fill_the_unit_sphere():
+    """Phase 25's clouds: 1,024 points a cloud, centred, the farthest at
+    radius 1, 40 classes, a class's primitive and aspect its own."""
+    pts, labels = chip_smoke.primitive_clouds(np.random.default_rng(0), 16)
+    assert pts.shape == (16, 1024, 3) and pts.dtype == np.float32
+    assert labels.dtype == np.int64 and labels.min() >= 0 and \
+        labels.max() < 40
+    np.testing.assert_allclose(np.linalg.norm(pts, axis=-1).max(axis=1), 1,
+                               rtol=1e-6)
+    np.testing.assert_allclose(pts.mean(axis=1), 0, atol=1e-6)
+    again, _ = chip_smoke.primitive_clouds(np.random.default_rng(0), 16)
+    np.testing.assert_array_equal(pts, again)
+
+
+def test_lane_targets_rasterise_four_to_eight_lanes():
+    """Phase 26's targets on the 100 x 25 grid: 4-8 lanes a frame with
+    instance ids 1..8, conf exactly on the lane cells, offsets in [0, 1),
+    each lane crossing most of the grid's rows; the identity grid's (u,
+    v) = (column, 1 - row) corners."""
+    conf, offset, height, inst = chip_smoke.lane_targets(
+        np.random.default_rng(1), 6, 100, 25)
+    assert conf.shape == inst.shape == (6, 100, 25)
+    assert inst.dtype == np.int64 and inst.max() <= 8
+    np.testing.assert_array_equal(conf > 0, inst > 0)
+    assert ((offset >= 0) & (offset < 1)).all()
+    for f in range(6):
+        ids = np.unique(inst[f][inst[f] > 0])
+        assert 4 <= len(ids) <= 8 and ids[0] == 1
+        assert all(len(np.unique(np.nonzero(inst[f] == i)[0])) > 60
+                   for i in ids)
+    grid = chip_smoke.lane_grid(100, 25)
+    assert grid.shape == (100, 25, 2)
+    np.testing.assert_array_equal(grid[0, 0], [0, 1])
+    np.testing.assert_array_equal(grid[-1, -1], [1, 0])
