@@ -344,12 +344,45 @@ result (each phase's first line leads with the seconds since the start):
      BEV convs, heads); a small model card vs CPU; training at batch 16
      on lane_batch's rasterised lanes (AdamW, clip 35, CosineDecay), 10
      falling losses, train frames/s, memory, profile.
+ 27. The runtime (phase_runtime), tools/train.py's path through the
+     port's own modules: a KITTI tree of 16 train and 8 val frames in a
+     temp dir (kitti_tree: bench.make_scans scans, 6-10 cars a frame with
+     a share of the points on them, labels through the port's kitti_utils,
+     no images), Config(dic=...) of the KITTI car config, a Trainer at the
+     config's batch (2) with its Adam, clip and StepDecay, an EMA, 4
+     loader threads, do_eval and a checkpoint every 8 of 16 steps: the
+     step count, the checkpoint queue and records, finite losses whose
+     mean over the last four steps is under the first four's, the
+     kernels once a step (K1, K3, K4, K5 and the scatter) and once an
+     eval forward (K1 and the scatter; the counters split by evaluate()
+     call), the scatter by the density rule on collate_lidar's 120,000
+     rows a scan: K7 in train, K6 in serving; peak memory; a second Trainer(resume=True) on other
+     random weights restores the model, the optimizer moments, the LR
+     schedule and the EMA bit for bit, at the uninterrupted rate;
+     evaluate() through postprocess_to_samples and KittiMetric, timed in
+     parts (device forward, postprocess, metric), its AP dict printed; the
+     val ground truths given as predictions with score 1 score 100 AP on
+     Car 3-D and BEV "easy" (R11 and R40); a NaN-padded train step
+     bit-equal to the same batch padded out of range (kernel path,
+     deterministic mode); what the runtime costs, in windows of 10 steps
+     inside one epoch of a 40-frame tree (no epoch start, no pool
+     shutdown): the Trainer's scans/s at 4 and 1 loader threads and on
+     prebuilt batches against the bare train step, the host time of each
+     step call, the reader's wait a step in the windows and at epoch
+     starts, the loader alone, the host-to-device copy and a profiled
+     window; and `python -m paddle3d_tpu_torch.tools.train
+     --iters 4` and `tools.evaluate` on its checkpoint as subprocesses,
+     both exiting 0 with the kernel library loaded, not rebuilt.
 
 Since phases 22 and 23 came, the timing loops of phases 4-10, 13 and
 15-17 run fewer iterations; since phases 24-26 came, fewer again (ITERS
 6, CP_TRAIN_ITERS, TS_TRAIN_ITERS, VX_TRAIN_ITERS and IA_TRAIN_ITERS 4,
 SMOKE_ITERS 6, CADDN_ITERS, CADDN_TRAIN_ITERS, PETR_ITERS and
-PETR_TRAIN_ITERS 4); no check changed.
+PETR_TRAIN_ITERS 4); since phase 27 came, fewer again where a plain path
+takes a second or more a call: ITERS 2 (phases 4-9's serving halves and
+phase 5's train timing, one call a half), TS_TRAIN_ITERS, VX_TRAIN_ITERS,
+IA_TRAIN_ITERS, CADDN_ITERS, CADDN_TRAIN_ITERS and BEVF_ITERS 2; no
+check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
@@ -398,7 +431,7 @@ IASSD = os.path.join(REPO, "configs", "iassd", "iassd_kitti.yml")
 SMOKE_KITTI = os.path.join(REPO, "configs", "smoke",
                            "smoke_dla34_no_dcn_kitti.yml")
 SMOKE_TINY = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
-BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 6, 10
+BATCH, POINTS, SEED, ITERS, TRAIN_STEPS = 8, 20000, 0, 2, 10
 TS_BATCH = 4            # bench.py's batch for pv_rcnn and iassd
 CP_POINTS = 250000
 VX_BATCH = 4            # bench.py's batch for centerpoint_voxels
@@ -880,7 +913,6 @@ def phase_timing(model, points, phase="phase 4", warmups=3):
 def profile(fn, iters=PROFILE_ITERS):
     """Device time by kernel over `iters` calls of fn (the kernel path)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -890,6 +922,13 @@ def profile(fn, iters=PROFILE_ITERS):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    log_profile(prof, wall_ms, iters)
+
+
+def log_profile(prof, wall_ms, iters):
+    """Log a finished trace's device time by kernel over `iters`
+    iterations of wall_ms each."""
+    from torch.autograd import DeviceType
     # device-side events only: a CPU op's own device time repeats the time
     # of the kernels it launched, and so does a user annotation's range on
     # the device (the optimizer's step)
@@ -2940,7 +2979,7 @@ def phase_cp_tiny_train(tmp):
 
 
 TS_TRAIN_BATCH = 2      # the KITTI two-stage configs' batch_size
-TS_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
+TS_TRAIN_ITERS = 2      # train steps timed per path (halves of 1)
 PV_TRAIN_STEPS = 3
 # The RPN head starts from the upstream AnchorHeadSingle's init (box weights
 # N(0, RPN_BOX_STD), the class bias at the prior RPN_PRIOR) instead of the
@@ -3680,7 +3719,7 @@ def phase_ops(device):
     return errs, times, extra, launches
 
 
-VX_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
+VX_TRAIN_ITERS = 2      # train steps timed per path (halves of 1)
 def vx_train_setup(device):
     """The nuScenes voxel config in train mode (seeded random weights), its
     OneCycleAdam (clip 35) and OneCycleWarmupDecayLr inherited from the
@@ -3790,7 +3829,7 @@ def phase_vx_train(device):
 
 
 IA_TRAIN_BATCH = 8      # configs/iassd/iassd_kitti.yml's batch_size
-IA_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
+IA_TRAIN_ITERS = 2      # train steps timed per path (halves of 1)
 
 
 def ia_train_setup(device):
@@ -4238,8 +4277,8 @@ CADDN_KITTI = os.path.join(REPO, "configs", "caddn",
 CADDN_TINY = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
 CADDN_HW = (384, 1248)
 CADDN_BATCH = 4
-CADDN_ITERS = 4         # timed forwards per path and batch (halves of 2)
-CADDN_TRAIN_ITERS = 4   # timed train steps per path (halves of 2)
+CADDN_ITERS = 2         # timed forwards per path and batch (halves of 1)
+CADDN_TRAIN_ITERS = 2   # timed train steps per path (halves of 1)
 CADDN_OBJECTS = 8       # synthetic boxes an image
 KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
 # the tiny config (64 x 96 images) sees its 16 x 16 m grid through a camera
@@ -6981,7 +7020,7 @@ BEVF_LIDAR = os.path.join(REPO, "configs", "bevfusion",
 BEVF_CAM = os.path.join(REPO, "configs", "bevfusion", "bevf_cam_nuscenes.yml")
 BEVF_HW = (448, 800)
 BEVF_BATCH = 2              # the config's batch_size
-BEVF_ITERS = 4              # timed forwards per path and batch (halves)
+BEVF_ITERS = 2              # timed forwards per path and batch (halves)
 BEVF_TRAIN_ITERS = 4        # timed train steps (halves of 2)
 BEVF_DEPTH_STRIDE = 16      # the L+C train_dataset's depth_stride
 BEVF_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
@@ -8396,6 +8435,761 @@ def phase_lanedet(device):
         launched()))
 
 
+# --------------------------------------------------------------- phase 27
+RT_TRAIN, RT_VAL = 16, 8    # frames of the KITTI tree's train and val splits
+RT_ITERS = 16               # Trainer steps: two epochs at the config's batch
+RT_TIMED = 10               # steps of a timed window
+RT_WARM = 3                 # steps of a run before its timed window
+RT_TIMED_TRAIN = 40         # frames of the timing tree's train split: an
+                            # epoch of 20 steps holds a run's warm-up, window
+                            # and the step that ends the window
+RT_WORKERS = 4              # loader threads (tools/train.py's default)
+RT_EMA = 0.9998             # the Trainer's EMA decay (the JAX default)
+# KITTI's calibration of frame 000000 (training/calib), the standard one
+KITTI_CALIB = {
+    "P2": (7.215377e+02, 0.0, 6.095593e+02, 4.485728e+01, 0.0, 7.215377e+02,
+           1.728540e+02, 2.163791e-01, 0.0, 0.0, 1.0, 2.745884e-03),
+    "R0_rect": (9.999239e-01, 9.837760e-03, -7.445048e-03, -9.869795e-03,
+                9.999421e-01, -4.278459e-03, 7.402527e-03, 4.351614e-03,
+                9.999631e-01),
+    "Tr_velo_to_cam": (7.533745e-03, -9.999714e-01, -6.166020e-04,
+                       -4.069766e-03, 1.480249e-02, 7.280733e-04,
+                       -9.998902e-01, -7.631618e-02, 9.998621e-01,
+                       7.523790e-03, 1.480755e-02, -2.717806e-01)}
+# car slots (lidar x, y, m): 5 m apart in x and 6 m in y, so that boxes of
+# 1.6 x 3.9 m jittered by 0.5 m never touch; x <= 22.5 m keeps every car's
+# image box taller than 40 px under P2, KITTI's "easy" gate for a detection
+RT_SLOTS = [(x, y) for x in (7.5, 12.5, 17.5, 22.5)
+            for y in (-12.0, -6.0, 0.0, 6.0, 12.0)]
+RT_SURFACE = 0.3            # share of a scan's points moved onto its cars
+
+
+def car_boxes(rng, zg):
+    """6-10 Car boxes in distinct RT_SLOTS (jittered 0.5 m, any yaw, sizes
+    within 5 % of the config's anchor), bottoms on the ground zg: [G, 7]
+    (x, y, z bottom, w, l, h, yaw)."""
+    import numpy as np
+    g = int(rng.integers(6, 11))
+    slots = np.asarray(RT_SLOTS)[rng.permutation(len(RT_SLOTS))[:g]]
+    xy = slots + rng.uniform(-0.5, 0.5, (g, 2))
+    size = np.array([1.6, 3.9, 1.56]) * rng.uniform(0.95, 1.05, (g, 3))
+    yaw = rng.uniform(-np.pi, np.pi, g)
+    return np.c_[xy, np.full(g, zg), size, yaw].astype(np.float32)
+
+
+def surface_points(rng, boxes, n):
+    """n points on the boxes' four sides and tops (KITTI lidar boxes,
+    bottom z), intensity in [0, 1): [n, 4]."""
+    import numpy as np
+    which = rng.integers(0, len(boxes), n)
+    b = boxes[which]
+    local = rng.uniform(-0.5, 0.5, (n, 3))
+    face = rng.integers(0, 5, n)                # +-x, +-y sides, top
+    for f, (axis, side) in enumerate(((0, .5), (0, -.5), (1, .5),
+                                      (1, -.5), (2, .5))):
+        local[face == f, axis] = side
+    local = local * b[:, [4, 3, 5]]             # l along x, w along y
+    c, s = np.cos(b[:, 6]), np.sin(b[:, 6])
+    x = c * local[:, 0] - s * local[:, 1] + b[:, 0]
+    y = s * local[:, 0] + c * local[:, 1] + b[:, 1]
+    z = local[:, 2] + b[:, 5] / 2 + b[:, 2]
+    return np.c_[x, y, z, rng.uniform(0, 1, n)].astype(np.float32)
+
+
+def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None):
+    """A KITTI tree under root (no image_2: the card's machine has no
+    Pillow): `train` + `val` frames of bench.make_scans KITTI scans (as
+    make_points draws them, `points` a scan) with car_boxes, RT_SURFACE of
+    each scan's points moved onto its cars, label_2 lines written through
+    the port's kitti_utils under KITTI_CALIB with a 2-D box at least 60 px
+    tall (every car "easy"), and ImageSets/{train,val}.txt.
+    -> {frame id: [G, 7] lidar boxes}."""
+    import numpy as np
+
+    import bench
+    from paddle3d_tpu_torch.datasets.kitti import kitti_utils
+    _, n, (lo, hi), _ = bench.MODELS["pointpillars"]
+    n = points or n
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "training")
+    for sub in ("velodyne", "label_2", "calib"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    calib_text = "".join(
+        "{}: {}\n".format(k, " ".join("{:.6e}".format(v) for v in vals))
+        for k, vals in (("P0", KITTI_CALIB["P2"]), ("P1", KITTI_CALIB["P2"]),
+                        ("P2", KITTI_CALIB["P2"]), ("P3", KITTI_CALIB["P2"]),
+                        ("R0_rect", KITTI_CALIB["R0_rect"]),
+                        ("Tr_velo_to_cam", KITTI_CALIB["Tr_velo_to_cam"])))
+    ids = ["{:06d}".format(i) for i in range(train + val)]
+    zg = lo[2] + 0.28 * (hi[2] - lo[2])         # make_scans' ground plane
+    written = {}
+    for idx in ids:
+        calib_path = os.path.join(base, "calib", idx + ".txt")
+        with open(calib_path, "w") as f:
+            f.write(calib_text)
+        calib = kitti_utils.Calibration.from_file(calib_path)
+        scan = bench.make_scans(rng, 1, n, lo, hi, "clustered")[0]
+        boxes = car_boxes(rng, zg)
+        k = int(RT_SURFACE * n)
+        scan[:k] = surface_points(rng, boxes, k)
+        scan.astype(np.float32).tofile(os.path.join(base, "velodyne",
+                                                    idx + ".bin"))
+        cam = kitti_utils.lidar_boxes_to_camera_anno(boxes, calib)
+        lines = []
+        for j in range(len(boxes)):
+            x1, y1, x2, y2 = cam["bbox"][j]
+            lines.append(kitti_utils.format_label_line(
+                "Car", 0.0, 0, -np.arctan2(-boxes[j, 1], boxes[j, 0]) +
+                boxes[j, 6], (x1, min(y1, y2 - 60.0), x2, y2),
+                cam["dimensions"][j], cam["location"][j],
+                cam["rotation_y"][j]))
+        with open(os.path.join(base, "label_2", idx + ".txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        written[idx] = boxes
+    for split, part in (("train", ids[:train]), ("val", ids[train:])):
+        with open(os.path.join(root, "ImageSets", split + ".txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return written
+
+
+def runtime_config(root, device):
+    """The KITTI car config with both datasets' dataset_root at root, built
+    through Config(dic=...) on device."""
+    from paddle3d_tpu_torch.apis import Config
+    dic = Config(path=KITTI, device=device).dic
+    for split in ("train_dataset", "val_dataset"):
+        dic[split]["dataset_root"] = root
+    return Config(dic=dic, device=device)
+
+
+def runtime_trainer(cfg, save_dir, iters, **kw):
+    """A Trainer of cfg as tools/train.py builds it, with an EMA."""
+    from paddle3d_tpu_torch.apis import Trainer
+    kw.setdefault("dataloader_fn", {"num_workers": RT_WORKERS})
+    return Trainer(model=cfg.model, optimizer=cfg.optimizer,
+                   lr_scheduler=cfg.lr_scheduler, iters=iters,
+                   train_dataset=cfg.train_dataset,
+                   val_dataset=cfg.val_dataset, batch_size=cfg.batch_size,
+                   save_dir=save_dir, ema_decay=RT_EMA, **kw)
+
+
+def runtime_launches(model, rows):
+    """The launches of one KITTI train step and of one forward on batches
+    of `rows` rows a scan, by the JAX package's density rule (a scan is
+    dense by its row count, padding included): a step runs K1, K3, K4 and
+    the scatter's VJP K5 once, and K7 (dense) or K2; a forward K1 and K6
+    (dense) or K2. -> (train, serve) dicts."""
+    from paddle3d_tpu_torch.ops.sorted_scatter import is_dense_scan, \
+        kernel_for
+    me = model.middle_encoder
+    cells = me.ny * me.nx
+    train = {"fused_pfn_rows": 1, "pfn_stats": 1, "pfn_bwd": 1,
+             "sorted_table_gather": 1, kernel_for(rows, cells): 1}
+    serve = {"fused_pfn_rows": 1,
+             "sorted_segment_sum_cm" if is_dense_scan(rows, cells)
+             else "sorted_segment_sum": 1}
+    return train, serve
+
+
+def counts_sub(a, b):
+    return {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)
+            if a.get(k, 0) - b.get(k, 0)}
+
+
+@contextlib.contextmanager
+def counted_evals(trainer):
+    """Split the launch counters of a Trainer run: -> a dict that the block
+    fills with the launches its evaluate() calls made ("serve") and the
+    number of those calls ("evals")."""
+    from paddle3d_tpu_torch.ops import _build
+    serve = {"evals": 0, "serve": {}}
+    orig = trainer.evaluate
+
+    def evaluate(*args, **kw):
+        before = dict(_build.LAUNCHES)
+        out = orig(*args, **kw)
+        serve["evals"] += 1
+        for k, v in counts_sub(_build.LAUNCHES, before).items():
+            serve["serve"][k] = serve["serve"].get(k, 0) + v
+        serve["metrics"] = out
+        return out
+    trainer.evaluate = evaluate
+    try:
+        yield serve
+    finally:
+        del trainer.evaluate
+
+
+@contextlib.contextmanager
+def recorded_waits():
+    """-> list of each Trainer step's reader wait in s (Timer's bracket)."""
+    from paddle3d_tpu_torch.apis import trainer as trainer_mod
+    waits = []
+
+    class WaitTimer(trainer_mod.Timer):
+        def after_reader(self):
+            waits.append(time.time() - self._reader_t0)
+            super().after_reader()
+    with mock.patch.object(trainer_mod, "Timer", WaitTimer):
+        yield waits
+
+
+@contextlib.contextmanager
+def recorded_losses(trainer):
+    """-> list of each train step's loss tensor (no host sync a step)."""
+    losses = []
+    step = trainer._train_step
+
+    def rec(*args):
+        out = step(*args)
+        losses.append((out[0] if isinstance(out, tuple) else out)["loss"])
+        return out
+    trainer._train_step = rec
+    try:
+        yield losses
+    finally:
+        trainer._train_step = step
+
+
+def same_state(a, b):
+    """Two nested state dicts (tensors compared by bit pattern, the rest by
+    ==): -> the keys that differ."""
+    import torch
+    bad = []
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                bad.append(path + " keys")
+            for k in x:
+                if k in y:
+                    walk(x[k], y[k], "{}.{}".format(path, k))
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y):
+                bad.append(path + " length")
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, "{}[{}]".format(path, i))
+        elif isinstance(x, torch.Tensor):
+            if not (x.shape == y.shape and x.dtype == y.dtype and (
+                    same_bits(x.cpu(), y.cpu()) if x.is_floating_point()
+                    else torch.equal(x.cpu(), y.cpu()))):
+                bad.append(path)
+        elif x != y:
+            bad.append(path)
+    walk(a, b, "")
+    return bad
+
+
+def gt_round_trip(model, dataset):
+    """The val split's ground truths handed as the model's outputs (score
+    1, -1 padded) through postprocess_to_samples into the dataset's
+    KittiMetric: -> its AP dict."""
+    import numpy as np
+    samples = [dataset[i] for i in range(len(dataset))]
+    g = max(len(s.bboxes_3d) for s in samples)
+    b = len(samples)
+    boxes = np.zeros((b, g, 7), np.float32)
+    scores = np.full((b, g), -1.0, np.float32)
+    labels = np.full((b, g), -1, np.int32)
+    for i, s in enumerate(samples):
+        n = len(s.bboxes_3d)
+        boxes[i, :n] = np.asarray(s.bboxes_3d)
+        scores[i, :n] = 1.0
+        labels[i, :n] = s.labels
+    _, metas = dataset.collate_fn(samples)
+    metric = dataset.metric
+    metric.update(model.postprocess_to_samples(
+        {"box3d_lidar": boxes, "scores": scores, "label_preds": labels},
+        metas))
+    return metric.compute()
+
+
+def eval_parts(trainer):
+    """evaluate() with its parts timed on the host clock: the eval step
+    (ended by a synchronize: the device forward), postprocess_to_samples
+    and the metric (update and compute). -> (metrics, {part: s}, wall s)."""
+    import torch
+
+    from paddle3d_tpu_torch.datasets.kitti import KittiMetric
+    parts = {"forward": 0.0, "postprocess": 0.0, "metric": 0.0}
+
+    def timed(part, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if part == "forward":
+                torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            return out
+        return call
+    model = trainer.model
+    with mock.patch.object(trainer, "_eval_step",
+                           timed("forward", trainer._eval_step)), \
+            mock.patch.object(model, "postprocess_to_samples", timed(
+                "postprocess", model.postprocess_to_samples)), \
+            mock.patch.object(KittiMetric, "update", timed(
+                "metric", KittiMetric.update)), \
+            mock.patch.object(KittiMetric, "compute", timed(
+                "metric", KittiMetric.compute)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate()
+        wall = time.perf_counter() - t0
+    return metrics, parts, wall
+
+
+def bare_batches(dataset, batch_size, n, device):
+    """The first n collated batches of a shuffled loader over dataset
+    (epoch 0, as the Trainer's first), on the host and on the device."""
+    from paddle3d_tpu_torch.apis import DataLoader
+    from paddle3d_tpu_torch.apis.trainer import to_device
+    loader = iter(DataLoader(dataset, batch_size=batch_size, shuffle=True,
+                             drop_last=True, num_workers=RT_WORKERS))
+    host = [next(loader)[0] for _ in range(n)]
+    loader.close()
+    return host, [to_device(b, device) for b in host]
+
+
+def windowed_trainer_run(trainer, prof=None):
+    """trainer.train() for RT_WARM + RT_TIMED + 1 more steps, inside the
+    first epoch of the run's loader (its split holds more batches), the
+    checkpoint write stubbed. The window runs from the entry of step
+    RT_WARM to the entry of step RT_WARM + RT_TIMED, with a synchronize at
+    both ends and prof (a torch.profiler.profile) on over it: it holds no
+    epoch start and no loader shutdown. -> (scans/s in the window, window
+    seconds, the reader wait of each step of the run in s, the host time
+    of each step call in the window in s)."""
+    import torch
+    steps = RT_WARM + RT_TIMED + 1
+    check(len(trainer.train_dataloader) >= steps,
+          "the timing split holds {} batches, a run needs {}".format(
+              len(trainer.train_dataloader), steps))
+    start, stamps, host = trainer.cur_iter, [], []
+    step = trainer._train_step
+
+    def stamped(*args):
+        if trainer.cur_iter - start in (RT_WARM, RT_WARM + RT_TIMED):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if prof is not None:
+                (prof.start if len(stamps) == 1 else prof.stop)()
+        t0 = time.perf_counter()
+        out = step(*args)
+        if len(stamps) == 1:
+            host.append(time.perf_counter() - t0)
+        return out
+    trainer.iters = start + steps
+    with recorded_waits() as waits, \
+            mock.patch.object(trainer, "_train_step", stamped), \
+            mock.patch.object(trainer, "_save_checkpoint", lambda: None):
+        trainer.train()
+    torch.cuda.synchronize()
+    secs = stamps[1] - stamps[0]
+    return RT_TIMED * trainer.batch_size / secs, secs, waits, host
+
+
+def timed_bare_steps(trainer, batches):
+    """The Trainer's own step (EMA included) over device batches, host
+    clock with synchronizes: -> (scans/s, the host time of each step call
+    in s)."""
+    import torch
+    step, ema = trainer._train_step, trainer.ema_params
+    host = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        t1 = time.perf_counter()
+        step(trainer.model, trainer.optimizer, ema, b, RT_EMA)
+        host.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    return (len(batches) * trainer.batch_size /
+            (time.perf_counter() - t0)), host
+
+
+class Prebuilt:
+    """A loader over batches built beforehand: the Trainer's loop with no
+    loader work on the host beside the step."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return ((b, []) for b in self.batches)
+
+
+def loader_alone(dataset, batch_size, workers):
+    """A shuffled DataLoader over dataset with nothing else on the host:
+    scans/s from batch RT_WARM to batch RT_WARM + RT_TIMED of its first
+    epoch (the pool's own rate; the consumer takes each batch at once)."""
+    from paddle3d_tpu_torch.apis import DataLoader
+    loader = iter(DataLoader(dataset, batch_size=batch_size, shuffle=True,
+                             drop_last=True, num_workers=workers))
+    for _ in range(RT_WARM):
+        next(loader)
+    t0 = time.perf_counter()
+    for _ in range(RT_TIMED):
+        next(loader)
+    secs = time.perf_counter() - t0
+    loader.close()
+    return RT_TIMED * batch_size / secs
+
+
+def nan_vs_out_of_range(trainer, host_batch):
+    """One kernel-path train step on a collated batch (NaN padding to
+    max_points) and on the same batch with its padding rows moved out of
+    range (x = 1000 m), from one saved state in deterministic mode:
+    -> (NaN step, out-of-range step) as record_step gives them."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import make_train_step
+    from paddle3d_tpu_torch.apis.trainer import to_device
+    pts = host_batch["data"]
+    far = np.where(np.isnan(pts), np.float32(0), pts)
+    far[np.isnan(pts[..., 0]), 0] = 1000.0
+    check(np.isnan(pts[..., 0]).sum() > 0, "the batch has no NaN padding")
+    step = make_train_step(lr_scheduler=trainer.lr_scheduler)
+    model, opt = trainer.model, trainer.optimizer
+    restore = saved_state(model, opt, trainer.lr_scheduler)
+    out = []
+    with deterministic():
+        for data in (pts, far):
+            out.append(record_step(step, model, opt, to_device(
+                dict(host_batch, data=data), trainer.device)))
+            restore()
+    torch.cuda.synchronize()
+    return out
+
+
+def cli_runs(tmp, root):
+    """Start, in a thread, `python -m paddle3d_tpu_torch.tools.train
+    --iters 4` on the KITTI car config pointed at root (a YAML with
+    `_base_` on it), then `tools.evaluate` on its checkpoint, as
+    subprocesses. -> finish(), which joins them, logs them and checks that
+    both exited 0 and that the kernel library was loaded, not rebuilt."""
+    import threading
+
+    from paddle3d_tpu_torch.ops import _build
+    yml = os.path.join(tmp, "kitti_tree.yml")
+    with open(yml, "w") as f:
+        f.write("_base_: {}\ntrain_dataset:\n  dataset_root: {}\n"
+                "val_dataset:\n  dataset_root: {}\n".format(KITTI, root,
+                                                            root))
+    lib = _build._lib_path(sorted(_build.CSRC.glob("*.cu")) +
+                           sorted(_build.CSRC.glob("*.cuh")))
+    before = (sorted(os.listdir(_build.BUILD_DIR)), os.stat(lib).st_mtime_ns)
+    cli = os.path.join(tmp, "cli")
+    runs = [("train", ["--iters", "4", "--save_dir", cli, "--save_interval",
+                       "2", "--log_interval", "2", "--seed", str(SEED)]),
+            ("evaluate", ["--model", os.path.join(cli, "checkpoints",
+                                                  "iter_4")])]
+    done = []
+
+    def run():
+        for tool, args in runs:
+            t0 = time.perf_counter()
+            done.append((tool, args, subprocess.run(
+                [sys.executable, "-m", "paddle3d_tpu_torch.tools." + tool,
+                 "--config", yml] + args, cwd=REPO, capture_output=True,
+                text=True, timeout=300), time.perf_counter() - t0))
+            if done[-1][2].returncode:
+                return
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def finish():
+        thread.join()
+        for tool, args, res, secs in done:
+            tail = [line.split("\t")[-1] for line in res.stdout.splitlines()
+                    if "[TRAIN]" in line or "results" in line]
+            log("  python -m paddle3d_tpu_torch.tools.{} ... {}: exit {} in "
+                "{:.1f} s; {}".format(tool, " ".join(args[:2]),
+                                      res.returncode, secs, tail[-2:]))
+            check(res.returncode == 0, "tools.{} exited {}: {}".format(
+                tool, res.returncode, res.stderr[-2000:]))
+        check(len(done) == 2, "the CLI ran {} of 2 tools".format(len(done)))
+        after = (sorted(os.listdir(_build.BUILD_DIR)),
+                 os.stat(lib).st_mtime_ns)
+        check(after == before, "the CLI rebuilt the kernels")
+        log("  the CLI loaded {} from the build directory (not rebuilt)"
+            .format(os.path.relpath(str(lib), REPO)))
+    return finish
+
+
+def phase_runtime(device):
+    """Phase 27: the runtime's LiDAR path, tools/train.py's: Config ->
+    Trainer -> DataLoader -> KittiPCDataset -> transforms -> collate_lidar
+    -> train step -> Checkpoint -> evaluate -> postprocess_to_samples ->
+    KittiMetric, on a KITTI tree in a temp dir; resume, the NaN padding,
+    the CLI (in subprocesses beside the checks, joined before anything is
+    timed), and what the runtime costs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Trainer
+    from paddle3d_tpu_torch.apis.trainer import to_device
+    from paddle3d_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+
+    def since():
+        return "[+{:.1f} s]".format(time.perf_counter() - t_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "KITTI")
+        written = kitti_tree(root)
+        cfg = runtime_config(root, device)
+        log("phase 27: runtime: KITTI tree of {} + {} frames ({} cars) in "
+            "{:.1f} s; Config(dic=...) of {}, batch {}, {} loader threads"
+            .format(RT_TRAIN, RT_VAL, sum(map(len, written.values())),
+                    time.perf_counter() - t_phase,
+                    os.path.relpath(KITTI, REPO), cfg.batch_size,
+                    RT_WORKERS))
+        finish_cli = cli_runs(tmp, root)
+        # cuDNN as tools/train.py leaves it (torch's defaults): no
+        # autotuning, whose trial workspaces would count in the peak
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+        torch.manual_seed(SEED)
+        out = os.path.join(tmp, "out")
+        t1 = runtime_trainer(cfg, out, RT_ITERS, save_interval=RT_ITERS // 2,
+                             log_interval=RT_ITERS // 2, do_eval=True)
+        check(len(t1.train_dataloader) == RT_TRAIN // cfg.batch_size,
+              "loader length")
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with counted_evals(t1) as evals, recorded_losses(t1) as losses, \
+                recorded_waits() as waits:
+            t1.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = dict(_build.LAUNCHES)
+        losses = [v.item() for v in losses]
+        main_waits = list(waits)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        trained = counts_sub(total, evals["serve"])
+        forwards = evals["evals"] * -(-RT_VAL // cfg.batch_size)
+        rows = t1.train_dataset.max_points
+        step_launches, forward_launches = runtime_launches(t1.model, rows)
+        want_train = {k: v * RT_ITERS for k, v in step_launches.items()}
+        want_serve = {k: v * forwards for k, v in forward_launches.items()}
+        log("  collate_lidar pads a scan to {:,} rows: dense by the density "
+            "rule, so a step scatters on {} and a forward on {}".format(
+                rows, [k for k in step_launches if "segment" in k][0],
+                [k for k in forward_launches if "segment" in k][0]))
+        log("  {} Trainer: {} steps, {} evaluate() calls ({} forwards) in "
+            "{:.2f} s (the CLI beside it); launches: train {} (want {}), "
+            "serve {} (want {}); peak device memory {:.1f} MiB".format(
+                since(), t1.cur_iter, evals["evals"], forwards, wall,
+                trained, want_train, evals["serve"], want_serve, peak))
+        log("  loss per step: {}".format([round(v, 4) for v in losses]))
+        check(t1.cur_iter == RT_ITERS and len(losses) == RT_ITERS,
+              "the Trainer ran {} steps".format(t1.cur_iter))
+        check(trained == want_train and evals["serve"] == want_serve,
+              "launch counts off the expected ones")
+        check(all(np.isfinite(losses)), "non-finite train loss")
+        head, tail = np.mean(losses[:4]), np.mean(losses[-4:])
+        check(tail < head, "the loss did not fall: mean of the last four "
+              "steps {:.4f} against the first four's {:.4f}".format(
+                  tail, head))
+        queue = t1.checkpoint.queue
+        rec = {k: t1.checkpoint.get_record(k)
+               for k in ("iters", "train_by_epoch", "ema_step")}
+        log("  mean loss of the first four steps {:.4f}, of the last four "
+            "{:.4f}; checkpoint queue {}, records {}".format(
+                head, tail, queue, rec))
+        check(queue == ["iter_{}".format(RT_ITERS // 2),
+                        "iter_{}".format(RT_ITERS)], "checkpoint queue")
+        check(rec == {"iters": RT_ITERS, "train_by_epoch": False,
+                      "ema_step": RT_ITERS}, "checkpoint records")
+        check(evals["evals"] == 2, "do_eval ran {} evaluations".format(
+            evals["evals"]))
+        log("  AP at iteration {} (EMA weights): {}".format(
+            RT_ITERS, {k: round(v, 4) for k, v in
+                       evals["metrics"].items()}))
+
+        # resume: a second Trainer on other random weights
+        torch.manual_seed(SEED + 1)
+        cfg2 = runtime_config(root, device)
+        t2 = runtime_trainer(cfg2, out, RT_ITERS, resume=True)
+        bad = (same_state(t1.model.state_dict(), t2.model.state_dict()) +
+               same_state(t1.optimizer.state_dict(),
+                          t2.optimizer.state_dict()) +
+               same_state(t1.lr_scheduler.state_dict(),
+                          t2.lr_scheduler.state_dict()) +
+               same_state(t1.ema_params, t2.ema_params))
+        lr1 = t1.optimizer.param_groups[0]["lr"]
+        lr2 = t2.optimizer.param_groups[0]["lr"]
+        sched = cfg._schedule()
+        want_lr = sched.learning_rate * sched.factor(RT_ITERS)
+        log("  {} resume from {}: model, optimizer moments, LR schedule "
+            "(last_epoch {}) and EMA bit-equal: {}; rate at step {} {!r} "
+            "(uninterrupted {!r}, StepDecay {!r}); ema_step {}".format(
+                since(), t2.checkpoint.queue[-1], t2.lr_scheduler.last_epoch,
+                not bad, RT_ITERS, lr2, lr1, want_lr, t2.ema_step))
+        check(not bad, "resumed state differs: {}".format(bad[:8]))
+        check(t2.cur_iter == RT_ITERS and t2.ema_step == RT_ITERS,
+              "resumed counters")
+        check(lr2 == lr1 == want_lr and t2.lr_scheduler.last_epoch ==
+              RT_ITERS, "resumed rate")
+        del t2, cfg2
+
+        # the ground truths given back score 100
+        rt = gt_round_trip(t1.model, t1.val_dataset)
+        keys = ["Car {} easy AP_R{}".format(m, r) for m in ("3d", "bev")
+                for r in (11, 40)]
+        log("  val ground truths as predictions (score 1): {}".format(
+            {k: rt[k] for k in keys}))
+        check(all(rt[k] == 100.0 for k in keys),
+              "the ground truths scored under 100 AP")
+
+        # NaN padding against out-of-range padding, kernel path
+        host, _ = bare_batches(t1.train_dataset, t1.batch_size, 1, device)
+        nan_step, far_step = nan_vs_out_of_range(t1, host[0])
+        diff = [k for k in nan_step[0] if nan_step[0][k] != far_step[0][k]]
+        diff += [k for k in nan_step[1]
+                 if not same_bits(nan_step[1][k], far_step[1][k])]
+        diff += [k for k in nan_step[2]
+                 if not same_bits(nan_step[2][k], far_step[2][k])]
+        log("  {} NaN-padded step ({} of {} rows padding) vs out-of-range "
+            "padding, deterministic mode: losses {} / {}, launches {}; "
+            "losses, grads and running stats bit-equal (tolerance 0): {}"
+            .format(since(), int(np.isnan(host[0]["data"][..., 0]).sum()),
+                    host[0]["data"].shape[0] * host[0]["data"].shape[1],
+                    {k: round(v, 6) for k, v in nan_step[0].items()},
+                    {k: round(v, 6) for k, v in far_step[0].items()},
+                    {k: v for k, v in nan_step[3].items() if v}, not diff))
+        check(all(np.isfinite(list(nan_step[0].values()))),
+              "non-finite loss on the NaN-padded batch")
+        check(all(nan_step[3][k] for k in step_launches),
+              "the NaN-padded step missed a kernel")
+        check(not diff, "NaN and out-of-range padding differ: {}".format(
+            diff[:8]))
+
+        # the CLI's subprocesses end before anything is timed
+        finish_cli()
+        log("  {} the CLI joined".format(since()))
+
+        # evaluate, in parts
+        metrics, parts, ewall = eval_parts(t1)
+        check(t1.model.training, "evaluate left the model in eval mode")
+        log("  evaluate: {} val frames in {:.3f} s ({:.2f} frames/s): "
+            "device forward {:.3f} s, postprocess {:.3f} s, metric {:.3f} "
+            "s".format(RT_VAL, ewall, RT_VAL / ewall, parts["forward"],
+                       parts["postprocess"], parts["metric"]))
+        log("  AP: {}".format({k: round(v, 4) for k, v in metrics.items()}))
+
+        # what the runtime costs, in windows inside one epoch of a larger
+        # split: the Trainer at 4 and 1 loader threads and on prebuilt
+        # batches against the bare step, in mirrored order, and the loader
+        # alone
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        t_tree = time.perf_counter()
+        timed_root = os.path.join(tmp, "KITTI_timed")
+        kitti_tree(timed_root, train=RT_TIMED_TRAIN, val=1, seed=SEED + 1)
+        timed_set = runtime_config(timed_root, device).train_dataset
+        t_tree = time.perf_counter() - t_tree
+        trainers = {w: Trainer(
+            model=t1.model, optimizer=t1.optimizer,
+            lr_scheduler=t1.lr_scheduler, iters=0, train_dataset=timed_set,
+            batch_size=t1.batch_size,
+            save_dir=os.path.join(tmp, "timed{}".format(w)),
+            ema_decay=RT_EMA, log_interval=0, save_interval=0,
+            dataloader_fn={"num_workers": w}) for w in (RT_WORKERS, 1)}
+        host, dev = bare_batches(timed_set, t1.batch_size,
+                                 RT_WARM + RT_TIMED + 1, device)
+        trainers["prebuilt"] = Trainer(
+            model=t1.model, optimizer=t1.optimizer,
+            lr_scheduler=t1.lr_scheduler, iters=0, train_dataset=timed_set,
+            batch_size=t1.batch_size, save_dir=os.path.join(tmp, "timedp"),
+            ema_decay=RT_EMA, log_interval=0, save_interval=0)
+        trainers["prebuilt"].train_dataloader = Prebuilt(host)
+        timed_bare_steps(trainers[1], dev[:2])      # warm-up
+        order = ("trainer4", "trainer1", "prebuilt", "bare", "bare",
+                 "prebuilt", "trainer1", "trainer4")
+        rates = {k: [] for k in order}
+        waits = {k: [] for k in order}
+        step_host = {k: [] for k in order}
+        for path in order:
+            if path == "bare":
+                r, h = timed_bare_steps(trainers[1], dev[:RT_TIMED])
+            else:
+                r, _, w, h = windowed_trainer_run(trainers[
+                    {"trainer4": RT_WORKERS, "trainer1": 1}.get(path, path)])
+                waits[path].append(w)
+            rates[path].append(r)
+            step_host[path] += h
+        rate = {k: 2 / sum(1 / x for x in v) for k, v in rates.items()}
+
+        def ms(xs):
+            return round(1e3 * float(np.mean(xs)), 3)
+        # the main run fetched each epoch's batches and then, but for the
+        # last epoch, the end of the epoch
+        period = len(t1.train_dataloader) + 1
+        alone = {w: loader_alone(timed_set, t1.batch_size, w)
+                 for w in (RT_WORKERS, 1)}
+        h2d = [cuda_ms(lambda: to_device(b, device), 5) for b in host[:3]]
+        log("  {} timing split: {} train frames ({} steps an epoch) in "
+            "{:.1f} s; windows of {} steps from step {} of a run, inside "
+            "its loader's first epoch (no epoch start, no pool shutdown), "
+            "cudnn.benchmark on, order t4/t1/prebuilt/bare/bare/prebuilt/t1/"
+            "t4".format(
+                since(), RT_TIMED_TRAIN, len(trainers[1].train_dataloader),
+                t_tree, RT_TIMED, RT_WARM))
+        log("  scans/s at batch {}: Trainer, {} loader threads {:.2f}, 1 "
+            "thread {:.2f}, on prebuilt batches (no loader work) {:.2f}; "
+            "bare make_train_step on {} batches of the split {:.2f} "
+            "(runtime cost {:.1f} % at {} threads, {:.1f} % at 1, {:.1f} % "
+            "prebuilt); halves {}".format(
+                t1.batch_size, RT_WORKERS, rate["trainer4"],
+                rate["trainer1"], rate["prebuilt"], RT_TIMED, rate["bare"],
+                100 * (1 - rate["trainer4"] / rate["bare"]), RT_WORKERS,
+                100 * (1 - rate["trainer1"] / rate["bare"]),
+                100 * (1 - rate["prebuilt"] / rate["bare"]),
+                {k: [round(x, 2) for x in v] for k, v in rates.items()}))
+        log("  host time of a step call (the step's own launches), ms: "
+            "Trainer {} threads {}, 1 thread {}, prebuilt {}, bare {}"
+            .format(RT_WORKERS, ms(step_host["trainer4"]),
+                    ms(step_host["trainer1"]), ms(step_host["prebuilt"]),
+                    ms(step_host["bare"])))
+        log("  reader wait a step, ms: in the windows, {} threads {}, 1 "
+            "thread {}; at a run's first step (a cold epoch start) {} / "
+            "{}; the main run's {} fetches: at its {} epoch starts {}, at "
+            "the end of its first epoch (the pool's shutdown) {}, at the "
+            "other steps {}".format(
+                RT_WORKERS,
+                [ms(w[RT_WARM + 1:RT_WARM + RT_TIMED + 1])
+                 for w in waits["trainer4"]],
+                [ms(w[RT_WARM + 1:RT_WARM + RT_TIMED + 1])
+                 for w in waits["trainer1"]],
+                [ms(w[:1]) for w in waits["trainer4"]],
+                [ms(w[:1]) for w in waits["trainer1"]], len(main_waits),
+                len(main_waits[::period]), ms(main_waits[::period]),
+                ms(main_waits[period - 1::period]),
+                ms([w for i, w in enumerate(main_waits)
+                    if 0 < i % period < period - 1])))
+        log("  the loader alone (nothing else on the host, batches {} to "
+            "{} of an epoch): {} threads {:.2f} scans/s, 1 thread {:.2f}; "
+            "host-to-device copy of a batch ({:.2f} MB) {} ms".format(
+                RT_WARM, RT_WARM + RT_TIMED, RT_WORKERS, alone[RT_WORKERS],
+                alone[1], sum(v.nbytes for v in host[0].values()) / 1e6,
+                [round(v, 3) for v in h2d]))
+        from torch.profiler import ProfilerActivity
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA])
+        _, secs, _, _ = windowed_trainer_run(trainers[RT_WORKERS], prof)
+        log("  profile of a window of {} Trainer steps ({} threads):"
+            .format(RT_TIMED, RT_WORKERS))
+        log_profile(prof, secs * 1e3 / RT_TIMED, RT_TIMED)
+        log("  phase 27 took {:.1f} s".format(time.perf_counter() - t_phase))
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -8675,6 +9469,9 @@ def main():
         phase_squeezeseg(device)
         phase_paconv(device)
         phase_lanedet(device)
+        # the runtime: the KITTI kernels reached through the Trainer and
+        # evaluate() (K1, K3, K4, K5 and, by the density rule, K7 / K6)
+        phase_runtime(device)
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback

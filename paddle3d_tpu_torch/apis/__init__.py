@@ -1,3 +1,7 @@
 from . import manager
+from .checkpoint import Checkpoint
 from .config import Config
-from .pipeline import make_train_step, parse_losses
+from .dataloader import DataLoader
+from .pipeline import make_eval_step, make_train_step, parse_losses
+from .scheduler import Scheduler
+from .trainer import Trainer

@@ -1,20 +1,21 @@
 """YAML experiment configuration of the PyTorch port.
 
-Port of paddle3d_tpu/apis/config.py (YAML parsing, `_base_` merge and
-recursive `_load_object`, config.py:55-155). It cannot reuse the JAX
-module: importing anything under paddle3d_tpu runs that package's
-__init__, which imports jax.
+Port of paddle3d_tpu/apis/config.py: YAML parsing, the `_base_` merge,
+recursive `_load_object`, `dic=`, the command-line overrides and every
+property of the JAX Config. It cannot reuse the JAX module: importing
+anything under paddle3d_tpu runs that package's __init__, which imports
+jax.
 
-The `model:` section (its training `loss:` included), `optimizer:` and
-`lr_scheduler:` are built. Datasets arrive with the runtime slice
-(ROADMAP.md, queue 1, item 5).
+The model goes to `device`; the optimizer is a torch optimizer over its
+parameters and `lr_scheduler` a LambdaLR over that optimizer (the JAX
+package builds optax transformations); the datasets are the port's.
 """
 import codecs
 import copy
 import inspect
 import logging
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import yaml
@@ -29,13 +30,28 @@ class Config:
     on the card unless the caller passes device="cpu" (there is no fallback
     to the CPU: without CUDA, building the model raises)."""
 
-    def __init__(self, path: str, device="cuda"):
-        if not os.path.exists(path):
-            raise FileNotFoundError("Config file {} not found".format(path))
-        if not (path.endswith("yml") or path.endswith("yaml")):
-            raise RuntimeError("Config file should be yaml format")
-        self.dic = self._parse_from_yaml(path)
+    def __init__(self,
+                 path: str = None,
+                 learning_rate: float = None,
+                 batch_size: int = None,
+                 iters: int = None,
+                 epochs: int = None,
+                 dic: Dict = None,
+                 device="cuda"):
+        if dic is not None:
+            self.dic = copy.deepcopy(dic)
+        else:
+            if not path:
+                raise ValueError("Either path or dic must be given")
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    "Config file {} not found".format(path))
+            if not (path.endswith("yml") or path.endswith("yaml")):
+                raise RuntimeError("Config file should be yaml format")
+            self.dic = self._parse_from_yaml(path)
         self.device = device
+        self.update(learning_rate=learning_rate, batch_size=batch_size,
+                    iters=iters, epochs=epochs)
 
     # ------------------------------------------------------------------ YAML
     def _update_dic(self, dic: Dict, base_dic: Dict) -> Dict:
@@ -62,8 +78,31 @@ class Config:
             dic = self._update_dic(dic, self._parse_from_yaml(base_path))
         return dic
 
+    def update(self,
+               learning_rate: float = None,
+               batch_size: int = None,
+               iters: int = None,
+               epochs: int = None):
+        """Command-line overrides (reference: config.py:123-141): iters
+        drops epochs and epochs drops iters."""
+        if learning_rate is not None:
+            self.dic.setdefault("lr_scheduler", {})
+            self.dic["lr_scheduler"]["learning_rate"] = learning_rate
+        if batch_size is not None:
+            self.dic["batch_size"] = batch_size
+        if iters is not None:
+            self.dic["iters"] = iters
+            self.dic.pop("epochs", None)
+        if epochs is not None:
+            self.dic["epochs"] = epochs
+            self.dic.pop("iters", None)
+
     # ------------------------------------------------------- component build
     def _load_component(self, com_name: str):
+        # the reference's cross-suite names ($paddleseg.X / $paddledet.X)
+        # resolve into the port's registries
+        if com_name.startswith(("$paddleseg.", "$paddledet.")):
+            com_name = com_name.split(".", 1)[1]
         for com in manager.ALL_MANAGERS:
             if com_name in com:
                 return com[com_name]
@@ -111,6 +150,65 @@ class Config:
 
     # ------------------------------------------------------------ properties
     @property
+    def batch_size(self) -> int:
+        return self.dic.get("batch_size", 1)
+
+    @property
+    def iters(self) -> Optional[int]:
+        return self.dic.get("iters")
+
+    @property
+    def epochs(self) -> Optional[int]:
+        return self.dic.get("epochs")
+
+    @property
+    def train_by_epoch(self) -> bool:
+        return "epochs" in self.dic
+
+    @property
+    def train_dataset_config(self) -> Dict:
+        return copy.deepcopy(self.dic.get("train_dataset", {}))
+
+    @property
+    def val_dataset_config(self) -> Dict:
+        return copy.deepcopy(self.dic.get("val_dataset", {}))
+
+    @property
+    def train_dataset(self):
+        """The port's dataset of `train_dataset:` (built anew each read),
+        None without one."""
+        cfg = self.train_dataset_config
+        return self._load_object(cfg) if cfg else None
+
+    @property
+    def val_dataset(self):
+        cfg = self.val_dataset_config
+        return self._load_object(cfg) if cfg else None
+
+    @property
+    def amp_cfg(self) -> Dict:
+        return copy.deepcopy(self.dic.get("amp_cfg", {}))
+
+    @property
+    def ema_cfg(self) -> Dict:
+        return copy.deepcopy(self.dic.get("ema_cfg", {}))
+
+    @property
+    def export_cfg(self) -> Dict:
+        return copy.deepcopy(self.dic.get("export", {}))
+
+    @property
+    def sync_bn(self) -> bool:
+        """False; a config with `sync_bn: true` raises: SyncBN comes with
+        the data-parallel runtime (ROADMAP.md, queue 1, item 5,
+        parallel/mesh.py)."""
+        if self.dic.get("sync_bn", False):
+            raise NotImplementedError(
+                "sync_bn needs the data-parallel runtime, not ported yet "
+                "(ROADMAP.md, queue 1, item 5: parallel/mesh.py)")
+        return False
+
+    @property
     def model(self):
         """The model on `self.device`, in training mode as torch builds it;
         call `.eval()` before `test_forward`."""
@@ -151,3 +249,25 @@ class Config:
             self._lr_scheduler = torch.optim.lr_scheduler.LambdaLR(
                 self.optimizer, self._schedule().factor)
         return self._lr_scheduler
+
+    def to_dict(self) -> Dict:
+        """The YAML dict with its objects built (model, datasets,
+        optimizer) and the schedule folded into the optimizer, as the JAX
+        Config gives it."""
+        dic = copy.deepcopy(self.dic)
+        dic.update({"batch_size": self.batch_size, "model": self.model})
+        if "train_dataset" in dic:
+            dic["train_dataset"] = self.train_dataset
+        if "val_dataset" in dic:
+            dic["val_dataset"] = self.val_dataset
+        if "optimizer" in dic:
+            dic["optimizer"] = self.optimizer
+        dic.pop("lr_scheduler", None)
+        if self.iters is not None:
+            dic["iters"] = self.iters
+        if self.epochs is not None:
+            dic["epochs"] = self.epochs
+        return dic
+
+    def __str__(self):
+        return yaml.dump(self.dic)

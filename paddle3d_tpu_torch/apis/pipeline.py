@@ -1,17 +1,19 @@
-"""Train step, torch port of paddle3d_tpu/apis/pipeline.py (parse_losses,
-make_train_step).
+"""Train and eval steps, torch port of paddle3d_tpu/apis/pipeline.py
+(parse_losses, make_train_step with its EMA, make_eval_step).
 
 PyTorch runs eagerly, so the step is a plain function: zero the grads,
 train_forward, backward (a parameter the loss does not reach gets a zero
 gradient), the optional extra global-norm clip, the optimizer step (its
-config clip runs first, as a pre-hook) and the scheduler step. f32 only for
-now.
+config clip runs first, as a pre-hook), the scheduler step and, with an
+EMA, the shadow's update. f32 only for now.
 """
 from typing import Callable, Optional
 
 import torch
 
-__all__ = ["parse_losses", "make_train_step"]
+from ..utils.ema import update_ema
+
+__all__ = ["parse_losses", "make_train_step", "make_eval_step"]
 
 
 def parse_losses(losses) -> torch.Tensor:
@@ -32,17 +34,20 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
     {"loss": it}); the model and optimizer update in place, and
     `lr_scheduler`, if given, steps once after the optimizer.
 
+    With `ema_decay` the step is `step(model, optimizer, ema, batch,
+    decay=None) -> (loss dict, ema)`, as the JAX package's: after the
+    optimizer step, every parameter's shadow in the dict `ema`
+    (`utils.ema.init_ema`) becomes decay * ema + (1 - decay) * param, in
+    place, with `decay` the step's rate (the Trainer's schedule) or
+    `ema_decay`. The shadow covers parameters only, as the JAX one covers
+    nnx.Param: running statistics are not averaged.
+
     grad_clip_norm clips the global grad norm on top of the optimizer's own
     clip, as the JAX step does: g * min(1, clip / (norm + 1e-6))."""
     if amp_level in ("O1", "O2"):
         raise NotImplementedError(
             "bf16 AMP is not ported: the port trains in f32 (bf16 and AMP "
             "O1 / O2 arrive with ROADMAP.md, queue 1, item 15)")
-    if ema_decay is not None:
-        raise NotImplementedError(
-            "EMA arrives with the runtime slice (ROADMAP.md, queue 1, "
-            "item 5)")
-
     def train_step(model, optimizer, batch) -> dict:
         optimizer.zero_grad(set_to_none=True)
         losses = model.train_forward(batch)
@@ -68,4 +73,24 @@ def make_train_step(grad_clip_norm: Optional[float] = None,
             lr_scheduler.step()
         return {k: v.detach() for k, v in losses.items()}
 
-    return train_step
+    if ema_decay is None:
+        return train_step
+
+    def train_step_ema(model, optimizer, ema, batch, decay=None):
+        losses = train_step(model, optimizer, batch)
+        update_ema(ema, model, ema_decay if decay is None else decay)
+        return losses, ema
+
+    return train_step_ema
+
+
+def make_eval_step() -> Callable:
+    """step(model, batch) -> the model's fixed-shape predictions
+    (`test_forward`, without autograd; reference: pipeline.py:119
+    validation_step). The model must be in eval mode."""
+
+    @torch.no_grad()
+    def eval_step(model, batch):
+        return model.test_forward(batch)
+
+    return eval_step

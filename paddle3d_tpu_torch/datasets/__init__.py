@@ -1,7 +1,11 @@
 """Datasets of the PyTorch port: numpy-only copies of the JAX package's
-(paddle3d_tpu/datasets/), which the port cannot import. The rest of that
-package (KITTI, nuScenes, Waymo, Apollo, the synthetic sets) arrives with
-the runtime slice (ROADMAP.md, queue 1, item 5)."""
+(paddle3d_tpu/datasets/), which the port cannot import. nuScenes, Waymo,
+Apollo, the camera datasets and the synthetic camera sets wait for
+ROADMAP.md, queue 1, item 5."""
 from .base import BaseDataset, MetricABC, collate_lidar
+from .kitti import KittiDetDataset, KittiMetric, KittiPCDataset
 from .modelnet40 import AccuracyMetric, ModelNet40
 from .semantic_kitti import SemanticKITTIDataset, SemanticKittiMetric
+from .synthetic import (SyntheticClsDataset, SyntheticClsMetric,
+                        SyntheticDataset, SyntheticMetric,
+                        SyntheticRangeDataset, SyntheticRangeMetric)

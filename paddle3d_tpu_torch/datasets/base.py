@@ -52,6 +52,13 @@ class BaseDataset(abc.ABC):
     def __len__(self) -> int:
         ...
 
+    def get(self, index: int, rng=None) -> Sample:
+        """The sample at index, its random transforms drawing from rng (a
+        numpy RandomState; the DataLoader passes the generator of its seed,
+        epoch and index). A dataset whose samples draw nothing ignores
+        it."""
+        return self[index]
+
     @property
     def metric(self) -> MetricABC:
         raise NotImplementedError

@@ -9,7 +9,11 @@ package's contract (batch dicts in, fixed-shape output dicts out):
 """
 import abc
 
+import numpy as np
 from torch import nn
+
+from ...geometries import BBoxes3D, CoordMode
+from ...sample import Sample
 
 
 class Base3DModel(nn.Module, abc.ABC):
@@ -30,8 +34,45 @@ class Base3DModel(nn.Module, abc.ABC):
 
 
 class BaseLidarModel(Base3DModel):
-    """LiDAR family marker."""
+    """LiDAR family marker, with the detectors' shared host post-processing
+    (PointPillars, CenterPoint, PV-RCNN / Voxel-RCNN, IA-SSD)."""
     modality = "lidar"
+
+    @staticmethod
+    def postprocess_to_samples(outputs: dict, metas: list) -> list:
+        """Fixed-shape outputs (numpy: box3d_lidar [B, K, 7 | 9] bottom-z,
+        scores [B, K], label_preds [B, K], -1 padded) -> one Sample a meta:
+        the rows with a score >= 0 as BBoxes3D (KittiLidar, origin (.5, .5,
+        0)), labels, confidences and the observation angle alpha; a
+        9-column box (x, y, z, w, l, h, vx, vy, yaw) keeps its velocities
+        apart. The JAX package's PointPillars /
+        CenterPoint.postprocess_to_samples (pointpillars.py:141-164,
+        centerpoint.py:148-181)."""
+        boxes = np.asarray(outputs["box3d_lidar"])
+        scores = np.asarray(outputs["scores"])
+        labels = np.asarray(outputs["label_preds"])
+        results = []
+        for i, meta in enumerate(metas):
+            valid = scores[i] >= 0
+            sample = Sample(path=meta.get("path"), modality="lidar")
+            b = boxes[i][valid]
+            box7 = b[:, [0, 1, 2, 3, 4, 5, b.shape[-1] - 1]] if len(b) else \
+                b.reshape(0, 7)
+            sample.bboxes_3d = BBoxes3D(
+                box7, origin=[.5, .5, 0.], coordmode=CoordMode.KittiLidar,
+                rot_axis=2)
+            if b.shape[-1] == 9 and len(b):
+                sample.bboxes_3d.velocities = b[:, 6:8]
+            sample.labels = labels[i][valid]
+            sample.confidences = scores[i][valid]
+            sample.alpha = (-np.arctan2(-box7[:, 1], box7[:, 0]) +
+                            box7[:, 6]) if len(b) else np.zeros((0,))
+            if meta.get("calibs") is not None:
+                sample.calibs = meta["calibs"]
+            sample.meta.update({k: v for k, v in meta.items()
+                                if k not in ("path", "calibs")})
+            results.append(sample)
+        return results
 
 
 class BaseMonoModel(Base3DModel):

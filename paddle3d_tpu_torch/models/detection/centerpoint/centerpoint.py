@@ -18,9 +18,6 @@ paths, as in the JAX package:
     table gather K5 as its VJP).
 The canvas keeps the JAX package's NHWC layout and goes to NCHW only
 around the conv stack.
-
-Not ported yet: `postprocess_to_samples` (Sample / BBoxes3D records,
-ROADMAP.md, queue 1, item 5).
 """
 import math
 

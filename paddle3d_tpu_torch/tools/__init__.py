@@ -1,0 +1,2 @@
+"""Command-line entry points of the port: `python -m
+paddle3d_tpu_torch.tools.train` and `.evaluate`."""

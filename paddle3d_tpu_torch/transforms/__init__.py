@@ -1,4 +1,11 @@
-from .base import Compose, TransformABC
+from .base import Compose, TransformABC, rng_of, sample_rng
 from .normalize import Normalize, NormalizeRangeImage
 from .range_image import LoadSemanticKITTIRange, project_range
+from .reader import (LoadPointCloud, RemoveCameraInvisiblePointsKITTI,
+                     RemoveCameraInvisiblePointsKITTIV2)
 from .target_generator import Gt2SmokeTarget
+from .transform import (FilterBBoxOutsideRange, FilterPointOutsideRange,
+                        GlobalRotate, GlobalRotScaleTrans, GlobalScale,
+                        GlobalTranslate, RandomFlip3D, RandomHorizontalFlip,
+                        RandomObjectPerturb, RandomVerticalFlip, SamplePoint,
+                        SamplePointByVoxels, ShufflePoint)

@@ -4,8 +4,9 @@ time, the deterministic mode is scoped to its block, and bit-pattern
 equality tells -0 from +0 in f32 and f64; of the work counts that the
 table gather's (K5) bound and the rotated-box intersection's (K11) chain
 floor rest on; of phase 15's SMOKE batches and the row gather's (K14)
-byte count and decode inputs; and of the inputs of phases 24-26: the
-range batch, the point clouds and the lane rasteriser."""
+byte count and decode inputs; of the inputs of phases 24-26: the range
+batch, the point clouds and the lane rasteriser; and of phase 27's KITTI
+tree writer, read back through the port's dataset and metric."""
 import numpy as np
 import pytest
 import torch
@@ -265,3 +266,37 @@ def test_lane_targets_rasterise_four_to_eight_lanes():
     assert grid.shape == (100, 25, 2)
     np.testing.assert_array_equal(grid[0, 0], [0, 1])
     np.testing.assert_array_equal(grid[-1, -1], [1, 0])
+
+
+def test_kitti_tree_reads_back_through_the_port_dataset(tmp_path):
+    """Phase 27's KITTI tree: the port's KittiPCDataset reads back every
+    frame's boxes (the label_2 lines round-trip through the camera frame:
+    1e-4 m and rad), points and splits; the val ground truths handed as
+    outputs score 100 AP on Car 3-D and BEV through
+    postprocess_to_samples and KittiMetric."""
+    import types
+
+    from paddle3d_tpu_torch.datasets import KittiPCDataset
+    from paddle3d_tpu_torch.models.base import BaseLidarModel
+    from paddle3d_tpu_torch.transforms import LoadPointCloud
+    written = chip_smoke.kitti_tree(str(tmp_path), train=3, val=6,
+                                    points=4000)
+    assert len(written) == 9
+    for mode, ids in (("train", range(3)), ("val", range(3, 9))):
+        ds = KittiPCDataset(str(tmp_path), class_names=["Car"], mode=mode,
+                            transforms=[LoadPointCloud(dim=4, use_dim=4)])
+        assert ds.ids == ["{:06d}".format(i) for i in ids]
+        for i in range(len(ds)):
+            s = ds[i]
+            want = written[ds.ids[i]]
+            assert 6 <= len(want) <= 10 and s.meta.image_shape is None
+            np.testing.assert_allclose(np.asarray(s.bboxes_3d), want,
+                                       atol=1e-4)
+            assert (s.labels == 0).all() and (s.difficulties == 0).all()
+            assert s.data.shape == (4000, 4)
+    model = types.SimpleNamespace(
+        postprocess_to_samples=BaseLidarModel.postprocess_to_samples)
+    ap = chip_smoke.gt_round_trip(model, ds)
+    for m in ("3d", "bev"):
+        for r in (11, 40):
+            assert ap["Car {} easy AP_R{}".format(m, r)] == 100.0

@@ -148,11 +148,14 @@ def test_entry_points(models):
 
 
 def test_port_imports_no_jax():
-    """The port imports torch and never jax, flax or paddle3d_tpu: import
-    it, its sparse-voxel modules, the weight converter and the camera host
-    layer (Sample, Gt2SmokeTarget), the BEVFusion and DD3D modules, and
-    build the tiny model, the CenterPoint-voxels model and the tiny SMOKE
-    in a fresh interpreter."""
+    """The port imports torch and never jax, flax, PIL or paddle3d_tpu:
+    import it, its sparse-voxel modules, the weight converter and the
+    camera host layer (Sample, Gt2SmokeTarget), the BEVFusion and DD3D
+    modules, the runtime (Trainer, DataLoader, Checkpoint, Scheduler, the
+    EMA, logger, timer, summary, env, the KITTI and synthetic datasets, the
+    point transforms, the geometry, the CLI), and build the tiny model, its
+    datasets, the CenterPoint-voxels model and the tiny SMOKE in a fresh
+    interpreter."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
                           "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
     smoke = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
@@ -167,11 +170,30 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.transforms.target_generator\n"
         "import paddle3d_tpu_torch.models.detection.bevfusion\n"
         "import paddle3d_tpu_torch.models.detection.dd3d\n"
-        "m = Config(path=sys.argv[1], device='cpu').model\n"
+        "import paddle3d_tpu_torch.apis.trainer\n"
+        "import paddle3d_tpu_torch.apis.dataloader\n"
+        "import paddle3d_tpu_torch.apis.checkpoint\n"
+        "import paddle3d_tpu_torch.apis.scheduler\n"
+        "import paddle3d_tpu_torch.utils.ema\n"
+        "import paddle3d_tpu_torch.utils.logger\n"
+        "import paddle3d_tpu_torch.utils.timer\n"
+        "import paddle3d_tpu_torch.utils.summary\n"
+        "import paddle3d_tpu_torch.env\n"
+        "import paddle3d_tpu_torch.geometries.bbox\n"
+        "import paddle3d_tpu_torch.transforms.reader\n"
+        "import paddle3d_tpu_torch.transforms.transform\n"
+        "import paddle3d_tpu_torch.datasets.kitti.kitti_det\n"
+        "import paddle3d_tpu_torch.datasets.kitti.eval\n"
+        "import paddle3d_tpu_torch.datasets.synthetic\n"
+        "import paddle3d_tpu_torch.tools.train\n"
+        "import paddle3d_tpu_torch.tools.evaluate\n"
+        "c = Config(path=sys.argv[1], device='cpu')\n"
+        "m, d = c.model, (c.train_dataset, c.val_dataset)\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"
         "s = Config(path=sys.argv[3], device='cpu').model\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'flax', 'paddle3d_tpu'))\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'PIL',\n"
+        "                                    'paddle3d_tpu'))\n"
         "assert type(m).__name__ == 'PointPillars'\n"
         "assert type(v.middle_encoder).__name__ == 'SparseResNet3D'\n"
         "assert type(s.backbone).__name__ == 'DLA'\n"

@@ -309,13 +309,69 @@ def test_train_step_state_matches_jax(train_step_pair):
 
 
 def test_train_step_refuses_amp_and_ema_and_parses_losses():
+    """AMP O1 / O2 raise (item 15). EMA, once refused, is ported: the step
+    takes (model, optimizer, ema, batch, decay) and returns (losses, ema),
+    the shadow moved to decay * ema + (1 - decay) * param."""
     from paddle3d_tpu_torch.apis import parse_losses
+    from paddle3d_tpu_torch.utils.ema import init_ema
     for kw, item in ((dict(amp_level="O2"), "bf16"),
-                     (dict(amp_level="O1"), "bf16"),
-                     (dict(ema_decay=0.999), "item 5")):
+                     (dict(amp_level="O1"), "bf16")):
         with pytest.raises(NotImplementedError, match=item):
             make_train_step(**kw)
+    lin = nn.Linear(2, 1)
+    lin.train_forward = lambda b: (lin(b["x"]) ** 2).mean()
+    ema = init_ema(lin)
+    before = {k: v.clone() for k, v in ema.items()}
+    step = make_train_step(ema_decay=0.999)
+    losses, out = step(lin, torch.optim.SGD(lin.parameters(), lr=1.),
+                       ema, {"x": torch.ones(3, 2)}, 0.25)
+    assert set(losses) == {"loss"} and out is ema
+    for k, p in lin.named_parameters():
+        assert torch.equal(ema[k], 0.25 * before[k] + 0.75 * p.detach())
+        assert not torch.equal(ema[k], before[k])
     one, two = torch.tensor(1.), torch.tensor(2.)
     assert parse_losses({"loss": one, "loss_cls": two}) is one
     assert parse_losses({"a": one, "b": two}).item() == 3.
     assert parse_losses(two) is two
+
+
+def test_train_step_nan_padding_equals_out_of_range_padding():
+    """collate_lidar pads a batch with NaN points: one train step of the
+    tiny config on make_batch's scans with the padding rows NaN gives the
+    losses, grads and running stats of the same scans padded out of range,
+    bit for bit (both are dropped by the same sentinel key; the port's
+    plain versions on the CPU), and they are finite."""
+    import chip_smoke
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # small ops: no fork-and-join an op
+    try:
+        runs = _nan_and_far_steps(chip_smoke)
+    finally:
+        torch.set_num_threads(threads)
+    (l1, g1, s1), (l2, g2, s2) = runs
+    assert all(torch.isfinite(v) for v in l1.values())
+    for a, b in ((l1, l2), (g1, g2), (s1, s2)):
+        assert set(a) == set(b)
+        assert all(chip_smoke.same_bits(a[k], b[k]) for k in a)
+
+
+def _nan_and_far_steps(chip_smoke):
+    """One step on make_batch(1) with its padding rows NaN, and one on it
+    as it is (x = 100 m), from one state: -> [(losses, grads, stats)] x 2."""
+    cfg = Config(path=TINY, device="cpu")
+    model, optimizer, scheduler = cfg.model.train(), cfg.optimizer, \
+        cfg.lr_scheduler
+    step = make_train_step(lr_scheduler=scheduler)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(1).items()}
+    nan = dict(batch, data=batch["data"].clone())
+    nan["data"][:, -8:] = float("nan")
+    restore = chip_smoke.saved_state(model, optimizer, scheduler)
+    runs = []
+    for b in (nan, batch):
+        losses = step(model, optimizer, b)
+        runs.append((losses, {n: p.grad.clone()
+                              for n, p in model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()
+                      if "running" in k}))
+        restore()
+    return runs
