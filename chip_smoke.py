@@ -373,16 +373,42 @@ result (each phase's first line leads with the seconds since the start):
      window; and `python -m paddle3d_tpu_torch.tools.train
      --iters 4` and `tools.evaluate` on its checkpoint as subprocesses,
      both exiting 0 with the kernel library loaded, not rebuilt.
+ 28. The runtime's other LiDAR configs (phase_lidar_runtime), each leg
+     through Config(dic=...) -> Trainer -> DataLoader -> dataset ->
+     transforms -> train steps -> evaluate() -> the dataset's metric on a
+     tree written under a temp dir from the seed (real scan and object
+     sizes, few frames): (a) PV-RCNN-KITTI (three classes) on a GT-paste
+     database built by `python -m
+     paddle3d_tpu_torch.tools.create_det_gt_database` as a process
+     (pastes of every class, each pasted object's points in its box),
+     KittiMetric finite for all three classes; (b)
+     CenterPoint-pillars-KITTI; (c) CenterPoint-pillars nuScenes 10-sweep
+     at batch 4 on a database with velocities (pasted boxes carry their
+     entries' velocities, some moving), NuScenesMetric; (d) IA-SSD-Waymo,
+     WaymoMetric. On every leg: the loader's first two batches equal at 1
+     and 4 threads, the launch counters of the Trainer's steps and of
+     evaluate()'s forwards equal to the routes the density rule gives the
+     batch's rows (pillars) or the dense BEV's recorded rows (PV-RCNN),
+     Trainer scans/s in a window of 3 steps against the bare step, the
+     database's and the metric's seconds, peak memory.
 
-Since phases 22 and 23 came, the timing loops of phases 4-10, 13 and
+The seconds of every phase are logged before the record lines. Since
+phases 22 and 23 came, the timing loops of phases 4-10, 13 and
 15-17 run fewer iterations; since phases 24-26 came, fewer again (ITERS
 6, CP_TRAIN_ITERS, TS_TRAIN_ITERS, VX_TRAIN_ITERS and IA_TRAIN_ITERS 4,
 SMOKE_ITERS 6, CADDN_ITERS, CADDN_TRAIN_ITERS, PETR_ITERS and
 PETR_TRAIN_ITERS 4); since phase 27 came, fewer again where a plain path
 takes a second or more a call: ITERS 2 (phases 4-9's serving halves and
 phase 5's train timing, one call a half), TS_TRAIN_ITERS, VX_TRAIN_ITERS,
-IA_TRAIN_ITERS, CADDN_ITERS, CADDN_TRAIN_ITERS and BEVF_ITERS 2; no
-check changed.
+IA_TRAIN_ITERS, CADDN_ITERS, CADDN_TRAIN_ITERS and BEVF_ITERS 2; since
+phase 28 came, fewer again: SMOKE_ITERS and SMOKE_TRAIN_ITERS 6 -> 4,
+BEVFORMER_ITERS, BEVDET_ITERS and RTEBEV_ITERS 6 -> 4, and CP_TRAIN_ITERS,
+PETR_ITERS, PETR_TRAIN_ITERS, BEVFORMER_TRAIN_ITERS, BEVDET_TRAIN_ITERS,
+RTEBEV_TRAIN_ITERS, BEVF_TRAIN_ITERS, DD3D_ITERS, DD3D_TRAIN_ITERS,
+SSG_ITERS, SSG_TRAIN_ITERS, PACONV_ITERS, PACONV_TRAIN_ITERS, LANE_ITERS
+and LANE_TRAIN_ITERS 4 -> 2 (one step or forward a half), and profile()
+traces the device's activity alone (the host's ops made reading a trace
+~4 s longer); no check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
@@ -911,10 +937,14 @@ def phase_timing(model, points, phase="phase 4", warmups=3):
 
 
 def profile(fn, iters=PROFILE_ITERS):
-    """Device time by kernel over `iters` calls of fn (the kernel path)."""
+    """Device time by kernel over `iters` calls of fn (the kernel path).
+    The device's activity alone: a ~16,000-launch forward's trace then
+    takes ~4 s less to read than with the host's ops beside it (the same
+    kernels, counts and device time), and the tracer lengthens the traced
+    wall less."""
     import torch
     from torch.profiler import ProfilerActivity
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -2622,7 +2652,7 @@ def phase_iassd(device):
     return errs, times, extra, launches
 
 
-CP_TRAIN_ITERS = 4      # train steps timed per path (halves of 2)
+CP_TRAIN_ITERS = 2      # train steps timed per path (halves of 1)
 
 
 def cp_train_setup(device):
@@ -3921,8 +3951,8 @@ def phase_ia_train(device):
 SMOKE_HW = (384, 1280)
 SMOKE_FOCAL = 721.5
 SMOKE_BATCH = 8
-SMOKE_ITERS = 6         # timed forwards per path and batch (halves of 3)
-SMOKE_TRAIN_ITERS = 6   # timed train steps (halves of 3)
+SMOKE_ITERS = 4         # timed forwards per path and batch (halves of 2)
+SMOKE_TRAIN_ITERS = 4   # timed train steps (halves of 2)
 SMOKE_OBJECTS = 8       # synthetic objects an image
 # the tiny config's class head gets this contrast before the card-vs-CPU
 # check: its random heatmap is flat at sigmoid(-2.19), and near-equal
@@ -4782,8 +4812,8 @@ PETR_TINY = os.path.join(REPO, "configs", "petr", "petr_synthetic_tiny.yml")
 PETR_HW = (320, 800)
 PETR_CAMS = 6
 PETR_BATCH = 2          # the configs' batch_size; bench.py serves batch 1
-PETR_ITERS = 4          # timed forwards per batch (halves of 2)
-PETR_TRAIN_ITERS = 4    # timed train steps (halves of 2)
+PETR_ITERS = 2          # timed forwards per batch (halves of 1)
+PETR_TRAIN_ITERS = 2    # timed train steps (halves of 1)
 PETR_OBJECTS = 8        # gt boxes a frame, then two padded slots
 PETR_EGO = 0.5          # m the ego moved between PETRv2's two frames
 # the tiny config's class branch gets this contrast before the card-vs-CPU
@@ -5349,8 +5379,8 @@ def bevdet_rig(hw, n=PETR_CAMS, b=1, tilt=0.0, bda_yaw=0.0, seed=SEED):
             "bda": tile(bda)}
 
 
-BEVFORMER_ITERS = 6         # timed forwards (halves of 3)
-BEVFORMER_TRAIN_ITERS = 4   # timed train steps (halves of 2)
+BEVFORMER_ITERS = 4         # timed forwards (halves of 2)
+BEVFORMER_TRAIN_ITERS = 2   # timed train steps (halves of 1)
 # the second served frame's ego motion: dx, dy (m), the ego's yaw and the
 # yaw delta (rad)
 BEVFORMER_MOTION = (0.6, 0.15, 0.4, 0.03)
@@ -5368,8 +5398,8 @@ BEVDET_TINY_TOL = {"scores": 2e-6, "box3d_lidar": 2e-7,
                    "bev_feature": 5e-6}
 TINY_CLS_GAIN = 8.0         # as PETR_CLS_GAIN: near-equal random scores
 BEVDET_BATCH = 8            # the config's batch_size
-BEVDET_ITERS = 6            # timed forwards per path and batch (halves)
-BEVDET_TRAIN_ITERS = 4      # timed train steps (halves of 2)
+BEVDET_ITERS = 4            # timed forwards per path and batch (halves)
+BEVDET_TRAIN_ITERS = 2      # timed train steps (halves of 1)
 BEVDET_OBJECTS = 16         # gt boxes a frame, then two padded slots
 BEVDET_LOSSES = ("loss", "hm_loss_0", "loc_loss_0")
 
@@ -6495,8 +6525,8 @@ RTEBEV = os.path.join(REPO, "configs", "rtebev",
 RTEBEV_4F = os.path.join(REPO, "configs", "rtebev",
                          "rtebev_r50_nuscenes_256x704_msdepth_hybrid_4f.yml")
 RTEBEV_BATCH = 4            # the configs' batch_size; bench.py serves 1
-RTEBEV_ITERS = 6            # timed forwards per path and batch (halves)
-RTEBEV_TRAIN_ITERS = 4      # timed train steps (halves of 2)
+RTEBEV_ITERS = 4            # timed forwards per path and batch (halves)
+RTEBEV_TRAIN_ITERS = 2      # timed train steps (halves of 1)
 RTEBEV_POINTS = 34720       # a nuScenes sweep's LiDAR returns, for gt_depth
 RTEBEV_LOSSES = ("loss", "loss_cls", "loss_bbox", "loss_cls_one2many",
                  "loss_bbox_one2many", "loss_depth")
@@ -7021,7 +7051,7 @@ BEVF_CAM = os.path.join(REPO, "configs", "bevfusion", "bevf_cam_nuscenes.yml")
 BEVF_HW = (448, 800)
 BEVF_BATCH = 2              # the config's batch_size
 BEVF_ITERS = 2              # timed forwards per path and batch (halves)
-BEVF_TRAIN_ITERS = 4        # timed train steps (halves of 2)
+BEVF_TRAIN_ITERS = 2        # timed train steps (halves of 1)
 BEVF_DEPTH_STRIDE = 16      # the L+C train_dataset's depth_stride
 BEVF_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
 
@@ -7555,8 +7585,8 @@ def phase_bevfusion(device):
 DD3D_DLA = os.path.join(REPO, "configs", "dd3d", "dd3d_dla34_kitti.yml")
 DD3D_V99 = os.path.join(REPO, "configs", "dd3d", "dd3d_v2_99_kitti.yml")
 DD3D_BATCH = 8              # the configs' batch_size
-DD3D_ITERS = 4              # timed forwards per batch (halves of 2)
-DD3D_TRAIN_ITERS = 4        # timed train steps (halves of 2)
+DD3D_ITERS = 2              # timed forwards per batch (halves of 1)
+DD3D_TRAIN_ITERS = 2        # timed train steps (halves of 1)
 DD3D_OBJECTS = 8            # synthetic objects an image
 # served with seeded random weights, DD3D's class logits sit at the head's
 # bias (-2.19), every score under the 0.2 threshold; scaled, as SMOKE's
@@ -7827,8 +7857,8 @@ SSG_TINY = os.path.join(REPO, "configs", "squeezesegv3",
 SSG_HW = (64, 2048)         # the configs' proj_H x proj_W
 SSG_POINTS = 120000         # the returns of an HDL-64 sweep
 SSG_CLASSES = 20            # the train ids (0 ignored by the metric)
-SSG_ITERS = 4               # timed forwards per batch (halves of 2)
-SSG_TRAIN_ITERS = 4         # timed train steps (halves of 2)
+SSG_ITERS = 2               # timed forwards per batch (halves of 1)
+SSG_TRAIN_ITERS = 2         # timed train steps (halves of 1)
 # LinearWarmup holds the configs' rate at 0 and ramps it over 1,000
 # updates: the ten-step smoke starts past it
 SSG_WARM = 1000
@@ -7839,8 +7869,8 @@ PACONV = os.path.join(REPO, "configs", "paconv", "paconv_modelnet40.yml")
 PACONV_TINY = os.path.join(REPO, "configs", "paconv",
                            "paconv_synthetic_tiny.yml")
 PACONV_POINTS = 1024        # the config's num_points
-PACONV_ITERS = 4
-PACONV_TRAIN_ITERS = 4
+PACONV_ITERS = 2
+PACONV_TRAIN_ITERS = 2
 # assign_score_withk in the transformed order against the JAX order
 # (assign_score_withk_plain) on the card, relative to the largest value:
 # the same sums of Cin x M products in another order (f32, TF32 off)
@@ -7850,8 +7880,8 @@ LANEDET = os.path.join(REPO, "configs", "bev_lanedet",
                        "bev_lanedet_apollo_576x1024.yml")
 LANE_HW = (576, 1024)       # the config's image_size
 LANE_RANGE = ((3.0, 103.0), (-10.0, 10.0))   # ApolloLaneDataset's x, y
-LANE_ITERS = 4
-LANE_TRAIN_ITERS = 4
+LANE_ITERS = 2
+LANE_TRAIN_ITERS = 2
 LANE_TINY_TOL = {"lane_conf": 1e-5, "lane_offset": 1e-5,
                  "lane_height": 1e-5, "lane_embed": 1e-5}
 
@@ -8462,6 +8492,13 @@ KITTI_CALIB = {
 RT_SLOTS = [(x, y) for x in (7.5, 12.5, 17.5, 22.5)
             for y in (-12.0, -6.0, 0.0, 6.0, 12.0)]
 RT_SURFACE = 0.3            # share of a scan's points moved onto its cars
+# pedestrian and cyclist slots: beyond the car rows' reach in y (a car's
+# slot, jitter and half diagonal end within 14.6 m of the axis)
+RT_SMALL_SLOTS = [(x, y) for x in (7.5, 12.5, 17.5, 22.5)
+                  for y in (-18.0, 18.0)]
+# KITTI's mean object sizes (w, l, h), m
+KITTI_SIZES = {"Car": (1.6, 3.9, 1.56), "Pedestrian": (0.6, 0.8, 1.73),
+               "Cyclist": (0.6, 1.76, 1.73)}
 
 
 def car_boxes(rng, zg):
@@ -8472,23 +8509,26 @@ def car_boxes(rng, zg):
     g = int(rng.integers(6, 11))
     slots = np.asarray(RT_SLOTS)[rng.permutation(len(RT_SLOTS))[:g]]
     xy = slots + rng.uniform(-0.5, 0.5, (g, 2))
-    size = np.array([1.6, 3.9, 1.56]) * rng.uniform(0.95, 1.05, (g, 3))
+    size = np.array(KITTI_SIZES["Car"]) * rng.uniform(0.95, 1.05, (g, 3))
     yaw = rng.uniform(-np.pi, np.pi, g)
     return np.c_[xy, np.full(g, zg), size, yaw].astype(np.float32)
 
 
-def surface_points(rng, boxes, n):
-    """n points on the boxes' four sides and tops (KITTI lidar boxes,
-    bottom z), intensity in [0, 1): [n, 4]."""
+def surface_points(rng, boxes, n, which=None):
+    """n points on the boxes' four sides and tops (lidar boxes (x, y, z
+    bottom, w, l, h, yaw), w along the box's x axis as BBoxes3D's corners
+    put it), intensity in [0, 1); which: each point's box (drawn uniformly
+    if None). -> [n, 4]."""
     import numpy as np
-    which = rng.integers(0, len(boxes), n)
+    if which is None:
+        which = rng.integers(0, len(boxes), n)
     b = boxes[which]
     local = rng.uniform(-0.5, 0.5, (n, 3))
     face = rng.integers(0, 5, n)                # +-x, +-y sides, top
     for f, (axis, side) in enumerate(((0, .5), (0, -.5), (1, .5),
                                       (1, -.5), (2, .5))):
         local[face == f, axis] = side
-    local = local * b[:, [4, 3, 5]]             # l along x, w along y
+    local = local * b[:, 3:6]
     c, s = np.cos(b[:, 6]), np.sin(b[:, 6])
     x = c * local[:, 0] - s * local[:, 1] + b[:, 0]
     y = s * local[:, 0] + c * local[:, 1] + b[:, 1]
@@ -8496,14 +8536,33 @@ def surface_points(rng, boxes, n):
     return np.c_[x, y, z, rng.uniform(0, 1, n)].astype(np.float32)
 
 
-def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None):
+def small_boxes(rng, zg, classes):
+    """1-3 boxes of each class of `classes` (Pedestrian, Cyclist) in
+    distinct RT_SMALL_SLOTS (jittered 0.25 m, any yaw, KITTI's mean sizes
+    within 5 %), bottoms on zg: -> ([G, 7], [G] class names)."""
+    import numpy as np
+    n = {c: int(rng.integers(1, 4)) for c in classes}
+    g = sum(n.values())
+    slots = np.asarray(RT_SMALL_SLOTS)[
+        rng.permutation(len(RT_SMALL_SLOTS))[:g]]
+    names = [c for c in classes for _ in range(n[c])]
+    xy = slots + rng.uniform(-0.25, 0.25, (g, 2))
+    size = np.asarray([KITTI_SIZES[c] for c in names]) * rng.uniform(
+        0.95, 1.05, (g, 3))
+    yaw = rng.uniform(-np.pi, np.pi, g)
+    return (np.c_[xy, np.full(g, zg), size, yaw].astype(np.float32), names)
+
+
+def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None,
+               classes=("Car",)):
     """A KITTI tree under root (no image_2: the card's machine has no
     Pillow): `train` + `val` frames of bench.make_scans KITTI scans (as
-    make_points draws them, `points` a scan) with car_boxes, RT_SURFACE of
-    each scan's points moved onto its cars, label_2 lines written through
-    the port's kitti_utils under KITTI_CALIB with a 2-D box at least 60 px
-    tall (every car "easy"), and ImageSets/{train,val}.txt.
-    -> {frame id: [G, 7] lidar boxes}."""
+    make_points draws them, `points` a scan) with car_boxes (and, where
+    `classes` names them, small_boxes of pedestrians and cyclists),
+    RT_SURFACE of each scan's points moved onto its objects, label_2 lines
+    written through the port's kitti_utils under KITTI_CALIB with a 2-D box
+    at least 60 px tall (every object "easy"), and
+    ImageSets/{train,val}.txt. -> {frame id: [G, 7] lidar boxes}."""
     import numpy as np
 
     import bench
@@ -8531,6 +8590,11 @@ def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None):
         calib = kitti_utils.Calibration.from_file(calib_path)
         scan = bench.make_scans(rng, 1, n, lo, hi, "clustered")[0]
         boxes = car_boxes(rng, zg)
+        names = ["Car"] * len(boxes)
+        small = [c for c in classes if c != "Car"]
+        if small:
+            more, more_names = small_boxes(rng, zg, small)
+            boxes, names = np.vstack([boxes, more]), names + more_names
         k = int(RT_SURFACE * n)
         scan[:k] = surface_points(rng, boxes, k)
         scan.astype(np.float32).tofile(os.path.join(base, "velodyne",
@@ -8540,7 +8604,7 @@ def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None):
         for j in range(len(boxes)):
             x1, y1, x2, y2 = cam["bbox"][j]
             lines.append(kitti_utils.format_label_line(
-                "Car", 0.0, 0, -np.arctan2(-boxes[j, 1], boxes[j, 0]) +
+                names[j], 0.0, 0, -np.arctan2(-boxes[j, 1], boxes[j, 0]) +
                 boxes[j, 6], (x1, min(y1, y2 - 60.0), x2, y2),
                 cam["dimensions"][j], cam["location"][j],
                 cam["rotation_y"][j]))
@@ -8551,6 +8615,302 @@ def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None):
         with open(os.path.join(root, "ImageSets", split + ".txt"), "w") as f:
             f.write("\n".join(part) + "\n")
     return written
+
+
+# ------------------------------------------------------ phase 28's trees
+# nuScenes: detection class -> (category, mean size (w, l, h) m, speed m/s)
+NUSC_CLASSES = {
+    "car": ("vehicle.car", (1.95, 4.62, 1.73), 6.0),
+    "truck": ("vehicle.truck", (2.51, 6.93, 2.84), 4.0),
+    "construction_vehicle": ("vehicle.construction", (2.85, 6.37, 3.19),
+                             0.0),
+    "bus": ("vehicle.bus.rigid", (2.94, 10.5, 3.47), 5.0),
+    "trailer": ("vehicle.trailer", (2.9, 10.0, 3.9), 3.0),
+    "barrier": ("movable_object.barrier", (2.53, 0.5, 0.98), 0.0),
+    "motorcycle": ("vehicle.motorcycle", (0.77, 2.11, 1.47), 4.0),
+    "bicycle": ("vehicle.bicycle", (0.6, 1.7, 1.28), 2.0),
+    "pedestrian": ("human.pedestrian.adult", (0.67, 0.73, 1.77), 1.2),
+    "traffic_cone": ("movable_object.trafficcone", (0.41, 0.41, 1.07),
+                     0.0)}
+NUSC_SWEEP_POINTS = 34000   # a LIDAR_TOP sweep (HDL-32E): ~34,000 returns
+NUSC_SWEEPS = 10            # sweeps before a key frame (the config's
+                            # max_sweeps); key frames at 2 Hz, sweeps 20 Hz
+NUSC_SURFACE = 0.15         # share of a sweep's points on its objects
+NUSC_TRAIN, NUSC_VAL = 8, 4  # key frames of the train and val scenes
+# the LIDAR_TOP's yaw on the ego in nuScenes' calibrated_sensor (its
+# rotation without the ~0.01 rad of roll and pitch, so that
+# bench.make_scans' flat ground stays the road), mounted at the height that
+# puts that ground on the road
+NUSC_LIDAR_YAW = -1.568763018216323
+WAYMO_POINTS = 180000       # a Waymo top-LiDAR scan: ~180,000 returns
+WAYMO_TRAIN, WAYMO_VAL = 8, 4
+# Waymo's mean sizes (w, l, h), m
+WAYMO_SIZES = {"Vehicle": (2.1, 4.8, 1.8), "Pedestrian": (0.9, 0.9, 1.7),
+               "Cyclist": (0.8, 1.8, 1.7)}
+
+
+def _yaw_quat(yaw):
+    import numpy as np
+    return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
+
+
+def _nusc_scene(rng, name, frames, t0, n, tables, root):
+    """One scene of a nuScenes tree: `frames` key frames at 2 Hz, each
+    after NUSC_SWEEPS sweeps at 20 Hz (the first key frame's too), one
+    LIDAR_TOP chain; two instances a lane on 15 lanes 6 m apart, each lane
+    one class (every class at least once) moving along x at its speed
+    (+-20 %), so that the annotations' finite differences give the
+    instance's velocity; every sweep's points from bench.make_scans in its
+    own lidar frame, NUSC_SURFACE of them moved onto the objects' boxes at
+    its time. Appends to tables; -> the lidar-frame boxes of each key
+    frame."""
+    import numpy as np
+
+    import bench
+    from paddle3d_tpu_torch.utils.transform3d import (
+        invert_transform, make_transform, quat_inverse, quat_multiply,
+        quat_yaw)
+    _, _, (lo, hi), _ = bench.MODELS["centerpoint"]
+    zg = lo[2] + 0.28 * (hi[2] - lo[2])         # make_scans' ground plane
+    cs = {"token": name + "_cs", "sensor_token": "lidar_top",
+          "translation": [0.943713, 0.0, -zg],
+          "rotation": _yaw_quat(NUSC_LIDAR_YAW), "camera_intrinsic": []}
+    tables["calibrated_sensor"].append(cs)
+    classes = list(NUSC_CLASSES)
+    lanes = np.arange(-42.0, 43.0, 6.0)
+    inst = []
+    for i, y in enumerate(lanes):
+        cls = classes[i % len(classes)] if i < len(classes) else \
+            classes[int(rng.integers(0, len(classes)))]
+        cat, size, speed = NUSC_CLASSES[cls]
+        sign = 1.0 if i % 2 else -1.0
+        v = sign * speed * rng.uniform(0.8, 1.2)
+        x0 = -sign * rng.uniform(30.0, 40.0)
+        for j in range(2):
+            inst.append({"token": "{}_inst{}_{}".format(name, i, j),
+                         "cls": cls, "cat": cat, "size": size,
+                         "x0": x0 + sign * 22.0 * j,
+                         "y": y + rng.uniform(-0.5, 0.5), "v": v,
+                         "yaw": (0.0 if sign > 0 else np.pi) +
+                         rng.uniform(-0.05, 0.05)})
+    times = [t0 + 0.05 * k for k in range(NUSC_SWEEPS * frames + 1)]
+
+    def ego(t):
+        t = t - t0
+        return [2.0 * t, 0.05 * t * t, 0.0], _yaw_quat(0.02 * t)
+
+    def boxes_at(t, lidar_from_global, q_ref):
+        """Instance boxes at t in the lidar frame of q_ref / the transform:
+        [G, 7] (x, y, z bottom, w, l, h, yaw), as the dataset computes."""
+        out = []
+        for o in inst:
+            cg = np.array([o["x0"] + o["v"] * (t - t0), o["y"],
+                           o["size"][2] / 2])
+            cl = lidar_from_global[:3, :3] @ cg + lidar_from_global[:3, 3]
+            q = quat_multiply(q_ref, _yaw_quat(o["yaw"]))
+            out.append([cl[0], cl[1], cl[2] - o["size"][2] / 2,
+                        *o["size"], quat_yaw(q)])
+        return np.asarray(out, np.float32)
+
+    sd_tokens, key = [], {}
+    for k, t in enumerate(times):
+        is_key = k >= NUSC_SWEEPS and (k - NUSC_SWEEPS) % NUSC_SWEEPS == 0
+        tok = "{}_sd{:03d}".format(name, k)
+        ts = int(round(t * 1e6))
+        trans, rot = ego(t)
+        tables["ego_pose"].append({"token": tok + "_ep", "timestamp": ts,
+                                   "translation": trans, "rotation": rot})
+        lidar_from_global = invert_transform(
+            make_transform(trans, rot) @ make_transform(
+                cs["translation"], cs["rotation"]))
+        q_ref = quat_multiply(quat_inverse(cs["rotation"]),
+                              quat_inverse(rot))
+        boxes = boxes_at(t, lidar_from_global, q_ref)
+        scan = bench.make_scans(rng, 1, n, lo, hi, "clustered")[0]
+        scan[:, 4] = rng.integers(0, 32, n)     # the ring index column
+        m = int(NUSC_SURFACE * n)
+        which = rng.integers(0, len(boxes), m)
+        scan[:m, :4] = surface_points(rng, boxes, m, which)
+        kind = "samples" if is_key else "sweeps"
+        fname = "{}/LIDAR_TOP/{}.pcd.bin".format(kind, tok)
+        scan.astype(np.float32).tofile(os.path.join(root, fname))
+        sd_tokens.append(tok)
+        tables["sample_data"].append({
+            "token": tok, "ego_pose_token": tok + "_ep",
+            "calibrated_sensor_token": cs["token"], "timestamp": ts,
+            "filename": fname, "fileformat": "pcd", "is_key_frame": is_key,
+            "prev": sd_tokens[-2] if k else "", "next": ""})
+        if k:
+            tables["sample_data"][-2]["next"] = tok
+        if is_key:
+            key[len(key)] = (tok, ts, boxes,
+                             np.bincount(which, minlength=len(boxes)))
+    samples = ["{}_s{:02d}".format(name, f) for f in range(frames)]
+    for sd in tables["sample_data"]:
+        if sd["token"].startswith(name + "_"):
+            k = int(sd["token"][-3:])
+            f = min(frames - 1, max(0, (k - 1) // NUSC_SWEEPS))
+            sd["sample_token"] = samples[f]
+    tables["scene"].append({
+        "token": name, "name": name, "nbr_samples": frames,
+        "first_sample_token": samples[0], "last_sample_token": samples[-1]})
+    for f, tok in enumerate(samples):
+        sd, ts, _, _ = key[f]
+        tables["sample"].append({
+            "token": tok, "timestamp": ts, "scene_token": name,
+            "prev": samples[f - 1] if f else "",
+            "next": samples[f + 1] if f + 1 < frames else "",
+            "data": {"LIDAR_TOP": sd}})
+    for o in inst:
+        anns = ["{}_ann{:02d}".format(o["token"], f) for f in range(frames)]
+        tables["instance"].append({
+            "token": o["token"], "category_token": o["cat"],
+            "nbr_annotations": frames, "first_annotation_token": anns[0],
+            "last_annotation_token": anns[-1]})
+        moving = o["v"] != 0.0
+        attr = {"car": "vehicle", "truck": "vehicle", "bus": "vehicle",
+                "trailer": "vehicle", "construction_vehicle": "vehicle",
+                "motorcycle": "cycle", "bicycle": "cycle",
+                "pedestrian": "pedestrian"}.get(o["cls"])
+        attr = [] if attr is None else [{
+            "vehicle": ("vehicle.moving", "vehicle.parked"),
+            "cycle": ("cycle.with_rider", "cycle.without_rider"),
+            "pedestrian": ("pedestrian.moving", "pedestrian.standing")}[
+                attr][0 if moving else 1]]
+        for f, tok in enumerate(anns):
+            t = times[NUSC_SWEEPS * (f + 1)]
+            hits = int(key[f][3][inst.index(o)])
+            tables["sample_annotation"].append({
+                "token": tok, "sample_token": samples[f],
+                "instance_token": o["token"],
+                "translation": [o["x0"] + o["v"] * (t - t0), o["y"],
+                                o["size"][2] / 2],
+                "size": list(o["size"]),
+                "rotation": _yaw_quat(o["yaw"]),
+                "num_lidar_pts": hits, "num_radar_pts": 0,
+                "attribute_tokens": attr, "visibility_token": "4",
+                "prev": anns[f - 1] if f else "",
+                "next": anns[f + 1] if f + 1 < frames else ""})
+    return {samples[f]: key[f][2] for f in range(frames)}
+
+
+def nuscenes_tree(root, train=NUSC_TRAIN, val=NUSC_VAL, seed=SEED,
+                  points=NUSC_SWEEP_POINTS, version="v1.0-trainval"):
+    """A nuScenes tree under root: the v1.0 tables of a train and a val
+    scene (_nusc_scene: `train` and `val` key frames, each after
+    NUSC_SWEEPS sweeps of `points` five-column points over the
+    CenterPoint-nuScenes range, objects of the ten detection classes with
+    velocities) and splits/{train,val}.txt. -> {sample token: [G, 7]
+    lidar-frame boxes}."""
+    import json
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for sub in (version, "splits", "samples/LIDAR_TOP", "sweeps/LIDAR_TOP"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    tables = {k: [] for k in (
+        "scene", "sample", "sample_data", "ego_pose", "calibrated_sensor",
+        "sample_annotation", "instance")}
+    tables["sensor"] = [{"token": "lidar_top", "channel": "LIDAR_TOP",
+                         "modality": "lidar"}]
+    tables["category"] = [{"token": cat, "name": cat}
+                          for cat, _, _ in NUSC_CLASSES.values()]
+    tables["attribute"] = [{"token": a, "name": a} for a in (
+        "vehicle.moving", "vehicle.parked", "vehicle.stopped",
+        "cycle.with_rider", "cycle.without_rider", "pedestrian.moving",
+        "pedestrian.standing")]
+    written = {}
+    for split, frames, t0 in (("train", train, 100.0), ("val", val, 500.0)):
+        name = "scene-{}".format(split)
+        written.update(_nusc_scene(rng, name, frames, t0, points, tables,
+                                   root))
+        with open(os.path.join(root, "splits", split + ".txt"), "w") as f:
+            f.write(name + "\n")
+    for k, rows in tables.items():
+        with open(os.path.join(root, version, k + ".json"), "w") as f:
+            json.dump(rows, f)
+    return written
+
+
+def waymo_tree(root, train=WAYMO_TRAIN, val=WAYMO_VAL, seed=SEED,
+               points=WAYMO_POINTS):
+    """A converted Waymo tree under root: {mode}_infos.pkl and
+    points/{id}.npy, each scan `points` bench.make_scans points over
+    iassd_waymo.yml's range (x, y, z, intensity), 10-20 vehicles, 4-8
+    pedestrians and 2-5 cyclists in distinct cells of a 10 m grid
+    (jittered 1 m, any yaw, Waymo's mean sizes within 5 %), RT_SURFACE of
+    the points moved onto them; num_points_in_gt counts them.
+    -> {frame id: [G, 7] boxes}."""
+    import pickle
+
+    import numpy as np
+
+    import bench
+    lo = np.array([-75.2, -75.2, -2.0, 0.0], np.float32)
+    hi = np.array([75.2, 75.2, 4.0, 1.0], np.float32)
+    zg = lo[2] + 0.28 * (hi[2] - lo[2])
+    cells = [(x, y) for x in range(-60, 61, 10) for y in range(-60, 61, 10)
+             if abs(x) + abs(y) > 0]
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "points"), exist_ok=True)
+    written = {}
+    for split, frames in (("train", train), ("val", val)):
+        infos = []
+        for f in range(frames):
+            fid = "{}_{:04d}".format(split, f)
+            counts = [int(rng.integers(10, 21)), int(rng.integers(4, 9)),
+                      int(rng.integers(2, 6))]
+            labels = np.repeat(np.arange(3), counts).astype(np.int32)
+            g = len(labels)
+            xy = np.asarray(cells, np.float32)[
+                rng.permutation(len(cells))[:g]] + rng.uniform(-1, 1, (g, 2))
+            size = np.asarray([list(WAYMO_SIZES.values())[c]
+                               for c in labels]) * rng.uniform(0.95, 1.05,
+                                                               (g, 3))
+            boxes = np.c_[xy, np.full(g, zg), size,
+                          rng.uniform(-np.pi, np.pi, g)].astype(np.float32)
+            scan = bench.make_scans(rng, 1, points, lo, hi, "clustered")[0]
+            k = int(RT_SURFACE * points)
+            which = rng.integers(0, g, k)
+            scan[:k] = surface_points(rng, boxes, k, which)
+            fname = "points/{}.npy".format(fid)
+            np.save(os.path.join(root, fname), scan.astype(np.float32))
+            infos.append({"lidar_file": fname, "boxes": boxes,
+                          "labels": labels, "frame_id": fid,
+                          "num_points_in_gt": np.bincount(which,
+                                                          minlength=g)})
+            written[fid] = boxes
+        with open(os.path.join(root, "{}_infos.pkl".format(split)),
+                  "wb") as f:
+            pickle.dump(infos, f)
+    return written
+
+
+def lidar_dic(path, root):
+    """The config at path (its _base_ chain resolved) with both datasets'
+    dataset_root at root and its SamplingDatabase's database_root and
+    database_anno_path moved under root as they sit under the config's
+    own root. -> the dic."""
+    from paddle3d_tpu_torch.apis import Config
+    dic = Config(path=path, device="cpu").dic
+    for split in ("train_dataset", "val_dataset"):
+        old = dic[split]["dataset_root"]
+        dic[split]["dataset_root"] = root
+        for t in dic[split].get("transforms") or []:
+            if t["type"] == "SamplingDatabase":
+                t["database_anno_path"] = os.path.join(root, os.path.relpath(
+                    t["database_anno_path"], old))
+                t["database_root"] = os.path.join(root, os.path.relpath(
+                    t["database_root"], old))
+    return dic
+
+
+def write_yaml(dic, path):
+    """dic as a YAML file (no _base_) that Config(path) reads back."""
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(dic, f, sort_keys=False)
+    return path
 
 
 def runtime_config(root, device):
@@ -8708,10 +9068,10 @@ def gt_round_trip(model, dataset):
 def eval_parts(trainer):
     """evaluate() with its parts timed on the host clock: the eval step
     (ended by a synchronize: the device forward), postprocess_to_samples
-    and the metric (update and compute). -> (metrics, {part: s}, wall s)."""
+    and the metric (the val dataset's: update and compute). -> (metrics,
+    {part: s}, wall s)."""
     import torch
-
-    from paddle3d_tpu_torch.datasets.kitti import KittiMetric
+    metric_cls = type(trainer.val_dataset.metric)
     parts = {"forward": 0.0, "postprocess": 0.0, "metric": 0.0}
 
     def timed(part, fn):
@@ -8728,10 +9088,10 @@ def eval_parts(trainer):
                            timed("forward", trainer._eval_step)), \
             mock.patch.object(model, "postprocess_to_samples", timed(
                 "postprocess", model.postprocess_to_samples)), \
-            mock.patch.object(KittiMetric, "update", timed(
-                "metric", KittiMetric.update)), \
-            mock.patch.object(KittiMetric, "compute", timed(
-                "metric", KittiMetric.compute)):
+            mock.patch.object(metric_cls, "update", timed(
+                "metric", metric_cls.update)), \
+            mock.patch.object(metric_cls, "compute", timed(
+                "metric", metric_cls.compute)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = trainer.evaluate()
@@ -8751,17 +9111,17 @@ def bare_batches(dataset, batch_size, n, device):
     return host, [to_device(b, device) for b in host]
 
 
-def windowed_trainer_run(trainer, prof=None):
-    """trainer.train() for RT_WARM + RT_TIMED + 1 more steps, inside the
-    first epoch of the run's loader (its split holds more batches), the
-    checkpoint write stubbed. The window runs from the entry of step
-    RT_WARM to the entry of step RT_WARM + RT_TIMED, with a synchronize at
-    both ends and prof (a torch.profiler.profile) on over it: it holds no
-    epoch start and no loader shutdown. -> (scans/s in the window, window
-    seconds, the reader wait of each step of the run in s, the host time
-    of each step call in the window in s)."""
+def windowed_trainer_run(trainer, prof=None, warm=RT_WARM, timed=RT_TIMED):
+    """trainer.train() for warm + timed + 1 more steps, inside the first
+    epoch of the run's loader (its split holds more batches), the
+    checkpoint write stubbed. The window runs from the entry of step warm
+    to the entry of step warm + timed, with a synchronize at both ends and
+    prof (a torch.profiler.profile) on over it: it holds no epoch start and
+    no loader shutdown. -> (scans/s in the window, window seconds, the
+    reader wait of each step of the run in s, the host time of each step
+    call in the window in s)."""
     import torch
-    steps = RT_WARM + RT_TIMED + 1
+    steps = warm + timed + 1
     check(len(trainer.train_dataloader) >= steps,
           "the timing split holds {} batches, a run needs {}".format(
               len(trainer.train_dataloader), steps))
@@ -8769,7 +9129,7 @@ def windowed_trainer_run(trainer, prof=None):
     step = trainer._train_step
 
     def stamped(*args):
-        if trainer.cur_iter - start in (RT_WARM, RT_WARM + RT_TIMED):
+        if trainer.cur_iter - start in (warm, warm + timed):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
             if prof is not None:
@@ -8786,7 +9146,7 @@ def windowed_trainer_run(trainer, prof=None):
         trainer.train()
     torch.cuda.synchronize()
     secs = stamps[1] - stamps[0]
-    return RT_TIMED * trainer.batch_size / secs, secs, waits, host
+    return timed * trainer.batch_size / secs, secs, waits, host
 
 
 def timed_bare_steps(trainer, batches):
@@ -8920,7 +9280,7 @@ def cli_runs(tmp, root):
     return finish
 
 
-def phase_runtime(device):
+def phase_runtime(device, beside=None):
     """Phase 27: the runtime's LiDAR path, tools/train.py's: Config ->
     Trainer -> DataLoader -> KittiPCDataset -> transforms -> collate_lidar
     -> train step -> Checkpoint -> evaluate -> postprocess_to_samples ->
@@ -9071,7 +9431,10 @@ def phase_runtime(device):
         check(not diff, "NaN and out-of-range padding differ: {}".format(
             diff[:8]))
 
-        # the CLI's subprocesses end before anything is timed
+        # the CLI's subprocesses end before anything is timed; beside them,
+        # the next phase's untimed host work
+        if beside is not None:
+            beside()
         finish_cli()
         log("  {} the CLI joined".format(since()))
 
@@ -9188,6 +9551,381 @@ def phase_runtime(device):
             .format(RT_TIMED, RT_WORKERS))
         log_profile(prof, secs * 1e3 / RT_TIMED, RT_TIMED)
         log("  phase 27 took {:.1f} s".format(time.perf_counter() - t_phase))
+
+
+# --------------------------------------------------------------- phase 28
+P28_WARM, P28_TIMED = 4, 3  # a leg's Trainer run: steps before its timed
+                            # window (the loader's prefetch depth: the
+                            # window's batches are built beside its steps)
+                            # and in it; one more step ends the window
+P28_KITTI = (32, 4)         # frames of the KITTI tree's train and val splits
+P28_NUSC = (32, 4)          # key frames of the nuScenes tree's scenes
+P28_WAYMO = (32, 4)         # frames of the Waymo tree's splits
+P28_PASTE_CHECKS = 4        # train samples whose pastes are checked
+CP_KITTI = os.path.join(REPO, "configs", "centerpoint",
+                        "centerpoint_pillars_016voxel_kitti.yml")
+IASSD_WAYMO = os.path.join(REPO, "configs", "iassd", "iassd_waymo.yml")
+# a train step / forward of the point models (phases 8, 9, 11, 14): K9,
+# K10, and PV-RCNN's K11 and sparse convs; the dense BEV's segment sum
+# (by the density rule) and its VJP K5 are added from the run's shapes
+PV_STEP = {"ball_query": 7, "farthest_point_sample": 1,
+           "pairwise_intersection_area": 1, "sorted_table_gather": 1}
+PV_FORWARD = {"ball_query": 7, "farthest_point_sample": 1,
+              "sparse_conv3d": 8, "sparse_conv3d_map": 7}
+IA_STEP = IA_FORWARD = {"ball_query": 10, "farthest_point_sample": 3}
+
+
+@contextlib.contextmanager
+def recorded_scatters():
+    """-> list of (rows, cells) of each sorted_segment_sum call (the sparse
+    stacks' dense BEV) in the block."""
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    calls = []
+    orig = sorted_scatter.sorted_segment_sum
+
+    def rec(keys, rows, num_cells):
+        calls.append((keys.shape[1], num_cells))
+        return orig(keys, rows, num_cells)
+    with mock.patch.object(sorted_scatter, "sorted_segment_sum", rec):
+        yield calls
+
+
+def pillar2_launches(model, rows):
+    """A two-layer pillar model's (CenterPoint) train step and forward on
+    batches of `rows` rows a scan, by the density rule: K12 both ways twice
+    a step, the canvas's scatter (K7 dense / K2) and its VJP K5; a forward
+    the two-layer K1 and K6 (dense) or K2. -> (step, forward) dicts."""
+    from paddle3d_tpu_torch.ops.sorted_scatter import is_dense_scan, \
+        kernel_for
+    me = model.middle_encoder
+    cells = me.ny * me.nx
+    step = {"seg_window_max": 2, "seg_window_max_bwd": 2,
+            "sorted_table_gather": 1, kernel_for(rows, cells): 1}
+    forward = {"fused_pfn_rows_2l": 1,
+               "sorted_segment_sum_cm" if is_dense_scan(rows, cells)
+               else "sorted_segment_sum": 1}
+    return step, forward
+
+
+def with_scatters(base, scatters):
+    """base plus one launch of the route the density rule gives each
+    recorded (rows, cells) scatter."""
+    from paddle3d_tpu_torch.ops.sorted_scatter import kernel_for
+    out = dict(base)
+    for n, cells in scatters:
+        out[kernel_for(n, cells)] = out.get(kernel_for(n, cells), 0) + 1
+    return out
+
+
+def batch_hashes(dataset, batch_size, workers, n=2):
+    """sha256 of each collated array of the first n batches of a shuffled
+    loader (seed 0, epoch 0) at `workers` threads."""
+    import hashlib
+    from paddle3d_tpu_torch.apis import DataLoader
+    loader = iter(DataLoader(dataset, batch_size=batch_size, shuffle=True,
+                             drop_last=True, num_workers=workers))
+    out = [{k: hashlib.sha256(v.tobytes()).hexdigest()
+            for k, v in next(loader)[0].items()} for _ in range(n)]
+    loader.close()
+    return out
+
+
+def built_databases(dics, tmp):
+    """Run `python -m paddle3d_tpu_torch.tools.create_det_gt_database` on
+    each config dic of {label: dic} (written to a YAML under tmp), as
+    processes at once. -> {label: (seconds from the start to its exit,
+    {class: entries})}."""
+    import pickle
+    procs = {}
+    t0 = time.perf_counter()
+    for label, dic in dics.items():
+        yml = write_yaml(dic, os.path.join(tmp, label + ".yml"))
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-m", "paddle3d_tpu_torch.tools."
+             "create_det_gt_database", "--config", yml], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    ends = {}
+    while len(ends) < len(procs):
+        for label, proc in procs.items():
+            if label not in ends and proc.poll() is not None:
+                ends[label] = time.perf_counter() - t0
+        time.sleep(0.05)
+    out = {}
+    for label, proc in procs.items():
+        err = proc.stderr.read()
+        check(proc.returncode == 0, "{}: the database tool exited {}: {}"
+              .format(label, proc.returncode, err[-2000:]))
+        entry = [t for t in dics[label]["train_dataset"]["transforms"]
+                 if t["type"] == "SamplingDatabase"][0]
+        with open(entry["database_anno_path"], "rb") as f:
+            out[label] = (ends[label], {k: len(v) for k, v in
+                                        pickle.load(f).items()})
+    return out
+
+
+def pasted_objects(dic, n):
+    """The first n train samples through the pipeline up to and with its
+    SamplingDatabase: -> list of (pasted labels, pasted velocities or None,
+    each pasted object's points lie in its box grown by 2 mm (the database
+    stores them relative to the centre), the entries' velocities by box)."""
+    import numpy as np
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.geometries import points_in_rbbox_bev
+    from paddle3d_tpu_torch.transforms import SamplingDatabase
+    ds_cfg = dict(dic["train_dataset"])
+    types = [t["type"] for t in ds_cfg["transforms"]]
+    ds_cfg["transforms"] = ds_cfg["transforms"][
+        :types.index("SamplingDatabase")]
+    ds = Config(dic={"train_dataset": ds_cfg}, device="cpu").train_dataset
+    db = SamplingDatabase(**{k: v for k, v in dic["train_dataset"][
+        "transforms"][types.index("SamplingDatabase")].items()
+        if k != "type"})
+    entries = {tuple(np.float32(a["box3d"])): a.get("velocity")
+               for s in db.samplers.values() for a in s.annos}
+    out = []
+    for i in range(n):
+        smp = ds[i]
+        n0, g0 = len(smp.data), len(smp.labels)
+        smp = db(smp)
+        pts, boxes = np.asarray(smp.data), np.asarray(smp.bboxes_3d).copy()
+        boxes[:, 3:6] += 2e-3
+        boxes[:, 2] -= 1e-3
+        start, inside_all = n0, True
+        for j in range(g0, len(smp.labels)):
+            inside = points_in_rbbox_bev(pts[start:], boxes[j:j + 1],
+                                         origin=smp.bboxes_3d.origin)[:, 0]
+            run = len(inside) if inside.all() else int(np.argmin(inside))
+            inside_all &= run >= 5          # min_num_points_in_box
+            start += run
+        vel = smp.bboxes_3d.velocities
+        want = [entries.get(tuple(b)) for b in np.asarray(
+            smp.bboxes_3d)[g0:]]
+        out.append((smp.labels[g0:], None if vel is None else
+                    np.asarray(vel)[g0:], inside_all and start == len(pts),
+                    want))
+    return out
+
+
+def runtime_leg(device, label, dic, tmp, launches, check_metrics,
+                database=None, pastes=None):
+    """One leg of phase 28: Config(dic=...) on device, the database
+    (built_databases' (seconds, counts), checked by pastes(dic, counts)),
+    the loader's first two
+    batches at 1 and 4 threads, a Trainer (EMA, RT_WORKERS threads) run of
+    P28_WARM + P28_TIMED + 1 steps inside its first epoch with its window
+    timed, the bare step on the window's batches, evaluate() in parts, the
+    launch counters against launches(model, host batch, scatters) -> (step,
+    forward) and check_metrics(metrics). -> a dict of the leg's numbers."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build
+    t_leg = time.perf_counter()
+    rec = {}
+    if database is not None:
+        rec["db_s"], counts = database
+        log("  {}: database built by the tool (a process, beside the other "
+            "database) in {:.2f} s: {}".format(label, rec["db_s"], counts))
+        check(counts, "{}: an empty database".format(label))
+        pastes(dic, counts)
+    torch.manual_seed(SEED)
+    cfg = Config(dic=dic, device=device)
+    ds = cfg.train_dataset
+    h1, h4 = (batch_hashes(ds, cfg.batch_size, w) for w in (1, RT_WORKERS))
+    log("  {}: the loader's first two batches at 1 and {} threads equal "
+        "(sha256 of every collated array): {}".format(
+            label, RT_WORKERS, h1 == h4))
+    check(h1 == h4, "{}: the batches depend on the thread count".format(
+        label))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    trainer = runtime_trainer(cfg, os.path.join(tmp, label + "_out"), 0,
+                              log_interval=0, save_interval=0)
+    host, dev = bare_batches(ds, cfg.batch_size, P28_WARM + P28_TIMED + 1,
+                             device)
+    rows = host[0]["data"].shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with recorded_losses(trainer) as losses, \
+            recorded_scatters() as scatters:
+        rate, secs, waits, step_host = windowed_trainer_run(
+            trainer, warm=P28_WARM, timed=P28_TIMED)
+    steps = P28_WARM + P28_TIMED + 1
+    trained = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = [v.item() for v in losses]
+    step_want, forward_want = launches(trainer.model, rows,
+                                       scatters[:len(scatters) // steps])
+    want = {k: v * steps for k, v in step_want.items()}
+    bare, bare_host = timed_bare_steps(trainer, dev[:P28_TIMED])
+    log("  {}: {} Trainer steps at batch {} ({} rows a scan) in the first "
+        "epoch of {} batches; losses {}; launches {} (want {}: {} a step)"
+        .format(label, steps, cfg.batch_size, rows,
+                len(trainer.train_dataloader), [round(v, 4) for v in losses],
+                trained, want, step_want))
+    check(all(np.isfinite(losses)) and len(losses) == steps,
+          "{}: non-finite or missing losses".format(label))
+    check(trained == want, "{}: train launches off the derived ones"
+          .format(label))
+    log("  {}: scans/s in a window of {} steps from step {}: Trainer ({} "
+        "threads) {:.2f}, bare make_train_step {:.2f} (runtime cost "
+        "{:.1f} %); step call host ms {} (bare {}); reader wait a step, ms: "
+        "first {:.3f}, window {}".format(
+            label, P28_TIMED, P28_WARM, RT_WORKERS, rate, bare,
+            100 * (1 - rate / bare), round(1e3 * float(np.mean(step_host)),
+                                           3),
+            round(1e3 * float(np.mean(bare_host)), 3), 1e3 * waits[0],
+            round(1e3 * float(np.mean(waits[P28_WARM + 1:])), 3)))
+    before = dict(_build.LAUNCHES)
+    with recorded_scatters() as scatters:
+        metrics, parts, ewall = eval_parts(trainer)
+    served = counts_sub(_build.LAUNCHES, before)
+    nval = len(trainer.val_dataset)
+    forwards = -(-nval // cfg.batch_size)
+    _, forward_want = launches(trainer.model, rows,
+                               scatters[:len(scatters) // forwards])
+    swant = {k: v * forwards for k, v in forward_want.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log("  {}: evaluate(): {} val frames in {:.3f} s ({:.2f} frames/s): "
+        "device forward {:.3f} s, postprocess {:.3f} s, metric {:.3f} s; "
+        "launches {} (want {}); peak device memory {:.1f} MiB".format(
+            label, nval, ewall, nval / ewall, parts["forward"],
+            parts["postprocess"], parts["metric"], served, swant, peak))
+    log("  {}: metrics {}".format(label, {k: round(v, 4) for k, v in
+                                          metrics.items()}))
+    check(served == swant, "{}: eval launches off the derived ones".format(
+        label))
+    check_metrics(metrics)
+    rec.update(rate=rate, bare=bare, metric_s=parts["metric"], peak=peak,
+               secs=time.perf_counter() - t_leg)
+    log("  {}: leg took {:.1f} s".format(label, rec["secs"]))
+    del trainer, cfg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def finite_metrics(label, keys):
+    def check_metrics(metrics):
+        import numpy as np
+        missing = [k for k in keys if k not in metrics]
+        check(not missing, "{}: the metric lacks {}".format(label, missing))
+        check(all(np.isfinite(metrics[k]) for k in keys),
+              "{}: non-finite metrics".format(label))
+    return check_metrics
+
+
+def phase_lidar_runtime_prep(tmp):
+    """Phase 28's untimed host work under tmp: the KITTI (three classes),
+    nuScenes and Waymo trees, each leg's config dic pointed at its tree,
+    and the PV-RCNN and CenterPoint-nuScenes databases (built_databases).
+    -> {"dics", "databases", "log"}."""
+    t0 = time.perf_counter()
+    kitti, nusc, waymo = (os.path.join(tmp, d) for d in
+                          ("KITTI", "nuscenes", "waymo"))
+    written = kitti_tree(kitti, *P28_KITTI, seed=SEED + 2, points=POINTS,
+                         classes=tuple(KITTI_SIZES))
+    nuscenes_tree(nusc, *P28_NUSC, seed=SEED + 3)
+    waymo_tree(waymo, *P28_WAYMO, seed=SEED + 4)
+    lines = ["trees in {:.1f} s: KITTI {} + {} frames of {} points ({} "
+             "objects: cars, pedestrians, cyclists), nuScenes {} + {} key "
+             "frames after {} sweeps of {} points, Waymo {} + {} frames of "
+             "{} points".format(
+                 time.perf_counter() - t0, *P28_KITTI, POINTS,
+                 sum(map(len, written.values())), *P28_NUSC, NUSC_SWEEPS,
+                 NUSC_SWEEP_POINTS, *P28_WAYMO, WAYMO_POINTS)]
+    dics = {"PV-RCNN": lidar_dic(PV_RCNN, kitti),
+            "CenterPoint-KITTI": lidar_dic(CP_KITTI, kitti),
+            "CenterPoint-nuScenes": lidar_dic(NUSCENES, nusc),
+            "IA-SSD-Waymo": lidar_dic(IASSD_WAYMO, waymo)}
+    databases = built_databases(
+        {k: dics[k] for k in ("PV-RCNN", "CenterPoint-nuScenes")}, tmp)
+    return {"dics": dics, "databases": databases, "log": lines}
+
+
+def phase_lidar_runtime(device, prep=None):
+    """Phase 28: the runtime's other LiDAR configs, each through Config ->
+    Trainer -> DataLoader -> dataset -> transforms -> train steps ->
+    evaluate -> the dataset's metric: (a) PV-RCNN-KITTI on a database the
+    tool builds, (b) CenterPoint-pillars-KITTI, (c) CenterPoint-pillars
+    nuScenes 10-sweep on a database with velocities, (d) IA-SSD-Waymo.
+    prep: phase_lidar_runtime_prep's result (main() runs it beside phase
+    27's CLI); without it the phase prepares its own under a temp dir."""
+    import tempfile
+
+    import numpy as np
+    t_phase = time.perf_counter()
+    if not prep:
+        with tempfile.TemporaryDirectory() as tmp:
+            prep = phase_lidar_runtime_prep(tmp)
+            prep["where"] = "before the legs"
+            return phase_lidar_runtime(device, prep)
+    log("phase 28: the runtime's other LiDAR configs; prepared {}: {}"
+        .format(prep.get("where", "beside phase 27's CLI processes"),
+                prep["log"][0]))
+    dics, dbs, out = prep["dics"], prep["databases"], {}
+    tmp = os.path.dirname(dics["PV-RCNN"]["train_dataset"]["dataset_root"])
+
+    def pv_pastes(dic, counts):
+        check(set(counts) == set(KITTI_SIZES),
+              "PV-RCNN: the database lacks a class: {}".format(counts))
+        pasted = pasted_objects(dic, P28_PASTE_CHECKS)
+        names = dic["train_dataset"]["class_names"]
+        got = {names[k] for lab, _, _, _ in pasted for k in lab}
+        log("  PV-RCNN: pastes in the first {} samples {}; each pasted "
+            "object's points in its box: {}".format(
+                P28_PASTE_CHECKS, [np.bincount(lab, minlength=3).tolist()
+                                   for lab, _, _, _ in pasted],
+                all(ok for _, _, ok, _ in pasted)))
+        check(got == set(counts), "PV-RCNN: pasted {}, not every class "
+              "of {}".format(got, counts))
+        check(all(ok for _, _, ok, _ in pasted),
+              "PV-RCNN: a pasted object's points leave its box")
+
+    def nusc_pastes(dic, counts):
+        pasted = pasted_objects(dic, P28_PASTE_CHECKS)
+        vel = np.concatenate([v for _, v, _, _ in pasted])
+        want = np.asarray([w for _, _, _, ws in pasted for w in ws],
+                          np.float32)
+        moving = np.hypot(vel[:, 0], vel[:, 1]) > 0.5
+        same = vel.shape == want.shape and np.array_equal(vel, want)
+        log("  CenterPoint-nuScenes: {} pastes in the first {} samples, {} "
+            "with velocity over 0.5 m/s; velocities equal their entries': "
+            "{}; points in their boxes: {}".format(
+                len(vel), P28_PASTE_CHECKS, int(moving.sum()), same,
+                all(ok for _, _, ok, _ in pasted)))
+        check(same, "CenterPoint-nuScenes: pasted velocities differ from "
+              "their entries'")
+        check(moving.any(), "CenterPoint-nuScenes: no pasted box moves")
+        check(all(ok for _, _, ok, _ in pasted),
+              "CenterPoint-nuScenes: a pasted object's points leave its box")
+
+    def pv_launches(model, rows, scatters):
+        return (with_scatters(PV_STEP, scatters),
+                with_scatters(PV_FORWARD, scatters))
+
+    def pillar_launches(model, rows, _):
+        return pillar2_launches(model, rows)
+    kitti_keys = ["{} {} easy AP_R40".format(c, m) for c in KITTI_SIZES
+                  for m in ("3d", "bev")]
+    legs = [
+        ("PV-RCNN", pv_launches, kitti_keys, pv_pastes),
+        ("CenterPoint-KITTI", pillar_launches, kitti_keys, None),
+        ("CenterPoint-nuScenes", pillar_launches,
+         ["mAP", "NDS", "mATE", "mAVE"], nusc_pastes),
+        ("IA-SSD-Waymo", lambda model, rows, _: (IA_STEP, IA_FORWARD),
+         ["{} {} AP".format(c, lv) for c in WAYMO_SIZES
+          for lv in ("L1", "L2")], None)]
+    for label, launches, keys, pastes in legs:
+        out[label] = runtime_leg(
+            device, label, dics[label], tmp, launches,
+            finite_metrics(label, keys), database=dbs.get(label),
+            pastes=pastes)
+    log("  phase 28: {}".format({k: {n: round(x, 3) for n, x in v.items()}
+                                 for k, v in out.items()}))
+    log("  phase 28's legs took {:.1f} s (its trees and databases were "
+        "prepared before them)".format(time.perf_counter() - t_phase))
+    return out
 
 
 def card():
@@ -9354,10 +10092,24 @@ def parts_main(trees):
                         "--parts-one", os.path.abspath(tree)], check=True)
 
 
+PHASE_SECONDS = {}
+
+
+def timed(fn, *args):
+    """fn(*args), its host seconds added to PHASE_SECONDS under its name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = (PHASE_SECONDS.get(fn.__name__, 0.0) +
+                                      time.perf_counter() - t0)
+
+
 def main():
     # phase 11's deterministic steps need cuBLAS's fixed workspace, set
     # before any cuBLAS handle exists
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import tempfile
     try:
         import torch
     except ImportError:
@@ -9381,29 +10133,31 @@ def main():
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
-        phase_build()
+        timed(phase_build)
         device = torch.device("cuda")
         model = Config(path=KITTI, device=device).model.eval()
         points = make_points(device)
-        errs, times, extra = phase_kernels(model, points)
+        errs, times, extra = timed(phase_kernels, model, points)
         for into, part in zip((errs, times, extra),
-                              phase_train_kernels(model, points)):
+                              timed(phase_train_kernels, model, points)):
             into.update(part)
-        launches = phase_model(model, points)
-        phase_tiny_canvas()
-        phase_timing(model, points)
+        launches = timed(phase_model, model, points)
+        timed(phase_tiny_canvas)
+        timed(phase_timing, model, points)
         del model
         # K1/K2 counted on the KITTI inference path, K3-K5 on the train
         # path, the two-layer K1 and K6 on the CenterPoint path
-        launches = {**phase_train(points),
+        launches = {**timed(phase_train, points),
                     **{k: launches[k] for k in INFER_KERNELS}}
-        cp_errs, cp_times, cp_extra, cp_launches = phase_centerpoint(device)
+        cp_errs, cp_times, cp_extra, cp_launches = timed(
+            phase_centerpoint, device)
         for into, part in zip((errs, times, extra, launches),
                               (cp_errs, cp_times, cp_extra,
                                {k: cp_launches[k] for k in CP_KERNELS})):
             into.update(part)
         # K7 and K8 counted on the CenterPoint-voxels path
-        vx_errs, vx_times, vx_extra, vx_launches = phase_voxels(device)
+        vx_errs, vx_times, vx_extra, vx_launches = timed(
+            phase_voxels, device)
         for into, part in zip((errs, times, extra, launches),
                               (vx_errs, vx_times, vx_extra,
                                {k: vx_launches[k] for k in VX_KERNELS})):
@@ -9411,67 +10165,78 @@ def main():
         # K9 and K10 counted on the PV-RCNN path (their times: the seven
         # and the one call of its forward); Voxel-RCNN and IA-SSD run them
         # at other shapes
-        pv_errs, pv_times, pv_extra, pv_launches = phase_two_stage(
-            device, PV_RCNN, "PV-RCNN",
+        pv_errs, pv_times, pv_extra, pv_launches = timed(
+            phase_two_stage, device, PV_RCNN, "PV-RCNN",
             {"ball_query": 7, "farthest_point_sample": 1,
              "sparse_conv3d": 8, "sparse_conv3d_map": 7})
         for into, part in zip((errs, times, extra, launches),
                               (pv_errs, pv_times, pv_extra,
                                {k: pv_launches[k] for k in PT_KERNELS})):
             into.update(part)
-        phase_two_stage(device, VOXEL_RCNN, "Voxel-RCNN",
-                        {"ball_query": 2, "farthest_point_sample": 0,
-                         "sparse_conv3d": 8, "sparse_conv3d_map": 7})
-        phase_iassd(device)
+        timed(phase_two_stage, device, VOXEL_RCNN, "Voxel-RCNN",
+              {"ball_query": 2, "farthest_point_sample": 0,
+               "sparse_conv3d": 8, "sparse_conv3d_map": 7})
+        timed(phase_iassd, device)
         # K12 counted on the CenterPoint-pillars train path
-        sw_errs, sw_times, sw_extra, sw_launches = phase_cp_train(device)
+        sw_errs, sw_times, sw_extra, sw_launches = timed(
+            phase_cp_train, device)
         for into, part in zip((errs, times, extra, launches),
                               (sw_errs, sw_times, sw_extra,
                                {k: sw_launches[k] for k in SW_KERNELS})):
             into.update(part)
         # K11 counted on the Voxel-RCNN train path
-        ts_errs, ts_times, ts_extra, ts_launches = phase_ts_train(device)
+        ts_errs, ts_times, ts_extra, ts_launches = timed(
+            phase_ts_train, device)
         for into, part in zip((errs, times, extra, launches),
                               (ts_errs, ts_times, ts_extra,
                                {"pairwise_intersection_area": ts_launches[
                                    "pairwise_intersection_area"]})):
             into.update(part)
         # K13 counted on phase 12's op calls
-        op_errs, op_times, op_extra, op_launches = phase_ops(device)
+        op_errs, op_times, op_extra, op_launches = timed(
+            phase_ops, device)
         for into, part in zip((errs, times, extra, launches),
                               (op_errs, op_times, op_extra,
                                {"sorted_segment_sum_rw": op_launches[
                                    "sorted_segment_sum_rw"]})):
             into.update(part)
-        phase_vx_train(device)
-        phase_ia_train(device)
+        timed(phase_vx_train, device)
+        timed(phase_ia_train, device)
         # K14 counted on SMOKE's serving path (phase 12 runs it as an op)
         for into, part in zip((errs, times, extra, launches),
-                              phase_smoke(device)):
+                              timed(phase_smoke, device)):
             into.update(part)
         # K7, K5 and K2 at CADDN's calls, entries of their own
-        caddn = phase_caddn(device)
+        caddn = timed(phase_caddn, device)
         # PETR reaches no hand-written kernel
-        phase_petr(device)
+        timed(phase_petr, device)
         # nor does BEVFormer; K7 and K5 at BEVDet4D's calls, entries of
         # their own
-        phase_bevformer(device)
-        bevdet = phase_bevdet(device)
+        timed(phase_bevformer, device)
+        bevdet = timed(phase_bevdet, device)
         # CAPE reaches no hand-written kernel; K7 and K5 at RTEBev's calls,
         # entries of their own
-        phase_cape(device)
-        rtebev = phase_rtebev(device)
+        timed(phase_cape, device)
+        rtebev = timed(phase_rtebev, device)
         # K2, K7 and both K5 at BEVFusion's calls, entries of their own
-        bevfusion = phase_bevfusion(device)
+        bevfusion = timed(phase_bevfusion, device)
         # DD3D reaches no hand-written kernel
-        phase_dd3d(device)
+        timed(phase_dd3d, device)
         # nor do SqueezeSegV3, PAConv and BEV-LaneDet
-        phase_squeezeseg(device)
-        phase_paconv(device)
-        phase_lanedet(device)
+        timed(phase_squeezeseg, device)
+        timed(phase_paconv, device)
+        timed(phase_lanedet, device)
         # the runtime: the KITTI kernels reached through the Trainer and
         # evaluate() (K1, K3, K4, K5 and, by the density rule, K7 / K6)
-        phase_runtime(device)
+        # and the runtime's other LiDAR configs: PV-RCNN and
+        # CenterPoint-KITTI, CenterPoint-nuScenes, IA-SSD-Waymo through
+        # their Trainers; their trees and databases built while phase 27
+        # waits for its CLI processes
+        with tempfile.TemporaryDirectory() as p28_tmp:
+            prep = {}
+            timed(phase_runtime, device,
+                  lambda: prep.update(phase_lidar_runtime_prep(p28_tmp)))
+            timed(phase_lidar_runtime, device, prep)
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback
@@ -9487,6 +10252,9 @@ def main():
          "library_ms": extra[name][0]}
         for name, (src, tpu, _) in KERNELS.items()] + caddn + bevdet +
         rtebev + bevfusion}
+    log("seconds by phase: {}; all {:.1f} s".format(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()},
+        time.perf_counter() - _START))
     log(card_line)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

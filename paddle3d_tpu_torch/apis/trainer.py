@@ -101,7 +101,14 @@ class Trainer:
             self.train_dataloader = DataLoader(
                 train_dataset, batch_size=batch_size, shuffle=True,
                 drop_last=True, seed=seed, **dl_kwargs)
-            iters_per_epoch = max(1, len(self.train_dataloader))
+            iters_per_epoch = len(self.train_dataloader)
+            if iters_per_epoch == 0:
+                # the JAX Trainer takes max(1, 0) and its train() then
+                # rebuilds the empty loader forever
+                raise ValueError(
+                    "the train split holds {} frames, fewer than a batch of "
+                    "{} (drop_last=True): an epoch has no step".format(
+                        len(train_dataset), batch_size))
         else:
             self.train_dataloader = None
             iters_per_epoch = 1

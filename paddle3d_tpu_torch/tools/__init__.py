@@ -1,2 +1,3 @@
 """Command-line entry points of the port: `python -m
-paddle3d_tpu_torch.tools.train` and `.evaluate`."""
+paddle3d_tpu_torch.tools.train`, `.evaluate` and
+`.create_det_gt_database`."""

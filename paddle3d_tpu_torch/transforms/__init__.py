@@ -1,6 +1,7 @@
 from .base import Compose, TransformABC, rng_of, sample_rng
 from .normalize import Normalize, NormalizeRangeImage
 from .range_image import LoadSemanticKITTIRange, project_range
+from .sampling import Sampler, SamplingDatabase
 from .reader import (LoadPointCloud, RemoveCameraInvisiblePointsKITTI,
                      RemoveCameraInvisiblePointsKITTIV2)
 from .target_generator import Gt2SmokeTarget

@@ -35,6 +35,14 @@ class LoadPointCloud(TransformABC):
         self.sweep_remove_radius = sweep_remove_radius
 
     def _read(self, path: str) -> np.ndarray:
+        """A .bin of float32 rows of `dim` columns, or a .npy of [N, dim]
+        (the converted Waymo layout; the JAX reader takes .bin only)."""
+        if path.endswith(".npy"):
+            data = np.load(path).astype(np.float32)
+            if data.ndim != 2 or data.shape[1] != self.dim:
+                raise ValueError("{} holds {} points, not [N, {}]".format(
+                    path, data.shape, self.dim))
+            return data
         return np.fromfile(path, np.float32).reshape(-1, self.dim)
 
     def __call__(self, sample: Sample) -> Sample:

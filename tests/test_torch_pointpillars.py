@@ -152,8 +152,10 @@ def test_port_imports_no_jax():
     import it, its sparse-voxel modules, the weight converter and the
     camera host layer (Sample, Gt2SmokeTarget), the BEVFusion and DD3D
     modules, the runtime (Trainer, DataLoader, Checkpoint, Scheduler, the
-    EMA, logger, timer, summary, env, the KITTI and synthetic datasets, the
-    point transforms, the geometry, the CLI), and build the tiny model, its
+    EMA, logger, timer, summary, env, the KITTI, nuScenes, Waymo and
+    synthetic datasets and metrics, the point transforms, the GT-paste
+    transform and its database tool, transform3d, the geometry, the CLI),
+    and build the tiny model, its
     datasets, the CenterPoint-voxels model and the tiny SMOKE in a fresh
     interpreter."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
@@ -187,6 +189,12 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.datasets.synthetic\n"
         "import paddle3d_tpu_torch.tools.train\n"
         "import paddle3d_tpu_torch.tools.evaluate\n"
+        "import paddle3d_tpu_torch.tools.create_det_gt_database\n"
+        "import paddle3d_tpu_torch.transforms.sampling\n"
+        "import paddle3d_tpu_torch.utils.transform3d\n"
+        "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_det\n"
+        "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_metric\n"
+        "import paddle3d_tpu_torch.datasets.waymo.waymo_det\n"
         "c = Config(path=sys.argv[1], device='cpu')\n"
         "m, d = c.model, (c.train_dataset, c.val_dataset)\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"

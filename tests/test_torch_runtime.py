@@ -363,6 +363,55 @@ def test_trainer_trains_resumes_bit_equal_and_evaluates(tmp_path):
                 resume=True)
 
 
+class _OneFrame:
+    """A train split of one frame."""
+    class_names = ["Car"]
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, i):
+        raise AssertionError("no sample is built")
+
+
+def test_trainer_over_a_split_shorter_than_a_batch_raises(tmp_path):
+    """A one-frame split at batch 2 (drop_last): the port's Trainer raises
+    ValueError naming the split's size and the batch, in a thread joined
+    with a timeout, so that a loop would fail the test instead of hanging
+    it. The JAX Trainer takes max(1, 0) steps an epoch over the empty
+    loader (its train() would rebuild that loader forever); train() is not
+    run."""
+    import threading
+
+    import optax
+    from flax import nnx
+    cfg = Config(path=TINY, device="cpu")
+    out = {}
+
+    def build():
+        try:
+            Trainer(model=cfg.model, optimizer=cfg.optimizer,
+                    lr_scheduler=cfg.lr_scheduler, iters=4,
+                    train_dataset=_OneFrame(), batch_size=2,
+                    save_dir=str(tmp_path / "port"))
+        except Exception as e:                # noqa: BLE001
+            out["error"] = e
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive(), "the Trainer did not return"
+    err = out.get("error")
+    assert isinstance(err, ValueError), err
+    assert "1 frames" in str(err) and "batch of 2" in str(err)
+    assert "drop_last" in str(err)
+    jt = JaxTrainer(model=nnx.Linear(1, 1, rngs=nnx.Rngs(0)),
+                    optimizer=optax.sgd(0.1), iters=4,
+                    train_dataset=_OneFrame(), batch_size=2,
+                    save_dir=str(tmp_path / "jax"))
+    assert len(jt.train_dataloader) == 0
+    assert jt.scheduler.iters_per_epoch == 1
+
+
 def test_trainer_refusals_and_pad_batch(tmp_path):
     """profiler_options and AMP raise naming their items; pad_batch
     zero-pads every leading-batch array as the JAX one does."""
