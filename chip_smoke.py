@@ -198,13 +198,13 @@ result (each phase's first line leads with the seconds since the start):
      pattern); K14 at both decode calls bit for bit against its plain
      version and a second call, timed through its wrapper and alone,
      beside torch.gather, its byte bound and its chain floor (one
-     launch on one float); the tiny config's test_forward on the card
-     against the CPU; frames/s of both paths at batch 1 and 8, peak memory
-     and a profile; training at batch 8 (the config's Adam and
+     launch on one float); frames/s of both paths at batch 1 and 8, peak
+     memory,
+     a profile at batch 8; training at batch 8 (the config's Adam and
      PiecewiseDecay, targets from the port's Gt2SmokeTarget; no kernel
      launches: the loss gathers with torch.gather under autograd), 10
-     steps with finite losses that fall, train frames/s, peak memory and a
-     profile;
+     steps with finite losses that fall (train frames/s and peak memory:
+     phase 29's Trainer run of the config);
  16. CADDN KITTI (HRNet-W18 + OCRNet, 80 LID bins, BEV 376 x 280 x 64,
      CenterHead of 3 classes, NMS pre 1,000 / post 100) at 384 x 1248
      under a KITTI camera (caddn_camera: f = 721.5, the principal point at
@@ -220,9 +220,8 @@ result (each phase's first line leads with the seconds since the start):
      plain version; the tiny config's test_forward on the card (its pool
      of 192 rows onto 32 x 32 cells is sparse: one K2, held bit for bit)
      against the CPU (CADDN_TINY_TOL); frames/s of both paths at batch 1
-     and 4, peak memory, a profile and the time of each stage (image
-     branch, FFE, frustum ranks, sort, row rebuild, K7, BEV net, head,
-     decode + NMS); training at batch 4 (the config's AdamWOnecycle, clip
+     and 4, at batch 4 peak memory and a profile (caddn_stages, the time
+     of each stage, by hand); training at batch 4 (the config's AdamWOnecycle, clip
      10 and OneCycle; 8 boxes an image in range and in view, depth maps
      at the feature stride): one step through the kernels (one K7, one
      K5, nothing else) against one on the plain versions from the same
@@ -230,9 +229,9 @@ result (each phase's first line leads with the seconds since the start):
      row order: the pooled BEVs bit-equal, so K7 is held at the step's
      pool; losses, grads, running stats compared), K5 held at its VJP (bit
      for bit against its plain version and a second call, timed through
-     its wrapper and alone beside torch.gather and its bound); 10 steps
-     with finite losses that fall; train frames/s of both paths, peak
-     memory and a profile.
+     its wrapper and alone beside torch.gather and its bound); its falling
+     losses, train frames/s and peak memory are phase 29's Trainer run of
+     the config.
  17. PETR and PETRv2 (VoVNet-99-eSE, CPFPN 768 / 1024 -> 256, 900
      queries, 6 decoder layers, 8 heads, 64 LID bins, 10 classes) at 320 x
      800 under petr_rig (tools/bench_camera.py's six-camera ring, its
@@ -390,7 +389,29 @@ result (each phase's first line leads with the seconds since the start):
      evaluate()'s forwards equal to the routes the density rule gives the
      batch's rows (pillars) or the dense BEV's recorded rows (PV-RCNN),
      Trainer scans/s in a window of 3 steps against the bare step, the
-     database's and the metric's seconds, peak memory.
+     database's and the metric's seconds, peak memory;
+ 29. the runtime's camera path: a KITTI tree with image_2/ (kitti_tree's
+     images: the frames' objects rendered through P2 over a textured
+     background, PNGs written by png_bytes with zlib alone, every filter
+     type in turn across the rows; most frames 1242 x 375, every fourth
+     1224 x 370 or 1241 x 376): every image read back by the port's
+     decoder equal to the array written, the native unfilter byte-equal
+     to the plain one on an image of each size; the loader's host work a
+     sample by part (decode, resize, targets, normalize; CADDN's depth
+     map); SMOKE-KITTI (configs/smoke/smoke_dla34_no_dcn_kitti.yml, batch
+     8: KittiMonoDataset, LoadImage, Gt2SmokeTarget with its flips,
+     Normalize) and CADDN-KITTI (the HRNet-W18 + OCR config, batch 4:
+     KittiDepthDataset) through Config, Trainer, DataLoader, evaluate() and
+     KittiMetric / KittiDepthMetric: the loader's first two batches equal
+     at 1 and 4 threads, a Trainer run inside one epoch with finite,
+     falling losses, the launch counters against the routes derived from
+     the recorded pools (SMOKE: none a step, K14 a forward; CADDN: K7 and
+     K5 a step, K7 a forward), Trainer frames/s at 4 and 1 threads and on
+     prebuilt batches against the bare step, evaluate() by part, peak
+     memory; then the three synthetic camera tiny configs (SMOKE, CADDN,
+     PETR) through the Trainer and evaluate() (the tiny CADDN's pool on
+     K2, K5 a step), the tiny SMOKE's evaluate() on the card against the
+     CPU within SMOKE_TINY_TOL.
 
 The seconds of every phase are logged before the record lines. Since
 phases 22 and 23 came, the timing loops of phases 4-10, 13 and
@@ -408,7 +429,15 @@ RTEBEV_TRAIN_ITERS, BEVF_TRAIN_ITERS, DD3D_ITERS, DD3D_TRAIN_ITERS,
 SSG_ITERS, SSG_TRAIN_ITERS, PACONV_ITERS, PACONV_TRAIN_ITERS, LANE_ITERS
 and LANE_TRAIN_ITERS 4 -> 2 (one step or forward a half), and profile()
 traces the device's activity alone (the host's ops made reading a trace
-~4 s longer); no check changed.
+~4 s longer); since phase 29 came, phases 15 and 16 leave their train
+timing, peak memory and train profile to phase 29's Trainer runs of the
+same configs (phase 16 its ten falling steps too: phase 29 checks that the
+config's losses fall through the Trainer; phase 15 its tiny card-vs-CPU
+forward: phase 29 holds the tiny config's evaluate() on the card to the
+CPU's within the same SMOKE_TINY_TOL), trace at the configs' batches only,
+no longer time CADDN's stages (caddn_stages, by hand) and take CADDN's work
+a frame as the constant CADDN_GFLOP; phase 29's tree is written beside
+phase 28's database processes; no other check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
@@ -3952,7 +3981,6 @@ SMOKE_HW = (384, 1280)
 SMOKE_FOCAL = 721.5
 SMOKE_BATCH = 8
 SMOKE_ITERS = 4         # timed forwards per path and batch (halves of 2)
-SMOKE_TRAIN_ITERS = 4   # timed train steps (halves of 2)
 SMOKE_OBJECTS = 8       # synthetic objects an image
 # the tiny config's class head gets this contrast before the card-vs-CPU
 # check: its random heatmap is flat at sigmoid(-2.19), and near-equal
@@ -4009,10 +4037,11 @@ def smoke_train_batch(device, cfg_dic, b=None, seed=SEED):
     b = b or SMOKE_BATCH
     dim_ref = np.asarray(cfg_dic["model"]["dim_ref"], np.float32)  # l, h, w
     rng = np.random.default_rng(seed)
-    np.random.seed(seed)                    # Gt2SmokeTarget's flips
+    flips = np.random.RandomState(seed)     # Gt2SmokeTarget's flips
     made = []
     for _ in range(b):
         s = Sample(path=None, modality="image")
+        s.rng = flips
         s.data = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         s.meta.camera_intrinsic = smoke_intrinsics(h, w)
         labels = rng.integers(0, len(dim_ref), SMOKE_OBJECTS)
@@ -4117,10 +4146,10 @@ def smoke_frames_per_s(model, batch, iters):
     return batch["data"].shape[0] * iters / (time.perf_counter() - t0)
 
 
-def smoke_timing(model, batch):
+def smoke_timing(model, batch, traced=True):
     """Frames/s of both paths in kernel/plain/plain/kernel halves after a
-    warm-up (cudnn.benchmark on, as a server runs), peak memory and a
-    profile of one forward through the kernels."""
+    warm-up (cudnn.benchmark on, as a server runs), peak memory and, if
+    traced, a profile of one forward through the kernels."""
     import torch
     b = batch["data"].shape[0]
     for _ in range(2):
@@ -4146,43 +4175,8 @@ def smoke_timing(model, batch):
     model.test_forward(batch)
     log("  peak device memory of one forward at batch {}: {:.1f} "
         "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: model.test_forward(batch))
-
-
-def phase_smoke_tiny():
-    """A small input against the CPU path: the tiny config's test_forward,
-    the class head's kernel scaled by SMOKE_CLS_GAIN, K14 on the card vs
-    the plain gather on the CPU; labels equal, the rest relative to the
-    largest value within SMOKE_TINY_TOL: cuDNN and the CPU's convolutions
-    sum in other orders (1.1e-5 of the scores measured, PR 18), which the
-    decode's arctans amplify in the alphas."""
-    import torch
-
-    from paddle3d_tpu_torch.apis import Config
-    from paddle3d_tpu_torch.ops import _build
-    model = Config(path=SMOKE_TINY, device="cpu").model.eval()
-    with torch.no_grad():
-        model.head.cls_conv2.weight.mul_(SMOKE_CLS_GAIN)
-    batch = smoke_serve_batch("cpu", 2, hw=(96, 128))   # its input_size
-    with torch.no_grad():
-        ref = model.test_forward(batch)
-        model.cuda()
-        _build.reset_launches()
-        got = model.test_forward({"data": batch["data"].cuda(), "target": {
-            k: v.cuda() for k, v in batch["target"].items()}})
-        torch.cuda.synchronize()
-    check(_build.LAUNCHES["gather_rows"] == 1,
-          "the tiny SMOKE on the card missed K14")
-    check(torch.equal(got["label_preds"].cpu(), ref["label_preds"]),
-          "tiny SMOKE labels differ between the card and the CPU")
-    errs = {key: ((got[key].cpu() - ref[key]).abs().max() /
-                  ref[key].abs().max()).item() for key in SMOKE_TINY_TOL}
-    log("  tiny config test_forward, card (K14) vs CPU (plain): labels "
-        "equal; relative errors {} (tolerances {})".format(
-            {k: "{:.3e}".format(v) for k, v in errs.items()},
-            SMOKE_TINY_TOL))
-    check(all(errs[k] <= tol for k, tol in SMOKE_TINY_TOL.items()),
-          "tiny SMOKE outputs differ between the card and the CPU")
+    if traced:
+        profile(lambda: model.test_forward(batch))
 
 
 def phase_smoke(device):
@@ -4190,10 +4184,12 @@ def phase_smoke(device):
     256-channel heads, 50 detections, seeded random weights, f32, TF32
     off): serving at batch 1 and 8 through K14 and on the plain versions
     (outputs equal by bit pattern under deterministic cuDNN), K14 held and
-    timed at the decode's calls, the tiny config card vs CPU, frames/s,
-    memory, profiles; training at batch 8 (the config's Adam and
-    PiecewiseDecay, targets from the port's Gt2SmokeTarget), 10 falling
-    losses, train frames/s, memory, profile. -> (errs, times, extra,
+    timed at the decode's calls, frames/s, memory, a profile at batch 8
+    (the tiny config card vs CPU: phase 29's evaluate()); training at
+    batch 8 (the config's Adam
+    and PiecewiseDecay, targets from the port's Gt2SmokeTarget), 10
+    falling losses (its train frames/s, memory and profile: phase 29's
+    Trainer run of the config). -> (errs, times, extra,
     launches) of K14 for the record: its launches on the two forwards, its
     times at the config's batch."""
     import torch
@@ -4248,13 +4244,12 @@ def phase_smoke(device):
     src, idx = calls[-1][0]                 # the config's batch
     k14_bytes = gather_bytes(idx.shape[0], idx.shape[1], src.shape[2])
     del calls, outs, src, idx
-    phase_smoke_tiny()
 
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
     with torch.no_grad():
-        for batch in batches.values():
-            smoke_timing(model, batch)
+        for b, batch in batches.items():
+            smoke_timing(model, batch, traced=b == SMOKE_BATCH)
     del batches
 
     model.train()
@@ -4272,21 +4267,10 @@ def phase_smoke(device):
                     {k: v for k, v in _build.LAUNCHES.items() if v}))
     check(not any(_build.LAUNCHES.values()), "the SMOKE train step launched "
           "a kernel (its loss gathers with torch.gather under autograd)")
+    # the ten steps also autotune the step's convolutions, which phase 29's
+    # SMOKE Trainer then finds tuned; its train frames/s and peak memory
+    # are phase 29's (the bare step beside the Trainer)
     falling_losses(step, model, cfg.optimizer, batch)
-    half = SMOKE_TRAIN_ITERS // 2
-    step(model, cfg.optimizer, batch)
-    train = [round(timed_train_scans_per_s(step, model, cfg.optimizer, batch,
-                                           half), 2) for _ in range(2)]
-    log("  {} train steps of batch {} (two halves, cudnn.benchmark on): {} "
-        "frames/s; halves {}".format(
-            SMOKE_TRAIN_ITERS, SMOKE_BATCH,
-            round(SMOKE_TRAIN_ITERS / sum(half / r for r in train), 2),
-            train))
-    torch.cuda.reset_peak_memory_stats()
-    step(model, cfg.optimizer, batch)
-    log("  peak device memory of one train step: {:.1f} MiB".format(
-        torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: step(model, cfg.optimizer, batch))
     del model, step, batch, cfg
 
     p, err = parts[SMOKE_BATCH]
@@ -4308,7 +4292,10 @@ CADDN_TINY = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
 CADDN_HW = (384, 1248)
 CADDN_BATCH = 4
 CADDN_ITERS = 2         # timed forwards per path and batch (halves of 1)
-CADDN_TRAIN_ITERS = 2   # timed train steps per path (halves of 1)
+# a frame's convolutions and matmuls, by torch.utils.flop_counter over a
+# forward at the config's image size (the same in every run since the
+# config's widths were fixed)
+CADDN_GFLOP = 637.1
 CADDN_OBJECTS = 8       # synthetic boxes an image
 KITTI_VELO_TO_CAM_T = (-4.069766e-03, -7.631618e-02, -2.717806e-01)
 # the tiny config (64 x 96 images) sees its 16 x 16 m grid through a camera
@@ -4506,11 +4493,14 @@ def caddn_stages(model, batch, iters):
             preds, model.test_cfg))], batch, iters)
 
 
-def caddn_timing(model, batch):
+def caddn_timing(model, batch, traced=True):
     """Frames/s of both paths in kernel/plain/plain/kernel halves after a
-    warm-up (cudnn.benchmark on), the convolutions' and matmuls' work a
-    frame, peak memory, a profile of one forward through the kernels and
-    the stage times."""
+    warm-up (cudnn.benchmark on) and, if traced, peak memory and a profile
+    of one forward through the kernels. The convolutions' and matmuls'
+    work is the config's CADDN_GFLOP a frame, which gives the TFLOP/s
+    logged at the kernel path's ms a frame. caddn_stages times the
+    forward's stages (since phase 29 came, by hand: the readings are in
+    PERF.md)."""
     import torch
     b = batch["data"].shape[0]
     for _ in range(2):
@@ -4532,20 +4522,16 @@ def caddn_timing(model, batch):
             b, CADDN_ITERS, rate["kernels"], 1e3 / rate["kernels"],
             rate["plain"], 1e3 / rate["plain"],
             {k: [round(x, 2) for x in v] for k, v in rates.items()}))
-    from torch.utils.flop_counter import FlopCounterMode
-    with FlopCounterMode(display=False) as counter:
-        model.test_forward(batch)
-    gflop = counter.get_total_flops() / 1e9 / b
-    log("  {:.1f} GFLOP a frame in convolutions and matmuls "
-        "(torch.utils.flop_counter over one forward): {:.2f} TFLOP/s at "
-        "the kernel path's ms a frame".format(
-            gflop, gflop * rate["kernels"] / 1e3))
+    log("  {:.1f} GFLOP a frame in convolutions and matmuls: {:.2f} TFLOP/s "
+        "at the kernel path's ms a frame".format(
+            CADDN_GFLOP, CADDN_GFLOP * rate["kernels"] / 1e3))
+    if not traced:
+        return
     torch.cuda.reset_peak_memory_stats()
     model.test_forward(batch)
     log("  peak device memory of one forward at batch {}: {:.1f} "
         "MiB".format(b, torch.cuda.max_memory_allocated() / 2**20))
     profile(lambda: model.test_forward(batch))
-    caddn_stages(model, batch, 3)
 
 
 def phase_caddn_tiny():
@@ -4615,9 +4601,10 @@ def phase_caddn(device):
     card (K2) vs CPU, frames/s, memory, profiles, stages; training at
     batch 4 (AdamWOnecycle, clip 10, OneCycle; depth maps): one step
     through K7 and K5 against one on the plain versions from the same
-    state (deterministic mode), K5 held and timed at the step's VJP, 10
-    falling losses, train frames/s, memory, profile. -> the record's entries of
-    K7, K5 and K2 at CADDN's calls."""
+    state (deterministic mode), K5 held and timed at the step's VJP (its
+    falling losses, train frames/s and memory: phase 29's Trainer run of
+    the same config). -> the record's entries of K7, K5 and K2 at CADDN's
+    calls."""
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
@@ -4689,8 +4676,8 @@ def phase_caddn(device):
     torch.backends.cudnn.deterministic = False
     torch.backends.cudnn.benchmark = True
     with torch.no_grad():
-        for batch in batches.values():
-            caddn_timing(model, batch)
+        for b, batch in batches.items():
+            caddn_timing(model, batch, traced=b == CADDN_BATCH)
     del batches
 
     torch.backends.cudnn.deterministic = True
@@ -4764,12 +4751,9 @@ def phase_caddn(device):
         "rows"]), "expected one pool of whole frames a train step")
     k5 = k5_parts("CADDN's train backward", *bwd[0][0])
     k5_launches = kernel[3]["sorted_table_gather"]
+    # its falling losses, train frames/s, memory and profile are phase
+    # 29's: the same config through the Trainer at this batch
     del fwd, bwd, kernel, plain
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    falling_losses(step, model, optimizer, batch)
-    timed_train(step, model, optimizer, batch, "CADDN", CADDN_TRAIN_ITERS,
-                lambda *a: None)
     del model, step, batch, cfg, optimizer, scheduler, restore
 
     p7, k7_err = k7[CADDN_BATCH]
@@ -8499,6 +8483,7 @@ RT_SMALL_SLOTS = [(x, y) for x in (7.5, 12.5, 17.5, 22.5)
 # KITTI's mean object sizes (w, l, h), m
 KITTI_SIZES = {"Car": (1.6, 3.9, 1.56), "Pedestrian": (0.6, 0.8, 1.73),
                "Cyclist": (0.6, 1.76, 1.73)}
+KITTI_CLASSES = ["Car", "Cyclist", "Pedestrian"]   # the configs' order
 
 
 def car_boxes(rng, zg):
@@ -8554,15 +8539,21 @@ def small_boxes(rng, zg, classes):
 
 
 def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None,
-               classes=("Car",)):
-    """A KITTI tree under root (no image_2: the card's machine has no
-    Pillow): `train` + `val` frames of bench.make_scans KITTI scans (as
-    make_points draws them, `points` a scan) with car_boxes (and, where
-    `classes` names them, small_boxes of pedestrians and cyclists),
-    RT_SURFACE of each scan's points moved onto its objects, label_2 lines
-    written through the port's kitti_utils under KITTI_CALIB with a 2-D box
-    at least 60 px tall (every object "easy"), and
-    ImageSets/{train,val}.txt. -> {frame id: [G, 7] lidar boxes}."""
+               classes=("Car",), images=False, hashes=None):
+    """A KITTI tree under root: `train` + `val` frames of bench.make_scans
+    KITTI scans (as make_points draws them, `points` a scan) with car_boxes
+    (and, where `classes` names them, small_boxes of pedestrians and
+    cyclists), RT_SURFACE of each scan's points moved onto its objects,
+    label_2 lines written through the port's kitti_utils under KITTI_CALIB
+    with a 2-D box at least 60 px tall (every object "easy"), and
+    ImageSets/{train,val}.txt. With images, image_2/ too: kitti_image's
+    render of the frame's objects, as PNGs that png_bytes writes (no
+    Pillow on the card's machine), most at 1242 x 375 and every fourth
+    frame at one of CAM_SIZES' other two in turn; their texture draws from
+    a generator of the seed and frame, so the scans and boxes are those of
+    a tree without images; hashes, a dict, gets each image's sha256 by
+    frame id.
+    -> {frame id: [G, 7] lidar boxes}."""
     import numpy as np
 
     import bench
@@ -8571,7 +8562,8 @@ def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None,
     n = points or n
     rng = np.random.default_rng(seed)
     base = os.path.join(root, "training")
-    for sub in ("velodyne", "label_2", "calib"):
+    for sub in ("velodyne", "label_2", "calib") + (
+            ("image_2",) if images else ()):
         os.makedirs(os.path.join(base, sub), exist_ok=True)
     os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
     calib_text = "".join(
@@ -8610,6 +8602,18 @@ def kitti_tree(root, train=RT_TRAIN, val=RT_VAL, seed=SEED, points=None,
                 cam["rotation_y"][j]))
         with open(os.path.join(base, "label_2", idx + ".txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
+        if images:
+            i = int(idx)
+            hw = CAM_SIZES[1 + (i // 4) % 2 if i % 4 == 3 else 0]
+            img = kitti_image(np.random.default_rng([seed, i]), boxes,
+                              [KITTI_CLASSES.index(c) for c in names],
+                              calib, hw)
+            with open(os.path.join(base, "image_2", idx + ".png"),
+                      "wb") as f:
+                f.write(png_bytes(img))
+            if hashes is not None:
+                import hashlib
+                hashes[idx] = hashlib.sha256(img.tobytes()).hexdigest()
         written[idx] = boxes
     for split, part in (("train", ids[:train]), ("val", ids[train:])):
         with open(os.path.join(root, "ImageSets", split + ".txt"), "w") as f:
@@ -9618,23 +9622,32 @@ def with_scatters(base, scatters):
 
 
 def batch_hashes(dataset, batch_size, workers, n=2):
-    """sha256 of each collated array of the first n batches of a shuffled
-    loader (seed 0, epoch 0) at `workers` threads."""
+    """sha256 of each collated array (those of a nested dict under
+    "key/name") of the first n batches of a shuffled loader (seed 0, epoch
+    0) at `workers` threads."""
     import hashlib
     from paddle3d_tpu_torch.apis import DataLoader
     loader = iter(DataLoader(dataset, batch_size=batch_size, shuffle=True,
                              drop_last=True, num_workers=workers))
-    out = [{k: hashlib.sha256(v.tobytes()).hexdigest()
-            for k, v in next(loader)[0].items()} for _ in range(n)]
+
+    def hashes(batch, prefix=""):
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, dict):             # SMOKE's targets
+                out.update(hashes(v, prefix + k + "/"))
+            else:
+                out[prefix + k] = hashlib.sha256(v.tobytes()).hexdigest()
+        return out
+    out = [hashes(next(loader)[0]) for _ in range(n)]
     loader.close()
     return out
 
 
-def built_databases(dics, tmp):
+def built_databases(dics, tmp, during=None):
     """Run `python -m paddle3d_tpu_torch.tools.create_det_gt_database` on
     each config dic of {label: dic} (written to a YAML under tmp), as
-    processes at once. -> {label: (seconds from the start to its exit,
-    {class: entries})}."""
+    processes at once, and during() (if given) while they run. -> {label:
+    (seconds from the start to its exit, {class: entries})}."""
     import pickle
     procs = {}
     t0 = time.perf_counter()
@@ -9644,6 +9657,8 @@ def built_databases(dics, tmp):
             [sys.executable, "-m", "paddle3d_tpu_torch.tools."
              "create_det_gt_database", "--config", yml], cwd=REPO,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    if during is not None:
+        during()
     ends = {}
     while len(ends) < len(procs):
         for label, proc in procs.items():
@@ -9815,11 +9830,12 @@ def finite_metrics(label, keys):
     return check_metrics
 
 
-def phase_lidar_runtime_prep(tmp):
+def phase_lidar_runtime_prep(tmp, during=None):
     """Phase 28's untimed host work under tmp: the KITTI (three classes),
     nuScenes and Waymo trees, each leg's config dic pointed at its tree,
-    and the PV-RCNN and CenterPoint-nuScenes databases (built_databases).
-    -> {"dics", "databases", "log"}."""
+    and the PV-RCNN and CenterPoint-nuScenes databases (built_databases,
+    which runs during() beside its processes). -> {"dics", "databases",
+    "log"}."""
     t0 = time.perf_counter()
     kitti, nusc, waymo = (os.path.join(tmp, d) for d in
                           ("KITTI", "nuscenes", "waymo"))
@@ -9839,7 +9855,8 @@ def phase_lidar_runtime_prep(tmp):
             "CenterPoint-nuScenes": lidar_dic(NUSCENES, nusc),
             "IA-SSD-Waymo": lidar_dic(IASSD_WAYMO, waymo)}
     databases = built_databases(
-        {k: dics[k] for k in ("PV-RCNN", "CenterPoint-nuScenes")}, tmp)
+        {k: dics[k] for k in ("PV-RCNN", "CenterPoint-nuScenes")}, tmp,
+        during)
     return {"dics": dics, "databases": databases, "log": lines}
 
 
@@ -9926,6 +9943,502 @@ def phase_lidar_runtime(device, prep=None):
     log("  phase 28's legs took {:.1f} s (its trees and databases were "
         "prepared before them)".format(time.perf_counter() - t_phase))
     return out
+
+
+# --------------------------------------------------------------- phase 29
+# KITTI's image sizes (h, w): most frames are 1242 x 375, a few of the other
+# sizes KITTI's camera gave, so that the resize runs from more than one size
+CAM_SIZES = ((375, 1242), (370, 1224), (376, 1241))
+CAM_TREE = (64, 8)          # frames of the camera tree's train, val splits
+CAM_TIMED = 3               # steps of a Trainer run's timed window; one
+                            # more step ends it
+# steps before the window: SMOKE's, the loader's prefetch depth (its
+# window's batches are built beside its steps: a loader-bound run shows
+# there), CADDN's one (its loader keeps up with its step)
+SMOKE_WARM, CADDN_WARM = RT_WORKERS, 1
+CAM_SAMPLES = 8             # train samples timed part by part
+CAM_TINY_STEPS = 3          # Trainer steps of each synthetic tiny config
+
+
+def png_bytes(img, filters=None, level=6, chunk=65536):
+    """img [H, W, C] uint8 (C = 1 grey, 2 grey + alpha, 3 RGB, 4 RGBA) as
+    the bytes of a non-interlaced 8-bit PNG, written with zlib alone (the
+    card's machine has no Pillow). Row y is filtered with filters[y %
+    len(filters)], by default the five filter types in turn (None, Sub,
+    Up, Average, Paeth), so that a reader's every unfilter path runs; the
+    image data goes out in IDAT chunks of `chunk` bytes."""
+    import struct
+    import zlib
+
+    import numpy as np
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]                    # the byte one pixel to the left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                          # the byte above
+    cc = np.zeros_like(x)
+    cc[1:, c:] = x[:-1, :-c]                # above and to the left
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    types = np.asarray(filters or (0, 1, 2, 3, 4))[np.arange(h) % len(
+        filters or (0, 1, 2, 3, 4))]
+    rows = ((x - preds[types, np.arange(h)]) & 0xFF).astype(np.uint8)
+    raw = np.concatenate([types.astype(np.uint8)[:, None], rows], axis=1)
+    data = zlib.compress(raw.tobytes(), level)
+
+    def chunk_of(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload +
+                struct.pack(">I", zlib.crc32(kind + payload)))
+    out = [b"\x89PNG\r\n\x1a\n", chunk_of(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, ctype, 0, 0, 0))]
+    out += [chunk_of(b"IDAT", data[i:i + chunk])
+            for i in range(0, len(data), chunk)]
+    out.append(chunk_of(b"IEND", b""))
+    return b"".join(out)
+
+
+def kitti_image(rng, boxes, labels, calib, hw):
+    """A camera image [h, w, 3] uint8 of a kitti_tree frame: a sky / road
+    gradient with a grain of +-12 levels (a texture the filters and zlib
+    have work on), the frame's lidar boxes (x, y, z bottom, w, l, h, yaw)
+    drawn as shaded cuboids through the calib's P2 (the synthetic camera
+    datasets' renderer), far to near."""
+    import numpy as np
+
+    from paddle3d_tpu_torch.datasets import synthetic
+    from paddle3d_tpu_torch.datasets.kitti import kitti_utils
+    h, w = hw
+    cam = kitti_utils.lidar_boxes_to_camera_anno(boxes, calib)
+    horizon = int(calib.P2[1, 2])
+    grad = np.linspace(150, 70, h, dtype=np.float32)[:, None, None]
+    img = np.broadcast_to(grad, (h, w, 3)).copy()
+    img[:horizon] += np.array([20, 35, 70], np.float32)
+    img += rng.integers(-12, 13, (h, w, 3)).astype(np.float32)
+    corners, depths = [], []
+    for loc, dims, ry in zip(cam["location"], cam["dimensions"],
+                             cam["rotation_y"]):
+        c3 = synthetic._camera_box_corners(np.r_[loc, dims, ry])
+        if np.any(c3[:, 2] <= 0.5):
+            corners.append(None)
+        else:
+            uv, _ = calib.rect_to_img(c3.astype(np.float32))
+            corners.append(uv.astype(np.float32))
+        depths.append(float(loc[2]))
+    synthetic._render_cuboids(img, corners, depths, labels)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def camera_dic(path, root):
+    """The config at path (its _base_ chain resolved) with both datasets'
+    dataset_root at root. -> the dic."""
+    from paddle3d_tpu_torch.apis import Config
+    dic = Config(path=path, device="cpu").dic
+    for split in ("train_dataset", "val_dataset"):
+        dic[split]["dataset_root"] = root
+    return dic
+
+
+def unfilter_checks(root, hashes):
+    """Every image of the camera tree read by the port's decoder equals the
+    array written (sha256); on one image of each size, the native unfilter
+    byte-equal to the plain NumPy one, with each of the five filter types
+    in its rows. -> (images read, {size: native ms, plain ms})."""
+    import hashlib
+
+    import numpy as np
+
+    from paddle3d_tpu_torch.utils import png
+    base = os.path.join(root, "training", "image_2")
+    read, sizes = 0, {}
+    for idx, want in sorted(hashes.items()):
+        path = os.path.join(base, idx + ".png")
+        img = png.read_png(path)
+        check(hashlib.sha256(img.tobytes()).hexdigest() == want,
+              "{}: the decoded image differs from the one written".format(
+                  path))
+        read += 1
+        if img.shape[:2] in sizes:
+            continue
+        with open(path, "rb") as f:
+            hdr, raw = png.inflate(f.read())
+        stride, bpp = hdr["width"] * 3, 3
+        types = set(np.frombuffer(raw, np.uint8)[::stride + 1].tolist())
+        t0 = time.perf_counter()
+        native = png.unfilter(raw, hdr["height"], stride, bpp)
+        t1 = time.perf_counter()
+        plain = png.unfilter_plain(raw, hdr["height"], stride, bpp)
+        t2 = time.perf_counter()
+        check(types == {0, 1, 2, 3, 4}, "{}: filter types {}".format(
+            path, sorted(types)))
+        check(np.array_equal(native, plain), "{}: the native unfilter "
+              "differs from the plain one".format(path))
+        sizes[img.shape[:2]] = (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+    return read, sizes
+
+
+def loader_parts(label, ds, n=CAM_SAMPLES):
+    """ds.get(i) for the first n samples on this thread, its parts timed:
+    -> {part: ms a sample}. SMOKE: decode (the dataset's read and
+    LoadImage's), resize (Gt2SmokeTarget's BILINEAR), targets (the rest of
+    Gt2SmokeTarget), normalize; CADDN: decode, resize (BICUBIC), the
+    depth map; each with the sample's whole time."""
+    from paddle3d_tpu_torch.datasets.kitti import (kitti_depth_det,
+                                                   kitti_mono_det)
+    from paddle3d_tpu_torch.transforms import normalize, reader, \
+        target_generator
+    targets = [("decode", kitti_mono_det, "read_png"),
+               ("decode", kitti_depth_det, "read_png"),
+               ("decode", reader, "read_png"),
+               ("resize", target_generator, "resize"),
+               ("resize", kitti_depth_det, "resize"),
+               ("targets", target_generator.Gt2SmokeTarget, "__call__"),
+               ("normalize", normalize.Normalize, "__call__"),
+               ("depth map", kitti_depth_det.KittiDepthDataset,
+                "_depth_map")]
+    with timed_calls(targets) as ms:
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds.get(i)
+        total = time.perf_counter() - t0
+    out = {k: sum(v) / n for k, v in ms.items() if v}
+    if "targets" in out:                # Gt2SmokeTarget holds the resize
+        out["targets"] -= out["resize"]
+    out["sample"] = 1e3 * total / n
+    log("  {}: the loader's host work a sample on one thread, ms (over the "
+        "first {} train samples): {}".format(label, n, {
+            k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
+def camera_leg(device, label, dic, tmp, launches, metric_keys, warm,
+               one_thread=True, benchmark=True):
+    """One full-width KITTI camera config through Config(dic=...) on
+    device, cudnn.benchmark as given: the loader's first batch at 1 and
+    RT_WORKERS threads (sha256), a Trainer (EMA, RT_WORKERS threads) run
+    of warm + CAM_TIMED + 1 steps inside its first epoch with its window
+    timed (finite losses, the mean of the last three under the first
+    three's; launches against launches(scatters) -> (step, forward),
+    scatters the (rows, cells) of each recorded segment sum; peak memory),
+    then with one_thread a Trainer at 1 thread, a Trainer on prebuilt
+    batches and the bare step, windows in t4 / t1 / prebuilt / bare order,
+    evaluate() in parts with its launches and the dataset's metric
+    (metric_keys finite). -> a dict of the leg's numbers."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, Trainer
+    from paddle3d_tpu_torch.ops import _build
+    t_leg = time.perf_counter()
+    torch.manual_seed(SEED)
+    cfg = Config(dic=dic, device=device)
+    ds = cfg.train_dataset
+    t0 = time.perf_counter()
+    h1, h4 = (batch_hashes(ds, cfg.batch_size, w, n=1)
+              for w in (1, RT_WORKERS))
+    log("  {}: the loader's first batch of {} at 1 and {} threads equal "
+        "(sha256 of every collated array, {}): {} ({:.1f} s)".format(
+            label, cfg.batch_size, RT_WORKERS, sorted(h1[0]), h1 == h4,
+            time.perf_counter() - t0))
+    check(h1 == h4, "{}: the batches depend on the thread count".format(
+        label))
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = benchmark
+    steps = warm + CAM_TIMED + 1
+    trainer = runtime_trainer(cfg, os.path.join(tmp, label + "_out"), 0,
+                              log_interval=0, save_interval=0)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with recorded_losses(trainer) as losses, \
+            recorded_scatters() as scatters:
+        rate4, _, waits, host4 = windowed_trainer_run(
+            trainer, warm=warm, timed=CAM_TIMED)
+    trained = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = [v.item() for v in losses]
+    step_want, _ = launches(scatters[:len(scatters) // steps])
+    want = {k: v * steps for k, v in step_want.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    head, tail = np.mean(losses[:3]), np.mean(losses[-3:])
+    log("  {}: {} Trainer steps at batch {} in the first epoch of {} "
+        "batches (cudnn.benchmark {}); losses {}; launches {} (want {}: {} "
+        "a step); peak device memory {:.1f} MiB".format(
+            label, steps, cfg.batch_size, len(trainer.train_dataloader),
+            "on" if benchmark else "off (torch's default)",
+            [round(v, 4) for v in losses], trained, want, step_want, peak))
+    check(all(np.isfinite(losses)) and len(losses) == steps,
+          "{}: non-finite or missing losses".format(label))
+    check(tail < head, "{}: the loss did not fall: mean of the last three "
+          "steps {:.4f} against the first three's {:.4f}".format(
+              label, tail, head))
+    check(trained == want, "{}: train launches off the derived ones"
+          .format(label))
+    # the same model and optimizer at 1 loader thread, on prebuilt
+    # batches, and the bare step on those batches
+
+    def trainer_like(name, **kw):
+        return Trainer(model=trainer.model, optimizer=trainer.optimizer,
+                       lr_scheduler=trainer.lr_scheduler, iters=0,
+                       train_dataset=ds, batch_size=cfg.batch_size,
+                       save_dir=os.path.join(tmp, label + name),
+                       ema_decay=RT_EMA, log_interval=0, save_interval=0,
+                       **kw)
+    rate1, waits1, host1 = None, [], []
+    if one_thread:
+        # one thread builds the batches one after another, so the loader
+        # holds the steps back from the first: a window from step 1
+        rate1, _, waits1, host1 = windowed_trainer_run(
+            trainer_like("_t1", dataloader_fn={"num_workers": 1}),
+            warm=1, timed=CAM_TIMED)
+    host, dev = bare_batches(ds, cfg.batch_size, steps, device)
+    pre = trainer_like("_pre")
+    pre.train_dataloader = Prebuilt(host)
+    ratep, _, _, hostp = windowed_trainer_run(pre, warm=warm,
+                                              timed=CAM_TIMED)
+    bare, bare_host = timed_bare_steps(trainer, dev[:CAM_TIMED])
+    del pre, dev, host
+
+    def ms(xs):
+        return round(1e3 * float(np.mean(xs)), 3) if len(xs) else None
+    log("  {}: frames/s in a window of {} steps from step {} (t4 / {}"
+        "prebuilt / bare): Trainer {} threads {:.2f}{}, prebuilt batches "
+        "{:.2f}, bare make_train_step {:.2f} (runtime cost {:.1f} % at {} "
+        "threads{}, {:.1f} % prebuilt); step call host ms {} / {} / {} "
+        "(bare {}); reader wait a step in the window, ms: {} threads {}, 1 "
+        "thread {}".format(
+            label, CAM_TIMED, warm,
+            "t1 (from step 1) / " if one_thread else "",
+            RT_WORKERS, rate4, ", 1 thread {:.2f}".format(rate1)
+            if one_thread else "", ratep, bare, 100 * (1 - rate4 / bare),
+            RT_WORKERS, ", {:.1f} % at 1".format(100 * (1 - rate1 / bare))
+            if one_thread else "", 100 * (1 - ratep / bare), ms(host4),
+            ms(host1), ms(hostp), ms(bare_host), RT_WORKERS,
+            ms(waits[warm + 1:]), ms(waits1[2:])))
+    before = dict(_build.LAUNCHES)
+    with recorded_scatters() as scatters:
+        metrics, parts, ewall = eval_parts(trainer)
+    served = counts_sub(_build.LAUNCHES, before)
+    nval = len(trainer.val_dataset)
+    forwards = -(-nval // cfg.batch_size)
+    _, forward_want = launches(scatters[:len(scatters) // forwards])
+    swant = {k: v * forwards for k, v in forward_want.items()}
+    log("  {}: evaluate(): {} val frames in {:.3f} s ({:.2f} frames/s): "
+        "device forward {:.3f} s, postprocess {:.3f} s, metric {:.3f} s; "
+        "launches {} (want {})".format(
+            label, nval, ewall, nval / ewall, parts["forward"],
+            parts["postprocess"], parts["metric"], served, swant))
+    log("  {}: metrics {}".format(label, {k: round(v, 4) for k, v in
+                                          metrics.items()
+                                          if k in metric_keys}))
+    check(served == swant, "{}: eval launches off the derived ones".format(
+        label))
+    finite_metrics(label, metric_keys)(metrics)
+    rec = dict(t4=rate4, t1=rate1, prebuilt=ratep, bare=bare, peak=peak,
+               eval_s=ewall, metric_s=parts["metric"],
+               secs=time.perf_counter() - t_leg)
+    log("  {}: leg took {:.1f} s".format(label, rec["secs"]))
+    del trainer, cfg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tiny_camera_run(device, path, label, tmp, launches):
+    """A synthetic tiny camera config through Config -> Trainer (EMA,
+    RT_WORKERS loader threads) for CAM_TINY_STEPS steps -> evaluate() -> its
+    metric on device, the launches against launches(scatters) -> (step,
+    forward), scatters the (rows, cells) of each recorded segment sum.
+    -> (trainer, the pool's routes)."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.ops import _build
+    torch.manual_seed(SEED)
+    cfg = Config(path=path, device=device)
+    trainer = runtime_trainer(cfg, os.path.join(tmp, label), CAM_TINY_STEPS,
+                              log_interval=0, save_interval=0)
+    _build.reset_launches()
+    with recorded_losses(trainer) as losses, \
+            recorded_scatters() as train_scatters, \
+            mock.patch.object(trainer, "_save_checkpoint", lambda: None):
+        trainer.train()
+    trained = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = [v.item() for v in losses]
+    _build.reset_launches()
+    with recorded_scatters() as eval_scatters:
+        metrics = trainer.evaluate()
+    served = {k: v for k, v in _build.LAUNCHES.items() if v}
+    forwards = -(-len(trainer.val_dataset) // cfg.batch_size)
+    step_want, _ = launches(train_scatters[:len(train_scatters) //
+                                           CAM_TINY_STEPS])
+    _, forward_want = launches(eval_scatters[:len(eval_scatters) //
+                                             forwards])
+    want_t = {k: v * CAM_TINY_STEPS for k, v in step_want.items()}
+    want_s = {k: v * forwards for k, v in forward_want.items()}
+    log("  {}: {} Trainer steps at batch {}, losses {}, launches {} (want "
+        "{}); evaluate() over {} frames: launches {} (want {}), metrics {}"
+        .format(label, CAM_TINY_STEPS, cfg.batch_size,
+                [round(v, 4) for v in losses], trained, want_t,
+                len(trainer.val_dataset), served, want_s,
+                {k: round(v, 4) for k, v in metrics.items()}))
+    check(all(np.isfinite(losses)) and len(losses) == CAM_TINY_STEPS,
+          "{}: non-finite or missing losses".format(label))
+    check(trained == want_t and served == want_s,
+          "{}: launches off the derived ones".format(label))
+    check(all(np.isfinite(v) for v in metrics.values()),
+          "{}: non-finite metrics".format(label))
+    return trainer, sorted({r for r in step_want if "segment" in r})
+
+
+def camera_launches(scatters):
+    """A camera model's launches by its recorded pools: each pool's route
+    by the density rule a forward, plus its VJP (K5) a step."""
+    forward = with_scatters({}, scatters)
+    step = dict(forward)
+    if scatters:
+        step["sorted_table_gather"] = len(scatters)
+    return step, forward
+
+
+def phase_camera_tiny(device, tmp):
+    """The three synthetic camera tiny configs through the runtime on the
+    card: SMOKE (K14 a forward, no kernel a step), CADDN (its pool by the
+    density rule, K2 for its 192 rows a frame on 1,024 cells, and K5 a
+    step) and PETR (no kernel); then the tiny SMOKE's evaluate() on the CPU
+    with the same weights (the class head's kernel scaled by SMOKE_CLS_GAIN
+    first): its eval steps' outputs against the card's, labels equal, the
+    rest within SMOKE_TINY_TOL of the largest value. -> the tiny CADDN's
+    pool routes."""
+    import copy
+
+    import torch
+    trainer, _ = tiny_camera_run(
+        device, SMOKE_TINY, "tiny SMOKE", tmp,
+        lambda _: ({}, {"gather_rows": 1}))
+    model = trainer.model
+    with torch.no_grad():
+        model.head.cls_conv2.weight.mul_(SMOKE_CLS_GAIN)
+    outs = {}
+    for where, m in (("card", model), ("cpu", copy.deepcopy(model).cpu())):
+        trainer.model, trainer.device = m, next(m.parameters()).device
+        got = []
+        step = trainer._eval_step
+
+        def rec(model_, batch, _step=step, _got=got):
+            out = _step(model_, batch)
+            _got.append({k: v.cpu() for k, v in out.items()})
+            return out
+        with mock.patch.object(trainer, "_eval_step", rec):
+            metrics = trainer.evaluate()
+        outs[where] = (got, metrics)
+    (card, cm), (cpu, pm) = outs["card"], outs["cpu"]
+    check(len(card) == len(cpu) and all(
+        torch.equal(a["label_preds"], b["label_preds"])
+        for a, b in zip(card, cpu)), "tiny SMOKE evaluate(): labels differ "
+        "between the card and the CPU")
+    errs = {key: max(((a[key] - b[key]).abs().max() / b[key].abs().max())
+                     .item() for a, b in zip(card, cpu))
+            for key in SMOKE_TINY_TOL}
+    log("  tiny SMOKE evaluate(), card vs CPU ({} eval steps): labels "
+        "equal; relative errors {} (tolerances {}); metrics {} / {}".format(
+            len(card), {k: "{:.3e}".format(v) for k, v in errs.items()},
+            SMOKE_TINY_TOL, cm, pm))
+    check(all(errs[k] <= tol for k, tol in SMOKE_TINY_TOL.items()),
+          "tiny SMOKE evaluate() outputs differ between the card and the "
+          "CPU")
+    del trainer, model, outs
+    _, routes = tiny_camera_run(device, CADDN_TINY, "tiny CADDN", tmp,
+                                camera_launches)
+    check(routes == ["sorted_segment_sum"], "the tiny CADDN's pool ran on "
+          "{}, not K2".format(routes))
+    tiny_camera_run(device, PETR_TINY, "tiny PETR", tmp,
+                    lambda _: ({}, {}))
+    return routes
+
+
+def camera_tree(tmp):
+    """Phase 29's KITTI tree with images under tmp (CAM_TREE frames, three
+    classes): -> {"root", "hashes", "written", "secs"}."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "KITTI_camera")
+    hashes = {}
+    written = kitti_tree(root, *CAM_TREE, seed=SEED + 5,
+                         classes=tuple(KITTI_SIZES), images=True,
+                         hashes=hashes)
+    return {"root": root, "hashes": hashes, "written": written,
+            "secs": time.perf_counter() - t0}
+
+
+def phase_camera_runtime(device, prep=None):
+    """Phase 29: the runtime's camera path, through Config -> Trainer ->
+    DataLoader -> KITTI camera dataset (PNG read by the port's decoder,
+    Pillow's resize) -> transforms -> collate -> train step -> evaluate ->
+    postprocess_to_samples -> metric, on a KITTI tree with images: SMOKE
+    (DLA-34, KittiMonoDataset, Gt2SmokeTarget with its flips) at the
+    config's batch 8 and CADDN (HRNet-W18 + OCR, KittiDepthDataset) at 4,
+    each against the bare step; the native unfilter against the plain one;
+    the loader's cost a sample by part; the three synthetic camera tiny
+    configs. prep: camera_tree's result (main() writes the tree beside
+    phase 28's database processes); without it the phase writes its own
+    under a temp dir."""
+    import tempfile
+
+    from paddle3d_tpu_torch.apis import Config
+    from paddle3d_tpu_torch.utils.png import png_size
+    t_phase = time.perf_counter()
+    if not prep:
+        with tempfile.TemporaryDirectory() as tmp:
+            prep = camera_tree(tmp)
+            prep["where"] = "before the legs"
+            return phase_camera_runtime(device, prep)
+    root, hashes, written = prep["root"], prep["hashes"], prep["written"]
+    tmp = os.path.dirname(root)
+    images = os.path.join(root, "training", "image_2")
+    sizes = {}
+    for idx in hashes:
+        hw = png_size(os.path.join(images, idx + ".png"))
+        sizes[hw] = sizes.get(hw, 0) + 1
+    mb = sum(os.path.getsize(os.path.join(images, i + ".png"))
+             for i in hashes) / 2**20
+    log("phase 29: the runtime's camera path; KITTI tree of {} + {} frames "
+        "with images ({} objects; frames by size (h, w) {}; {:.1f} MiB of "
+        "PNG) written in {:.1f} s {}".format(
+            *CAM_TREE, sum(map(len, written.values())), sizes, mb,
+            prep["secs"], prep.get("where", "beside phase 28's database "
+                                   "processes")))
+    read, times = unfilter_checks(root, hashes)
+    log("  the port's decoder read all {} images equal to the arrays "
+        "written; native unfilter byte-equal to the plain one on one image "
+        "of each size, all five filter types in its rows (ms native / "
+        "plain): {}".format(read, {k: (round(a, 3), round(b, 1))
+                                   for k, (a, b) in times.items()}))
+    smoke_dic = camera_dic(SMOKE_KITTI, root)
+    caddn_dic = camera_dic(CADDN_KITTI, root)
+    for label, dic in (("SMOKE", smoke_dic), ("CADDN", caddn_dic)):
+        loader_parts(label, Config(dic={"train_dataset": dic[
+            "train_dataset"]}, device="cpu").train_dataset)
+    kitti_keys = ["{} {} easy AP_R40".format(c, m) for c in KITTI_SIZES
+                  for m in ("3d", "bev")]
+    legs = {"SMOKE": camera_leg(device, "SMOKE", smoke_dic, tmp,
+                                lambda _: ({}, {"gather_rows": 1}),
+                                kitti_keys, SMOKE_WARM),
+            # torch's cuDNN defaults, as tools/train.py leaves them: the
+            # autotuner's first steps of this config took ~14 s on the card
+            "CADDN": camera_leg(device, "CADDN", caddn_dic, tmp,
+                                camera_launches, kitti_keys, CADDN_WARM,
+                                one_thread=False, benchmark=False)}
+    phase_camera_tiny(device, tmp)
+    log("  phase 29: {}".format(
+        {k: {n: round(x, 3) for n, x in v.items() if x is not None}
+         for k, v in legs.items()}))
+    log("  phase 29 took {:.1f} s (its tree written before it)".format(
+        time.perf_counter() - t_phase))
+    return legs
 
 
 def card():
@@ -10232,11 +10745,16 @@ def main():
         # CenterPoint-KITTI, CenterPoint-nuScenes, IA-SSD-Waymo through
         # their Trainers; their trees and databases built while phase 27
         # waits for its CLI processes
+        # and the runtime's camera path: SMOKE's K14 in evaluate(), CADDN's
+        # K7 and K5 (and the tiny CADDN's K2) by the density rule, its tree
+        # written beside phase 28's database processes
         with tempfile.TemporaryDirectory() as p28_tmp:
-            prep = {}
+            prep, cam = {}, {}
             timed(phase_runtime, device,
-                  lambda: prep.update(phase_lidar_runtime_prep(p28_tmp)))
+                  lambda: prep.update(phase_lidar_runtime_prep(
+                      p28_tmp, lambda: cam.update(camera_tree(p28_tmp)))))
             timed(phase_lidar_runtime, device, prep)
+            timed(phase_camera_runtime, device, cam)
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback

@@ -11,7 +11,11 @@ Differences:
     keeps the schedule's count inside the optax state. A checkpoint holds
     both, so a resumed run continues the schedule where it stopped;
   * the loader's numpy batches go to the model's device here, one copy a
-    tensor; the Timer's reader cost is the wait for the next batch;
+    tensor, nested dicts (SMOKE's `target`) included; the Timer's reader
+    cost is the wait for the next batch;
+  * evaluate() pads a partial batch's nested dicts too: the JAX pad_batch
+    pads the top level only, so SMOKE's targets there keep the partial
+    batch's rows beside a padded image batch (ROADMAP.md, section 3);
   * one process: multi-process data parallel waits for parallel/mesh.py
     (ROADMAP.md, queue 1, item 5), and the profiler for utils/profiler.py.
 """
@@ -36,10 +40,16 @@ __all__ = ["Trainer", "to_device"]
 
 
 def to_device(batch: dict, device) -> dict:
-    """The numpy arrays of a collated batch as tensors on `device` (one
-    copy each); other values pass through."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            if isinstance(v, np.ndarray) else v for k, v in batch.items()}
+    """The numpy arrays of a collated batch, and of the dicts in it, as
+    tensors on `device` (one copy each); other values pass through."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        elif isinstance(v, dict):
+            v = to_device(v, device)
+        out[k] = v
+    return out
 
 
 class Trainer:
@@ -262,9 +272,10 @@ class Trainer:
     # ------------------------------------------------------------------ eval
     @staticmethod
     def pad_batch(batch: dict, batch_size: int) -> dict:
-        """Zero-pad every leading-batch-dim array to the fixed batch size
-        (model-agnostic, as the reference's eval). Zeros, not NaN; eval
-        runs BatchNorm on its running averages anyway."""
+        """Zero-pad every leading-batch-dim array, in the batch and in the
+        dicts in it, to the fixed batch size (model-agnostic, as the
+        reference's eval). Zeros, not NaN; eval runs BatchNorm on its
+        running averages anyway."""
         n = None
         for v in batch.values():
             if isinstance(v, np.ndarray) and v.ndim >= 1:
@@ -274,13 +285,15 @@ class Trainer:
             return batch
 
         def _pad(x):
+            if isinstance(x, dict):
+                return {k: _pad(v) for k, v in x.items()}
             if not isinstance(x, np.ndarray) or x.ndim == 0 \
                     or x.shape[0] != n:
                 return x
             width = [(0, batch_size - n)] + [(0, 0)] * (x.ndim - 1)
             return np.pad(x, width)
 
-        return {k: _pad(v) for k, v in batch.items()}
+        return _pad(batch)
 
     def _ema_decay_now(self) -> float:
         """This iteration's decay by the reference schedule

@@ -8,12 +8,12 @@ Layout:
     {root}/testing/{velodyne,calib,image_2}/{id}.*
 
 The JAX dataset opens the image with Pillow only to read its size; the port
-reads the width and height from the PNG's IHDR chunk, so it needs no image
-library. A missing image gives `image_shape = None`, as there.
+reads the width and height from the PNG's IHDR chunk (utils/png.png_size),
+so it needs no image library. A missing image gives `image_shape = None`,
+as there.
 """
 import os
-import struct
-from typing import List, Optional, Tuple
+from typing import List
 
 import numpy as np
 
@@ -21,27 +21,12 @@ from ...apis import manager
 from ...geometries import BBoxes3D, CoordMode
 from ...sample import Sample
 from ...transforms.base import sample_rng
+from ...utils.png import png_size
 from ..base import BaseDataset
 from . import kitti_utils
 from .kitti_metric import KittiMetric
 
 __all__ = ["KittiDetDataset", "KittiPCDataset", "png_size"]
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def png_size(path: str) -> Optional[Tuple[int, int]]:
-    """(height, width) from a PNG's IHDR chunk; None if there is no file.
-    Raises ValueError on a file that is not a PNG."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(24)
-    except FileNotFoundError:
-        return None
-    if len(head) < 24 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
-        raise ValueError("{} is not a PNG file".format(path))
-    width, height = struct.unpack(">II", head[16:24])
-    return int(height), int(width)
 
 
 class KittiDetDataset(BaseDataset):

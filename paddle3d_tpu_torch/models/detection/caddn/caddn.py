@@ -25,8 +25,9 @@ products, as XLA's dot sums them; a correctly rounded square root), so
 that a point on a voxel face or a depth on a bin edge lands on the same
 side.
 
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5).
+`postprocess_to_samples` is the LiDAR detectors' (BaseLidarModel's): the
+JAX model takes CenterPoint's (caddn.py:293), and the predictions are
+lidar-frame boxes that KittiDepthMetric converts through the calib.
 """
 import math
 from typing import Sequence
@@ -39,7 +40,8 @@ from ....ops import xla_arith
 from ....ops.box_ops import limit_period
 from ....ops.scatter import bev_pool_sorted
 from ...backbones.second_backbone import SecondBackbone
-from ...base.base_model import BaseMonoModel, raise_if_training
+from ...base.base_model import (BaseLidarModel, BaseMonoModel,
+                                raise_if_training)
 from ...layers.layer_libs import (ConvBNReLU, default_generator,
                                   uniform_bias_init, uniform_init)
 from ...necks.second_fpn import SecondFPN
@@ -331,9 +333,5 @@ class CADDN(BaseMonoModel):
                     "label_preds": torch.where(keep, labels, -1)}
         return self.bbox_head.predict(preds, self.test_cfg)
 
-    @staticmethod
-    def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "CADDN.postprocess_to_samples waits for the runtime's host "
-            "layer: datasets, Sample records as the evaluator reads them "
-            "(ROADMAP.md, queue 1, item 5)")
+    postprocess_to_samples = staticmethod(
+        BaseLidarModel.postprocess_to_samples)

@@ -24,16 +24,21 @@ Batch contract (fixed shapes):
 The head outputs are kept NHWC, so that a level's flat index is the JAX
 package's (y, x, class).
 
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5).
+`postprocess_to_samples` gives camera-frame Samples. The runtime cannot
+train or serve DD3D's configs yet: they pair KittiMonoDataset with no
+target transform, so a batch holds `data` alone, without the gt keys above
+and K_inv, as in the JAX package (ROADMAP.md, section 3; queue 1, item 5).
 """
 from typing import Sequence
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ....apis import manager
+from ....sample import Sample
 from ...base.base_model import BaseMonoModel, raise_if_training
 from ...layers.layer_libs import Sequential, default_generator, uniform_init
 from ...losses.weighted_loss import sigmoid_focal_loss, smooth_l1_loss
@@ -318,7 +323,21 @@ class DD3D(BaseMonoModel):
 
     @staticmethod
     def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "DD3D.postprocess_to_samples waits for the runtime's host "
-            "layer: the KITTI mono dataset, Sample records as the evaluator "
-            "reads them (ROADMAP.md, queue 1, item 5)")
+        """Fixed-shape outputs (numpy, -1 padded) -> one camera-frame
+        Sample a meta: boxes, labels and confidences of the rows with a
+        score >= 0 (the JAX package's DD3D.postprocess_to_samples,
+        dd3d.py:282-296)."""
+        boxes = np.asarray(outputs["box3d_cam"])
+        scores = np.asarray(outputs["scores"])
+        labels = np.asarray(outputs["label_preds"])
+        results = []
+        for i, meta in enumerate(metas):
+            valid = scores[i] >= 0
+            s = Sample(path=meta.get("path"), modality="image")
+            s.bboxes_3d = boxes[i][valid]
+            s.labels = labels[i][valid]
+            s.confidences = scores[i][valid]
+            s.frame = "camera"
+            s.meta.update({k: v for k, v in meta.items() if k != "path"})
+            results.append(s)
+        return results

@@ -23,16 +23,20 @@ dn_config, train_forward adds noisy gt queries (heads/denoising.py) drawn
 from an explicit torch.Generator. test_forward refuses a model in train
 mode, as the port's other models do.
 
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5) and the JAX model's other names for its parts
+`postprocess_to_samples` gives nuScenes-lidar Samples (velocities and the
+segmentation head's map where present). Not ported yet: the JAX model's
+other names for its parts
 (img_backbone / img_neck / pts_bbox_head, a PETRHead's with_time and
 with_denoise), which the reference type names bring (ROADMAP.md, queue 1,
 item 5): no config of the repo sets them.
 """
+import numpy as np
 import torch
 from torch import nn
 
 from ....apis import manager
+from ....geometries import BBoxes3D, CoordMode
+from ....sample import Sample
 from ...base.base_model import BaseMultiViewModel, raise_if_training
 from ...heads.denoising import (DenoisingConfig, build_dn_queries,
                                 dn_attn_mask)
@@ -148,7 +152,28 @@ class PETR(BaseMultiViewModel):
 
     @staticmethod
     def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "PETR.postprocess_to_samples waits for the runtime's host "
-            "layer: the nuScenes multi-view dataset, Sample records as the "
-            "evaluator reads them (ROADMAP.md, queue 1, item 5)")
+        """Fixed-shape outputs (numpy: box3d_lidar [B, K, 7 | 9] bottom-z,
+        scores, label_preds, -1 padded; seg_probs with a seg head) -> one
+        Sample a meta (the JAX package's PETR.postprocess_to_samples,
+        petr3d.py:147-168)."""
+        boxes = np.asarray(outputs["box3d_lidar"])
+        scores = np.asarray(outputs["scores"])
+        labels = np.asarray(outputs["label_preds"])
+        results = []
+        for i, meta in enumerate(metas):
+            valid = scores[i] >= 0
+            s = Sample(path=meta.get("path"), modality="multiview")
+            b = boxes[i][valid]
+            s.bboxes_3d = BBoxes3D(
+                b[:, :7], origin=[.5, .5, 0.],
+                coordmode=CoordMode.NuScenesLidar, rot_axis=2)
+            if b.shape[-1] >= 9:
+                s.bboxes_3d.velocities = b[:, 7:9]
+            s.labels = labels[i][valid]
+            s.confidences = scores[i][valid]
+            if "seg_probs" in outputs:
+                s.pred_semantic_map = np.asarray(outputs["seg_probs"][i])
+            s.meta.update(
+                {k: v for k, v in meta.items() if k not in ("path",)})
+            results.append(s)
+        return results

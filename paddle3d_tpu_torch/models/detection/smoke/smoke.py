@@ -8,15 +8,16 @@ outputs. Images arrive as the JAX package takes them, NHWC [B, H, W, 3] in
 hand-written K14 (ops/gather.gather_rows): the top-k rows of the NCHW
 regression map, read in place as the strided [B, H*W, R] view
 (reg.flatten(2).transpose(1, 2)), the port of the JAX decode's
-reg.reshape(h*w, -1)[pos].
-
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5).
+reg.reshape(h*w, -1)[pos]. `postprocess_to_samples` gives the runtime's
+camera-frame Samples (boxes, 2-D boxes, alphas), which KittiMetric scores
+as camera-frame predictions.
 """
+import numpy as np
 import torch
 
 from ....apis import manager
 from ....ops import gather
+from ....sample import Sample
 from ...base.base_model import BaseMonoModel
 from ...layers.layer_libs import heatmap_nms
 from .smoke_coder import SMOKECoder
@@ -114,7 +115,26 @@ class SMOKE(BaseMonoModel):
 
     @staticmethod
     def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "SMOKE.postprocess_to_samples waits for the runtime's host "
-            "layer: datasets, Sample records as the evaluator reads them "
-            "(ROADMAP.md, queue 1, item 5)")
+        """Fixed-shape outputs (numpy, -1 padded) -> one camera-frame
+        Sample a meta: the rows with a score >= 0, (x, y, z, h, w, l, ry)
+        boxes, 2-D boxes, labels, confidences and alphas (the JAX package's
+        SMOKE.postprocess_to_samples, smoke.py:108-127)."""
+        boxes = np.asarray(outputs["box3d_cam"])
+        scores = np.asarray(outputs["scores"])
+        labels = np.asarray(outputs["label_preds"])
+        bbox2d = np.asarray(outputs["bbox_2d"])
+        alphas = np.asarray(outputs["alphas"])
+        results = []
+        for i, meta in enumerate(metas):
+            valid = scores[i] >= 0
+            s = Sample(path=meta.get("path"), modality="image")
+            s.bboxes_3d = boxes[i][valid]      # camera frame (x,y,z,h,w,l,ry)
+            s.bboxes_2d = bbox2d[i][valid]
+            s.labels = labels[i][valid]
+            s.confidences = scores[i][valid]
+            s.alpha = alphas[i][valid]
+            s.frame = "camera"
+            s.meta.update(
+                {k: v for k, v in meta.items() if k not in ("path",)})
+            results.append(s)
+        return results

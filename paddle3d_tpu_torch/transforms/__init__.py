@@ -2,7 +2,8 @@ from .base import Compose, TransformABC, rng_of, sample_rng
 from .normalize import Normalize, NormalizeRangeImage
 from .range_image import LoadSemanticKITTIRange, project_range
 from .sampling import Sampler, SamplingDatabase
-from .reader import (LoadPointCloud, RemoveCameraInvisiblePointsKITTI,
+from .reader import (LoadImage, LoadPointCloud,
+                     RemoveCameraInvisiblePointsKITTI,
                      RemoveCameraInvisiblePointsKITTIV2)
 from .target_generator import Gt2SmokeTarget
 from .transform import (FilterBBoxOutsideRange, FilterPointOutsideRange,

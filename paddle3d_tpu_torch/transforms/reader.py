@@ -1,9 +1,9 @@
-"""Point-cloud readers, a copy of the LiDAR part of
-paddle3d_tpu/transforms/reader.py: LoadPointCloud (sweeps included) and
-RemoveCameraInvisiblePointsKITTI{,V2}. The sweep order is drawn from the
-sample's generator (`transforms/base.py`). LoadImage and LoadMapsFromFiles
-need image decoding, which waits for the camera datasets (ROADMAP.md, queue
-1, item 5).
+"""File readers, a copy of paddle3d_tpu/transforms/reader.py: LoadImage
+(PNG through the port's own decoder, utils/png.py, in place of Pillow),
+LoadPointCloud (sweeps included) and RemoveCameraInvisiblePointsKITTI{,V2}.
+The sweep order is drawn from the sample's generator (`transforms/base.py`).
+LoadMapsFromFiles (the nuScenes segmentation maps) waits for the nuScenes
+camera datasets (ROADMAP.md, queue 1, item 5).
 """
 from typing import List, Union
 
@@ -12,10 +12,40 @@ import numpy as np
 from ..apis import manager
 from ..geometries import PointCloud
 from ..sample import Sample
+from ..utils.png import read_png
 from .base import TransformABC, rng_of
 
-__all__ = ["LoadPointCloud", "RemoveCameraInvisiblePointsKITTI",
+__all__ = ["LoadImage", "LoadPointCloud", "RemoveCameraInvisiblePointsKITTI",
            "RemoveCameraInvisiblePointsKITTIV2"]
+
+
+@manager.TRANSFORMS.add_component
+class LoadImage(TransformABC):
+    """Read sample.path into an HWC uint8 array (reference: reader.py:43).
+    The reference YAMLs name a decode library: `pillow` decodes RGB, `cv2`
+    BGR; each maps onto its channel order. to_chw and to_rgb are taken and
+    not used, as in the JAX transform."""
+
+    _READER_MODES = ("rgb", "bgr", "pillow", "cv2")
+
+    def __init__(self, to_chw: bool = False, to_rgb: bool = True,
+                 reader: str = "rgb"):
+        if reader not in self._READER_MODES:
+            raise ValueError("unsupported reader {}".format(reader))
+        reader = {"pillow": "rgb", "cv2": "bgr"}.get(reader, reader)
+        self.reader = reader
+        self.to_rgb = to_rgb
+        self.to_chw = to_chw
+
+    def __call__(self, sample: Sample) -> Sample:
+        img = read_png(sample.path)
+        if self.reader == "bgr":
+            img = img[..., ::-1]
+        sample.data = img.copy()
+        sample.meta.image_reader = self.reader
+        sample.meta.image_format = "rgb" if self.reader == "rgb" else "bgr"
+        sample.meta.channel_order = "hwc"
+        return sample
 
 
 @manager.TRANSFORMS.add_component

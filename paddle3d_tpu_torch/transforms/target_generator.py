@@ -1,6 +1,7 @@
 """Host-side targets for camera models, numpy port of
 paddle3d_tpu/transforms/target_generator.py (gaussian_radius_np,
-draw_umich_gaussian, _project_box3d, Gt2SmokeTarget), without Pillow.
+draw_umich_gaussian, _project_box3d, Gt2SmokeTarget), without Pillow: the
+flip and the BILINEAR resize are utils/image.py's, byte for byte Pillow's.
 
 Mono targets stay on the host, entangled with host image augmentation (a
 flip changes K).
@@ -11,7 +12,8 @@ import numpy as np
 
 from ..apis import manager
 from ..sample import Sample
-from .base import TransformABC
+from ..utils.image import BILINEAR, flip_left_right, resize
+from .base import TransformABC, rng_of
 
 __all__ = ["Gt2SmokeTarget", "draw_umich_gaussian", "gaussian_radius_np"]
 
@@ -74,12 +76,13 @@ def _project_box3d(K, roty, dims_lhw, locs):
 
 @manager.TRANSFORMS.add_component
 class Gt2SmokeTarget(TransformABC):
-    """Optional horizontal flip, gt centres projected onto the output map,
-    the heatmap and the per-object regression targets at fixed max_objs
-    shapes. Images must arrive at input_size: the JAX package resizes with
-    Pillow, which an image of that size leaves as it is; the port has no
-    resize yet (ROADMAP.md, queue 1, item 5: the image transforms without
-    Pillow) and raises on any other size."""
+    """Optional horizontal flip, the BILINEAR resize to input_size, gt
+    centres projected onto the output map, the heatmap and the per-object
+    regression targets at fixed max_objs shapes (reference:
+    target_generator.py:180). In train mode the flip's draw comes from the
+    sample's generator (`transforms.base.rng_of`), one `random()` a sample
+    as the JAX transform draws from `np.random`; K and the scales stay those
+    of the image as it arrived, as there."""
 
     def __init__(self,
                  mode: str,
@@ -100,19 +103,15 @@ class Gt2SmokeTarget(TransformABC):
         img = np.asarray(sample.data, np.uint8)    # as Pillow takes it
         K = np.array(sample.meta.camera_intrinsic, np.float32).reshape(3, 3)
         h0, w0 = img.shape[:2]
-        if (w0, h0) != (self.input_w, self.input_h):
-            raise NotImplementedError(
-                "Gt2SmokeTarget takes images at input_size {} x {}, got {} x "
-                "{}: the resize arrives with the image transforms "
-                "(ROADMAP.md, queue 1, item 5)".format(
-                    self.input_w, self.input_h, w0, h0))
 
         flipped = False
-        if self.is_train and np.random.random() < self.flip_prob:
+        if self.is_train and rng_of(sample).random_sample() < self.flip_prob:
             flipped = True
-            img = img[:, ::-1]
+            img = flip_left_right(img)
             K = K.copy()
             K[0, 2] = w0 - K[0, 2] - 1
+
+        img = resize(img, (self.input_w, self.input_h), BILINEAR)
 
         sx = self.out_w / w0
         sy = self.out_h / h0

@@ -6,7 +6,8 @@ table gather's (K5) bound and the rotated-box intersection's (K11) chain
 floor rest on; of phase 15's SMOKE batches and the row gather's (K14)
 byte count and decode inputs; of the inputs of phases 24-26: the range
 batch, the point clouds and the lane rasteriser; and of phase 27's KITTI
-tree writer, read back through the port's dataset and metric."""
+tree writer, read back through the port's dataset and metric; and of phase
+29's PNG writer and camera tree."""
 import numpy as np
 import pytest
 import torch
@@ -300,3 +301,64 @@ def test_kitti_tree_reads_back_through_the_port_dataset(tmp_path):
     for m in ("3d", "bev"):
         for r in (11, 40):
             assert ap["Car {} easy AP_R{}".format(m, r)] == 100.0
+
+
+def test_png_bytes_writes_every_filter_type_that_pillow_reads():
+    """Phase 29's PNG writer (zlib alone): RGB rows under the five filter
+    types in turn, in IDAT chunks of 1,000 bytes, read back by Pillow as
+    the array written."""
+    import io
+    import zlib
+
+    from PIL import Image
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (23, 37, 3), dtype=np.uint8)
+    data = chip_smoke.png_bytes(img, chunk=1000)
+    assert data.count(b"IDAT") > 1
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(io.BytesIO(data)).convert("RGB")), img)
+    idat = zlib.decompress(b"".join(
+        data[i + 8:i + 8 + int.from_bytes(data[i:i + 4], "big")]
+        for i in range(8, len(data) - 12)
+        if data[i + 4:i + 8] == b"IDAT"))
+    types = np.frombuffer(idat, np.uint8)[::37 * 3 + 1]
+    np.testing.assert_array_equal(types, np.arange(23) % 5)
+
+
+def test_camera_tree_reads_back_through_the_port_datasets(tmp_path):
+    """Phase 29's KITTI tree with images: every fourth frame at one of
+    CAM_SIZES' other sizes, the rest at 1242 x 375; KittiMonoDataset reads
+    each image equal to the array written (sha256) with its camera boxes,
+    KittiDepthDataset resizes it to the CADDN config's 384 x 1248 with a
+    depth map; the batch hashes cover SMOKE's nested targets; a camera
+    model's launches follow its recorded pools."""
+    import hashlib
+
+    from paddle3d_tpu_torch.datasets import (KittiDepthDataset,
+                                             KittiMonoDataset)
+    from paddle3d_tpu_torch.transforms import Gt2SmokeTarget
+    hashes = {}
+    written = chip_smoke.kitti_tree(str(tmp_path), train=4, val=1,
+                                    points=3000, images=True, hashes=hashes,
+                                    classes=tuple(chip_smoke.KITTI_SIZES))
+    assert sorted(hashes) == sorted(written)
+    mono = KittiMonoDataset(str(tmp_path), mode="train")
+    for i in range(4):
+        s = mono[i]
+        assert s.meta.image_shape == chip_smoke.CAM_SIZES[
+            1 if i == 3 else 0]
+        assert hashlib.sha256(s.data.tobytes()).hexdigest() == \
+            hashes[mono.ids[i]]
+        assert len(s.labels) == len(written[mono.ids[i]])
+    depth = KittiDepthDataset(str(tmp_path), mode="train",
+                              image_size=(384, 1248))
+    s = depth[3]
+    assert s.data.shape == (384, 1248, 3) and s.meta.depth_map.max() > 0
+    mono.transforms = Gt2SmokeTarget(mode="train", num_classes=3)
+    one, four = (chip_smoke.batch_hashes(mono, 2, w, n=1)
+                 for w in (1, 4))
+    assert one == four and "target/hm" in one[0]
+    assert chip_smoke.camera_launches([(2396160, 105280)]) == (
+        {"sorted_segment_sum_dense": 1, "sorted_table_gather": 1},
+        {"sorted_segment_sum_dense": 1})
+    assert chip_smoke.camera_launches([]) == ({}, {})

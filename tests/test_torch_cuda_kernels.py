@@ -2455,3 +2455,37 @@ def test_bevfusion_pillar_canvas_runs_k2_and_k5_at_full_width(cuda,
     torch.testing.assert_close(
         got, sorted_scatter.sorted_table_gather_plain(*args), rtol=0, atol=0)
     assert torch.isfinite(rows.grad).all()
+
+
+def test_png_unfilter_and_camera_batch_on_the_card_host(cuda, tmp_path):
+    """The camera path's host code on the card's machine: the native PNG
+    unfilter (built there with g++) equals the plain one on random rows of
+    every filter type, chip_smoke's camera tree reads back equal to the
+    arrays written, and a SMOKE-KITTI batch from it reaches the card."""
+    import hashlib
+
+    import chip_smoke
+    from paddle3d_tpu_torch.apis.trainer import to_device
+    from paddle3d_tpu_torch.datasets import KittiMonoDataset
+    from paddle3d_tpu_torch.transforms import Gt2SmokeTarget
+    from paddle3d_tpu_torch.utils import png
+    rng = np.random.default_rng(0)
+    raw = rng.integers(0, 256, (40, 3 * 413 + 1), dtype=np.uint8)
+    raw[:, 0] = np.arange(40) % 5
+    np.testing.assert_array_equal(
+        png.unfilter(raw.tobytes(), 40, 3 * 413, 3),
+        png.unfilter_plain(raw.tobytes(), 40, 3 * 413, 3))
+    hashes = {}
+    chip_smoke.kitti_tree(str(tmp_path), train=4, val=1, points=2000,
+                          images=True, hashes=hashes)
+    ds = KittiMonoDataset(str(tmp_path), class_names=["Car"],
+                          transforms=[Gt2SmokeTarget(mode="train",
+                                                     num_classes=1)])
+    raw_ds = KittiMonoDataset(str(tmp_path), class_names=["Car"])
+    for i in range(4):
+        assert hashlib.sha256(raw_ds[i].data.tobytes()).hexdigest() == \
+            hashes[raw_ds.ids[i]]
+    batch, _ = ds.collate_fn([ds[i] for i in range(4)])
+    dev = to_device(batch, cuda)
+    assert dev["data"].shape == (4, 384, 1280, 3) and dev["data"].is_cuda
+    assert all(v.is_cuda for v in dev["target"].values())

@@ -340,8 +340,11 @@ def test_dd3d_refusals(tiny):
     with pytest.raises(RuntimeError, match="eval"):
         model.test_forward(to_torch({k: v for k, v in dd3d_batch().items()
                                      if k in ("data", "K_inv")}))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DD3D.postprocess_to_samples({}, [])
+    # postprocess_to_samples, once refused (item 5), is ported: no meta,
+    # no sample
+    assert DD3D.postprocess_to_samples(
+        {"box3d_cam": np.zeros((0, 4, 7)), "scores": np.zeros((0, 4)),
+         "label_preds": np.zeros((0, 4))}, []) == []
 
 
 # --------------------------------------------------------------- configs

@@ -155,12 +155,16 @@ def test_port_imports_no_jax():
     EMA, logger, timer, summary, env, the KITTI, nuScenes, Waymo and
     synthetic datasets and metrics, the point transforms, the GT-paste
     transform and its database tool, transform3d, the geometry, the CLI),
-    and build the tiny model, its
-    datasets, the CenterPoint-voxels model and the tiny SMOKE in a fresh
-    interpreter."""
+    the camera runtime (the PNG reader and its native unfilter, the resize,
+    the KITTI mono and depth datasets, the camera postprocess), and build
+    the tiny model, its datasets, the CenterPoint-voxels model, the tiny
+    SMOKE and a sample of each synthetic camera dataset (SMOKE's through
+    Gt2SmokeTarget) in a fresh interpreter."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
                           "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
     smoke = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
+    caddn = os.path.join(REPO, "configs", "caddn", "caddn_synthetic_tiny.yml")
+    petr = os.path.join(REPO, "configs", "petr", "petr_synthetic_tiny.yml")
     code = (
         "import sys\n"
         "from paddle3d_tpu_torch.apis import Config\n"
@@ -195,10 +199,25 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_det\n"
         "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_metric\n"
         "import paddle3d_tpu_torch.datasets.waymo.waymo_det\n"
+        "import paddle3d_tpu_torch.utils.png\n"
+        "import paddle3d_tpu_torch.utils.image\n"
+        "import paddle3d_tpu_torch.datasets.kitti.kitti_mono_det\n"
+        "import paddle3d_tpu_torch.datasets.kitti.kitti_depth_det\n"
+        "import paddle3d_tpu_torch.models.detection.smoke.smoke\n"
+        "import paddle3d_tpu_torch.models.detection.caddn.caddn\n"
+        "import paddle3d_tpu_torch.models.detection.petr.petr3d\n"
         "c = Config(path=sys.argv[1], device='cpu')\n"
         "m, d = c.model, (c.train_dataset, c.val_dataset)\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"
-        "s = Config(path=sys.argv[3], device='cpu').model\n"
+        "sc = Config(path=sys.argv[3], device='cpu')\n"
+        "s = sc.model\n"
+        "cam = [sc.train_dataset.get(0).target['hm'].shape,\n"
+        "       Config(path=sys.argv[4], device='cpu').train_dataset[0],\n"
+        "       Config(path=sys.argv[5], device='cpu').train_dataset[0]]\n"
+        "import numpy as np\n"
+        "from paddle3d_tpu_torch.utils import image, png\n"
+        "png.unfilter(bytes(4), 2, 1, 1)\n"
+        "image.resize(np.zeros((4, 4, 3), np.uint8), (5, 3))\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'flax', 'PIL',\n"
         "                                    'paddle3d_tpu'))\n"
@@ -206,7 +225,8 @@ def test_port_imports_no_jax():
         "assert type(v.middle_encoder).__name__ == 'SparseResNet3D'\n"
         "assert type(s.backbone).__name__ == 'DLA'\n"
         "print(bad)\n")
-    res = subprocess.run([sys.executable, "-c", code, TINY, voxels, smoke],
+    res = subprocess.run([sys.executable, "-c", code, TINY, voxels, smoke,
+                          caddn, petr],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr

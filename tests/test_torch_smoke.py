@@ -362,6 +362,7 @@ def test_gt2smoke_target_matches_jax(mode, flip_prob):
                      samples(Sample, 4, boxes=boxes)):
         s.labels = js.labels = np.array([0, 1, 0, 1, 0, 1][:len(
             s.bboxes_3d)], np.int64)
+        s.rng = np.random.RandomState(0)    # the port's flip draws from it
         js, s = jax_gen(js), gen(s)
         np.testing.assert_array_equal(s.data, js.data)
         assert s.data.dtype == np.float32
@@ -374,11 +375,19 @@ def test_gt2smoke_target_matches_jax(mode, flip_prob):
 
 
 def test_gt2smoke_target_refuses_other_sizes():
-    s = samples(Sample, 5, n=1)[0]
-    s.data = np.zeros((H, W + 4, 3), np.uint8)
-    gen = Gt2SmokeTarget(mode="val", num_classes=1, input_size=(W, H))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        gen(s)
+    """Once refused, an image not at input_size is now resized to it (the
+    BILINEAR resize, byte for byte Pillow's), as the JAX transform does:
+    the same image, K and targets."""
+    js, s = samples(JaxSample, 5, n=1)[0], samples(Sample, 5, n=1)[0]
+    img = np.random.default_rng(5).integers(0, 255, (H, W + 4, 3),
+                                            dtype=np.uint8)
+    js.data, s.data = img.copy(), img.copy()
+    kw = dict(mode="val", num_classes=1, input_size=(W, H))
+    js, s = JaxGt2SmokeTarget(**kw)(js), Gt2SmokeTarget(**kw)(s)
+    assert s.data.shape == (H, W, 3)
+    np.testing.assert_array_equal(s.data, js.data)
+    for key, value in js.target.items():
+        np.testing.assert_array_equal(s.target[key], value, key)
 
 
 # ----------------------------------------------------- schedule and config
