@@ -47,9 +47,13 @@ weights), serving 1 and 8 images of 384 x 1280 and training on 8, and
 SqueezeSegV3 (configs/squeezesegv3/*_semantickitti.yml, RangeNet-21 and
 -53), PAConv (configs/paconv/paconv_modelnet40.yml) and BEV-LaneDet
 (configs/bev_lanedet/bev_lanedet_apollo_576x1024.yml), full width, seeded
-random weights, serving and training at their configs' batches, in
-phases; any failing phase exits non-zero, names the phase and prints no
-result (each phase's first line leads with the seconds since the start):
+random weights, serving and training at their configs' batches, and then
+the runtime (Config, Trainer, DataLoader, the datasets, evaluate() and
+the metrics) on trees generated from the seed: the LiDAR configs, the
+KITTI camera configs on PNGs and the nuScenes multi-view and Apollo
+configs on JPEGs, in phases; any failing phase exits non-zero, names the
+phase and prints no result (each phase's first line leads with the
+seconds since the start):
 
   1. the card's name and power limit; build the CUDA kernels from
      paddle3d_tpu_torch/csrc/ with nvcc (first use builds them);
@@ -244,11 +248,11 @@ result (each phase's first line leads with the seconds since the start):
      (backbone, neck, tokens + position embedding, decoder with its self-
      and cross-attention apart, decode); training PETR at batch 2 (the
      config's AdamW, clip 35 and CosineDecay; 8 boxes a frame in range and
-     in view, two padded slots): 10 steps in deterministic mode with
-     finite losses that fall (falling_losses' fixed), train frames/s, the
-     Hungarian matches' host time, peak memory and a
-     profile; one train step each of PETRv2 with query denoising and of
-     PETRv2-BEVseg at batch 1, finite losses and grads.
+     in view, two padded slots): one step, no launch, a host match a
+     decoder layer (its falling losses, train frames/s and memory: phase
+     30's Trainer run of the config); one train step each of PETRv2 with
+     query denoising and of PETRv2-BEVseg at batch 1, finite losses and
+     grads.
  18. BEVFormer-tiny (ResNet-50 to C5, FPN 2048 -> 256, a 50 x 50 BEV of
      256 channels, 3 encoder layers of temporal self-attention and
      spatial cross-attention on ops/ms_deform_attn, 900 queries, 6
@@ -289,8 +293,8 @@ result (each phase's first line leads with the seconds since the start):
      the adjacent frame's pool without gradient too, and one K5) against
      one on the plain versions from the same state in deterministic mode
      (the pooled BEVs, losses, grads and running stats bit-equal), K5
-     held and timed at the step's VJP; 10 steps with finite losses that
-     fall; train frames/s, peak memory and a profile.
+     held and timed at the step's VJP (its falling losses, train frames/s
+     and memory: phase 30's Trainer run of the config).
  20. CAPE and CAPE-T (phase_cape): CAPE at batch 1 and 2 and CAPE-T at
      batch 1 served twice (bit-equal, no launch counter moves); CAPE-T
      training at batch 2 (DN queries, the previous stream's aux loss):
@@ -316,7 +320,8 @@ result (each phase's first line leads with the seconds since the start):
      each frame's own scan (bevfusion_img_depth, the dataset's math): a
      step through the kernels (K2, K7, two K5) against one on the plain
      versions from the same state, bit-equal; K5 held and timed at both
-     VJPs; 10 falling losses, train frames/s, memory, profile.
+     VJPs (its falling losses, train frames/s and memory: phase 30's
+     Trainer run of the config).
  23. DD3D (phase_dd3d): both KITTI configs serving at batch 1 and 8 (no
      launch counter moves); frames/s, GFLOP, memory, profiles, stages;
      the tiny model card vs CPU; the DLA-34 config training at batch 8 on
@@ -412,6 +417,28 @@ result (each phase's first line leads with the seconds since the start):
      PETR) through the Trainer and evaluate() (the tiny CADDN's pool on
      K2, K5 a step), the tiny SMOKE's evaluate() on the card against the
      CPU within SMOKE_TINY_TOL.
+ 30. the nuScenes multi-view and Apollo camera runtime: phase 28's
+     nuScenes tree with six 1600 x 900 cameras a key frame (4:2:0
+     baseline JPEGs from jpeg_bytes, numpy alone: the card's machine has
+     no Pillow; NUSC_CAM_VARIANTS distinct images a camera, hard-linked
+     in turn over the frames), `prev` links between key frames and BEV maps for
+     PETRv2-BEVseg, and an Apollo tree of 1080 x 1920 JPEGs; the port's
+     native JPEG decoder byte-equal to its plain one on a small image of
+     every supported form and on a full view, its ms a view; BEVDet4D
+     (batch 8, an adjacent frame), PETR (batch 2, the full multi-view
+     pipeline with GridMask, on the fixed path) and BEVFusion L+C (batch
+     2) each through Config, Trainer, DataLoader, evaluate() and
+     NuScenesMetric: the loader's first batch equal at 1 and 4 threads,
+     the loader's ms a sample by stage (decode, BICUBIC resize,
+     transforms, depth map), a Trainer run with finite losses, the last
+     under the first, launches equal to the routes the density rule gives
+     the recorded pools (K7 / K2 a pool, K5 a pool with a gradient), K2 /
+     K7 and K5 held at the run's first calls, Trainer frames/s at 4 and 1
+     threads and on the run's own batches prebuilt against the bare
+     step, evaluate() by part with its launches, peak memory; BEVFormer,
+     CAPE-T, RTEBev (with_depth), PETRv2-BEVseg (NuScenesSegMetric),
+     BEVFusion's camera config and BEV-LaneDet (ApolloLaneMetric) a
+     Trainer step and an evaluate() batch each, launches as derived.
 
 The seconds of every phase are logged before the record lines. Since
 phases 22 and 23 came, the timing loops of phases 4-10, 13 and
@@ -437,7 +464,11 @@ forward: phase 29 holds the tiny config's evaluate() on the card to the
 CPU's within the same SMOKE_TINY_TOL), trace at the configs' batches only,
 no longer time CADDN's stages (caddn_stages, by hand) and take CADDN's work
 a frame as the constant CADDN_GFLOP; phase 29's tree is written beside
-phase 28's database processes; no other check changed.
+phase 28's database processes; since phase 30 came, phases 17, 19 and 22
+leave their ten falling steps, train timing, peak memory and train
+profile to phase 30's Trainer runs of the same configs (BEVDET_TRAIN_ITERS
+and BEVF_TRAIN_ITERS went; PETR_TRAIN_ITERS stays CAPE-T's), and phase
+30's trees are written with phase 28's; no other check changed.
 
 The last two lines are the kernels' JSON record (K2, K5 and K7 at CADDN's
 calls, K7 and K5 at BEVDet4D's and at RTEBev's, and K2, K7 and both K5
@@ -5193,9 +5224,10 @@ def phase_petr(device):
     at batch 1 and 2 and v2 at batch 1 (two calls equal, no hand-kernel
     launch), the tiny config card vs CPU, frames/s, GFLOP, memory,
     profiles, stages; training v1 at batch 2 (the config's AdamW, clip 35,
-    CosineDecay; petr_gt's boxes), 10 falling losses, train frames/s,
-    memory, profile, the Hungarian solves' host time; one step each of
-    PETRv2 with query denoising and PETRv2-BEVseg at batch 1."""
+    CosineDecay; petr_gt's boxes): one step, no launch, a host match a
+    decoder layer (its falling losses and train frames/s: phase 30's
+    Trainer run); one step each of PETRv2 with query denoising and
+    PETRv2-BEVseg at batch 1."""
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
@@ -5224,8 +5256,7 @@ def phase_petr(device):
     optimizer = cfg.optimizer
     batch = petr_train_batch(device, model, PETR_BATCH)
     _build.reset_launches()
-    # the ten falling steps' path starts from this step's state
-    with hungarian_clock() as hung, fixed_path():
+    with hungarian_clock() as hung:
         losses = step(model, optimizer, batch)
         torch.cuda.synchronize()
     log("  training at batch {} ({}, clip {}, {}; {} boxes a frame in range "
@@ -5242,32 +5273,8 @@ def phase_petr(device):
     check(len(hung["match"]) == head.num_layers and
           len(hung["solve"]) == head.num_layers * PETR_BATCH,
           "expected one host match a decoder layer, a solve a frame")
-    falling_losses(step, model, optimizer, batch, fixed=True)
-    half = PETR_TRAIN_ITERS // 2
-    step(model, optimizer, batch)
-    with hungarian_clock() as hung:
-        rates = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(half):
-                step(model, optimizer, batch)
-            torch.cuda.synchronize()
-            rates.append(PETR_BATCH * half / (time.perf_counter() - t0))
-    log("  {} train steps of batch {} (two halves, cudnn.benchmark on): "
-        "{:.2f} frames/s; halves {}; Hungarian host ms a step: matches "
-        "(copy to the host, waiting for the forward, then the solves) "
-        "{:.3f}, scipy solves alone {:.3f}".format(
-            PETR_TRAIN_ITERS, PETR_BATCH,
-            PETR_TRAIN_ITERS / sum(half / r for r in rates),
-            [round(r, 2) for r in rates],
-            sum(hung["match"]) / PETR_TRAIN_ITERS,
-            sum(hung["solve"]) / PETR_TRAIN_ITERS))
-    torch.cuda.reset_peak_memory_stats()
-    step(model, optimizer, batch)
-    log("  peak device memory of one train step: {:.1f} MiB".format(
-        torch.cuda.max_memory_allocated() / 2**20))
-    profile(lambda: step(model, optimizer, batch))
+    # its falling losses, train frames/s, memory and profile: phase 30's
+    # Trainer run of the config
     del model, step, batch, cfg, optimizer
 
     torch.backends.cudnn.deterministic = True
@@ -5383,7 +5390,6 @@ BEVDET_TINY_TOL = {"scores": 2e-6, "box3d_lidar": 2e-7,
 TINY_CLS_GAIN = 8.0         # as PETR_CLS_GAIN: near-equal random scores
 BEVDET_BATCH = 8            # the config's batch_size
 BEVDET_ITERS = 4            # timed forwards per path and batch (halves)
-BEVDET_TRAIN_ITERS = 2      # timed train steps (halves of 1)
 BEVDET_OBJECTS = 16         # gt boxes a frame, then two padded slots
 BEVDET_LOSSES = ("loss", "hm_loss_0", "loc_loss_0")
 
@@ -6052,9 +6058,9 @@ def phase_bevdet(device):
     config's AdamW, clip 5, CosineDecay): one step through the kernels (K7
     twice, the adjacent frame's pool without gradient, and one K5) against
     one on the plain versions from the same state, in deterministic mode,
-    bit-equal; K5 held and timed at the step's VJP; 10 falling losses,
-    train frames/s, memory, profile. -> the record's entries of K7 and K5
-    at BEVDet4D's calls."""
+    bit-equal; K5 held and timed at the step's VJP (its falling losses and
+    train frames/s: phase 30's Trainer run). -> the record's entries of K7
+    and K5 at BEVDet4D's calls."""
     import torch
 
     from paddle3d_tpu_torch.apis import Config, make_train_step
@@ -6177,11 +6183,9 @@ def phase_bevdet(device):
     k5 = k5_parts("BEVDet4D's train backward", *bwd[0][0])
     k5_launches = kernel[3]["sorted_table_gather"]
     k7_train = kernel[3]["sorted_segment_sum_dense"]
+    # its falling losses, train frames/s, memory and profile: phase 30's
+    # Trainer run of the config
     del fwd, bwd, kernel, plain
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    falling_losses(step, model, optimizer, batch)
-    train_rate(step, model, optimizer, batch, BEVDET_TRAIN_ITERS, "BEVDet4D")
     del model, step, batch, cfg, optimizer, scheduler
 
     p7, k7_err = k7[BEVDET_BATCH]
@@ -7035,7 +7039,6 @@ BEVF_CAM = os.path.join(REPO, "configs", "bevfusion", "bevf_cam_nuscenes.yml")
 BEVF_HW = (448, 800)
 BEVF_BATCH = 2              # the config's batch_size
 BEVF_ITERS = 2              # timed forwards per path and batch (halves)
-BEVF_TRAIN_ITERS = 2        # timed train steps (halves of 1)
 BEVF_DEPTH_STRIDE = 16      # the L+C train_dataset's depth_stride
 BEVF_TINY_TOL = {"scores": 1e-5, "box3d_lidar": 1e-5}
 
@@ -7532,11 +7535,9 @@ def phase_bevfusion(device):
           "camera BEV")
     k5 = {what: k5_parts("BEVFusion's train backward, {}".format(what),
                          *args) for what, args in sorted(vjp.items())}
+    # its falling losses, train frames/s, memory and profile: phase 30's
+    # Trainer run of the config
     del fwd, bwd, vjp, kernel, plain
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    falling_losses(step, model, optimizer, batch)
-    train_rate(step, model, optimizer, batch, BEVF_TRAIN_ITERS, "BEVFusion")
     del model, step, batch, cfg, optimizer, scheduler
 
     def entry(name, path, launches, err, ms, plain_ms, library_ms, bnd):
@@ -8653,6 +8654,163 @@ WAYMO_SIZES = {"Vehicle": (2.1, 4.8, 1.8), "Pedestrian": (0.9, 0.9, 1.7),
                "Cyclist": (0.8, 1.8, 1.7)}
 
 
+# the six cameras (channel, yaw on the ego in rad, mount (x, y, z) m, focal
+# px at 1600 x 900): nuScenes' rig, rounded
+NUSC_CAMERAS = (("CAM_FRONT", 0.0, (1.70, 0.02, 1.51), 1266.4),
+                ("CAM_FRONT_RIGHT", -0.96, (1.55, -0.49, 1.50), 1260.8),
+                ("CAM_FRONT_LEFT", 0.96, (1.52, 0.49, 1.51), 1272.6),
+                ("CAM_BACK", math.pi, (0.03, 0.0, 1.57), 809.2),
+                ("CAM_BACK_LEFT", 1.92, (1.04, 0.48, 1.57), 1256.7),
+                ("CAM_BACK_RIGHT", -1.92, (1.03, -0.48, 1.56), 1259.5))
+NUSC_CAM_HW = (900, 1600)   # nuScenes' camera images, h x w
+NUSC_CAM_VARIANTS = 2       # distinct images a camera, in turn over frames
+NUSC_JPEG_QUALITY = 90
+
+
+def _mat_quat(r):
+    """A rotation matrix -> its (w, x, y, z) quaternion."""
+    import numpy as np
+    w = np.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = np.sqrt(max(0.0, 1.0 + r[0, 0] - r[1, 1] - r[2, 2])) / 2
+    y = np.sqrt(max(0.0, 1.0 - r[0, 0] + r[1, 1] - r[2, 2])) / 2
+    z = np.sqrt(max(0.0, 1.0 - r[0, 0] - r[1, 1] + r[2, 2])) / 2
+    x = np.copysign(x, r[2, 1] - r[1, 2])
+    y = np.copysign(y, r[0, 2] - r[2, 0])
+    z = np.copysign(z, r[1, 0] - r[0, 1])
+    return [float(w), float(x), float(y), float(z)]
+
+
+def camera_image(rng, hw):
+    """A camera view [h, w, 3] uint8: a sky / road gradient with a grain of
+    +-12 levels and a few shaded blocks."""
+    import numpy as np
+    h, w = hw
+    grad = np.linspace(170, 60, h, dtype=np.float32)[:, None, None]
+    img = np.broadcast_to(grad, (h, w, 3)).copy()
+    img[:h * 11 // 20] += np.array([15, 30, 60], np.float32)
+    img += rng.integers(-12, 13, (h, w, 3)).astype(np.float32)
+    for _ in range(6):
+        y0, x0 = int(rng.integers(h // 3, h - 2)), int(rng.integers(0, w))
+        bh, bw = max(2, h // int(rng.integers(5, 12))), max(
+            2, w // int(rng.integers(6, 16)))
+        img[y0:y0 + bh, x0:x0 + bw] = rng.uniform(20, 230, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def place_file(path, data, written):
+    """data at path: a hard link to the file written with the same bytes
+    before (written: bytes -> path), else written anew."""
+    first = written.get(data)
+    if first is not None:
+        try:
+            os.link(first, path)
+            return
+        except OSError:
+            pass
+    with open(path, "wb") as f:
+        f.write(data)
+    written.setdefault(data, path)
+
+
+def _nusc_cameras(tables, root, hw, seed):
+    """The six cameras of every key frame of the tables' scenes: a
+    calibrated_sensor a camera and scene (NUSC_CAMERAS, the principal
+    point at the image's centre, the focal scaled to w), a sample_data a
+    key frame and camera (the key frame's ego pose and timestamp) at
+    samples/<channel>/<token>.jpg, listed in the sample's data. The files
+    are NUSC_CAM_VARIANTS baseline 4:2:0 JPEGs a camera (jpeg_bytes),
+    written once and hard-linked in turn over the frames."""
+    import numpy as np
+    h, w = hw
+    rng = np.random.default_rng([seed, 7])
+    base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    files = {}
+    for cam, yaw, mount, focal in NUSC_CAMERAS:
+        os.makedirs(os.path.join(root, "samples", cam), exist_ok=True)
+        files[cam] = [jpeg_bytes(camera_image(rng, hw), NUSC_JPEG_QUALITY)
+                      for _ in range(NUSC_CAM_VARIANTS)]
+    lidar = {sd["token"]: sd for sd in tables["sample_data"]}
+    written = {}
+    for scene in tables["scene"]:
+        name = scene["name"]
+        for cam, yaw, mount, focal in NUSC_CAMERAS:
+            c, s = np.cos(yaw), np.sin(yaw)
+            rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+            f = focal * w / NUSC_CAM_HW[1]
+            tables["calibrated_sensor"].append({
+                "token": "{}_cs_{}".format(name, cam),
+                "sensor_token": cam.lower(), "translation": list(mount),
+                "rotation": _mat_quat(rot @ base),
+                "camera_intrinsic": [[f, 0.0, w / 2], [0.0, f, h / 2],
+                                     [0.0, 0.0, 1.0]]})
+        frames = [smp for smp in tables["sample"]
+                  if smp["scene_token"] == scene["token"]]
+        for k, smp in enumerate(frames):
+            key = lidar[smp["data"]["LIDAR_TOP"]]
+            for cam, *_ in NUSC_CAMERAS:
+                tok = "{}_{}".format(key["token"], cam)
+                fname = "samples/{}/{}.jpg".format(cam, tok)
+                place_file(os.path.join(root, fname),
+                           files[cam][k % NUSC_CAM_VARIANTS], written)
+                tables["sample_data"].append({
+                    "token": tok, "sample_token": smp["token"],
+                    "ego_pose_token": key["ego_pose_token"],
+                    "calibrated_sensor_token": "{}_cs_{}".format(name, cam),
+                    "timestamp": key["timestamp"], "filename": fname,
+                    "fileformat": "jpg", "is_key_frame": True,
+                    "height": h, "width": w, "prev": "", "next": ""})
+                smp["data"][cam] = tok
+    tables["sensor"] += [{"token": cam.lower(), "channel": cam,
+                          "modality": "camera"}
+                         for cam, *_ in NUSC_CAMERAS]
+
+
+APOLLO_HW = (1080, 1920)    # Apollo synthetic 3D-lane images, h x w
+APOLLO_LANES = (-5.4, -1.8, 1.8, 5.4)   # lane lines' lateral offsets, m
+APOLLO_VARIANTS = 2         # distinct images, in turn over frames
+
+
+def apollo_tree(root, train, val, seed=SEED, hw=APOLLO_HW):
+    """An Apollo 3D-lane tree under root: standard/{train,test}.json (one
+    json a line: raw_file, laneLines of [K, 3] ego-space points from 3 to
+    103 m ahead at APOLLO_LANES' offsets, gently curved and some cut
+    short, cam_intrinsics) and images/<split>_<i>.jpg, APOLLO_VARIANTS
+    baseline JPEGs at hw written once and hard-linked in turn. -> {split:
+    list of annotations}."""
+    import json
+
+    import numpy as np
+    rng = np.random.default_rng([seed, 13])
+    for sub in ("images", "standard"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    files = [jpeg_bytes(camera_image(rng, hw), NUSC_JPEG_QUALITY)
+             for _ in range(APOLLO_VARIANTS)]
+    out, written = {}, {}
+    for split, frames in (("train", train), ("test", val)):
+        annos = []
+        for i in range(frames):
+            raw = "images/{}_{:04d}.jpg".format(split, i)
+            place_file(os.path.join(root, raw), files[i % APOLLO_VARIANTS],
+                       written)
+            bend = rng.uniform(-2e-3, 2e-3)
+            lanes = []
+            for y0 in APOLLO_LANES:
+                x = np.arange(3.0, rng.uniform(60.0, 103.0), 2.0)
+                y = y0 + bend * x * x + rng.uniform(-0.1, 0.1)
+                z = 0.01 * x + rng.uniform(-0.05, 0.05, len(x))
+                lanes.append(np.stack([x, y, z], 1).round(3).tolist())
+            annos.append({"raw_file": raw, "laneLines": lanes,
+                          "cam_intrinsics": [[2015.0, 0.0, hw[1] / 2],
+                                             [0.0, 2015.0, hw[0] / 2],
+                                             [0.0, 0.0, 1.0]]})
+        with open(os.path.join(root, "standard", split + ".json"),
+                  "w") as f:
+            f.write("\n".join(json.dumps(a) for a in annos) + "\n")
+        out[split] = annos
+    return out
+
+
+
 def _yaw_quat(yaw):
     import numpy as np
     return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
@@ -8799,13 +8957,17 @@ def _nusc_scene(rng, name, frames, t0, n, tables, root):
 
 
 def nuscenes_tree(root, train=NUSC_TRAIN, val=NUSC_VAL, seed=SEED,
-                  points=NUSC_SWEEP_POINTS, version="v1.0-trainval"):
+                  points=NUSC_SWEEP_POINTS, version="v1.0-trainval",
+                  cameras=None, maps=None):
     """A nuScenes tree under root: the v1.0 tables of a train and a val
     scene (_nusc_scene: `train` and `val` key frames, each after
     NUSC_SWEEPS sweeps of `points` five-column points over the
     CenterPoint-nuScenes range, objects of the ten detection classes with
-    velocities) and splits/{train,val}.txt. -> {sample token: [G, 7]
-    lidar-frame boxes}."""
+    velocities) and splits/{train,val}.txt; with cameras = (h, w), the six
+    cameras of every key frame (_nusc_cameras: JPEGs at that size); with
+    maps = (h, w), a BEV map npz a key frame under maps_bev/ (three random
+    occupancy masks, NuscenesMVSegDataset's layout). -> {sample token:
+    [G, 7] lidar-frame boxes}."""
     import json
 
     import numpy as np
@@ -8830,6 +8992,15 @@ def nuscenes_tree(root, train=NUSC_TRAIN, val=NUSC_VAL, seed=SEED,
                                    root))
         with open(os.path.join(root, "splits", split + ".txt"), "w") as f:
             f.write(name + "\n")
+    if cameras:
+        _nusc_cameras(tables, root, cameras, seed)
+    if maps:
+        mrng = np.random.default_rng([seed, 11])
+        os.makedirs(os.path.join(root, "maps_bev"), exist_ok=True)
+        for tok in written:
+            np.savez(os.path.join(root, "maps_bev", tok + ".npz"),
+                     (mrng.random(tuple(maps) + (3,)) < 0.2).astype(
+                         np.uint8))
     for k, rows in tables.items():
         with open(os.path.join(root, version, k + ".json"), "w") as f:
             json.dump(rows, f)
@@ -9563,7 +9734,8 @@ P28_WARM, P28_TIMED = 4, 3  # a leg's Trainer run: steps before its timed
                             # window's batches are built beside its steps)
                             # and in it; one more step ends the window
 P28_KITTI = (32, 4)         # frames of the KITTI tree's train and val splits
-P28_NUSC = (32, 4)          # key frames of the nuScenes tree's scenes
+P28_NUSC = (40, 4)          # key frames of the nuScenes tree's scenes
+                            # (40: five batches of phase 30's BEVDet4D)
 P28_WAYMO = (32, 4)         # frames of the Waymo tree's splits
 P28_PASTE_CHECKS = 4        # train samples whose pastes are checked
 CP_KITTI = os.path.join(REPO, "configs", "centerpoint",
@@ -9834,22 +10006,26 @@ def phase_lidar_runtime_prep(tmp, during=None):
     """Phase 28's untimed host work under tmp: the KITTI (three classes),
     nuScenes and Waymo trees, each leg's config dic pointed at its tree,
     and the PV-RCNN and CenterPoint-nuScenes databases (built_databases,
-    which runs during() beside its processes). -> {"dics", "databases",
-    "log"}."""
+    which runs during() beside its processes); the nuScenes tree holds
+    phase 30's cameras and maps, beside phase 30's Apollo tree (mv_trees).
+    -> {"dics", "databases", "log", "mv"}."""
     t0 = time.perf_counter()
-    kitti, nusc, waymo = (os.path.join(tmp, d) for d in
-                          ("KITTI", "nuscenes", "waymo"))
+    kitti, waymo = (os.path.join(tmp, d) for d in ("KITTI", "waymo"))
     written = kitti_tree(kitti, *P28_KITTI, seed=SEED + 2, points=POINTS,
                          classes=tuple(KITTI_SIZES))
-    nuscenes_tree(nusc, *P28_NUSC, seed=SEED + 3)
+    # the nuScenes tree with phase 30's cameras and maps, and its Apollo
+    # tree
+    mv = mv_trees(tmp)
+    nusc = mv["nuscenes"]
     waymo_tree(waymo, *P28_WAYMO, seed=SEED + 4)
     lines = ["trees in {:.1f} s: KITTI {} + {} frames of {} points ({} "
              "objects: cars, pedestrians, cyclists), nuScenes {} + {} key "
-             "frames after {} sweeps of {} points, Waymo {} + {} frames of "
-             "{} points".format(
+             "frames after {} sweeps of {} points (with phase 30's cameras "
+             "and maps, and its Apollo tree: {:.1f} s), Waymo {} + {} frames "
+             "of {} points".format(
                  time.perf_counter() - t0, *P28_KITTI, POINTS,
                  sum(map(len, written.values())), *P28_NUSC, NUSC_SWEEPS,
-                 NUSC_SWEEP_POINTS, *P28_WAYMO, WAYMO_POINTS)]
+                 NUSC_SWEEP_POINTS, mv["secs"], *P28_WAYMO, WAYMO_POINTS)]
     dics = {"PV-RCNN": lidar_dic(PV_RCNN, kitti),
             "CenterPoint-KITTI": lidar_dic(CP_KITTI, kitti),
             "CenterPoint-nuScenes": lidar_dic(NUSCENES, nusc),
@@ -9857,7 +10033,7 @@ def phase_lidar_runtime_prep(tmp, during=None):
     databases = built_databases(
         {k: dics[k] for k in ("PV-RCNN", "CenterPoint-nuScenes")}, tmp,
         during)
-    return {"dics": dics, "databases": databases, "log": lines}
+    return {"dics": dics, "databases": databases, "log": lines, "mv": mv}
 
 
 def phase_lidar_runtime(device, prep=None):
@@ -10004,6 +10180,261 @@ def png_bytes(img, filters=None, level=6, chunk=65536):
     return b"".join(out)
 
 
+# JPEG Annex K tables: quantisation (zigzag order is applied below) and the
+# standard Huffman tables (counts of each code length, symbols)
+JPEG_QUANT = (
+    (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99),
+    (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99))
+JPEG_HUFFMAN = {
+    "dc0": ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+            tuple(range(12))),
+    "dc1": ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+            tuple(range(12))),
+    "ac0": ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f024"
+        "33627282090a161718191a25262728292a3435363738393a434445464748494a53"
+        "5455565758595a636465666768696a737475767778797a838485868788898a9293"
+        "9495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9"
+        "cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    "ac1": ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f015"
+        "6272d10a162434e125f11718191a262728292a35363738393a434445464748494a"
+        "535455565758595a636465666768696a737475767778797a82838485868788898a"
+        "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+        "c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))}
+JPEG_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+JPEG_SAMPLING = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2),
+                 "4:4:0": (1, 2)}
+
+
+def jpeg_tables(quality):
+    """The Annex K luminance and chrominance tables scaled to quality
+    (1-100) as libjpeg's jpeg_quality_scaling does, natural order:
+    -> [2, 64] int64."""
+    import numpy as np
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    base = np.asarray(JPEG_QUANT, np.int64)
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def jpeg_coefficients(img, quality=90, sampling="4:2:0"):
+    """The quantised DCT coefficients of a baseline JPEG of img ([H, W, 3]
+    RGB or [H, W] grey uint8): JFIF's YCbCr, chroma averaged over each
+    sampling box, planes padded to whole MCUs by repeating the edge, a
+    float DCT. -> (list of [rows, cols, 64] int64 blocks a component,
+    natural order; the [2, 64] tables; the luma (h, v) factors)."""
+    import numpy as np
+    img = np.asarray(img, np.float64)
+    grey = img.ndim == 2
+    hv = (1, 1) if grey else JPEG_SAMPLING[sampling]
+    h, w = img.shape[:2]
+    mh, mw = 8 * hv[1], 8 * hv[0]
+    ph, pw = -(-h // mh) * mh, -(-w // mw) * mw
+    if grey:
+        planes = [img]
+    else:
+        r, g, b = img[..., 0], img[..., 1], img[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418687589 * g - 0.081312411 * b + 128]
+    planes = [np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
+              for p in planes]
+    for i in range(1, len(planes)):       # chroma: the box mean
+        planes[i] = planes[i].reshape(ph // hv[1], hv[1], pw // hv[0],
+                                      hv[0]).mean(axis=(1, 3))
+    k = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * k[None] + 1) * k[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+    tables = jpeg_tables(quality)
+    out = []
+    for i, p in enumerate(planes):
+        rows, cols = p.shape[0] // 8, p.shape[1] // 8
+        blocks = p.reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3) - 128
+        coef = dct @ blocks @ dct.T
+        out.append(np.rint(coef.reshape(rows, cols, 64) /
+                           tables[min(i, 1)]).astype(np.int64))
+    return out, tables, hv
+
+
+def _huffman_codes(counts, symbols):
+    """symbol -> (code, length) arrays [256] of a table (Annex C)."""
+    import numpy as np
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, 1):
+        for _ in range(n):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _jpeg_events(blocks, comp, first, codes):
+    """The Huffman events of a run of blocks ([n, 64] natural order, comp
+    [n] the component of each, first [n] whether a block restarts its
+    component's DC prediction): -> (sort keys, values, bit lengths)."""
+    import numpy as np
+    zz = blocks[:, list(JPEG_ZIGZAG)]
+    n = len(zz)
+    dc = zz[:, 0].copy()
+    prev = np.zeros(n, np.int64)
+    for c in np.unique(comp):
+        idx = np.nonzero(comp == c)[0]
+        d = dc[idx]
+        p = np.concatenate([[0], d[:-1]])
+        p[first[idx]] = 0
+        prev[idx] = p
+    diff = dc - prev
+
+    def size_bits(v):
+        size = np.where(v == 0, 0, np.floor(np.log2(np.maximum(
+            np.abs(v), 1))).astype(np.int64) + 1)
+        bits = np.where(v < 0, v + (1 << size) - 1, v)
+        return size, bits
+    tbl = np.minimum(comp, 1)
+    keys, vals, lens = [], [], []
+    s, bits = size_bits(diff)
+    if s.max(initial=0) > 11 or np.abs(zz[:, 1:]).max(initial=0) > 1023:
+        raise ValueError("a DC difference past 11 bits or an AC value past "
+                         "10: not baseline")
+    code, clen = codes["dc"][tbl, s], codes["dcl"][tbl, s]
+    keys.append(np.arange(n) * 256)
+    vals.append((code << s) | bits)
+    lens.append(clen + s)
+    blk, j = np.nonzero(zz[:, 1:])
+    v = zz[:, 1:][blk, j]
+    start = np.ones(len(blk), bool)
+    start[1:] = blk[1:] != blk[:-1]
+    pj = np.where(start, -1, np.concatenate([[-1], j[:-1]]))
+    run = j - pj - 1
+    zrl, run = run // 16, run % 16
+    for z in range(1, 4):                   # at most three ZRLs a symbol
+        m = zrl >= z
+        t = tbl[blk[m]]
+        keys.append(blk[m] * 256 + 4 * j[m] + z)
+        vals.append(codes["ac"][t, 0xF0])
+        lens.append(codes["acl"][t, 0xF0])
+    s, bits = size_bits(v)
+    t = tbl[blk]
+    sym = run * 16 + s
+    keys.append(blk * 256 + 4 * j + 4)
+    vals.append((codes["ac"][t, sym] << s) | bits)
+    lens.append(codes["acl"][t, sym] + s)
+    last = np.full(n, -1)
+    last[blk] = j                            # row-major: the last wins
+    eob = np.nonzero(last < 62)[0]
+    keys.append(eob * 256 + 255)
+    vals.append(codes["ac"][tbl[eob], 0])
+    lens.append(codes["acl"][tbl[eob], 0])
+    keys, vals, lens = (np.concatenate(a) for a in (keys, vals, lens))
+    order = np.argsort(keys, kind="stable")
+    return vals[order], lens[order]
+
+
+def _jpeg_pack(vals, lens):
+    """Bit-pack the events (MSB first), pad the last byte with ones and
+    stuff a 0x00 after every 0xFF: -> bytes. Each event's bits go left-
+    aligned into a big-endian uint32, unpacked to one byte a bit, and the
+    first `len` of each row are kept."""
+    import numpy as np
+    words = (vals << (32 - lens)).astype(">u4")
+    bits = np.unpackbits(words.view(np.uint8).reshape(-1, 4), axis=1)
+    stream = bits[np.arange(32)[None] < lens[:, None]]
+    stream = np.concatenate([stream, np.ones(-len(stream) % 8, np.uint8)])
+    data = np.packbits(stream)
+    ff = np.nonzero(data == 0xFF)[0]
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def jpeg_encode(coefs, tables, hv, width, height, restart=0):
+    """A baseline JFIF file of quantised coefficients (jpeg_coefficients'
+    layout: luma at (h, v) = hv, chroma at 1 x 1; one component is grey)
+    with the Annex K Huffman tables, one interleaved scan, and a restart
+    marker every `restart` MCUs (0: none). -> bytes."""
+    import struct
+
+    import numpy as np
+    ncomp = len(coefs)
+    hs, vs = hv if ncomp == 3 else (1, 1)
+    codes = {}
+    for kind in ("dc", "ac"):
+        pairs = [_huffman_codes(*JPEG_HUFFMAN[kind + str(t)]) for t in (0, 1)]
+        codes[kind] = np.stack([p[0] for p in pairs])
+        codes[kind + "l"] = np.stack([p[1] for p in pairs])
+    rows, cols = coefs[0].shape[0] // vs, coefs[0].shape[1] // hs
+    # the blocks in MCU order: luma's hs x vs, then each chroma's one
+    parts, comp = [], []
+    luma = coefs[0].reshape(rows, vs, cols, hs, 64).transpose(0, 2, 1, 3, 4)
+    parts.append(luma.reshape(rows, cols, hs * vs, 64))
+    comp += [0] * (hs * vs)
+    for i in range(1, ncomp):
+        parts.append(coefs[i][:, :, None])
+        comp.append(i)
+    mcus = np.concatenate(parts, axis=2).reshape(rows * cols, -1, 64)
+    comp = np.asarray(comp)
+    per = mcus.shape[1]
+    step = restart or rows * cols
+    body = []
+    for k, m0 in enumerate(range(0, rows * cols, step)):
+        chunk = mcus[m0:m0 + step].reshape(-1, 64)
+        cc = np.tile(comp, len(chunk) // per)
+        first = np.zeros(len(chunk), bool)
+        for i in range(ncomp):
+            first[np.nonzero(cc == i)[0][:1]] = True
+        body.append(_jpeg_pack(*_jpeg_events(chunk, cc, first, codes)))
+        if m0 + step < rows * cols:
+            body.append(bytes([0xFF, 0xD0 + k % 8]))
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) + \
+            payload
+    zz = list(JPEG_ZIGZAG)
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                                   b"\x00\x00")]
+    for t in range(min(ncomp, 2)):
+        out.append(seg(0xDB, bytes([t]) + bytes(
+            tables[t][zz].astype(np.uint8).tolist())))
+    sof = struct.pack(">BHHB", 8, height, width, ncomp)
+    for i in range(ncomp):
+        sof += bytes([i + 1, (hs << 4 | vs) if i == 0 else 0x11, min(i, 1)])
+    out.append(seg(0xC0, sof))
+    for kind, tc in (("dc", 0), ("ac", 1)):
+        for t in range(min(ncomp, 2)):
+            counts, syms = JPEG_HUFFMAN[kind + str(t)]
+            out.append(seg(0xC4, bytes([tc << 4 | t]) + bytes(counts) +
+                           bytes(syms)))
+    if restart:
+        out.append(seg(0xDD, struct.pack(">H", restart)))
+    sos = bytes([ncomp])
+    for i in range(ncomp):
+        sos += bytes([i + 1, min(i, 1) << 4 | min(i, 1)])
+    out.append(seg(0xDA, sos + b"\x00\x3f\x00"))
+    out += body
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def jpeg_bytes(img, quality=90, sampling="4:2:0", restart=0):
+    """img ([H, W, 3] RGB or [H, W] grey uint8) as the bytes of a baseline
+    JFIF JPEG, written with numpy alone (the card's machine has no Pillow):
+    jpeg_coefficients, then jpeg_encode, vectorised over blocks (the run
+    lengths, the Huffman events and the bit packing)."""
+    h, w = img.shape[:2]
+    coefs, tables, hv = jpeg_coefficients(img, quality, sampling)
+    return jpeg_encode(coefs, tables, hv, w, h, restart)
+
+
 def kitti_image(rng, boxes, labels, calib, hw):
     """A camera image [h, w, 3] uint8 of a kitti_tree frame: a sky / road
     gradient with a grain of +-12 levels (a texture the filters and zlib
@@ -10095,7 +10526,7 @@ def loader_parts(label, ds, n=CAM_SAMPLES):
         target_generator
     targets = [("decode", kitti_mono_det, "read_png"),
                ("decode", kitti_depth_det, "read_png"),
-               ("decode", reader, "read_png"),
+               ("decode", reader, "read_image"),
                ("resize", target_generator, "resize"),
                ("resize", kitti_depth_det, "resize"),
                ("targets", target_generator.Gt2SmokeTarget, "__call__"),
@@ -10441,6 +10872,470 @@ def phase_camera_runtime(device, prep=None):
     return legs
 
 
+# ------------------------------------------------------------- phase 30
+# The nuScenes multi-view and Apollo camera runtime: phase 28's nuScenes
+# tree with its six cameras (NUSC_CAM_HW JPEGs) and BEV maps, and an
+# Apollo tree, both written beside phase 27's CLI.
+MV_SEG_MAP = (256, 256)     # PETRv2-BEVseg's seg head bev_size (h, w)
+MV_APOLLO = (16, 4)         # frames of the Apollo train and test splits
+MV_PARTS = 2                # train samples a timed leg times part by part
+MV_CHECK_BATCH = 1          # frames of the two batches hashed at 1 and 4
+                            # threads
+MV_DECODES = 5              # native decodes of a full view, timed
+MV_KERNEL_ITERS = 5         # timed calls of each kernel held
+# the timed legs: label -> (config, 4-thread window (warm, timed), 1-thread
+# window (warm, timed), on the fixed path). A loader thread builds a whole
+# batch, so 4 threads hand batches over in bursts of 4: a 4-thread window
+# spans RT_WORKERS steps, past the first burst where it can (BEVDet4D's
+# five batches of 8 hold one burst and the first batch of the next: its
+# window runs from the first step's entry); a batch-8 BEVDet4D batch (96
+# decodes and BICUBIC resizes of a 1600 x 900 view) is ~17 s of one
+# thread's work, so its 1-thread window is a step long
+MV_TIMED = {"BEVDet4D": (BEVDET, (0, RT_WORKERS), (0, 1), False),
+            "PETR": (PETR_V1, (RT_WORKERS, RT_WORKERS), (1, 2), True),
+            "BEVFusion L+C": (BEVF, (RT_WORKERS, RT_WORKERS), (1, 2),
+                              False)}
+# the untimed legs: label -> config; a Trainer step on one batch, then
+# evaluate() over one batch of the val split
+MV_UNTIMED = {"BEVFormer": BEVFORMER, "CAPE-T": CAPE_T_V99,
+              "RTEBev": RTEBEV, "PETRv2-BEVseg": PETR_SEG,
+              "BEVFusion-cam": BEVF_CAM, "BEV-LaneDet": LANEDET}
+MV_METRICS = ("mAP", "NDS", "F-score", "IoU_drive", "IoU_lane",
+              "IoU_vehicle")
+
+
+@contextlib.contextmanager
+def recorded_pools():
+    """-> list of (rows, cells, grad) of each sorted_segment_sum(_split)
+    call in the block (the camera pools, BEVFusion's pillar scatter):
+    grad when its rows carry a gradient, so that the step's backward runs
+    its VJP (K5) once."""
+    import torch
+
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    calls = []
+
+    def recorder(orig):
+        def rec(keys, rows, num_cells):
+            calls.append((keys.shape[1], num_cells, bool(
+                rows.requires_grad and torch.is_grad_enabled())))
+            return orig(keys, rows, num_cells)
+        return rec
+    with mock.patch.object(sorted_scatter, "sorted_segment_sum", recorder(
+            sorted_scatter.sorted_segment_sum)), \
+            mock.patch.object(sorted_scatter, "sorted_segment_sum_split",
+                              recorder(
+                                  sorted_scatter.sorted_segment_sum_split)):
+        yield calls
+
+
+@contextlib.contextmanager
+def first_calls(obj, name, k):
+    """The arguments of the first k calls of obj.name in the block (tensors
+    detached): -> list of argument tuples."""
+    import torch
+    calls = []
+    fn = getattr(obj, name)
+
+    def rec(*args):
+        if len(calls) < k:
+            calls.append(tuple(a.detach() if isinstance(a, torch.Tensor)
+                               else a for a in args))
+        return fn(*args)
+    with mock.patch.object(obj, name, rec):
+        yield calls
+
+
+def pool_launches(pools):
+    """The launches of recorded pools: each pool's route by the density
+    rule (K7 dense, K2 sparse), and a VJP (K5) for each that carries a
+    gradient."""
+    out = with_scatters({}, [(n, cells) for n, cells, _ in pools])
+    grads = sum(g for _, _, g in pools)
+    if grads:
+        out["sorted_table_gather"] = grads
+    return out
+
+
+def held_kernels(label, fwd, bwd):
+    """K2 / K7 at a leg's first pools (scatter_rows' arguments: the route
+    by the density rule) and K5 at its first VJP, each bit for bit against
+    the row-order sum or its plain version and a second call, and timed:
+    -> {kernel: (ms through the wrapper, max_abs_err)}."""
+    from paddle3d_tpu_torch.ops import sorted_scatter
+    held = {}
+    where = "{}'s Trainer step".format(label)
+    for keys, rows, cells, split in fwd:
+        dense = sorted_scatter.kernel_for(
+            rows.shape[1], cells) == "sorted_segment_sum_dense"
+        if ("K7" if dense else "K2") in held:
+            continue
+        if dense:
+            parts, err = k7_parts(where, keys, rows, cells, split,
+                                  iters=MV_KERNEL_ITERS)
+            held["K7"] = (parts["wrapper"], err)
+        else:
+            err, ms = k2_call(where, keys, rows, cells, split)[:2]
+            held["K2"] = (ms, err)
+    for args in bwd[:1]:
+        parts, err, _ = k5_parts("{}'s Trainer backward".format(label),
+                                 *args, iters=MV_KERNEL_ITERS)
+        held["K5"] = (parts["wrapper"], err)
+    return held
+
+
+def jpeg_checks(root):
+    """The port's JPEG decoder on the card's host: the native decoder equal
+    to the plain one byte for byte on a 37 x 53 image of every supported
+    form (4:4:4, 4:2:2, 4:2:0, 4:4:0, grey; a restart marker every 2
+    MCUs) and on one full camera view of the tree; the native decode of
+    that view timed. -> (forms checked, {"native_ms", "plain_s", "hw",
+    "kib"})."""
+    import numpy as np
+
+    from paddle3d_tpu_torch.utils import jpeg
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
+    forms = [(s, img) for s in JPEG_SAMPLING] + [("grey", img[..., 0])]
+    for form, im in forms:
+        data = jpeg_bytes(im, 75, "4:4:4" if form == "grey" else form, 2)
+        check(np.array_equal(jpeg.decode_jpeg(data),
+                             jpeg.decode_jpeg_plain(data)),
+              "{}: the native JPEG decoder differs from the plain one"
+              .format(form))
+    path = os.path.join(root, "samples", "CAM_FRONT")
+    path = os.path.join(path, sorted(os.listdir(path))[0])
+    with open(path, "rb") as f:
+        data = f.read()
+    native = jpeg.decode_jpeg(data)
+    t0 = time.perf_counter()
+    for _ in range(MV_DECODES):
+        jpeg.decode_jpeg(data)
+    native_ms = 1e3 * (time.perf_counter() - t0) / MV_DECODES
+    t0 = time.perf_counter()
+    plain = jpeg.decode_jpeg_plain(data)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(native, plain), "{}: the native JPEG decoder "
+          "differs from the plain one".format(path))
+    return [f for f, _ in forms], {"native_ms": native_ms,
+                                   "plain_s": plain_s,
+                                   "hw": native.shape[:2],
+                                   "kib": len(data) / 1024}
+
+
+def mv_loader_parts(label, ds, n=MV_PARTS):
+    """ds.get(i) for the first n samples on this thread, its parts timed:
+    -> {part: ms a sample}: decode (the JPEG reads), resize (the dataset's
+    BICUBIC resizes to its image_size), transforms (the pipeline: its
+    BILINEAR resizes, LoadPointCloud's sweeps), depth map (with_depth's
+    maps; the multi-modality set's Gaussian targets, its maps within),
+    with the sample's whole time."""
+    from paddle3d_tpu_torch.datasets.nuscenes import (
+        nuscenes_multi_modality as mm, nuscenes_multiview_det as mv)
+    from paddle3d_tpu_torch.transforms import base
+    depth = ((mm.NuscenesMMDataset, "_gaussian_depth_targets")
+             if isinstance(ds, mm.NuscenesMMDataset) else
+             (mv.NuscenesMVDataset, "_depth_maps"))
+    targets = [("decode", mv, "read_image"), ("resize", mv, "resize"),
+               ("transforms", base.Compose, "__call__"),
+               ("depth map",) + depth]
+    with timed_calls(targets) as ms:
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds.get(i)
+        total = time.perf_counter() - t0
+    out = {k: sum(v) / n for k, v in ms.items() if v}
+    out["sample"] = 1e3 * total / n
+    log("  {}: the loader's host work a sample on one thread, ms (over the "
+        "first {} train samples): {}".format(label, n, {
+            k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
+class Recording:
+    """A loader that keeps the host batches it hands out."""
+
+    def __init__(self, loader):
+        self.loader, self.batches = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for item in self.loader:
+            self.batches.append(item[0])
+            yield item
+
+
+def first_frames(ds, n):
+    """A shallow copy of a nuScenes or Apollo dataset that holds its first
+    n frames."""
+    import copy
+    ds = copy.copy(ds)
+    if hasattr(ds, "sample_tokens"):
+        ds.sample_tokens = ds.sample_tokens[:n]
+    else:
+        ds.annos = ds.annos[:n]
+    return ds
+
+
+def mv_leg(device, label, dic, tmp, warm, timed, t1, fixed):
+    """One full-width multi-view config through Config(dic=...) on device
+    (torch's cuDNN defaults, as tools/train.py leaves them; on the fixed
+    path, deterministic mode, as falling_losses(fixed=True)): the loader's
+    two batches of MV_CHECK_BATCH at 1 and RT_WORKERS threads (sha256),
+    the loader's work a sample by part; a Trainer (EMA, RT_WORKERS
+    threads) run of warm + timed + 1 steps over a train split of that many
+    batches (no batch is built past the run) with its window timed: finite
+    losses, the last under the first, launches against the recorded
+    pools' routes, K2 / K7 at its first pools and K5 at its first VJP held
+    (held_kernels), peak memory; a Trainer at 1 thread (window t1 = (warm,
+    timed)), one on the run's own batches prebuilt and the bare step on
+    them; evaluate() in parts with its launches and NuScenesMetric. -> a
+    dict of the leg's numbers."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, Trainer
+    from paddle3d_tpu_torch.apis.trainer import to_device
+    from paddle3d_tpu_torch.ops import _build, sorted_scatter
+    t_leg = time.perf_counter()
+    torch.manual_seed(SEED)
+    cfg = Config(dic=dic, device=device)
+    bs = cfg.batch_size
+    t0 = time.perf_counter()
+    # a split of the two batches alone: no batch is built past them
+    two = first_frames(cfg.train_dataset, 2 * MV_CHECK_BATCH)
+    h1, h4 = (batch_hashes(two, MV_CHECK_BATCH, w) for w in (1, RT_WORKERS))
+    log("  {}: the loader's two batches of {} at 1 and {} threads equal "
+        "(sha256 of every collated array, {}): {} ({:.1f} s)".format(
+            label, MV_CHECK_BATCH, RT_WORKERS, sorted(h1[0]), h1 == h4,
+            time.perf_counter() - t0))
+    check(h1 == h4, "{}: the batches depend on the thread count".format(
+        label))
+    parts = mv_loader_parts(label, cfg.train_dataset)
+
+    def path():
+        return fixed_path() if fixed else contextlib.nullcontext()
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    steps = warm + timed + 1
+
+    def trainer_of(name, frames, **kw):
+        return Trainer(model=cfg.model, optimizer=cfg.optimizer,
+                       lr_scheduler=cfg.lr_scheduler, iters=0,
+                       train_dataset=first_frames(cfg.train_dataset,
+                                                  frames),
+                       val_dataset=cfg.val_dataset, batch_size=bs,
+                       save_dir=os.path.join(tmp, label + name),
+                       ema_decay=RT_EMA, log_interval=0, save_interval=0,
+                       **kw)
+    trainer = trainer_of("_t4", steps * bs,
+                         dataloader_fn={"num_workers": RT_WORKERS})
+    trainer.train_dataloader = Recording(trainer.train_dataloader)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with path(), recorded_losses(trainer) as losses, \
+            recorded_pools() as pools, \
+            first_calls(sorted_scatter, "scatter_rows", 2) as fwd, \
+            first_calls(sorted_scatter, "sorted_table_gather", 1) as bwd:
+        rate4, _, waits, host4 = windowed_trainer_run(
+            trainer, warm=warm, timed=timed)
+    trained = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = [v.item() for v in losses]
+    step_want = pool_launches(pools[:len(pools) // steps])
+    want = {k: v * steps for k, v in step_want.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log("  {}: {} Trainer steps at batch {} ({}); losses {}; launches {} "
+        "(want {}: {} a step); peak device memory {:.1f} MiB".format(
+            label, steps, bs, "the fixed path" if fixed else
+            "torch's cuDNN defaults", [round(v, 4) for v in losses],
+            trained, want, step_want, peak))
+    check(all(np.isfinite(losses)) and len(losses) == steps,
+          "{}: non-finite or missing losses".format(label))
+    check(losses[-1] < losses[0], "{}: the loss did not fall: {:.4f} at the "
+          "last step against {:.4f} at the first".format(
+              label, losses[-1], losses[0]))
+    check(trained == want, "{}: train launches off the derived ones"
+          .format(label))
+    held = held_kernels(label, fwd, bwd)
+    del fwd, bwd
+    host = trainer.train_dataloader.batches
+    with path():
+        rate1, _, waits1, host1 = windowed_trainer_run(
+            trainer_of("_t1", sum(t1) * bs + bs,
+                       dataloader_fn={"num_workers": 1}),
+            warm=t1[0], timed=t1[1])
+        pre = trainer_of("_pre", steps * bs)
+        pre.train_dataloader = Prebuilt(host)
+        ratep, _, _, hostp = windowed_trainer_run(pre, warm=warm,
+                                                  timed=timed)
+        dev = [to_device(b, device) for b in host[:timed]]
+        bare, bare_host = timed_bare_steps(trainer, dev)
+    del pre, dev, host
+
+    def ms(xs):
+        return round(1e3 * float(np.mean(xs)), 3) if len(xs) else None
+    log("  {}: frames/s (t4: {} steps from step {}; t1: {} from step {}; "
+        "prebuilt, bare: as t4): Trainer {} threads {:.2f}, 1 thread {:.2f}, "
+        "prebuilt batches {:.2f}, bare make_train_step {:.2f} (runtime cost "
+        "{:.1f} % at {} threads, {:.1f} % at 1, {:.1f} % prebuilt); step "
+        "call host ms {} / {} / {} (bare {}); reader wait a step in the "
+        "window, ms: {} threads {}, 1 thread {}".format(
+            label, timed, warm, t1[1], t1[0], RT_WORKERS, rate4, rate1,
+            ratep, bare, 100 * (1 - rate4 / bare), RT_WORKERS,
+            100 * (1 - rate1 / bare), 100 * (1 - ratep / bare), ms(host4),
+            ms(host1), ms(hostp), ms(bare_host), RT_WORKERS,
+            ms(waits[warm + 1:]), ms(waits1[t1[0] + 1:])))
+    before = dict(_build.LAUNCHES)
+    with recorded_pools() as pools:
+        metrics, eparts, ewall = eval_parts(trainer)
+    served = counts_sub(_build.LAUNCHES, before)
+    nval = len(trainer.val_dataset)
+    forwards = -(-nval // bs)
+    swant = {k: v * forwards for k, v in pool_launches(
+        pools[:len(pools) // forwards]).items()}
+    log("  {}: evaluate(): {} val frames in {:.3f} s ({:.2f} frames/s): "
+        "device forward {:.3f} s, postprocess {:.3f} s, metric {:.3f} s; "
+        "launches {} (want {}); metrics {}".format(
+            label, nval, ewall, nval / ewall, eparts["forward"],
+            eparts["postprocess"], eparts["metric"], served, swant,
+            {k: round(v, 4) for k, v in metrics.items()
+             if k in MV_METRICS}))
+    check(served == swant, "{}: eval launches off the derived ones".format(
+        label))
+    finite_metrics(label, ["mAP", "NDS"])(metrics)
+    rec = dict(t4=rate4, t1=rate1, prebuilt=ratep, bare=bare, peak=peak,
+               eval_s=ewall, first=losses[0], last=losses[-1],
+               secs=time.perf_counter() - t_leg)
+    rec.update({"ms " + k: v for k, v in parts.items()})
+    rec.update({"{} ms".format(k): v[0] for k, v in held.items()})
+    log("  {}: leg took {:.1f} s".format(label, rec["secs"]))
+    del trainer, cfg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mv_step_leg(device, label, dic, tmp):
+    """One full-width config through Config(dic=...) on device: a Trainer
+    step (EMA) on a train split of one batch (finite loss; launches against
+    the recorded pools' routes), then evaluate() over the first batch of
+    the val split through the dataset's metric (finite). -> seconds."""
+    import numpy as np
+    import torch
+
+    from paddle3d_tpu_torch.apis import Config, Trainer
+    from paddle3d_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    cfg = Config(dic=dic, device=device)
+    bs = cfg.batch_size
+    trainer = Trainer(model=cfg.model, optimizer=cfg.optimizer,
+                      lr_scheduler=cfg.lr_scheduler, iters=1,
+                      train_dataset=first_frames(cfg.train_dataset, bs),
+                      val_dataset=first_frames(cfg.val_dataset, bs),
+                      batch_size=bs, save_dir=os.path.join(tmp, label),
+                      ema_decay=RT_EMA, log_interval=0, save_interval=0,
+                      dataloader_fn={"num_workers": RT_WORKERS})
+    _build.reset_launches()
+    with recorded_losses(trainer) as losses, recorded_pools() as pools, \
+            mock.patch.object(trainer, "_save_checkpoint", lambda: None):
+        trainer.train()
+    trained = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = [v.item() for v in losses]
+    step_want = pool_launches(pools)
+    _build.reset_launches()
+    with recorded_pools() as pools:
+        metrics = trainer.evaluate()
+    served = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = pool_launches(pools)
+    keys = [k for k in MV_METRICS if k in metrics]
+    secs = time.perf_counter() - t0
+    log("  {}: a Trainer step at batch {}: loss {}; launches {} (want {}); "
+        "evaluate() over {} val frames: launches {} (want {}); metrics {} "
+        "({:.1f} s)".format(
+            label, bs, [round(v, 4) for v in losses], trained, step_want,
+            len(trainer.val_dataset), served, want,
+            {k: round(metrics[k], 4) for k in keys}, secs))
+    check(len(losses) == 1 and np.isfinite(losses).all(),
+          "{}: a non-finite or missing loss".format(label))
+    check(trained == step_want and served == want,
+          "{}: launches off the derived ones".format(label))
+    check(keys and all(np.isfinite(metrics[k]) for k in keys),
+          "{}: non-finite metrics".format(label))
+    del trainer, cfg
+    torch.cuda.empty_cache()
+    return secs
+
+
+def mv_trees(tmp):
+    """Phase 30's trees under tmp: phase 28's nuScenes tree (P28_NUSC key
+    frames, seed SEED + 3) with six NUSC_CAM_HW JPEG views a key frame and
+    BEV maps of MV_SEG_MAP, and an Apollo tree of MV_APOLLO frames. ->
+    {"nuscenes", "apollo", "secs"}."""
+    t0 = time.perf_counter()
+    nusc, apollo = (os.path.join(tmp, d) for d in ("nuscenes", "apollo"))
+    nuscenes_tree(nusc, *P28_NUSC, seed=SEED + 3, cameras=NUSC_CAM_HW,
+                  maps=MV_SEG_MAP)
+    apollo_tree(apollo, *MV_APOLLO, seed=SEED + 6)
+    return {"nuscenes": nusc, "apollo": apollo,
+            "secs": time.perf_counter() - t0}
+
+
+def phase_mv_runtime(device, prep=None):
+    """Phase 30: the nuScenes multi-view and Apollo camera runtime, each leg
+    through Config -> Trainer -> DataLoader -> the dataset (JPEG views read
+    by the port's decoder, Pillow's BICUBIC resize) -> transforms ->
+    collate -> train step -> evaluate -> postprocess_to_samples -> metric:
+    the JPEG decoder's checks; BEVDet4D (batch 8, an adjacent frame), PETR
+    (batch 2, the full multi-view pipeline with GridMask) and BEVFusion
+    L+C (batch 2, points and views) timed (mv_leg); BEVFormer, CAPE-T,
+    RTEBev (with_depth), PETRv2-BEVseg (NuScenesSegMetric), BEVFusion's
+    camera config and BEV-LaneDet (ApolloLaneMetric) a step and an
+    evaluate() batch each (mv_step_leg). prep: mv_trees' result (main()
+    has phase 28 write them beside phase 27's CLI); without it the phase
+    writes its own under a temp dir."""
+    import tempfile
+    t_phase = time.perf_counter()
+    if not prep:
+        with tempfile.TemporaryDirectory() as tmp:
+            prep = mv_trees(tmp)
+            prep["where"] = "before the legs"
+            return phase_mv_runtime(device, prep)
+    nusc, apollo = prep["nuscenes"], prep["apollo"]
+    tmp = os.path.dirname(nusc)
+    log("phase 30: the nuScenes multi-view and Apollo camera runtime; the "
+        "nuScenes tree's {} + {} key frames with six {} x {} JPEG views each "
+        "({} distinct a camera) and BEV maps of {} x {}, an Apollo tree of "
+        "{} + {} frames of {} x {} (written in {:.1f} s {})".format(
+            *P28_NUSC, *NUSC_CAM_HW, NUSC_CAM_VARIANTS, *MV_SEG_MAP,
+            *MV_APOLLO, *APOLLO_HW, prep["secs"],
+            prep.get("where", "beside phase 27's CLI")))
+    forms, view = jpeg_checks(nusc)
+    log("  the native JPEG decoder byte-equal to the plain one on {} and on "
+        "a full {} x {} view ({:.1f} KiB): native {:.3f} ms a decode (mean "
+        "of {}), plain {:.2f} s".format(
+            forms, *view["hw"], view["kib"], view["native_ms"], MV_DECODES,
+            view["plain_s"]))
+    legs = {}
+    for label, (path, (warm, timed), t1, fixed) in MV_TIMED.items():
+        legs[label] = mv_leg(device, label, camera_dic(path, nusc), tmp,
+                             warm, timed, t1, fixed)
+    steps = {label: mv_step_leg(device, label, camera_dic(
+        path, apollo if path == LANEDET else nusc), tmp)
+        for label, path in MV_UNTIMED.items()}
+    log("  phase 30: {}; untimed legs, s: {}; the decoder: {}".format(
+        {k: {n: round(x, 3) for n, x in v.items()} for k, v in legs.items()},
+        {k: round(v, 1) for k, v in steps.items()},
+        {k: (round(v, 3) if isinstance(v, float) else v)
+         for k, v in view.items()}))
+    log("  phase 30 took {:.1f} s (its trees written before it)".format(
+        time.perf_counter() - t_phase))
+    return legs
+
+
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -10748,6 +11643,9 @@ def main():
         # and the runtime's camera path: SMOKE's K14 in evaluate(), CADDN's
         # K7 and K5 (and the tiny CADDN's K2) by the density rule, its tree
         # written beside phase 28's database processes
+        # and the nuScenes multi-view and Apollo runtime: K2, K7 and K5 by
+        # the density rule in BEVDet4D's, BEVFusion's and RTEBev's Trainer
+        # steps and forwards, on phase 28's nuScenes tree with cameras
         with tempfile.TemporaryDirectory() as p28_tmp:
             prep, cam = {}, {}
             timed(phase_runtime, device,
@@ -10755,6 +11653,7 @@ def main():
                       p28_tmp, lambda: cam.update(camera_tree(p28_tmp)))))
             timed(phase_lidar_runtime, device, prep)
             timed(phase_camera_runtime, device, cam)
+            timed(phase_mv_runtime, device, prep["mv"])
     except PhaseError as e:
         # the phase that failed: its name from the innermost phase_ frame
         import traceback

@@ -193,11 +193,13 @@ class BEVLaneDet(BaseMonoModel):
 
     @staticmethod
     def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        """One image Sample a frame: its `lane_conf`, `lane_offset` and
-        `lane_embed` maps as numpy, the meta's keys but `path` in its
-        meta."""
+        """One image Sample a frame: its `lane_conf`, `lane_offset`,
+        `lane_height` and `lane_embed` maps as numpy, the meta's keys but
+        `path` in its meta. The JAX one drops `lane_height`, which its
+        ApolloLaneMetric reads at every confident cell."""
         maps = {k: np.asarray(torch.as_tensor(outputs[k]).cpu())
-                for k in ("lane_conf", "lane_offset", "lane_embed")}
+                for k in ("lane_conf", "lane_offset", "lane_height",
+                          "lane_embed")}
         results = []
         for i, meta in enumerate(metas):
             s = Sample(path=meta.get("path"), modality="image")

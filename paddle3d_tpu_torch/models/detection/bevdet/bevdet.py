@@ -30,9 +30,8 @@ its bev_feature is the BEV the encoder took (the current frame's C
 channels, then the earlier frames'), as the JAX package returns it: a
 video caller hands the first C channels on as the next frame's prev_bev.
 
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5), and the JAX model's knobs that no config of
-the repo sets: pts_bbox_head, pre_process, use_depth (the depth loss is
+postprocess_to_samples is CenterPoint's, as in the JAX package. Not
+ported: the JAX model's knobs that no config of the repo sets: pts_bbox_head, pre_process, use_depth (the depth loss is
 added whenever the view transformer has one and the batch a gt_depth, as
 the JAX package adds it for the BEVDepth view transformers),
 align_after_view_transfromation, start_temporal_epoch.
@@ -44,6 +43,7 @@ import torch
 from ....apis import manager
 from ....ops.box_ops import limit_period
 from ...base.base_model import BaseMultiViewModel, raise_if_training
+from ..centerpoint.centerpoint import CenterPoint
 from ..centerpoint.centerpoint_target import CenterPointTargetGenerator
 
 __all__ = ["BEVDet"]
@@ -181,9 +181,4 @@ class BEVDet(BaseMultiViewModel):
         out["bev_feature"] = bev
         return out
 
-    @staticmethod
-    def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "BEVDet.postprocess_to_samples waits for the runtime's host "
-            "layer: the nuScenes multi-view dataset, Sample records as the "
-            "evaluator reads them (ROADMAP.md, queue 1, item 5)")
+    postprocess_to_samples = staticmethod(CenterPoint.postprocess_to_samples)

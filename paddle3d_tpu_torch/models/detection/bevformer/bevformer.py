@@ -30,9 +30,8 @@ Batch contract (fixed shapes):
 test_forward refuses a model in train mode and returns bev_feature, the
 carry for the next frame.
 
-Not ported yet: `postprocess_to_samples` (the runtime's host layer,
-ROADMAP.md, queue 1, item 5), and the JAX model's knobs that no config of
-the repo sets (pts_bbox_head, video_test_mode, use_grid_mask, a head's
+postprocess_to_samples is PETR's, as in the JAX package. Not ported: the
+JAX model's knobs that no config of the repo sets (pts_bbox_head, video_test_mode, use_grid_mask, a head's
 transformer spec).
 """
 from typing import Sequence
@@ -46,6 +45,7 @@ from ...layers.layer_libs import Sequential, default_generator
 from ...transformers.attentions import (SpatialCrossAttention,
                                         TemporalSelfAttention)
 from ...transformers.transformer_layers import FFN, layer_norm, linear
+from ..petr.petr3d import PETR
 
 __all__ = ["BEVFormer", "BEVFormerEncoderLayer"]
 
@@ -261,9 +261,4 @@ class BEVFormer(BaseMultiViewModel):
         out["bev_feature"] = bev
         return out
 
-    @staticmethod
-    def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "BEVFormer.postprocess_to_samples waits for the runtime's host "
-            "layer: the nuScenes multi-view dataset, Sample records as the "
-            "evaluator reads them (ROADMAP.md, queue 1, item 5)")
+    postprocess_to_samples = staticmethod(PETR.postprocess_to_samples)

@@ -33,10 +33,10 @@ Batch contract (fixed shapes):
     img_depth:  [B, Ncam, h, w, 1 + D] (optional, training): channel 0 a
                 feature patch's least depth, then its depth-bin target
 
-Not ported, each raising where a config would reach it: the anchor-head
-branch and the MVX img_rpn_head / img_roi_head hooks (no config of the
-repo fills them; ROADMAP.md, queue 1, item 9), and postprocess_to_samples
-(the runtime's host layer, item 5).
+postprocess_to_samples is CenterPoint's, as in the JAX package. Not
+ported, each raising where a config would reach it: the anchor-head branch
+and the MVX img_rpn_head / img_roi_head hooks (no config of the repo fills
+them; ROADMAP.md, queue 1, item 9).
 """
 import math
 
@@ -49,6 +49,7 @@ from ....ops.box_ops import limit_period
 from ...base.base_model import BaseMultiViewModel, raise_if_training
 from ...layers.layer_libs import ConvBNReLU, default_generator
 from ...transformers.transformer_layers import linear
+from ..centerpoint.centerpoint import CenterPoint
 from ..centerpoint.centerpoint_target import CenterPointTargetGenerator
 
 __all__ = ["BEVFusion", "SE_Block", "resize_bilinear"]
@@ -318,9 +319,4 @@ class BEVFusion(BaseMultiViewModel):
         feats, _ = self.fused_feats(batch, False)
         return self.bbox_head.predict(self.bbox_head(feats), self.test_cfg)
 
-    @staticmethod
-    def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "BEVFusion.postprocess_to_samples waits for the runtime's host "
-            "layer: the nuScenes multi-modality dataset, Sample records as "
-            "the evaluator reads them (ROADMAP.md, queue 1, item 5)")
+    postprocess_to_samples = staticmethod(CenterPoint.postprocess_to_samples)

@@ -24,9 +24,8 @@ detached. Each frame pooled is one launch of the segment sum.
 test_forward refuses a model in train mode and returns the predictions
 only, as the JAX package's does; export_forward is test_forward.
 
-Not ported: `postprocess_to_samples` (the runtime's host layer, ROADMAP.md,
-queue 1, item 5), and the JAX model's knobs that no config of the repo
-sets: pre_process, start_temporal_epoch, align_after_view_transfromation.
+postprocess_to_samples is PETR's, as in the JAX package. Not ported: the
+JAX model's knobs that no config of the repo sets: pre_process, start_temporal_epoch, align_after_view_transfromation.
 """
 import math
 
@@ -35,6 +34,7 @@ import torch
 from ....apis import manager
 from ....ops.box_ops import limit_period
 from ...base.base_model import BaseMultiViewModel, raise_if_training
+from ..petr.petr3d import PETR
 
 __all__ = ["RTEBev"]
 
@@ -172,9 +172,4 @@ class RTEBev(BaseMultiViewModel):
             *self.bbox_head(feats, training=False),
             score_threshold=self.test_cfg.get("score_threshold", 0.0))
 
-    @staticmethod
-    def postprocess_to_samples(outputs: dict, metas: list) -> list:
-        raise NotImplementedError(
-            "RTEBev.postprocess_to_samples waits for the runtime's host "
-            "layer: the nuScenes multi-view dataset, Sample records as the "
-            "evaluator reads them (ROADMAP.md, queue 1, item 5)")
+    postprocess_to_samples = staticmethod(PETR.postprocess_to_samples)

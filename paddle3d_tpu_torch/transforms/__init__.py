@@ -2,7 +2,12 @@ from .base import Compose, TransformABC, rng_of, sample_rng
 from .normalize import Normalize, NormalizeRangeImage
 from .range_image import LoadSemanticKITTIRange, project_range
 from .sampling import Sampler, SamplingDatabase
-from .reader import (LoadImage, LoadPointCloud,
+from .multiview import (GlobalRotScaleTransImage, GridMask,
+                        MSResizeCropFlipImage, NormalizeMultiviewImage,
+                        PadMultiViewImage,
+                        PhotoMetricDistortionMultiViewImage,
+                        RandomScaleImageMultiViewImage, ResizeCropFlipImage)
+from .reader import (LoadImage, LoadMapsFromFiles, LoadPointCloud,
                      RemoveCameraInvisiblePointsKITTI,
                      RemoveCameraInvisiblePointsKITTIV2)
 from .target_generator import Gt2SmokeTarget

@@ -1,9 +1,9 @@
 """File readers, a copy of paddle3d_tpu/transforms/reader.py: LoadImage
-(PNG through the port's own decoder, utils/png.py, in place of Pillow),
-LoadPointCloud (sweeps included) and RemoveCameraInvisiblePointsKITTI{,V2}.
-The sweep order is drawn from the sample's generator (`transforms/base.py`).
-LoadMapsFromFiles (the nuScenes segmentation maps) waits for the nuScenes
-camera datasets (ROADMAP.md, queue 1, item 5).
+(PNG or JPEG by the file's signature, as `Image.open` picks, through the
+port's own decoders, utils/png.py and utils/jpeg.py, in place of Pillow),
+LoadPointCloud (sweeps included), RemoveCameraInvisiblePointsKITTI{,V2}
+and LoadMapsFromFiles (the nuScenes BEV segmentation masks). The sweep
+order is drawn from the sample's generator (`transforms/base.py`).
 """
 from typing import List, Union
 
@@ -12,11 +12,11 @@ import numpy as np
 from ..apis import manager
 from ..geometries import PointCloud
 from ..sample import Sample
-from ..utils.png import read_png
+from ..utils.image import read_image
 from .base import TransformABC, rng_of
 
 __all__ = ["LoadImage", "LoadPointCloud", "RemoveCameraInvisiblePointsKITTI",
-           "RemoveCameraInvisiblePointsKITTIV2"]
+           "RemoveCameraInvisiblePointsKITTIV2", "LoadMapsFromFiles"]
 
 
 @manager.TRANSFORMS.add_component
@@ -38,7 +38,7 @@ class LoadImage(TransformABC):
         self.to_chw = to_chw
 
     def __call__(self, sample: Sample) -> Sample:
-        img = read_png(sample.path)
+        img = read_image(sample.path)
         if self.reader == "bgr":
             img = img[..., ::-1]
         sample.data = img.copy()
@@ -157,3 +157,19 @@ class RemoveCameraInvisiblePointsKITTIV2(RemoveCameraInvisiblePointsKITTI):
         if sample.meta.get("image_shape") is None:
             sample.meta.image_shape = (375, 1242)
         return super().__call__(sample)
+
+
+@manager.TRANSFORMS.add_component
+class LoadMapsFromFiles(TransformABC):
+    """The precomputed BEV map masks of a key frame (reference:
+    reader.py:154): sample.meta.map_filename (set by NuscenesMVSegDataset)
+    is an npz whose `key` holds [H, W, C] binary masks (drivable / lane /
+    vehicle); they ride as sample.gt_semantic_map, float32 in {0, 1}."""
+
+    def __init__(self, key: str = "arr_0"):
+        self.key = key
+
+    def __call__(self, sample: Sample) -> Sample:
+        with np.load(sample.meta.map_filename) as maps:
+            sample.gt_semantic_map = maps[self.key].astype(np.float32)
+        return sample

@@ -1,6 +1,8 @@
-"""Image resampling without an image library: `resize`, byte for byte
-Pillow 12's `Image.resize` of an 8-bit image for BILINEAR and BICUBIC
-(its default for RGB), and `flip_left_right` (`Image.FLIP_LEFT_RIGHT`).
+"""Images without an image library: `read_image`, which picks the PNG or
+JPEG reader by the file's signature, as `Image.open` does (utils/png.py,
+utils/jpeg.py); `resize`, byte for byte Pillow 12's
+`Image.resize` of an 8-bit image for BILINEAR and BICUBIC (its default
+for RGB), and `flip_left_right` (`Image.FLIP_LEFT_RIGHT`).
 
 Pillow resamples in two separable passes (`libImaging/Resample.c`), the
 horizontal one first: each output pixel is a weighted sum over the input
@@ -12,11 +14,33 @@ the weights are computed in float64 with Pillow's operations in Pillow's
 order, and each pass is one gather and one multiply-add a tap, vectorised
 over the image.
 """
-from typing import Tuple
+import os
+from typing import Tuple, Union
 
 import numpy as np
 
-__all__ = ["resize", "flip_left_right", "BILINEAR", "BICUBIC"]
+from . import jpeg, png
+
+__all__ = ["read_image", "resize", "flip_left_right", "BILINEAR",
+           "BICUBIC"]
+
+
+def _reader(path):
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(png.SIGNATURE):
+        return png
+    if jpeg.is_jpeg(head):
+        return jpeg
+    raise ValueError("{}: neither a PNG nor a JPEG file".format(path))
+
+
+def read_image(path: Union[str, os.PathLike]) -> np.ndarray:
+    """The PNG or JPEG at path (by its signature) as [H, W, 3] uint8 RGB,
+    as `np.asarray(Image.open(path).convert("RGB"))` gives it."""
+    mod = _reader(path)
+    return mod.read_png(path) if mod is png else mod.read_jpeg(path)
+
 
 BILINEAR = "bilinear"
 BICUBIC = "bicubic"

@@ -11,26 +11,21 @@ interlaced file raises ValueError.
 
 The unfilter (PNG specification, section 9) is sequential along a row for
 the Average and Paeth filters, which KITTI's files use: `unfilter` runs it
-in C++ (`csrc/host/png_unfilter.cpp`), built with g++ on first use into a
-library under build/host/ whose name carries a hash of the source and flags,
-and called through ctypes, which releases the GIL, so that the loader's
-threads decode in parallel. A failed build raises. `unfilter_plain` is the
-same function in Python and NumPy, the reference the tests hold the
-native one to.
+in C++ (`csrc/host/png_unfilter.cpp`), built with g++ on first use and
+called through ctypes, which releases the GIL, so that the loader's
+threads decode in parallel (utils/native.py). A failed build raises.
+`unfilter_plain` is the same function in Python and NumPy, the reference
+the tests hold the native one to.
 """
 import ctypes
-import hashlib
 import os
-import shutil
 import struct
-import subprocess
-import tempfile
-import threading
 import zlib
-from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from .native import host_library
 
 __all__ = ["read_png", "decode_png", "png_header", "png_size", "inflate",
            "unfilter", "unfilter_plain", "to_rgb"]
@@ -41,56 +36,19 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _NAMES = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale + alpha",
           6: "RGBA"}
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "host" / "png_unfilter.cpp"
-BUILD_DIR = _PKG.parent / "build" / "host"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-
-_lock = threading.Lock()
 _fn = None
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / "libp3d_png_{}.so".format(h.hexdigest()[:16])
-
-
 def _native():
-    """The native unfilter, built with g++ on first use and bound once."""
+    """The native unfilter (csrc/host/png_unfilter.cpp, utils/native.py's
+    build), bound once."""
     global _fn
-    if _fn is not None:
-        return _fn
-    with _lock:
-        if _fn is None:
-            path = _library_path()
-            if not path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                # a private directory, then a rename: a concurrent build
-                # never loads a half-written library
-                work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
-                try:
-                    tmp = work / path.name
-                    cxx = os.environ.get("CXX") or shutil.which("g++")
-                    if cxx is None:
-                        raise RuntimeError(
-                            "g++ not found: the PNG unfilter is host C++ "
-                            "built on first use (set CXX)")
-                    res = subprocess.run(
-                        [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                        capture_output=True, text=True)
-                    if res.returncode != 0:
-                        raise RuntimeError("building {} failed:\n{}".format(
-                            SOURCE.name, res.stdout + res.stderr))
-                    os.replace(tmp, path)
-                finally:
-                    shutil.rmtree(work, ignore_errors=True)
-            fn = ctypes.CDLL(str(path)).p3d_png_unfilter
-            fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_longlong,
-                           ctypes.c_int)
-            fn.restype = ctypes.c_int
-            _fn = fn
+    if _fn is None:
+        fn = host_library("png_unfilter.cpp", "p3d_png").p3d_png_unfilter
+        fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_int)
+        fn.restype = ctypes.c_int
+        _fn = fn
     return _fn
 
 

@@ -478,8 +478,8 @@ def test_tiny_one_stream_train_step(name):
 
 def test_bevfusion_refusals():
     """The anchor-head branch and the MVX image hooks raise, naming item
-    9; test_forward refuses train mode; postprocess_to_samples raises,
-    naming item 5."""
+    9; test_forward refuses train mode; postprocess_to_samples, no longer
+    refused, is CenterPoint's."""
     parts = dict(test_cfg=TEST_CFG, point_cloud_range=PC, voxel_size=VS,
                  fusion_channels=32, camera_channels=16,
                  img_backbone=ResNet(depth=18, base_channels=8,
@@ -495,8 +495,11 @@ def test_bevfusion_refusals():
     model = BEVFusion(bbox_head=CenterHead(**HEAD), **parts).train()
     with pytest.raises(RuntimeError, match="eval"):
         model.test_forward(to_torch(make_batch()))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        BEVFusion.postprocess_to_samples({}, [])
+    # postprocess_to_samples, once refused (item 5), is CenterPoint's,
+    # as in the JAX package: no meta, no sample
+    assert BEVFusion.postprocess_to_samples(
+        {"box3d_lidar": np.zeros((0, 4, 9)), "scores": np.zeros((0, 4)),
+         "label_preds": np.zeros((0, 4))}, []) == []
 
 
 # --------------------------------------------------------------- configs

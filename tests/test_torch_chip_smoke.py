@@ -362,3 +362,24 @@ def test_camera_tree_reads_back_through_the_port_datasets(tmp_path):
         {"sorted_segment_sum_dense": 1, "sorted_table_gather": 1},
         {"sorted_segment_sum_dense": 1})
     assert chip_smoke.camera_launches([]) == ({}, {})
+
+
+def test_pool_launches_and_linked_tree_files(tmp_path):
+    """Phase 30's routes: each recorded pool by the density rule (BEVDet4D's
+    249,216 rows on 16,384 cells dense, BEVFusion's 30,000 pillars on
+    160,000 cells sparse) and a K5 for each pool with a gradient; a repeated
+    camera file is a hard link to the first one written."""
+    assert chip_smoke.pool_launches([(249216, 16384, True),
+                                     (249216, 16384, False)]) == {
+        "sorted_segment_sum_dense": 2, "sorted_table_gather": 1}
+    assert chip_smoke.pool_launches([(30000, 160000, True),
+                                     (344400, 40000, True)]) == {
+        "sorted_segment_sum": 1, "sorted_segment_sum_dense": 1,
+        "sorted_table_gather": 2}
+    assert chip_smoke.pool_launches([]) == {}
+    written = {}
+    for name in ("a.jpg", "b.jpg"):
+        chip_smoke.place_file(str(tmp_path / name), b"\xff\xd8\xff", written)
+    chip_smoke.place_file(str(tmp_path / "c.jpg"), b"other", written)
+    assert (tmp_path / "a.jpg").samefile(tmp_path / "b.jpg")
+    assert (tmp_path / "c.jpg").read_bytes() == b"other"

@@ -147,7 +147,7 @@ def test_entry_points(models):
     assert all(np.isfinite(v.item()) for v in losses.values())
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """The port imports torch and never jax, flax, PIL or paddle3d_tpu:
     import it, its sparse-voxel modules, the weight converter and the
     camera host layer (Sample, Gt2SmokeTarget), the BEVFusion and DD3D
@@ -156,10 +156,15 @@ def test_port_imports_no_jax():
     synthetic datasets and metrics, the point transforms, the GT-paste
     transform and its database tool, transform3d, the geometry, the CLI),
     the camera runtime (the PNG reader and its native unfilter, the resize,
-    the KITTI mono and depth datasets, the camera postprocess), and build
-    the tiny model, its datasets, the CenterPoint-voxels model, the tiny
-    SMOKE and a sample of each synthetic camera dataset (SMOKE's through
-    Gt2SmokeTarget) in a fresh interpreter."""
+    the KITTI mono and depth datasets, the camera postprocess), the
+    multi-view runtime (the JPEG reader and its native decoder, the shared
+    host build, the multi-view transforms, the nuScenes multi-view,
+    segmentation and multi-modality datasets, the Apollo lane dataset, the
+    BEVDet, BEVFormer and RTEBev modules), and build the tiny model, its
+    datasets, the CenterPoint-voxels model, the tiny SMOKE, a sample of
+    each synthetic camera dataset (SMOKE's through Gt2SmokeTarget) and a
+    multi-view sample of a small nuScenes tree of JPEGs in a fresh
+    interpreter; cv2 is refused too."""
     voxels = os.path.join(REPO, "configs", "centerpoint",
                           "centerpoint_voxels_0075voxel_nuscenes_10sweep.yml")
     smoke = os.path.join(REPO, "configs", "smoke", "smoke_synthetic_tiny.yml")
@@ -206,6 +211,15 @@ def test_port_imports_no_jax():
         "import paddle3d_tpu_torch.models.detection.smoke.smoke\n"
         "import paddle3d_tpu_torch.models.detection.caddn.caddn\n"
         "import paddle3d_tpu_torch.models.detection.petr.petr3d\n"
+        "import paddle3d_tpu_torch.utils.jpeg\n"
+        "import paddle3d_tpu_torch.utils.native\n"
+        "import paddle3d_tpu_torch.transforms.multiview\n"
+        "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_multiview_det\n"
+        "import paddle3d_tpu_torch.datasets.nuscenes.nuscenes_multi_modality\n"
+        "import paddle3d_tpu_torch.datasets.apollo.apollo_lane\n"
+        "import paddle3d_tpu_torch.models.detection.bevdet.bevdet\n"
+        "import paddle3d_tpu_torch.models.detection.bevformer.bevformer\n"
+        "import paddle3d_tpu_torch.models.detection.rtebev.rtebev\n"
         "c = Config(path=sys.argv[1], device='cpu')\n"
         "m, d = c.model, (c.train_dataset, c.val_dataset)\n"
         "v = Config(path=sys.argv[2], device='cpu').model\n"
@@ -218,15 +232,22 @@ def test_port_imports_no_jax():
         "from paddle3d_tpu_torch.utils import image, png\n"
         "png.unfilter(bytes(4), 2, 1, 1)\n"
         "image.resize(np.zeros((4, 4, 3), np.uint8), (5, 3))\n"
+        "import chip_smoke\n"
+        "from paddle3d_tpu_torch.datasets import NuscenesMVDataset\n"
+        "chip_smoke.nuscenes_tree(sys.argv[6], train=2, val=1, points=500,\n"
+        "                         cameras=(18, 32))\n"
+        "mv = NuscenesMVDataset(sys.argv[6], 'v1.0-trainval',\n"
+        "                       image_size=(16, 24))[0]\n"
+        "assert mv.img.shape == (6, 16, 24, 3)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'flax', 'PIL',\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'PIL', 'cv2',\n"
         "                                    'paddle3d_tpu'))\n"
         "assert type(m).__name__ == 'PointPillars'\n"
         "assert type(v.middle_encoder).__name__ == 'SparseResNet3D'\n"
         "assert type(s.backbone).__name__ == 'DLA'\n"
         "print(bad)\n")
     res = subprocess.run([sys.executable, "-c", code, TINY, voxels, smoke,
-                          caddn, petr],
+                          caddn, petr, str(tmp_path)],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr

@@ -459,8 +459,11 @@ def test_rtebev_refuses_train_mode_serving(tiny):
             model.test_forward(to_torch(serve_batch()))
     finally:
         model.eval()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        RTEBev.postprocess_to_samples({}, [])
+    # postprocess_to_samples, once refused (item 5), is PETR's,
+    # as in the JAX package: no meta, no sample
+    assert RTEBev.postprocess_to_samples(
+        {"box3d_lidar": np.zeros((0, 4, 9)), "scores": np.zeros((0, 4)),
+         "label_preds": np.zeros((0, 4))}, []) == []
     assert model.export_forward.__func__ is RTEBev.export_forward
 
 
